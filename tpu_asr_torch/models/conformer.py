@@ -1,0 +1,257 @@
+"""Conformer encoder, offline eval path: the PyTorch counterpart of
+tpu_asr/models/conformer.py.
+
+Module and parameter names follow NeMo's `state_dict` keys (the layout of
+tests/nemo_oracle.py), so a `.nemo` teacher's weights load as they are.
+Parameters stay fp32; activations run in the model's compute dtype, with
+each weight cast to it at use, as the JAX modules do. LayerNorm is flax's
+(eps 1e-6, statistics in fp32); BatchNorm uses its running statistics
+(eps 1e-5).
+
+In scope: `striding` x4 subsampling, full-context 'regular' rel-pos
+attention, batch-norm conv modules, no caches. Any other EncoderConfig
+option raises (`check_supported`) instead of running a different path.
+Backends: `subsampling_backend` and `attention_backend` 'auto'/'pallas'
+call the kernel wrappers (the CUDA kernel for CUDA tensors, the plain
+version for CPU tensors), 'xla' calls the plain version; the FFN and conv
+module are plain PyTorch, as they are plain XLA in eval on the TPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpu_asr_torch.host import EncoderConfig
+from tpu_asr_torch.ops.cuda_attention import (fused_relpos_attention_block,
+                                              relpos_attention_plain)
+from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
+                                                subsampling_plain)
+
+BACKENDS = ("auto", "pallas", "xla")
+
+
+def check_supported(c: EncoderConfig) -> None:
+    """Raise for every EncoderConfig option outside the port's slice."""
+    unsupported = {
+        "subsampling": c.subsampling != "striding",
+        "subsampling_factor": c.subsampling_factor != 4,
+        "causal_downsampling": c.causal_downsampling,
+        "self_attention_model": c.self_attention_model != "rel_pos",
+        "att_context_size": tuple(c.att_context_size) != (-1, -1),
+        "att_context_style": c.att_context_style != "regular",
+        "global_tokens": c.global_tokens != 0,
+        "reduction": c.reduction is not None and c.reduction_factor > 1,
+        "feat_out": c.feat_out not in (-1, 0, c.d_model),
+        "conv_norm_type": c.conv_norm_type != "batch_norm",
+        "conv_context_size": c.conv_context_size is not None,
+        "untie_biases": not c.untie_biases,
+        "quantization": c.quantization != "none",
+        "conv_backend": c.conv_backend == "pallas",
+        "ffn_backend": c.ffn_backend == "pallas",
+        "subsampling_backend": c.subsampling_backend not in BACKENDS,
+        "attention_backend": c.attention_backend not in BACKENDS,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise ValueError(f"tpu_asr_torch does not implement EncoderConfig "
+                         f"options {bad}")
+
+
+def subsampled_length(length: torch.Tensor, factor: int = 4) -> torch.Tensor:
+    """Frames after striding subsampling: L -> (L - 1) // 2 + 1 per x2."""
+    for _ in range(int(math.log2(factor))):
+        length = (length - 1) // 2 + 1
+    return length
+
+
+def rel_positional_encoding(t: int, d_model: int,
+                            device=None) -> torch.Tensor:
+    """Relative sinusoid table (2t - 1, d_model) fp32 for positions
+    t-1 .. -(t-1): sin on even columns, cos on odd (NeMo
+    RelPositionalEncoding), computed in numpy float32 as the JAX
+    package computes it."""
+    positions = np.arange(t - 1, -t, -1, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                 * -(math.log(10000.0) / d_model))
+    pe = np.zeros((2 * t - 1, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(positions * div)
+    pe[:, 1::2] = np.cos(positions * div)
+    return torch.from_numpy(pe).to(device)
+
+
+def _linear(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """Linear (or 1x1 Conv1d) applied in x's dtype."""
+    w = layer.weight
+    w = w[..., 0] if w.dim() == 3 else w
+    return F.linear(x, w.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return norm(x.float()).to(x.dtype)
+
+
+class ConvSubsampling(nn.Module):
+    """`striding` x4 pre-encode: keys `conv.0`, `conv.2` and `out`."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        ch = cfg.conv_channels
+        self.backend = cfg.subsampling_backend
+        self.conv = nn.Sequential(nn.Conv2d(1, ch, 3, 2, 1), nn.ReLU(),
+                                  nn.Conv2d(ch, ch, 3, 2, 1), nn.ReLU())
+        self.out = nn.Linear(ch * out_len(out_len(cfg.feat_in)), cfg.d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, F) contiguous, working dtype -> (B, T', D)."""
+        run = subsampling_plain if self.backend == "xla" else fused_subsampling
+        h = run(x, self.conv[0].weight, self.conv[0].bias, self.conv[2].weight,
+                self.conv[2].bias, self.out.weight)
+        return h + self.out.bias.to(h.dtype)
+
+
+class RelPositionMultiHeadAttention(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, backend: str = "auto"):
+        super().__init__()
+        dk = d_model // n_heads
+        self.n_heads, self.backend = n_heads, backend
+        self.linear_q = nn.Linear(d_model, d_model)
+        self.linear_k = nn.Linear(d_model, d_model)
+        self.linear_v = nn.Linear(d_model, d_model)
+        self.linear_out = nn.Linear(d_model, d_model)
+        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(n_heads, dk))
+        self.pos_bias_v = nn.Parameter(torch.zeros(n_heads, dk))
+
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        attend = (relpos_attention_plain if self.backend == "xla"
+                  else fused_relpos_attention_block)
+        out = attend(x, self.linear_q.weight, self.linear_q.bias,
+                     self.linear_k.weight, self.linear_k.bias,
+                     self.linear_v.weight, self.linear_v.bias,
+                     self.pos_bias_u, self.pos_bias_v, self.linear_pos.weight,
+                     self.linear_out.weight, pos_emb, mask, self.n_heads)
+        return out + self.linear_out.bias.to(out.dtype)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.linear1 = nn.Linear(d_model, d_ff)
+        self.linear2 = nn.Linear(d_ff, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _linear(F.silu(_linear(x, self.linear1)), self.linear2)
+
+
+class MaskedBatchNorm(nn.Module):
+    """Eval-mode BatchNorm1d over channels with NeMo's keys (weight, bias,
+    running_mean, running_var, num_batches_tracked), folded into one
+    per-channel affine in fp32 and applied in x's dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight * torch.rsqrt(self.running_var + self.eps)
+        b = self.bias - self.running_mean * w
+        return x * w.to(x.dtype) + b.to(x.dtype)
+
+
+class ConformerConvolution(nn.Module):
+    """pointwise (d -> 2d) + GLU -> zero padded frames -> depthwise (k) ->
+    BatchNorm -> SiLU -> pointwise (d -> d); NeMo's Conv1d keys."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        d, k = cfg.d_model, cfg.conv_kernel_size
+        self.pad = cfg.conv_context
+        self.pointwise_conv1 = nn.Conv1d(d, 2 * d, 1)
+        self.depthwise_conv = nn.Conv1d(d, d, k, groups=d)
+        self.batch_norm = MaskedBatchNorm(d)
+        self.pointwise_conv2 = nn.Conv1d(d, d, 1)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        h = F.glu(_linear(x, self.pointwise_conv1), dim=-1)
+        h = h.masked_fill(~mask[..., None], 0.0)
+        dw = self.depthwise_conv
+        h = F.conv1d(F.pad(h.transpose(1, 2), self.pad), dw.weight.to(dt),
+                     dw.bias.to(dt), groups=dw.groups).transpose(1, 2)
+        h = F.silu(self.batch_norm(h))
+        return _linear(h, self.pointwise_conv2)
+
+
+class ConformerLayer(nn.Module):
+    """FF/2 -> rel-pos MHSA -> conv module -> FF/2 -> LayerNorm, then padded
+    frames zeroed."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        d = cfg.d_model
+        ln = lambda: nn.LayerNorm(d, eps=1e-6)
+        self.norm_feed_forward1 = ln()
+        self.feed_forward1 = FeedForward(d, cfg.d_ff)
+        self.norm_self_att = ln()
+        self.self_attn = RelPositionMultiHeadAttention(
+            d, cfg.n_heads, cfg.attention_backend)
+        self.norm_conv = ln()
+        self.conv = ConformerConvolution(cfg)
+        self.norm_feed_forward2 = ln()
+        self.feed_forward2 = FeedForward(d, cfg.d_ff)
+        self.norm_out = ln()
+
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        x = x + 0.5 * self.feed_forward1(_layer_norm(self.norm_feed_forward1,
+                                                     x))
+        x = x + self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb,
+                               mask)
+        x = x + self.conv(_layer_norm(self.norm_conv, x), mask)
+        x = x + 0.5 * self.feed_forward2(_layer_norm(self.norm_feed_forward2,
+                                                     x))
+        return _layer_norm(self.norm_out, x).masked_fill(~mask[..., None], 0.0)
+
+
+class ConformerEncoder(nn.Module):
+    """(B, F, T) log-mel + (B,) frames -> (encoded (B, T', D), lengths (B,),
+    layer_feats (L, B, T', D)); activations in `dtype`."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg, self.dtype = cfg, dtype
+        self.pre_encode = ConvSubsampling(cfg)
+        self.layers = nn.ModuleList(ConformerLayer(cfg)
+                                    for _ in range(cfg.n_layers))
+
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        c = self.cfg
+        x = self.pre_encode(features.transpose(1, 2).to(self.dtype)
+                            .contiguous())
+        out_len = subsampled_length(lengths, c.subsampling_factor)
+        t = x.shape[1]
+        if c.xscaling:
+            x = x * math.sqrt(c.d_model)
+        pos_emb = rel_positional_encoding(t, c.d_model, x.device)
+        mask = torch.arange(t, device=x.device)[None, :] < out_len[:, None]
+        x = x.masked_fill(~mask[..., None], 0.0)
+        feats = []
+        for layer in self.layers:
+            x = layer(x, pos_emb, mask)
+            feats.append(x)
+        return x, out_len, torch.stack(feats)

@@ -1,0 +1,188 @@
+"""Time and profile the CTCModel forward on one CUDA card, on the
+hand-written kernels ('auto') and on the plain PyTorch versions ('xla').
+
+    python -m tpu_asr_torch.profile_forward [--out FILE]
+
+`ModelConfig()` at its own compute dtype (bf16) with seeded random weights
+(`seeded_model`), at B=32 x 15 s (a full serving batch) and B=8 x 16 s (a
+small request), clips not padded. Per shape and backend it prints one line
+with:
+  - `event_ms`: median over 10 forwards of the time from CUDA events
+    recorded around the forward with the card idle before it (host issue
+    time included);
+  - `host_ms`: median host-clock time of forward + synchronize;
+  - `device_ms`: device time per forward, the union of all kernel and copy
+    intervals that torch.profiler records over 3 forwards, divided by 3;
+  - `busy`: device_ms / event_ms, the share of the forward the card works;
+  - `launches`: device activities per forward.
+then the top device activities by time per forward. `--out` also writes
+the profiler's own table per shape and backend.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+SR = 16000
+SHAPES = ((32, 15.0), (8, 16.0))        # (clips, seconds)
+ITERS, TOP = 10, 8
+
+
+def seeded_model(cfg, seed: int, device="cuda"):
+    """CTCModel on `device` in eval mode, with weights from a seeded
+    torch.Generator and randomised BatchNorm running statistics."""
+    from tpu_asr_torch.models.ctc_model import CTCModel
+
+    model = CTCModel(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("norm_feed_forward1.weight",
+                              "norm_self_att.weight", "norm_conv.weight",
+                              "norm_feed_forward2.weight", "norm_out.weight",
+                              "batch_norm.weight")):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            elif p.dim() == 1 or name.endswith(("pos_bias_u", "pos_bias_v")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            else:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.empty(buf.shape).uniform_(-0.3, 0.3,
+                                                          generator=gen))
+            elif name.endswith("running_var"):
+                buf.copy_(torch.empty(buf.shape).uniform_(0.7, 1.5,
+                                                          generator=gen))
+    return model.to(device).eval()
+
+
+def waveforms(rng, n: int, lo: float, hi: float, sr: int = SR):
+    """Seeded test audio: three tones plus noise, n clips of lo..hi s."""
+    out = []
+    for _ in range(n):
+        t = np.arange(int(rng.uniform(lo, hi) * sr)) / sr
+        f = rng.uniform(120, 3000, size=3)
+        x = sum(0.2 * np.sin(2 * np.pi * fi * t) for fi in f)
+        out.append((x + 0.05 * rng.normal(size=t.shape)).astype(np.float32))
+    return out
+
+
+def set_backend(model, backend: str) -> None:
+    """Point the featurizer, subsampling and every attention at `backend`."""
+    from tpu_asr_torch.models.conformer import (ConvSubsampling,
+                                                RelPositionMultiHeadAttention)
+    model.featurizer.backend = backend
+    for m in model.modules():
+        if isinstance(m, (ConvSubsampling, RelPositionMultiHeadAttention)):
+            m.backend = backend
+
+
+def device_activity(prof, n_forwards: int):
+    """(union device ms per forward, launches per forward,
+    {name: (ms per forward, calls per forward)}) from a profiler run."""
+    from torch.autograd import DeviceType
+
+    spans, per_name = [], defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        per_name[e.name][0] += (end - start) / 1e3
+        per_name[e.name][1] += 1
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    names = {k: (v[0] / n_forwards, v[1] / n_forwards)
+             for k, v in per_name.items()}
+    return busy_us / 1e3 / n_forwards, len(spans) / n_forwards, names
+
+
+def profile_shape(model, batch: int, seconds: float, out=None):
+    rng = np.random.default_rng(0)
+    sig = torch.from_numpy(np.stack(waveforms(rng, batch, seconds, seconds))
+                           ).cuda()
+    lens = torch.full((batch,), sig.shape[1], device="cuda")
+    label = f"B={batch} x {seconds:g} s, {model.cfg.compute_dtype}"
+    for backend in ("auto", "xla"):
+        set_backend(model, backend)
+        with torch.inference_mode():
+            for _ in range(3):
+                model(sig, lens)
+            events, host = [], []
+            for _ in range(ITERS):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                model(sig, lens)
+                end.record()
+                end.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+                events.append(start.elapsed_time(end))
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    model(sig, lens)
+                torch.cuda.synchronize()
+        event_ms, host_ms = float(np.median(events)), float(np.median(host))
+        device_ms, launches, names = device_activity(prof, 3)
+        print(f"forward {label} {backend}: event_ms {event_ms:.3f} "
+              f"host_ms {host_ms:.3f} device_ms {device_ms:.3f} "
+              f"busy {device_ms / event_ms:.3f} launches {launches:.0f}")
+        ranked = sorted(names.items(), key=lambda kv: -kv[1][0])
+        for name, (ms, calls) in ranked[:TOP]:
+            print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% "
+                  f"x{calls:<5g} {name[:90]}")
+        if out is not None:
+            out.write(f"== {label} {backend}\n")
+            out.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40) + "\n")
+    set_backend(model, "auto")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="file for the profiler tables")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_forward: no CUDA device", file=sys.stderr)
+        return 2
+    from tpu_asr_torch.host import ModelConfig
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    model = seeded_model(ModelConfig(), seed=2)
+    out = open(args.out, "w") if args.out else None
+    try:
+        for batch, seconds in SHAPES:
+            profile_shape(model, batch, seconds, out=out)
+    finally:
+        if out is not None:
+            out.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
