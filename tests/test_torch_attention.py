@@ -8,9 +8,15 @@ valid query rows only (padded rows are garbage by contract).
 - the plain version in bf16 against the Pallas block kernel in interpret
   mode, rtol 1e-2 and atol 3e-3 (the precedent of
   tests/test_pallas_attention.py);
+- gradients of the plain version (autograd) against jax.vjp of the Pallas
+  block in interpret mode, bf16, at dropout 0 and 0.1 with the same seed
+  (the same counter-hash masks): atol 3e-2 * max(1, |ref|max) (bf16
+  operands rounded at different points of two different backwards);
+- gradients of the module in fp32 against jax.vjp of the XLA module, 1e-4;
 - the kernel wrapper refuses what the port's slice does not run.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,12 +129,134 @@ def _wrapper_args(t=12, d=16, h=2):
 
 @pytest.mark.parametrize("option", [{"att_context_size": (8, 0)},
                                     {"att_context_size": (-1, 4)},
-                                    {"dropout_rate": 0.1},
                                     {"seg_id": torch.ones(2, 12,
                                                           dtype=torch.int32)}])
 def test_wrapper_refuses_options_outside_the_slice(option):
-    with pytest.raises(ValueError, match="full-context eval attention"):
+    with pytest.raises(ValueError, match="full-context attention"):
         fused_relpos_attention_block(*_wrapper_args(), **option)
+
+
+def test_wrapper_dropout_draws_seeded_masks():
+    """Dropout on the attention probabilities: reproducible per seed,
+    different across seeds, and the identity at rate 0."""
+    args = _wrapper_args()
+    with torch.no_grad():
+        base = fused_relpos_attention_block(*args)
+        a = fused_relpos_attention_block(*args, dropout_rate=0.1,
+                                         dropout_seed=5)
+        b = fused_relpos_attention_block(*args, dropout_rate=0.1,
+                                         dropout_seed=5)
+        c = fused_relpos_attention_block(*args, dropout_rate=0.1,
+                                         dropout_seed=6)
+        z = fused_relpos_attention_block(*args, dropout_rate=0.0,
+                                         dropout_seed=6)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert not torch.equal(a, base) and torch.equal(z, base)
+
+
+def _pallas_run(p, d, h, mask, rate, seed):
+    def run(x, wq, bq, wk, bk, wv, bv, u, v, wpos, wo):
+        return pallas_block(x, wq, bq, wk, bk, wv, bv, u, v,
+                            wpos.reshape(d, h, d // h), wo, jnp.asarray(mask),
+                            n_heads=h, dropout_rate=rate,
+                            dropout_seed=jnp.asarray([seed], jnp.int32),
+                            interpret=True)
+    return run
+
+
+_PARAM_ORDER = [("linear_q", "kernel"), ("linear_q", "bias"),
+                ("linear_k", "kernel"), ("linear_k", "bias"),
+                ("linear_v", "kernel"), ("linear_v", "bias"),
+                ("pos_bias_u", None), ("pos_bias_v", None),
+                ("linear_pos", "kernel"), ("linear_out", "kernel")]
+
+
+def _torch_params(p):
+    """Leaf tensors in the plain version's argument order; Dense kernels
+    transposed to Linear (out, in)."""
+    out = []
+    for name, leaf in _PARAM_ORDER:
+        a = p[name] if leaf is None else p[name][leaf]
+        a = a.T if leaf == "kernel" else a
+        out.append(torch.tensor(np.ascontiguousarray(a), requires_grad=True))
+    return out
+
+
+def _as_jax_layout(grads):
+    return [g.T if leaf == "kernel" else g
+            for g, (_, leaf) in zip(grads, _PARAM_ORDER)]
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 77),
+                                       (0.1, 2 ** 31 - 2)])
+def test_plain_grads_bf16_match_pallas_interpret(rate, seed):
+    t, d, h = 40, 88, 2
+    rng = np.random.default_rng(3)
+    p = _jax_params(rng, d, h)
+    x, mask = _inputs(rng, 2, t, d, [t, 29])
+    g = rng.normal(size=(2, t, d)).astype(np.float32) * mask[..., None]
+    j = jnp.asarray
+    leaves = [p[n] if leaf is None else p[n][leaf] for n, leaf in _PARAM_ORDER]
+    want, vjp = jax.vjp(_pallas_run(p, d, h, mask, rate, seed),
+                        j(x).astype(jnp.bfloat16), *map(j, leaves))
+    want_g = vjp(j(g).astype(jnp.bfloat16))
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    params = _torch_params(p)
+    got = relpos_attention_plain(xt, *params, rel_positional_encoding(t, d),
+                                 torch.from_numpy(mask), h, rate, seed)
+    got.backward(torch.from_numpy(g).to(torch.bfloat16))
+    m = mask[..., None]
+    np.testing.assert_allclose(got.float().detach().numpy() * m,
+                               np.asarray(want, np.float32) * m, rtol=2e-2,
+                               atol=1e-2)
+    got_g = [xt.grad.float().numpy()] + _as_jax_layout(
+        [q.grad.numpy() for q in params])
+    names = ["x"] + [f"{n}.{leaf}" for n, leaf in _PARAM_ORDER]
+    for name, a, w in zip(names, got_g, want_g):
+        w = np.asarray(w, np.float32).reshape(a.shape)
+        np.testing.assert_allclose(a, w, rtol=3e-2,
+                                   atol=3e-2 * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("t,d,h,lengths", [(30, 88, 2, [30, 19]),
+                                           (24, 32, 2, [24, 24])])
+def test_module_grads_fp32_match_jax_xla(t, d, h, lengths):
+    rng = np.random.default_rng(4)
+    p = _jax_params(rng, d, h)
+    x, mask = _inputs(rng, len(lengths), t, d, lengths)
+    g = rng.normal(size=x.shape).astype(np.float32) * mask[..., None]
+    pe = np.asarray(jax_rel_positional_encoding(t, d))
+    mha = JaxMHA(d, h, attention_backend="xla")
+    want, vjp = jax.vjp(lambda pp, xx: mha.apply({"params": pp}, xx,
+                                                 jnp.asarray(pe),
+                                                 jnp.asarray(mask)),
+                        jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(g))
+    mod = _torch_module(p, d, h)
+    xt = torch.tensor(x, requires_grad=True)
+    got = mod(xt, rel_positional_encoding(t, d), torch.from_numpy(mask))
+    got.backward(torch.from_numpy(g))
+    m = mask[..., None]
+    np.testing.assert_allclose(got.detach().numpy() * m, np.asarray(want) * m,
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x),
+                               rtol=1e-4, atol=1e-4)
+    tg = lambda name: getattr(mod, name)
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        np.testing.assert_allclose(tg(name).weight.grad.numpy().T,
+                                   np.asarray(want_p[name]["kernel"]),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(tg(name).bias.grad.numpy(),
+                                   np.asarray(want_p[name]["bias"]),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+    np.testing.assert_allclose(mod.linear_pos.weight.grad.numpy().T,
+                               np.asarray(want_p["linear_pos"]["kernel"]),
+                               rtol=1e-4, atol=1e-4)
+    for name in ("pos_bias_u", "pos_bias_v"):
+        np.testing.assert_allclose(tg(name).grad.numpy(),
+                                   np.asarray(want_p[name]), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
 
 
 def test_wrapper_runs_plain_on_cpu_and_checks_device():

@@ -1,15 +1,21 @@
 """Contracts of the PyTorch port that hold without a GPU:
 
-- no tpu_asr_torch module imports JAX or flax (the machine with the card
-  has neither);
+- no tpu_asr_torch module, and nothing chip_smoke.py imports, loads JAX,
+  flax or the JAX package tpu_asr (the machine with the card has neither;
+  the port keeps its own copies of the host code it needs);
+- the port's config dataclasses have the JAX package's defaults, and its
+  BPE trainer gives the JAX tokenizer's ids;
+- the entry points run on the card unless told otherwise;
 - chip_smoke.py refuses to run without a CUDA device and never prints its
   success line there;
 - on CPU tensors the kernel wrappers run their plain versions: a CPU forward
-  launches nothing and builds nothing;
+  or train step launches nothing and builds nothing;
 - EncoderConfig options outside the port's slice raise.
 """
 
+import ast
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -19,13 +25,25 @@ from pathlib import Path
 import pytest
 import torch
 
+import tpu_asr.config as jax_config
+import tpu_asr_torch.config as port_config
 from tpu_asr.config import DecoderConfig, EncoderConfig, ModelConfig
+from tpu_asr.data.tokenizer import train_bpe as jax_train_bpe
+from tpu_asr_torch.data.tokenizer import train_bpe
 from tpu_asr_torch.models.conformer import ConformerEncoder
 from tpu_asr_torch.models.ctc_model import CTCModel
+from tpu_asr_torch.models.distil_model import DistilCTCModel
+from tpu_asr_torch.models.transcribe import Transcriber
 from tpu_asr_torch.ops import _kernels
-from tpu_asr_torch.ops.cuda_attention import fused_relpos_attention_block
+from tpu_asr_torch.ops.cuda_attention import (
+    fused_relpos_attention_block, fused_relpos_attention_block_bwd)
+from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd
 from tpu_asr_torch.ops.cuda_features import fused_logmel
+from tpu_asr_torch.ops.cuda_ffn import (fused_ffn_sublayer,
+                                        fused_ffn_sublayer_bwd)
 from tpu_asr_torch.ops.cuda_subsampling import fused_subsampling
+from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                         make_distil_train_step)
 
 ROOT = Path(__file__).resolve().parent.parent
 IMPORT_ALL = """
@@ -33,12 +51,27 @@ import importlib, pkgutil, sys
 import tpu_asr_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_asr_torch.__path__,
                                                "tpu_asr_torch.")]
+names += sys.argv[1:]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_asr"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
+
+
+def _chip_smoke_imports():
+    """chip_smoke itself and every module its source imports, at top level
+    or inside a function."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = {"chip_smoke"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module \
+                and node.module != "__future__":
+            mods.add(node.module)
+        elif isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+    return sorted(mods)
 
 
 def _env(**extra):
@@ -48,13 +81,74 @@ def _env(**extra):
 
 
 def test_port_imports_no_jax():
-    proc = subprocess.run([sys.executable, "-c", "import json" + IMPORT_ALL],
-                          cwd=ROOT, env=_env(), capture_output=True,
-                          text=True, timeout=120, check=True)
+    extra = _chip_smoke_imports()
+    assert "tpu_asr_torch.train.trainer" in extra
+    proc = subprocess.run([sys.executable, "-c", "import json" + IMPORT_ALL,
+                           *extra], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120,
+                          check=True)
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "tpu_asr_torch.models.transcribe" in out["modules"]
-    assert "tpu_asr_torch.convert.from_jax" in out["modules"]
+    for name in ("tpu_asr_torch.models.transcribe",
+                 "tpu_asr_torch.convert.from_jax", "tpu_asr_torch.config",
+                 "tpu_asr_torch.data.tokenizer", "tpu_asr_torch.data.audio",
+                 "tpu_asr_torch.train.trainer", "chip_smoke"):
+        assert name in out["modules"]
+    assert "tpu_asr_torch.host" not in out["modules"]
     assert out["bad"] == []
+
+
+@pytest.mark.parametrize("name", [
+    n for n, obj in vars(jax_config).items()
+    if dataclasses.is_dataclass(obj) and isinstance(obj, type)])
+def test_config_defaults_equal_jax(name):
+    assert dataclasses.asdict(getattr(port_config, name)()) == \
+        dataclasses.asdict(getattr(jax_config, name)())
+
+
+def test_student_config_equals_jax():
+    assert dataclasses.asdict(port_config.make_student_config(
+        port_config.ModelConfig())) == dataclasses.asdict(
+        jax_config.make_student_config(jax_config.ModelConfig()))
+
+
+def test_train_bpe_gives_jax_ids():
+    corpus = ["the quick brown fox jumps over the lazy dog",
+              "speech recognition on a graphics card",
+              "connectionist temporal classification"] * 3
+    got, want = train_bpe(corpus, vocab_size=48), jax_train_bpe(corpus,
+                                                              vocab_size=48)
+    for text in corpus[:3] + ["a lazy card jumps"]:
+        ids = got.text_to_ids(text)
+        assert ids == want.text_to_ids(text)
+        assert got.ids_to_text(ids) == want.ids_to_text(ids)
+    assert got.vocab_size == want.vocab_size
+
+
+def test_transcriber_defaults_to_cuda():
+    sig = inspect.signature(Transcriber.__init__)
+    assert sig.parameters["device"].default == "cuda"
+
+
+def test_cpu_train_step_launches_and_builds_nothing():
+    cfg = port_config.ModelConfig(
+        encoder=port_config.EncoderConfig(n_layers=1, d_model=32, n_heads=2,
+                                          conv_kernel_size=7),
+        decoder=port_config.DecoderConfig(feat_in=32, num_classes=16),
+        compute_dtype="float32")
+    torch.manual_seed(0)
+    model = DistilCTCModel(cfg, cfg)
+    state = DistilTrainState.create(model, port_config.OptimConfig())
+    batch = {"signal": torch.randn(2, 8000), "signal_len":
+             torch.tensor([8000, 5000]),
+             "tokens": torch.randint(0, 16, (2, 4)),
+             "token_len": torch.tensor([4, 2])}
+    state, metrics = make_distil_train_step(model)(state, batch, 0)
+    assert torch.isfinite(metrics["loss/total"]) and state.step == 1
+    wrappers = (fused_logmel, fused_subsampling, fused_relpos_attention_block,
+                fused_relpos_attention_block_bwd, fused_ffn_sublayer,
+                fused_ffn_sublayer_bwd, ctc_nll, ctc_nll_bwd)
+    assert all(w.launches == 0 for w in wrappers)
+    assert _kernels.library.cache_info().currsize == 0
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -158,6 +158,6 @@ def test_transcriber_matches_jax():
     want = JaxTranscriber(jmodel, {"params": params, "batch_stats": stats},
                           tok, batch_size=2).transcribe(waves)
     got = Transcriber(_port(cfg, params, stats), tok,
-                      batch_size=2).transcribe(waves)
+                      batch_size=2, device="cpu").transcribe(waves)
     assert got == want
     assert any(got)

@@ -5,11 +5,16 @@ package on the CPU, inputs made with numpy from a seed.
   under subsampling_backend='xla', fp32, rtol/atol 1e-4;
 - the plain version in bf16 against the Pallas kernel in interpret mode,
   rtol 0.05 and atol 0.03 * max(1, |ref|max) (the precedent of
-  tests/test_pallas_subsampling.py).
+  tests/test_pallas_subsampling.py);
+- at the student's C = 88: the wrapper's gradients (its backward
+  recomputes the plain version) against jax.vjp of the JAX module, fp32,
+  1e-4 x max(1, |ref|max), and the wrapper refuses channel counts the
+  kernel is not built for.
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +27,7 @@ from tpu_asr.models.conformer import \
 from tpu_asr.ops.pallas_subsampling import \
     fused_subsampling as pallas_subsampling
 from tpu_asr_torch.models.conformer import ConvSubsampling, subsampled_length
+from tpu_asr_torch.ops import cuda_subsampling
 from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
                                                 subsampling_plain)
 
@@ -108,3 +114,48 @@ def test_wrapper_runs_plain_on_cpu_and_checks_device():
     assert fused_subsampling.launches == 0
     with pytest.raises(ValueError, match="unsupported device"):
         fused_subsampling(x.to("meta"), *w)
+
+
+def test_student_width_gradients_match_jax():
+    """C = D = 88 (make_student_config): values and VJP in fp32."""
+    rng = np.random.default_rng(4)
+    c = d = 88
+    cfg = EncoderConfig(feat_in=80, d_model=d, subsampling_conv_channels=c,
+                        subsampling_backend="xla")
+    p = _jax_params(rng, c, d, 20)
+    x = rng.normal(size=(2, 45, 80)).astype(np.float32)
+    g = rng.normal(size=(2, 12, d)).astype(np.float32)
+    want, vjp = jax.vjp(lambda pp, xx: JaxSubsampling(cfg).apply(
+        {"params": pp}, xx), jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    want_p, want_x = vjp(jnp.asarray(g))
+    mod = ConvSubsampling(dataclasses.replace(cfg, subsampling_backend="auto"))
+    w1, b1, w2, b2, w_out = _torch_weights(p)
+    mod.load_state_dict({"conv.0.weight": w1, "conv.0.bias": b1,
+                         "conv.2.weight": w2, "conv.2.bias": b2,
+                         "out.weight": w_out,
+                         "out.bias": torch.from_numpy(p["out"]["bias"])})
+    xt = torch.tensor(x, requires_grad=True)
+    got = mod(xt)
+    got.backward(torch.from_numpy(g))
+    close = lambda a, w: np.testing.assert_allclose(
+        a, w, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(w).max()))
+    close(got.detach().numpy(), np.asarray(want))
+    close(xt.grad.numpy(), np.asarray(want_x))
+    close(mod.conv[0].weight.grad.numpy(),
+          np.asarray(want_p["conv0"]["kernel"]).transpose(3, 2, 0, 1))
+    close(mod.conv[2].weight.grad.numpy(),
+          np.asarray(want_p["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+    close(mod.conv[0].bias.grad.numpy(), np.asarray(want_p["conv0"]["bias"]))
+    close(mod.conv[2].bias.grad.numpy(), np.asarray(want_p["conv1"]["bias"]))
+    close(mod.out.weight.grad.numpy(), np.asarray(want_p["out"]["kernel"]).T)
+    close(mod.out.bias.grad.numpy(), np.asarray(want_p["out"]["bias"]))
+
+
+@pytest.mark.parametrize("c", [64, 96, 160])
+def test_wrapper_refuses_other_channel_counts(c):
+    rng = np.random.default_rng(5)
+    w = _torch_weights(_jax_params(rng, c, 16, 20))
+    x = torch.zeros(1, 9, 80, device="meta")
+    # the check the wrapper makes for a CUDA tensor, before any launch
+    with pytest.raises(ValueError, match="built for C in"):
+        cuda_subsampling._launch(x, *(z.to("meta") for z in w))

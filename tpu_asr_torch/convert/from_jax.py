@@ -9,6 +9,8 @@ The exact inverse of tpu_asr/convert/nemo_import.py::convert_state_dict:
 - LayerNorm / BatchNorm scale, bias     -> weight, bias
 - batch_stats mean, var                 -> running_mean, running_var
 - stacked (L, ...) layer leaves         -> encoder.layers.{i}.*
+- DistilCTCModel's params['student'] and batch_stats['student']
+                                        -> student.* (distil_to_state_dict)
 
 Leaves may be numpy or JAX arrays; this module imports no JAX.
 """
@@ -20,7 +22,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from tpu_asr_torch.host import ModelConfig
+from tpu_asr_torch.config import ModelConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -88,6 +90,16 @@ def jax_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
     conv1x1("decoder.decoder_layers.0",
             params["decoder"]["decoder_layers_0"])
     return sd
+
+
+def distil_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                         student_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A JAX DistilCTCModel's student subtree -> the port's DistilCTCModel
+    `state_dict` (`student.*` keys; the port builds no teacher for the
+    CTC-only path)."""
+    sd = jax_to_state_dict(params["student"],
+                           batch_stats.get("student", {}), student_cfg)
+    return {f"student.{k}": v for k, v in sd.items()}
 
 
 def _index(tree, i: int):

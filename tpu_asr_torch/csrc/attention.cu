@@ -1,11 +1,14 @@
-// Relative-position multi-head self-attention sublayer, forward (eval):
-// q/k/v projections with biases, content scores (q + u) . k, position
-// scores (q + v) . P[t - s] with P = PE @ W_pos, key-padding bias, softmax,
-// value contraction and the per-head output projection summed over heads.
-// The linear_out bias is added by the caller.
+// Relative-position multi-head self-attention sublayer, forward and
+// backward: q/k/v projections with biases, content scores (q + u) . k,
+// position scores (q + v) . P[t - s] with P = PE @ W_pos, key-padding bias,
+// softmax, dropout on the probabilities (training), value contraction and
+// the per-head output projection summed over heads. The linear_out bias is
+// added by the caller.
 //
 // Replaces tpu_asr/ops/pallas_attention.py::_block_fwd_kernel (and its
-// _block_scores), launched by fused_relpos_attention_block.
+// _block_scores, with its in-kernel dropout), launched by
+// fused_relpos_attention_block, and ::_block_bwd_kernel, launched by
+// fused_relpos_attention_block_bwd (see the backward's note further down).
 //
 // What bounds it on an H100: at B=32, T=376, D=176, 4 heads, dk=44 the
 // products are small (3 GFLOP of projections, 4.8 GFLOP of scores and
@@ -21,6 +24,10 @@
 //      and (H, 2T-1, dk) in the working type.
 //   2. core_kernel: per (batch row, head, 32 queries), flash-style over
 //      32-key tiles with an online softmax, so scores never leave the block.
+//      In training the normaliser sums the undropped probabilities, the
+//      value product takes the dropped ones (stream b * H + h + seed, idx
+//      t * Tp + s, Tp = T rounded up to 128, as the TPU kernel draws them),
+//      and the row's log-sum-exp is saved for the backward.
 //      The rel-shift is a gather: the tile's 63 relative positions t - s
 //      are staged once, and lane j of row r reads row (j - r + 31). This
 //      replaces the TPU kernel's sin/cos rotation factorisation, which
@@ -36,6 +43,9 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -191,7 +201,9 @@ __global__ void __launch_bounds__(256) core_kernel(
     const T* __restrict__ pos,                           // (H, 2T-1, dk)
     const float* __restrict__ key_bias,                  // (B, T)
     T* __restrict__ ctx,                                 // (B, T, H * dk)
-    int t_len, int heads, int dk, float scale) {
+    float* __restrict__ lse,                             // (B, H, T) or null
+    int t_len, int heads, int dk, float scale, uint32_t seed,
+    uint32_t thresh, float dscale, int tp) {
   extern __shared__ float4 smem4[];
   const int ks = row_stride(dk);
   float* Qu = reinterpret_cast<float*>(smem4);  // kBQ x ks
@@ -230,6 +242,7 @@ __global__ void __launch_bounds__(256) core_kernel(
 
     const int s = s0 + lane;
     const float kb = s < t_len ? key_bias[(size_t)b * t_len + s] : 0.f;
+    const uint32_t stream = seed + (uint32_t)bh;
     float sc[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
@@ -268,7 +281,14 @@ __global__ void __launch_bounds__(256) core_kernel(
       m_i[r] = m_new;
       o0[r] *= corr;
       o1[r] *= corr;
-      pw[r] = to_f(from_f<T>(p));  // the value product takes T operands
+      float pd = p;
+      if (thresh) {
+        const uint32_t t = (uint32_t)(q0 + warp * kRows + r);
+        pd = dropout_keep(stream, t * (uint32_t)tp + (uint32_t)s, thresh)
+                 ? p * dscale
+                 : 0.f;
+      }
+      pw[r] = to_f(from_f<T>(pd));  // the value product takes T operands
     }
     for (int j = 0; j < kBS; ++j) {
       const float v0 = has0 ? Vs[j * ks + lane] : 0.f;
@@ -290,6 +310,7 @@ __global__ void __launch_bounds__(256) core_kernel(
     const float inv = 1.f / l_i[r];
     if (has0) dst[lane] = from_f<T>(o0[r] * inv);
     if (has1) dst[lane + 32] = from_f<T>(o1[r] * inv);
+    if (lse && lane == 0) lse[(size_t)bh * t_len + t] = m_i[r] + logf(l_i[r]);
   }
 }
 
@@ -298,7 +319,8 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
         const void* wpos, const void* wo, const float* cu, const float* cv,
         const float* bk, const float* bv, const void* pe,
         const float* key_bias, void* qu, void* qv, void* k, void* v, void* p,
-        void* ctx, void* out, int batch, int t_len, int d, int heads,
+        void* ctx, void* out, float* lse, int batch, int t_len, int d,
+        int heads, uint32_t seed, uint32_t thresh, float dscale, int tp,
         cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs proj{};
@@ -322,7 +344,8 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
   const dim3 grid2((t_len + kBQ - 1) / kBQ, batch * heads);
   core_kernel<T><<<grid2, 256, smem, stream>>>(
       (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
-      key_bias, (T*)ctx, t_len, heads, dk, 1.f / sqrtf((float)dk));
+      key_bias, (T*)ctx, lse, t_len, heads, dk, 1.f / sqrtf((float)dk), seed,
+      thresh, dscale, tp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -333,19 +356,505 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward. Replaces tpu_asr/ops/pallas_attention.py::_block_bwd_kernel,
+// which recomputes the whole sublayer per batch row in VMEM and emits dx and
+// every weight and bias gradient. What bounds it here: the score tile is
+// recomputed twice (once per key-tile pass, once per query-tile pass) and
+// every recomputation is three dk-long dot products per score, so it is
+// bound by shared-memory operand traffic of plain SIMT, like the forward.
+//
+// Launches, all deterministic (fixed-order sums, no atomics):
+//   1. proj_kernel: dctx = g Wo, per head (B, H, T, dk), in T.
+//   2. dq_kernel, per (batch row, head, 32 queries), over 32-key tiles:
+//      recomputes the scores, p = exp(score - lse), applies the forward's
+//      dropout mask, dS = p (keep * dP / (1 - rate) - D) / sqrt(dk) with
+//      dP = dctx . v and D = dctx . ctx (the flash identity, which holds
+//      with dropout because ctx is the dropped product). It accumulates
+//      dq_u = dS K and dq_v = dS P[t - s] in registers, and the position
+//      gradient dP[r] = sum_{t - s = r} dS[t, s] q_v[t]: each thread owns
+//      fixed (diagonal, d) cells of the tile and adds them into a
+//      shared-memory row per relative position, so the 63 diagonals of a
+//      tile never collide and tiles are added in key order. The block's
+//      rows go to a per-block partial.
+//   3. dkv_kernel, per (batch row, head, 32 keys), over 32-query tiles:
+//      the same scores transposed (keys on warps, queries on lanes);
+//      dv = P_dropped^T dctx and dk = dS^T q_u in registers.
+//   4. dpos_kernel: sums the per-block position partials over batch rows
+//      and query tiles into dP (2T - 1, D).
+//   5. proj_kernel: dx = [dq_u | dq_v | dk | dv] [Wq; Wq; Wk; Wv].
+//   6. wgrad_kernel (split over rows) + sum_parts_kernel:
+//      [dq_u | dq_v | dk | dv]^T [x | 1] gives dWq (two halves), dWk, dWv
+//      and every bias gradient (the column of ones); g^T ctx gives dWo;
+//      dP^T PE gives dW_pos.
+// ragged dk = 44: shared rows use the forward's odd-float4 stride with
+// zeros past dk, so every dot product runs over whole float4s.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(256) dq_kernel(
+    const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
+    const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
+    const T* __restrict__ pos,                           // (H, 2T-1, dk)
+    const float* __restrict__ key_bias,                  // (B, T)
+    const float* __restrict__ lse,                       // (B, H, T)
+    const T* __restrict__ dctx,                          // (B, H, T, dk)
+    const T* __restrict__ ctx,                           // (B, T, H * dk)
+    T* __restrict__ grads,                               // (B, T, 4 H dk)
+    float* __restrict__ dsum,                            // (B, H, T)
+    float* __restrict__ dpart,  // (B, H, n_qt, win, dk)
+    int t_len, int heads, int dk, float scale, uint32_t seed,
+    uint32_t thresh, float dscale, int tp, int win) {
+  extern __shared__ float4 smem4[];
+  const int ks = row_stride(dk);
+  float* Qu = reinterpret_cast<float*>(smem4);  // kBQ x ks
+  float* Qv = Qu + kBQ * ks;                    // kBQ x ks
+  float* Dc = Qv + kBQ * ks;                    // kBQ x ks: dctx rows
+  float* Ks = Dc + kBQ * ks;                    // kBS x ks
+  float* Vs = Ks + kBS * ks;                    // kBS x ks
+  float* Ps = Vs + kBS * ks;                    // (kBQ + kBS - 1) x ks
+  float* dS = Ps + (kBQ + kBS - 1) * ks;        // kBQ x (kBS + 1)
+  float* acc = dS + kBQ * (kBS + 1);            // win x dk
+
+  const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
+  const int q0 = blockIdx.x * kBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_pos = 2 * t_len - 1, d_model = heads * dk;
+  const size_t head_off = (size_t)bh * t_len * dk;
+  const T* pos_h = pos + (size_t)hh * n_pos * dk;
+  const uint32_t stream = seed + (uint32_t)bh;
+
+  stage_rows(Qu, qu + head_off, q0, kBQ, t_len, dk, ks);
+  stage_rows(Qv, qv + head_off, q0, kBQ, t_len, dk, ks);
+  stage_rows(Dc, dctx + head_off, q0, kBQ, t_len, dk, ks);
+  for (int i = threadIdx.x; i < win * dk; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  const bool has0 = lane < dk, has1 = lane + 32 < dk;
+  float dsr[kRows], lser[kRows], dqu0[kRows], dqu1[kRows], dqv0[kRows],
+      dqv1[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = warp * kRows + r, t = q0 + row;
+    float dd = 0.f;
+    if (t < t_len) {
+      const T* c = ctx + ((size_t)b * t_len + t) * d_model + hh * dk;
+      if (has0) dd += Dc[row * ks + lane] * to_f(c[lane]);
+      if (has1) dd += Dc[row * ks + lane + 32] * to_f(c[lane + 32]);
+    }
+    dsr[r] = warp_sum(dd);
+    lser[r] = t < t_len ? lse[(size_t)bh * t_len + t] : 0.f;
+    if (t < t_len && lane == 0) dsum[(size_t)bh * t_len + t] = dsr[r];
+    dqu0[r] = dqu1[r] = dqv0[r] = dqv1[r] = 0.f;
+  }
+
+  for (int s0 = 0; s0 < t_len; s0 += kBS) {
+    __syncthreads();  // the previous tile's rows, dS and acc are consumed
+    stage_rows(Ks, kk + head_off, s0, kBS, t_len, dk, ks);
+    stage_rows(Vs, vv + head_off, s0, kBS, t_len, dk, ks);
+    stage_rows(Ps, pos_h, (t_len - 1) - (q0 - s0 + kBS - 1), kBQ + kBS - 1,
+               n_pos, dk, ks);
+    __syncthreads();
+
+    const int s = s0 + lane;
+    const float kb = s < t_len ? key_bias[(size_t)b * t_len + s] : 0.f;
+    float sc[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
+    const float4* krow = reinterpret_cast<const float4*>(Ks + lane * ks);
+    const float4* vrow = reinterpret_cast<const float4*>(Vs + lane * ks);
+    for (int d4 = 0; d4 < ks / 4; ++d4) {
+      const float4 k4 = krow[d4], v4 = vrow[d4];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = warp * kRows + r;
+        const float4 a = reinterpret_cast<const float4*>(Qu + row * ks)[d4];
+        const float4 c = reinterpret_cast<const float4*>(Qv + row * ks)[d4];
+        const float4 g = reinterpret_cast<const float4*>(Dc + row * ks)[d4];
+        const float4 p = reinterpret_cast<const float4*>(
+            Ps + (lane - row + kBS - 1) * ks)[d4];
+        sc[r] += a.x * k4.x + a.y * k4.y + a.z * k4.z + a.w * k4.w +
+                 c.x * p.x + c.y * p.y + c.z * p.z + c.w * p.w;
+        dp[r] += g.x * v4.x + g.y * v4.y + g.z * v4.z + g.w * v4.w;
+      }
+    }
+    float ds[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = warp * kRows + r, t = q0 + row;
+      float v = 0.f;
+      if (t < t_len && s < t_len) {
+        const float p = expf(sc[r] * scale + kb - lser[r]);
+        float kf = 1.f;
+        if (thresh)
+          kf = dropout_keep(stream, (uint32_t)t * (uint32_t)tp + (uint32_t)s,
+                            thresh)
+                   ? dscale
+                   : 0.f;
+        v = p * (dp[r] * kf - dsr[r]) * scale;
+      }
+      ds[r] = v;
+      dS[row * (kBS + 1) + lane] = v;
+    }
+    for (int j = 0; j < kBS; ++j) {
+      const float k0 = has0 ? Ks[j * ks + lane] : 0.f;
+      const float k1 = has1 ? Ks[j * ks + lane + 32] : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = warp * kRows + r;
+        const float g = __shfl_sync(0xffffffffu, ds[r], j);
+        const float* prow = Ps + (j - row + kBS - 1) * ks;
+        dqu0[r] = fmaf(g, k0, dqu0[r]);
+        dqu1[r] = fmaf(g, k1, dqu1[r]);
+        dqv0[r] = fmaf(g, has0 ? prow[lane] : 0.f, dqv0[r]);
+        dqv1[r] = fmaf(g, has1 ? prow[lane + 32] : 0.f, dqv1[r]);
+      }
+    }
+    __syncthreads();  // dS complete
+    // diagonal j = row - col + 31 of this tile -> window cell s0 + 62 - j
+    for (int i = threadIdx.x; i < (kBQ + kBS - 1) * dk; i += blockDim.x) {
+      const int j = i / dk, dd = i - j * dk;
+      const int r_lo = j > kBS - 1 ? j - (kBS - 1) : 0;
+      const int r_hi = j < kBQ - 1 ? j : kBQ - 1;
+      float v = 0.f;
+      for (int r = r_lo; r <= r_hi; ++r)
+        v = fmaf(dS[r * (kBS + 1) + r - j + kBS - 1], Qv[r * ks + dd], v);
+      acc[(s0 + kBQ + kBS - 2 - j) * dk + dd] += v;
+    }
+  }
+  __syncthreads();
+  float* part = dpart + ((size_t)bh * gridDim.x + blockIdx.x) * win * dk;
+  for (int i = threadIdx.x; i < win * dk; i += blockDim.x) part[i] = acc[i];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int t = q0 + warp * kRows + r;
+    if (t >= t_len) continue;
+    T* dst = grads + ((size_t)b * t_len + t) * 4 * d_model + hh * dk;
+    if (has0) {
+      dst[lane] = from_f<T>(dqu0[r]);
+      dst[d_model + lane] = from_f<T>(dqv0[r]);
+    }
+    if (has1) {
+      dst[lane + 32] = from_f<T>(dqu1[r]);
+      dst[d_model + lane + 32] = from_f<T>(dqv1[r]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) dkv_kernel(
+    const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
+    const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
+    const T* __restrict__ pos,                           // (H, 2T-1, dk)
+    const float* __restrict__ key_bias,                  // (B, T)
+    const float* __restrict__ lse,                       // (B, H, T)
+    const T* __restrict__ dctx,                          // (B, H, T, dk)
+    const float* __restrict__ dsum,                      // (B, H, T)
+    T* __restrict__ grads,                               // (B, T, 4 H dk)
+    int t_len, int heads, int dk, float scale, uint32_t seed,
+    uint32_t thresh, float dscale, int tp) {
+  extern __shared__ float4 smem4[];
+  const int ks = row_stride(dk);
+  float* Ks = reinterpret_cast<float*>(smem4);  // kBS x ks: this block's keys
+  float* Vs = Ks + kBS * ks;                    // kBS x ks
+  float* Qu = Vs + kBS * ks;                    // kBQ x ks
+  float* Qv = Qu + kBQ * ks;                    // kBQ x ks
+  float* Dc = Qv + kBQ * ks;                    // kBQ x ks
+  float* Ps = Dc + kBQ * ks;                    // (kBQ + kBS - 1) x ks
+
+  const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
+  const int s0 = blockIdx.x * kBS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_pos = 2 * t_len - 1, d_model = heads * dk;
+  const size_t head_off = (size_t)bh * t_len * dk;
+  const T* pos_h = pos + (size_t)hh * n_pos * dk;
+  const uint32_t stream = seed + (uint32_t)bh;
+
+  stage_rows(Ks, kk + head_off, s0, kBS, t_len, dk, ks);
+  stage_rows(Vs, vv + head_off, s0, kBS, t_len, dk, ks);
+  const bool has0 = lane < dk, has1 = lane + 32 < dk;
+  float kbr[kRows], dk0[kRows], dk1[kRows], dv0[kRows], dv1[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int s = s0 + warp * kRows + r;
+    kbr[r] = s < t_len ? key_bias[(size_t)b * t_len + s] : 0.f;
+    dk0[r] = dk1[r] = dv0[r] = dv1[r] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < t_len; q0 += kBQ) {
+    __syncthreads();
+    stage_rows(Qu, qu + head_off, q0, kBQ, t_len, dk, ks);
+    stage_rows(Qv, qv + head_off, q0, kBQ, t_len, dk, ks);
+    stage_rows(Dc, dctx + head_off, q0, kBQ, t_len, dk, ks);
+    stage_rows(Ps, pos_h, (t_len - 1) - (q0 - s0 + kBS - 1), kBQ + kBS - 1,
+               n_pos, dk, ks);
+    __syncthreads();
+
+    const int t = q0 + lane;  // this lane's query
+    const bool tin = t < t_len;
+    const float lse_t = tin ? lse[(size_t)bh * t_len + t] : 0.f;
+    const float d_t = tin ? dsum[(size_t)bh * t_len + t] : 0.f;
+    float sc[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
+    const float4* qurow = reinterpret_cast<const float4*>(Qu + lane * ks);
+    const float4* qvrow = reinterpret_cast<const float4*>(Qv + lane * ks);
+    const float4* dcrow = reinterpret_cast<const float4*>(Dc + lane * ks);
+    for (int d4 = 0; d4 < ks / 4; ++d4) {
+      const float4 a = qurow[d4], c = qvrow[d4], g = dcrow[d4];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = warp * kRows + r;
+        const float4 k4 = reinterpret_cast<const float4*>(Ks + row * ks)[d4];
+        const float4 v4 = reinterpret_cast<const float4*>(Vs + row * ks)[d4];
+        const float4 p = reinterpret_cast<const float4*>(
+            Ps + (kBS - 1 - lane + row) * ks)[d4];
+        sc[r] += a.x * k4.x + a.y * k4.y + a.z * k4.z + a.w * k4.w +
+                 c.x * p.x + c.y * p.y + c.z * p.z + c.w * p.w;
+        dp[r] += g.x * v4.x + g.y * v4.y + g.z * v4.z + g.w * v4.w;
+      }
+    }
+    float pd[kRows], ds[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int s = s0 + warp * kRows + r;
+      pd[r] = ds[r] = 0.f;
+      if (tin && s < t_len) {
+        const float p = expf(sc[r] * scale + kbr[r] - lse_t);
+        float kf = 1.f;
+        if (thresh)
+          kf = dropout_keep(stream, (uint32_t)t * (uint32_t)tp + (uint32_t)s,
+                            thresh)
+                   ? dscale
+                   : 0.f;
+        pd[r] = to_f(from_f<T>(p * kf));
+        ds[r] = p * (dp[r] * kf - d_t) * scale;
+      }
+    }
+    for (int j = 0; j < kBQ; ++j) {
+      const float g0 = has0 ? Dc[j * ks + lane] : 0.f;
+      const float g1 = has1 ? Dc[j * ks + lane + 32] : 0.f;
+      const float u0 = has0 ? Qu[j * ks + lane] : 0.f;
+      const float u1 = has1 ? Qu[j * ks + lane + 32] : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, pd[r], j);
+        const float sj = __shfl_sync(0xffffffffu, ds[r], j);
+        dv0[r] = fmaf(pj, g0, dv0[r]);
+        dv1[r] = fmaf(pj, g1, dv1[r]);
+        dk0[r] = fmaf(sj, u0, dk0[r]);
+        dk1[r] = fmaf(sj, u1, dk1[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int s = s0 + warp * kRows + r;
+    if (s >= t_len) continue;
+    T* dst = grads + ((size_t)b * t_len + s) * 4 * d_model + hh * dk;
+    if (has0) {
+      dst[2 * d_model + lane] = from_f<T>(dk0[r]);
+      dst[3 * d_model + lane] = from_f<T>(dv0[r]);
+    }
+    if (has1) {
+      dst[2 * d_model + lane + 32] = from_f<T>(dk1[r]);
+      dst[3 * d_model + lane + 32] = from_f<T>(dv1[r]);
+    }
+  }
+}
+
+// dP[prow, h * dk + d] = sum over batch rows and query tiles of the dq
+// kernel's window partials; query tile qt's window cell w is P row
+// T - 32 - 32 qt + w.
+__global__ void dpos_kernel(const float* __restrict__ dpart,
+                            float* __restrict__ dpos, int batch, int heads,
+                            int dk, int t_len, int n_qt, int win) {
+  const int n_pos = 2 * t_len - 1, d_model = heads * dk;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pos * d_model) return;
+  const int prow = i / d_model, c = i - prow * d_model;
+  const int hh = c / dk, dd = c - hh * dk;
+  float s = 0.f;
+  for (int b = 0; b < batch; ++b)
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int w = prow - (t_len - kBQ - kBQ * qt);
+      if (w < 0 || w >= win) continue;
+      s += dpart[((((size_t)b * heads + hh) * n_qt + qt) * win + w) * dk + dd];
+    }
+  dpos[i] = s;
+}
+
+// part[split][n][k] = sum over this split's rows m of a[m, n] * x[m, k],
+// with x[m, kx] = 1 when `ones` (so the last column holds sum_m a[m, n]).
+template <typename TA, typename TX>
+__global__ void __launch_bounds__(256) wgrad_kernel(
+    const TA* __restrict__ a, int n, const TX* __restrict__ xx, int kx,
+    int ones, int m_rows, int rows_per_split, float* __restrict__ part) {
+  __shared__ float As[kChunk][kTile + 4];
+  __shared__ float Xs[kChunk][kTile + 4];
+  const int n0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile;
+  const int kout = kx + ones;
+  const int m_lo = blockIdx.z * rows_per_split;
+  const int m_hi = min(m_rows, m_lo + rows_per_split);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int m0 = m_lo; m0 < m_hi; m0 += kChunk) {
+    for (int i = tid; i < kTile * kChunk; i += 256) {
+      const int mm = i / kTile, c = i - mm * kTile, m = m0 + mm;
+      const bool in = m < m_hi;
+      As[mm][c] = (in && n0 + c < n) ? to_f(a[(size_t)m * n + n0 + c]) : 0.f;
+      const int k = k0 + c;
+      Xs[mm][c] = !in ? 0.f
+                  : k < kx ? to_f(xx[(size_t)m * kx + k])
+                           : (k == kx && ones ? 1.f : 0.f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int mm = 0; mm < kChunk; ++mm) {
+      float av[4], xv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[mm][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[j] = Xs[mm][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = part + (size_t)blockIdx.z * n * kout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int nn = n0 + ty + 16 * i;
+    if (nn >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + tx + 16 * j;
+      if (k < kout) out[(size_t)nn * kout + k] = acc[i][j];
+    }
+  }
+}
+
+__global__ void sum_parts_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, int n_parts,
+                                 int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * n + i];
+  out[i] = s;
+}
+
+constexpr int kSplitRows = 512;  // rows per weight-gradient partial
+
+template <typename TA, typename TX>
+cudaError_t wgrad(const void* a, int n, const void* x, int kx, int ones,
+                  int m_rows, float* part, float* out, cudaStream_t stream) {
+  const int splits = (m_rows + kSplitRows - 1) / kSplitRows;
+  const int kout = kx + ones;
+  const dim3 grid((n + kTile - 1) / kTile, (kout + kTile - 1) / kTile,
+                  splits);
+  wgrad_kernel<TA, TX><<<grid, 256, 0, stream>>>(
+      (const TA*)a, n, (const TX*)x, kx, ones, m_rows, kSplitRows, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int total = n * kout;
+  sum_parts_kernel<<<(total + 255) / 256, 256, 0, stream>>>(part, out, splits,
+                                                           total);
+  return cudaGetLastError();
+}
+
+size_t dq_smem(int dk, int win) {
+  const int ks = row_stride(dk);
+  return sizeof(float) * ((size_t)ks * (3 * kBQ + 2 * kBS + kBQ + kBS - 1) +
+                          kBQ * (kBS + 1) + (size_t)win * dk);
+}
+
+template <typename T>
+int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
+            const void* qu, const void* qv, const void* k, const void* v,
+            const void* p, const float* key_bias, const float* lse,
+            const void* ctx, const void* pe, void* dctx, void* grads,
+            float* dsum, float* dpart, float* dpos, void* dx, float* part,
+            float* dw_all, float* dwo, float* dwpos, int batch, int t_len,
+            int d, int heads, uint32_t seed, uint32_t thresh, float dscale,
+            int tp, cudaStream_t stream) {
+  const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
+  const int n_qt = (t_len + kBQ - 1) / kBQ, win = n_qt * kBQ + kBS - 1;
+  const float scale = 1.f / sqrtf((float)dk);
+  Jobs dc{};
+  dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 0, 1};
+  const dim3 grid1((rows + kTile - 1) / kTile, (d + kTile - 1) / kTile, 1);
+  proj_kernel<T><<<grid1, 256, 0, stream>>>(dc, d, d, t_len, heads, dk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem_q = dq_smem(dk, win);
+  if ((err = cudaFuncSetAttribute(dq_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_q)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid2(n_qt, batch * heads);
+  dq_kernel<T><<<grid2, 256, smem_q, stream>>>(
+      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
+      key_bias, lse, (const T*)dctx, (const T*)ctx, (T*)grads, dsum, dpart,
+      t_len, heads, dk, scale, seed, thresh, dscale, tp, win);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int ks = row_stride(dk);
+  const size_t smem_kv =
+      sizeof(float) * (size_t)ks * (2 * kBS + 3 * kBQ + kBQ + kBS - 1);
+  if ((err = cudaFuncSetAttribute(dkv_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_kv)) != cudaSuccess)
+    return (int)err;
+  dkv_kernel<T><<<dim3((t_len + kBS - 1) / kBS, batch * heads), 256, smem_kv,
+                  stream>>>(
+      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
+      key_bias, lse, (const T*)dctx, dsum, (T*)grads, t_len, heads, dk, scale,
+      seed, thresh, dscale, tp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  dpos_kernel<<<(n_pos * d + 255) / 256, 256, 0, stream>>>(
+      dpart, dpos, batch, heads, dk, t_len, n_qt, win);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  Jobs dxj{};
+  dxj.job[0] = {grads, wcat, nullptr, nullptr, dx, nullptr, rows, 0, 0};
+  proj_kernel<T><<<grid1, 256, 0, stream>>>(dxj, 4 * d, d, t_len, heads, dk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  if ((err = wgrad<T, T>(grads, 4 * d, x, d, 1, rows, part, dw_all,
+                         stream)) != cudaSuccess ||
+      (err = wgrad<T, T>(g, d, ctx, d, 0, rows, part, dwo, stream)) !=
+          cudaSuccess)
+    return (int)err;
+  return (int)wgrad<float, T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
+}
+
 }  // namespace
 
 // The wrapper guarantees: contiguous tensors on one device; x, weights and
 // scratch in one dtype (fp32 or bf16); biases, the position table and the
 // key bias in fp32; dk = d / heads <= 64; scratch q_u, q_v, k, v sized
-// (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d).
+// (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d); lse (B, H, T) fp32
+// or null. Dropout on the probabilities when thresh > 0: stream seed +
+// b * H + h, idx t * tp + s, kept values scaled by dscale.
 extern "C" int tat_attention(int bf16, const void* x, const void* wq,
                              const void* wk, const void* wv, const void* wpos,
                              const void* wo, const void* cu, const void* cv,
                              const void* bk, const void* bv, const void* pe,
                              const void* key_bias, void* qu, void* qv,
                              void* k, void* v, void* p, void* ctx, void* out,
-                             int batch, int t_len, int d, int heads,
+                             void* lse, int batch, int t_len, int d,
+                             int heads, unsigned int seed,
+                             unsigned int thresh, float dscale, int tp,
                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float *cu_ = (const float*)cu, *cv_ = (const float*)cv,
@@ -353,8 +862,40 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
               *kb_ = (const float*)key_bias;
   return bf16 ? run<__nv_bfloat16>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_,
                                    bv_, pe, kb_, qu, qv, k, v, p, ctx, out,
-                                   batch, t_len, d, heads, s)
+                                   (float*)lse, batch, t_len, d, heads, seed,
+                                   thresh, dscale, tp, s)
               : run<float>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_, bv_, pe,
-                           kb_, qu, qv, k, v, p, ctx, out, batch, t_len, d,
-                           heads, s);
+                           kb_, qu, qv, k, v, p, ctx, out, (float*)lse, batch,
+                           t_len, d, heads, seed, thresh, dscale, tp, s);
+}
+
+// Backward of tat_attention from its saved forward (x, q_u, q_v, k, v, p,
+// ctx, lse; the same dropout arguments) and the cotangent g (B, T, d) in
+// the working dtype. wo_t = Wo^T (d, d) and wcat = [Wq; Wq; Wk; Wv]^T
+// (d, 4d) in the working dtype; pe (2T-1, d) in the working dtype. Scratch:
+// dctx (B, H, T, dk) and grads (B, T, 4d) in the working dtype, dsum
+// (B, H, T), dpart (B, H, ceil(T/32), 32 ceil(T/32) + 31, dk), part (at
+// least ceil(B T / 512) * 4d * (d + 1)) fp32. Outputs: dx (B, T, d) in the
+// working dtype; fp32 dpos (2T-1, d), dw_all (4d, d + 1) = [dq_u | dq_v |
+// dk | dv]^T [x | 1], dwo (d, d), dwpos (d, d).
+extern "C" int tat_attention_bwd(
+    int bf16, const void* g, const void* x, const void* wo_t,
+    const void* wcat, const void* qu, const void* qv, const void* k,
+    const void* v, const void* p, const void* key_bias, const void* lse,
+    const void* ctx, const void* pe, void* dctx, void* grads, void* dsum,
+    void* dpart, void* dpos, void* dx, void* part, void* dw_all, void* dwo,
+    void* dwpos, int batch, int t_len, int d, int heads, unsigned int seed,
+    unsigned int thresh, float dscale, int tp, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  auto F = [](const void* q) { return (float*)q; };
+  return bf16 ? run_bwd<__nv_bfloat16>(
+                    g, x, wo_t, wcat, qu, qv, k, v, p, F(key_bias), F(lse),
+                    ctx, pe, dctx, grads, F(dsum), F(dpart), F(dpos), dx,
+                    F(part), F(dw_all), F(dwo), F(dwpos), batch, t_len, d,
+                    heads, seed, thresh, dscale, tp, s)
+              : run_bwd<float>(g, x, wo_t, wcat, qu, qv, k, v, p,
+                               F(key_bias), F(lse), ctx, pe, dctx, grads,
+                               F(dsum), F(dpart), F(dpos), dx, F(part),
+                               F(dw_all), F(dwo), F(dwpos), batch, t_len, d,
+                               heads, seed, thresh, dscale, tp, s);
 }

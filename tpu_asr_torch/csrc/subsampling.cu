@@ -76,11 +76,11 @@ constexpr int kTT = 4;        // most output frames per block
 constexpr int kMR = 5;        // rows per thread: kTT * F2 <= 16 * kMR = 80
 constexpr int kBK = 16;       // reduction chunk
 constexpr int kAS = 16 * kMR + 1;  // As row stride (odd: conflict-free stores)
-// Output channels per thread: 16 * NR covers C in (160, 176], ModelConfig's
-// C = 176 (the only channel count a config in the repo uses).
-constexpr int NR = 11;
+// Output channels per thread: 16 * NR covers the channel count. Two
+// variants are built: NR = 11 for ModelConfig's C = 176 and NR = 6 for its
+// student's C = 88 (make_student_config); each more variant costs build time.
 
-template <typename T>
+template <typename T, int NR>
 __global__ void __launch_bounds__(256) conv2_linear_kernel(
     const T* __restrict__ h1,      // (B, t1, f1, ch)
     const T* __restrict__ w2k,     // (9 * ch, ch): [tap * ch + c_in][c_out]
@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(256) conv2_linear_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int NR>
 cudaError_t launch_conv2(const void* h1, const void* w2k, const void* b2,
                          const void* wlt, void* out, int batch, int t1,
                          int f1, int t2, int f2, int ch, int d, int tt,
@@ -180,11 +180,11 @@ cudaError_t launch_conv2(const void* h1, const void* w2k, const void* b2,
   const size_t smem = sizeof(float) *
       ((size_t)kBK * kAS + (size_t)kBK * 16 * NR + (size_t)tt * ch * f2);
   cudaError_t err = cudaFuncSetAttribute(
-      conv2_linear_kernel<T>,
+      conv2_linear_kernel<T, NR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t2 + tt - 1) / tt, batch);
-  conv2_linear_kernel<T><<<grid, 256, smem, stream>>>(
+  conv2_linear_kernel<T, NR><<<grid, 256, smem, stream>>>(
       (const T*)h1, (const T*)w2k, (const float*)b2, (const T*)wlt, (T*)out,
       t1, f1, t2, f2, ch, d, tt);
   return cudaGetLastError();
@@ -196,21 +196,24 @@ int run(const void* x, const void* w1, const void* b1, const void* w2k,
         int t0, int f0, int ch, int d, cudaStream_t stream) {
   const int t1 = (t0 - 1) / 2 + 1, f1 = (f0 - 1) / 2 + 1;
   const int t2 = (t1 - 1) / 2 + 1, f2 = (f1 - 1) / 2 + 1;
-  if ((ch + 15) / 16 != NR) return (int)cudaErrorInvalidValue;
+  const int nr = (ch + 15) / 16;
+  if (nr != 6 && nr != 11) return (int)cudaErrorInvalidValue;
   const dim3 grid1(t1, (f1 * ch + 255) / 256, batch);
   conv1_kernel<T><<<grid1, 256, 0, stream>>>(
       (const T*)x, (const T*)w1, (const float*)b1, (T*)h1, t0, f0, t1, f1, ch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int tt = (16 * kMR) / f2 < kTT ? (16 * kMR) / f2 : kTT;
-  return (int)launch_conv2<T>(h1, w2k, b2, wlt, out, batch, t1, f1, t2, f2,
-                              ch, d, tt, stream);
+  return (int)(nr == 6 ? launch_conv2<T, 6>(h1, w2k, b2, wlt, out, batch, t1,
+                                            f1, t2, f2, ch, d, tt, stream)
+                       : launch_conv2<T, 11>(h1, w2k, b2, wlt, out, batch, t1,
+                                             f1, t2, f2, ch, d, tt, stream));
 }
 
 }  // namespace
 
 // The wrapper guarantees: contiguous tensors of one dtype (fp32 or bf16,
-// biases fp32) on one device, 160 < ch <= 176, F2 = F0 / 4 (rounded up)
+// biases fp32) on one device, ch in (80, 96] or (160, 176], F2 = F0 / 4 (rounded up)
 // <= 80, and h1 sized (B, T1, F1, ch).
 extern "C" int tat_subsampling(int bf16, const void* x, const void* w1,
                                const void* b1, const void* w2k,

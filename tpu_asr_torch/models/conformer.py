@@ -1,37 +1,54 @@
-"""Conformer encoder, offline eval path: the PyTorch counterpart of
-tpu_asr/models/conformer.py.
+"""Conformer encoder, offline eval and training paths: the PyTorch
+counterpart of tpu_asr/models/conformer.py.
 
 Module and parameter names follow NeMo's `state_dict` keys (the layout of
 tests/nemo_oracle.py), so a `.nemo` teacher's weights load as they are.
 Parameters stay fp32; activations run in the model's compute dtype, with
 each weight cast to it at use, as the JAX modules do. LayerNorm is flax's
-(eps 1e-6, statistics in fp32); BatchNorm uses its running statistics
-(eps 1e-5).
+(eps 1e-6, statistics in fp32). BatchNorm uses its running statistics in
+eval and the batch statistics over (B, T), padded frames included, in
+training (momentum 0.9 in flax terms, unbiased running variance, eps 1e-5).
 
 In scope: `striding` x4 subsampling, full-context 'regular' rel-pos
-attention, batch-norm conv modules, no caches. Any other EncoderConfig
-option raises (`check_supported`) instead of running a different path.
-Backends: `subsampling_backend` and `attention_backend` 'auto'/'pallas'
-call the kernel wrappers (the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors), 'xla' calls the plain version; the FFN and conv
-module are plain PyTorch, as they are plain XLA in eval on the TPU.
+attention, batch-norm conv modules, no caches, no stochastic depth. Any
+other EncoderConfig option raises (`check_supported`) instead of running a
+different path. Backends: `subsampling_backend`, `attention_backend` and
+(training only) `ffn_backend` 'auto'/'pallas' call the kernel wrappers (the
+CUDA kernels for CUDA tensors, the plain versions for CPU tensors), 'xla'
+calls the plain versions. In eval the FFN and conv module are plain
+PyTorch, as they are plain XLA in eval on the TPU; the conv module is plain
+in training too.
+
+Training (`train=True` with a `torch.Generator`): every dropout site draws
+its mask from the counter hash of ops/dropout.py with a seed drawn per step
+from the generator before the layers run, so a checkpointed layer
+(`remat`, torch.utils.checkpoint) recomputes the same masks. BatchNorm
+commits its running statistics once per forward, after the layers, so the
+recomputation does not update them a second time.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from tpu_asr_torch.host import EncoderConfig
+from tpu_asr_torch.config import EncoderConfig
 from tpu_asr_torch.ops.cuda_attention import (fused_relpos_attention_block,
                                               relpos_attention_plain)
+from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_plain,
+                                        fused_ffn_sublayer)
 from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
                                                 subsampling_plain)
+from tpu_asr_torch.ops.dropout import dropout
+
+SEEDS_PER_LAYER = 5      # ffn1, attention probabilities, attention out,
+#                          conv out, ffn2
 
 BACKENDS = ("auto", "pallas", "xla")
 
@@ -53,9 +70,10 @@ def check_supported(c: EncoderConfig) -> None:
         "untie_biases": not c.untie_biases,
         "quantization": c.quantization != "none",
         "conv_backend": c.conv_backend == "pallas",
-        "ffn_backend": c.ffn_backend == "pallas",
+        "ffn_backend": c.ffn_backend not in BACKENDS,
         "subsampling_backend": c.subsampling_backend not in BACKENDS,
         "attention_backend": c.attention_backend not in BACKENDS,
+        "stochastic_depth_drop_prob": c.stochastic_depth_drop_prob > 0.0,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -129,14 +147,18 @@ class RelPositionMultiHeadAttention(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.zeros(n_heads, dk))
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
-        attend = (relpos_attention_plain if self.backend == "xla"
-                  else fused_relpos_attention_block)
-        out = attend(x, self.linear_q.weight, self.linear_q.bias,
-                     self.linear_k.weight, self.linear_k.bias,
-                     self.linear_v.weight, self.linear_v.bias,
-                     self.pos_bias_u, self.pos_bias_v, self.linear_pos.weight,
-                     self.linear_out.weight, pos_emb, mask, self.n_heads)
+                mask: torch.Tensor, dropout_rate: float = 0.0,
+                dropout_seed: int = 0) -> torch.Tensor:
+        args = (x, self.linear_q.weight, self.linear_q.bias,
+                self.linear_k.weight, self.linear_k.bias,
+                self.linear_v.weight, self.linear_v.bias, self.pos_bias_u,
+                self.pos_bias_v, self.linear_pos.weight,
+                self.linear_out.weight, pos_emb, mask, self.n_heads)
+        if self.backend == "xla":
+            out = relpos_attention_plain(*args, dropout_rate, dropout_seed)
+        else:
+            out = fused_relpos_attention_block(
+                *args, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
         return out + self.linear_out.bias.to(out.dtype)
 
 
@@ -151,9 +173,14 @@ class FeedForward(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm1d over channels with NeMo's keys (weight, bias,
-    running_mean, running_var, num_batches_tracked), folded into one
-    per-channel affine in fp32 and applied in x's dtype."""
+    """BatchNorm1d over channels with NeMo's keys (weight, bias,
+    running_mean, running_var, num_batches_tracked). Eval: the running
+    statistics folded into one per-channel affine in fp32, applied in x's
+    dtype. Training: the batch statistics over (B, T), padded frames
+    included, in fp32; `commit()` then moves the running statistics once
+    (momentum 0.9 in flax terms, unbiased variance)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -164,11 +191,33 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self._batch_stats = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * w
-        return x * w.to(x.dtype) + b.to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            w = self.weight * torch.rsqrt(self.running_var + self.eps)
+            b = self.bias - self.running_mean * w
+            return x * w.to(x.dtype) + b.to(x.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1))
+        var = (xf - mean).square().mean(dim=(0, 1))
+        n = x.shape[0] * x.shape[1]
+        self._batch_stats = (mean.detach(), var.detach(), n)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+    @torch.no_grad()
+    def commit(self) -> None:
+        """Fold the last training forward's batch statistics into the
+        running statistics."""
+        if self._batch_stats is None:
+            return
+        mean, var, n = self._batch_stats
+        self._batch_stats = None
+        m = self.MOMENTUM
+        self.running_mean.mul_(m).add_((1 - m) * mean)
+        self.running_var.mul_(m).add_((1 - m) * var * n / max(n - 1, 1))
+        self.num_batches_tracked += 1
 
 
 class ConformerConvolution(nn.Module):
@@ -184,14 +233,15 @@ class ConformerConvolution(nn.Module):
         self.batch_norm = MaskedBatchNorm(d)
         self.pointwise_conv2 = nn.Conv1d(d, d, 1)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         dt = x.dtype
         h = F.glu(_linear(x, self.pointwise_conv1), dim=-1)
         h = h.masked_fill(~mask[..., None], 0.0)
         dw = self.depthwise_conv
         h = F.conv1d(F.pad(h.transpose(1, 2), self.pad), dw.weight.to(dt),
                      dw.bias.to(dt), groups=dw.groups).transpose(1, 2)
-        h = F.silu(self.batch_norm(h))
+        h = F.silu(self.batch_norm(h, train))
         return _linear(h, self.pointwise_conv2)
 
 
@@ -201,6 +251,8 @@ class ConformerLayer(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        self.cfg = cfg
+        self.ffn_backend = cfg.ffn_backend
         d = cfg.d_model
         ln = lambda: nn.LayerNorm(d, eps=1e-6)
         self.norm_feed_forward1 = ln()
@@ -215,7 +267,11 @@ class ConformerLayer(nn.Module):
         self.norm_out = ln()
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                mask: torch.Tensor,
+                seeds: Optional[List[int]] = None) -> torch.Tensor:
+        """`seeds` (SEEDS_PER_LAYER ints) selects the training path."""
+        if seeds is not None:
+            return self._train_forward(x, pos_emb, mask, seeds)
         x = x + 0.5 * self.feed_forward1(_layer_norm(self.norm_feed_forward1,
                                                      x))
         x = x + self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb,
@@ -223,6 +279,29 @@ class ConformerLayer(nn.Module):
         x = x + self.conv(_layer_norm(self.norm_conv, x), mask)
         x = x + 0.5 * self.feed_forward2(_layer_norm(self.norm_feed_forward2,
                                                      x))
+        return _layer_norm(self.norm_out, x).masked_fill(~mask[..., None], 0.0)
+
+    def _ffn(self, norm: nn.LayerNorm, ff: FeedForward, x: torch.Tensor,
+             seed: int) -> torch.Tensor:
+        """x + 0.5 * drop(FFN(LN(x))), both dropout masks inside: the fused
+        kernel ('auto'/'pallas') or its plain version ('xla')."""
+        run = (ffn_sublayer_plain if self.ffn_backend == "xla"
+               else fused_ffn_sublayer)
+        return run(x, norm.weight, norm.bias, ff.linear1.weight,
+                   ff.linear1.bias, ff.linear2.weight, ff.linear2.bias,
+                   self.cfg.dropout, seed)
+
+    def _train_forward(self, x, pos_emb, mask, seeds):
+        c = self.cfg
+        x = self._ffn(self.norm_feed_forward1, self.feed_forward1, x,
+                      seeds[0])
+        h = self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb, mask,
+                           c.dropout_att, seeds[1])
+        x = x + dropout(h, c.dropout, seeds[2])
+        h = self.conv(_layer_norm(self.norm_conv, x), mask, train=True)
+        x = x + dropout(h, c.dropout, seeds[3])
+        x = self._ffn(self.norm_feed_forward2, self.feed_forward2, x,
+                      seeds[4])
         return _layer_norm(self.norm_out, x).masked_fill(~mask[..., None], 0.0)
 
 
@@ -238,8 +317,12 @@ class ConformerEncoder(nn.Module):
         self.layers = nn.ModuleList(ConformerLayer(cfg)
                                     for _ in range(cfg.n_layers))
 
-    def forward(self, features: torch.Tensor, lengths: torch.Tensor
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """`train` needs a CPU `generator`, from which every dropout seed of
+        this forward is drawn before the layers run."""
         c = self.cfg
         x = self.pre_encode(features.transpose(1, 2).to(self.dtype)
                             .contiguous())
@@ -248,10 +331,28 @@ class ConformerEncoder(nn.Module):
         if c.xscaling:
             x = x * math.sqrt(c.d_model)
         pos_emb = rel_positional_encoding(t, c.d_model, x.device)
+        seeds = None
+        if train:
+            seeds = torch.randint(0, 2 ** 31 - 1,
+                                  (1 + SEEDS_PER_LAYER * c.n_layers,),
+                                  generator=generator).tolist()
+            x = dropout(x, c.dropout_pre_encoder, seeds[0])
         mask = torch.arange(t, device=x.device)[None, :] < out_len[:, None]
         x = x.masked_fill(~mask[..., None], 0.0)
         feats = []
-        for layer in self.layers:
-            x = layer(x, pos_emb, mask)
+        for i, layer in enumerate(self.layers):
+            if not train:
+                x = layer(x, pos_emb, mask)
+            else:
+                lseeds = seeds[1 + SEEDS_PER_LAYER * i:
+                               1 + SEEDS_PER_LAYER * (i + 1)]
+                if c.remat:
+                    x = checkpoint(layer, x, pos_emb, mask, lseeds,
+                                   use_reentrant=False)
+                else:
+                    x = layer(x, pos_emb, mask, lseeds)
             feats.append(x)
+        if train:
+            for layer in self.layers:
+                layer.conv.batch_norm.commit()
         return x, out_len, torch.stack(feats)

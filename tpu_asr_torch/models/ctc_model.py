@@ -1,20 +1,25 @@
-"""CTCModel, eval path: the PyTorch counterpart of
-tpu_asr/models/ctc_model.py. FilterbankFeatures -> ConformerEncoder ->
+"""CTCModel: the PyTorch counterpart of tpu_asr/models/ctc_model.py.
+FilterbankFeatures -> (training: SpecAugment) -> ConformerEncoder ->
 ConvASRDecoder, returning the same five fields as the JAX CTCModelOutput.
 The featurizer holds no parameters, so `state_dict()` has exactly NeMo's
-`encoder.*` and `decoder.*` keys."""
+`encoder.*` and `decoder.*` keys.
+
+Training randomness comes from `rngs`, a dict of `torch.Generator`s as
+train/trainer.py::step_rngs makes them: 'specaug' (on the model's device)
+draws dither and SpecAugment masks, 'dropout' (CPU) the dropout seeds."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from tpu_asr_torch.host import ModelConfig
+from tpu_asr_torch.config import ModelConfig
 from tpu_asr_torch.models.conformer import ConformerEncoder
 from tpu_asr_torch.models.decoder import ConvASRDecoder
 from tpu_asr_torch.ops.features import FilterbankFeatures
+from tpu_asr_torch.ops.specaug import spec_augment
 
 
 class CTCModelOutput(NamedTuple):
@@ -35,17 +40,39 @@ class CTCModel(nn.Module):
         self.decoder = ConvASRDecoder(cfg.decoder)
 
     def forward(self, input_signal: torch.Tensor,
-                input_signal_length: torch.Tensor) -> CTCModelOutput:
+                input_signal_length: torch.Tensor, train: bool = False,
+                rngs: Optional[Dict[str, torch.Generator]] = None
+                ) -> CTCModelOutput:
         """(B, L) waveforms and (B,) sample counts."""
-        feats, feat_len = self.featurizer(input_signal, input_signal_length)
-        return self.forward_features(feats, feat_len)
+        encoded, encoded_len, layer_feats = self.encode(
+            input_signal, input_signal_length, train, rngs)
+        return self._output(encoded, encoded_len, layer_feats)
 
     def forward_features(self, processed_signal: torch.Tensor,
                          processed_signal_length: torch.Tensor
                          ) -> CTCModelOutput:
         """(B, F, T) log-mel and (B,) frame counts."""
-        encoded, encoded_len, layer_feats = self.encoder(
-            processed_signal, processed_signal_length)
+        return self._output(*self.encoder(processed_signal,
+                                          processed_signal_length))
+
+    def encode(self, input_signal, input_signal_length, train: bool = False,
+               rngs: Optional[Dict[str, torch.Generator]] = None):
+        """Preprocess (+ dither and SpecAugment when training) and encode:
+        (encoded (B, T', D), lengths (B,), layer_feats (L, B, T', D))."""
+        if train and rngs is None:
+            raise ValueError("CTCModel.encode(train=True) needs rngs")
+        rngs = rngs or {}
+        feats, feat_len = self.featurizer(input_signal, input_signal_length,
+                                          train, rngs.get("specaug"))
+        if train and self.cfg.spec_augment is not None:
+            feats = spec_augment(feats, feat_len, self.cfg.spec_augment,
+                                 rngs["specaug"])
+        return self.encoder(feats, feat_len, train, rngs.get("dropout"))
+
+    def decode_logits(self, encoded: torch.Tensor) -> torch.Tensor:
+        return self.decoder(encoded)
+
+    def _output(self, encoded, encoded_len, layer_feats) -> CTCModelOutput:
         log_probs = self.decoder(encoded)
         return CTCModelOutput(log_probs, encoded_len,
                               log_probs.argmax(dim=-1), encoded, layer_feats)

@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_asr_torch.host import DecoderConfig
+from tpu_asr_torch.config import DecoderConfig
 
 
 class ConvASRDecoder(nn.Module):

@@ -13,7 +13,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from tpu_asr_torch.host import load_audio
+from tpu_asr_torch.data.audio import load_audio
 from tpu_asr_torch.models.ctc_model import CTCModel
 from tpu_asr_torch.ops.decoding import CTCDecoding
 
@@ -24,7 +24,7 @@ class Transcriber:
     def __init__(self, model: CTCModel, tokenizer,
                  decoding: Optional[CTCDecoding] = None,
                  batch_size: int = 8, bucket_seconds: float = 4.0,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer

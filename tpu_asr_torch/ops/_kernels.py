@@ -1,16 +1,19 @@
 """Build, load and call the port's hand-written CUDA kernels (`csrc/*.cu`).
 
-All sources compile with `nvcc` into ONE shared library with a plain C
-interface, loaded with `ctypes`:
+Each source compiles with its own `nvcc`, all started together, and the
+objects link into ONE shared library with a plain C interface, loaded with
+`ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libtpu_asr_torch.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu     (one per source)
+    nvcc -shared -o libtpu_asr_torch.so *.o
 
 The library is built at first use (the first kernel launch, never at
 import) into `build/tpu_asr_torch/<hash>/` beside the package, keyed on a
-hash of the flags and the sources, so a fresh checkout builds exactly once
-and an edited source rebuilds. The compiler log (with `-Xptxas -v`
-register and spill counts) lands beside the library as `nvcc.log`.
+hash of the flags and the sources (headers included), so a fresh checkout
+builds exactly once and an edited source rebuilds. The compiler logs (with
+`-Xptxas -v` register and spill counts) land beside the library as
+`nvcc.log`.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `call` raises if that is not 0.
@@ -30,11 +33,12 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpu_asr_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libtpu_asr_torch.so"
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+UINT = ctypes.c_uint
 FLOAT = ctypes.c_float
 
 
@@ -44,7 +48,7 @@ def sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
@@ -55,20 +59,41 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; (log text, [failed stderr])."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]}: code {proc.returncode}\n{err[-4000:]}")
+    return "\n".join(log), failed
+
+
 def build() -> Path:
     """Compile the sources unless the library for their hash exists."""
     path = library_path()
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (path.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           + proc.stderr[-6000:])
+    tag = os.getpid()
+    objs = [path.with_name(f"{src.stem}.{tag}.o") for src in sources()]
+    log, failed = _run_all(
+        [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+         for src, obj in zip(sources(), objs)])
+    tmp = path.with_name(f"{LIB_NAME}.{tag}.tmp")
+    if not failed:
+        link_log, failed = _run_all(
+            [[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+        log += "\n" + link_log
+    (path.parent / "nvcc.log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, path)           # atomic: concurrent builds agree
     return path
 

@@ -7,7 +7,13 @@ channel-major (C, F2) flatten -> Linear(C * F2 -> D) without its bias.
 Weights arrive in NeMo's layouts: convs (out, in, 3, 3), the Linear
 (D, C * F2). Operands are in the working dtype of `x` (fp32 or bf16),
 accumulation is fp32, and the conv activations are rounded to the working
-dtype where the TPU kernel rounds them.
+dtype where the TPU kernel rounds them. The kernel is built for the two
+channel counts the repo's models use: C = 176 (ModelConfig) and C = 88
+(make_student_config).
+
+Gradient: as tpu_asr/ops/pallas_subsampling.py's custom VJP, the forward is
+the kernel and the backward recomputes through the plain version under
+autograd; there is no backward kernel.
 """
 
 from __future__ import annotations
@@ -43,15 +49,10 @@ def subsampling_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return (h @ r(w_out).t()).to(dt)
 
 
-def fused_subsampling(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                      w2: torch.Tensor, b2: torch.Tensor,
-                      w_out: torch.Tensor) -> torch.Tensor:
-    """Same contract as `subsampling_plain`. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel (two launches)."""
-    if x.device.type == "cpu":
-        return subsampling_plain(x, w1, b1, w2, b2, w_out)
-    if not x.is_cuda:
-        raise ValueError(f"fused_subsampling: unsupported device {x.device}")
+CHANNELS = (88, 176)
+
+
+def _launch(x, w1, b1, w2, b2, w_out):
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_subsampling: unsupported dtype {dt}")
@@ -64,10 +65,10 @@ def fused_subsampling(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             or w_out.shape != (d, ch * f2)):
         raise ValueError("fused_subsampling: weight shapes do not match "
                          f"C={ch}, F2={f2}")
-    if not 160 < ch <= 176 or f2 > 80:
+    if ch not in CHANNELS or f2 > 80:
         raise ValueError(f"fused_subsampling: the kernel is built for "
-                         f"160 < C <= 176 (ModelConfig's C=176) and F/4 <= 80 "
-                         f"(got C={ch}, F2={f2})")
+                         f"C in {CHANNELS} and F/4 <= 80 (got C={ch}, "
+                         f"F2={f2})")
     w1k = w1.reshape(ch, 9).to(dt).contiguous()
     w2k = w2.permute(2, 3, 1, 0).reshape(9 * ch, ch).to(dt).contiguous()
     wlt = w_out.t().to(dt).contiguous()
@@ -80,6 +81,37 @@ def fused_subsampling(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
            *(z.data_ptr() for z in tensors), b, t0, f0, ch, d)
     fused_subsampling.launches += 1
     return out
+
+
+class _Subsampling(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w_out):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w_out)
+        return _launch(x, w1, b1, w2, b2, w_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        inputs = [z.detach().requires_grad_(n)
+                  for z, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = subsampling_plain(*inputs)
+        wrt = [z for z, n in zip(inputs, need) if n]
+        got = iter(torch.autograd.grad(out, wrt, g))
+        return tuple(next(got) if n else None for n in need)
+
+
+def fused_subsampling(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor,
+                      w_out: torch.Tensor) -> torch.Tensor:
+    """Same contract as `subsampling_plain`. A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel (two launches), and under
+    autograd the backward recomputes the plain version."""
+    if x.device.type == "cpu":
+        return subsampling_plain(x, w1, b1, w2, b2, w_out)
+    if not x.is_cuda:
+        raise ValueError(f"fused_subsampling: unsupported device {x.device}")
+    return _Subsampling.apply(x, w1, b1, w2, b2, w_out)
 
 
 fused_subsampling.launches = 0

@@ -8,7 +8,8 @@ tpu_asr/ops/features.py::FilterbankFeatures.
 Constants are re-derived here in numpy (the JAX package's ops modules import
 JAX): the hann window (symmetric, centred in n_fft) is folded into the DFT
 basis, and the filterbank is librosa's slaney-scale, slaney-normalised mel.
-Dither is a training option; this module has no training mode.
+Training adds dither (`cfg.dither` * standard normal noise) from an explicit
+`torch.Generator` before preemphasis, as the JAX frontend does.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_asr_torch.host import PreprocessorConfig
+from tpu_asr_torch.config import PreprocessorConfig
 from tpu_asr_torch.ops.cuda_features import fused_logmel, logmel_plain
 
 
@@ -118,10 +119,16 @@ class FilterbankFeatures(nn.Module):
     def seq_len(self, length: torch.Tensor) -> torch.Tensor:
         return stft_seq_len(length, self.n_fft, self.hop)
 
-    def forward(self, signal: torch.Tensor,
-                length: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, signal: torch.Tensor, length: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`generator` (on the signal's device) draws the training dither."""
         c = self.cfg
         x = signal.float()
+        if train and c.dither > 0.0 and generator is not None:
+            x = x + c.dither * torch.randn(x.shape, generator=generator,
+                                           device=x.device)
         if c.preemph:
             x = torch.cat([x[:, :1], x[:, 1:] - c.preemph * x[:, :-1]], dim=1)
         pad = self.n_fft // 2

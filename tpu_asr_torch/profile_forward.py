@@ -40,7 +40,13 @@ def seeded_model(cfg, seed: int, device="cuda"):
     torch.Generator and randomised BatchNorm running statistics."""
     from tpu_asr_torch.models.ctc_model import CTCModel
 
-    model = CTCModel(cfg)
+    return seed_weights(CTCModel(cfg), seed).to(device).eval()
+
+
+def seed_weights(model, seed: int):
+    """Fill a model's weights from a seeded torch.Generator (norm scales
+    near 1, biases small, matrices scaled by fan-in) and randomise its
+    BatchNorm running statistics; returns the model."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -61,7 +67,7 @@ def seeded_model(cfg, seed: int, device="cuda"):
             elif name.endswith("running_var"):
                 buf.copy_(torch.empty(buf.shape).uniform_(0.7, 1.5,
                                                           generator=gen))
-    return model.to(device).eval()
+    return model
 
 
 def waveforms(rng, n: int, lo: float, hi: float, sr: int = SR):
@@ -76,13 +82,22 @@ def waveforms(rng, n: int, lo: float, hi: float, sr: int = SR):
 
 
 def set_backend(model, backend: str) -> None:
-    """Point the featurizer, subsampling and every attention at `backend`."""
-    from tpu_asr_torch.models.conformer import (ConvSubsampling,
+    """Point the featurizer, subsampling, every attention, every training
+    FFN and the CTC loss at `backend` ('auto' the kernels, 'xla' the plain
+    versions)."""
+    from tpu_asr_torch.models.conformer import (ConformerLayer,
+                                                ConvSubsampling,
                                                 RelPositionMultiHeadAttention)
-    model.featurizer.backend = backend
+    from tpu_asr_torch.models.distil_model import DistilCTCModel
+    from tpu_asr_torch.ops.features import FilterbankFeatures
     for m in model.modules():
-        if isinstance(m, (ConvSubsampling, RelPositionMultiHeadAttention)):
+        if isinstance(m, (ConvSubsampling, RelPositionMultiHeadAttention,
+                          FilterbankFeatures)):
             m.backend = backend
+        elif isinstance(m, ConformerLayer):
+            m.ffn_backend = backend
+        elif isinstance(m, DistilCTCModel):
+            m.ctc_backend = "scan" if backend == "xla" else backend
 
 
 def device_activity(prof, n_forwards: int):
@@ -167,7 +182,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_forward: no CUDA device", file=sys.stderr)
         return 2
-    from tpu_asr_torch.host import ModelConfig
+    from tpu_asr_torch.config import ModelConfig
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,0 +1,1 @@
+"""Training of the port: optimizer, schedules and the train step."""

@@ -1,0 +1,87 @@
+"""The distil train step: the PyTorch counterpart of
+tpu_asr/train/trainer.py::make_distil_train_step.
+
+One step: forward with training randomness, loss, backward, the optional
+`skip_nan_grad` guard (non-finite gradient elements zeroed and counted),
+optional global-norm clipping, and the optimizer update at the schedule's
+learning rate for this step. Per-step randomness comes from generators
+seeded from (seed, step), the analogue of JAX's fold_in(base_rng, step):
+the same seed and step give the same dither, SpecAugment masks and dropout
+masks. Metrics stay on the device: 'loss/<name>' for each loss,
+'grad_norm' (before clipping) and, with skip_nan_grad,
+'nonfinite_grad_elems'.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from tpu_asr_torch.config import OptimConfig
+from tpu_asr_torch.models.distil_model import DistilCTCModel
+from tpu_asr_torch.train.optim import (Schedule, build_optimizer,
+                                       clip_by_global_norm, global_norm,
+                                       set_lr)
+
+
+@dataclass
+class DistilTrainState:
+    model: DistilCTCModel
+    optimizer: torch.optim.Optimizer
+    schedule: Schedule
+    optim_cfg: OptimConfig
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: DistilCTCModel,
+               optim_cfg: OptimConfig) -> "DistilTrainState":
+        opt, schedule = build_optimizer(optim_cfg, model)
+        return cls(model, opt, schedule, optim_cfg)
+
+
+def step_rngs(seed: int, step: int,
+              device) -> Dict[str, torch.Generator]:
+    """'specaug' on `device` (dither, SpecAugment) and 'dropout' on the CPU
+    (the dropout seeds), both seeded from (seed, step)."""
+    base = (int(seed) * 1_000_003 + int(step)) % (2 ** 63)
+    return {"specaug": torch.Generator(device=device).manual_seed(base),
+            "dropout": torch.Generator().manual_seed(base ^ 0x5DEECE66D)}
+
+
+def make_distil_train_step(model: DistilCTCModel) -> Callable:
+    """Returns train_step(state, batch, seed) -> (state, metrics); batch
+    holds `signal` (B, L) f32, `signal_len` (B,), `tokens` (B, S) and
+    `token_len` (B,) on the model's device."""
+
+    def train_step(state: DistilTrainState, batch: Dict[str, torch.Tensor],
+                   seed: int) -> Tuple[DistilTrainState, Dict]:
+        dev = batch["signal"].device
+        model.train()
+        out = model(batch["signal"], batch["signal_len"], batch["tokens"],
+                    batch["token_len"], train=True,
+                    rngs=step_rngs(seed, state.step, dev))
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        out.losses["total"].backward()
+        params = [p for g in opt.param_groups for p in g["params"]
+                  if p.grad is not None]
+        grads = [p.grad for p in params]
+        metrics = {f"loss/{k}": v.detach() for k, v in out.losses.items()}
+        if model.student_cfg.skip_nan_grad:
+            bad = [~torch.isfinite(g) for g in grads]
+            metrics["nonfinite_grad_elems"] = sum(b.sum() for b in bad)
+            for g, b in zip(grads, bad):
+                g.masked_fill_(b, 0.0)
+        norm = global_norm(grads)
+        metrics["grad_norm"] = norm
+        clip = state.optim_cfg.gradient_clip_val
+        if clip and clip > 0:
+            clip_by_global_norm(grads, clip, norm)
+        set_lr(opt, state.schedule(state.step))
+        opt.step()
+        state.step += 1
+        return state, metrics
+
+    return train_step
