@@ -41,6 +41,23 @@ Phases, each on its own output lines:
      timed steps; the loss stays finite, every training kernel (forward and
      backward) launched, and ms per step, audio seconds per second and peak
      memory are printed.
+  8. fm kernels: the flow-matching Euler loop forward and backward against
+     its plain version at the flagship KD shapes (rows = 32 x 16 layers,
+     T'=376, C=88, H=128, 8 steps), fp32 and bf16, with both output
+     cotangents nonzero; a ragged case (per-row steps 1..16, max_steps 16,
+     fewer rows); two backward calls bit-equal; shapes outside the kernel's
+     build refused. Max error per output and per gradient against a stated
+     tolerance, median kernel and plain times and the bound.
+  9. KD train: one flowkd_mlp8 train step (frozen ModelConfig() teacher,
+     logit KD 0.1, FM-KT mlp 8 steps over 16 layers) in fp32 at full width
+     on B=8 x 15 s, once on the kernels and once on the plain versions from
+     the same weights and seeds (dropout, dither and SpecAugment on): every
+     loss component within 1e-4 relative, every student and FM gradient
+     within the student step's rule, the teacher's parameters and running
+     statistics bit-unchanged. Then the bf16 step at B=32 x 15 s with 48
+     tokens: 2 warm-up steps, counters reset, 10 timed steps; losses finite,
+     every kernel (the teacher's logmel, subsampling C=176 and attention
+     forward included) launched; ms per step, audio s/s and peak memory.
 Then one JSON line of per-kernel results, and last the JSON device line.
 Any failed check exits non-zero before the last line.
 """
@@ -240,12 +257,14 @@ def reset_counters():
     from tpu_asr_torch.ops.cuda_features import fused_logmel
     from tpu_asr_torch.ops.cuda_ffn import (fused_ffn_sublayer,
                                             fused_ffn_sublayer_bwd)
+    from tpu_asr_torch.ops.cuda_fm import fused_fm_euler, fused_fm_euler_bwd
     from tpu_asr_torch.ops.cuda_subsampling import fused_subsampling
     fns = {"logmel": fused_logmel, "subsampling": fused_subsampling,
            "attention": fused_relpos_attention_block,
            "attention_bwd": fused_relpos_attention_block_bwd,
            "ffn": fused_ffn_sublayer, "ffn_bwd": fused_ffn_sublayer_bwd,
-           "ctc": ctc_nll, "ctc_bwd": ctc_nll_bwd}
+           "ctc": ctc_nll, "ctc_bwd": ctc_nll_bwd, "fm": fused_fm_euler,
+           "fm_bwd": fused_fm_euler_bwd}
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -753,36 +772,254 @@ def train_phase(tcfg):
     check(err_p < 1e-5, f"parameters after the AdamW step: max |err| "
           f"{err_p:.3e} < 1e-5")
 
-    model = student(scfg, 6)
-    state = DistilTrainState.create(model, OptimConfig())
-    step = make_distil_train_step(model)
-    batch = train_batch(BATCH, 8)
-    for _ in range(TRAIN_WARMUP):
-        state, metrics = step(state, batch, 9)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fns = reset_counters()
-    losses = []
-    start = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        state, metrics = step(state, batch, 9)
-        losses.append(metrics["loss/total"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    counts = {k: f.launches for k, f in fns.items()}
-    losses = torch.stack(losses).tolist()
+    ms, counts, metrics = timed_steps(student(scfg, 6), train_batch(BATCH, 8),
+                                      9)
+    counts = {k: v for k, v in counts.items() if k in STUDENT}
+    losses = torch.stack([m["loss/total"] for m in metrics]).tolist()
     check(all(math.isfinite(x) for x in losses),
           f"bf16 student train steps: losses finite, first {losses[0]:.4f} "
           f"last {losses[-1]:.4f}")
     check(all(v > 0 for v in counts.values()),
           f"train steps launched every kernel: {counts}")
-    ms = 1e3 * wall / TRAIN_STEPS
     print(f"train: student ({scfg.compute_dtype}, 16 layers, d "
           f"{scfg.encoder.d_model}) B={BATCH} x {SECONDS} s, {TOKENS} "
-          f"tokens: {ms:.2f} ms per step, {BATCH * SECONDS / (wall / TRAIN_STEPS):.1f} "
-          f"audio s per s (host clock over {TRAIN_STEPS} steps after "
-          f"{TRAIN_WARMUP} warm-up), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+          f"tokens: {timed_summary(ms)}")
+    return counts
+
+
+def timed_steps(model, batch, seed: int):
+    """TRAIN_WARMUP steps, then the launch counters and the peak memory
+    reset and TRAIN_STEPS steps timed on the host clock up to a final
+    synchronize. Returns (ms per step, {row: launches}, [metrics])."""
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+    state = DistilTrainState.create(model, OptimConfig())
+    step = make_distil_train_step(model)
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step(state, batch, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = reset_counters()
+    metrics = []
+    start = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch, seed)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - start) / TRAIN_STEPS
+    return ms, {k: f.launches for k, f in fns.items()}, metrics
+
+
+def timed_summary(ms: float) -> str:
+    return (f"{ms:.2f} ms per step, {BATCH * SECONDS / (ms / 1e3):.1f} audio "
+            f"s per s (host clock over {TRAIN_STEPS} steps after "
+            f"{TRAIN_WARMUP} warm-up), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+
+def fm_inputs(gen, rows, t, max_steps, steps=None):
+    """x0, steps, w1x, a, c, w2, b2 of the Euler loop at C=88, H=128."""
+    c, h = 88, 128
+    if steps is None:
+        steps = torch.full((rows,), max_steps, device="cuda")
+    return (normal(gen, rows, t, c), steps, normal(gen, c, h, scale=c ** -0.5),
+            normal(gen, h, scale=0.3), normal(gen, h, scale=0.1),
+            normal(gen, h, c, scale=h ** -0.5), normal(gen, c, scale=0.1))
+
+
+def fm_compare(args, max_steps, dt, label, time_it=False):
+    """fused_fm_euler (forward and backward) against fm_euler_plain on the
+    same inputs in compute dtype dt; returns (fwd row, bwd row) when
+    time_it, as train_kernel_phase's rows."""
+    from tpu_asr_torch.ops.cuda_fm import (fm_euler_plain, fused_fm_euler,
+                                           fused_fm_euler_bwd)
+    dts = str(dt)[6:]
+    x0, steps, *w = args
+    x0 = x0.to(dt)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    gx, gv = normal(gen, *x0.shape).to(dt), normal(gen, *x0.shape).to(dt)
+    kw = dict(max_steps=max_steps, compute_dtype=dt)
+    runs = []
+    for fn in (fused_fm_euler, fm_euler_plain):
+        leaves = [z.detach().requires_grad_() for z in (x0, *w)]
+        out = fn(leaves[0], steps, *leaves[1:], **kw)
+        grads = torch.autograd.grad(out, leaves, (gx, gv), retain_graph=True)
+        runs.append((leaves, out, grads))
+    torch.cuda.synchronize()
+    (_, out_k, g_k), (leaves_p, out_p, g_p) = runs
+    # fp32: the same operations summed in another order over up to 16
+    # chained steps; bf16: x, h and v round at the same points, but a sum
+    # that lands next to a rounding boundary moves one bf16 ulp (2^-8 of
+    # the value) and the recurrence carries it on
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    errs = []
+    for name, a, b in zip(("x_final", "last_v"), out_k, out_p):
+        err = (a.float() - b.float()).abs().max().item()
+        ref = b.float().abs().max().item()
+        errs.append(err)
+        check(torch.allclose(a.float(), b.float(), rtol=tol,
+                             atol=tol * max(1.0, ref)),
+              f"fm {label} {dts} {name}: max |err| {err:.3e}, |ref|max "
+              f"{ref:.3e} (rtol {tol}, atol {tol} x max(1, |ref|max))")
+    check(gx.abs().max() > 0 and gv.abs().max() > 0,
+          f"fm {label} {dts}: both output cotangents nonzero")
+    # fp32: sums over every position in another order; bf16: the plain
+    # version's autograd rounds each gradient to bf16 where the forward
+    # rounds, the kernel carries gx in fp32 (as _fm_bwd_kernel does)
+    gtol, floor = (1e-3, 1e-4) if dt == torch.float32 else (5e-2, 1e-2)
+    # dx0 per element: where a pre-activation lies within the rounding of
+    # 0, sums in another order take the other side of the relu, and that
+    # position's gradient moves by a whole dh W1x term; at most 1e-4 of
+    # the elements may (the weight gradients sum over all positions)
+    dx_k, dx_p = g_k[0].float(), g_p[0].float()
+    scale = dx_p.abs().max().item()
+    diff = (dx_k - dx_p).abs()
+    over = int((diff > gtol * scale).sum())
+    check(over <= 1e-4 * diff.numel(),
+          f"fm_bwd {label} {dts} dx0: {over} of {diff.numel()} elements "
+          f"beyond {gtol} x max|ref| {scale:.3e} (max |err| "
+          f"{diff.max().item():.3e}; at most 1e-4 of them)")
+    print(f"fm_bwd {label} {dts}, weight gradients, kernels vs plain:")
+    err_w, _ = grads_close(g_k[1:], g_p[1:], gtol, ["dw1x", "da", "dc",
+                                                    "dw2", "db2"], floor)
+    err_bwd = max(err_w, diff.max().item())
+    saved = out_k[0].grad_fn.saved_tensors
+    bwd = lambda: fused_fm_euler_bwd(*saved, gx, gv, max_steps)
+    check(all(torch.equal(a, b) for a, b in zip(bwd(), bwd())),
+          f"fm_bwd {label} {dts}: two calls give bit-equal gradients")
+    if not time_it:
+        return None
+    # the work this run's data needs: min(n, max_steps) steps per row
+    row_steps = steps.clamp(min=1, max=max_steps).sum().item()
+    mac = x0.shape[1] * 88 * 128 * row_steps
+    n_bytes = nbytes(x0, *w) + 2 * nbytes(x0)
+    fwd = (max(errs), median_ms(lambda: fused_fm_euler(x0, steps, *w, **kw)),
+           median_ms(lambda: fm_euler_plain(x0, steps, *w, **kw), iters=5),
+           bound(4 * mac, n_bytes, dts), None)
+    plain_bwd = lambda: torch.autograd.grad(out_p, leaves_p, (gx, gv),
+                                            retain_graph=True)
+    bwd_row = (err_bwd, median_ms(bwd), median_ms(plain_bwd, iters=5),
+               bound(12 * mac, nbytes(x0, gx, gv, *w) + nbytes(*g_k), dts),
+               None)
+    return fwd, bwd_row
+
+
+def fm_kernel_phase():
+    """The FM kernels against their plain version at the flagship KD
+    shapes, fp32 and bf16, a ragged case, and the refused shapes. Returns
+    {"fm": row, "fm_bwd": row} in bf16 (the main path's dtype)."""
+    from tpu_asr_torch.ops.cuda_fm import fused_fm_euler
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows, t, ms = BATCH * 16, 376, 8
+    args = fm_inputs(gen, rows, t, ms)
+    per_dt = {}
+    for dt in (torch.float32, torch.bfloat16):
+        per_dt[dt] = fm_compare(args, ms, dt, f"rows={rows} T={t} steps={ms}",
+                                time_it=True)
+    ragged = torch.randint(1, 17, (48,), generator=gen, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        fm_compare(fm_inputs(gen, 48, t, 16, ragged), 16, dt,
+                   f"rows=48 T={t} per-row steps 1..16, max_steps 16")
+    x0, steps, w1, a, c, w2, b2 = fm_inputs(gen, 4, 9, 8)
+    for label, args, ms_ in (
+            ("C=64", (x0[..., :64], steps, w1[:64], a, c, w2[:, :64], b2), 8),
+            ("max_steps 17", (x0, steps, w1, a, c, w2, b2), 17)):
+        try:
+            fused_fm_euler(*args, max_steps=ms_, compute_dtype=torch.bfloat16)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"fused_fm_euler refuses {label} on the card")
+    for name, i in (("fm", 0), ("fm_bwd", 1)):
+        for dt, rows_ in per_dt.items():
+            err, ms_, plain_ms, (b_ms, by), _ = rows_[i]
+            print(f"time {name} {str(dt)[6:]}: kernel {ms_:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median "
+                  f"of 20, plain of 5, CUDA events)")
+    return {"fm": per_dt[torch.bfloat16][0],
+            "fm_bwd": per_dt[torch.bfloat16][1]}
+
+
+def kd_model(scfg, tcfg, seed: int):
+    from tpu_asr_torch.models.distil_model import DistilCTCModel
+    from tpu_asr_torch.profile_forward import seed_weights
+    from tpu_asr_torch.profile_train import distill_config
+    return seed_weights(DistilCTCModel(scfg, tcfg,
+                                       distill_config("flowkd_mlp8")),
+                        seed).cuda()
+
+
+def kd_train_phase(tcfg):
+    """The fp32 flowkd_mlp8 step on kernels against plain, then the timed
+    bf16 steps. Returns {row name: launches} of the timed steps."""
+    import copy
+
+    from tpu_asr_torch.config import OptimConfig, make_student_config
+    from tpu_asr_torch.profile_forward import set_backend
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+
+    f32 = lambda cfg: dataclasses.replace(cfg, compute_dtype="float32")
+    scfg = make_student_config(tcfg)
+    model = kd_model(f32(scfg), f32(tcfg), 10)
+    init = copy.deepcopy(model.state_dict())
+    batch = train_batch(CHECK_BATCH, 11)
+    runs = {}
+    for backend in ("auto", "xla"):
+        model.load_state_dict(init)
+        set_backend(model, backend)
+        state = DistilTrainState.create(model, OptimConfig())
+        state, metrics = make_distil_train_step(model)(state, batch, 12)
+        torch.cuda.synchronize()
+        runs[backend] = (
+            {k[5:]: v.item() for k, v in metrics.items()
+             if k.startswith("loss/")},
+            {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None},
+            {k: v.clone() for k, v in model.state_dict().items()
+             if k.startswith("teacher.")})
+        check(all(torch.equal(v, init[k]) for k, v in runs[backend][2].items())
+              and all(p.grad is None for n, p in model.named_parameters()
+                      if n.startswith("teacher.")),
+              f"fp32 flowkd step ({backend}): the teacher's "
+              f"{len(runs[backend][2])} parameters and statistics "
+              f"bit-unchanged, no teacher gradient")
+    (lk, gk, _), (lp, gp, _) = runs["auto"], runs["xla"]
+    check(set(lk) == {"ctc", "flow_matching", "logit_kd", "total"},
+          f"fp32 flowkd step losses {sorted(lk)}")
+    for name in sorted(lk):
+        check(math.isfinite(lk[name])
+              and abs(lk[name] - lp[name]) <= 1e-4 * abs(lp[name]),
+              f"fp32 flowkd_mlp8 step (teacher 16 x d{tcfg.encoder.d_model}, "
+              f"student 16 x d{scfg.encoder.d_model}, B={CHECK_BATCH} x "
+              f"{SECONDS} s, dropout, SpecAugment, dither) loss/{name}: "
+              f"kernels {lk[name]:.6f} vs plain {lp[name]:.6f} (1e-4 rel)")
+    check(set(gk) == set(gp) and any(n.startswith("flow_matching.")
+                                     for n in gk),
+          f"fp32 flowkd step: {len(gk)} student and FM gradients")
+    print("fp32 flowkd step gradients, kernels vs plain:")
+    grads_close([gk[n] for n in gk], [gp[n] for n in gk], 1e-2, list(gk),
+                1e-4, verbose=False)
+    fm_names = [n for n in gk if n.startswith("flow_matching.")]
+    grads_close([gk[n] for n in fm_names], [gp[n] for n in fm_names], 1e-2,
+                fm_names, 1e-4)
+
+    ms, counts, metrics = timed_steps(kd_model(scfg, tcfg, 13),
+                                      train_batch(BATCH, 14), 15)
+    names = ("ctc", "flow_matching", "logit_kd", "total")
+    losses = torch.stack([torch.stack([m[f"loss/{k}"] for k in names])
+                          for m in metrics])
+    check(bool(torch.isfinite(losses).all()),
+          f"bf16 flowkd_mlp8 steps: losses finite; first {names} "
+          f"{[round(x, 4) for x in losses[0].tolist()]}, last "
+          f"{[round(x, 4) for x in losses[-1].tolist()]}")
+    check(all(v > 0 for v in counts.values()),
+          f"flowkd_mlp8 steps launched every kernel: {counts}")
+    print(f"kd train: flowkd_mlp8 ({scfg.compute_dtype}, student 16 x d"
+          f"{scfg.encoder.d_model}, teacher 16 x d{tcfg.encoder.d_model}) "
+          f"B={BATCH} x {SECONDS} s, {TOKENS} tokens: {timed_summary(ms)}")
     return counts
 
 
@@ -805,7 +1042,12 @@ KERNELS = {
             "float32"),
     "ctc_bwd": ("tpu_asr_torch/csrc/ctc.cu", "tpu_asr/ops/pallas_ctc.py:107",
                 "float32"),
+    "fm": ("tpu_asr_torch/csrc/fm.cu", "tpu_asr/ops/pallas_fm.py:85",
+           "bfloat16"),
+    "fm_bwd": ("tpu_asr_torch/csrc/fm.cu", "tpu_asr/ops/pallas_fm.py:109",
+               "bfloat16"),
 }
+STUDENT = tuple(k for k in KERNELS if not k.startswith("fm"))
 
 
 def main() -> int:
@@ -827,6 +1069,9 @@ def main() -> int:
     measured.update(train_kernel_phase(cfg))
     counts.update({k: v for k, v in train_phase(cfg).items()
                    if k not in SERVING})
+    measured.update(fm_kernel_phase())
+    kd_counts = kd_train_phase(cfg)
+    counts.update({k: kd_counts[k] for k in ("fm", "fm_bwd")})
     rows = []
     for name, (source, replaces, dt) in KERNELS.items():
         err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]

@@ -12,6 +12,8 @@ valid query rows only (padded rows are garbage by contract).
   block in interpret mode, bf16, at dropout 0 and 0.1 with the same seed
   (the same counter-hash masks): atol 3e-2 * max(1, |ref|max) (bf16
   operands rounded at different points of two different backwards);
+- one head with dropout 0.1 against the Pallas block in interpret mode,
+  bf16 forward, rtol 2e-2, atol 1e-2 (the tolerance of the test above);
 - gradients of the module in fp32 against jax.vjp of the XLA module, 1e-4;
 - the kernel wrapper refuses what the port's slice does not run.
 """
@@ -185,6 +187,24 @@ def _torch_params(p):
 def _as_jax_layout(grads):
     return [g.T if leaf == "kernel" else g
             for g, (_, leaf) in zip(grads, _PARAM_ORDER)]
+
+
+def test_plain_one_head_dropout_matches_pallas_interpret():
+    """One head with dropout: the mask has one stream per batch row."""
+    t, d, h, rate, seed = 24, 44, 1, 0.1, 9
+    rng = np.random.default_rng(4)
+    p = _jax_params(rng, d, h)
+    x, mask = _inputs(rng, 2, t, d, [t, 17])
+    leaves = [p[n] if leaf is None else p[n][leaf] for n, leaf in _PARAM_ORDER]
+    want = _pallas_run(p, d, h, mask, rate, seed)(
+        jnp.asarray(x).astype(jnp.bfloat16), *map(jnp.asarray, leaves))
+    got = relpos_attention_plain(
+        torch.from_numpy(x).to(torch.bfloat16), *_torch_params(p),
+        rel_positional_encoding(t, d), torch.from_numpy(mask), h, rate, seed)
+    m = mask[..., None]
+    np.testing.assert_allclose(got.float().detach().numpy() * m,
+                               np.asarray(want, np.float32) * m, rtol=2e-2,
+                               atol=1e-2)
 
 
 @pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 77),

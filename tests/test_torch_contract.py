@@ -8,8 +8,9 @@
 - the entry points run on the card unless told otherwise;
 - chip_smoke.py refuses to run without a CUDA device and never prints its
   success line there;
-- on CPU tensors the kernel wrappers run their plain versions: a CPU forward
-  or train step launches nothing and builds nothing;
+- on CPU tensors the kernel wrappers run their plain versions: a CPU
+  forward, student train step or KD train step launches nothing and builds
+  nothing;
 - EncoderConfig options outside the port's slice raise.
 """
 
@@ -41,6 +42,7 @@ from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd
 from tpu_asr_torch.ops.cuda_features import fused_logmel
 from tpu_asr_torch.ops.cuda_ffn import (fused_ffn_sublayer,
                                         fused_ffn_sublayer_bwd)
+from tpu_asr_torch.ops.cuda_fm import fused_fm_euler, fused_fm_euler_bwd
 from tpu_asr_torch.ops.cuda_subsampling import fused_subsampling
 from tpu_asr_torch.train.trainer import (DistilTrainState,
                                          make_distil_train_step)
@@ -91,7 +93,10 @@ def test_port_imports_no_jax():
     for name in ("tpu_asr_torch.models.transcribe",
                  "tpu_asr_torch.convert.from_jax", "tpu_asr_torch.config",
                  "tpu_asr_torch.data.tokenizer", "tpu_asr_torch.data.audio",
-                 "tpu_asr_torch.train.trainer", "chip_smoke"):
+                 "tpu_asr_torch.train.trainer", "tpu_asr_torch.kd.schedules",
+                 "tpu_asr_torch.kd.losses", "tpu_asr_torch.kd.meta_encoders",
+                 "tpu_asr_torch.kd.flow_matching",
+                 "tpu_asr_torch.ops.cuda_fm", "chip_smoke"):
         assert name in out["modules"]
     assert "tpu_asr_torch.host" not in out["modules"]
     assert out["bad"] == []
@@ -147,6 +152,40 @@ def test_cpu_train_step_launches_and_builds_nothing():
     wrappers = (fused_logmel, fused_subsampling, fused_relpos_attention_block,
                 fused_relpos_attention_block_bwd, fused_ffn_sublayer,
                 fused_ffn_sublayer_bwd, ctc_nll, ctc_nll_bwd)
+    assert all(w.launches == 0 for w in wrappers)
+    assert _kernels.library.cache_info().currsize == 0
+
+
+def test_cpu_kd_train_step_launches_and_builds_nothing():
+    """The flowkd step (frozen teacher, logit KD, FM over all layers) on CPU
+    tensors runs every wrapper's plain version."""
+    teacher = port_config.ModelConfig(
+        encoder=port_config.EncoderConfig(n_layers=2, d_model=64, n_heads=4,
+                                          conv_kernel_size=7),
+        decoder=port_config.DecoderConfig(feat_in=64, num_classes=16),
+        compute_dtype="float32")
+    student = port_config.make_student_config(teacher)
+    flow = port_config.FlowMatchingConfig(
+        student_dim=32, teacher_dim=64, time_embed_dim=8, hidden_dim=16,
+        training_sampling=2)
+    distill = port_config.DistillationConfig(
+        use_logit_distillation=True, use_flow_matching=True, flow=flow)
+    torch.manual_seed(0)
+    model = DistilCTCModel(student, teacher, distill)
+    state = DistilTrainState.create(model, port_config.OptimConfig())
+    batch = {"signal": torch.randn(2, 8000), "signal_len":
+             torch.tensor([8000, 5000]),
+             "tokens": torch.randint(0, 16, (2, 4)),
+             "token_len": torch.tensor([4, 2])}
+    state, metrics = make_distil_train_step(model)(state, batch, 0)
+    assert {"loss/ctc", "loss/flow_matching", "loss/logit_kd",
+            "loss/total"} <= set(metrics)
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert not model.teacher.training
+    wrappers = (fused_logmel, fused_subsampling, fused_relpos_attention_block,
+                fused_relpos_attention_block_bwd, fused_ffn_sublayer,
+                fused_ffn_sublayer_bwd, ctc_nll, ctc_nll_bwd, fused_fm_euler,
+                fused_fm_euler_bwd)
     assert all(w.launches == 0 for w in wrappers)
     assert _kernels.library.cache_info().currsize == 0
 

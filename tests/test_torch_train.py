@@ -1,4 +1,4 @@
-"""Port parity for the student CTC train step: tpu_asr_torch's
+"""Port parity for the student CTC and KD train steps: tpu_asr_torch's
 DistilCTCModel + make_distil_train_step against the JAX package's on the
 CPU, weights carried by the bridge (convert/from_jax.distil_to_state_dict),
 batch made with numpy from a seed.
@@ -27,6 +27,16 @@ batch made with numpy from a seed.
 - SpecAugment and dither: deterministic under a seed, masks within bounds;
 - training randomness reproducible per (seed, step), and the checkpointed
   layers update BatchNorm once per step;
+- the KD train steps 'logit' (logit KL + CTC) and 'flowkd' (FM-KT with
+  the mlp meta encoder and 3 fixed Euler steps over both layers + logit KL
+  + CTC) with a frozen tiny teacher (2 layers, d 64, 4 heads), on the
+  tolerances above: every loss component, every student and FM gradient,
+  the grad_norm metric, and the parameters after one and two steps (the
+  second within 2e-2 x the learning rate: by then both Adam moments carry
+  the first step's rounding difference); the teacher's parameters and
+  statistics stay bit-unchanged and get no gradient; then the eval
+  forward from JAX's weights (FM output into the decoder, no teacher) at
+  1e-4;
 - the KD options outside the slice raise.
 """
 
@@ -80,12 +90,28 @@ def _torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _jax_setup(seed=0):
+def _distill(mod, kind, backend="auto"):
+    """DistillationConfig of `kind`: 'ctc', 'logit' or 'flowkd' (logit KD
+    + FM-KT with the mlp meta encoder, 3 fixed steps)."""
+    if kind == "ctc":
+        return mod.DistillationConfig()
+    flow = mod.FlowMatchingConfig(
+        student_dim=32, teacher_dim=64, student_head_num=2,
+        teacher_head_num=4, time_embed_dim=8, hidden_dim=16,
+        training_sampling=3, inference_sampling=3, euler_backend=backend)
+    return mod.DistillationConfig(
+        use_logit_distillation=True, kd_alpha=0.1,
+        use_flow_matching=kind == "flowkd",
+        flow=flow if kind == "flowkd" else None)
+
+
+def _jax_setup(seed=0, kind="ctc"):
     teacher, student = _configs(JC)
-    model = JaxDistil(student, teacher, JC.DistillationConfig())
+    model = JaxDistil(student, teacher, _distill(JC, kind, "xla"))
     jb = {k: jnp.asarray(v) for k, v in _batch().items()}
     key = jax.random.PRNGKey(seed)
-    v = model.init({"params": key, "specaug": key, "dropout": key},
+    v = model.init({"params": key, "specaug": key, "dropout": key,
+                    "gumbel": key, "noise": key},
                    jb["signal"], jb["signal_len"], jb["tokens"],
                    jb["token_len"], train=True)
     rng = np.random.default_rng(seed)
@@ -95,11 +121,11 @@ def _jax_setup(seed=0):
     return model, student, params, stats, jb, key
 
 
-def _port(params, stats):
+def _port(params, stats, kind="ctc"):
     teacher, student = _configs(PC)
-    model = DistilCTCModel(student, teacher)
-    model.load_state_dict(distil_to_state_dict(params, stats, student),
-                          strict=True)
+    model = DistilCTCModel(student, teacher, _distill(PC, kind))
+    model.load_state_dict(distil_to_state_dict(params, stats, student,
+                                               teacher), strict=True)
     return model, student
 
 
@@ -178,6 +204,118 @@ def test_train_step_matches_jax(clip):
                                        want_sd[name][keep].numpy(),
                                        rtol=1e-5, atol=5e-3 * lr,
                                        err_msg=f"step {n_steps}: {name}")
+
+
+@pytest.mark.parametrize("kind", ["logit", "flowkd"])
+def test_kd_train_step_matches_jax(kind):
+    jmodel, _, params, stats, jb, key = _jax_setup(kind=kind)
+    rngs = {"specaug": key, "dropout": key, "gumbel": key, "noise": key}
+
+    def loss_fn(p):
+        out, mut = jmodel.apply(
+            {"params": p, "batch_stats": stats}, jb["signal"],
+            jb["signal_len"], jb["tokens"], jb["token_len"], train=True,
+            rngs=rngs, mutable=["batch_stats"])
+        return out.losses["total"], out.losses
+
+    (_, want_losses), want_grads = jax.value_and_grad(
+        loss_fn, has_aux=True)(params)
+    ocfg = dict(d_model=32, warmup_steps=10)
+    jstate = JaxState.create(apply_fn=jmodel.apply, params=params,
+                             batch_stats=stats,
+                             tx=jax_build_optimizer(JC.OptimConfig(**ocfg),
+                                                    params))
+    jstep = jax.jit(jax_make_step(jmodel))
+
+    model, student = _port(params, stats, kind)
+    teacher_cfg = model.teacher_cfg
+    teacher0 = {k: v.clone() for k, v in model.state_dict().items()
+                if k.startswith("teacher.")}
+    state = DistilTrainState.create(model, PC.OptimConfig(**ocfg))
+    step = make_distil_train_step(model)
+    tb = _torch_batch(_batch())
+    state, metrics = step(state, tb, 0)
+    assert set(want_losses) == {k[5:] for k in metrics if
+                                k.startswith("loss/")}
+    for name, want in want_losses.items():
+        np.testing.assert_allclose(metrics[f"loss/{name}"].item(),
+                                   float(want), rtol=1e-5, err_msg=name)
+    grads = distil_to_state_dict(want_grads, stats, student, teacher_cfg)
+    top = max(g.abs().max().item() for g in grads.values())
+    for name, p in model.named_parameters():
+        if name.startswith("teacher."):
+            assert p.grad is None and not p.requires_grad, name
+            continue
+        w = grads[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 + 1e-4 * np.abs(w).max(),
+                                   err_msg=name)
+    decided = {n: g.abs() > 1e-4 * top for n, g in grads.items()}
+    for n_steps in (1, 2):
+        if n_steps == 2:
+            state, _ = step(state, tb, 0)
+        jstate, jmetrics = jstep(jstate, jb, key)
+        if n_steps == 1:
+            np.testing.assert_allclose(metrics["grad_norm"].item(),
+                                       float(jmetrics["grad_norm"]),
+                                       rtol=1e-5)
+        want_sd = distil_to_state_dict(jstate.params, jstate.batch_stats,
+                                       student, teacher_cfg)
+        lr = state.schedule(n_steps - 1)
+        tol = 5e-3 if n_steps == 1 else 2e-2
+        for name, t in model.state_dict().items():
+            if name.startswith("teacher."):
+                assert torch.equal(t, teacher0[name]), name
+                continue
+            if "num_batches_tracked" in name:
+                assert t.item() == n_steps
+                continue
+            keep = decided.get(name, torch.ones(t.shape, dtype=torch.bool))
+            np.testing.assert_allclose(t[keep].numpy(),
+                                       want_sd[name][keep].numpy(),
+                                       rtol=1e-5, atol=tol * lr,
+                                       err_msg=f"step {n_steps}: {name}")
+        np.testing.assert_allclose(
+            np.concatenate([want_sd[k].numpy().ravel() for k in teacher0]),
+            np.concatenate([teacher0[k].numpy().ravel() for k in teacher0]),
+            rtol=0, atol=0)
+
+    # eval from JAX's weights after the steps (Adam moves the undecided
+    # elements apart): no teacher; with FM the decoder reads the last
+    # layer's FM output
+    model.load_state_dict(want_sd)
+    want = jmodel.apply({"params": jstate.params,
+                         "batch_stats": jstate.batch_stats}, jb["signal"],
+                        jb["signal_len"], train=False)
+    with torch.no_grad():
+        got = model(tb["signal"], tb["signal_len"])
+    assert got.tch_feats is None and want.tch_feats is None
+    np.testing.assert_allclose(got.log_probs.numpy(),
+                               np.asarray(want.log_probs), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_bridge_maps_the_whole_flowkd_tree():
+    """Every JAX leaf (student, teacher and FM params, both batch_stats)
+    becomes one port tensor, and the port's state_dict has nothing else
+    but the num_batches_tracked counters."""
+    _, _, params, stats, _, _ = _jax_setup(kind="flowkd")
+    assert set(params) == {"student", "teacher", "flow_matching"}
+    model, _ = _port(params, stats, "flowkd")
+    sd = distil_to_state_dict(params, stats, model.student_cfg,
+                              model.teacher_cfg)
+    n_leaves = len(jax.tree.leaves(params)) + len(jax.tree.leaves(stats))
+    n_layers = model.student_cfg.encoder.n_layers
+    stacked = sum(len(jax.tree.leaves(params[m]["encoder"]["layers"]))
+                  + len(jax.tree.leaves(stats[m]))
+                  for m in ("student", "teacher"))
+    # a stacked (L, ...) layer leaf becomes L tensors; one BatchNorm
+    # counter per layer of the two encoders
+    assert len(sd) - 2 * n_layers == n_leaves + (n_layers - 1) * stacked
+    assert set(sd) == set(model.state_dict())
+    with pytest.raises(ValueError, match="no port counterpart"):
+        distil_to_state_dict({**params, "router": {}}, stats,
+                             model.student_cfg, model.teacher_cfg)
 
 
 def test_skip_nan_grad_zeroes_and_counts():
@@ -271,11 +409,22 @@ def test_checkpointed_layers_update_batch_norm_once():
 
 
 @pytest.mark.parametrize("option", [
-    {"use_logit_distillation": True}, {"use_layerwise_distillation": True},
-    {"use_flow_matching": True}, {"use_diffkd": True}, {"use_diffm": True},
-    {"interctc_layers": (0,)}])
+    {"use_layerwise_distillation": True}, {"use_diffkd": True},
+    {"use_diffm": True}, {"interctc_layers": (0,)},
+    {"flow": None}, {"flow.use_dynamic_steps": True},
+    {"flow.sampling_steps_per_layer": (3, 3)},
+    {"flow.meta_encoder_type": "cnn"}, {"group_loss": True}])
 def test_kd_options_outside_the_slice_raise(option):
     teacher, student = _configs(PC)
+    distill = _distill(PC, "flowkd")
+    (key, value), = option.items()
+    if key.startswith("flow."):
+        distill = dataclasses.replace(distill, flow=dataclasses.replace(
+            distill.flow, **{key[5:]: value}))
+    elif key != "group_loss":
+        distill = dataclasses.replace(distill, **option)
     with pytest.raises(ValueError, match="does not implement"):
-        DistilCTCModel(student, teacher,
-                       dataclasses.replace(PC.DistillationConfig(), **option))
+        model = DistilCTCModel(student, teacher, distill)
+        feats = torch.zeros(2, 5, 32)
+        model.flow_matching(feats, torch.zeros(2, 5, 64), train=True,
+                            group_loss=True)

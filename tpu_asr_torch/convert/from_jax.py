@@ -9,15 +9,16 @@ The exact inverse of tpu_asr/convert/nemo_import.py::convert_state_dict:
 - LayerNorm / BatchNorm scale, bias     -> weight, bias
 - batch_stats mean, var                 -> running_mean, running_var
 - stacked (L, ...) layer leaves         -> encoder.layers.{i}.*
-- DistilCTCModel's params['student'] and batch_stats['student']
-                                        -> student.* (distil_to_state_dict)
+- DistilCTCModel's params and batch_stats: 'student', 'teacher'
+  -> student.*, teacher.*; 'flow_matching' -> flow_matching.*
+                                        (distil_to_state_dict)
 
 Leaves may be numpy or JAX arrays; this module imports no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -92,14 +93,54 @@ def jax_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
     return sd
 
 
+def flow_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX FlowMatchingModule's params (the `mlp` meta encoder) -> the
+    port's FlowMatchingModule `state_dict`."""
+    sd: Dict[str, torch.Tensor] = {}
+    euler = params["euler"]
+    dense = {"euler.time_embed": euler["time_embed"],
+             "euler.meta_encoder.fc1": euler["meta_encoder"]["fc1"],
+             "euler.meta_encoder.fc2": euler["meta_encoder"]["fc2"]}
+    if "shape_transform" in params:
+        dense["shape_transform"] = params["shape_transform"]
+    for key, p in dense.items():
+        sd[f"{key}.weight"] = _t(p["kernel"]).T.contiguous()
+        sd[f"{key}.bias"] = _t(p["bias"])
+    if "shape_transform_conv" in params:     # kernel (1, C, C_t)
+        p = params["shape_transform_conv"]
+        sd["shape_transform_conv.weight"] = _t(p["kernel"])[0].T \
+            .contiguous()[..., None]
+        sd["shape_transform_conv.bias"] = _t(p["bias"])
+    return sd
+
+
 def distil_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
-                         student_cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """A JAX DistilCTCModel's student subtree -> the port's DistilCTCModel
-    `state_dict` (`student.*` keys; the port builds no teacher for the
-    CTC-only path)."""
-    sd = jax_to_state_dict(params["student"],
-                           batch_stats.get("student", {}), student_cfg)
-    return {f"student.{k}": v for k, v in sd.items()}
+                         student_cfg: ModelConfig,
+                         teacher_cfg: Optional[ModelConfig] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A JAX DistilCTCModel's whole tree -> the port's DistilCTCModel
+    `state_dict`: params['student'] and batch_stats['student'] ->
+    `student.*`, params['teacher'] and batch_stats['teacher'] ->
+    `teacher.*` (needs `teacher_cfg`), params['flow_matching'] ->
+    `flow_matching.*`. Any other subtree raises."""
+    left = set(params) - {"student", "teacher", "flow_matching"}
+    if left:
+        raise ValueError(f"distil_to_state_dict: no port counterpart for "
+                         f"{sorted(left)}")
+    sd = {f"student.{k}": v for k, v in jax_to_state_dict(
+        params["student"], batch_stats.get("student", {}),
+        student_cfg).items()}
+    if "teacher" in params:
+        if teacher_cfg is None:
+            raise ValueError("distil_to_state_dict: the tree has a teacher; "
+                             "pass teacher_cfg")
+        sd.update({f"teacher.{k}": v for k, v in jax_to_state_dict(
+            params["teacher"], batch_stats.get("teacher", {}),
+            teacher_cfg).items()})
+    if "flow_matching" in params:
+        sd.update({f"flow_matching.{k}": v for k, v in
+                   flow_to_state_dict(params["flow_matching"]).items()})
+    return sd
 
 
 def _index(tree, i: int):

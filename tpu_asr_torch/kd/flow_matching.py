@@ -1,0 +1,138 @@
+"""Flow-matching KD (FM-KT) module: the PyTorch counterpart of
+tpu_asr/kd/flow_matching.py (reference FlowMatchingModule,
+asr_train.py:1220-1377), for the `mlp` meta encoder.
+
+- The Euler loop `x <- x - v(x, t) / N`, t = N/N .. 1/N, runs as one fused
+  call (ops/cuda_fm.py::fused_fm_euler) over a static trip count
+  `max_steps` with per-row step counts, the time embedding Linear(1 -> E)
+  folded outside the call and under autograd:
+  w1x = fc1.W[:, :C], a = fc1.W[:, C:] te.W[:, 0], c = fc1.W[:, C:] te.b +
+  fc1.b, so gradients reach the time embedding and fc1's time columns.
+  `euler_backend` 'auto'/'pallas' calls the kernel wrapper (the CUDA kernel
+  for CUDA tensors, the plain loop for CPU tensors), 'xla' the plain loop.
+- The training loss uses only the LAST velocity (t = 1/N):
+  x_hat = (dalpha_dt s_f - last_v) / (-dsigma_dt), then the shape transform
+  (identity, linear or conv1d with kernel 1), then mse or cosine
+  (mean(1 - cos) over positions), then `loss_layers` L * mean when the rows
+  are L stacked layers.
+- `group_loss` (the dynamic router's per-step-count aggregation) raises.
+
+Parameters carry the JAX module's paths: `euler.time_embed`,
+`euler.meta_encoder.fc1`, `euler.meta_encoder.fc2`, and `shape_transform`
+or `shape_transform_conv`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpu_asr_torch.config import FlowMatchingConfig
+from tpu_asr_torch.kd.meta_encoders import build_meta_encoder
+from tpu_asr_torch.kd.schedules import get_noise_schedule
+from tpu_asr_torch.ops.cuda_fm import fm_euler_plain, fused_fm_euler
+
+BACKENDS = ("auto", "pallas", "xla")
+
+
+class _EulerStep(nn.Module):
+    """The shared parameters of one Euler step: time embedding and meta
+    encoder."""
+
+    def __init__(self, c: FlowMatchingConfig):
+        super().__init__()
+        self.time_embed = nn.Linear(1, c.time_embed_dim)
+        self.meta_encoder = build_meta_encoder(
+            c.meta_encoder_type, in_dim=c.student_dim + c.time_embed_dim,
+            out_dim=c.student_dim, hidden_dim=c.hidden_dim)
+
+
+class FlowMatchingModule(nn.Module):
+    def __init__(self, cfg: FlowMatchingConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.euler_backend not in BACKENDS:
+            raise ValueError(f"tpu_asr_torch does not implement "
+                             f"euler_backend {cfg.euler_backend!r}")
+        self.cfg, self.dtype, self.backend = cfg, dtype, cfg.euler_backend
+        self.euler = _EulerStep(cfg)
+        if cfg.shape_transform == "linear":
+            self.shape_transform = nn.Linear(cfg.student_dim, cfg.teacher_dim)
+        elif cfg.shape_transform == "conv1d":
+            self.shape_transform_conv = nn.Conv1d(cfg.student_dim,
+                                                  cfg.teacher_dim, 1)
+        elif cfg.shape_transform != "identity":
+            raise ValueError(
+                f"Unknown shape_transform type: {cfg.shape_transform}")
+        if cfg.loss not in ("mse", "cosine"):
+            raise ValueError(f"Unknown loss type: {cfg.loss}")
+
+    def _shape_transform(self, x: torch.Tensor) -> torch.Tensor:
+        t = self.cfg.shape_transform
+        if t == "identity":
+            return x
+        layer = (self.shape_transform if t == "linear"
+                 else self.shape_transform_conv)
+        w = layer.weight[..., 0] if t == "conv1d" else layer.weight
+        return F.linear(x, w.to(x.dtype), layer.bias.to(x.dtype))
+
+    def _metric_loss(self, pred: torch.Tensor,
+                     target: torch.Tensor) -> torch.Tensor:
+        pred, target = pred.float(), target.float()
+        if self.cfg.loss == "mse":
+            return torch.square(pred - target)
+        num = torch.sum(pred * target, dim=-1)
+        den = (torch.linalg.vector_norm(pred, dim=-1)
+               * torch.linalg.vector_norm(target, dim=-1))
+        return (1.0 - num / torch.clamp(den, min=1e-8))[..., None]
+
+    def euler_weights(self):
+        """(w1x (C, H), a (H,), c (H,), w2 (H, C), b2 (C,)) in fp32, the time
+        embedding folded into a and c."""
+        cs = self.cfg.student_dim
+        te, mlp = self.euler.time_embed, self.euler.meta_encoder
+        w1 = mlp.fc1.weight                          # (H, C + E)
+        w1t = w1[:, cs:]
+        return (w1[:, :cs].t(), w1t @ te.weight[:, 0],
+                w1t @ te.bias + mlp.fc1.bias, mlp.fc2.weight.t(),
+                mlp.fc2.bias)
+
+    def forward(self, s_f: torch.Tensor, t_f: Optional[torch.Tensor] = None,
+                steps: Union[int, torch.Tensor, None] = None,
+                max_steps: Optional[int] = None, train: bool = False,
+                group_loss: bool = False,
+                loss_layers: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, x_final (B, T, C_s) in the compute dtype) for the student
+        feature s_f (B, T, C_s) and, in training, the teacher feature t_f
+        (B, T, C_t). `loss_layers=L`: the rows are L stacked layers,
+        B-major (row = b * L + l)."""
+        c = self.cfg
+        if group_loss:
+            raise ValueError("tpu_asr_torch does not implement the group "
+                             "loss (the dynamic step router's)")
+        b = s_f.shape[0]
+        if steps is None:
+            steps = c.training_sampling if train else c.inference_sampling
+        if max_steps is None:
+            max_steps = (steps if isinstance(steps, int)
+                         else c.router_max_sampling_steps)
+        steps_b = torch.as_tensor(steps, dtype=torch.int32,
+                                  device=s_f.device).expand(b)
+        run = fm_euler_plain if self.backend == "xla" else fused_fm_euler
+        x, last_v = run(s_f.to(self.dtype), steps_b, *self.euler_weights(),
+                        max_steps=max_steps, compute_dtype=self.dtype)
+        loss = torch.zeros((), device=s_f.device)
+        if train and t_f is not None:
+            _, schedule_deriv = get_noise_schedule(c.noise_schedule)
+            t_last = 1.0 / steps_b.float()[:, None, None]
+            dalpha_dt, dsigma_dt = schedule_deriv(t_last)
+            x_hat = (dalpha_dt * s_f.float() - last_v.float()) / (-dsigma_dt)
+            err = self._metric_loss(self._shape_transform(
+                x_hat.to(self.dtype)), t_f)
+            loss = err.mean() if loss_layers is None else \
+                loss_layers * err.mean()
+        return loss, x

@@ -91,7 +91,7 @@ def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
     if dropout_rate:
         keep = keep_mask(batch_streams(dropout_seed, b, per_row=h,
                                        device=x.device), t, t, dropout_rate,
-                         row_stride=_round_up(t, 128))
+                         row_stride=_round_up(t, 128)).view(attn.shape)
         attn = torch.where(keep, attn * (1.0 / (1.0 - dropout_rate)),
                            torch.zeros_like(attn))
     attn = r(attn)

@@ -83,8 +83,9 @@ def waveforms(rng, n: int, lo: float, hi: float, sr: int = SR):
 
 def set_backend(model, backend: str) -> None:
     """Point the featurizer, subsampling, every attention, every training
-    FFN and the CTC loss at `backend` ('auto' the kernels, 'xla' the plain
-    versions)."""
+    FFN, the flow-matching Euler loop and the CTC loss at `backend` ('auto'
+    the kernels, 'xla' the plain versions)."""
+    from tpu_asr_torch.kd.flow_matching import FlowMatchingModule
     from tpu_asr_torch.models.conformer import (ConformerLayer,
                                                 ConvSubsampling,
                                                 RelPositionMultiHeadAttention)
@@ -92,7 +93,7 @@ def set_backend(model, backend: str) -> None:
     from tpu_asr_torch.ops.features import FilterbankFeatures
     for m in model.modules():
         if isinstance(m, (ConvSubsampling, RelPositionMultiHeadAttention,
-                          FilterbankFeatures)):
+                          FilterbankFeatures, FlowMatchingModule)):
             m.backend = backend
         elif isinstance(m, ConformerLayer):
             m.ffn_backend = backend

@@ -1,12 +1,16 @@
-"""Time and profile the student CTC train step on one CUDA card, on the
-hand-written kernels ('auto') and on the plain PyTorch versions ('xla').
+"""Time and profile a train step on one CUDA card, on the hand-written
+kernels ('auto') and on the plain PyTorch versions ('xla').
 
-    python -m tpu_asr_torch.profile_train [--out FILE]
+    python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8]
+        [--out FILE]
 
-DistilCTCModel(make_student_config(ModelConfig())) at its own compute dtype
-(bf16) with seeded random weights, DistillationConfig() (CTC only) and
-OptimConfig(), on B=32 x 15 s of seeded noise with 48 target tokens (the
-`ctc_student` shape of bench_train.py). Per backend it prints one line with:
+DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
+at its own compute dtype (bf16) with seeded random weights and
+OptimConfig(), on B=32 x 15 s of seeded noise with 48 target tokens, with
+the `distill` of bench_train.py's configuration of that name: `ctc_student`
+(CTC only) or `flowkd_mlp8` (frozen teacher, logit KD at alpha 0.1 and
+FM-KT with the mlp meta encoder, 8 Euler steps over all 16 layers). Per
+backend it prints one line with:
   - `step_ms`: median host-clock time of a train step + synchronize over
     5 steps after 2 warm-up steps;
   - `device_ms`: device time per step, the union of all kernel and copy
@@ -35,7 +39,9 @@ from tpu_asr_torch.profile_forward import (device_activity, seed_weights,
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
 # kernel name prefixes of the port's own sources -> group
-GROUPS = (("core_kernel", "attention fwd"), ("proj_kernel", "attention proj"),
+GROUPS = (("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
+          ("fm_partial_sum", "fm bwd"), ("core_kernel", "attention fwd"),
+          ("proj_kernel", "attention proj"),
           ("dq_kernel", "attention bwd"), ("dkv_kernel", "attention bwd"),
           ("dpos_kernel", "attention bwd"), ("wgrad_kernel", "attention bwd"),
           ("sum_parts_kernel", "attention bwd"), ("ffn_fwd", "ffn fwd"),
@@ -56,6 +62,23 @@ def group_of(name: str) -> str:
     return "other ATen (elementwise, reductions, copies, optimizer)"
 
 
+CONFIGS = ("ctc_student", "flowkd_mlp8")
+
+
+def distill_config(name: str):
+    """The DistillationConfig of bench_train.py's configuration `name`."""
+    from tpu_asr_torch.config import DistillationConfig, FlowMatchingConfig
+    if name == "ctc_student":
+        return DistillationConfig()
+    if name == "flowkd_mlp8":
+        flow = FlowMatchingConfig(meta_encoder_type="mlp", student_dim=88,
+                                  teacher_dim=176, student_head_num=2,
+                                  training_sampling=8, inference_sampling=8)
+        return DistillationConfig(use_logit_distillation=True, kd_alpha=0.1,
+                                  use_flow_matching=True, flow=flow)
+    raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
+
+
 def make_batch(device="cuda"):
     rng = np.random.default_rng(0)
     return {"signal": torch.from_numpy(rng.normal(size=(B, SECONDS * SR))
@@ -66,7 +89,8 @@ def make_batch(device="cuda"):
             "token_len": torch.full((B,), TOKENS, device=device)}
 
 
-def profile_backend(backend: str, out=None) -> None:
+def profile_backend(backend: str, config: str = "ctc_student",
+                    out=None) -> None:
     from tpu_asr_torch.config import (ModelConfig, OptimConfig,
                                       make_student_config)
     from tpu_asr_torch.models.distil_model import DistilCTCModel
@@ -74,7 +98,8 @@ def profile_backend(backend: str, out=None) -> None:
                                              make_distil_train_step)
 
     scfg = make_student_config(ModelConfig())
-    model = seed_weights(DistilCTCModel(scfg, ModelConfig()), 1).cuda()
+    model = seed_weights(DistilCTCModel(scfg, ModelConfig(),
+                                        distill_config(config)), 1).cuda()
     set_backend(model, backend)
     state = DistilTrainState.create(model, OptimConfig())
     step = make_distil_train_step(model)
@@ -96,8 +121,8 @@ def profile_backend(backend: str, out=None) -> None:
         torch.cuda.synchronize()
     step_ms = float(np.median(host))
     device_ms, launches, names = device_activity(prof, PROFILED)
-    print(f"train step {backend} (B={B} x {SECONDS} s, {TOKENS} tokens, "
-          f"{scfg.compute_dtype}): step_ms {step_ms:.3f} device_ms "
+    print(f"train step {config} {backend} (B={B} x {SECONDS} s, {TOKENS} "
+          f"tokens, {scfg.compute_dtype}): step_ms {step_ms:.3f} device_ms "
           f"{device_ms:.3f} busy {device_ms / step_ms:.3f} launches "
           f"{launches:.0f} loss {metrics['loss/total'].item():.4f}")
     groups = defaultdict(lambda: [0.0, 0.0])
@@ -112,13 +137,14 @@ def profile_backend(backend: str, out=None) -> None:
         print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% x{calls:<5g} "
               f"{name[:90]}")
     if out is not None:
-        out.write(f"== train step {backend}\n")
+        out.write(f"== train step {config} {backend}\n")
         out.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=50) + "\n")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="ctc_student", choices=CONFIGS)
     ap.add_argument("--out", default=None,
                     help="file for the profiler tables")
     args = ap.parse_args(argv)
@@ -132,7 +158,7 @@ def main(argv=None) -> int:
     out = open(args.out, "w") if args.out else None
     try:
         for backend in ("auto", "xla"):
-            profile_backend(backend, out)
+            profile_backend(backend, args.config, out)
     finally:
         if out is not None:
             out.close()
