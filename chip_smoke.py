@@ -58,6 +58,34 @@ Phases, each on its own output lines:
      tokens: 2 warm-up steps, counters reset, 10 timed steps; losses finite,
      every kernel (the teacher's logmel, subsampling C=176 and attention
      forward included) launched; ms per step, audio s/s and peak memory.
+  10. eval kernels: the int8 FFN sublayer and the conv module against their
+     plain versions at the int8 teacher's serving shape (B=32 x 15 s,
+     T'=376, D=176, d_ff 704, conv k=31, ragged lengths), fp32 and bf16:
+     the conv with folded batch norm, layer norm and a causal (30, 0)
+     context; both also at an odd T, at the student's D=88, and refusing a
+     shape outside their build. The int8 FFN: rows whose every quantized
+     value lies more than 1e-4 quanta from a rounding tie match to 1e-5
+     (one ulp in bf16); at most 1% of the rows differ beyond it (a quantization step flips
+     where the LN sums run in another order; counts printed); max error
+     2e-2 in fp32, 3e-2 of max(1, |ref|) in bf16. The conv within 1e-4 of
+     the output's scale in fp32, 3e-2 in bf16. Median kernel and plain times, the
+     bound, and beside the int8 FFN the bf16 eval FFN sublayer it replaces
+     (LN + two cuBLAS products).
+  11. int8 model: ModelConfig() with quantization='int8' and
+     conv_backend='pallas' in fp32 on 8 clips, kernels against plain:
+     every eval kernel launched, equal encoded_len; each layer on the plain
+     model's layer input with at most 10% of its rows beyond 1e-4 and none
+     beyond half the int8-vs-fp drift of the same weights (a quantization
+     step flips where a value lies within rounding of a tie, and the
+     flips compound over 16 layers, so the end-to-end max |delta
+     log-prob| and the drift are printed, not gated); equal greedy ids on
+     at least 99% of the frames whose plain top-2 margin exceeds 1e-2.
+  12. int8 serve: the serve phase on the phase-11 configuration in bf16,
+     every serving kernel and the int8 FFN and conv module launched; RTFx
+     beside phase 5's.
+  13. int8-teacher KD: phase 9 for flowkd_mlp8_int8_teacher (the teacher's
+     FFN sublayers in int8), the int8 FFN launched 32 times per timed
+     step.
 Then one JSON line of per-kernel results, and last the JSON device line.
 Any failed check exits non-zero before the last line.
 """
@@ -78,7 +106,8 @@ SECONDS, BATCH, SR = 15, 32, 16000
 SERVE_POOL, SERVE_BATCH, SERVE_WARMUP, SERVE_REQUESTS = 256, 32, 2, 64
 TOKENS, CHECK_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 48, 8, 2, 10
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # SIMT fp32, bf16 TC
+# SIMT fp32, bf16 and int8 tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
 def check(ok, msg: str) -> None:
@@ -253,10 +282,12 @@ def reset_counters():
     """Set every kernel wrapper's launch count to 0; {row name: wrapper}."""
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention_block, fused_relpos_attention_block_bwd)
+    from tpu_asr_torch.ops.cuda_conv import fused_conv_module
     from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd
     from tpu_asr_torch.ops.cuda_features import fused_logmel
     from tpu_asr_torch.ops.cuda_ffn import (fused_ffn_sublayer,
-                                            fused_ffn_sublayer_bwd)
+                                            fused_ffn_sublayer_bwd,
+                                            fused_ffn_sublayer_int8)
     from tpu_asr_torch.ops.cuda_fm import fused_fm_euler, fused_fm_euler_bwd
     from tpu_asr_torch.ops.cuda_subsampling import fused_subsampling
     fns = {"logmel": fused_logmel, "subsampling": fused_subsampling,
@@ -264,24 +295,30 @@ def reset_counters():
            "attention_bwd": fused_relpos_attention_block_bwd,
            "ffn": fused_ffn_sublayer, "ffn_bwd": fused_ffn_sublayer_bwd,
            "ctc": ctc_nll, "ctc_bwd": ctc_nll_bwd, "fm": fused_fm_euler,
-           "fm_bwd": fused_fm_euler_bwd}
+           "fm_bwd": fused_fm_euler_bwd, "ffn_int8": fused_ffn_sublayer_int8,
+           "conv_module": fused_conv_module}
     for fn in fns.values():
         fn.launches = 0
     return fns
 
 
-def model_phase(cfg):
-    from tpu_asr_torch.profile_forward import (seeded_model, set_backend,
-                                               waveforms)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    model = seeded_model(cfg32, seed=1)
-    rng = np.random.default_rng(1)
-    clips = waveforms(rng, 8, 5.0, SECONDS)
+def model_clips(seed: int):
+    """8 seeded clips of 5-15 s, zero-padded: (signal, lengths) on the
+    card."""
+    from tpu_asr_torch.profile_forward import waveforms
+    clips = waveforms(np.random.default_rng(seed), 8, 5.0, SECONDS)
     sig = np.zeros((len(clips), SECONDS * SR), np.float32)
     for i, c in enumerate(clips):
         sig[i, :len(c)] = c
-    sig_t = torch.from_numpy(sig).cuda()
-    len_t = torch.tensor([len(c) for c in clips], device="cuda")
+    return (torch.from_numpy(sig).cuda(),
+            torch.tensor([len(c) for c in clips], device="cuda"))
+
+
+def model_phase(cfg):
+    from tpu_asr_torch.profile_forward import seeded_model, set_backend
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = seeded_model(cfg32, seed=1)
+    sig_t, len_t = model_clips(1)
     fns = reset_counters()
     with torch.inference_mode():
         got = model(sig_t, len_t)
@@ -299,7 +336,7 @@ def model_phase(cfg):
              < want.encoded_len[:, None])
     delta = ((got.log_probs - want.log_probs).abs() * valid[..., None]).max()
     check(bool(torch.isfinite(got.log_probs).all()), "log-probs finite")
-    check(delta.item() < 2e-3, f"ModelConfig() fp32, {len(clips)} clips of "
+    check(delta.item() < 2e-3, f"ModelConfig() fp32, {len(sig_t)} clips of "
           f"5-{SECONDS} s: max |delta log-prob| kernels vs plain "
           f"{delta.item():.3e} < 2e-3")
     top2 = want.log_probs.topk(2, dim=-1).values
@@ -310,7 +347,8 @@ def model_phase(cfg):
           f"(of {int(valid.sum())} valid)")
 
 
-def serve_phase(cfg):
+def serve_phase(cfg, rows=None):
+    """Returns ({row: launches} for `rows` (default SERVING), RTFx)."""
     from tpu_asr_torch.data.tokenizer import train_bpe
     from tpu_asr_torch.models.transcribe import Transcriber
     from tpu_asr_torch.profile_forward import seeded_model, waveforms
@@ -340,7 +378,7 @@ def serve_phase(cfg):
         latency.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    counts = {k: fns[k].launches for k in SERVING}
+    counts = {k: fns[k].launches for k in rows or SERVING}
     audio_s = sum(len(w) for r in requests for w in r) / SR
     flat = [t for r in texts for t in r]
     check(len(flat) == SERVE_REQUESTS * SERVE_BATCH
@@ -350,13 +388,15 @@ def serve_phase(cfg):
           f"e.g. {flat[0]!r}")
     check(all(v > 0 for v in counts.values()),
           f"serving path launched every kernel: {counts}")
-    print(f"serve: {SERVE_REQUESTS} requests x {SERVE_BATCH} clips of "
+    enc = cfg.encoder
+    print(f"serve (quantization {enc.quantization}, conv {enc.conv_backend})"
+          f": {SERVE_REQUESTS} requests x {SERVE_BATCH} clips of "
           f"1-{SECONDS} s, {audio_s:.2f} s of audio in {wall:.4f} s wall: "
           f"RTFx {audio_s / wall:.1f}; per request median "
           f"{1e3 * float(np.median(latency)):.2f} ms, max "
           f"{1e3 * max(latency):.2f} ms (host clock, after "
           f"{SERVE_WARMUP} warm-up requests)")
-    return counts
+    return counts, audio_s / wall
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -926,12 +966,9 @@ def fm_kernel_phase():
     for label, args, ms_ in (
             ("C=64", (x0[..., :64], steps, w1[:64], a, c, w2[:, :64], b2), 8),
             ("max_steps 17", (x0, steps, w1, a, c, w2, b2), 17)):
-        try:
-            fused_fm_euler(*args, max_steps=ms_, compute_dtype=torch.bfloat16)
-            refused = False
-        except ValueError:
-            refused = True
-        check(refused, f"fused_fm_euler refuses {label} on the card")
+        refused(lambda: fused_fm_euler(*args, max_steps=ms_,
+                                       compute_dtype=torch.bfloat16),
+                f"fused_fm_euler at {label}")
     for name, i in (("fm", 0), ("fm_bwd", 1)):
         for dt, rows_ in per_dt.items():
             err, ms_, plain_ms, (b_ms, by), _ = rows_[i]
@@ -951,9 +988,10 @@ def kd_model(scfg, tcfg, seed: int):
                         seed).cuda()
 
 
-def kd_train_phase(tcfg):
-    """The fp32 flowkd_mlp8 step on kernels against plain, then the timed
-    bf16 steps. Returns {row name: launches} of the timed steps."""
+def kd_train_phase(tcfg, name: str = "flowkd_mlp8"):
+    """The fp32 KD step (`name`: the flowkd_mlp8 distillation, teacher
+    `tcfg`) on kernels against plain, then the timed bf16 steps. Returns
+    {row name: launches} of the timed steps."""
     import copy
 
     from tpu_asr_torch.config import OptimConfig, make_student_config
@@ -962,44 +1000,67 @@ def kd_train_phase(tcfg):
                                              make_distil_train_step)
 
     f32 = lambda cfg: dataclasses.replace(cfg, compute_dtype="float32")
-    scfg = make_student_config(tcfg)
+    scfg = make_student_config(with_encoder(tcfg, quantization="none"))
     model = kd_model(f32(scfg), f32(tcfg), 10)
     init = copy.deepcopy(model.state_dict())
     batch = train_batch(CHECK_BATCH, 11)
+    int8 = tcfg.encoder.quantization == "int8"
+    # (student and FM, teacher): an int8 teacher's quantization decisions
+    # flip where sums run in another order (phase 11), which moves the
+    # teacher-dependent losses, so its plain run keeps the teacher on the
+    # kernels and a third run, all plain, is printed
+    variants = [("auto", "auto"), ("xla", "auto" if int8 else "xla")]
+    if int8:
+        variants.append(("xla", "xla"))
     runs = {}
-    for backend in ("auto", "xla"):
+    for backend, teacher_backend in variants:
         model.load_state_dict(init)
         set_backend(model, backend)
+        set_backend(model.teacher, teacher_backend)
         state = DistilTrainState.create(model, OptimConfig())
         state, metrics = make_distil_train_step(model)(state, batch, 12)
         torch.cuda.synchronize()
-        runs[backend] = (
+        run = runs[backend, teacher_backend] = (
             {k[5:]: v.item() for k, v in metrics.items()
              if k.startswith("loss/")},
             {n: p.grad.clone() for n, p in model.named_parameters()
              if p.grad is not None},
             {k: v.clone() for k, v in model.state_dict().items()
              if k.startswith("teacher.")})
-        check(all(torch.equal(v, init[k]) for k, v in runs[backend][2].items())
+        check(all(torch.equal(v, init[k]) for k, v in run[2].items())
               and all(p.grad is None for n, p in model.named_parameters()
                       if n.startswith("teacher.")),
-              f"fp32 flowkd step ({backend}): the teacher's "
-              f"{len(runs[backend][2])} parameters and statistics "
+              f"fp32 {name} step ({backend}, teacher {teacher_backend}): "
+              f"the teacher's {len(run[2])} parameters and statistics "
               f"bit-unchanged, no teacher gradient")
-    (lk, gk, _), (lp, gp, _) = runs["auto"], runs["xla"]
+    set_backend(model, "auto")
+    (lk, gk, _), (lp, gp, _) = runs[variants[0]], runs[variants[1]]
     check(set(lk) == {"ctc", "flow_matching", "logit_kd", "total"},
-          f"fp32 flowkd step losses {sorted(lk)}")
-    for name in sorted(lk):
-        check(math.isfinite(lk[name])
-              and abs(lk[name] - lp[name]) <= 1e-4 * abs(lp[name]),
-              f"fp32 flowkd_mlp8 step (teacher 16 x d{tcfg.encoder.d_model}, "
-              f"student 16 x d{scfg.encoder.d_model}, B={CHECK_BATCH} x "
-              f"{SECONDS} s, dropout, SpecAugment, dither) loss/{name}: "
-              f"kernels {lk[name]:.6f} vs plain {lp[name]:.6f} (1e-4 rel)")
+          f"fp32 {name} step losses {sorted(lk)}")
+    for loss in sorted(lk):
+        check(math.isfinite(lk[loss])
+              and abs(lk[loss] - lp[loss]) <= 1e-4 * abs(lp[loss]),
+              f"fp32 {name} step (teacher 16 x d{tcfg.encoder.d_model} "
+              f"{tcfg.encoder.quantization}, student 16 x "
+              f"d{scfg.encoder.d_model}, B={CHECK_BATCH} x {SECONDS} s, "
+              f"dropout, SpecAugment, dither) loss/{loss}: kernels "
+              f"{lk[loss]:.6f} vs plain {lp[loss]:.6f} (1e-4 rel"
+              f"{'; both with the int8 teacher on its kernels' if int8 else ''}"
+              f")")
+    if int8:
+        la = runs["xla", "xla"][0]
+        check(abs(lk["ctc"] - la["ctc"]) <= 1e-4 * abs(la["ctc"]),
+              f"fp32 {name} step: loss/ctc, which does not read the "
+              f"teacher, kernels {lk['ctc']:.6f} vs all plain "
+              f"{la['ctc']:.6f} (1e-4 rel)")
+        print(f"fp32 {name} step, kernels vs all plain (the int8 teacher's "
+              f"flips included): " + ", ".join(
+                  f"{k} {lk[k]:.6f} vs {la[k]:.6f} (rel "
+                  f"{abs(lk[k] - la[k]) / abs(la[k]):.2e})" for k in sorted(lk)))
     check(set(gk) == set(gp) and any(n.startswith("flow_matching.")
                                      for n in gk),
-          f"fp32 flowkd step: {len(gk)} student and FM gradients")
-    print("fp32 flowkd step gradients, kernels vs plain:")
+          f"fp32 {name} step: {len(gk)} student and FM gradients")
+    print(f"fp32 {name} step gradients, kernels vs plain:")
     grads_close([gk[n] for n in gk], [gp[n] for n in gk], 1e-2, list(gk),
                 1e-4, verbose=False)
     fm_names = [n for n in gk if n.startswith("flow_matching.")]
@@ -1012,15 +1073,318 @@ def kd_train_phase(tcfg):
     losses = torch.stack([torch.stack([m[f"loss/{k}"] for k in names])
                           for m in metrics])
     check(bool(torch.isfinite(losses).all()),
-          f"bf16 flowkd_mlp8 steps: losses finite; first {names} "
+          f"bf16 {name} steps: losses finite; first {names} "
           f"{[round(x, 4) for x in losses[0].tolist()]}, last "
           f"{[round(x, 4) for x in losses[-1].tolist()]}")
+    counts = {k: v for k, v in counts.items()
+              if k != "conv_module" and (k != "ffn_int8"
+                                         or tcfg.encoder.quantization
+                                         == "int8")}
     check(all(v > 0 for v in counts.values()),
-          f"flowkd_mlp8 steps launched every kernel: {counts}")
-    print(f"kd train: flowkd_mlp8 ({scfg.compute_dtype}, student 16 x d"
+          f"{name} steps launched every kernel: {counts}")
+    if tcfg.encoder.quantization == "int8":
+        want = 2 * tcfg.encoder.n_layers * TRAIN_STEPS
+        check(counts["ffn_int8"] == want, f"the int8 teacher launched the "
+              f"int8 FFN {counts['ffn_int8']} times in {TRAIN_STEPS} steps "
+              f"(2 x {tcfg.encoder.n_layers} layers per step: {want})")
+    print(f"kd train: {name} ({scfg.compute_dtype}, student 16 x d"
           f"{scfg.encoder.d_model}, teacher 16 x d{tcfg.encoder.d_model}) "
           f"B={BATCH} x {SECONDS} s, {TOKENS} tokens: {timed_summary(ms)}")
     return counts
+
+
+def with_encoder(cfg, **changes):
+    """cfg with its EncoderConfig changed."""
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                                **changes))
+
+
+def refused(fn, label: str) -> None:
+    try:
+        fn()
+        ok = False
+    except ValueError:
+        ok = True
+    check(ok, f"{label} refused on the card")
+
+
+def int8_decided_rows(x, w, eps: float = 1e-4) -> torch.Tensor:
+    """(rows,) bool: rows of x whose every int8 activation of the plain
+    chain (the LN output and the SiLU output, in quanta) lies more than
+    `eps` from a rounding tie. A sum taken in another order moves them by
+    about 1e-5 quanta at most, so on these rows the kernel must take the
+    plain version's quantization decisions and give its result."""
+    from tpu_asr_torch.ops.cuda_ffn import layer_norm
+    from tpu_asr_torch.ops.quant import int8_matmul, quantize_weight
+    ln_w, ln_b, w1, b1, _, _ = w
+
+    def quanta(v):
+        s = torch.clamp(v.abs().amax(-1, keepdim=True),
+                        min=1e-8 * 127.0) * (1.0 / 127.0)
+        return v * (1.0 / s), s
+
+    def margin(q):
+        return ((q.abs() % 1.0) - 0.5).abs().amin(-1)
+
+    with torch.no_grad():
+        v, sx = quanta(layer_norm(x, ln_w, ln_b))
+        w1q, s1 = quantize_weight(w1)
+        h = (int8_matmul(torch.clamp(torch.round(v), -127, 127), w1q).float()
+             * sx * s1[:, 0] + b1.float())
+        u, _ = quanta(h * torch.sigmoid(h))
+    return (torch.minimum(margin(v), margin(u)) > eps).reshape(-1)
+
+
+def ffn_int8_compare(x, w, label):
+    """fused_ffn_sublayer_int8 against its plain version on x. Rows where a
+    quantization decision lies within 1e-4 quanta of a tie may round the
+    other way (the LN sums run in another order) and then differ by a few
+    quanta's worth; every other row must match to 1e-5 in fp32 and to one
+    bf16 ulp in bf16 (the row's scale may move by an fp32 ulp, and the
+    output rounds to bf16 after it). Returns the max |error|."""
+    from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_int8_plain,
+                                            fused_ffn_sublayer_int8)
+    with torch.no_grad():
+        got = fused_ffn_sublayer_int8(x, *w).float()
+        want = ffn_sublayer_int8_plain(x, *w).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err, ref = diff.max().item(), want.abs().max().item()
+    fp32 = x.dtype == torch.float32
+    # beyond 1e-5 in fp32, beyond one bf16 ulp (2^-7 of the value) in bf16
+    off = diff > (1e-5 if fp32 else 2.0 ** -7 * want.abs() + 1e-6)
+    row_off = off.reshape(-1, x.shape[-1]).any(-1)
+    decided = int8_decided_rows(x, w)
+    rows = row_off.numel()
+    flipped = int(row_off.sum())
+    bad = int((row_off & decided).sum())
+    dts = str(x.dtype)[6:]
+    tol = 2e-2 if fp32 else 3e-2 * max(1.0, ref)
+    check(bad == 0 and flipped <= 0.01 * rows and err <= tol,
+          f"ffn_int8 {dts} {label}: the {int(decided.sum())} of {rows} rows "
+          f"whose every quantized value lies > 1e-4 quanta from a tie "
+          f"match to {'1e-5' if fp32 else 'one bf16 ulp'} ({bad} do not); "
+          f"{flipped} rows differ beyond it (<= 1%: a quantization step "
+          f"flipped), {int(off.sum())} of {diff.numel()} elements; max "
+          f"|err| {err:.3e} <= {tol:.3g}")
+    return err
+
+
+def conv_compare(x, mask, w, pad, norm, label):
+    """fused_conv_module against conv_module_plain; returns the max |error|
+    over all frames (masked frames included: no masking after pointwise 2).
+    """
+    from tpu_asr_torch.ops.cuda_conv import (conv_module_plain,
+                                             fused_conv_module)
+    with torch.no_grad():
+        got = fused_conv_module(x, mask, *w, pad, norm).float()
+        want = conv_module_plain(x, mask, *w, pad, norm).float()
+    torch.cuda.synchronize()
+    err, ref = (got - want).abs().max().item(), want.abs().max().item()
+    dts = str(x.dtype)[6:]
+    tol = (1e-4 if x.dtype == torch.float32 else 3e-2) * max(1.0, ref)
+    check(err <= tol and got.shape == x.shape,
+          f"conv_module {dts} {norm} pad {pad} {label}: max |err| "
+          f"{err:.3e} <= {tol:.3g} ({'1e-4' if dts == 'float32' else '3e-2'}"
+          f" x max(1, |ref|max {ref:.3e}))")
+    return err
+
+
+def eval_kernel_phase(cfg):
+    """The int8 FFN and the conv module against their plain versions at the
+    int8 teacher's serving shape. Returns {name: row} in bf16 (the main
+    path's dtype)."""
+    import torch.nn.functional as F
+
+    from tpu_asr_torch.ops.cuda_conv import (conv_module_plain,
+                                             fused_conv_module)
+    from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_int8_plain,
+                                            fused_ffn_sublayer_int8,
+                                            layer_norm)
+    from tpu_asr_torch.ops.cuda_subsampling import out_len
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    enc = cfg.encoder
+    d, f, k = enc.d_model, enc.d_ff, enc.conv_kernel_size
+    n_frames = SECONDS * SR // cfg.preprocessor.hop_length + 1
+    t = out_len(out_len(n_frames))
+    m = BATCH * t
+    lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    lengths[0] = t
+    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+
+    def ffn_weights(d_, f_):
+        return (1.0 + normal(gen, d_, scale=0.1), normal(gen, d_, scale=0.1),
+                normal(gen, f_, d_, scale=d_ ** -0.5),
+                normal(gen, f_, scale=0.1),
+                normal(gen, d_, f_, scale=f_ ** -0.5),
+                normal(gen, d_, scale=0.1))
+
+    def conv_weights(d_, k_):
+        return (normal(gen, 2 * d_, d_, scale=d_ ** -0.5),
+                normal(gen, 2 * d_, scale=0.1),
+                normal(gen, d_, k_, scale=k_ ** -0.5),
+                normal(gen, d_, scale=0.1), 1.0 + normal(gen, d_, scale=0.1),
+                normal(gen, d_, scale=0.1), normal(gen, d_, d_,
+                                                   scale=d_ ** -0.5),
+                normal(gen, d_, scale=0.1))
+
+    # int8 FFN at D=176, d_ff 704
+    fw = ffn_weights(d, f)
+    xf = normal(gen, BATCH, t, d)
+    per_dt = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = xf.to(dt)
+        err = ffn_int8_compare(x, fw, f"(B={BATCH}, T={t}, D={d}, d_ff={f})")
+        with torch.no_grad():
+            per_dt[dt] = (
+                err, median_ms(lambda: fused_ffn_sublayer_int8(x, *fw)),
+                median_ms(lambda: ffn_sublayer_int8_plain(x, *fw), iters=5),
+                bound(4 * m * d * f, nbytes(x, *fw) + nbytes(x), "int8"),
+                None)
+    ffn_int8_compare(normal(gen, 3, 37, d), fw, "odd T (3 x 37 rows)")
+    sw = ffn_weights(88, 352)
+    xs = normal(gen, BATCH, t, 88)
+    for dt in (torch.float32, torch.bfloat16):
+        ffn_int8_compare(xs.to(dt), sw, f"student D=88, d_ff=352 "
+                         f"(B={BATCH}, T={t})")
+    big = ffn_weights(520, 2048)
+    refused(lambda: fused_ffn_sublayer_int8(normal(gen, 1, 4, 520), *big),
+            "fused_ffn_sublayer_int8 at D=520")
+
+    # the bf16 eval FFN sublayer int8 replaces: LN + two cuBLAS products
+    ln_w, ln_b, w1, b1, w2, b2 = fw
+    x16 = xf.to(torch.bfloat16)
+
+    def bf16_ffn():
+        y = layer_norm(x16, ln_w, ln_b).to(torch.bfloat16)
+        h = F.silu(F.linear(y, w1.to(torch.bfloat16), b1.to(torch.bfloat16)))
+        return x16 + 0.5 * F.linear(h, w2.to(torch.bfloat16),
+                                    b2.to(torch.bfloat16))
+
+    with torch.no_grad():
+        bf16_ms = median_ms(bf16_ffn)
+
+    # conv module at D=176, k=31, ragged mask
+    cw = conv_weights(d, k)
+    xc = normal(gen, BATCH, t, d)
+    pad = enc.conv_context
+    conv_dt = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = xc.to(dt)
+        shape = f"(B={BATCH}, T={t}, D={d}, k={k})"
+        for norm, pad_ in (("affine", pad), ("layer_norm", pad),
+                           ("layer_norm", (k - 1, 0))):
+            err = conv_compare(x, mask, cw, pad_, norm, shape)
+            if norm == "affine":
+                main_err = err
+        flops = 2 * m * (3 * d * d + k * d)
+        with torch.no_grad():
+            conv_dt[dt] = (
+                main_err,
+                median_ms(lambda: fused_conv_module(x, mask, *cw, pad)),
+                median_ms(lambda: conv_module_plain(x, mask, *cw, pad),
+                          iters=5),
+                bound(flops, nbytes(x, mask, *cw) + nbytes(x), str(dt)[6:]),
+                None)
+    odd = torch.arange(37, device="cuda")[None, :] < torch.tensor(
+        [37, 20, 3], device="cuda")[:, None]
+    conv_compare(normal(gen, 3, 37, d), odd, cw, pad, "affine",
+                 "odd T (3 x 37)")
+    sw = conv_weights(88, k)
+    for dt in (torch.float32, torch.bfloat16):
+        conv_compare(normal(gen, BATCH, t, 88).to(dt), mask, sw, pad,
+                     "layer_norm", f"student D=88 (B={BATCH}, T={t})")
+    refused(lambda: fused_conv_module(
+        normal(gen, 1, 8, d), mask[:1, :8], *conv_weights(d, 35), (17, 17)),
+        "fused_conv_module at k=35")
+    for name, rows in (("ffn_int8", per_dt), ("conv_module", conv_dt)):
+        for dt, (err, ms, plain_ms, (b_ms, by), _) in rows.items():
+            print(f"time {name} {str(dt)[6:]}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median of "
+                  f"20, plain of 5, CUDA events)")
+    print(f"time bf16 eval FFN sublayer (LN + two cuBLAS products, the "
+          f"plain eval path int8 replaces): {bf16_ms:.4f} ms (median of 20)")
+    return {"ffn_int8": per_dt[torch.bfloat16],
+            "conv_module": conv_dt[torch.bfloat16]}
+
+
+def int8_model_phase(cfg):
+    """The int8 serving model in fp32 on kernels against plain, end to end
+    and layer by layer on the plain model's layer inputs, beside the
+    int8-vs-fp drift of the same weights."""
+    from tpu_asr_torch.profile_forward import seeded_model, set_backend
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = seeded_model(cfg32, seed=16)
+    fp_model = seeded_model(with_encoder(cfg32, quantization="none",
+                                         conv_backend="auto"), seed=16)
+    set_backend(fp_model, "xla")
+    sig_t, len_t = model_clips(17)
+    fns = reset_counters()
+    inputs = []
+    with torch.inference_mode():
+        got = model(sig_t, len_t)
+        counts = {k: fns[k].launches for k in INT8_SERVING}
+        set_backend(model, "xla")
+        hooks = [layer.register_forward_pre_hook(
+            lambda mod, args: inputs.append(args))
+            for layer in model.encoder.layers]
+        want = model(sig_t, len_t)
+        for h in hooks:
+            h.remove()
+        fp = fp_model(sig_t, len_t)
+    torch.cuda.synchronize()
+    check(all(v > 0 for v in counts.values()),
+          f"int8 model on kernels launched every eval kernel: {counts}")
+    check(torch.equal(got.encoded_len, want.encoded_len)
+          and bool(torch.isfinite(got.log_probs).all()),
+          "int8 model: encoded_len equal, log-probs finite")
+    # a quantization decision within rounding of a tie may go the other way
+    # when sums run in another order; layer by layer on the same input that
+    # moves a few rows by a fraction of the int8-vs-fp drift (attention and
+    # conv kernels sum in another order too, so every row's FFN input moves
+    # by fp32 rounding: 0.05-3.9% of the rows flipped per layer, at most
+    # 0.38 of the drift, NVIDIA H100 80GB HBM3)
+    worst = 0.0
+    for i, (layer, fp_layer) in enumerate(zip(model.encoder.layers,
+                                              fp_model.encoder.layers)):
+        args = inputs[i]
+        with torch.inference_mode():
+            set_backend(layer, "auto")
+            out_k = layer(*args)
+            set_backend(layer, "xla")
+            out_p = layer(*args)
+            out_fp = fp_layer(*args)
+        valid = args[2]
+        row_err = (out_k - out_p).abs().amax(-1)[valid]
+        drift = (out_p - out_fp).abs().amax(-1)[valid].max().item()
+        flipped = int((row_err > 1e-4).sum())
+        worst = max(worst, row_err.max().item() / drift)
+        check(flipped <= 0.1 * row_err.numel()
+              and row_err.max().item() <= 0.5 * drift,
+              f"  int8 layer {i} on the plain layer input: {flipped} of "
+              f"{row_err.numel()} rows beyond 1e-4 (<= 10%), max |err| "
+              f"{row_err.max().item():.3e} <= half the int8-vs-fp drift "
+              f"{drift:.3e}", )
+    set_backend(model, "auto")
+    valid = (torch.arange(got.log_probs.shape[1], device="cuda")[None, :]
+             < want.encoded_len[:, None])
+    d = (got.log_probs - want.log_probs).abs()[valid]
+    drift = (want.log_probs - fp.log_probs).abs()[valid]
+    print(f"int8 model ModelConfig() int8 + conv kernel fp32, {len(sig_t)} "
+          f"clips of 5-{SECONDS} s, kernels vs plain: max |delta log-prob| "
+          f"{d.max().item():.3e}, mean {d.mean().item():.3e}; int8-vs-fp "
+          f"drift max {drift.max().item():.3e}, mean "
+          f"{drift.mean().item():.3e}; largest layer error {worst:.3f} of "
+          f"its drift")
+    top2 = want.log_probs.topk(2, dim=-1).values
+    decided = valid & ((top2[..., 0] - top2[..., 1]) > 1e-2)
+    same = int(((got.greedy == want.greedy) & decided).sum())
+    n = int(decided.sum())
+    check(same >= 0.99 * n, f"int8 model: greedy ids equal on {same} of "
+          f"{n} frames with plain top-2 margin > 1e-2 (>= 99%; of "
+          f"{int(valid.sum())} valid)")
 
 
 SERVING = ("logmel", "subsampling", "attention")
@@ -1046,14 +1410,21 @@ KERNELS = {
            "bfloat16"),
     "fm_bwd": ("tpu_asr_torch/csrc/fm.cu", "tpu_asr/ops/pallas_fm.py:109",
                "bfloat16"),
+    "ffn_int8": ("tpu_asr_torch/csrc/ffn_int8.cu",
+                 "tpu_asr/ops/pallas_ffn.py:154", "bfloat16"),
+    "conv_module": ("tpu_asr_torch/csrc/conv.cu",
+                    "tpu_asr/ops/pallas_conv.py:57", "bfloat16"),
 }
-STUDENT = tuple(k for k in KERNELS if not k.startswith("fm"))
+STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
+           "ffn_bwd", "ctc", "ctc_bwd")
+INT8_SERVING = SERVING + ("ffn_int8", "conv_module")
 
 
 def main() -> int:
     card()
     from tpu_asr_torch.config import ModelConfig
     from tpu_asr_torch.ops import _kernels
+    from tpu_asr_torch.profile_train import teacher_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1065,13 +1436,22 @@ def main() -> int:
     cfg = ModelConfig()
     measured = {k: v[KERNELS[k][2]] for k, v in kernel_phase(cfg).items()}
     model_phase(cfg)
-    counts = serve_phase(cfg)
+    counts, rtfx = serve_phase(cfg)
     measured.update(train_kernel_phase(cfg))
     counts.update({k: v for k, v in train_phase(cfg).items()
                    if k not in SERVING})
     measured.update(fm_kernel_phase())
     kd_counts = kd_train_phase(cfg)
     counts.update({k: kd_counts[k] for k in ("fm", "fm_bwd")})
+    int8_cfg = with_encoder(cfg, quantization="int8", conv_backend="pallas")
+    measured.update(eval_kernel_phase(cfg))
+    int8_model_phase(int8_cfg)
+    int8_counts, int8_rtfx = serve_phase(int8_cfg, INT8_SERVING)
+    print(f"serve RTFx: int8 + conv kernel {int8_rtfx:.1f}, fp (phase 5) "
+          f"{rtfx:.1f}, same run")
+    counts.update({k: int8_counts[k] for k in ("ffn_int8", "conv_module")})
+    kd_train_phase(teacher_config("flowkd_mlp8_int8_teacher"),
+                   "flowkd_mlp8_int8_teacher")
     rows = []
     for name, (source, replaces, dt) in KERNELS.items():
         err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]

@@ -131,3 +131,52 @@ def test_wrapper_runs_plain_on_cpu_and_checks_device():
     assert fused_ffn_sublayer_bwd.launches == 0
     with pytest.raises(ValueError, match="unsupported device"):
         fused_ffn_sublayer(x.to("meta"), *args)
+
+
+def test_eval_pallas_route_matches_jax(monkeypatch):
+    """ffn_backend='pallas' in eval runs the fused FFN at dropout 0 in both
+    frameworks (JAX's through the Pallas kernel in interpret mode, which
+    rounds its dot operands to bf16 even for fp32 input: its encoder
+    tolerance of tests/test_pallas_ffn.py)."""
+    import dataclasses
+
+    import tpu_asr.ops.pallas_ffn as pf
+    import tpu_asr_torch.models.conformer as port_conformer
+    from tpu_asr.config import DecoderConfig, EncoderConfig, ModelConfig
+    from tpu_asr.models.ctc_model import CTCModel as JaxCTCModel
+    from tpu_asr_torch.convert.from_jax import jax_to_state_dict
+    from tpu_asr_torch.models.ctc_model import CTCModel
+
+    orig = pf.fused_ffn_sublayer
+    monkeypatch.setattr(pf, "fused_ffn_sublayer",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+    calls = []
+    port_fused = port_conformer.fused_ffn_sublayer
+    monkeypatch.setattr(port_conformer, "fused_ffn_sublayer",
+                        lambda *a, **kw: calls.append(1) or port_fused(*a,
+                                                                       **kw))
+    cfg = ModelConfig(spec_augment=None,
+                      encoder=EncoderConfig(n_layers=2, d_model=32, n_heads=4,
+                                            conv_kernel_size=7),
+                      decoder=DecoderConfig(feat_in=32, num_classes=16),
+                      compute_dtype="float32")
+    cfg_p = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, ffn_backend="pallas"))
+    v = JaxCTCModel(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8000)),
+                              jnp.asarray([8000], jnp.int32))
+    rng = np.random.default_rng(7)
+    params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.normal(
+        size=a.shape).astype(np.float32), v["params"])
+    stats = jax.tree.map(np.asarray, v["batch_stats"])
+    sig = (rng.normal(size=(2, 16000)) * 0.1).astype(np.float32)
+    lens = np.asarray([16000, 10000], np.int32)
+    want = JaxCTCModel(cfg_p).apply({"params": params, "batch_stats": stats},
+                                    jnp.asarray(sig), jnp.asarray(lens),
+                                    train=False)
+    model = CTCModel(cfg_p).eval()
+    model.load_state_dict(jax_to_state_dict(params, stats, cfg_p))
+    with torch.no_grad():
+        got = model(torch.from_numpy(sig), torch.from_numpy(lens))
+    assert len(calls) == 2 * cfg.encoder.n_layers
+    np.testing.assert_allclose(got.encoded.numpy(), np.asarray(want.encoded),
+                               rtol=1e-2, atol=5e-3)

@@ -6,7 +6,8 @@ The exact inverse of tpu_asr/convert/nemo_import.py::convert_state_dict:
 - Dense kernel (in, out)                -> Linear weight (out, in)
 - Dense as 1x1 Conv1d (in, out)         -> Conv1d weight (out, in, 1)
 - depthwise Conv kernel (k, 1, d)       -> Conv1d weight (d, 1, k)
-- LayerNorm / BatchNorm scale, bias     -> weight, bias
+- LayerNorm / BatchNorm scale, bias     -> weight, bias (a layer-norm
+  conv module's `norm` -> conv.batch_norm, NeMo's key for either norm)
 - batch_stats mean, var                 -> running_mean, running_var
 - stacked (L, ...) layer leaves         -> encoder.layers.{i}.*
 - DistilCTCModel's params and batch_stats: 'student', 'teacher'
@@ -81,13 +82,14 @@ def jax_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
         sd[f"{k}.conv.depthwise_conv.bias"] = _t(
             conv["depthwise_conv"]["bias"])
         conv1x1(f"{k}.conv.pointwise_conv2", conv["pointwise_conv2"])
-        if "batch_norm" not in conv:
-            raise ValueError("the port's conv module is batch-norm only")
-        norm(f"{k}.conv.batch_norm", conv["batch_norm"])
-        bn = _index(stats, i)["conv"]["batch_norm"]
-        sd[f"{k}.conv.batch_norm.running_mean"] = _t(bn["mean"])
-        sd[f"{k}.conv.batch_norm.running_var"] = _t(bn["var"])
-        sd[f"{k}.conv.batch_norm.num_batches_tracked"] = torch.tensor(0)
+        if "norm" in conv:                   # conv_norm_type='layer_norm'
+            norm(f"{k}.conv.batch_norm", conv["norm"])
+        else:
+            norm(f"{k}.conv.batch_norm", conv["batch_norm"])
+            bn = _index(stats, i)["conv"]["batch_norm"]
+            sd[f"{k}.conv.batch_norm.running_mean"] = _t(bn["mean"])
+            sd[f"{k}.conv.batch_norm.running_var"] = _t(bn["var"])
+            sd[f"{k}.conv.batch_norm.num_batches_tracked"] = torch.tensor(0)
     conv1x1("decoder.decoder_layers.0",
             params["decoder"]["decoder_layers_0"])
     return sd

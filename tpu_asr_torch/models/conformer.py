@@ -10,14 +10,20 @@ eval and the batch statistics over (B, T), padded frames included, in
 training (momentum 0.9 in flax terms, unbiased running variance, eps 1e-5).
 
 In scope: `striding` x4 subsampling, full-context 'regular' rel-pos
-attention, batch-norm conv modules, no caches, no stochastic depth. Any
+attention, batch-norm or layer-norm conv modules with any conv context,
+int8 serving (`quantization='int8'`), no caches, no stochastic depth. Any
 other EncoderConfig option raises (`check_supported`) instead of running a
-different path. Backends: `subsampling_backend`, `attention_backend` and
-(training only) `ffn_backend` 'auto'/'pallas' call the kernel wrappers (the
-CUDA kernels for CUDA tensors, the plain versions for CPU tensors), 'xla'
-calls the plain versions. In eval the FFN and conv module are plain
-PyTorch, as they are plain XLA in eval on the TPU; the conv module is plain
-in training too.
+different path. Backends: `subsampling_backend` and `attention_backend`
+'auto'/'pallas' call the kernel wrappers (the CUDA kernels for CUDA
+tensors, the plain versions for CPU tensors), 'xla' calls the plain
+versions. The FFN sublayers, as JAX routes them: in training the fused
+kernel ('auto'/'pallas') or its plain version ('xla'), whatever
+`quantization` says; in eval with `quantization='int8'` the int8 kernel
+(its plain version under 'xla'); in eval with `ffn_backend='pallas'` the
+fused kernel at dropout 0; otherwise plain PyTorch. The conv module runs
+the eval kernel with `conv_backend='pallas'` in eval and plain PyTorch
+otherwise. `set_backend('xla')` (profile_forward.py) points every route at
+its plain version and `set_backend('auto')` back at the config's choice.
 
 Training (`train=True` with a `torch.Generator`): every dropout site draws
 its mask from the counter hash of ops/dropout.py with a seed drawn per step
@@ -41,8 +47,11 @@ from torch.utils.checkpoint import checkpoint
 from tpu_asr_torch.config import EncoderConfig
 from tpu_asr_torch.ops.cuda_attention import (fused_relpos_attention_block,
                                               relpos_attention_plain)
-from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_plain,
-                                        fused_ffn_sublayer)
+from tpu_asr_torch.ops.cuda_conv import conv_layer_norm, fused_conv_module
+from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_int8_plain,
+                                        ffn_sublayer_plain,
+                                        fused_ffn_sublayer,
+                                        fused_ffn_sublayer_int8)
 from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
                                                 subsampling_plain)
 from tpu_asr_torch.ops.dropout import dropout
@@ -65,11 +74,11 @@ def check_supported(c: EncoderConfig) -> None:
         "global_tokens": c.global_tokens != 0,
         "reduction": c.reduction is not None and c.reduction_factor > 1,
         "feat_out": c.feat_out not in (-1, 0, c.d_model),
-        "conv_norm_type": c.conv_norm_type != "batch_norm",
-        "conv_context_size": c.conv_context_size is not None,
+        "conv_norm_type": c.conv_norm_type not in ("batch_norm",
+                                                   "layer_norm"),
         "untie_biases": not c.untie_biases,
-        "quantization": c.quantization != "none",
-        "conv_backend": c.conv_backend == "pallas",
+        "quantization": c.quantization not in ("none", "int8"),
+        "conv_backend": c.conv_backend not in BACKENDS,
         "ffn_backend": c.ffn_backend not in BACKENDS,
         "subsampling_backend": c.subsampling_backend not in BACKENDS,
         "attention_backend": c.attention_backend not in BACKENDS,
@@ -193,10 +202,14 @@ class MaskedBatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
         self._batch_stats = None
 
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The running statistics as one per-channel fp32 affine (w, b)."""
+        w = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return w, self.bias - self.running_mean * w
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
-            w = self.weight * torch.rsqrt(self.running_var + self.eps)
-            b = self.bias - self.running_mean * w
+            w, b = self.folded()
             return x * w.to(x.dtype) + b.to(x.dtype)
         xf = x.float()
         mean = xf.mean(dim=(0, 1))
@@ -220,21 +233,42 @@ class MaskedBatchNorm(nn.Module):
         self.num_batches_tracked += 1
 
 
+class ConvLayerNorm(nn.Module):
+    """The conv module's `conv_norm_type='layer_norm'` (NeMo key
+    `conv.batch_norm`): fp32 statistics with the variance E[x^2] - E[x]^2
+    clipped at 0, eps 1e-6, as the JAX module computes them."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return conv_layer_norm(x, self.weight, self.bias).to(x.dtype)
+
+
 class ConformerConvolution(nn.Module):
     """pointwise (d -> 2d) + GLU -> zero padded frames -> depthwise (k) ->
-    BatchNorm -> SiLU -> pointwise (d -> d); NeMo's Conv1d keys."""
+    BatchNorm or LayerNorm -> SiLU -> pointwise (d -> d); NeMo's Conv1d
+    keys. `backend` 'pallas' runs the eval kernel in eval (BatchNorm folded
+    in fp32), anything else plain PyTorch."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         d, k = cfg.d_model, cfg.conv_kernel_size
         self.pad = cfg.conv_context
+        self.backend = cfg.conv_backend
         self.pointwise_conv1 = nn.Conv1d(d, 2 * d, 1)
         self.depthwise_conv = nn.Conv1d(d, d, k, groups=d)
-        self.batch_norm = MaskedBatchNorm(d)
+        self.batch_norm = (MaskedBatchNorm(d)
+                           if cfg.conv_norm_type == "batch_norm"
+                           else ConvLayerNorm(d))
         self.pointwise_conv2 = nn.Conv1d(d, d, 1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
+        if self.backend == "pallas" and not train:
+            return self._fused(x, mask)
         dt = x.dtype
         h = F.glu(_linear(x, self.pointwise_conv1), dim=-1)
         h = h.masked_fill(~mask[..., None], 0.0)
@@ -243,6 +277,18 @@ class ConformerConvolution(nn.Module):
                      dw.bias.to(dt), groups=dw.groups).transpose(1, 2)
         h = F.silu(self.batch_norm(h, train))
         return _linear(h, self.pointwise_conv2)
+
+    def _fused(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        norm = self.batch_norm
+        if isinstance(norm, MaskedBatchNorm):
+            (nw, nb), kind = norm.folded(), "affine"
+        else:
+            nw, nb, kind = norm.weight, norm.bias, "layer_norm"
+        pw1, dw, pw2 = (self.pointwise_conv1, self.depthwise_conv,
+                        self.pointwise_conv2)
+        return fused_conv_module(x, mask, pw1.weight[..., 0], pw1.bias,
+                                 dw.weight[:, 0], dw.bias, nw, nb,
+                                 pw2.weight[..., 0], pw2.bias, self.pad, kind)
 
 
 class ConformerLayer(nn.Module):
@@ -272,14 +318,27 @@ class ConformerLayer(nn.Module):
         """`seeds` (SEEDS_PER_LAYER ints) selects the training path."""
         if seeds is not None:
             return self._train_forward(x, pos_emb, mask, seeds)
-        x = x + 0.5 * self.feed_forward1(_layer_norm(self.norm_feed_forward1,
-                                                     x))
+        x = self._eval_ffn(self.norm_feed_forward1, self.feed_forward1, x)
         x = x + self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb,
                                mask)
         x = x + self.conv(_layer_norm(self.norm_conv, x), mask)
-        x = x + 0.5 * self.feed_forward2(_layer_norm(self.norm_feed_forward2,
-                                                     x))
+        x = self._eval_ffn(self.norm_feed_forward2, self.feed_forward2, x)
         return _layer_norm(self.norm_out, x).masked_fill(~mask[..., None], 0.0)
+
+    def _eval_ffn(self, norm: nn.LayerNorm, ff: FeedForward,
+                  x: torch.Tensor) -> torch.Tensor:
+        """x + 0.5 * FFN(LN(x)) in eval: the int8 kernel (its plain version
+        under 'xla') with quantization='int8', the fused kernel with
+        'pallas', else plain PyTorch."""
+        args = (x, norm.weight, norm.bias, ff.linear1.weight,
+                ff.linear1.bias, ff.linear2.weight, ff.linear2.bias)
+        if self.cfg.quantization == "int8":
+            run = (ffn_sublayer_int8_plain if self.ffn_backend == "xla"
+                   else fused_ffn_sublayer_int8)
+            return run(*args)
+        if self.ffn_backend == "pallas":
+            return fused_ffn_sublayer(*args)
+        return x + 0.5 * ff(_layer_norm(norm, x))
 
     def _ffn(self, norm: nn.LayerNorm, ff: FeedForward, x: torch.Tensor,
              seed: int) -> torch.Tensor:
@@ -354,5 +413,6 @@ class ConformerEncoder(nn.Module):
             feats.append(x)
         if train:
             for layer in self.layers:
-                layer.conv.batch_norm.commit()
+                if isinstance(layer.conv.batch_norm, MaskedBatchNorm):
+                    layer.conv.batch_norm.commit()
         return x, out_len, torch.stack(feats)

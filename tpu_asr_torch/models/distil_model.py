@@ -7,7 +7,10 @@ tpu_asr/models/distil_model.py, for CTC, logit KD and flow-matching KD
   `requires_grad_(False)` (JAX's stop-gradient at the teacher parameters):
   no gradient, no saved activations, no BatchNorm update, no dropout, and
   it reads the unaugmented signal (no dither, no SpecAugment). `train()`
-  leaves it in eval mode.
+  leaves it in eval mode. A teacher config with `quantization='int8'`
+  (bench_train.py's flowkd_mlp8_int8_teacher) runs its FFN sublayers
+  through the int8 serving path, which has no gradient and needs none
+  here; the student trains in fp whatever its config says.
 - Flow matching: the student and teacher layer features are stacked
   B-major (row = b * L + l) and one FlowMatchingModule call runs over
   (B * L, T', D_s) with `loss_layers=L`; the last layer's FM output replaces

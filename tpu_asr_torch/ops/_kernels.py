@@ -126,6 +126,14 @@ def call(name: str, argtypes: tuple, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need the gradient of an eval-only kernel
+    (grad mode on and an input that requires grad)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is eval-only and has no gradient; call "
+                           f"it under torch.no_grad()")
+
+
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every tensor on one CUDA device and contiguous."""
     dev = tensors[0].device

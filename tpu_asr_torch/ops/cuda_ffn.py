@@ -1,5 +1,5 @@
-"""Fused feed-forward sublayer kernels (`csrc/ffn.cu`) and their plain
-version, for training.
+"""Fused feed-forward sublayer kernels and their plain versions: training
+(`csrc/ffn.cu`) and int8 serving (`csrc/ffn_int8.cu`).
 
 Counterpart of tpu_asr/ops/pallas_ffn.py::fused_ffn_sublayer:
 
@@ -19,6 +19,19 @@ the SiLU, 2 * (seed + b) + 1 over (t, D) on the output, kept values scaled by
 A CPU tensor runs the plain version (autograd differentiates it); a CUDA
 tensor launches the forward kernel and, under autograd, the backward
 kernels (`fused_ffn_sublayer_bwd`).
+
+int8 serving, counterpart of tpu_asr/ops/pallas_ffn.py::
+fused_ffn_sublayer_int8 (eval only: it has no gradient and raises when
+asked for one):
+
+    out = x + 0.5 * int8_dense(silu(int8_dense(LN(x), W1, b1)), W2, b2)
+
+with the LN output kept in fp32, per-token activation scales
+s = max(max|y|, 1e-8 * 127) * (1 / 127) and y_q = clip(round(y * (1 / s)),
++-127) (a reciprocal, as the Pallas kernel writes it; ops/quant.py divides),
+and per-output-channel weights quantized by ops/quant.py on each call,
+outside the kernel, as the JAX wrapper does. In bf16 only x and the output
+round.
 """
 
 from __future__ import annotations
@@ -28,9 +41,12 @@ import torch.nn.functional as F
 
 from tpu_asr_torch.ops import _kernels as K
 from tpu_asr_torch.ops.dropout import batch_streams, keep_mask, threshold
+from tpu_asr_torch.ops.quant import int8_matmul, quantize_weight
 
 EPS = 1e-6
 MAX_D = 128
+INT8_MAX_D, INT8_MAX_F = 512, 2048
+_INT8_ARGS = (K.INT,) + (K.PTR,) * 10 + (K.INT,) * 3 + (K.PTR,)
 _FWD_ARGS = ((K.INT,) + (K.PTR,) * 8 + (K.INT,) * 4 + (K.UINT,) * 2
              + (K.FLOAT, K.PTR))
 _BWD_ARGS = ((K.INT,) + (K.PTR,) * 20 + (K.INT,) * 6 + (K.UINT,) * 2
@@ -161,3 +177,62 @@ def fused_ffn_sublayer(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
 
 fused_ffn_sublayer.launches = 0
 fused_ffn_sublayer_bwd.launches = 0
+
+
+def _act_quant(y: torch.Tensor):
+    """The kernel's per-token quantization: (y_q as float, scale (..., 1))."""
+    s = torch.clamp(y.abs().amax(dim=-1, keepdim=True),
+                    min=1e-8 * 127.0) * (1.0 / 127.0)
+    return torch.clamp(torch.round(y * (1.0 / s)), -127, 127), s
+
+
+def ffn_sublayer_int8_plain(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
+    """(B, T, D) in x's dtype -> (B, T, D) in x's dtype, int8 products."""
+    w1q, s1 = quantize_weight(w1)
+    w2q, s2 = quantize_weight(w2)
+    yq, sx = _act_quant(layer_norm(x, ln_w, ln_b))
+    h = int8_matmul(yq, w1q).float() * sx * s1[:, 0] + b1.float()
+    h = h * torch.sigmoid(h)
+    hq, sh = _act_quant(h)
+    o = int8_matmul(hq, w2q).float() * sh * s2[:, 0] + b2.float()
+    return (x.float() + 0.5 * o).to(x.dtype)
+
+
+def fused_ffn_sublayer_int8(x: torch.Tensor, ln_w, ln_b, w1, b1, w2,
+                            b2) -> torch.Tensor:
+    """Same contract as `ffn_sublayer_int8_plain`; raises when autograd
+    would need its gradient."""
+    args = (x, ln_w, ln_b, w1, b1, w2, b2)
+    K.refuse_grad("fused_ffn_sublayer_int8", *args)
+    if x.device.type == "cpu":
+        return ffn_sublayer_int8_plain(*args)
+    if not x.is_cuda:
+        raise ValueError(f"fused_ffn_sublayer_int8: unsupported device "
+                         f"{x.device}")
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_ffn_sublayer_int8: unsupported dtype {dt}")
+    d, f = x.shape[-1], w1.shape[0]
+    if not (0 < d <= INT8_MAX_D and 0 < f <= INT8_MAX_F) \
+            or w1.shape != (f, d) or w2.shape != (d, f) \
+            or ln_w.shape != (d,) or b1.shape != (f,) or b2.shape != (d,):
+        raise ValueError(
+            f"fused_ffn_sublayer_int8: shapes do not match x "
+            f"{tuple(x.shape)} (D <= {INT8_MAX_D}), w1 {tuple(w1.shape)} "
+            f"(d_ff <= {INT8_MAX_F}), w2 {tuple(w2.shape)}")
+    pad = lambda q: F.pad(q, (0, -q.shape[1] % 32)).contiguous()
+    w1q, s1 = quantize_weight(w1)
+    w2q, s2 = quantize_weight(w2)
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    tensors = (xc, ln_w.float().contiguous(), ln_b.float().contiguous(),
+               pad(w1q), s1[:, 0].contiguous(), b1.float().contiguous(),
+               pad(w2q), s2[:, 0].contiguous(), b2.float().contiguous(), out)
+    K.check_cuda("fused_ffn_sublayer_int8", *tensors)
+    K.call("tat_ffn_int8", _INT8_ARGS, x.device, int(dt == torch.bfloat16),
+           *(z.data_ptr() for z in tensors), xc.numel() // d, d, f)
+    fused_ffn_sublayer_int8.launches += 1
+    return out
+
+
+fused_ffn_sublayer_int8.launches = 0

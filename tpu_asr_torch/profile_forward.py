@@ -1,12 +1,14 @@
 """Time and profile the CTCModel forward on one CUDA card, on the
 hand-written kernels ('auto') and on the plain PyTorch versions ('xla').
 
-    python -m tpu_asr_torch.profile_forward [--out FILE]
+    python -m tpu_asr_torch.profile_forward [--quantization none|int8]
+        [--conv_backend auto|pallas] [--out FILE]
 
 `ModelConfig()` at its own compute dtype (bf16) with seeded random weights
-(`seeded_model`), at B=32 x 15 s (a full serving batch) and B=8 x 16 s (a
-small request), clips not padded. Per shape and backend it prints one line
-with:
+(`seeded_model`), its encoder's `quantization` and `conv_backend` as given
+(int8 serving: `--quantization int8 --conv_backend pallas`), at B=32 x 15 s
+(a full serving batch) and B=8 x 16 s (a small request), clips not padded.
+Per shape and backend it prints one line with:
   - `event_ms`: median over 10 forwards of the time from CUDA events
     recorded around the forward with the card idle before it (host issue
     time included);
@@ -15,13 +17,15 @@ with:
     intervals that torch.profiler records over 3 forwards, divided by 3;
   - `busy`: device_ms / event_ms, the share of the forward the card works;
   - `launches`: device activities per forward.
-then the top device activities by time per forward. `--out` also writes
-the profiler's own table per shape and backend.
+then the device time per forward by group (the port's kernels by name,
+the rest as cuBLAS/cuDNN/ATen) and the top device activities. `--out` also
+writes the profiler's own table per shape and backend.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -33,6 +37,41 @@ import torch
 SR = 16000
 SHAPES = ((32, 15.0), (8, 16.0))        # (clips, seconds)
 ITERS, TOP = 10, 8
+# kernel name prefixes of the port's own sources -> group
+GROUPS = (("ffn_int8_kernel", "ffn int8"), ("conv_module_kernel",
+                                            "conv module"),
+          ("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
+          ("fm_partial_sum", "fm bwd"), ("core_kernel", "attention fwd"),
+          ("proj_kernel", "attention proj"),
+          ("dq_kernel", "attention bwd"), ("dkv_kernel", "attention bwd"),
+          ("dpos_kernel", "attention bwd"), ("wgrad_kernel", "attention bwd"),
+          ("sum_parts_kernel", "attention bwd"), ("ffn_fwd", "ffn fwd"),
+          ("ffn_bwd", "ffn bwd"), ("sum_rows_kernel", "ffn bwd"),
+          ("ctc_fwd", "ctc fwd"), ("ctc_bwd", "ctc bwd"),
+          ("conv1_kernel", "subsampling"), ("conv2_linear", "subsampling"),
+          ("logmel", "logmel"))
+
+
+def group_of(name: str) -> str:
+    for prefix, group in GROUPS:
+        if prefix in name:
+            return group
+    if "gemm" in name or "cutlass" in name or "sm90" in name:
+        return "cuBLAS/cuDNN products"
+    if "conv" in name.lower() or "cudnn" in name.lower():
+        return "cuDNN convolutions"
+    return "other ATen (elementwise, reductions, copies, optimizer)"
+
+
+def print_groups(names, device_ms: float) -> None:
+    """One line per group of device_activity's {name: (ms, calls)}."""
+    groups = defaultdict(lambda: [0.0, 0.0])
+    for name, (ms, calls) in names.items():
+        groups[group_of(name)][0] += ms
+        groups[group_of(name)][1] += calls
+    for group, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  group {ms:8.3f} ms {100 * ms / device_ms:5.1f}% "
+              f"x{calls:<6g} {group}")
 
 
 def seeded_model(cfg, seed: int, device="cuda"):
@@ -82,23 +121,28 @@ def waveforms(rng, n: int, lo: float, hi: float, sr: int = SR):
 
 
 def set_backend(model, backend: str) -> None:
-    """Point the featurizer, subsampling, every attention, every training
-    FFN, the flow-matching Euler loop and the CTC loss at `backend` ('auto'
-    the kernels, 'xla' the plain versions)."""
+    """Point the featurizer, subsampling, every attention, FFN and conv
+    module, the flow-matching Euler loop and the CTC loss at `backend`:
+    'xla' the plain versions; 'auto' the kernels, and for the FFN and conv
+    routes the EncoderConfig's own choice (in eval the FFN runs a kernel
+    with quantization='int8' or ffn_backend='pallas', the conv module with
+    conv_backend='pallas')."""
     from tpu_asr_torch.kd.flow_matching import FlowMatchingModule
     from tpu_asr_torch.models.conformer import (ConformerLayer,
                                                 ConvSubsampling,
                                                 RelPositionMultiHeadAttention)
     from tpu_asr_torch.models.distil_model import DistilCTCModel
     from tpu_asr_torch.ops.features import FilterbankFeatures
+    plain = backend == "xla"
     for m in model.modules():
         if isinstance(m, (ConvSubsampling, RelPositionMultiHeadAttention,
                           FilterbankFeatures, FlowMatchingModule)):
             m.backend = backend
         elif isinstance(m, ConformerLayer):
-            m.ffn_backend = backend
+            m.ffn_backend = backend if plain else m.cfg.ffn_backend
+            m.conv.backend = backend if plain else m.cfg.conv_backend
         elif isinstance(m, DistilCTCModel):
-            m.ctc_backend = "scan" if backend == "xla" else backend
+            m.ctc_backend = "scan" if plain else backend
 
 
 def device_activity(prof, n_forwards: int):
@@ -134,7 +178,9 @@ def profile_shape(model, batch: int, seconds: float, out=None):
     sig = torch.from_numpy(np.stack(waveforms(rng, batch, seconds, seconds))
                            ).cuda()
     lens = torch.full((batch,), sig.shape[1], device="cuda")
-    label = f"B={batch} x {seconds:g} s, {model.cfg.compute_dtype}"
+    enc = model.cfg.encoder
+    label = (f"B={batch} x {seconds:g} s, {model.cfg.compute_dtype}, "
+             f"quantization {enc.quantization}, conv {enc.conv_backend}")
     for backend in ("auto", "xla"):
         set_backend(model, backend)
         with torch.inference_mode():
@@ -164,6 +210,7 @@ def profile_shape(model, batch: int, seconds: float, out=None):
         print(f"forward {label} {backend}: event_ms {event_ms:.3f} "
               f"host_ms {host_ms:.3f} device_ms {device_ms:.3f} "
               f"busy {device_ms / event_ms:.3f} launches {launches:.0f}")
+        print_groups(names, device_ms)
         ranked = sorted(names.items(), key=lambda kv: -kv[1][0])
         for name, (ms, calls) in ranked[:TOP]:
             print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% "
@@ -177,6 +224,10 @@ def profile_shape(model, batch: int, seconds: float, out=None):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quantization", default="none",
+                    choices=("none", "int8"))
+    ap.add_argument("--conv_backend", default="auto",
+                    choices=("auto", "pallas"))
     ap.add_argument("--out", default=None,
                     help="file for the profiler tables")
     args = ap.parse_args(argv)
@@ -189,7 +240,11 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
-    model = seeded_model(ModelConfig(), seed=2)
+    cfg = ModelConfig()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, quantization=args.quantization,
+        conv_backend=args.conv_backend))
+    model = seeded_model(cfg, seed=2)
     out = open(args.out, "w") if args.out else None
     try:
         for batch, seconds in SHAPES:

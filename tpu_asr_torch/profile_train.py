@@ -1,15 +1,17 @@
 """Time and profile a train step on one CUDA card, on the hand-written
 kernels ('auto') and on the plain PyTorch versions ('xla').
 
-    python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8]
-        [--out FILE]
+    python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8|
+        flowkd_mlp8_int8_teacher] [--out FILE]
 
 DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
 at its own compute dtype (bf16) with seeded random weights and
 OptimConfig(), on B=32 x 15 s of seeded noise with 48 target tokens, with
 the `distill` of bench_train.py's configuration of that name: `ctc_student`
-(CTC only) or `flowkd_mlp8` (frozen teacher, logit KD at alpha 0.1 and
-FM-KT with the mlp meta encoder, 8 Euler steps over all 16 layers). Per
+(CTC only), `flowkd_mlp8` (frozen teacher, logit KD at alpha 0.1 and
+FM-KT with the mlp meta encoder, 8 Euler steps over all 16 layers) or
+`flowkd_mlp8_int8_teacher` (the same with the teacher's FFN sublayers
+through the int8 serving kernel). Per
 backend it prints one line with:
   - `step_ms`: median host-clock time of a train step + synchronize over
     5 steps after 2 warm-up steps;
@@ -25,44 +27,20 @@ writes the profiler's own tables.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 import numpy as np
 import torch
 
-from tpu_asr_torch.profile_forward import (device_activity, seed_weights,
-                                           set_backend)
+from tpu_asr_torch.profile_forward import (device_activity, print_groups,
+                                           seed_weights, set_backend)
 
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
-# kernel name prefixes of the port's own sources -> group
-GROUPS = (("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
-          ("fm_partial_sum", "fm bwd"), ("core_kernel", "attention fwd"),
-          ("proj_kernel", "attention proj"),
-          ("dq_kernel", "attention bwd"), ("dkv_kernel", "attention bwd"),
-          ("dpos_kernel", "attention bwd"), ("wgrad_kernel", "attention bwd"),
-          ("sum_parts_kernel", "attention bwd"), ("ffn_fwd", "ffn fwd"),
-          ("ffn_bwd", "ffn bwd"), ("sum_rows_kernel", "ffn bwd"),
-          ("ctc_fwd", "ctc fwd"), ("ctc_bwd", "ctc bwd"),
-          ("conv1_kernel", "subsampling"), ("conv2_linear", "subsampling"),
-          ("logmel", "logmel"))
-
-
-def group_of(name: str) -> str:
-    for prefix, group in GROUPS:
-        if prefix in name:
-            return group
-    if "gemm" in name or "cutlass" in name or "sm90" in name:
-        return "cuBLAS/cuDNN products"
-    if "conv" in name.lower() or "cudnn" in name.lower():
-        return "cuDNN convolutions"
-    return "other ATen (elementwise, reductions, copies, optimizer)"
-
-
-CONFIGS = ("ctc_student", "flowkd_mlp8")
+CONFIGS = ("ctc_student", "flowkd_mlp8", "flowkd_mlp8_int8_teacher")
 
 
 def distill_config(name: str):
@@ -70,13 +48,24 @@ def distill_config(name: str):
     from tpu_asr_torch.config import DistillationConfig, FlowMatchingConfig
     if name == "ctc_student":
         return DistillationConfig()
-    if name == "flowkd_mlp8":
+    if name in ("flowkd_mlp8", "flowkd_mlp8_int8_teacher"):
         flow = FlowMatchingConfig(meta_encoder_type="mlp", student_dim=88,
                                   teacher_dim=176, student_head_num=2,
                                   training_sampling=8, inference_sampling=8)
         return DistillationConfig(use_logit_distillation=True, kd_alpha=0.1,
                                   use_flow_matching=True, flow=flow)
     raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
+
+
+def teacher_config(name: str):
+    """The teacher ModelConfig of bench_train.py's configuration `name`:
+    ModelConfig(), its FFN sublayers in int8 for the int8-teacher step."""
+    from tpu_asr_torch.config import ModelConfig
+    cfg = ModelConfig()
+    if name == "flowkd_mlp8_int8_teacher":
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, quantization="int8"))
+    return cfg
 
 
 def make_batch(device="cuda"):
@@ -98,7 +87,7 @@ def profile_backend(backend: str, config: str = "ctc_student",
                                              make_distil_train_step)
 
     scfg = make_student_config(ModelConfig())
-    model = seed_weights(DistilCTCModel(scfg, ModelConfig(),
+    model = seed_weights(DistilCTCModel(scfg, teacher_config(config),
                                         distill_config(config)), 1).cuda()
     set_backend(model, backend)
     state = DistilTrainState.create(model, OptimConfig())
@@ -125,13 +114,7 @@ def profile_backend(backend: str, config: str = "ctc_student",
           f"tokens, {scfg.compute_dtype}): step_ms {step_ms:.3f} device_ms "
           f"{device_ms:.3f} busy {device_ms / step_ms:.3f} launches "
           f"{launches:.0f} loss {metrics['loss/total'].item():.4f}")
-    groups = defaultdict(lambda: [0.0, 0.0])
-    for name, (ms, calls) in names.items():
-        groups[group_of(name)][0] += ms
-        groups[group_of(name)][1] += calls
-    for group, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  group {ms:8.3f} ms {100 * ms / device_ms:5.1f}% "
-              f"x{calls:<6g} {group}")
+    print_groups(names, device_ms)
     ranked = sorted(names.items(), key=lambda kv: -kv[1][0])
     for name, (ms, calls) in ranked[:TOP]:
         print(f"  {ms:8.3f} ms {100 * ms / device_ms:5.1f}% x{calls:<5g} "
