@@ -70,7 +70,10 @@ Phases, each on its own output lines:
      2e-2 in fp32, 3e-2 of max(1, |ref|) in bf16. The conv within 1e-4 of
      the output's scale in fp32, 3e-2 in bf16. Median kernel and plain times, the
      bound, and beside the int8 FFN the bf16 eval FFN sublayer it replaces
-     (LN + two cuBLAS products).
+     (LN + two cuBLAS products). Also the fused FFN forward (rate 0) at the
+     teacher's D=176, d_ff 704 against its plain version (phase 6's FFN
+     tolerances, timed), and autograd through it refused there (its
+     backward takes D <= 128).
   11. int8 model: ModelConfig() with quantization='int8' and
      conv_backend='pallas' in fp32 on 8 clips, kernels against plain:
      every eval kernel launched, equal encoded_len; each layer on the plain
@@ -86,6 +89,23 @@ Phases, each on its own output lines:
   13. int8-teacher KD: phase 9 for flowkd_mlp8_int8_teacher (the teacher's
      FFN sublayers in int8), the int8 FFN launched 32 times per timed
      step.
+  14. layer: the whole eval ConformerLayer kernel against its plain version
+     at ModelConfig() widths (B=32 x 15 s, T'=376, ragged lengths), fp32
+     within 1e-4 and bf16 within 5e-2 of the output's scale; layer norm, a
+     causal (30, 0) conv, a (32, 16) attention window and an odd T in fp32;
+     autograd refused; then the whole 16-layer ModelConfig() encoder in
+     fp32 through the kernel layer by layer (forward hooks) against the
+     CTCModel on its own kernels: max |delta log-prob| < 2e-3 and equal
+     greedy ids where the top-2 margin exceeds 1e-3, each layer's error
+     printed. Times: kernel, plain, the port's ConformerLayer (the module
+     path) on the same input, the bound, and device times (torch.profiler).
+  15. per-head attention: fused_relpos_attention against its plain version,
+     the forward at the teacher's shape (B=32, H=4, T=376, dk=44) in fp32
+     and bf16; forward and backward at the student's (H=2, dk=44) with
+     dropout 0.1 in fp32 and bf16, a (32, 16) window, ragged lengths
+     without a seed; two backward calls bit-equal; dk=72 refused; times and
+     bounds. Launch counters are reset before phases 14 and 15 and must be
+     above 0 after them.
 Then one JSON line of per-kernel results, and last the JSON device line.
 Any failed check exits non-zero before the last line.
 """
@@ -130,6 +150,9 @@ def card() -> None:
     print(smi.splitlines()[0])            # name, power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    # fp32 references in full fp32: cuDNN convolutions default to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def median_ms(fn, iters: int = 20) -> float:
@@ -146,6 +169,32 @@ def median_ms(fn, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, iters: int = 5):
+    """(device ms per call, {kernel: ms per call}) of fn() in
+    torch.profiler: the union of the card's busy spans, so host work
+    between launches does not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_asr_torch.profile_forward import device_activity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy, _, names = device_activity(prof, iters)
+    return busy, {k: v[0] for k, v in names.items()}
+
+
+def top_kernels(names, n: int = 3) -> str:
+    """The n kernels with the most device time, 'name ms' each."""
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:n]
+    short = lambda k: (k.replace("(anonymous namespace)::", "")
+                       .removeprefix("void ").split("(")[0][:48])
+    return ", ".join(f"{short(k)} {v:.4f}" for k, v in top)
 
 
 def normal(gen, *shape, scale=1.0):
@@ -281,7 +330,8 @@ def kernel_phase(cfg):
 def reset_counters():
     """Set every kernel wrapper's launch count to 0; {row name: wrapper}."""
     from tpu_asr_torch.ops.cuda_attention import (
-        fused_relpos_attention_block, fused_relpos_attention_block_bwd)
+        fused_relpos_attention, fused_relpos_attention_block,
+        fused_relpos_attention_block_bwd, fused_relpos_attention_bwd)
     from tpu_asr_torch.ops.cuda_conv import fused_conv_module
     from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd
     from tpu_asr_torch.ops.cuda_features import fused_logmel
@@ -289,6 +339,7 @@ def reset_counters():
                                             fused_ffn_sublayer_bwd,
                                             fused_ffn_sublayer_int8)
     from tpu_asr_torch.ops.cuda_fm import fused_fm_euler, fused_fm_euler_bwd
+    from tpu_asr_torch.ops.cuda_layer import fused_conformer_layer
     from tpu_asr_torch.ops.cuda_subsampling import fused_subsampling
     fns = {"logmel": fused_logmel, "subsampling": fused_subsampling,
            "attention": fused_relpos_attention_block,
@@ -296,7 +347,10 @@ def reset_counters():
            "ffn": fused_ffn_sublayer, "ffn_bwd": fused_ffn_sublayer_bwd,
            "ctc": ctc_nll, "ctc_bwd": ctc_nll_bwd, "fm": fused_fm_euler,
            "fm_bwd": fused_fm_euler_bwd, "ffn_int8": fused_ffn_sublayer_int8,
-           "conv_module": fused_conv_module}
+           "conv_module": fused_conv_module,
+           "conformer_layer": fused_conformer_layer,
+           "attention_heads": fused_relpos_attention,
+           "attention_heads_bwd": fused_relpos_attention_bwd}
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -1076,10 +1130,9 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8"):
           f"bf16 {name} steps: losses finite; first {names} "
           f"{[round(x, 4) for x in losses[0].tolist()]}, last "
           f"{[round(x, 4) for x in losses[-1].tolist()]}")
+    int8 = tcfg.encoder.quantization == "int8"
     counts = {k: v for k, v in counts.items()
-              if k != "conv_module" and (k != "ffn_int8"
-                                         or tcfg.encoder.quantization
-                                         == "int8")}
+              if k in KD or (k == "ffn_int8" and int8)}
     check(all(v > 0 for v in counts.values()),
           f"{name} steps launched every kernel: {counts}")
     if tcfg.encoder.quantization == "int8":
@@ -1199,6 +1252,8 @@ def eval_kernel_phase(cfg):
     from tpu_asr_torch.ops.cuda_conv import (conv_module_plain,
                                              fused_conv_module)
     from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_int8_plain,
+                                            ffn_sublayer_plain,
+                                            fused_ffn_sublayer,
                                             fused_ffn_sublayer_int8,
                                             layer_norm)
     from tpu_asr_torch.ops.cuda_subsampling import out_len
@@ -1253,6 +1308,27 @@ def eval_kernel_phase(cfg):
     refused(lambda: fused_ffn_sublayer_int8(normal(gen, 1, 4, 520), *big),
             "fused_ffn_sublayer_int8 at D=520")
 
+    # the fused FFN forward at the teacher's width in eval (rate 0): the
+    # tolerances of phase 6's FFN check; its backward keeps D <= 128
+    for dt in (torch.float32, torch.bfloat16):
+        x = xf.to(dt)
+        with torch.no_grad():
+            got = fused_ffn_sublayer(x, *fw).float()
+            want = ffn_sublayer_plain(x, *fw).float()
+        torch.cuda.synchronize()
+        err, ref = (got - want).abs().max().item(), want.abs().max().item()
+        rtol, atol = ((1e-4, 1e-4 * max(1.0, ref)) if dt == torch.float32
+                      else (1e-2, 1e-2 * max(1.0, ref)))
+        check(torch.allclose(got, want, rtol=rtol, atol=atol),
+              f"ffn (eval) {str(dt)[6:]} at the teacher's width (B={BATCH}, "
+              f"T={t}, D={d}, d_ff={f}): max |err| {err:.3e} (rtol {rtol}, "
+              f"atol {atol:.3g})")
+    refused(lambda: fused_ffn_sublayer(xf.detach().requires_grad_(), *fw),
+            f"autograd through fused_ffn_sublayer at D={d}")
+    with torch.no_grad():
+        ffn_ms = median_ms(lambda: fused_ffn_sublayer(x, *fw))
+        ffn_plain_ms = median_ms(lambda: ffn_sublayer_plain(x, *fw))
+
     # the bf16 eval FFN sublayer int8 replaces: LN + two cuBLAS products
     ln_w, ln_b, w1, b1, w2, b2 = fw
     x16 = xf.to(torch.bfloat16)
@@ -1306,6 +1382,11 @@ def eval_kernel_phase(cfg):
                   f"20, plain of 5, CUDA events)")
     print(f"time bf16 eval FFN sublayer (LN + two cuBLAS products, the "
           f"plain eval path int8 replaces): {bf16_ms:.4f} ms (median of 20)")
+    ffn_bound, _ = bound(4 * m * d * f, 2 * nbytes(x) + nbytes(*fw),
+                         "bfloat16")
+    print(f"time ffn (eval) bfloat16 at D={d}, d_ff={f}: kernel {ffn_ms:.4f} "
+          f"ms, plain {ffn_plain_ms:.4f} ms, bound {ffn_bound:.4f} ms "
+          f"(median of 20, CUDA events)")
     return {"ffn_int8": per_dt[torch.bfloat16],
             "conv_module": conv_dt[torch.bfloat16]}
 
@@ -1386,6 +1467,293 @@ def int8_model_phase(cfg):
           f"{n} frames with plain top-2 margin > 1e-2 (>= 99%; of "
           f"{int(valid.sum())} valid)")
 
+def layer_flops(b, t, d, h, dff, k):
+    """Multiply-adds x 2 of one eval Conformer layer: the FFN halves, the
+    q/k/v/o projections, content and (gathered) position scores and the
+    value product, pointwise 1 and 2, the depthwise taps and P = PE Wpos^T.
+    """
+    m, dk = b * t, d // h
+    return (8 * m * d * dff + 8 * m * d * d + 6 * b * h * t * t * dk
+            + 6 * m * d * d + 2 * m * d * k + 2 * (2 * t - 1) * d * d)
+
+
+def layer_compare(x, mask, prm, enc, label, norm=None, pad_l=None,
+                  window=(-1, -1)):
+    """fused_conformer_layer against conformer_layer_plain on x (valid and
+    masked rows: the output is masked). fp32 within 1e-4 of the output's
+    scale (sums in another order); bf16 within 5e-2 of it: both round the
+    same operands to bf16, but a sum taken in another order moves an
+    operand across a rounding boundary (2^-8 relative), and the layer
+    chains ten products and four LayerNorms. Returns the max |error|."""
+    from tpu_asr_torch.ops.cuda_layer import (conformer_layer_plain,
+                                              fused_conformer_layer)
+    norm = norm or ("affine" if enc.conv_norm_type == "batch_norm"
+                    else "layer_norm")
+    pad_l = enc.conv_context[0] if pad_l is None else pad_l
+    args = (prm, enc.n_heads, enc.conv_kernel_size, pad_l, norm, window)
+    with torch.no_grad():
+        got = fused_conformer_layer(x, mask, *args).float()
+        want = conformer_layer_plain(x, mask, *args).float()
+    torch.cuda.synchronize()
+    err, ref = (got - want).abs().max().item(), want.abs().max().item()
+    fp32 = x.dtype == torch.float32
+    tol = (1e-4 if fp32 else 5e-2) * max(1.0, ref)
+    check(err <= tol and bool(torch.isfinite(got).all()),
+          f"conformer_layer {str(x.dtype)[6:]} {norm} pad_l {pad_l} window "
+          f"{window} {label}: max |err| {err:.3e} <= {tol:.3g} "
+          f"({'1e-4' if fp32 else '5e-2'} x max(1, |ref|max {ref:.3e}))")
+    return err
+
+
+def layer_kernel_phase(cfg):
+    """Phase 14: the whole eval layer kernel against its plain version at
+    the teacher's serving shape, its variants, the 16-layer encoder through
+    it against the CTCModel on its own kernels, refusals and times. Returns
+    {"conformer_layer": row} in bf16."""
+    from tpu_asr_torch.models.conformer import rel_positional_encoding
+    from tpu_asr_torch.ops.cuda_layer import (conformer_layer_plain,
+                                              fused_conformer_layer,
+                                              layer_params)
+    from tpu_asr_torch.ops.cuda_subsampling import out_len
+    from tpu_asr_torch.profile_forward import seeded_model
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    enc = cfg.encoder
+    d, h, dff, k = enc.d_model, enc.n_heads, enc.d_ff, enc.conv_kernel_size
+    t = out_len(out_len(SECONDS * SR // cfg.preprocessor.hop_length + 1))
+    lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    lengths[0] = t
+    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+    xf = normal(gen, BATCH, t, d) * mask[..., None]
+
+    def one_layer(seed, **changes):
+        lcfg = with_encoder(cfg32, n_layers=1, **changes)
+        return seeded_model(lcfg, seed).encoder.layers[0], lcfg.encoder
+
+    layer, lenc = one_layer(41)
+    prm = layer_params(layer)
+    shape = f"(B={BATCH}, T={t}, D={d}, H={h}, d_ff={dff}, k={k})"
+    errs = {dt: layer_compare(xf.to(dt), mask, prm, lenc, shape)
+            for dt in (torch.float32, torch.bfloat16)}
+    ln_layer, ln_enc = one_layer(42, conv_norm_type="layer_norm")
+    ln_prm = layer_params(ln_layer)
+    layer_compare(xf, mask, ln_prm, ln_enc, shape)
+    layer_compare(xf, mask, ln_prm, ln_enc, shape, pad_l=k - 1)
+    layer_compare(xf, mask, prm, lenc, shape, window=(32, 16))
+    odd = torch.arange(37, device="cuda")[None, :] < torch.tensor(
+        [37, 20, 3], device="cuda")[:, None]
+    layer_compare(normal(gen, 3, 37, d) * odd[..., None], odd, prm, lenc,
+                  "odd T (3 x 37)")
+    try:
+        fused_conformer_layer(xf.detach().requires_grad_(), mask, prm, h, k,
+                              lenc.conv_context[0], "affine")
+        ok = False
+    except RuntimeError:
+        ok = True
+    check(ok, "fused_conformer_layer refuses autograd on the card")
+
+    # the 16-layer encoder, layer by layer through the kernel
+    model = seeded_model(cfg32, seed=43)
+    sig_t, len_t = model_clips(43)
+    layer_errs = []
+
+    def through_kernel(mod, args, out):
+        x, _, m = args
+        got = fused_conformer_layer(x, m, layer_params(mod), h, k,
+                                    mod.cfg.conv_context[0], "affine")
+        layer_errs.append(((got - out).abs() * m[..., None]).max().item())
+        return got
+
+    with torch.inference_mode():
+        want = model(sig_t, len_t)
+        hooks = [layer.register_forward_hook(through_kernel)
+                 for layer in model.encoder.layers]
+        got = model(sig_t, len_t)
+        for hook in hooks:
+            hook.remove()
+    torch.cuda.synchronize()
+    print("  encoder layer by layer, max |kernel - module| on the same "
+          "input: " + ", ".join(f"{e:.2e}" for e in layer_errs))
+    valid = (torch.arange(got.log_probs.shape[1], device="cuda")[None, :]
+             < want.encoded_len[:, None])
+    delta = ((got.log_probs - want.log_probs).abs() * valid[..., None]).max()
+    check(len(layer_errs) == enc.n_layers
+          and bool(torch.isfinite(got.log_probs).all())
+          and delta.item() < 2e-3,
+          f"ModelConfig() encoder fp32 through fused_conformer_layer "
+          f"({len(layer_errs)} layers), {len(sig_t)} clips of 5-{SECONDS} s:"
+          f" max |delta log-prob| against the CTCModel on its kernels "
+          f"{delta.item():.3e} < 2e-3")
+    top2 = want.log_probs.topk(2, dim=-1).values
+    decided = valid & ((top2[..., 0] - top2[..., 1]) > 1e-3)
+    same = (got.greedy == want.greedy) | ~decided
+    check(bool(same.all()), f"encoder through the layer kernel: greedy ids "
+          f"equal on {int(decided.sum())} frames with top-2 margin > 1e-3 "
+          f"(of {int(valid.sum())} valid)")
+
+    # times in bf16 on the main input; the module path: the port's
+    # ConformerLayer in eval (attention kernel, plain FFN, conv and LNs)
+    x16 = xf.to(torch.bfloat16)
+    pos_emb = rel_positional_encoding(t, d, "cuda")
+    args = (x16, mask, prm, h, k, lenc.conv_context[0], "affine")
+    with torch.no_grad():
+        ms = median_ms(lambda: fused_conformer_layer(*args))
+        plain_ms = median_ms(lambda: conformer_layer_plain(*args), iters=5)
+        module_ms = median_ms(lambda: layer(x16, pos_emb, mask))
+    # the kernel reads its weight matrices in bf16, vectors and taps in fp32
+    wbytes = sum(z.numel() * (2 if z.dim() == 2 and key != "wd" else 4)
+                 for key, z in prm.items())
+    b_ms, by = bound(layer_flops(BATCH, t, d, h, dff, k),
+                     2 * nbytes(x16) + nbytes(mask) + wbytes, "bfloat16")
+    with torch.no_grad():
+        dev_ms, names = device_ms(lambda: fused_conformer_layer(*args))
+        mod_dev_ms, mod_names = device_ms(lambda: layer(x16, pos_emb, mask))
+    print(f"device conformer_layer bfloat16 (torch.profiler, busy ms per "
+          f"call): kernel {dev_ms:.4f} ({top_kernels(names)}); module path "
+          f"{mod_dev_ms:.4f} ({top_kernels(mod_names, 5)})")
+    print(f"time conformer_layer bfloat16 {shape}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, module path (ConformerLayer, attention "
+          f"kernel + plain FFN/conv/LN) {module_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({by}) (median of 20, plain of 5, CUDA events); "
+          f"fp32 max |err| {errs[torch.float32]:.3e}")
+    return {"conformer_layer": (errs[torch.bfloat16], ms, plain_ms,
+                                (b_ms, by), None)}
+
+
+def heads_compare(args, window, rate, seed, label, grads=True):
+    """fused_relpos_attention (and its backward) against the plain version
+    on valid query rows. Forward tolerances of phase 3's attention check;
+    gradients phase 6's rule. Returns (forward error, gradient error, saved
+    tensors, cotangent, plain leaves and output)."""
+    from tpu_asr_torch.ops.cuda_attention import (
+        fused_relpos_attention, relpos_attention_heads_plain)
+    q_u, q_v, k, v, w_pos, mask = args
+    dt = q_u.dtype
+    dts = str(dt)[6:]
+    valid = mask[:, None, :, None]
+    with torch.no_grad():
+        got = fused_relpos_attention(*args, window, rate, seed).float()
+        want = relpos_attention_heads_plain(*args, window, rate,
+                                            seed).float()
+    torch.cuda.synchronize()
+    err = ((got - want).abs() * valid).max().item()
+    rtol, atol = (1e-4, 1e-4) if dt == torch.float32 else (1e-2, 3e-3)
+    check(torch.allclose(got * valid, want * valid, rtol=rtol, atol=atol),
+          f"attention_heads {dts} {label} window {window} dropout {rate} "
+          f"seed {seed}: valid rows max |err| {err:.3e} (rtol {rtol}, atol "
+          f"{atol})")
+    if not grads:
+        return err, None, None, None, None
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    g = (normal(gen, *q_u.shape) * valid).to(dt)
+    leaves = [z.detach().requires_grad_() for z in args[:5]]
+    out_k = fused_relpos_attention(*leaves, mask, window, rate, seed)
+    got_g = torch.autograd.grad(out_k, leaves, g, retain_graph=True)
+    leaves_p = [z.detach().requires_grad_() for z in args[:5]]
+    out_p = relpos_attention_heads_plain(*leaves_p, mask, window, rate, seed)
+    want_g = torch.autograd.grad(out_p, leaves_p, g, retain_graph=True)
+    torch.cuda.synchronize()
+    tol, floor = (1e-3, 1e-4) if dt == torch.float32 else (5e-2, 1e-2)
+    print(f"attention_heads_bwd {dts} {label} window {window} dropout {rate}"
+          f" seed {seed}, kernels vs plain:")
+    gerr, _ = grads_close(got_g, want_g, tol,
+                          ["dq_u", "dq_v", "dk", "dv", "dw_pos"], floor)
+    return err, gerr, out_k.grad_fn.saved_tensors, g, (leaves_p, out_p)
+
+
+def heads_kernel_phase(cfg):
+    """Phase 15: the per-head attention kernels against their plain
+    version: the forward at the teacher's serving shape, forward and
+    backward at the student's, a window, ragged lengths without a seed,
+    determinism, refusals and times. Returns the attention_heads rows in
+    bf16."""
+    from tpu_asr_torch.config import make_student_config
+    from tpu_asr_torch.ops.cuda_attention import (
+        fused_relpos_attention, fused_relpos_attention_bwd,
+        relpos_attention_heads_plain)
+    from tpu_asr_torch.ops.cuda_subsampling import out_len
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    t = out_len(out_len(SECONDS * SR // cfg.preprocessor.hop_length + 1))
+    lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    lengths[0] = t
+    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+
+    def inputs(h, dk):
+        d = h * dk
+        return [normal(gen, BATCH, h, t, dk, scale=0.5) for _ in range(4)] \
+            + [normal(gen, d, d, scale=d ** -0.5)]
+
+    def fwd_cost(args, dt):
+        b, h, t_, dk = args[0].shape
+        d = h * dk
+        flops = 6 * b * h * t_ * t_ * dk + 2 * (2 * t_ - 1) * d * d
+        return bound(flops, nbytes(*args, mask) + nbytes(args[0]), dt)
+
+    rows = {}
+    enc = cfg.encoder
+    teacher = inputs(enc.n_heads, enc.d_model // enc.n_heads)
+    for dt in (torch.float32, torch.bfloat16):
+        args = [z.to(dt) for z in teacher] + [mask]
+        err, *_ = heads_compare(args, (-1, -1), 0.0, None,
+                                f"teacher (B={BATCH}, H={enc.n_heads}, "
+                                f"T={t}, dk={enc.d_model // enc.n_heads})",
+                                grads=False)
+        if dt == torch.bfloat16:
+            teacher16 = args
+            with torch.no_grad():
+                rows["attention_heads"] = (
+                    err, median_ms(lambda: fused_relpos_attention(*args)),
+                    median_ms(lambda: relpos_attention_heads_plain(*args)),
+                    fwd_cost(args[:5], "bfloat16"), None)
+
+    senc = make_student_config(cfg).encoder
+    sh, sdk = senc.n_heads, senc.d_model // senc.n_heads
+    student = inputs(sh, sdk)
+    rate, seed = senc.dropout_att, 2 ** 31 - 7
+    label = f"student (B={BATCH}, H={sh}, T={t}, dk={sdk})"
+    for dt in (torch.float32, torch.bfloat16):
+        args = [z.to(dt) for z in student] + [mask]
+        _, gerr, saved, g, (leaves_p, out_p) = heads_compare(
+            args, (-1, -1), rate, seed, label)
+        window = (-1, -1)
+        bwd = lambda: fused_relpos_attention_bwd(g, *saved, window, rate,
+                                                 seed)
+        check(all(torch.equal(a, b) for a, b in zip(bwd(), bwd())),
+              f"attention_heads_bwd {str(dt)[6:]}: two calls give "
+              f"bit-equal gradients")
+        if dt == torch.bfloat16:
+            b_, h_, t_, dk_ = args[0].shape
+            d_ = h_ * dk_
+            flops = 16 * b_ * h_ * t_ * t_ * dk_ + 2 * (2 * t_ - 1) * d_ * d_
+            rows["attention_heads_bwd"] = (
+                gerr, median_ms(bwd),
+                median_ms(lambda: torch.autograd.grad(out_p, leaves_p, g,
+                                                      retain_graph=True)),
+                bound(flops, nbytes(g, *saved) + nbytes(*args[:5]),
+                      "bfloat16"), None)
+    args32 = [z.float() for z in student] + [mask]
+    heads_compare(args32, (32, 16), rate, seed, label)
+    heads_compare(args32, (-1, -1), rate, None, label + ", ragged, no seed")
+    refused(lambda: fused_relpos_attention(
+        *[normal(gen, 1, 2, 8, 72) for _ in range(4)],
+        normal(gen, 144, 144), mask[:1, :8]),
+        "fused_relpos_attention at dk=72")
+    with torch.no_grad():
+        fwd_dev = device_ms(lambda: fused_relpos_attention(*teacher16))
+    bwd_dev = device_ms(bwd)
+    print(f"device attention_heads bfloat16 teacher forward (torch.profiler,"
+          f" busy ms per call): {fwd_dev[0]:.4f} ({top_kernels(fwd_dev[1])})"
+          f"; student backward {bwd_dev[0]:.4f} ({top_kernels(bwd_dev[1])})")
+    for name, (err, ms, plain_ms, (b_ms, by), _) in rows.items():
+        print(f"time {name} bfloat16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median of 20, "
+              f"CUDA events)")
+    return rows
+
 
 SERVING = ("logmel", "subsampling", "attention")
 # row: (source, TPU kernel it replaces, dtype of the main path)
@@ -1414,9 +1782,17 @@ KERNELS = {
                  "tpu_asr/ops/pallas_ffn.py:154", "bfloat16"),
     "conv_module": ("tpu_asr_torch/csrc/conv.cu",
                     "tpu_asr/ops/pallas_conv.py:57", "bfloat16"),
+    "conformer_layer": ("tpu_asr_torch/csrc/layer.cu",
+                        "tpu_asr/ops/pallas_layer.py:76", "bfloat16"),
+    "attention_heads": ("tpu_asr_torch/csrc/attention.cu",
+                        "tpu_asr/ops/pallas_attention.py:179", "bfloat16"),
+    "attention_heads_bwd": ("tpu_asr_torch/csrc/attention.cu",
+                            "tpu_asr/ops/pallas_attention.py:208",
+                            "bfloat16"),
 }
 STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
            "ffn_bwd", "ctc", "ctc_bwd")
+KD = STUDENT + ("fm", "fm_bwd")
 INT8_SERVING = SERVING + ("ffn_int8", "conv_module")
 
 
@@ -1426,8 +1802,6 @@ def main() -> int:
     from tpu_asr_torch.ops import _kernels
     from tpu_asr_torch.profile_train import teacher_config
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     start = time.perf_counter()
     lib = _kernels.build()
     _kernels.library()
@@ -1452,6 +1826,17 @@ def main() -> int:
     counts.update({k: int8_counts[k] for k in ("ffn_int8", "conv_module")})
     kd_train_phase(teacher_config("flowkd_mlp8_int8_teacher"),
                    "flowkd_mlp8_int8_teacher")
+    fns = reset_counters()
+    measured.update(layer_kernel_phase(cfg))
+    counts["conformer_layer"] = fns["conformer_layer"].launches
+    fns = reset_counters()
+    measured.update(heads_kernel_phase(cfg))
+    counts.update({k: fns[k].launches
+                   for k in ("attention_heads", "attention_heads_bwd")})
+    new = {k: counts[k] for k in ("conformer_layer", "attention_heads",
+                                  "attention_heads_bwd")}
+    check(all(v > 0 for v in new.values()),
+          f"phases 14 and 15 launched their kernels: {new}")
     rows = []
     for name, (source, replaces, dt) in KERNELS.items():
         err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]

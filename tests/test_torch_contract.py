@@ -39,7 +39,8 @@ from tpu_asr_torch.models.distil_model import DistilCTCModel
 from tpu_asr_torch.models.transcribe import Transcriber
 from tpu_asr_torch.ops import _kernels
 from tpu_asr_torch.ops.cuda_attention import (
-    fused_relpos_attention_block, fused_relpos_attention_block_bwd)
+    fused_relpos_attention, fused_relpos_attention_block,
+    fused_relpos_attention_block_bwd, fused_relpos_attention_bwd)
 from tpu_asr_torch.ops.cuda_conv import fused_conv_module
 from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd
 from tpu_asr_torch.ops.cuda_features import fused_logmel
@@ -47,6 +48,7 @@ from tpu_asr_torch.ops.cuda_ffn import (fused_ffn_sublayer,
                                         fused_ffn_sublayer_bwd,
                                         fused_ffn_sublayer_int8)
 from tpu_asr_torch.ops.cuda_fm import fused_fm_euler, fused_fm_euler_bwd
+from tpu_asr_torch.ops.cuda_layer import fused_conformer_layer, layer_params
 from tpu_asr_torch.ops.cuda_subsampling import fused_subsampling
 from tpu_asr_torch.train.trainer import (DistilTrainState,
                                          make_distil_train_step)
@@ -56,7 +58,8 @@ WRAPPERS = (fused_logmel, fused_subsampling, fused_relpos_attention_block,
             fused_relpos_attention_block_bwd, fused_ffn_sublayer,
             fused_ffn_sublayer_bwd, fused_ffn_sublayer_int8,
             fused_conv_module, ctc_nll, ctc_nll_bwd, fused_fm_euler,
-            fused_fm_euler_bwd)
+            fused_fm_euler_bwd, fused_relpos_attention,
+            fused_relpos_attention_bwd, fused_conformer_layer)
 IMPORT_ALL = """
 import importlib, pkgutil, sys
 import tpu_asr_torch
@@ -106,7 +109,8 @@ def test_port_imports_no_jax():
                  "tpu_asr_torch.kd.losses", "tpu_asr_torch.kd.meta_encoders",
                  "tpu_asr_torch.kd.flow_matching",
                  "tpu_asr_torch.ops.cuda_fm", "tpu_asr_torch.ops.quant",
-                 "tpu_asr_torch.ops.cuda_conv", "chip_smoke"):
+                 "tpu_asr_torch.ops.cuda_conv", "tpu_asr_torch.ops.cuda_layer",
+                 "tpu_asr_torch.ops.positions", "chip_smoke"):
         assert name in out["modules"]
     assert "tpu_asr_torch.host" not in out["modules"]
     assert out["bad"] == []
@@ -256,10 +260,17 @@ def test_cpu_forward_with_slice_4_options_launches_nothing(option):
     assert _kernels.library.cache_info().currsize == 0
 
 
-@pytest.mark.parametrize("wrapper", ["ffn_int8", "conv_module"])
+@pytest.mark.parametrize("wrapper", ["ffn_int8", "conv_module",
+                                     "conformer_layer"])
 def test_eval_only_wrappers_refuse_autograd(wrapper):
     x = torch.randn(1, 6, 8, requires_grad=True)
-    if wrapper == "ffn_int8":
+    if wrapper == "conformer_layer":
+        from tpu_asr_torch.models.conformer import ConformerLayer
+        prm = layer_params(ConformerLayer(port_config.EncoderConfig(
+            d_model=8, n_heads=2, conv_kernel_size=3)))
+        call = lambda: fused_conformer_layer(
+            x, torch.ones(1, 6, dtype=torch.bool), prm, 2, 3, 1, "affine")
+    elif wrapper == "ffn_int8":
         call = lambda: fused_ffn_sublayer_int8(
             x, torch.ones(8), torch.zeros(8), torch.randn(32, 8),
             torch.zeros(32), torch.randn(8, 32), torch.zeros(8))

@@ -8,7 +8,10 @@
 // Replaces tpu_asr/ops/pallas_attention.py::_block_fwd_kernel (and its
 // _block_scores, with its in-kernel dropout), launched by
 // fused_relpos_attention_block, and ::_block_bwd_kernel, launched by
-// fused_relpos_attention_block_bwd (see the backward's note further down).
+// fused_relpos_attention_block_bwd (see the backward's note further down);
+// and, with the same kernels, the per-head attention of
+// fused_relpos_attention (::_attn_fwd_kernel and ::_attn_bwd_kernel, see
+// the note before tat_relpos_attention).
 //
 // What bounds it on an H100: at B=32, T=376, D=176, 4 heads, dk=44 the
 // products are small (3 GFLOP of projections, 4.8 GFLOP of scores and
@@ -33,34 +36,24 @@
 //      replaces the TPU kernel's sin/cos rotation factorisation, which
 //      contracts over D = 176 per score instead of dk = 44. Shared-memory
 //      rows use a stride whose float4 count is odd, so the per-lane float4
-//      reads of K and P rows are conflict-free.
+//      reads of K and P rows are conflict-free. A local window (left, right)
+//      sets the scores of keys with s - t < -left or s - t > right to -1e30,
+//      as the TPU kernel's _local_mask does; the block sublayer passes
+//      (-1, -1), full context. The kernel's body is attention_core.cuh's
+//      core_tile, which layer.cu runs too.
 //   3. proj_kernel again: context (B*T, D) @ Wo^T, every output summed over
 //      all heads by one thread.
 // Plain SIMT with fp32 accumulation; operands in fp32 or bf16 (template),
 // rounded to the working type where the TPU kernel rounds them.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stdint.h>
 
-#include "dropout.cuh"
+#include "attention_core.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // One product C = A @ W^T (+ bias) of a projection launch.
 struct Job {
@@ -155,163 +148,53 @@ __global__ void __launch_bounds__(256) proj_kernel(Jobs jobs, int K, int N,
   }
 }
 
-constexpr int kBQ = 32;  // queries per block: 8 warps x 4 rows
-constexpr int kBS = 32;  // keys per tile: one per lane
-constexpr int kRows = 4; // query rows per warp
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Row stride (floats) of the shared tiles: a multiple of 4 holding dk, with
-// an odd number of float4s.
-__host__ __device__ __forceinline__ int row_stride(int dk) {
-  int s = (dk + 3) / 4 * 4;
-  return (s / 4) % 2 ? s : s + 4;
-}
-
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           int first, int n_rows,
-                                           int valid_rows, int dk, int ks) {
-  // dst[r * ks + d] = src[(first + r) * dk + d], zero outside the source;
-  // one warp per row, lanes along d
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n_rows; r += blockDim.x / 32) {
-    const int row = first + r;
-    const bool ok = row >= 0 && row < valid_rows;
-    const T* s = src + (size_t)row * dk;
-    for (int d = lane; d < ks; d += 32)
-      dst[r * ks + d] = (ok && d < dk) ? to_f(s[d]) : 0.f;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(256) core_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
     const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
     const T* __restrict__ pos,                           // (H, 2T-1, dk)
     const float* __restrict__ key_bias,                  // (B, T)
-    T* __restrict__ ctx,                                 // (B, T, H * dk)
+    T* __restrict__ ctx, HeadLayout cl,                  // per-row layout cl
     float* __restrict__ lse,                             // (B, H, T) or null
     int t_len, int heads, int dk, float scale, uint32_t seed,
-    uint32_t thresh, float dscale, int tp) {
+    uint32_t b_stride, uint32_t thresh, float dscale, int tp, int left,
+    int right) {
   extern __shared__ float4 smem4[];
-  const int ks = row_stride(dk);
-  float* Qu = reinterpret_cast<float*>(smem4);  // kBQ x ks
-  float* Qv = Qu + kBQ * ks;                    // kBQ x ks
-  float* Ks = Qv + kBQ * ks;                    // kBS x ks
-  float* Vs = Ks + kBS * ks;                    // kBS x ks
-  float* Ps = Vs + kBS * ks;                    // (kBQ + kBS - 1) x ks
+  const int bh = blockIdx.y, b = bh / heads;
+  const uint32_t stream = seed + b_stride * (uint32_t)b +
+                          (uint32_t)(bh - b * heads);
+  core_tile<T>(reinterpret_cast<float*>(smem4), qu, qv, kk, vv, pos,
+               key_bias, ctx, cl, lse, bh, blockIdx.x * kBQ, t_len, heads,
+               dk, scale, stream, thresh, dscale, tp, left, right);
+}
 
-  const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
-  const int q0 = blockIdx.x * kBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_pos = 2 * t_len - 1;
-  const size_t head_off = (size_t)bh * t_len * dk;
-  const T* pos_h = pos + (size_t)hh * n_pos * dk;
+// Per-row layouts (HeadLayout) of (B, T, H dk) and (B, H, T, dk).
+HeadLayout rows_layout(int t_len, int heads, int dk) {
+  return {(long long)t_len * heads * dk, dk, (long long)heads * dk};
+}
+HeadLayout heads_layout(int t_len, int heads, int dk) {
+  return {(long long)heads * t_len * dk, (long long)t_len * dk, dk};
+}
 
-  stage_rows(Qu, qu + head_off, q0, kBQ, t_len, dk, ks);
-  stage_rows(Qv, qv + head_off, q0, kBQ, t_len, dk, ks);
-
-  float m_i[kRows], l_i[kRows], o0[kRows], o1[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m_i[r] = -INFINITY;
-    l_i[r] = o0[r] = o1[r] = 0.f;
-  }
-  const bool has0 = lane < dk, has1 = lane + 32 < dk;
-
-  for (int s0 = 0; s0 < t_len; s0 += kBS) {
-    __syncthreads();  // the previous tile is consumed
-    stage_rows(Ks, kk + head_off, s0, kBS, t_len, dk, ks);
-    stage_rows(Vs, vv + head_off, s0, kBS, t_len, dk, ks);
-    // local row l holds relative position t - s = q0 - s0 + 31 - l, which
-    // is P row (T - 1) - (t - s)
-    stage_rows(Ps, pos_h, (t_len - 1) - (q0 - s0 + kBS - 1), kBQ + kBS - 1,
-               n_pos, dk, ks);
-    __syncthreads();
-
-    const int s = s0 + lane;
-    const float kb = s < t_len ? key_bias[(size_t)b * t_len + s] : 0.f;
-    const uint32_t stream = seed + (uint32_t)bh;
-    float sc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(Ks + lane * ks);
-    for (int d4 = 0; d4 < ks / 4; ++d4) {
-      const float4 k4 = krow[d4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = warp * kRows + r;
-        const float4 a = reinterpret_cast<const float4*>(Qu + row * ks)[d4];
-        const float4 c = reinterpret_cast<const float4*>(Qv + row * ks)[d4];
-        const float4 p = reinterpret_cast<const float4*>(
-            Ps + (lane - row + kBS - 1) * ks)[d4];
-        float v = sc[r];
-        v = fmaf(a.x, k4.x, v);
-        v = fmaf(a.y, k4.y, v);
-        v = fmaf(a.z, k4.z, v);
-        v = fmaf(a.w, k4.w, v);
-        v = fmaf(c.x, p.x, v);
-        v = fmaf(c.y, p.y, v);
-        v = fmaf(c.z, p.z, v);
-        v = fmaf(c.w, p.w, v);
-        sc[r] = v;
-      }
-    }
-
-    float pw[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float x = s < t_len ? sc[r] * scale + kb : -INFINITY;
-      const float m_new = fmaxf(m_i[r], warp_max(x));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float p = expf(x - m_use);
-      const float corr = expf(m_i[r] - m_use);
-      l_i[r] = l_i[r] * corr + warp_sum(p);
-      m_i[r] = m_new;
-      o0[r] *= corr;
-      o1[r] *= corr;
-      float pd = p;
-      if (thresh) {
-        const uint32_t t = (uint32_t)(q0 + warp * kRows + r);
-        pd = dropout_keep(stream, t * (uint32_t)tp + (uint32_t)s, thresh)
-                 ? p * dscale
-                 : 0.f;
-      }
-      pw[r] = to_f(from_f<T>(pd));  // the value product takes T operands
-    }
-    for (int j = 0; j < kBS; ++j) {
-      const float v0 = has0 ? Vs[j * ks + lane] : 0.f;
-      const float v1 = has1 ? Vs[j * ks + lane + 32] : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = __shfl_sync(0xffffffffu, pw[r], j);
-        o0[r] = fmaf(p, v0, o0[r]);
-        o1[r] = fmaf(p, v1, o1[r]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int t = q0 + warp * kRows + r;
-    if (t >= t_len) continue;
-    T* dst = ctx + ((size_t)b * t_len + t) * heads * dk + hh * dk;
-    const float inv = 1.f / l_i[r];
-    if (has0) dst[lane] = from_f<T>(o0[r] * inv);
-    if (has1) dst[lane + 32] = from_f<T>(o1[r] * inv);
-    if (lse && lane == 0) lse[(size_t)bh * t_len + t] = m_i[r] + logf(l_i[r]);
-  }
+// core_kernel over every (batch row, head, 32 queries): head h of batch row
+// b draws the dropout stream seed + b_stride * b + h.
+template <typename T>
+cudaError_t launch_core(const void* qu, const void* qv, const void* k,
+                        const void* v, const void* p, const float* key_bias,
+                        void* ctx, HeadLayout cl, float* lse, int batch,
+                        int t_len, int heads, int dk, uint32_t seed,
+                        uint32_t b_stride, uint32_t thresh, float dscale,
+                        int tp, int left, int right, cudaStream_t stream) {
+  const size_t smem = core_smem(dk);
+  cudaError_t err = cudaFuncSetAttribute(
+      core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + kBQ - 1) / kBQ, batch * heads);
+  core_kernel<T><<<grid, 256, smem, stream>>>(
+      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
+      key_bias, (T*)ctx, cl, lse, t_len, heads, dk, 1.f / sqrtf((float)dk),
+      seed, b_stride, thresh, dscale, tp, left, right);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -334,19 +217,10 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int ks = row_stride(dk);
-  const size_t smem =
-      sizeof(float) * (size_t)ks * (2 * kBQ + 2 * kBS + kBQ + kBS - 1);
-  err = cudaFuncSetAttribute(core_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid2((t_len + kBQ - 1) / kBQ, batch * heads);
-  core_kernel<T><<<grid2, 256, smem, stream>>>(
-      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
-      key_bias, (T*)ctx, lse, t_len, heads, dk, 1.f / sqrtf((float)dk), seed,
-      thresh, dscale, tp);
-  err = cudaGetLastError();
+  err = launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
+                       rows_layout(t_len, heads, dk), lse, batch, t_len,
+                       heads, dk, seed, (uint32_t)heads, thresh, dscale, tp,
+                       -1, -1, stream);
   if (err != cudaSuccess) return (int)err;
 
   Jobs outp{};
@@ -400,12 +274,12 @@ __global__ void __launch_bounds__(256) dq_kernel(
     const float* __restrict__ key_bias,                  // (B, T)
     const float* __restrict__ lse,                       // (B, H, T)
     const T* __restrict__ dctx,                          // (B, H, T, dk)
-    const T* __restrict__ ctx,                           // (B, T, H * dk)
-    T* __restrict__ grads,                               // (B, T, 4 H dk)
+    const T* __restrict__ ctx, HeadLayout cl,            // per-row layout cl
+    T* __restrict__ grads, HeadLayout gl, long long gc,  // 4 grads, gl + c gc
     float* __restrict__ dsum,                            // (B, H, T)
     float* __restrict__ dpart,  // (B, H, n_qt, win, dk)
-    int t_len, int heads, int dk, float scale, uint32_t seed,
-    uint32_t thresh, float dscale, int tp, int win) {
+    int t_len, int heads, int dk, float scale, uint32_t seed, uint32_t b_stride,
+    uint32_t thresh, float dscale, int tp, int win, int left, int right) {
   extern __shared__ float4 smem4[];
   const int ks = row_stride(dk);
   float* Qu = reinterpret_cast<float*>(smem4);  // kBQ x ks
@@ -420,10 +294,10 @@ __global__ void __launch_bounds__(256) dq_kernel(
   const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
   const int q0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_pos = 2 * t_len - 1, d_model = heads * dk;
+  const int n_pos = 2 * t_len - 1;
   const size_t head_off = (size_t)bh * t_len * dk;
   const T* pos_h = pos + (size_t)hh * n_pos * dk;
-  const uint32_t stream = seed + (uint32_t)bh;
+  const uint32_t stream = seed + b_stride * (uint32_t)b + (uint32_t)hh;
 
   stage_rows(Qu, qu + head_off, q0, kBQ, t_len, dk, ks);
   stage_rows(Qv, qv + head_off, q0, kBQ, t_len, dk, ks);
@@ -439,7 +313,7 @@ __global__ void __launch_bounds__(256) dq_kernel(
     const int row = warp * kRows + r, t = q0 + row;
     float dd = 0.f;
     if (t < t_len) {
-      const T* c = ctx + ((size_t)b * t_len + t) * d_model + hh * dk;
+      const T* c = ctx + cl.at(b, hh, t);
       if (has0) dd += Dc[row * ks + lane] * to_f(c[lane]);
       if (has1) dd += Dc[row * ks + lane + 32] * to_f(c[lane + 32]);
     }
@@ -485,7 +359,9 @@ __global__ void __launch_bounds__(256) dq_kernel(
       const int row = warp * kRows + r, t = q0 + row;
       float v = 0.f;
       if (t < t_len && s < t_len) {
-        const float p = expf(sc[r] * scale + kb - lser[r]);
+        float x = sc[r] * scale + kb;
+        if (!in_window(t, s, left, right)) x = -1e30f;
+        const float p = expf(x - lser[r]);
         float kf = 1.f;
         if (thresh)
           kf = dropout_keep(stream, (uint32_t)t * (uint32_t)tp + (uint32_t)s,
@@ -530,14 +406,14 @@ __global__ void __launch_bounds__(256) dq_kernel(
   for (int r = 0; r < kRows; ++r) {
     const int t = q0 + warp * kRows + r;
     if (t >= t_len) continue;
-    T* dst = grads + ((size_t)b * t_len + t) * 4 * d_model + hh * dk;
+    T* dst = grads + gl.at(b, hh, t);
     if (has0) {
       dst[lane] = from_f<T>(dqu0[r]);
-      dst[d_model + lane] = from_f<T>(dqv0[r]);
+      dst[gc + lane] = from_f<T>(dqv0[r]);
     }
     if (has1) {
       dst[lane + 32] = from_f<T>(dqu1[r]);
-      dst[d_model + lane + 32] = from_f<T>(dqv1[r]);
+      dst[gc + lane + 32] = from_f<T>(dqv1[r]);
     }
   }
 }
@@ -551,9 +427,9 @@ __global__ void __launch_bounds__(256) dkv_kernel(
     const float* __restrict__ lse,                       // (B, H, T)
     const T* __restrict__ dctx,                          // (B, H, T, dk)
     const float* __restrict__ dsum,                      // (B, H, T)
-    T* __restrict__ grads,                               // (B, T, 4 H dk)
-    int t_len, int heads, int dk, float scale, uint32_t seed,
-    uint32_t thresh, float dscale, int tp) {
+    T* __restrict__ grads, HeadLayout gl, long long gc,  // 4 grads, gl + c gc
+    int t_len, int heads, int dk, float scale, uint32_t seed, uint32_t b_stride,
+    uint32_t thresh, float dscale, int tp, int left, int right) {
   extern __shared__ float4 smem4[];
   const int ks = row_stride(dk);
   float* Ks = reinterpret_cast<float*>(smem4);  // kBS x ks: this block's keys
@@ -566,10 +442,10 @@ __global__ void __launch_bounds__(256) dkv_kernel(
   const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
   const int s0 = blockIdx.x * kBS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_pos = 2 * t_len - 1, d_model = heads * dk;
+  const int n_pos = 2 * t_len - 1;
   const size_t head_off = (size_t)bh * t_len * dk;
   const T* pos_h = pos + (size_t)hh * n_pos * dk;
-  const uint32_t stream = seed + (uint32_t)bh;
+  const uint32_t stream = seed + b_stride * (uint32_t)b + (uint32_t)hh;
 
   stage_rows(Ks, kk + head_off, s0, kBS, t_len, dk, ks);
   stage_rows(Vs, vv + head_off, s0, kBS, t_len, dk, ks);
@@ -621,7 +497,9 @@ __global__ void __launch_bounds__(256) dkv_kernel(
       const int s = s0 + warp * kRows + r;
       pd[r] = ds[r] = 0.f;
       if (tin && s < t_len) {
-        const float p = expf(sc[r] * scale + kbr[r] - lse_t);
+        float x = sc[r] * scale + kbr[r];
+        if (!in_window(t, s, left, right)) x = -1e30f;
+        const float p = expf(x - lse_t);
         float kf = 1.f;
         if (thresh)
           kf = dropout_keep(stream, (uint32_t)t * (uint32_t)tp + (uint32_t)s,
@@ -652,14 +530,14 @@ __global__ void __launch_bounds__(256) dkv_kernel(
   for (int r = 0; r < kRows; ++r) {
     const int s = s0 + warp * kRows + r;
     if (s >= t_len) continue;
-    T* dst = grads + ((size_t)b * t_len + s) * 4 * d_model + hh * dk;
+    T* dst = grads + gl.at(b, hh, s);
     if (has0) {
-      dst[2 * d_model + lane] = from_f<T>(dk0[r]);
-      dst[3 * d_model + lane] = from_f<T>(dv0[r]);
+      dst[2 * gc + lane] = from_f<T>(dk0[r]);
+      dst[3 * gc + lane] = from_f<T>(dv0[r]);
     }
     if (has1) {
-      dst[2 * d_model + lane + 32] = from_f<T>(dk1[r]);
-      dst[3 * d_model + lane + 32] = from_f<T>(dv1[r]);
+      dst[2 * gc + lane + 32] = from_f<T>(dk1[r]);
+      dst[3 * gc + lane + 32] = from_f<T>(dv1[r]);
     }
   }
 }
@@ -776,6 +654,54 @@ size_t dq_smem(int dk, int win) {
                           kBQ * (kBS + 1) + (size_t)win * dk);
 }
 
+// dq_kernel, dkv_kernel and dpos_kernel: the four per-head gradients into
+// grads (component c of row (b, h, t) at gl.at(b, h, t) + c * gc) and dP
+// (2T - 1, H dk) into dpos, from dctx (B, H, T, dk) and ctx (layout cl).
+template <typename T>
+cudaError_t score_grads(const void* qu, const void* qv, const void* k,
+                        const void* v, const void* p, const float* key_bias,
+                        const float* lse, const void* dctx, const void* ctx,
+                        HeadLayout cl, void* grads, HeadLayout gl,
+                        long long gc, float* dsum, float* dpart, float* dpos,
+                        int batch, int t_len, int heads, int dk,
+                        uint32_t seed, uint32_t b_stride, uint32_t thresh,
+                        float dscale, int tp, int left, int right,
+                        cudaStream_t stream) {
+  const int n_pos = 2 * t_len - 1, d = heads * dk;
+  const int n_qt = (t_len + kBQ - 1) / kBQ, win = n_qt * kBQ + kBS - 1;
+  const float scale = 1.f / sqrtf((float)dk);
+  const size_t smem_q = dq_smem(dk, win);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(dq_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_q)) != cudaSuccess)
+    return err;
+  dq_kernel<T><<<dim3(n_qt, batch * heads), 256, smem_q, stream>>>(
+      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
+      key_bias, lse, (const T*)dctx, (const T*)ctx, cl, (T*)grads, gl, gc,
+      dsum, dpart, t_len, heads, dk, scale, seed, b_stride, thresh, dscale, tp,
+      win, left, right);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int ks = row_stride(dk);
+  const size_t smem_kv =
+      sizeof(float) * (size_t)ks * (2 * kBS + 3 * kBQ + kBQ + kBS - 1);
+  if ((err = cudaFuncSetAttribute(dkv_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_kv)) != cudaSuccess)
+    return err;
+  dkv_kernel<T><<<dim3((t_len + kBS - 1) / kBS, batch * heads), 256, smem_kv,
+                  stream>>>(
+      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
+      key_bias, lse, (const T*)dctx, dsum, (T*)grads, gl, gc, t_len, heads,
+      dk, scale, seed, b_stride, thresh, dscale, tp, left, right);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  dpos_kernel<<<(n_pos * d + 255) / 256, 256, 0, stream>>>(
+      dpart, dpos, batch, heads, dk, t_len, n_qt, win);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
             const void* qu, const void* qv, const void* k, const void* v,
@@ -786,8 +712,6 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
             int d, int heads, uint32_t seed, uint32_t thresh, float dscale,
             int tp, cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
-  const int n_qt = (t_len + kBQ - 1) / kBQ, win = n_qt * kBQ + kBS - 1;
-  const float scale = 1.f / sqrtf((float)dk);
   Jobs dc{};
   dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 0, 1};
   const dim3 grid1((rows + kTile - 1) / kTile, (d + kTile - 1) / kTile, 1);
@@ -795,35 +719,12 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_q = dq_smem(dk, win);
-  if ((err = cudaFuncSetAttribute(dq_kernel<T>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_q)) != cudaSuccess)
-    return (int)err;
-  const dim3 grid2(n_qt, batch * heads);
-  dq_kernel<T><<<grid2, 256, smem_q, stream>>>(
-      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
-      key_bias, lse, (const T*)dctx, (const T*)ctx, (T*)grads, dsum, dpart,
-      t_len, heads, dk, scale, seed, thresh, dscale, tp, win);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int ks = row_stride(dk);
-  const size_t smem_kv =
-      sizeof(float) * (size_t)ks * (2 * kBS + 3 * kBQ + kBQ + kBS - 1);
-  if ((err = cudaFuncSetAttribute(dkv_kernel<T>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_kv)) != cudaSuccess)
-    return (int)err;
-  dkv_kernel<T><<<dim3((t_len + kBS - 1) / kBS, batch * heads), 256, smem_kv,
-                  stream>>>(
-      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
-      key_bias, lse, (const T*)dctx, dsum, (T*)grads, t_len, heads, dk, scale,
-      seed, thresh, dscale, tp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  dpos_kernel<<<(n_pos * d + 255) / 256, 256, 0, stream>>>(
-      dpart, dpos, batch, heads, dk, t_len, n_qt, win);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = score_grads<T>(qu, qv, k, v, p, key_bias, lse, dctx, ctx,
+                       rows_layout(t_len, heads, dk), grads,
+                       rows_layout(t_len, 4 * heads, dk), d, dsum, dpart,
+                       dpos, batch, t_len, heads, dk, seed, (uint32_t)heads,
+                       thresh, dscale, tp, -1, -1, stream);
+  if (err != cudaSuccess) return (int)err;
 
   Jobs dxj{};
   dxj.job[0] = {grads, wcat, nullptr, nullptr, dx, nullptr, rows, 0, 0};
@@ -835,6 +736,58 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
       (err = wgrad<T, T>(g, d, ctx, d, 0, rows, part, dwo, stream)) !=
           cudaSuccess)
     return (int)err;
+  return (int)wgrad<float, T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Per-head attention. Replaces tpu_asr/ops/pallas_attention.py::
+// _attn_fwd_kernel and ::_attn_bwd_kernel (launched by
+// fused_relpos_attention): the caller hands in q_u = q + u, q_v = q + v, k
+// and v per head, (B, H, T, dk), and the context comes back per head. The
+// same hand-written kernels as the block sublayer run it: proj_kernel for
+// P = PE W_pos^T, core_kernel for the scores, softmax, dropout and value
+// product (the TPU kernel instead contracts a sin/cos rotation of
+// q_v W_pos against constant tables); in the backward dq_kernel,
+// dkv_kernel and dpos_kernel, and wgrad_kernel for dW_pos = dP^T PE, with
+// the gradients written per head. The TPU kernel's per-batch dWev/dWod
+// partials become the dP window partials that dpos_kernel sums in order.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+int run_heads(const void* qu, const void* qv, const void* k, const void* v,
+              const void* wpos, const void* pe, const float* key_bias,
+              void* p, void* ctx, float* lse, int batch, int t_len, int d,
+              int heads, int left, int right, uint32_t seed, uint32_t b_stride,
+              uint32_t thresh, float dscale, int tp, cudaStream_t stream) {
+  const int dk = d / heads, n_pos = 2 * t_len - 1;
+  Jobs proj{};
+  proj.job[0] = {pe, wpos, nullptr, nullptr, p, nullptr, n_pos, 1, 2};
+  const dim3 grid((n_pos + kTile - 1) / kTile, (d + kTile - 1) / kTile, 1);
+  proj_kernel<T><<<grid, 256, 0, stream>>>(proj, d, d, t_len, heads, dk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
+                             heads_layout(t_len, heads, dk), lse, batch,
+                             t_len, heads, dk, seed, b_stride, thresh,
+                             dscale, tp, left, right, stream);
+}
+
+template <typename T>
+int run_heads_bwd(const void* g, const void* qu, const void* qv,
+                  const void* k, const void* v, const void* p,
+                  const float* key_bias, const float* lse, const void* ctx,
+                  const void* pe, void* grads, float* dsum, float* dpart,
+                  float* dpos, float* part, float* dwpos, int batch,
+                  int t_len, int d, int heads, int left, int right,
+                  uint32_t seed, uint32_t b_stride, uint32_t thresh,
+                  float dscale, int tp, cudaStream_t stream) {
+  const int dk = d / heads, n_pos = 2 * t_len - 1;
+  const HeadLayout hl = heads_layout(t_len, heads, dk);
+  cudaError_t err = score_grads<T>(
+      qu, qv, k, v, p, key_bias, lse, g, ctx, hl, grads, hl,
+      (long long)batch * heads * t_len * dk, dsum, dpart, dpos, batch, t_len,
+      heads, dk, seed, b_stride, thresh, dscale, tp, left, right, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)wgrad<float, T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
 }
 
@@ -898,4 +851,60 @@ extern "C" int tat_attention_bwd(
                                F(dsum), F(dpart), F(dpos), dx, F(part),
                                F(dw_all), F(dwo), F(dwpos), batch, t_len, d,
                                heads, seed, thresh, dscale, tp, s);
+}
+
+// Per-head attention (fused_relpos_attention). The wrapper guarantees:
+// contiguous tensors on one device; q_u, q_v, k, v (B, H, T, dk), w_pos
+// (d, d) and the scratch p (H, 2T-1, dk) and ctx (B, H, T, dk) in one dtype
+// (fp32 or bf16); pe (2T-1, d) and key_bias (B, T) fp32; d = H dk,
+// dk <= 64; lse (B, H, T) fp32 or null. Keys outside the window (left,
+// right) score -1e30; -1 is unlimited. Dropout when thresh > 0: stream
+// seed + b_stride * b + h, idx t * tp + s: b_stride = H gives every head
+// its own stream, b_stride = 0 the streams 0 .. H - 1 in every batch row.
+extern "C" int tat_relpos_attention(int bf16, const void* qu, const void* qv,
+                                    const void* k, const void* v,
+                                    const void* wpos, const void* pe,
+                                    const void* key_bias, void* p, void* ctx,
+                                    void* lse, int batch, int t_len, int d,
+                                    int heads, int left, int right,
+                                    unsigned int seed, unsigned int b_stride,
+                                    unsigned int thresh, float dscale, int tp,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* kb = (const float*)key_bias;
+  return bf16 ? run_heads<__nv_bfloat16>(qu, qv, k, v, wpos, pe, kb, p, ctx,
+                                         (float*)lse, batch, t_len, d, heads,
+                                         left, right, seed, b_stride, thresh,
+                                         dscale, tp, s)
+              : run_heads<float>(qu, qv, k, v, wpos, pe, kb, p, ctx,
+                                 (float*)lse, batch, t_len, d, heads, left,
+                                 right, seed, b_stride, thresh, dscale, tp, s);
+}
+
+// Backward of tat_relpos_attention from its saved forward (q_u, q_v, k, v,
+// p, ctx, lse; the same window and dropout arguments) and the cotangent g
+// (B, H, T, dk) in the working dtype; pe (2T-1, d) in the working dtype.
+// Outputs: grads (4, B, H, T, dk) = dq_u, dq_v, dk, dv in the working
+// dtype; fp32 dpos (2T-1, d) and dwpos (d, d). fp32 scratch: dsum
+// (B, H, T), dpart (B, H, ceil(T/32), 32 ceil(T/32) + 31, dk), part (at
+// least ceil((2T-1) / 512) * d * d).
+extern "C" int tat_relpos_attention_bwd(
+    int bf16, const void* g, const void* qu, const void* qv, const void* k,
+    const void* v, const void* p, const void* key_bias, const void* lse,
+    const void* ctx, const void* pe, void* grads, void* dsum, void* dpart,
+    void* dpos, void* part, void* dwpos, int batch, int t_len, int d,
+    int heads, int left, int right, unsigned int seed, unsigned int b_stride,
+    unsigned int thresh, float dscale, int tp, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  auto F = [](const void* q) { return (float*)q; };
+  return bf16 ? run_heads_bwd<__nv_bfloat16>(
+                    g, qu, qv, k, v, p, F(key_bias), F(lse), ctx, pe, grads,
+                    F(dsum), F(dpart), F(dpos), F(part), F(dwpos), batch,
+                    t_len, d, heads, left, right, seed, b_stride, thresh,
+                    dscale, tp, s)
+              : run_heads_bwd<float>(
+                    g, qu, qv, k, v, p, F(key_bias), F(lse), ctx, pe, grads,
+                    F(dsum), F(dpart), F(dpos), F(part), F(dwpos), batch,
+                    t_len, d, heads, left, right, seed, b_stride, thresh,
+                    dscale, tp, s);
 }

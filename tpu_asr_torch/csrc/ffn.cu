@@ -20,147 +20,34 @@
 //     128-column passes with the weight staged through shared memory in
 //     32-deep chunks, bias + SiLU + inner mask in the epilogue, then
 //     o = h W2^T the same way, outer mask and the 0.5 residual. h stays in
-//     shared memory.
+//     shared memory. Any D whose tile fits shared memory (the teacher's
+//     D=176 in eval); the tile product and the LayerNorm are rowtile.cuh's,
+//     shared with layer.cu.
 //   backward - two kernels. ffn_bwd_dx_kernel (one block per 32 rows)
 //     recomputes LN and h1, forms do, dh1 = silu'(h1) * mask * (do W2) and
 //     dy = dh1 W1, and applies the LN backward; it writes dx and per-block
 //     partials of d(LN scale, bias). ffn_bwd_dw_kernel (one block per 32
 //     d_ff columns and per chunk of rows) recomputes its 32 columns of h1
 //     and dh1 and accumulates dW1, dW2, db1 (and, for the first column
-//     block, db2) over its rows in registers, then writes one partial per
-//     row chunk. Partials are summed in a fixed order by sum_rows_kernel:
-//     no atomics, so the gradients are deterministic.
+//     block, db2) over its rows in registers (so D <= 128), then writes one
+//     partial per row chunk. Partials are summed in a fixed order by
+//     sum_rows_kernel: no atomics, so the gradients are deterministic.
 // Dropout masks come from the counter hash (dropout.cuh) with JAX's stream
 // layout: 2 * (seed + b) + salt, idx t * width + col.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <math.h>
 
 #include "dropout.cuh"
+#include "rowtile.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
-
-constexpr int kRT = 32;       // rows per tile: 8 warps x 4 rows
-constexpr int kRows = 4;      // rows per warp
-constexpr int kNC = 128;      // output columns per pass: 32 lanes x 4
-constexpr int kKC = 32;       // reduction chunk staged in shared memory
-constexpr int kWS = kNC + 1;  // staged weight row stride (odd)
 constexpr int kFC = 32;       // d_ff columns per dW block
 constexpr int kCS = kFC + 1;
 constexpr int kMaxDJ = 16;    // D <= 8 * kMaxDJ = 128 in the dW kernel
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage W[n0 + c][k0 + kk] of a row-major (N, K) W as ws[kk * kWS + c].
-template <typename T>
-__device__ void stage_nk(float* ws, const T* w, int n0, int n, int k0,
-                         int k) {
-  for (int i = threadIdx.x; i < kNC * kKC; i += blockDim.x) {
-    const int c = i / kKC, kk = i - c * kKC;
-    const int r = n0 + c, col = k0 + kk;
-    ws[kk * kWS + c] = (r < n && col < k) ? to_f(w[(size_t)r * k + col]) : 0.f;
-  }
-}
-
-// Stage W[k0 + kk][n0 + c] of a row-major (K, N) W as ws[kk * kWS + c].
-template <typename T>
-__device__ void stage_kn(float* ws, const T* w, int n0, int n, int k0,
-                         int k) {
-  for (int i = threadIdx.x; i < kNC * kKC; i += blockDim.x) {
-    const int kk = i / kNC, c = i - kk * kNC;
-    const int r = k0 + kk, col = n0 + c;
-    ws[kk * kWS + c] = (r < k && col < n) ? to_f(w[(size_t)r * n + col]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_{k < K} a[(4 warp + i) * lda + k] * W(k, n0 + lane + 32 j)
-// for a row-major (N, K) W (KN = false) or (K, N) W (KN = true). `a` is an
-// fp32 tile in shared memory. Starts and ends with a block barrier.
-template <typename T, bool KN>
-__device__ void tile_product(float (&acc)[kRows][4], const float* a, int lda,
-                             const T* w, int n0, int n, int k, float* ws) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += kKC) {
-    __syncthreads();  // ws and the a tile are ready / consumed
-    if (KN)
-      stage_kn<T>(ws, w, n0, n, k0, k);
-    else
-      stage_nk<T>(ws, w, n0, n, k0, k);
-    __syncthreads();
-    const int kn = min(kKC, k - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float av[kRows], wv[4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        av[i] = a[(warp * kRows + i) * lda + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[kk * kWS + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-}
-
-// flax LayerNorm of rows m0 .. m0 + 31 (zero past m_rows): y rounded to T
-// into ys; optionally xhat into xh and 1 / std into rs. One warp per row.
-template <typename T>
-__device__ void ln_rows(const T* x, const float* lnw, const float* lnb,
-                        int m0, int m_rows, int d, float* ys, float* xh,
-                        float* rs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = 0; i < kRows; ++i) {
-    const int row = warp * kRows + i, m = m0 + row;
-    float v[4], s = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = (m < m_rows && c < d) ? to_f(x[(size_t)m * d + c]) : 0.f;
-      s += v[j];
-      s2 += v[j] * v[j];
-    }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    const float mu = s / d, r = rsqrtf(s2 / d - mu * mu + 1e-6f);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = lane + 32 * j;
-      if (c >= d) continue;
-      const float xhat = (v[j] - mu) * r;
-      ys[row * d + c] = rnd<T>(xhat * lnw[c] + lnb[c]);
-      if (xh) xh[row * d + c] = xhat;
-    }
-    if (rs && lane == 0) rs[row] = r;
-  }
-}
 
 __device__ __forceinline__ bool keep(uint32_t seed, int m, int t_len,
                                      uint32_t salt, int width, int col,
@@ -529,7 +416,8 @@ int bwd(const void* x, const void* g, const float* lnw, const float* lnb,
 
 // The wrapper guarantees: contiguous tensors on one device; x, out, w1
 // (f, d) and w2 (d, f) in one dtype (fp32 or bf16); LN scale/bias and
-// biases fp32; d <= 128; m_rows = B * t_len rows of x.
+// biases fp32; 4 (32 (d + f) + 32 * 129) bytes of shared memory <= 227 KB;
+// m_rows = B * t_len rows of x.
 extern "C" int tat_ffn_fwd(int bf16, const void* x, const void* lnw,
                            const void* lnb, const void* w1, const void* b1,
                            const void* w2, const void* b2, void* out,
@@ -549,7 +437,8 @@ extern "C" int tat_ffn_fwd(int bf16, const void* x, const void* lnw,
 // fp32 ds, dsb (d), dw1 (f, d), dw2 (d, f), db1 (f), db2 (d); fp32 scratch
 // part_ds, part_dsb (ceil(m_rows / 32), d), pw1 (n_chunks, f, d), pw2
 // (n_chunks, d, f), pb1 (n_chunks, f), pb2 (n_chunks, d) with
-// n_chunks * rows_per_chunk >= m_rows and rows_per_chunk a multiple of 32.
+// n_chunks * rows_per_chunk >= m_rows and rows_per_chunk a multiple of 32;
+// d <= 128 (kMaxDJ).
 extern "C" int tat_ffn_bwd(int bf16, const void* x, const void* g,
                            const void* lnw, const void* lnb, const void* w1,
                            const void* b1, const void* w2, void* dx,

@@ -38,7 +38,6 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -55,6 +54,7 @@ from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_int8_plain,
 from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
                                                 subsampling_plain)
 from tpu_asr_torch.ops.dropout import dropout
+from tpu_asr_torch.ops.positions import rel_positional_encoding  # noqa: F401
 
 SEEDS_PER_LAYER = 5      # ffn1, attention probabilities, attention out,
 #                          conv out, ffn2
@@ -95,21 +95,6 @@ def subsampled_length(length: torch.Tensor, factor: int = 4) -> torch.Tensor:
     for _ in range(int(math.log2(factor))):
         length = (length - 1) // 2 + 1
     return length
-
-
-def rel_positional_encoding(t: int, d_model: int,
-                            device=None) -> torch.Tensor:
-    """Relative sinusoid table (2t - 1, d_model) fp32 for positions
-    t-1 .. -(t-1): sin on even columns, cos on odd (NeMo
-    RelPositionalEncoding), computed in numpy float32 as the JAX
-    package computes it."""
-    positions = np.arange(t - 1, -t, -1, dtype=np.float32)[:, None]
-    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
-                 * -(math.log(10000.0) / d_model))
-    pe = np.zeros((2 * t - 1, d_model), dtype=np.float32)
-    pe[:, 0::2] = np.sin(positions * div)
-    pe[:, 1::2] = np.cos(positions * div)
-    return torch.from_numpy(pe).to(device)
 
 
 def _linear(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:

@@ -35,6 +35,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "tpu_asr_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libtpu_asr_torch.so"
+SMEM_LIMIT = 227 * 1024          # dynamic shared memory of one H100 block
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int

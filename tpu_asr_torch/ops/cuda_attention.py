@@ -1,5 +1,6 @@
-"""Relative-position self-attention sublayer kernels (`csrc/attention.cu`)
-and their plain version.
+"""Relative-position self-attention kernels (`csrc/attention.cu`) and their
+plain versions: the whole sublayer (`fused_relpos_attention_block`) and,
+at the end of the module, the per-head attention (`fused_relpos_attention`).
 
 Counterpart of tpu_asr/ops/pallas_attention.py::fused_relpos_attention_block,
 offline and full-context, forward and (under autograd) backward: (B, T, D)
@@ -15,11 +16,13 @@ interpret mode. The softmax normaliser is the undropped one. The backward
 for every weight, bias and pos_bias_u/v, and dx in x's dtype.
 
 Weights arrive in PyTorch Linear layout (out, in); `pos_emb` is the
-(2T - 1, D) relative sinusoid table (models/conformer.rel_positional_encoding)
+(2T - 1, D) relative sinusoid table (ops/positions.rel_positional_encoding)
 and `mask` the (B, T) key validity. Operands are in x's dtype (fp32 or bf16)
 with fp32 accumulation, rounded where the TPU kernel rounds them: the
 projections, the attention weights and the context. The plain version keeps
 JAX's rel_shift construction; the kernel gathers the shifted positions.
+The kernels' shared core takes a local window (`local_window`); the block
+wrapper still refuses one (att_context_size is outside the model slice).
 """
 
 from __future__ import annotations
@@ -32,13 +35,19 @@ import torch.nn.functional as F
 
 from tpu_asr_torch.ops import _kernels as K
 from tpu_asr_torch.ops.dropout import batch_streams, keep_mask, threshold
+from tpu_asr_torch.ops.positions import (position_table,
+                                         rel_positional_encoding)
 
 _ARGS = ((K.INT,) + (K.PTR,) * 20 + (K.INT,) * 4 + (K.UINT,) * 2
          + (K.FLOAT, K.INT, K.PTR))
 _BWD_ARGS = ((K.INT,) + (K.PTR,) * 23 + (K.INT,) * 4 + (K.UINT,) * 2
              + (K.FLOAT, K.INT, K.PTR))
+_HEADS_ARGS = ((K.INT,) + (K.PTR,) * 10 + (K.INT,) * 6 + (K.UINT,) * 3
+               + (K.FLOAT, K.INT, K.PTR))
+_HEADS_BWD_ARGS = ((K.INT,) + (K.PTR,) * 16 + (K.INT,) * 6 + (K.UINT,) * 3
+                   + (K.FLOAT, K.INT, K.PTR))
 SPLIT_ROWS = 512             # rows per weight-gradient partial (attention.cu)
-SMEM_LIMIT = 227 * 1024
+MAX_DK = 64                  # lanes 0..31 and 32..63 hold a head's row
 
 
 def _round_up(n: int, m: int) -> int:
@@ -52,12 +61,76 @@ def _row_stride(dk: int) -> int:
     return s if (s // 4) % 2 else s + 4
 
 
+def _bwd_smem(t: int, dk: int) -> int:
+    """Shared memory (bytes) of attention.cu's dq_kernel at T."""
+    win = -(-t // 32) * 32 + 31
+    ks = _row_stride(dk)
+    return 4 * (ks * (3 * 32 + 2 * 32 + 63) + 32 * 33 + win * dk)
+
+
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
     """Transformer-XL shift (B, H, T, 2T-1) -> (B, H, T, T):
     out[..., t, s] = x[..., t, T - 1 - t + s]."""
     b, h, t, p = x.shape
     x = F.pad(x, (1, 0)).view(b, h, p + 1, t)[:, :, 1:].reshape(b, h, t, p)
     return x[..., :t]
+
+
+def local_window(t: int, left: int, right: int, device=None) -> torch.Tensor:
+    """(T, T) bool: key s visible from query t iff s - t >= -left (left >= 0)
+    and s - t <= right (right >= 0); tpu_asr/ops/pallas_attention.py::
+    _local_mask."""
+    rel = (torch.arange(t, device=device)[None, :]
+           - torch.arange(t, device=device)[:, None])
+    ok = torch.ones((t, t), dtype=torch.bool, device=device)
+    if left >= 0:
+        ok &= rel >= -left
+    if right >= 0:
+        ok &= rel <= right
+    return ok
+
+
+def head_streams(dropout_seed: Optional[int], b: int, h: int,
+                 device=None) -> torch.Tensor:
+    """(B, H) dropout streams dropout_seed + b * H + h; stream h in every
+    batch row when dropout_seed is None, as fused_relpos_attention draws
+    them: its seed_rows are zeros then, and head l of a program holding all
+    H heads draws stream seed_rows[b, 0] + l (pallas_attention.py
+    _dropout_keep)."""
+    if dropout_seed is None:
+        return torch.arange(h, dtype=torch.int64, device=device).expand(b, h)
+    return batch_streams(dropout_seed, b, per_row=h,
+                         device=device).reshape(b, h)
+
+
+def attention_context(q_u, q_v, k, v, p, mask, r,
+                      att_context_size: Tuple[int, int] = (-1, -1),
+                      dropout_rate: float = 0.0,
+                      streams: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """fp32 (B, H, T, dk) context of per-head q_u, q_v, k, v (B, H, T, dk)
+    and the projected position table p (2T - 1, H, dk), all fp32 holding
+    working-dtype values: the rel_shift construction, key bias -1e30, the
+    window's scores replaced by -1e30, softmax, dropout (streams (B, H),
+    idx t * Tp + s) after the undropped normaliser, and the attention
+    weights rounded by r before the value product."""
+    b, h, t, dk = q_u.shape
+    ac = q_u @ k.transpose(-1, -2)
+    bd = rel_shift(torch.einsum("bhtd,phd->bhtp", q_v, p))
+    key_bias = torch.zeros(mask.shape, device=q_u.device).masked_fill(
+        ~mask, -1e30)
+    scores = (ac + bd) / math.sqrt(dk) + key_bias[:, None, None, :]
+    left, right = att_context_size
+    if left >= 0 or right >= 0:
+        scores = scores.masked_fill(
+            ~local_window(t, left, right, q_u.device), -1e30)
+    attn = torch.softmax(scores, dim=-1)
+    if dropout_rate:
+        keep = keep_mask(streams, t, t, dropout_rate,
+                         row_stride=_round_up(t, 128)).view(attn.shape)
+        attn = torch.where(keep, attn * (1.0 / (1.0 - dropout_rate)),
+                           torch.zeros_like(attn))
+    return r(attn) @ v
 
 
 def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
@@ -82,20 +155,11 @@ def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
     k = heads(r(xf @ r(wk).t() + bk))
     v = heads(r(xf @ r(wv).t() + bv))
     p = r(r(pos_emb) @ r(w_pos).t()).view(-1, h, dk)          # (2T-1, H, dk)
-    ac = q_u @ k.transpose(-1, -2)
-    bd = rel_shift(torch.einsum("bhtd,phd->bhtp", q_v, p))
-    key_bias = torch.zeros(mask.shape, device=x.device).masked_fill(
-        ~mask, -1e30)
-    scores = (ac + bd) / math.sqrt(dk) + key_bias[:, None, None, :]
-    attn = torch.softmax(scores, dim=-1)
-    if dropout_rate:
-        keep = keep_mask(batch_streams(dropout_seed, b, per_row=h,
-                                       device=x.device), t, t, dropout_rate,
-                         row_stride=_round_up(t, 128)).view(attn.shape)
-        attn = torch.where(keep, attn * (1.0 / (1.0 - dropout_rate)),
-                           torch.zeros_like(attn))
-    attn = r(attn)
-    ctx = r((attn @ v).transpose(1, 2).reshape(b, t, d))
+    ctx = attention_context(q_u, q_v, k, v, p, mask, r,
+                            dropout_rate=dropout_rate,
+                            streams=head_streams(dropout_seed, b, h,
+                                                 x.device))
+    ctx = r(ctx.transpose(1, 2).reshape(b, t, d))
     return (ctx @ r(wo).t()).to(dt)
 
 
@@ -176,11 +240,10 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
     dev = x.device
     n_qt = -(-t // 32)
     win = n_qt * 32 + 31
-    ks = _row_stride(dk)
-    smem = 4 * (ks * (3 * 32 + 2 * 32 + 63) + 32 * 33 + win * dk)
-    if smem > SMEM_LIMIT:
+    smem = _bwd_smem(t, dk)
+    if smem > K.SMEM_LIMIT:
         raise ValueError(f"fused_relpos_attention_block_bwd: T={t} needs "
-                         f"{smem} B of shared memory (> {SMEM_LIMIT})")
+                         f"{smem} B of shared memory (> {K.SMEM_LIMIT})")
     f32 = lambda *s: torch.empty(s, device=dev)
     gc = g.to(dt).contiguous()
     wo_t = wo.t().contiguous()
@@ -247,3 +310,164 @@ def fused_relpos_attention_block(
 
 fused_relpos_attention_block.launches = 0
 fused_relpos_attention_block_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Per-head attention: the counterpart of tpu_asr/ops/pallas_attention.py::
+# fused_relpos_attention, on q_u = q + u, q_v = q + v, k, v that the caller
+# supplies per head.
+# ---------------------------------------------------------------------------
+
+
+def relpos_attention_heads_plain(q_u, q_v, k, v, w_pos, mask,
+                                 att_context_size: Tuple[int, int] = (-1, -1),
+                                 dropout_rate: float = 0.0,
+                                 dropout_seed: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """q_u, q_v, k, v (B, H, T, dk), w_pos the (D, D) linear_pos weight in
+    Linear layout (D = H dk), mask (B, T) bool (True = valid key) ->
+    (B, H, T, dk) context in q_u's dtype. Scores (q_u k + q_v P[t - s]) /
+    sqrt(dk) with P = PE w_pos^T by the rel_shift construction, key bias
+    -1e30, the window (att_context_size) as fused_relpos_attention's, and
+    dropout on the probabilities with stream dropout_seed + b * H + h
+    (stream h in every batch row when dropout_seed is None), idx t * Tp + s,
+    after the undropped normaliser. Operands in q_u's dtype with fp32
+    accumulation, rounded where the kernel rounds them (P, the attention
+    weights). Padded query rows are garbage by contract. Autograd
+    differentiates it. Any dk."""
+    dt = q_u.dtype
+
+    def r(z):               # round to the working dtype, compute in fp32
+        return z.to(dt).float()
+
+    b, h, t, dk = q_u.shape
+    pe = rel_positional_encoding(t, h * dk, q_u.device)
+    p = r(r(pe) @ r(w_pos).t()).view(-1, h, dk)               # (2T-1, H, dk)
+    ctx = attention_context(r(q_u), r(q_v), r(k), r(v), p, mask, r,
+                            tuple(att_context_size), dropout_rate,
+                            head_streams(dropout_seed, b, h, q_u.device))
+    return ctx.to(dt)
+
+
+def _heads_seed(rate: float, dropout_seed: Optional[int], h: int):
+    """(seed, b_stride, thresh, dscale): head h of batch row b draws stream
+    seed + b_stride * b + h (head_streams)."""
+    seed, thresh, dscale = _drop_args(rate, dropout_seed or 0)
+    return seed, 0 if dropout_seed is None else h, thresh, dscale
+
+
+class _HeadsAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, w_pos, mask, window, rate, dropout_seed):
+        dt = q_u.dtype
+        b, h, t, dk = q_u.shape
+        d = h * dk
+        dev = q_u.device
+        train = any(ctx.needs_input_grad[:5])
+        ins = [z.contiguous() for z in (q_u, q_v, k, v)]
+        w = w_pos.to(dt).contiguous()
+        pe = position_table(t, d, dev)
+        key_bias = torch.zeros((b, t), device=dev).masked_fill(~mask, -1e30)
+        p = torch.empty((h, 2 * t - 1, dk), dtype=dt, device=dev)
+        out = torch.empty((b, h, t, dk), dtype=dt, device=dev)
+        lse = torch.empty((b, h, t), device=dev) if train else None
+        tensors = [*ins, w, pe, key_bias, p, out] + ([lse] if train else [])
+        K.check_cuda("fused_relpos_attention", *tensors)
+        K.call("tat_relpos_attention", _HEADS_ARGS, dev,
+               int(dt == torch.bfloat16), *(z.data_ptr() for z in tensors[:9]),
+               lse.data_ptr() if train else None, b, t, d, h, *window,
+               *_heads_seed(rate, dropout_seed, h), _round_up(t, 128))
+        fused_relpos_attention.launches += 1
+        if train:
+            ctx.window, ctx.rate, ctx.seed = window, rate, dropout_seed
+            ctx.w_dtype = w_pos.dtype
+            ctx.save_for_backward(*ins, p, out, lse, key_bias, pe)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q_u, q_v, k, v, p, out, lse, key_bias, pe = ctx.saved_tensors
+        dq_u, dq_v, dk, dv, dw = fused_relpos_attention_bwd(
+            g, q_u, q_v, k, v, p, out, lse, key_bias, pe, ctx.window,
+            ctx.rate, ctx.seed)
+        return dq_u, dq_v, dk, dv, dw.to(ctx.w_dtype), None, None, None, None
+
+
+def fused_relpos_attention_bwd(g, q_u, q_v, k, v, p, ctx_out, lse, key_bias,
+                               pe, att_context_size=(-1, -1),
+                               dropout_rate: float = 0.0,
+                               dropout_seed: Optional[int] = None):
+    """(dq_u, dq_v, dk, dv) in q_u's dtype and dW_pos (D, D) in fp32 of the
+    per-head attention from its saved forward (q_u, q_v, k, v, p, the
+    context, lse, key_bias, pe) for the cotangent g (B, H, T, dk)."""
+    dt = q_u.dtype
+    b, h, t, dk = q_u.shape
+    d = h * dk
+    dev = q_u.device
+    n_pos = 2 * t - 1
+    n_qt = -(-t // 32)
+    f32 = lambda *s: torch.empty(s, device=dev)
+    grads = torch.empty((4, b, h, t, dk), dtype=dt, device=dev)
+    dwpos = f32(d, d)
+    tensors = (g.to(dt).contiguous(), q_u, q_v, k, v, p, key_bias, lse,
+               ctx_out, pe.to(dt).contiguous(), grads, f32(b, h, t),
+               f32(b, h, n_qt, n_qt * 32 + 31, dk), f32(n_pos, d),
+               f32(-(-n_pos // SPLIT_ROWS) * d * d), dwpos)
+    K.check_cuda("fused_relpos_attention_bwd", *tensors)
+    K.call("tat_relpos_attention_bwd", _HEADS_BWD_ARGS, dev,
+           int(dt == torch.bfloat16), *(z.data_ptr() for z in tensors),
+           b, t, d, h, *att_context_size,
+           *_heads_seed(dropout_rate, dropout_seed, h), _round_up(t, 128))
+    fused_relpos_attention_bwd.launches += 1
+    return grads[0], grads[1], grads[2], grads[3], dwpos
+
+
+def _check_heads(q_u, q_v, k, v, w_pos, mask, train: bool):
+    dt = q_u.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_relpos_attention: unsupported dtype {dt}")
+    b, h, t, dk = q_u.shape
+    d = h * dk
+    if (any(z.shape != q_u.shape or z.dtype != dt for z in (q_v, k, v))
+            or w_pos.shape != (d, d) or mask.shape != (b, t)):
+        raise ValueError(f"fused_relpos_attention: shapes do not match q_u "
+                         f"{tuple(q_u.shape)}: w_pos {tuple(w_pos.shape)}, "
+                         f"mask {tuple(mask.shape)}")
+    if dk > MAX_DK:
+        raise ValueError(f"fused_relpos_attention: the kernel takes dk <= "
+                         f"{MAX_DK} (got {dk})")
+    if train and _bwd_smem(t, dk) > K.SMEM_LIMIT:
+        raise ValueError(f"fused_relpos_attention: the backward at T={t} "
+                         f"needs {_bwd_smem(t, dk)} B of shared memory "
+                         f"(> {K.SMEM_LIMIT})")
+
+
+def fused_relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           w_pos: torch.Tensor, mask: torch.Tensor,
+                           att_context_size: Tuple[int, int] = (-1, -1),
+                           dropout_rate: float = 0.0,
+                           dropout_seed: Optional[int] = None
+                           ) -> torch.Tensor:
+    """Same contract as `relpos_attention_heads_plain`. A CPU tensor runs
+    the plain version; a CUDA tensor launches the forward (P = PE w_pos^T,
+    then the scores, softmax and value product: two launches) and, under
+    autograd, the backward (`fused_relpos_attention_bwd`: the gradients of
+    q_u, q_v, k, v and w_pos, cast to w_pos's dtype). dk <= 64."""
+    if q_u.device.type == "cpu":
+        return relpos_attention_heads_plain(q_u, q_v, k, v, w_pos, mask,
+                                            att_context_size, dropout_rate,
+                                            dropout_seed)
+    if not q_u.is_cuda:
+        raise ValueError(f"fused_relpos_attention: unsupported device "
+                         f"{q_u.device}")
+    args = (q_u, q_v, k, v, w_pos)
+    train = torch.is_grad_enabled() and any(z.requires_grad for z in args)
+    _check_heads(q_u, q_v, k, v, w_pos, mask, train)
+    window = tuple(int(c) for c in att_context_size)
+    return _HeadsAttention.apply(q_u, q_v, k, v, w_pos, mask, window,
+                                 float(dropout_rate), dropout_seed)
+
+
+fused_relpos_attention.launches = 0
+fused_relpos_attention_bwd.launches = 0

@@ -18,7 +18,10 @@ the SiLU, 2 * (seed + b) + 1 over (t, D) on the output, kept values scaled by
 
 A CPU tensor runs the plain version (autograd differentiates it); a CUDA
 tensor launches the forward kernel and, under autograd, the backward
-kernels (`fused_ffn_sublayer_bwd`).
+kernels (`fused_ffn_sublayer_bwd`). The forward takes any D whose tiles fit
+shared memory (`fwd_smem`: the teacher's D=176 with d_ff 704 in eval, not
+D=512 with d_ff 2048); the backward takes D <= MAX_BWD_D = 128, and a call
+that would need it above that raises before the forward launches.
 
 int8 serving, counterpart of tpu_asr/ops/pallas_ffn.py::
 fused_ffn_sublayer_int8 (eval only: it has no gradient and raises when
@@ -44,7 +47,7 @@ from tpu_asr_torch.ops.dropout import batch_streams, keep_mask, threshold
 from tpu_asr_torch.ops.quant import int8_matmul, quantize_weight
 
 EPS = 1e-6
-MAX_D = 128
+MAX_BWD_D = 128          # the backward's dW kernel keeps D in registers
 INT8_MAX_D, INT8_MAX_F = 512, 2048
 _INT8_ARGS = (K.INT,) + (K.PTR,) * 10 + (K.INT,) * 3 + (K.PTR,)
 _FWD_ARGS = ((K.INT,) + (K.PTR,) * 8 + (K.INT,) * 4 + (K.UINT,) * 2
@@ -88,16 +91,32 @@ def ffn_sublayer_plain(x, ln_w, ln_b, w1, b1, w2, b2, dropout_rate=0.0,
     return (x.float() + 0.5 * o).to(dt)
 
 
-def _check(x, ln_w, w1, w2):
+def fwd_smem(d: int, f: int) -> int:
+    """Shared memory (bytes) of the forward kernel (ffn.cu fwd): the
+    32-row LN and hidden tiles and one staged weight chunk."""
+    return 4 * (32 * (d + f) + 32 * 129)
+
+
+def _check(x, ln_w, w1, w2, train: bool):
+    """Raise for what the kernels do not take: the forward any D whose
+    tiles fit shared memory, the backward (needed when `train`) D <=
+    MAX_BWD_D."""
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_ffn_sublayer: unsupported dtype {dt}")
     d, f = x.shape[-1], w1.shape[0]
-    if d > MAX_D or w1.shape != (f, d) or w2.shape != (d, f) \
-            or ln_w.shape != (d,):
+    if w1.shape != (f, d) or w2.shape != (d, f) or ln_w.shape != (d,):
         raise ValueError(f"fused_ffn_sublayer: shapes do not match x "
-                         f"{tuple(x.shape)} (D <= {MAX_D}), w1 "
-                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+                         f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)}")
+    if fwd_smem(d, f) > K.SMEM_LIMIT:
+        raise ValueError(f"fused_ffn_sublayer: D={d}, d_ff={f} needs "
+                         f"{fwd_smem(d, f)} B of shared memory in the "
+                         f"forward kernel (> {K.SMEM_LIMIT})")
+    if train and d > MAX_BWD_D:
+        raise ValueError(f"fused_ffn_sublayer: the backward kernel takes D "
+                         f"<= {MAX_BWD_D} (got D={d}); call it without "
+                         f"gradients (eval) or use the plain version")
 
 
 def _drop_args(rate: float, seed: int):
@@ -108,7 +127,6 @@ def _drop_args(rate: float, seed: int):
 class _FFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, rate, seed):
-        _check(x, ln_w, w1, w2)
         dt = x.dtype
         b, t, d = x.shape
         f = w1.shape[0]
@@ -165,12 +183,17 @@ def fused_ffn_sublayer_bwd(x, ln_w, ln_b, w1, b1, w2, g, dropout_rate=0.0,
 def fused_ffn_sublayer(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
                        dropout_rate: float = 0.0,
                        dropout_seed: int = 0) -> torch.Tensor:
-    """Same contract as `ffn_sublayer_plain`."""
+    """Same contract as `ffn_sublayer_plain`. On the card, a shape the
+    forward kernel does not take raises, and so does one whose backward
+    autograd would need (D > MAX_BWD_D), before anything launches."""
     if x.device.type == "cpu":
         return ffn_sublayer_plain(x, ln_w, ln_b, w1, b1, w2, b2,
                                   dropout_rate, dropout_seed)
     if not x.is_cuda:
         raise ValueError(f"fused_ffn_sublayer: unsupported device {x.device}")
+    args = (x, ln_w, ln_b, w1, b1, w2, b2)
+    train = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    _check(x, ln_w, w1, w2, train)
     return _FFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, float(dropout_rate),
                       int(dropout_seed))
 
