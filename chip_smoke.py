@@ -9,12 +9,19 @@ Phases, each on its own output lines:
   3. kernels: each hand-written kernel against its plain PyTorch version at
      the flagship serving shapes (B=32 x 15 s), fp32 and bf16: max error
      within its tolerance, median times of kernel and plain (CUDA events)
-     and the bound.
+     and the bound. Subsampling also at conformer-LARGE's C = D = 512, a
+     C % 8 != 0 refused, and beside it the bf16 module path (two F.conv2d,
+     ReLUs, flatten, F.linear; timed only); device times (torch.profiler)
+     of the bf16 subsampling and attention.
   4. model: ModelConfig() in float32 with seeded random weights and
      randomised BatchNorm statistics, run once on the kernels ('auto') and
      once with every backend 'xla': max |delta log-prob| < 2e-3, equal
      greedy ids wherever the plain top-2 margin exceeds 1e-3, and every
-     kernel launched.
+     kernel launched. Then in bf16 (the tensor-core paths), the kernels
+     and the plain model, both against the fp32 plain model: the kernels'
+     max |delta log-prob| at most 2x the plain bf16 model's, greedy ids
+     equal to fp32 on >= 99% of the frames whose fp32 top-2 margin exceeds
+     1e-1.
   5. serve: Transcriber at the config's own bf16 compute dtype answers 64
      requests of 32 waveforms (1-15 s, drawn from a seeded pool of 256)
      after 2 warm-up requests; launch counters are reset just before and
@@ -245,41 +252,64 @@ def kernel_phase(cfg):
         bound(flops, nbytes(xp, feat.basis, feat.fb_t, got), "float32"),
         None)}
 
-    # subsampling
-    ch, d = enc.conv_channels, enc.d_model
-    t2 = out_len(out_len(n_frames))
+    # subsampling at the model's C = D = 176 (timed) and at conformer-LARGE's
+    # C = D = 512; C % 8 != 0 refused
     f2 = out_len(out_len(pre.features))
-    w = (normal(gen, ch, 1, 3, 3, scale=0.3), normal(gen, ch, scale=0.1),
-         normal(gen, ch, ch, 3, 3, scale=0.08), normal(gen, ch, scale=0.1),
-         normal(gen, d, ch * f2, scale=0.05))
+    t2 = out_len(out_len(n_frames))
     feats = normal(gen, BATCH, n_frames, pre.features)
     results["subsampling"] = {}
-    for dt in (torch.float32, torch.bfloat16):
-        x = feats.to(dt)
-        got = fused_subsampling(x, *w).float()
-        want = subsampling_plain(x, *w).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ref = want.abs().max().item()
-        if dt == torch.float32:
-            ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
-            tol = "rtol=atol=1e-3"
+    for ch, d in ((enc.conv_channels, enc.d_model), (512, 512)):
+        w = (normal(gen, ch, 1, 3, 3, scale=0.3), normal(gen, ch, scale=0.1),
+             normal(gen, ch, ch, 3, 3, scale=0.08 * (176 / ch) ** 0.5),
+             normal(gen, ch, scale=0.1),
+             normal(gen, d, ch * f2, scale=0.05 * (176 / ch) ** 0.5))
+        timed = ch == enc.conv_channels
+        for dt in (torch.float32, torch.bfloat16):
+            x = feats.to(dt)
+            got = fused_subsampling(x, *w).float()
+            want = subsampling_plain(x, *w).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ref = want.abs().max().item()
+            if dt == torch.float32:
+                ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+                tol = "rtol=atol=1e-3"
+            else:
+                ok = torch.allclose(got, want, rtol=0.05,
+                                    atol=0.03 * max(1.0, ref))
+                tol = "rtol 0.05, atol 0.03*max(1,|ref|max)"
+            check(ok and got.shape == (BATCH, t2, d),
+                  f"subsampling {str(dt)[6:]} C={ch} ({BATCH}, {n_frames}, "
+                  f"{pre.features}) -> ({BATCH}, {t2}, {d}): max |err| "
+                  f"{err:.3e}, |ref|max {ref:.3e} ({tol})")
+            if not timed:
+                continue
+            flops = (2 * 9 * BATCH * out_len(n_frames)
+                     * out_len(pre.features) * ch
+                     + 2 * 9 * BATCH * t2 * f2 * ch * ch
+                     + 2 * BATCH * t2 * ch * f2 * d)
+            results["subsampling"][str(dt)[6:]] = (
+                err, median_ms(lambda: fused_subsampling(x, *w)),
+                median_ms(lambda: subsampling_plain(x, *w)),
+                bound(flops, nbytes(x, *w) + got.numel() * x.element_size(),
+                      str(dt)[6:]), None)
+        x = feats.to(torch.bfloat16)
+        if timed:
+            wb = [z.to(torch.bfloat16) for z in w]
+            module_ms = median_ms(lambda: subsampling_module_path(x, *wb))
+            dev, names = device_ms(lambda: fused_subsampling(x, *w))
+            print(f"time subsampling bfloat16 C={ch}: bf16 module path (two "
+                  f"F.conv2d, ReLUs, flatten, F.linear; timed only) "
+                  f"{module_ms:.4f} ms; kernel device time (torch.profiler, "
+                  f"busy ms per call) {dev:.4f} ({top_kernels(names)})")
         else:
-            ok = torch.allclose(got, want, rtol=0.05,
-                                atol=0.03 * max(1.0, ref))
-            tol = "rtol 0.05, atol 0.03*max(1,|ref|max)"
-        check(ok and got.shape == (BATCH, t2, d),
-              f"subsampling {str(dt)[6:]} ({BATCH}, {n_frames}, "
-              f"{pre.features}) -> ({BATCH}, {t2}, {d}): max |err| "
-              f"{err:.3e}, |ref|max {ref:.3e} ({tol})")
-        flops = (2 * 9 * BATCH * out_len(n_frames) * out_len(pre.features)
-                 * ch + 2 * 9 * BATCH * t2 * f2 * ch * ch
-                 + 2 * BATCH * t2 * ch * f2 * d)
-        results["subsampling"][str(dt)[6:]] = (
-            err, median_ms(lambda: fused_subsampling(x, *w)),
-            median_ms(lambda: subsampling_plain(x, *w)),
-            bound(flops, nbytes(x, *w) + got.numel() * x.element_size(),
-                  str(dt)[6:]), None)
+            print(f"time subsampling bfloat16 C={ch}: kernel "
+                  f"{median_ms(lambda: fused_subsampling(x, *w)):.4f} ms")
+    refused(lambda: fused_subsampling(
+        feats[:1], normal(gen, 12, 1, 3, 3), normal(gen, 12),
+        normal(gen, 12, 12, 3, 3), normal(gen, 12), normal(gen, 16, 12 * f2)),
+        "fused_subsampling at C=12")
+    d = enc.d_model
 
     # attention at the encoder's width
     h = enc.n_heads
@@ -319,12 +349,26 @@ def kernel_phase(cfg):
             bound(attention_flops(BATCH, t2, d, h),
                   nbytes(x, *pw) + got.numel() * x.element_size(),
                   str(dt)[6:]), None)
+    dev, names = device_ms(lambda: fused_relpos_attention_block(*aargs))
+    print(f"device attention bfloat16 (torch.profiler, busy ms per call): "
+          f"{dev:.4f} ({top_kernels(names, 4)})")
     for name, per_dt in results.items():
         for dt, (err, ms, plain_ms, (b_ms, by), _) in per_dt.items():
             print(f"time {name} {dt}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median "
                   f"of 20, CUDA events)")
     return results
+
+
+def subsampling_module_path(x, w1, b1, w2, b2, w_out):
+    """The subsampling as PyTorch modules compute it in x's dtype: two
+    F.conv2d with their ReLUs, the channel-major flatten and F.linear
+    without its bias. Timed beside the kernel; the port never calls it."""
+    F = torch.nn.functional
+    h = F.relu(F.conv2d(x[:, None], w1, b1, stride=2, padding=1))
+    h = F.relu(F.conv2d(h, w2, b2, stride=2, padding=1))
+    b, c, t2, f2 = h.shape
+    return F.linear(h.transpose(1, 2).reshape(b, t2, c * f2), w_out)
 
 
 def reset_counters():
@@ -399,6 +443,32 @@ def model_phase(cfg):
     check(bool(same.all()), f"greedy ids equal on {int(decided.sum())} "
           f"frames with plain top-2 margin > 1e-3 "
           f"(of {int(valid.sum())} valid)")
+
+    # bf16, where the subsampling and attention run on the tensor cores:
+    # the kernels and the plain model in bf16, both against the fp32 plain
+    # model above, from the same weights
+    model16 = seeded_model(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                           seed=1)
+    with torch.inference_mode():
+        got16 = model16(sig_t, len_t)
+        set_backend(model16, "xla")
+        plain16 = model16(sig_t, len_t)
+    torch.cuda.synchronize()
+    check(torch.equal(got16.encoded_len, want.encoded_len)
+          and bool(torch.isfinite(got16.log_probs).all()),
+          "bf16 on kernels: encoded_len equal, log-probs finite")
+    drift = lambda out: ((out.log_probs.float() - want.log_probs).abs()
+                         * valid[..., None]).max().item()
+    d_k, d_p = drift(got16), drift(plain16)
+    check(d_k <= 2 * d_p, f"ModelConfig() bf16 against the fp32 plain model: "
+          f"max |delta log-prob| kernels {d_k:.3e} <= 2 x plain bf16 "
+          f"{d_p:.3e}")
+    decided = valid & ((top2[..., 0] - top2[..., 1]) > 1e-1)
+    agree = ((got16.greedy == want.greedy) & decided).sum().item()
+    n_dec = int(decided.sum())
+    check(agree >= 0.99 * n_dec, f"bf16 on kernels: greedy ids equal to "
+          f"fp32 plain on {agree} of {n_dec} frames with fp32 top-2 margin "
+          f"> 1e-1 (>= 99%)")
 
 
 def serve_phase(cfg, rows=None):

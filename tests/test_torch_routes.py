@@ -1,0 +1,209 @@
+"""The port's kernel routes resolve as the JAX package's do, on the CPU.
+
+- 'auto' takes the kernel wrapper only where the kernel's own pre-launch
+  check (the wrapper's refusal predicate) takes the shape, and the plain
+  version elsewhere, as JAX's 'auto' falls back to XLA (`fused_ok`,
+  `ffn_train_kernel_fits`, `resolve_euler_backend`); 'pallas' raises on a
+  refused shape; 'xla' is always plain. Cases: subsampling (C % 8, C above
+  its limit), the block attention (dk 128), the training FFN (its backward
+  at D=176) and the FM loop (C=176, max_steps 17), each beside the flagship
+  shape the kernel takes.
+- The forward passes follow the resolution: with the kernel wrapper
+  replaced by one that records its calls, a refused shape under 'auto'
+  runs the plain version and a flagship shape calls the wrapper.
+- The kernel-layout weight copies (`_kernels.prepared`) are built once per
+  weight version: reused while the weights stand, rebuilt after an
+  in-place update and after a dtype change.
+"""
+
+import pytest
+import torch
+
+from tpu_asr_torch.config import EncoderConfig, FlowMatchingConfig
+from tpu_asr_torch.kd import flow_matching
+from tpu_asr_torch.kd.flow_matching import FlowMatchingModule
+from tpu_asr_torch.models import conformer
+from tpu_asr_torch.models.conformer import (ConformerLayer, ConvSubsampling,
+                                            RelPositionMultiHeadAttention)
+from tpu_asr_torch.ops import cuda_attention, cuda_subsampling
+
+
+def _subsampling(backend, c):
+    return ConvSubsampling(EncoderConfig(
+        feat_in=80, d_model=16, subsampling_conv_channels=c,
+        subsampling_backend=backend))
+
+
+def _attention(backend, d, h):
+    return RelPositionMultiHeadAttention(d, h, backend)
+
+
+def _layer(backend, d):
+    return ConformerLayer(EncoderConfig(d_model=d, n_heads=2,
+                                        ffn_backend=backend))
+
+
+def _fm(backend, c):
+    return FlowMatchingModule(FlowMatchingConfig(student_dim=c,
+                                                 euler_backend=backend))
+
+
+def _route(kind, backend, shape):
+    """Whether the route takes the kernel wrapper for `shape`."""
+    if kind == "subsampling":
+        return _subsampling(backend, shape).uses_kernel(torch.zeros(1, 9, 80))
+    if kind == "attention":
+        d, h = shape
+        with torch.no_grad():
+            return _attention(backend, d, h).uses_kernel(
+                torch.zeros(2, 5, d))
+    if kind == "ffn_train":
+        layer = _layer(backend, shape)
+        x = torch.zeros(2, 5, shape, requires_grad=True)
+        return layer.ffn_train_uses_kernel(x, layer.feed_forward1)
+    c, max_steps = shape
+    fm = _fm(backend, c)
+    return fm.uses_kernel(fm.euler_weights()[0], max_steps)
+
+
+# (route, a shape its kernel refuses, the flagship shape it takes)
+CASES = [
+    ("subsampling", 12, 176),
+    ("subsampling", 1032, 88),
+    ("attention", (256, 2), (176, 4)),       # dk 128 / 44
+    ("ffn_train", 176, 88),                  # backward takes D <= 128
+    ("fm", (176, 8), (88, 8)),
+    ("fm", (88, 17), (88, 16)),
+]
+
+
+@pytest.mark.parametrize("kind,refused,flagship", CASES)
+def test_auto_takes_the_kernel_only_where_it_fits(kind, refused, flagship):
+    assert _route(kind, "auto", flagship) is True
+    assert _route(kind, "auto", refused) is False
+    assert _route(kind, "xla", flagship) is False
+
+
+@pytest.mark.parametrize("kind,refused,flagship", CASES)
+def test_pallas_raises_where_the_kernel_refuses(kind, refused, flagship):
+    assert _route(kind, "pallas", flagship) is True
+    with pytest.raises(ValueError):
+        _route(kind, "pallas", refused)
+
+
+def test_ffn_route_takes_the_kernel_without_gradients():
+    """Without autograd the FFN backward's limit does not count."""
+    layer = _layer("auto", 176)
+    with torch.no_grad():
+        assert layer.ffn_train_uses_kernel(torch.zeros(2, 5, 176),
+                                           layer.feed_forward1)
+
+
+class _Recorder:
+    def __init__(self, plain):
+        self.plain, self.calls = plain, 0
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.plain(*args, **kw)
+
+
+@pytest.mark.parametrize("kind", ["subsampling", "attention", "ffn_train",
+                                  "fm"])
+def test_forward_follows_the_route(kind, monkeypatch):
+    torch.manual_seed(0)
+    if kind == "subsampling":
+        rec = _Recorder(cuda_subsampling.subsampling_plain)
+        monkeypatch.setattr(conformer, "fused_subsampling", rec)
+        run = lambda c: _subsampling("auto", c)(torch.randn(1, 9, 80))
+        shapes = (12, 16)
+    elif kind == "attention":
+        rec = _Recorder(
+            lambda *a, dropout_rate, dropout_seed:
+            cuda_attention.relpos_attention_plain(*a, dropout_rate,
+                                                  dropout_seed))
+        monkeypatch.setattr(conformer, "fused_relpos_attention_block", rec)
+
+        def run(dh):
+            d, h = dh
+            t = 5
+            with torch.no_grad():
+                return _attention("auto", d, h)(
+                    torch.randn(2, t, d),
+                    conformer.rel_positional_encoding(t, d),
+                    torch.ones(2, t, dtype=torch.bool))
+        shapes = ((256, 2), (176, 4))
+    elif kind == "ffn_train":
+        rec = _Recorder(conformer.ffn_sublayer_plain)
+        monkeypatch.setattr(conformer, "fused_ffn_sublayer", rec)
+
+        def run(d):
+            layer = _layer("auto", d)
+            x = torch.randn(2, 5, d, requires_grad=True)
+            return layer._ffn(layer.norm_feed_forward1, layer.feed_forward1,
+                              x, 3)
+        shapes = (176, 88)
+    else:
+        rec = _Recorder(flow_matching.fm_euler_plain)
+        monkeypatch.setattr(flow_matching, "fused_fm_euler", rec)
+
+        def run(c):
+            with torch.no_grad():
+                return _fm("auto", c)(torch.randn(2, 5, c))
+        shapes = (176, 88)
+    run(shapes[0])
+    assert rec.calls == 0
+    run(shapes[1])
+    assert rec.calls == 1
+
+
+def test_prepared_weights_rebuild_on_update_and_dtype():
+    torch.manual_seed(1)
+    mod = _subsampling("auto", 16)
+    ws = lambda dt: cuda_subsampling._kernel_weights(
+        mod.conv[0].weight, mod.conv[0].bias, mod.conv[2].weight,
+        mod.conv[2].bias, mod.out.weight, dt)
+    first = ws(torch.bfloat16)
+    assert all(a is b for a, b in zip(first, ws(torch.bfloat16)))
+    with torch.inference_mode():
+        again = ws(torch.bfloat16)
+    assert all(a is b for a, b in zip(first, again))
+    # the out-Linear weight in (f, c) order: column f * C + c holds c F2 + f
+    f2 = mod.out.weight.shape[1] // 16
+    want = mod.out.weight.view(-1, 16, f2).transpose(1, 2).reshape(
+        -1, 16 * f2).to(torch.bfloat16)
+    assert torch.equal(first[4], want)
+
+    with torch.no_grad():                       # an optimizer step
+        mod.conv[2].weight.add_(1.0)
+    updated = ws(torch.bfloat16)
+    assert updated[2] is not first[2]
+    assert torch.equal(updated[2].float(), mod.conv[2].weight.permute(
+        0, 2, 3, 1).reshape(16, -1).to(torch.bfloat16).float())
+
+    mod.to(torch.float64)                       # the parameters' dtype
+    moved = ws(torch.bfloat16)
+    assert moved[2] is not updated[2] and moved[2].dtype == torch.bfloat16
+    assert torch.equal(moved[2], updated[2])
+    assert not moved[2].is_inference()
+
+
+def test_prepared_attention_weights_rebuild_on_update():
+    torch.manual_seed(2)
+    att = _attention("auto", 16, 2)
+    args = lambda: (att.linear_q.weight, att.linear_k.weight,
+                    att.linear_v.weight, att.linear_pos.weight,
+                    att.linear_out.weight, att.linear_q.bias, att.pos_bias_u,
+                    att.pos_bias_v, att.linear_k.bias, att.linear_v.bias,
+                    torch.bfloat16)
+    first = cuda_attention._block_weights(*args())
+    assert all(a is b for a, b in
+               zip(first, cuda_attention._block_weights(*args())))
+    torch.testing.assert_close(
+        first[5], att.linear_q.bias + att.pos_bias_u.reshape(16))
+    with torch.no_grad():
+        att.pos_bias_u.add_(0.5)
+    again = cuda_attention._block_weights(*args())
+    assert again[5] is not first[5]
+    torch.testing.assert_close(
+        again[5], att.linear_q.bias + att.pos_bias_u.reshape(16))

@@ -8,8 +8,8 @@ package on the CPU, inputs made with numpy from a seed.
   tests/test_pallas_subsampling.py);
 - at the student's C = 88: the wrapper's gradients (its backward
   recomputes the plain version) against jax.vjp of the JAX module, fp32,
-  1e-4 x max(1, |ref|max), and the wrapper refuses channel counts the
-  kernel is not built for.
+  1e-4 x max(1, |ref|max), and the wrapper refuses what the kernel does
+  not take (C % 8 != 0, C above its limit, F/4 above 80).
 """
 
 import dataclasses
@@ -53,6 +53,7 @@ def _torch_weights(p):
     (2, 61, 80, 16, 24),      # ragged T, C != D
     (1, 150, 80, 176, 176),   # flagship widths
     (2, 37, 64, 8, 16),       # other mel count
+    (1, 21, 80, 512, 512),    # conformer-LARGE widths
 ])
 def test_module_matches_jax_xla(b, t0, f0, c, d):
     rng = np.random.default_rng(0)
@@ -151,11 +152,18 @@ def test_student_width_gradients_match_jax():
     close(mod.out.bias.grad.numpy(), np.asarray(want_p["out"]["bias"]))
 
 
-@pytest.mark.parametrize("c", [64, 96, 160])
-def test_wrapper_refuses_other_channel_counts(c):
-    rng = np.random.default_rng(5)
-    w = _torch_weights(_jax_params(rng, c, 16, 20))
-    x = torch.zeros(1, 9, 80, device="meta")
+@pytest.mark.parametrize("c,f0", [
+    (12, 80),                 # C % 8 != 0
+    (1032, 80),               # C above MAX_CHANNELS
+    (16, 328),                # F/4 = 82 > MAX_F2
+])
+def test_wrapper_refuses_other_channel_counts(c, f0):
+    f2 = out_len(out_len(f0))
+    meta = lambda *s: torch.empty(s, device="meta")
+    w = (meta(c, 1, 3, 3), meta(c), meta(c, c, 3, 3), meta(c),
+         meta(16, c * f2))
+    x = meta(1, 9, f0)
+    assert cuda_subsampling.subsampling_refusal(torch.float32, c, f2)
     # the check the wrapper makes for a CUDA tensor, before any launch
-    with pytest.raises(ValueError, match="built for C in"):
-        cuda_subsampling._launch(x, *(z.to("meta") for z in w))
+    with pytest.raises(ValueError, match="the kernel takes C % 8 == 0"):
+        cuda_subsampling._launch(x, *w)

@@ -16,35 +16,36 @@
 // What bounds it on an H100: at B=32, T=376, D=176, 4 heads, dk=44 the
 // products are small (3 GFLOP of projections, 4.8 GFLOP of scores and
 // values, 0.7 GFLOP of output projection per layer), so it is bound by how
-// many operand loads each multiply-add costs, and by never writing the
+// many instructions each multiply-add costs, and by never writing the
 // (B, H, T, T) score tensor: that tensor alone would be 72 MB per layer
 // in fp32.
 //
 // Design, three launches, deterministic (no atomics):
-//   1. proj_kernel: one tiled GEMM launch whose blockIdx.z picks the job -
+//   1. projections: one tiled GEMM launch whose blockIdx.z picks the job -
 //      x Wq + (bq + u) and x Wq + (bq + v) (one product, two epilogues),
 //      x Wk + bk, x Wv + bv, and PE Wpos - written per head (B, H, T, dk)
-//      and (H, 2T-1, dk) in the working type.
-//   2. core_kernel: per (batch row, head, 32 queries), flash-style over
-//      32-key tiles with an online softmax, so scores never leave the block.
+//      and (H, 2T-1, dk) in the working type. bf16: proj_mma_kernel, 128 x 64
+//      tiles of mma.sync (gemm.cuh); fp32: proj_kernel, SIMT.
+//   2. the core: per (batch row, head, block of queries), flash-style over
+//      key tiles with an online softmax, so scores never leave the block.
 //      In training the normaliser sums the undropped probabilities, the
 //      value product takes the dropped ones (stream b * H + h + seed, idx
 //      t * Tp + s, Tp = T rounded up to 128, as the TPU kernel draws them),
-//      and the row's log-sum-exp is saved for the backward.
-//      The rel-shift is a gather: the tile's 63 relative positions t - s
-//      are staged once, and lane j of row r reads row (j - r + 31). This
-//      replaces the TPU kernel's sin/cos rotation factorisation, which
-//      contracts over D = 176 per score instead of dk = 44. Shared-memory
-//      rows use a stride whose float4 count is odd, so the per-lane float4
-//      reads of K and P rows are conflict-free. A local window (left, right)
-//      sets the scores of keys with s - t < -left or s - t > right to -1e30,
-//      as the TPU kernel's _local_mask does; the block sublayer passes
-//      (-1, -1), full context. The kernel's body is attention_core.cuh's
-//      core_tile, which layer.cu runs too.
-//   3. proj_kernel again: context (B*T, D) @ Wo^T, every output summed over
-//      all heads by one thread.
-// Plain SIMT with fp32 accumulation; operands in fp32 or bf16 (template),
-// rounded to the working type where the TPU kernel rounds them.
+//      and the row's log-sum-exp is saved for the backward. The rel-shift
+//      contracts over dk = 44 per score, where the TPU kernel's sin/cos
+//      rotation factorisation contracts over D = 176. A local window
+//      (left, right) sets the scores of keys with s - t < -left or
+//      s - t > right to -1e30, as the TPU kernel's _local_mask does; the
+//      block sublayer passes (-1, -1), full context.
+//      bf16: core_mma_kernel on the tensor cores (see its note below).
+//      fp32: core_kernel, 32 queries x 32-key tiles of plain SIMT, whose
+//      body is attention_core.cuh's core_tile (layer.cu runs it too): the
+//      tile's 63 relative positions are staged once and lane j of row r
+//      reads row (j - r + 31); shared-memory rows use a stride whose
+//      float4 count is odd, so the per-lane float4 reads are conflict-free.
+//   3. the projection launch again: context (B*T, D) @ Wo^T.
+// fp32 accumulation; operands in fp32 or bf16 (template), rounded to the
+// working type where the TPU kernel rounds them.
 
 #include <cuda_runtime.h>
 
@@ -52,19 +53,22 @@
 #include <stdint.h>
 
 #include "attention_core.cuh"
+#include "gemm.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 // One product C = A @ W^T (+ bias) of a projection launch.
 struct Job {
-  const void* a;      // (m, K): activations in T, or the fp32 position table
+  const void* a;      // (m, K) in T: activations or the position table
   const void* w;      // (N, K) in T: PyTorch Linear layout
   const float* bias;  // (N) or null
   const float* bias2; // (N) or null: second epilogue into out2
   void* out;
   void* out2;
   int m;
-  int a_fp32;         // A is fp32 and is rounded through T as it is loaded
   int layout;         // 0: (m, N); 1: (B, H, T, dk); 2: (H, m, dk)
 };
 struct Jobs {
@@ -73,6 +77,28 @@ struct Jobs {
 
 constexpr int kTile = 64;
 constexpr int kChunk = 16;
+
+// Output n of row m of a job, through its layout, + bias (and + bias2 into
+// out2).
+template <typename T>
+__device__ __forceinline__ void proj_store(const Job& jb, int m, int n, int N,
+                                           int t_len, int heads, int dk,
+                                           float v) {
+  size_t idx;
+  if (jb.layout == 0) {
+    idx = (size_t)m * N + n;
+  } else {
+    const int hh = n / dk, dd = n - hh * dk;
+    if (jb.layout == 1) {
+      const int b = m / t_len, t = m - b * t_len;
+      idx = (((size_t)b * heads + hh) * t_len + t) * dk + dd;
+    } else {
+      idx = ((size_t)hh * jb.m + m) * dk + dd;
+    }
+  }
+  ((T*)jb.out)[idx] = from_f<T>(jb.bias ? v + jb.bias[n] : v);
+  if (jb.bias2) ((T*)jb.out2)[idx] = from_f<T>(v + jb.bias2[n]);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(256) proj_kernel(Jobs jobs, int K, int N,
@@ -96,10 +122,7 @@ __global__ void __launch_bounds__(256) proj_kernel(Jobs jobs, int K, int N,
       const int m = m0 + r, n = n0 + r;
       float av = 0.f, wv = 0.f;
       if (k < K) {
-        if (m < jb.m)
-          av = jb.a_fp32
-                   ? to_f(from_f<T>(((const float*)jb.a)[(size_t)m * K + k]))
-                   : to_f(((const T*)jb.a)[(size_t)m * K + k]);
+        if (m < jb.m) av = to_f(((const T*)jb.a)[(size_t)m * K + k]);
         if (n < N) wv = to_f(((const T*)jb.w)[(size_t)n * K + k]);
       }
       As[kk][r] = av;
@@ -128,24 +151,53 @@ __global__ void __launch_bounds__(256) proj_kernel(Jobs jobs, int K, int N,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      size_t idx;
-      if (jb.layout == 0) {
-        idx = (size_t)m * N + n;
-      } else {
-        const int hh = n / dk, dd = n - hh * dk;
-        if (jb.layout == 1) {
-          const int b = m / t_len, t = m - b * t_len;
-          idx = (((size_t)b * heads + hh) * t_len + t) * dk + dd;
-        } else {
-          idx = ((size_t)hh * jb.m + m) * dk + dd;
-        }
-      }
-      const float v = acc[i][j];
-      ((T*)jb.out)[idx] = from_f<T>(jb.bias ? v + jb.bias[n] : v);
-      if (jb.bias2) ((T*)jb.out2)[idx] = from_f<T>(v + jb.bias2[n]);
+      if (n < N) proj_store<T>(jb, m, n, N, t_len, heads, dk, acc[i][j]);
     }
   }
+}
+
+// bf16 projections on the tensor cores: the same jobs and epilogue as
+// proj_kernel, each block a 128 x 64 tile of gemm.cuh (K = D must be a
+// multiple of 8; at K = 176 the 96-wide tile, 166 registers, keeps fewer
+// blocks resident than its reuse of x is worth); the grid is (M tiles,
+// N tiles, jobs).
+__global__ void __launch_bounds__(128) proj_mma_kernel(Jobs jobs, int K,
+                                                       int N, int t_len,
+                                                       int heads, int dk) {
+  extern __shared__ __align__(16) char smem[];
+  const Job jb = jobs.job[blockIdx.z];
+  const int m0 = blockIdx.x * kGM, n0 = blockIdx.y * gemm_cols<4>();
+  if (m0 >= jb.m) return;
+  PlainRows<bf16> a((const bf16*)jb.a, jb.m, K, m0, threadIdx.x / 4,
+                    threadIdx.x % 4);
+  gemm_tile<4>(smem, a, (const bf16*)jb.w, N, K, m0, n0,
+               [&](int m, int n, float v) {
+                 if (m < jb.m && n < N)
+                   proj_store<bf16>(jb, m, n, N, t_len, heads, dk, v);
+               });
+}
+
+// One projection launch over `n_jobs` jobs of at most m_max rows: the SIMT
+// tile for fp32 (the check dtype; the backward keeps it in both types), the
+// tensor-core tile for bf16.
+template <typename T>
+cudaError_t project(const Jobs& jobs, int n_jobs, int m_max, int K, int N,
+                    int t_len, int heads, int dk, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    constexpr int smem = gemm_smem<4>();
+    cudaError_t err = cudaFuncSetAttribute(
+        proj_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((m_max + kGM - 1) / kGM,
+                    (N + gemm_cols<4>() - 1) / gemm_cols<4>(), n_jobs);
+    proj_mma_kernel<<<grid, 128, smem, stream>>>(jobs, K, N, t_len, heads,
+                                                 dk);
+  } else {
+    const dim3 grid((m_max + kTile - 1) / kTile, (N + kTile - 1) / kTile,
+                    n_jobs);
+    proj_kernel<T><<<grid, 256, 0, stream>>>(jobs, K, N, t_len, heads, dk);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -176,8 +228,303 @@ HeadLayout heads_layout(int t_len, int heads, int dk) {
   return {(long long)heads * t_len * dk, (long long)t_len * dk, dk};
 }
 
-// core_kernel over every (batch row, head, 32 queries): head h of batch row
-// b draws the dropout stream seed + b_stride * b + h.
+// ---------------------------------------------------------------------------
+// The bf16 core on the tensor cores (flash-attention style): per (batch
+// row, head, 64 queries), 4 warps of 16 query rows walk 64-key tiles of K,
+// V and the position window, double-buffered with 8-byte cp.async copies
+// (a head row of dk = 44 bf16 is 88 bytes: 8-byte aligned, not 16) into
+// rows padded with zeros to DKP (dk rounded up to 16) at a stride of
+// DKP + 8 values, an odd number of 16-byte units, so ldmatrix reads are
+// conflict-free. The global layouts stay those the backward reads.
+//   - content scores: Qu (16 x DKP) . K tile^T on mma.sync.m16n8k16;
+//   - position scores: warp w's 16 x 64 block needs the 79 relative
+//     positions t - s = tw + 15 - l (l = 0 .. 78, tw its first query), a
+//     contiguous run of P rows; G = Qv (16 x DKP) . P_win^T (DKP x 80) on
+//     mma, and the rel-shift score_pos[r][j] = G[r][j - r + 15] is read
+//     back through a per-warp fp32 tile in shared memory. This replaces
+//     core_tile's per-lane gather and keeps the term a dk-long contraction;
+//   - softmax in fp32 with core_tile's conventions: key_bias, -INF beyond
+//     T, -1e30 outside the window, a row with no finite maximum yet uses 0;
+//     the normaliser sums the undropped probabilities, the value product
+//     takes the dropped ones (the same dropout_keep(stream, t * tp + s));
+//   - P V: the dropped probabilities, rounded to bf16 in registers, are
+//     the A operand directly (the m16n8 accumulator of two key tiles is the
+//     m16n8k16 A fragment), V comes through ldmatrix.trans.
+// What bounds it: at B=32, T=376, H=4, dk=44 the products are 4.8 GFLOP
+// per layer, 5 us at the bf16 tensor rate; the SIMT core (core_tile) is
+// held back by its shared-memory operand loads, three float4s per 8 FMAs.
+// On the tensor cores the exp and the dropout hash per score and the skew
+// round trip are the per-score costs left.
+// ---------------------------------------------------------------------------
+
+constexpr int kMQ = 64;           // queries per block: 4 warps x 16 rows
+constexpr int kMS = 64;           // keys per tile
+constexpr int kMP = kMQ + kMS;    // position rows staged per key tile
+constexpr int kGW = 80;           // positions of one warp's block (79 + 1)
+constexpr int kGS = 84;           // row stride (floats) of the skew tile
+
+template <int DKP>
+struct CoreMma {
+  static constexpr int kSE = DKP + 8;                 // staged row stride
+  static constexpr int kTileElems = (2 * kMS + kMP) * kSE;  // K, V, P
+  static constexpr size_t kSmem =
+      sizeof(bf16) * ((size_t)2 * kMQ * kSE + 2 * (size_t)kTileElems) +
+      sizeof(float) * 4 * 16 * kGS;
+};
+
+// Rows first .. first + n - 1 of a (valid, dk) bf16 matrix into dst (row
+// stride DKP + 8) in 8-byte pieces, zero outside [0, valid) and past dk
+// (dk % 4 == 0).
+template <int DKP>
+__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
+                                            int first, int n, int valid,
+                                            int dk) {
+  constexpr int kP = DKP / 4;
+  for (int i = threadIdx.x; i < n * kP; i += blockDim.x) {
+    const int r = i / kP, c = 4 * (i - r * kP);
+    const int row = first + r;
+    const bool v = row >= 0 && row < valid && c < dk;
+    cp_async8(dst + r * CoreMma<DKP>::kSE + c,
+              v ? src + (size_t)row * dk + c : src, v);
+  }
+}
+
+template <int DKP>
+__global__ void __launch_bounds__(128) core_mma_kernel(
+    const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
+    const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
+    const bf16* __restrict__ pos,                              // (H,2T-1,dk)
+    const float* __restrict__ key_bias,                        // (B, T)
+    bf16* __restrict__ ctx, HeadLayout cl,
+    float* __restrict__ lse,                                   // or null
+    int t_len, int heads, int dk, float scale, uint32_t seed,
+    uint32_t b_stride, uint32_t thresh, float dscale, int tp, int left,
+    int right) {
+  using S = CoreMma<DKP>;
+  constexpr int kSE = S::kSE, kKS = DKP / 16, kND = DKP / 8;
+  extern __shared__ __align__(16) char smem_raw[];
+  bf16* Qu = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Qv = Qu + kMQ * kSE;
+  bf16* tiles = Qv + kMQ * kSE;         // 2 x (K kMS, V kMS, P kMP rows)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  float* G = reinterpret_cast<float*>(tiles + 2 * S::kTileElems) +
+             warp * 16 * kGS;
+
+  const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
+  const int q0 = blockIdx.x * kMQ, tw = q0 + 16 * warp;
+  const uint32_t stream = seed + b_stride * (uint32_t)b + (uint32_t)hh;
+  const int n_pos = 2 * t_len - 1;
+  const size_t head_off = (size_t)bh * t_len * dk;
+  const bf16* pos_h = pos + (size_t)hh * n_pos * dk;
+  const float* kb_row = key_bias + (size_t)b * t_len;
+  const int n_tiles = (t_len + kMS - 1) / kMS;
+
+  // key tile j: K and V rows s0 .., and the P rows of relative positions
+  // q0 + 63 - s0 down to q0 - 64 - s0 (P row T - 1 - (t - s)); warp w's
+  // window starts at staged row 16 (3 - w)
+  auto stage_tile = [&](int j, int buf) {
+    bf16* kt = tiles + buf * S::kTileElems;
+    const int s0 = j * kMS;
+    stage_async<DKP>(kt, kk + head_off, s0, kMS, t_len, dk);
+    stage_async<DKP>(kt + kMS * kSE, vv + head_off, s0, kMS, t_len, dk);
+    stage_async<DKP>(kt + 2 * kMS * kSE, pos_h, t_len - kMQ - q0 + s0, kMP,
+                     n_pos, dk);
+  };
+  stage_async<DKP>(Qu, qu + head_off, q0, kMQ, t_len, dk);
+  stage_async<DKP>(Qv, qv + head_off, q0, kMQ, t_len, dk);
+  stage_tile(0, 0);
+  cp_async_commit();
+
+  uint32_t qa[kKS][4], qb[kKS][4];
+  float o[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      stage_tile(j + 1, (j + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and at j = 0 the query rows) landed
+    if (j == 0) {
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        const int off = (16 * warp + lane % 16) * kSE + ks * 16 +
+                        (lane / 16) * 8;
+        ldmatrix_x4(qa[ks], Qu + off);
+        ldmatrix_x4(qb[ks], Qv + off);
+      }
+    }
+    const bf16* Kt = tiles + (j & 1) * S::kTileElems;
+    const bf16* Vt = Kt + kMS * kSE;
+    const bf16* Pw = Vt + kMS * kSE + (kMQ - 16 - 16 * warp) * kSE;
+    const int s0 = j * kMS;
+    // B-operand rows (keys or positions) n .. n + 15, k step ks
+    const int b_row = lane % 8 + (lane / 16) * 8;
+    const int b_col = ((lane / 8) % 2) * 8;
+
+    {  // position scores through the skew tile
+      float ga[kGW / 8][4];
+#pragma unroll
+      for (int n = 0; n < kGW / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ga[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+        for (int nn = 0; nn < kGW / 16; ++nn) {
+          uint32_t bq[4];
+          ldmatrix_x4(bq, Pw + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+          mma_bf16(ga[2 * nn], qb[ks], bq[0], bq[1]);
+          mma_bf16(ga[2 * nn + 1], qb[ks], bq[2], bq[3]);
+        }
+      __syncwarp();  // the previous tile's skew reads are done
+#pragma unroll
+      for (int n = 0; n < kGW / 8; ++n) {
+        const int c = 8 * n + 2 * t4;
+        G[g * kGS + c] = ga[n][0];
+        G[g * kGS + c + 1] = ga[n][1];
+        G[(g + 8) * kGS + c] = ga[n][2];
+        G[(g + 8) * kGS + c + 1] = ga[n][3];
+      }
+      __syncwarp();
+    }
+
+    float sc[kMS / 8][4];
+#pragma unroll
+    for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+      for (int nn = 0; nn < kMS / 16; ++nn) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, Kt + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+        mma_bf16(sc[2 * nn], qa[ks], bk[0], bk[1]);
+        mma_bf16(sc[2 * nn + 1], qa[ks], bk[2], bk[3]);
+      }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = g + 8 * hr, t = tw + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jc = 8 * n + 2 * t4 + e, s = s0 + jc;
+          float x = -INFINITY;
+          if (s < t_len) {
+            x = (sc[n][2 * hr + e] + G[r * kGS + jc - r + 15]) * scale +
+                kb_row[s];
+            if (!in_window(t, s, left, right)) x = -1e30f;
+          }
+          sc[n][2 * hr + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[hr], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m_r[hr] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(sc[n][2 * hr + e] - m_use);
+          sum += p;
+          float pd = p;
+          if (thresh) {
+            const int s = s0 + 8 * n + 2 * t4 + e;
+            pd = dropout_keep(stream,
+                              (uint32_t)t * (uint32_t)tp + (uint32_t)s,
+                              thresh)
+                     ? p * dscale
+                     : 0.f;
+          }
+          sc[n][2 * hr + e] = pd;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_r[hr] = l_r[hr] * corr + sum;
+      m_r[hr] = m_new;
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        o[n][2 * hr] *= corr;
+        o[n][2 * hr + 1] *= corr;
+      }
+    }
+
+#pragma unroll
+    for (int kc = 0; kc < kMS / 16; ++kc) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < kND / 2; ++dd) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(
+            vb, Vt + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                    16 * dd + (lane / 16) * 8);
+        mma_bf16(o[2 * dd], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dd + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // tile j is consumed before its buffer is refilled
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int t = tw + g + 8 * hr;
+    if (t >= t_len) continue;
+    bf16* dst = ctx + cl.at(b, hh, t);
+    const float inv = 1.f / l_r[hr];
+#pragma unroll
+    for (int n = 0; n < kND; ++n) {
+      const int c = 8 * n + 2 * t4;
+      if (c < dk) dst[c] = __float2bfloat16(o[n][2 * hr] * inv);
+      if (c + 1 < dk) dst[c + 1] = __float2bfloat16(o[n][2 * hr + 1] * inv);
+    }
+    if (lse && t4 == 0) lse[(size_t)bh * t_len + t] = m_r[hr] + logf(l_r[hr]);
+  }
+}
+
+template <int DKP>
+cudaError_t launch_core_mma(const void* qu, const void* qv, const void* k,
+                            const void* v, const void* p,
+                            const float* key_bias, void* ctx, HeadLayout cl,
+                            float* lse, int batch, int t_len, int heads,
+                            int dk, uint32_t seed, uint32_t b_stride,
+                            uint32_t thresh, float dscale, int tp, int left,
+                            int right, cudaStream_t stream) {
+  const int smem = (int)CoreMma<DKP>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      core_mma_kernel<DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + kMQ - 1) / kMQ, batch * heads);
+  core_mma_kernel<DKP><<<grid, 128, smem, stream>>>(
+      (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v,
+      (const bf16*)p, key_bias, (bf16*)ctx, cl, lse, t_len, heads, dk,
+      1.f / sqrtf((float)dk), seed, b_stride, thresh, dscale, tp, left,
+      right);
+  return cudaGetLastError();
+}
+
+// The core over every (batch row, head): head h of batch row b draws the
+// dropout stream seed + b_stride * b + h. fp32 (the check dtype) runs
+// core_kernel, SIMT over 32-query blocks; bf16 core_mma_kernel on the tensor
+// cores (dk % 4 == 0).
 template <typename T>
 cudaError_t launch_core(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
@@ -185,16 +532,27 @@ cudaError_t launch_core(const void* qu, const void* qv, const void* k,
                         int t_len, int heads, int dk, uint32_t seed,
                         uint32_t b_stride, uint32_t thresh, float dscale,
                         int tp, int left, int right, cudaStream_t stream) {
-  const size_t smem = core_smem(dk);
-  cudaError_t err = cudaFuncSetAttribute(
-      core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((t_len + kBQ - 1) / kBQ, batch * heads);
-  core_kernel<T><<<grid, 256, smem, stream>>>(
-      (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
-      key_bias, (T*)ctx, cl, lse, t_len, heads, dk, 1.f / sqrtf((float)dk),
-      seed, b_stride, thresh, dscale, tp, left, right);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    auto* fn = dk <= 16   ? launch_core_mma<16>
+               : dk <= 32 ? launch_core_mma<32>
+               : dk <= 48 ? launch_core_mma<48>
+                          : launch_core_mma<64>;
+    return fn(qu, qv, k, v, p, key_bias, ctx, cl, lse, batch, t_len, heads,
+              dk, seed, b_stride, thresh, dscale, tp, left, right, stream);
+  } else {
+    const size_t smem = core_smem(dk);
+    cudaError_t err = cudaFuncSetAttribute(
+        core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((t_len + kBQ - 1) / kBQ, batch * heads);
+    core_kernel<T><<<grid, 256, smem, stream>>>(
+        (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
+        key_bias, (T*)ctx, cl, lse, t_len, heads, dk,
+        1.f / sqrtf((float)dk), seed, b_stride, thresh, dscale, tp, left,
+        right);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -207,14 +565,12 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
         cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs proj{};
-  proj.job[0] = {x, wq, cu, cv, qu, qv, rows, 0, 1};
-  proj.job[1] = {x, wk, bk, nullptr, k, nullptr, rows, 0, 1};
-  proj.job[2] = {x, wv, bv, nullptr, v, nullptr, rows, 0, 1};
-  proj.job[3] = {pe, wpos, nullptr, nullptr, p, nullptr, n_pos, 1, 2};
-  const int m_max = rows > n_pos ? rows : n_pos;
-  const dim3 grid1((m_max + kTile - 1) / kTile, (d + kTile - 1) / kTile, 4);
-  proj_kernel<T><<<grid1, 256, 0, stream>>>(proj, d, d, t_len, heads, dk);
-  cudaError_t err = cudaGetLastError();
+  proj.job[0] = {x, wq, cu, cv, qu, qv, rows, 1};
+  proj.job[1] = {x, wk, bk, nullptr, k, nullptr, rows, 1};
+  proj.job[2] = {x, wv, bv, nullptr, v, nullptr, rows, 1};
+  proj.job[3] = {pe, wpos, nullptr, nullptr, p, nullptr, n_pos, 2};
+  cudaError_t err = project<T>(proj, 4, rows > n_pos ? rows : n_pos, d, d,
+                               t_len, heads, dk, stream);
   if (err != cudaSuccess) return (int)err;
 
   err = launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
@@ -224,10 +580,8 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
   if (err != cudaSuccess) return (int)err;
 
   Jobs outp{};
-  outp.job[0] = {ctx, wo, nullptr, nullptr, out, nullptr, rows, 0, 0};
-  const dim3 grid3((rows + kTile - 1) / kTile, (d + kTile - 1) / kTile, 1);
-  proj_kernel<T><<<grid3, 256, 0, stream>>>(outp, d, d, t_len, heads, dk);
-  return (int)cudaGetLastError();
+  outp.job[0] = {ctx, wo, nullptr, nullptr, out, nullptr, rows, 0};
+  return (int)project<T>(outp, 1, rows, d, d, t_len, heads, dk, stream);
 }
 
 
@@ -713,7 +1067,7 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
             int tp, cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs dc{};
-  dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 0, 1};
+  dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 1};
   const dim3 grid1((rows + kTile - 1) / kTile, (d + kTile - 1) / kTile, 1);
   proj_kernel<T><<<grid1, 256, 0, stream>>>(dc, d, d, t_len, heads, dk);
   cudaError_t err = cudaGetLastError();
@@ -727,7 +1081,7 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
   if (err != cudaSuccess) return (int)err;
 
   Jobs dxj{};
-  dxj.job[0] = {grads, wcat, nullptr, nullptr, dx, nullptr, rows, 0, 0};
+  dxj.job[0] = {grads, wcat, nullptr, nullptr, dx, nullptr, rows, 0};
   proj_kernel<T><<<grid1, 256, 0, stream>>>(dxj, 4 * d, d, t_len, heads, dk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -761,10 +1115,9 @@ int run_heads(const void* qu, const void* qv, const void* k, const void* v,
               uint32_t thresh, float dscale, int tp, cudaStream_t stream) {
   const int dk = d / heads, n_pos = 2 * t_len - 1;
   Jobs proj{};
-  proj.job[0] = {pe, wpos, nullptr, nullptr, p, nullptr, n_pos, 1, 2};
-  const dim3 grid((n_pos + kTile - 1) / kTile, (d + kTile - 1) / kTile, 1);
-  proj_kernel<T><<<grid, 256, 0, stream>>>(proj, d, d, t_len, heads, dk);
-  cudaError_t err = cudaGetLastError();
+  proj.job[0] = {pe, wpos, nullptr, nullptr, p, nullptr, n_pos, 2};
+  cudaError_t err =
+      project<T>(proj, 1, n_pos, d, d, t_len, heads, dk, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
                              heads_layout(t_len, heads, dk), lse, batch,
@@ -793,9 +1146,10 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
 
 }  // namespace
 
-// The wrapper guarantees: contiguous tensors on one device; x, weights and
-// scratch in one dtype (fp32 or bf16); biases, the position table and the
-// key bias in fp32; dk = d / heads <= 64; scratch q_u, q_v, k, v sized
+// The wrapper guarantees: contiguous tensors on one device; x, weights, the
+// position table pe and scratch in one dtype (fp32 or bf16); biases and the
+// key bias in fp32; dk = d / heads <= 64, and in bf16 d % 8 == 0 and
+// dk % 4 == 0; scratch q_u, q_v, k, v sized
 // (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d); lse (B, H, T) fp32
 // or null. Dropout on the probabilities when thresh > 0: stream seed +
 // b * H + h, idx t * tp + s, kept values scaled by dscale.
@@ -856,11 +1210,12 @@ extern "C" int tat_attention_bwd(
 // Per-head attention (fused_relpos_attention). The wrapper guarantees:
 // contiguous tensors on one device; q_u, q_v, k, v (B, H, T, dk), w_pos
 // (d, d) and the scratch p (H, 2T-1, dk) and ctx (B, H, T, dk) in one dtype
-// (fp32 or bf16); pe (2T-1, d) and key_bias (B, T) fp32; d = H dk,
-// dk <= 64; lse (B, H, T) fp32 or null. Keys outside the window (left,
-// right) score -1e30; -1 is unlimited. Dropout when thresh > 0: stream
-// seed + b_stride * b + h, idx t * tp + s: b_stride = H gives every head
-// its own stream, b_stride = 0 the streams 0 .. H - 1 in every batch row.
+// (fp32 or bf16) with pe (2T-1, d); key_bias (B, T) fp32; d = H dk,
+// dk <= 64, and in bf16 d % 8 == 0 and dk % 4 == 0; lse (B, H, T) fp32 or
+// null. Keys outside the window (left, right) score -1e30; -1 is
+// unlimited. Dropout when thresh > 0: stream seed + b_stride * b + h, idx
+// t * tp + s: b_stride = H gives every head its own stream, b_stride = 0
+// the streams 0 .. H - 1 in every batch row.
 extern "C" int tat_relpos_attention(int bf16, const void* qu, const void* qv,
                                     const void* k, const void* v,
                                     const void* wpos, const void* pe,

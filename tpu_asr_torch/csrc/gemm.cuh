@@ -1,0 +1,207 @@
+// A tile of C = A B^T for 128 threads: A (M, K) row-major, B (N, K) row-major
+// (PyTorch's Linear layout, K contiguous in both), C tile 128 x 16 WN (WN = 4
+// or 6: 64 or 96 columns) in fp32 registers, handed element by element to an
+// epilogue. Shared by
+// subsampling.cu (conv2 as an implicit GEMM, the out-Linear) and
+// attention.cu (the bf16 projections).
+//
+// K is walked in 64-byte tiles (32 bf16 or 16 fp32 values) through a
+// 3-stage ring of cp.async 16-byte copies, so K must be a multiple of
+// 16 / sizeof(T) (8 bf16, 4 fp32) and every row 16-byte aligned; pieces past
+// K or past the last row are zero-filled by the copy itself. Staged rows are
+// 80 bytes apart (five 16-byte units, odd), so the eight rows an ldmatrix
+// reads, and the rows the copies write, fall in distinct banks.
+//
+// bf16: 4 warps in 2 x 2, each a 64 x 8 WN tile of mma.sync.m16n8k16 (4 WN
+// products per 16-deep step) fed by ldmatrix. The wider tile reads the A
+// rows half as often again per column (the caller picks the width that pads
+// N least). fp32: plain SIMT FMAs, 16 x WN outputs per thread (fp32 is the
+// check dtype; no tensor-core TF32, so that it agrees with full-precision
+// fp32 references).
+//
+// The A operand comes from a loader object with
+//   void issue(char* tile, int r0, int pc)
+// which copies its 4 rows (r0 + 32 j) x 16-byte piece pc of the current K
+// tile into the staged A tile and steps to the next K tile.
+#pragma once
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace {
+
+constexpr int kGM = 128;             // C tile rows
+constexpr int kGRow = 80;            // bytes per staged row (64 + 16)
+constexpr int kGStages = 3;
+template <int WN>
+__host__ __device__ constexpr int gemm_cols() {
+  return 16 * WN;
+}
+template <int WN>
+__host__ __device__ constexpr int gemm_stage() {
+  return (kGM + gemm_cols<WN>()) * kGRow;
+}
+template <int WN>  // 46,080 bytes at WN = 4, 53,760 at 6
+__host__ __device__ constexpr int gemm_smem() {
+  return kGStages * gemm_stage<WN>();
+}
+
+// A rows of a row-major (M, K) matrix.
+template <typename T>
+struct PlainRows {
+  const T* a;
+  int k_len, k;          // K, and this thread's element column in the tile
+  const T* row[4];
+  bool ok[4];
+  __device__ PlainRows(const T* a_, int m, int k_len_, int m0, int r0,
+                       int pc)
+      : a(a_), k_len(k_len_), k(pc * (16 / (int)sizeof(T))) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = m0 + r0 + 32 * j;
+      ok[j] = r < m;
+      row[j] = a + (size_t)(ok[j] ? r : 0) * k_len;
+    }
+  }
+  __device__ void issue(char* tile, int r0, int pc) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool v = ok[j] && k < k_len;
+      cp_async16(tile + (r0 + 32 * j) * kGRow + pc * 16, v ? row[j] + k : a,
+                 v);
+    }
+    k += 64 / (int)sizeof(T);
+  }
+};
+
+// B tile: rows n0 .. n0 + 16 WN - 1 of (N, K), K tile kt.
+template <int WN, typename T>
+__device__ __forceinline__ void issue_b(char* tile, const T* b, int n_len,
+                                        int k_len, int n0, int kt, int r0,
+                                        int pc) {
+  const int k = kt * (64 / (int)sizeof(T)) + pc * (16 / (int)sizeof(T));
+#pragma unroll
+  for (int j = 0; j < WN / 2; ++j) {
+    const int n = n0 + r0 + 32 * j;
+    const bool v = n < n_len && k < k_len;
+    cp_async16(tile + (r0 + 32 * j) * kGRow + pc * 16,
+               v ? b + (size_t)n * k_len + k : b, v);
+  }
+}
+
+// The whole K loop of one C tile; epi(row, col, value) for each of the
+// thread's 16 WN outputs (rows m0.., cols n0.., unguarded: the epilogue
+// checks its bounds). `smem` holds gemm_smem<WN>() bytes, 16-byte aligned.
+template <int WN, typename T, class ALoad, class Epi>
+__device__ void gemm_tile(char* smem, ALoad& a, const T* b, int n_len,
+                          int k_len, int m0, int n0, Epi epi) {
+  constexpr int kStage = gemm_stage<WN>();
+  const int tid = threadIdx.x, r0 = tid / 4, pc = tid % 4;
+  const int nk = (k_len + 64 / (int)sizeof(T) - 1) / (64 / (int)sizeof(T));
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < nk) {
+      a.issue(smem + s * kStage, r0, pc);
+      issue_b<WN>(smem + s * kStage + kGM * kGRow, b, n_len, k_len, n0, s,
+                  r0, pc);
+    }
+    cp_async_commit();
+  }
+
+  constexpr bool kTC = sizeof(T) == 2;
+  // bf16: [m16 tile * WN + n8 tile][fragment]; fp32: flat (row i, col j)
+  // at i * WN + j
+  float acc[4 * WN][4];
+#pragma unroll
+  for (int i = 0; i < 4 * WN; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const int warp = tid / 32, lane = tid % 32;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();  // tile kt landed; tile kt - 1 is consumed
+    const int nxt = kt + kGStages - 1;
+    if (nxt < nk) {
+      char* st = smem + (nxt % kGStages) * kStage;
+      a.issue(st, r0, pc);
+      issue_b<WN>(st + kGM * kGRow, b, n_len, k_len, n0, nxt, r0, pc);
+    }
+    cp_async_commit();
+    const char* sa = smem + (kt % kGStages) * kStage;
+    const char* sb = sa + kGM * kGRow;
+    if constexpr (kTC) {
+      const int wm = (warp % 2) * 64, wn = (warp / 2) * 8 * WN;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t af[4][4], bf[WN / 2][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ldmatrix_x4(af[i], sa + (wm + 16 * i + lane % 16) * kGRow +
+                                 (ks * 16 + (lane / 16) * 8) * 2);
+#pragma unroll
+        for (int jj = 0; jj < WN / 2; ++jj)
+          ldmatrix_x4(bf[jj],
+                      sb + (wn + 16 * jj + lane % 8 + (lane / 16) * 8) * kGRow +
+                          (ks * 16 + ((lane / 8) % 2) * 8) * 2);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+            mma_bf16(acc[i * WN + j], af[i], bf[j / 2][(j % 2) * 2],
+                     bf[j / 2][(j % 2) * 2 + 1]);
+      }
+    } else {
+      const float* fa = reinterpret_cast<const float*>(sa);
+      const float* fb = reinterpret_cast<const float*>(sb);
+      const int tx = tid % 16, ty = tid / 16;
+      constexpr int kRowF = kGRow / 4;
+#pragma unroll 4
+      for (int kk = 0; kk < 16; ++kk) {
+        float av[16], bv[WN];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) av[i] = fa[(ty + 8 * i) * kRowF + kk];
+#pragma unroll
+        for (int j = 0; j < WN; ++j) bv[j] = fb[(tx + 16 * j) * kRowF + kk];
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int j = 0; j < WN; ++j) {
+            float& c = acc[(i * WN + j) / 4][(i * WN + j) % 4];
+            c = fmaf(av[i], bv[j], c);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if constexpr (kTC) {
+    const int wm = (warp % 2) * 64, wn = (warp / 2) * 8 * WN;
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < WN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          epi(m0 + wm + 16 * i + g + (e / 2) * 8,
+              n0 + wn + 8 * j + 2 * t + (e % 2), acc[i * WN + j][e]);
+  } else {
+    const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int j = 0; j < WN; ++j)
+        epi(m0 + ty + 8 * i, n0 + tx + 16 * j,
+            acc[(i * WN + j) / 4][(i * WN + j) % 4]);
+  }
+}
+
+// The tile width (n8 tiles per warp, 4 or 6) that pads N least; a tie
+// takes the wider tile, which reads the A rows fewer times.
+inline int gemm_width(int n) {
+  const int pad4 = (n + 63) / 64 * 64, pad6 = (n + 95) / 96 * 96;
+  return pad6 <= pad4 ? 6 : 4;
+}
+
+}  // namespace

@@ -8,8 +8,11 @@ asr_train.py:1220-1377), for the `mlp` meta encoder.
   folded outside the call and under autograd:
   w1x = fc1.W[:, :C], a = fc1.W[:, C:] te.W[:, 0], c = fc1.W[:, C:] te.b +
   fc1.b, so gradients reach the time embedding and fc1's time columns.
-  `euler_backend` 'auto'/'pallas' calls the kernel wrapper (the CUDA kernel
-  for CUDA tensors, the plain loop for CPU tensors), 'xla' the plain loop.
+  `euler_backend` 'pallas' calls the kernel wrapper (the CUDA kernel for
+  CUDA tensors, the plain loop for CPU tensors) and raises where the kernel
+  refuses the shape; 'auto' calls it where the kernel takes the shape (C,
+  H, max_steps, dtype) and the plain loop elsewhere, as JAX's 'auto' falls
+  back to XLA; 'xla' the plain loop.
 - The training loss uses only the LAST velocity (t = 1/N):
   x_hat = (dalpha_dt s_f - last_v) / (-dsigma_dt), then the shape transform
   (identity, linear or conv1d with kernel 1), then mse or cosine
@@ -33,7 +36,9 @@ from torch import nn
 from tpu_asr_torch.config import FlowMatchingConfig
 from tpu_asr_torch.kd.meta_encoders import build_meta_encoder
 from tpu_asr_torch.kd.schedules import get_noise_schedule
-from tpu_asr_torch.ops.cuda_fm import fm_euler_plain, fused_fm_euler
+from tpu_asr_torch.ops._kernels import use_kernel
+from tpu_asr_torch.ops.cuda_fm import (fm_euler_plain, fm_refusal,
+                                       fused_fm_euler)
 
 BACKENDS = ("auto", "pallas", "xla")
 
@@ -100,6 +105,12 @@ class FlowMatchingModule(nn.Module):
                 w1t @ te.bias + mlp.fc1.bias, mlp.fc2.weight.t(),
                 mlp.fc2.bias)
 
+    def uses_kernel(self, w1x: torch.Tensor, max_steps: int) -> bool:
+        """Whether the Euler loop takes the kernel wrapper for the folded
+        W1x (C, H) and max_steps."""
+        return use_kernel(self.backend, fm_refusal(
+            w1x.shape[0], w1x.shape[1], int(max_steps), self.dtype))
+
     def forward(self, s_f: torch.Tensor, t_f: Optional[torch.Tensor] = None,
                 steps: Union[int, torch.Tensor, None] = None,
                 max_steps: Optional[int] = None, train: bool = False,
@@ -122,8 +133,10 @@ class FlowMatchingModule(nn.Module):
                          else c.router_max_sampling_steps)
         steps_b = torch.as_tensor(steps, dtype=torch.int32,
                                   device=s_f.device).expand(b)
-        run = fm_euler_plain if self.backend == "xla" else fused_fm_euler
-        x, last_v = run(s_f.to(self.dtype), steps_b, *self.euler_weights(),
+        weights = self.euler_weights()
+        run = (fused_fm_euler if self.uses_kernel(weights[0], max_steps)
+               else fm_euler_plain)
+        x, last_v = run(s_f.to(self.dtype), steps_b, *weights,
                         max_steps=max_steps, compute_dtype=self.dtype)
         loss = torch.zeros((), device=s_f.device)
         if train and t_f is not None:

@@ -14,16 +14,20 @@ attention, batch-norm or layer-norm conv modules with any conv context,
 int8 serving (`quantization='int8'`), no caches, no stochastic depth. Any
 other EncoderConfig option raises (`check_supported`) instead of running a
 different path. Backends: `subsampling_backend` and `attention_backend`
-'auto'/'pallas' call the kernel wrappers (the CUDA kernels for CUDA
-tensors, the plain versions for CPU tensors), 'xla' calls the plain
-versions. The FFN sublayers, as JAX routes them: in training the fused
-kernel ('auto'/'pallas') or its plain version ('xla'), whatever
-`quantization` says; in eval with `quantization='int8'` the int8 kernel
-(its plain version under 'xla'); in eval with `ffn_backend='pallas'` the
-fused kernel at dropout 0; otherwise plain PyTorch. The conv module runs
-the eval kernel with `conv_backend='pallas'` in eval and plain PyTorch
-otherwise. `set_backend('xla')` (profile_forward.py) points every route at
-its plain version and `set_backend('auto')` back at the config's choice.
+'pallas' call the kernel wrappers (the CUDA kernels for CUDA tensors, the
+plain versions for CPU tensors) and raise where the kernel refuses the
+shape; 'auto' calls them where the kernel takes the shape and the plain
+versions elsewhere, as JAX's 'auto' falls back to XLA (`use_kernel`, asking
+each wrapper's own refusal predicate); 'xla' calls the plain versions. The
+FFN sublayers, as JAX routes them: in training the fused kernel ('pallas',
+or 'auto' where it takes the shape: its backward takes D <= 128) or its
+plain version, whatever `quantization` says; in eval with
+`quantization='int8'` the int8 kernel (its plain version under 'xla'); in
+eval with `ffn_backend='pallas'` the fused kernel at dropout 0; otherwise
+plain PyTorch. The conv module runs the eval kernel with
+`conv_backend='pallas'` in eval and plain PyTorch otherwise.
+`set_backend('xla')` (profile_forward.py) points every route at its plain
+version and `set_backend('auto')` back at the config's choice.
 
 Training (`train=True` with a `torch.Generator`): every dropout site draws
 its mask from the counter hash of ops/dropout.py with a seed drawn per step
@@ -44,15 +48,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpu_asr_torch.config import EncoderConfig
-from tpu_asr_torch.ops.cuda_attention import (fused_relpos_attention_block,
+from tpu_asr_torch.ops._kernels import use_kernel
+from tpu_asr_torch.ops.cuda_attention import (attention_refusal,
+                                              fused_relpos_attention_block,
                                               relpos_attention_plain)
 from tpu_asr_torch.ops.cuda_conv import conv_layer_norm, fused_conv_module
-from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_int8_plain,
+from tpu_asr_torch.ops.cuda_ffn import (ffn_refusal, ffn_sublayer_int8_plain,
                                         ffn_sublayer_plain,
                                         fused_ffn_sublayer,
                                         fused_ffn_sublayer_int8)
 from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
-                                                subsampling_plain)
+                                                subsampling_plain,
+                                                subsampling_refusal)
 from tpu_asr_torch.ops.dropout import dropout
 from tpu_asr_torch.ops.positions import rel_positional_encoding  # noqa: F401
 
@@ -119,9 +126,15 @@ class ConvSubsampling(nn.Module):
                                   nn.Conv2d(ch, ch, 3, 2, 1), nn.ReLU())
         self.out = nn.Linear(ch * out_len(out_len(cfg.feat_in)), cfg.d_model)
 
+    def uses_kernel(self, x: torch.Tensor) -> bool:
+        """Whether the route takes the kernel wrapper for x (B, T, F)."""
+        return use_kernel(self.backend, subsampling_refusal(
+            x.dtype, self.conv[0].out_channels,
+            out_len(out_len(x.shape[-1]))))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, F) contiguous, working dtype -> (B, T', D)."""
-        run = subsampling_plain if self.backend == "xla" else fused_subsampling
+        run = fused_subsampling if self.uses_kernel(x) else subsampling_plain
         h = run(x, self.conv[0].weight, self.conv[0].bias, self.conv[2].weight,
                 self.conv[2].bias, self.out.weight)
         return h + self.out.bias.to(h.dtype)
@@ -140,6 +153,15 @@ class RelPositionMultiHeadAttention(nn.Module):
         self.pos_bias_u = nn.Parameter(torch.zeros(n_heads, dk))
         self.pos_bias_v = nn.Parameter(torch.zeros(n_heads, dk))
 
+    def uses_kernel(self, x: torch.Tensor) -> bool:
+        """Whether the route takes the kernel wrapper for x (B, T, D); the
+        backward's limits count when autograd will need it."""
+        train = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        b, t, d = x.shape
+        return use_kernel(self.backend, attention_refusal(
+            x.dtype, d, self.n_heads, t, train))
+
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 mask: torch.Tensor, dropout_rate: float = 0.0,
                 dropout_seed: int = 0) -> torch.Tensor:
@@ -148,11 +170,11 @@ class RelPositionMultiHeadAttention(nn.Module):
                 self.linear_v.weight, self.linear_v.bias, self.pos_bias_u,
                 self.pos_bias_v, self.linear_pos.weight,
                 self.linear_out.weight, pos_emb, mask, self.n_heads)
-        if self.backend == "xla":
-            out = relpos_attention_plain(*args, dropout_rate, dropout_seed)
-        else:
+        if self.uses_kernel(x):
             out = fused_relpos_attention_block(
                 *args, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        else:
+            out = relpos_attention_plain(*args, dropout_rate, dropout_seed)
         return out + self.linear_out.bias.to(out.dtype)
 
 
@@ -328,12 +350,23 @@ class ConformerLayer(nn.Module):
     def _ffn(self, norm: nn.LayerNorm, ff: FeedForward, x: torch.Tensor,
              seed: int) -> torch.Tensor:
         """x + 0.5 * drop(FFN(LN(x))), both dropout masks inside: the fused
-        kernel ('auto'/'pallas') or its plain version ('xla')."""
-        run = (ffn_sublayer_plain if self.ffn_backend == "xla"
-               else fused_ffn_sublayer)
+        kernel ('pallas', or 'auto' where it takes the shape) or its plain
+        version."""
+        run = (fused_ffn_sublayer if self.ffn_train_uses_kernel(x, ff)
+               else ffn_sublayer_plain)
         return run(x, norm.weight, norm.bias, ff.linear1.weight,
                    ff.linear1.bias, ff.linear2.weight, ff.linear2.bias,
                    self.cfg.dropout, seed)
+
+    def ffn_train_uses_kernel(self, x: torch.Tensor,
+                              ff: FeedForward) -> bool:
+        """Whether the training FFN route takes the kernel wrapper for x
+        (B, T, D); its backward's limit counts when autograd will need
+        it."""
+        train = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in ff.parameters()))
+        return use_kernel(self.ffn_backend, ffn_refusal(
+            x.dtype, x.shape[-1], ff.linear1.weight.shape[0], train))
 
     def _train_forward(self, x, pos_emb, mask, seeds):
         c = self.cfg

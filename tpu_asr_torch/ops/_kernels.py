@@ -21,12 +21,15 @@ Every C entry point launches on the stream it is given and returns
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
 import os
 import subprocess
+import weakref
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -143,3 +146,51 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous tensor {tuple(t.shape)}")
+
+
+def use_kernel(backend: str, refusal: Optional[str]) -> bool:
+    """Whether a model route calls the kernel wrapper. `refusal` is what
+    the wrapper's own pre-launch check would say of the call (None: the
+    kernel takes it). 'xla': never. 'auto': where the kernel takes the
+    call, else the plain version, as the JAX package's 'auto' falls back to
+    XLA. 'pallas': always, and a refused call raises here."""
+    if backend == "xla":
+        return False
+    if backend == "pallas" and refusal is not None:
+        raise ValueError(refusal)
+    return refusal is None
+
+
+def prepared(fn):
+    """Memoise fn(*args), which builds kernel-layout copies of parameters.
+    The key holds every tensor argument's identity, data pointer,
+    `_version`, dtype, device and shape (and the other arguments as they
+    are), so an in-place update (an optimizer step) or `.to()` builds anew;
+    an entry is used only while its tensors are alive. Copies are built
+    outside autograd and outside inference mode, so that one built while
+    serving may be saved for a backward later; an inference tensor among
+    the arguments keeps no version counter, and then nothing is cached. The
+    newest 64 entries are kept."""
+    entries = collections.OrderedDict()
+
+    @functools.wraps(fn)
+    def get(*args):
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        if any(t.is_inference() for t in tensors):
+            return fn(*args)
+        key = tuple((id(a), a.data_ptr(), a._version, a.dtype, a.device,
+                     tuple(a.shape)) if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        hit = entries.get(key)
+        if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+            entries.move_to_end(key)
+            return hit[1]
+        with torch.inference_mode(False), torch.no_grad():
+            value = fn(*args)
+        entries[key] = ([weakref.ref(t) for t in tensors], value)
+        while len(entries) > 64:
+            entries.popitem(last=False)
+        return value
+
+    get.cache_clear = entries.clear
+    return get

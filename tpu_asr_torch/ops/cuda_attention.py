@@ -23,6 +23,12 @@ projections, the attention weights and the context. The plain version keeps
 JAX's rel_shift construction; the kernel gathers the shifted positions.
 The kernels' shared core takes a local window (`local_window`); the block
 wrapper still refuses one (att_context_size is outside the model slice).
+In bf16 the forward's projections and core run on the tensor cores, which
+take D % 8 == 0 and dk % 4 == 0 (`attention_refusal`, which the model's
+'auto' route also asks); fp32 keeps the SIMT kernels. The weight matrices in
+the working dtype and the folded biases cu = bq + u, cv = bq + v are built
+once per weight version (`_kernels.prepared`); the key bias depends on the
+mask and is built per call.
 """
 
 from __future__ import annotations
@@ -168,19 +174,52 @@ def _drop_args(rate: float, seed: int):
     return int(seed) & 0xFFFFFFFF, thresh, 1.0 / (1.0 - rate) if rate else 1.0
 
 
-def _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, h):
-    dt = x.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(
-            f"fused_relpos_attention_block: unsupported dtype {dt}")
+def attention_refusal(dtype: torch.dtype, d: int, h: int, t: int,
+                      train: bool) -> Optional[str]:
+    """Why the block kernels would refuse x (B, T, D) of `dtype` with h
+    heads (and, when `train`, the backward), or None when they take it:
+    dk = D / h <= MAX_DK; in bf16 the tensor-core tiles copy rows in 16-
+    (D) and 8-byte (dk) pieces, so D % 8 == 0 and dk % 4 == 0; the
+    backward's shared memory grows with T."""
+    name = "fused_relpos_attention_block"
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"{name}: unsupported dtype {dtype}"
+    if d % h or d // h > MAX_DK:
+        return (f"{name}: the kernel takes dk = D / heads <= {MAX_DK} "
+                f"(got D={d}, {h} heads)")
+    if dtype == torch.bfloat16 and (d % 8 or (d // h) % 4):
+        return (f"{name}: in bf16 the kernel takes D % 8 == 0 and "
+                f"dk % 4 == 0 (got D={d}, dk={d // h})")
+    if train and _bwd_smem(t, d // h) > K.SMEM_LIMIT:
+        return (f"{name}: the backward at T={t} needs "
+                f"{_bwd_smem(t, d // h)} B of shared memory "
+                f"(> {K.SMEM_LIMIT})")
+    return None
+
+
+def _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, h,
+           train: bool):
     b, t, d = x.shape
     dk = d // h
-    if (d % h or dk > 64 or any(w.shape != (d, d) for w in
-                                (wq, wk, wv, w_pos, wo))
+    if (any(w.shape != (d, d) for w in (wq, wk, wv, w_pos, wo))
             or bias_u.shape != (h, dk) or bias_v.shape != (h, dk)
             or pos_emb.shape != (2 * t - 1, d) or mask.shape != (b, t)):
         raise ValueError("fused_relpos_attention_block: shapes do not match "
-                         f"x {tuple(x.shape)} with {h} heads (dk <= 64)")
+                         f"x {tuple(x.shape)} with {h} heads")
+    why = attention_refusal(x.dtype, d, h, t, train)
+    if why:
+        raise ValueError(why)
+
+
+@K.prepared
+def _block_weights(wq, wk, wv, w_pos, wo, bq, bias_u, bias_v, bk, bv, dt):
+    """The five weight matrices in dt and the fp32 biases of the kernel:
+    cu = bq + u, cv = bq + v, bk, bv."""
+    d = wq.shape[0]
+    w = [z.to(dt).contiguous() for z in (wq, wk, wv, w_pos, wo)]
+    return w + [(bq + bias_u.reshape(d)).float().contiguous(),
+                (bq + bias_v.reshape(d)).float().contiguous(),
+                bk.float().contiguous(), bv.float().contiguous()]
 
 
 class _Attention(torch.autograd.Function):
@@ -193,11 +232,9 @@ class _Attention(torch.autograd.Function):
         dk = d // h
         train = any(ctx.needs_input_grad)
         x = x.contiguous()
-        w = [z.to(dt).contiguous() for z in (wq, wk, wv, w_pos, wo)]
-        cu = (bq + bias_u.reshape(d)).float().contiguous()
-        cv = (bq + bias_v.reshape(d)).float().contiguous()
-        bk_, bv_ = bk.float().contiguous(), bv.float().contiguous()
-        pe = pos_emb.float().contiguous()
+        *w, cu, cv, bk_, bv_ = _block_weights(wq, wk, wv, w_pos, wo, bq,
+                                              bias_u, bias_v, bk, bv, dt)
+        pe = pos_emb.to(dt).contiguous()
         key_bias = torch.zeros((b, t), device=x.device).masked_fill(~mask,
                                                                     -1e30)
         new = lambda *shape: torch.empty(shape, dtype=dt, device=x.device)
@@ -303,7 +340,10 @@ def fused_relpos_attention_block(
     if not x.is_cuda:
         raise ValueError(f"fused_relpos_attention_block: unsupported device "
                          f"{x.device}")
-    _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, n_heads)
+    train = torch.is_grad_enabled() and any(
+        z.requires_grad for z in args if isinstance(z, torch.Tensor))
+    _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, n_heads,
+           train)
     return _Attention.apply(*args, n_heads, float(dropout_rate),
                             int(dropout_seed))
 
@@ -366,7 +406,7 @@ class _HeadsAttention(torch.autograd.Function):
         train = any(ctx.needs_input_grad[:5])
         ins = [z.contiguous() for z in (q_u, q_v, k, v)]
         w = w_pos.to(dt).contiguous()
-        pe = position_table(t, d, dev)
+        pe = position_table(t, d, dev, dt)
         key_bias = torch.zeros((b, t), device=dev).masked_fill(~mask, -1e30)
         p = torch.empty((h, 2 * t - 1, dk), dtype=dt, device=dev)
         out = torch.empty((b, h, t, dk), dtype=dt, device=dev)
@@ -436,6 +476,9 @@ def _check_heads(q_u, q_v, k, v, w_pos, mask, train: bool):
     if dk > MAX_DK:
         raise ValueError(f"fused_relpos_attention: the kernel takes dk <= "
                          f"{MAX_DK} (got {dk})")
+    if dt == torch.bfloat16 and (d % 8 or dk % 4):
+        raise ValueError(f"fused_relpos_attention: in bf16 the kernel takes "
+                         f"D % 8 == 0 and dk % 4 == 0 (got D={d}, dk={dk})")
     if train and _bwd_smem(t, dk) > K.SMEM_LIMIT:
         raise ValueError(f"fused_relpos_attention: the backward at T={t} "
                          f"needs {_bwd_smem(t, dk)} B of shared memory "

@@ -39,6 +39,8 @@ round.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -97,26 +99,35 @@ def fwd_smem(d: int, f: int) -> int:
     return 4 * (32 * (d + f) + 32 * 129)
 
 
+def ffn_refusal(dtype: torch.dtype, d: int, f: int,
+                train: bool) -> Optional[str]:
+    """Why the kernels would refuse D, d_ff and dtype: the forward takes
+    any D whose tiles fit shared memory, the backward (needed when
+    `train`) D <= MAX_BWD_D; None when they take it."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"fused_ffn_sublayer: unsupported dtype {dtype}"
+    if fwd_smem(d, f) > K.SMEM_LIMIT:
+        return (f"fused_ffn_sublayer: D={d}, d_ff={f} needs "
+                f"{fwd_smem(d, f)} B of shared memory in the forward kernel "
+                f"(> {K.SMEM_LIMIT})")
+    if train and d > MAX_BWD_D:
+        return (f"fused_ffn_sublayer: the backward kernel takes D <= "
+                f"{MAX_BWD_D} (got D={d}); call it without gradients (eval) "
+                f"or use the plain version")
+    return None
+
+
 def _check(x, ln_w, w1, w2, train: bool):
-    """Raise for what the kernels do not take: the forward any D whose
-    tiles fit shared memory, the backward (needed when `train`) D <=
-    MAX_BWD_D."""
-    dt = x.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_ffn_sublayer: unsupported dtype {dt}")
+    """Raise for shapes that do not match and for what the kernels do not
+    take (`ffn_refusal`)."""
     d, f = x.shape[-1], w1.shape[0]
     if w1.shape != (f, d) or w2.shape != (d, f) or ln_w.shape != (d,):
         raise ValueError(f"fused_ffn_sublayer: shapes do not match x "
                          f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
                          f"{tuple(w2.shape)}")
-    if fwd_smem(d, f) > K.SMEM_LIMIT:
-        raise ValueError(f"fused_ffn_sublayer: D={d}, d_ff={f} needs "
-                         f"{fwd_smem(d, f)} B of shared memory in the "
-                         f"forward kernel (> {K.SMEM_LIMIT})")
-    if train and d > MAX_BWD_D:
-        raise ValueError(f"fused_ffn_sublayer: the backward kernel takes D "
-                         f"<= {MAX_BWD_D} (got D={d}); call it without "
-                         f"gradients (eval) or use the plain version")
+    why = ffn_refusal(x.dtype, d, f, train)
+    if why:
+        raise ValueError(why)
 
 
 def _drop_args(rate: float, seed: int):

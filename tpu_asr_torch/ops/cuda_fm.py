@@ -23,6 +23,8 @@ H = 128 hidden units and max_steps <= 16, in fp32 or bf16.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tpu_asr_torch.ops import _kernels as K
@@ -58,20 +60,32 @@ def fm_euler_plain(x0, steps, w1x, a, c, w2, b2, *, max_steps: int,
     return x.to(x0.dtype), last_v.to(x0.dtype)
 
 
+def fm_refusal(c: int, hidden: int, max_steps: int,
+               compute_dtype) -> Optional[str]:
+    """Why the kernels would refuse C features, `hidden` units, max_steps
+    and compute_dtype, or None when they take them."""
+    if c != KERNEL_C or hidden != KERNEL_H:
+        return (f"fused_fm_euler: the kernel takes C={KERNEL_C}, "
+                f"H={KERNEL_H} (got C={c}, H={hidden})")
+    if not 1 <= max_steps <= MAX_STEPS:
+        return (f"fused_fm_euler: max_steps {max_steps} outside "
+                f"1..{MAX_STEPS}")
+    if compute_dtype not in DTYPES:
+        return f"fused_fm_euler: unsupported compute dtype {compute_dtype}"
+    return None
+
+
 def check_kernel_args(x0, w1x, w2, max_steps: int, compute_dtype) -> None:
     """Raise for what the kernels do not take."""
-    if (x0.dim() != 3 or x0.shape[-1] != KERNEL_C or w1x.shape
-            != (KERNEL_C, KERNEL_H) or w2.shape != (KERNEL_H, KERNEL_C)):
+    c, hidden = w1x.shape[0], w1x.shape[-1]
+    if (x0.dim() != 3 or x0.shape[-1] != c or w1x.dim() != 2
+            or w2.shape != (hidden, c)):
         raise ValueError(
-            f"fused_fm_euler: the kernel takes C={KERNEL_C}, H={KERNEL_H} "
-            f"(x0 {tuple(x0.shape)}, w1x {tuple(w1x.shape)}, w2 "
-            f"{tuple(w2.shape)})")
-    if not 1 <= max_steps <= MAX_STEPS:
-        raise ValueError(f"fused_fm_euler: max_steps {max_steps} outside "
-                         f"1..{MAX_STEPS}")
-    if compute_dtype not in DTYPES:
-        raise ValueError(f"fused_fm_euler: unsupported compute dtype "
-                         f"{compute_dtype}")
+            f"fused_fm_euler: shapes do not match (x0 {tuple(x0.shape)}, "
+            f"w1x {tuple(w1x.shape)}, w2 {tuple(w2.shape)})")
+    why = fm_refusal(c, hidden, max_steps, compute_dtype)
+    if why:
+        raise ValueError(why)
 
 
 def _grid(device) -> int:

@@ -28,7 +28,9 @@ def rel_positional_encoding(t: int, d_model: int,
 
 
 @functools.lru_cache(maxsize=16)
-def position_table(t: int, d_model: int, device) -> torch.Tensor:
-    """rel_positional_encoding(t, d_model) on `device`, built once per
-    (t, d_model, device) for the kernel wrappers, which only read it."""
-    return rel_positional_encoding(t, d_model, device)
+def position_table(t: int, d_model: int, device,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """rel_positional_encoding(t, d_model) on `device` in `dtype`, built
+    once per (t, d_model, device, dtype) for the kernel wrappers, which
+    only read it."""
+    return rel_positional_encoding(t, d_model, device).to(dtype)

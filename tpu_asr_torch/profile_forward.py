@@ -42,13 +42,16 @@ GROUPS = (("ffn_int8_kernel", "ffn int8"), ("conv_module_kernel",
                                             "conv module"),
           ("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
           ("fm_partial_sum", "fm bwd"), ("core_kernel", "attention fwd"),
+          ("core_mma_kernel", "attention fwd"),
           ("proj_kernel", "attention proj"),
+          ("proj_mma_kernel", "attention proj"),
           ("dq_kernel", "attention bwd"), ("dkv_kernel", "attention bwd"),
           ("dpos_kernel", "attention bwd"), ("wgrad_kernel", "attention bwd"),
           ("sum_parts_kernel", "attention bwd"), ("ffn_fwd", "ffn fwd"),
           ("ffn_bwd", "ffn bwd"), ("sum_rows_kernel", "ffn bwd"),
           ("ctc_fwd", "ctc fwd"), ("ctc_bwd", "ctc bwd"),
-          ("conv1_kernel", "subsampling"), ("conv2_linear", "subsampling"),
+          ("conv1_kernel", "subsampling"), ("conv2_kernel", "subsampling"),
+          ("linear_kernel", "subsampling"),
           ("logmel", "logmel"))
 
 
@@ -56,7 +59,8 @@ def group_of(name: str) -> str:
     for prefix, group in GROUPS:
         if prefix in name:
             return group
-    if "gemm" in name or "cutlass" in name or "sm90" in name:
+    if ("gemm" in name or "cutlass" in name or "sm90" in name
+            or "nvjet" in name):
         return "cuBLAS/cuDNN products"
     if "conv" in name.lower() or "cudnn" in name.lower():
         return "cuDNN convolutions"
