@@ -12,7 +12,12 @@ Phases, each on its own output lines:
      and the bound. Subsampling also at conformer-LARGE's C = D = 512, a
      C % 8 != 0 refused, and beside it the bf16 module path (two F.conv2d,
      ReLUs, flatten, F.linear; timed only); device times (torch.profiler)
-     of the bf16 subsampling and attention.
+     of logmel and the bf16 subsampling and attention. Log-mel's bound
+     counts the FFT's operations and the bytes (the DFT-as-matmul count is
+     printed beside it), and beside the main shape it checks an odd frame
+     count from rows off 16-byte alignment, n_fft = 400 (the DFT kernel),
+     n_fft = 1024 (the FFT kernel's radix-4/2 stages), mag_power 1 and log
+     False (relative 2e-3 on live bins), each with its device time.
   4. model: ModelConfig() in float32 with seeded random weights and
      randomised BatchNorm statistics, run once on the kernels ('auto') and
      once with every backend 'xla': max |delta log-prob| < 2e-3, equal
@@ -38,7 +43,10 @@ Phases, each on its own output lines:
      3.35 TB/s or operations over the peak rate of the operands' type).
      The backward kernels give bit-equal gradients on two calls (no
      atomics), and the FFN and CTC kernels are also held to their plain
-     versions at ragged edges the main path does not reach.
+     versions at ragged edges the main path does not reach. The bf16
+     attention backward's device time per launch (torch.profiler), and the
+     backward at T=1100 (B=2, bf16: past the fp32 kernel's shared-memory
+     limit of T <= 1024) against plain, bit-equal on two calls.
   7. train: one DistilCTCModel train step of the student in fp32 at full
      width (16 layers) on B=8 x 15 s, once on the kernels and once on the
      plain versions, from the same weights and seeds (dropout, dither and
@@ -110,9 +118,10 @@ Phases, each on its own output lines:
      the forward at the teacher's shape (B=32, H=4, T=376, dk=44) in fp32
      and bf16; forward and backward at the student's (H=2, dk=44) with
      dropout 0.1 in fp32 and bf16, a (32, 16) window, ragged lengths
-     without a seed; two backward calls bit-equal; dk=72 refused; times and
-     bounds. Launch counters are reset before phases 14 and 15 and must be
-     above 0 after them.
+     without a seed; two backward calls bit-equal; the bf16 backward at
+     T=1100 (B=2); dk=72 refused; times, bounds and the backward's device
+     time per launch. Launch counters are reset before phases 14 and 15
+     and must be above 0 after them.
 Then one JSON line of per-kernel results, and last the JSON device line.
 Any failed check exits non-zero before the last line.
 """
@@ -132,6 +141,7 @@ import torch
 SECONDS, BATCH, SR = 15, 32, 16000
 SERVE_POOL, SERVE_BATCH, SERVE_WARMUP, SERVE_REQUESTS = 256, 32, 2, 64
 TOKENS, CHECK_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 48, 8, 2, 10
+LONG_T = 1100          # beyond the fp32 attention backward's T <= 1024
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, data sheet
 # SIMT fp32, bf16 and int8 tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -213,7 +223,8 @@ def kernel_phase(cfg):
     {name: {dtype: (max_abs_err, kernel_ms, plain_ms, bound, library_ms)}}."""
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention_block, relpos_attention_plain)
-    from tpu_asr_torch.ops.cuda_features import fused_logmel, logmel_plain
+    from tpu_asr_torch.ops.cuda_features import (_fft_tables, fused_logmel,
+                                                 logmel_plain, logmel_route)
     from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling,
                                                     out_len, subsampling_plain)
     from tpu_asr_torch.ops.features import FilterbankFeatures
@@ -224,7 +235,7 @@ def kernel_phase(cfg):
     enc = cfg.encoder
     results = {}
 
-    # log-mel: fp32 only
+    # log-mel: fp32 only; the model's n_fft = 512 runs the FFT kernel
     feat = FilterbankFeatures(pre).cuda()
     audio = normal(gen, BATCH, SECONDS * SR, scale=0.1)
     pad = pre.n_fft // 2
@@ -240,17 +251,24 @@ def kernel_phase(cfg):
     err = (got - want).abs()[live].max().item()
     check(torch.isfinite(got).all() and live.float().mean() > 0.5,
           "logmel finite, most bins live")
+    route = logmel_route(pre.n_fft, pre.hop_length, feat.fb_t.shape[0])
     check(err < 2e-3, f"logmel fp32 (B={BATCH}, T={n_frames}, "
-          f"{pre.features} mels): max |err| on live bins {err:.3e} < 2e-3")
-    nf = pre.n_fft // 2 + 1
-    flops = (2 * BATCH * n_frames * pre.n_fft * 2 * nf + 3 * BATCH * n_frames
-             * nf + 2 * BATCH * n_frames * nf * pre.features
-             + BATCH * n_frames * pre.features)
+          f"{pre.features} mels, {route} kernel): max |err| on live bins "
+          f"{err:.3e} < 2e-3")
+    flops = logmel_flops(BATCH * n_frames, pre.n_fft, feat.fb_t)
+    dft = logmel_flops(BATCH * n_frames, pre.n_fft, feat.fb_t, dft=True)
+    nb = nbytes(xp, *_fft_tables(feat.basis, feat.fb_t), got)
     results["logmel"] = {"float32": (
         err, median_ms(lambda: fused_logmel(*args)),
         median_ms(lambda: logmel_plain(*args)),
-        bound(flops, nbytes(xp, feat.basis, feat.fb_t, got), "float32"),
-        None)}
+        bound(flops, nb, "float32"), None)}
+    dev, names = device_ms(lambda: fused_logmel(*args))
+    print(f"time logmel float32: bound from the FFT's {flops / 1e9:.3f} GFLOP "
+          f"and {nb / 1e6:.1f} MB; the DFT-as-matmul count was "
+          f"{dft / 1e9:.2f} GFLOP ({bound(dft, nb, 'float32')[0]:.4f} ms at "
+          f"the fp32 SIMT rate); device time (torch.profiler, busy ms per "
+          f"call) {dev:.4f} ({top_kernels(names)})")
+    logmel_cases(gen, pre)
 
     # subsampling at the model's C = D = 176 (timed) and at conformer-LARGE's
     # C = D = 512; C % 8 != 0 refused
@@ -358,6 +376,66 @@ def kernel_phase(cfg):
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median "
                   f"of 20, CUDA events)")
     return results
+
+
+def logmel_flops(frames: int, n_fft: int, fb_t, dft: bool = False) -> float:
+    """Operations of the log-mel of `frames` frames. The FFT kernel, per
+    frame of n_fft = 2N: the window (2N), an N-point complex FFT
+    (5 N log2 N), the real split (10 N), the power (3 (N + 1)), the mel
+    bands' multiply-adds (2 x their nonzero bins) and the log (n_mels).
+    dft=True: the DFT as a matmul, 2 n_fft 2 (N + 1) per frame, and a dense
+    mel product, as the bound before the FFT kernel counted it."""
+    n = n_fft // 2
+    n_freq, n_mels = fb_t.shape
+    if dft:
+        per = (2 * n_fft * 2 * n_freq + 3 * n_freq + 2 * n_freq * n_mels
+               + n_mels)
+    else:
+        per = (n_fft + 5 * n * math.log2(n) + 10 * n + 3 * (n + 1)
+               + 2 * int((fb_t != 0).sum()) + n_mels)
+    return frames * per
+
+
+def logmel_cases(gen, pre):
+    """The log-mel kernels beside the main path's shape, fp32, B=4 x 7.3 s:
+    an odd frame count with Lp % 4 == 1, so rows 1.. start off 16-byte
+    alignment (the FFT kernel's 4-byte copies), n_fft = 400 (the DFT
+    kernel), n_fft = 1024 (the FFT kernel's radix-4/2 stages), mag_power 1
+    and log False (relative error 2e-3 on live bins, the log gate's
+    equivalent); device times (torch.profiler)."""
+    from tpu_asr_torch.ops.cuda_features import (fused_logmel, logmel_plain,
+                                                 logmel_route)
+    from tpu_asr_torch.ops.features import FilterbankFeatures
+
+    for kw in ({}, {"n_fft": 400}, {"n_fft": 1024, "window_size": 0.05},
+               {"mag_power": 1.0}, {"log": False}):
+        cfg = dataclasses.replace(pre, **kw)
+        feat = FilterbankFeatures(cfg).cuda()
+        audio = normal(gen, 4, 116801, scale=0.1)
+        pad = cfg.n_fft // 2
+        xp = torch.nn.functional.pad(audio[:, None], (pad, pad),
+                                     mode="reflect")[:, 0].contiguous()
+        n_frames = (xp.shape[1] - cfg.n_fft) // cfg.hop_length + 1
+        args = (xp, n_frames, feat.basis, feat.fb_t, cfg.hop_length,
+                cfg.log_zero_guard_value, cfg.mag_power, cfg.log)
+        with torch.no_grad():
+            got, want = fused_logmel(*args), logmel_plain(*args)
+        torch.cuda.synchronize()
+        route = logmel_route(cfg.n_fft, cfg.hop_length, feat.fb_t.shape[0])
+        if cfg.log:
+            live = want > np.log(cfg.log_zero_guard_value) + 8.0
+            err = (got - want).abs()[live].max().item()
+        else:
+            live = want > cfg.log_zero_guard_value * math.exp(8.0)
+            err = ((got - want).abs() / want)[live].max().item()
+        dev, names = device_ms(lambda: fused_logmel(*args))
+        check(torch.isfinite(got).all() and live.float().mean() > 0.5
+              and err < 2e-3,
+              f"logmel fp32 {kw or 'odd frames'} ({route} kernel, B=4, "
+              f"T={n_frames}, Lp={xp.shape[1]}): max "
+              f"{'|err|' if cfg.log else 'relative err'} on live bins "
+              f"{err:.3e} < 2e-3; device {dev:.4f} ms "
+              f"({top_kernels(names, 1)})")
 
 
 def subsampling_module_path(x, w1, b1, w2, b2, w_out):
@@ -708,6 +786,11 @@ def train_kernel_phase(tcfg):
             bound(attention_flops(BATCH, t, d, h, backward=True), bwd_bytes,
                   dts), None)
 
+    dev, names = device_ms(bwd)
+    print(f"device attention_bwd bfloat16 (torch.profiler, busy ms per "
+          f"call): {dev:.4f} ({top_kernels(names, 9)})")
+    long_attention_bwd(pw, h, rate, seed)
+
     # FFN forward and backward
     fw = (1.0 + normal(gen, d, scale=0.1), normal(gen, d, scale=0.1),
           normal(gen, f, d, scale=d ** -0.5), normal(gen, f, scale=0.1),
@@ -832,6 +915,47 @@ def train_kernel_phase(tcfg):
               f"{'forward+backward' if name == 'ctc_bwd' else 'forward'} "
               f"{lib:.4f} ms")
     return results
+
+
+def long_attention_bwd(pw, h, rate, seed, t=LONG_T):
+    """The block attention backward at a T beyond the fp32 kernel's
+    shared-memory limit (T <= 1024 at dk 44), which the bf16 kernels take:
+    bf16, B=2 (one row padded), dropout, against the plain version by phase
+    6's gradient rule, and bit-equal on two calls."""
+    from tpu_asr_torch.models.conformer import rel_positional_encoding
+    from tpu_asr_torch.ops.cuda_attention import (
+        attention_refusal, fused_relpos_attention_block,
+        fused_relpos_attention_block_bwd, relpos_attention_plain)
+
+    d = pw[0].shape[0]
+    check(attention_refusal(torch.float32, d, h, t, True) is not None
+          and attention_refusal(torch.bfloat16, d, h, t, True) is None,
+          f"attention_bwd at T={t}: refused in fp32 (shared memory), taken "
+          f"in bf16")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    mask = torch.arange(t, device="cuda")[None, :] < torch.tensor(
+        [[t], [t - 173]], device="cuda")
+    valid = mask[..., None]
+    x = normal(gen, 2, t, d, scale=0.5).to(torch.bfloat16)
+    g = (normal(gen, 2, t, d) * valid).to(torch.bfloat16)
+    pos_emb = rel_positional_encoding(t, d, "cuda")
+    leaves = [z.detach().requires_grad_() for z in (x, *pw)]
+    out_k = fused_relpos_attention_block(*leaves, pos_emb, mask, h,
+                                         dropout_rate=rate, dropout_seed=seed)
+    got = torch.autograd.grad(out_k, leaves, g, retain_graph=True)
+    leaves_p = [z.detach().requires_grad_() for z in (x, *pw)]
+    out_p = relpos_attention_plain(*leaves_p, pos_emb, mask, h, rate, seed)
+    want = torch.autograd.grad(out_p, leaves_p, g)
+    torch.cuda.synchronize()
+    print(f"attention_bwd bfloat16 T={t} (B=2) dropout {rate}, kernels vs "
+          f"plain:")
+    grads_close(got, want, 5e-2, ["dx", "dwq", "dbq", "dwk", "dbk", "dwv",
+                                  "dbv", "d_pos_bias_u", "d_pos_bias_v",
+                                  "dw_pos", "dwo"], 1e-2, verbose=False)
+    saved = out_k.grad_fn.saved_tensors
+    bwd = lambda: fused_relpos_attention_block_bwd(g, *saved, h, rate, seed)
+    check(all(torch.equal(a, b) for a, b in zip(bwd(), bwd())),
+          f"attention_bwd bfloat16 T={t}: two calls give bit-equal gradients")
 
 
 def ragged_edges(lp, tg, fw, rate, seed):
@@ -1805,6 +1929,13 @@ def heads_kernel_phase(cfg):
                                                       retain_graph=True)),
                 bound(flops, nbytes(g, *saved) + nbytes(*args[:5]),
                       "bfloat16"), None)
+    long_mask = torch.arange(LONG_T, device="cuda")[None, :] < torch.tensor(
+        [[LONG_T], [LONG_T - 173]], device="cuda")
+    long_args = [normal(gen, 2, sh, LONG_T, sdk, scale=0.5).to(torch.bfloat16)
+                 for _ in range(4)] + [student[4].to(torch.bfloat16),
+                                       long_mask]
+    heads_compare(long_args, (-1, -1), rate, seed,
+                  f"T={LONG_T} (B=2, beyond the fp32 backward's limit)")
     args32 = [z.float() for z in student] + [mask]
     heads_compare(args32, (32, 16), rate, seed, label)
     heads_compare(args32, (-1, -1), rate, None, label + ", ragged, no seed")
@@ -1817,7 +1948,8 @@ def heads_kernel_phase(cfg):
     bwd_dev = device_ms(bwd)
     print(f"device attention_heads bfloat16 teacher forward (torch.profiler,"
           f" busy ms per call): {fwd_dev[0]:.4f} ({top_kernels(fwd_dev[1])})"
-          f"; student backward {bwd_dev[0]:.4f} ({top_kernels(bwd_dev[1])})")
+          f"; student backward {bwd_dev[0]:.4f} "
+          f"({top_kernels(bwd_dev[1], 6)})")
     for name, (err, ms, plain_ms, (b_ms, by), _) in rows.items():
         print(f"time {name} bfloat16: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median of 20, "

@@ -5,9 +5,11 @@
   version elsewhere, as JAX's 'auto' falls back to XLA (`fused_ok`,
   `ffn_train_kernel_fits`, `resolve_euler_backend`); 'pallas' raises on a
   refused shape; 'xla' is always plain. Cases: subsampling (C % 8, C above
-  its limit), the block attention (dk 128), the training FFN (its backward
-  at D=176) and the FM loop (C=176, max_steps 17), each beside the flagship
-  shape the kernel takes.
+  its limit), the block attention (dk 128; and in training T = 1100, past
+  the fp32 backward's shared memory, which the bf16 backward takes), the
+  training FFN (its backward at D=176), the FM loop (C=176, max_steps 17)
+  and the log-mel frontend (n_fft 402 and 4096 refused; 512 takes the FFT
+  kernel, 400 the DFT kernel), each beside a shape the kernel takes.
 - The forward passes follow the resolution: with the kernel wrapper
   replaced by one that records its calls, a refused shape under 'auto'
   runs the plain version and a flagship shape calls the wrapper.
@@ -19,13 +21,16 @@
 import pytest
 import torch
 
-from tpu_asr_torch.config import EncoderConfig, FlowMatchingConfig
+from tpu_asr_torch.config import (EncoderConfig, FlowMatchingConfig,
+                                  PreprocessorConfig)
 from tpu_asr_torch.kd import flow_matching
 from tpu_asr_torch.kd.flow_matching import FlowMatchingModule
 from tpu_asr_torch.models import conformer
 from tpu_asr_torch.models.conformer import (ConformerLayer, ConvSubsampling,
                                             RelPositionMultiHeadAttention)
-from tpu_asr_torch.ops import cuda_attention, cuda_subsampling
+from tpu_asr_torch.ops import (cuda_attention, cuda_features,
+                               cuda_subsampling, features)
+from tpu_asr_torch.ops.features import FilterbankFeatures
 
 
 def _subsampling(backend, c):
@@ -50,6 +55,13 @@ def _fm(backend, c):
 
 def _route(kind, backend, shape):
     """Whether the route takes the kernel wrapper for `shape`."""
+    if kind == "logmel":
+        return FilterbankFeatures(PreprocessorConfig(n_fft=shape),
+                                  backend).uses_kernel()
+    if kind == "attention_train":
+        dt, t = shape
+        return _attention(backend, 88, 2).to(dt).uses_kernel(
+            torch.zeros(2, t, 88, dtype=dt))
     if kind == "subsampling":
         return _subsampling(backend, shape).uses_kernel(torch.zeros(1, 9, 80))
     if kind == "attention":
@@ -74,7 +86,17 @@ CASES = [
     ("ffn_train", 176, 88),                  # backward takes D <= 128
     ("fm", (176, 8), (88, 8)),
     ("fm", (88, 17), (88, 16)),
+    ("attention_train", (torch.float32, 1100), (torch.bfloat16, 1100)),
+    ("logmel", 402, 512),
+    ("logmel", 4096, 400),
 ]
+
+
+def test_logmel_routes_name_their_kernel():
+    route = cuda_features.logmel_route
+    assert route(512, 160, 257) == "fft" and route(2048, 160, 1025) == "fft"
+    assert route(400, 160, 201) == "dft" and route(128, 160, 64) == "dft"
+    assert route(402, 160, 202) is None and route(4096, 160, 2049) is None
 
 
 @pytest.mark.parametrize("kind,refused,flagship", CASES)
@@ -109,7 +131,7 @@ class _Recorder:
 
 
 @pytest.mark.parametrize("kind", ["subsampling", "attention", "ffn_train",
-                                  "fm"])
+                                  "fm", "logmel"])
 def test_forward_follows_the_route(kind, monkeypatch):
     torch.manual_seed(0)
     if kind == "subsampling":
@@ -143,6 +165,14 @@ def test_forward_follows_the_route(kind, monkeypatch):
             return layer._ffn(layer.norm_feed_forward1, layer.feed_forward1,
                               x, 3)
         shapes = (176, 88)
+    elif kind == "logmel":
+        rec = _Recorder(cuda_features.logmel_plain)
+        monkeypatch.setattr(features, "fused_logmel", rec)
+
+        def run(n_fft):
+            return FilterbankFeatures(PreprocessorConfig(n_fft=n_fft))(
+                torch.randn(1, 4000), torch.tensor([4000]))
+        shapes = (402, 512)
     else:
         rec = _Recorder(flow_matching.fm_euler_plain)
         monkeypatch.setattr(flow_matching, "fused_fm_euler", rec)
@@ -207,3 +237,13 @@ def test_prepared_attention_weights_rebuild_on_update():
     assert again[5] is not first[5]
     torch.testing.assert_close(
         again[5], att.linear_q.bias + att.pos_bias_u.reshape(16))
+
+
+@pytest.mark.parametrize("t", [1024, 1025, 4000])
+def test_attention_backward_limit_follows_the_dtype(t):
+    """The fp32 backward keeps a T-long window in shared memory (T <= 1024
+    at dk 44); the bf16 backward streams it, so no T is refused."""
+    refusal = cuda_attention.attention_refusal
+    assert (refusal(torch.float32, 88, 2, t, True) is None) == (t <= 1024)
+    assert refusal(torch.float32, 88, 2, t, False) is None
+    assert refusal(torch.bfloat16, 88, 2, t, True) is None

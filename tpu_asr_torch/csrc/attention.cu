@@ -178,8 +178,7 @@ __global__ void __launch_bounds__(128) proj_mma_kernel(Jobs jobs, int K,
 }
 
 // One projection launch over `n_jobs` jobs of at most m_max rows: the SIMT
-// tile for fp32 (the check dtype; the backward keeps it in both types), the
-// tensor-core tile for bf16.
+// tile for fp32 (the check dtype), the tensor-core tile for bf16.
 template <typename T>
 cudaError_t project(const Jobs& jobs, int n_jobs, int m_max, int K, int N,
                     int t_len, int heads, int dk, cudaStream_t stream) {
@@ -589,35 +588,40 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
 // Backward. Replaces tpu_asr/ops/pallas_attention.py::_block_bwd_kernel,
 // which recomputes the whole sublayer per batch row in VMEM and emits dx and
 // every weight and bias gradient. What bounds it here: the score tile is
-// recomputed twice (once per key-tile pass, once per query-tile pass) and
-// every recomputation is three dk-long dot products per score, so it is
-// bound by shared-memory operand traffic of plain SIMT, like the forward.
+// recomputed twice (once per key-tile pass, once per query-tile pass), each
+// time three dk-long products per score, and the position gradient needs
+// the scores' gradient skewed along the diagonals. At B=32, T=376, D=88,
+// 2 heads the products are ~8 GFLOP, 8 us at the bf16 tensor rate; the
+// exp and dropout hash per score and the skew round trips remain.
 //
 // Launches, all deterministic (fixed-order sums, no atomics):
-//   1. proj_kernel: dctx = g Wo, per head (B, H, T, dk), in T.
-//   2. dq_kernel, per (batch row, head, 32 queries), over 32-key tiles:
-//      recomputes the scores, p = exp(score - lse), applies the forward's
-//      dropout mask, dS = p (keep * dP / (1 - rate) - D) / sqrt(dk) with
-//      dP = dctx . v and D = dctx . ctx (the flash identity, which holds
-//      with dropout because ctx is the dropped product). It accumulates
-//      dq_u = dS K and dq_v = dS P[t - s] in registers, and the position
-//      gradient dP[r] = sum_{t - s = r} dS[t, s] q_v[t]: each thread owns
-//      fixed (diagonal, d) cells of the tile and adds them into a
-//      shared-memory row per relative position, so the 63 diagonals of a
-//      tile never collide and tiles are added in key order. The block's
-//      rows go to a per-block partial.
-//   3. dkv_kernel, per (batch row, head, 32 keys), over 32-query tiles:
-//      the same scores transposed (keys on warps, queries on lanes);
-//      dv = P_dropped^T dctx and dk = dS^T q_u in registers.
+//   1. dctx = g Wo, per head (B, H, T, dk), in T (proj_mma_kernel in bf16).
+//   2. the dq pass, per (batch row, head, block of queries), over key
+//      tiles: recomputes the scores, p = exp(score - lse), applies the
+//      forward's dropout mask, dS = p (keep * dP / (1 - rate) - D) / sqrt(dk)
+//      with dP = dctx . v and D = dctx . ctx (the flash identity, which
+//      holds with dropout because ctx is the dropped product). It
+//      accumulates dq_u = dS K, dq_v = dS P[t - s] and the block's window
+//      of the position gradient dP[r] = sum_{t - s = r} dS[t, s] q_v[t],
+//      written to a per-block partial. bf16: dq_mma_kernel (below); fp32:
+//      dq_kernel, 32 queries x 32-key tiles of SIMT, each thread owning
+//      fixed (diagonal, d) cells of the tile's 63 diagonals in a
+//      shared-memory window as long as T.
+//   3. the dkv pass, per (batch row, head, block of keys), over query
+//      tiles: dv = P_dropped^T dctx and dk = dS^T q_u. bf16: dkv_mma_kernel;
+//      fp32: dkv_kernel (keys on warps, queries on lanes).
 //   4. dpos_kernel: sums the per-block position partials over batch rows
-//      and query tiles into dP (2T - 1, D).
-//   5. proj_kernel: dx = [dq_u | dq_v | dk | dv] [Wq; Wq; Wk; Wv].
-//   6. wgrad_kernel (split over rows) + sum_parts_kernel:
+//      and query blocks into dP (2T - 1, D).
+//   5. dx = [dq_u | dq_v | dk | dv] [Wq; Wq; Wk; Wv] (proj_mma_kernel in
+//      bf16).
+//   6. weight gradients split over rows + sum_parts_kernel:
 //      [dq_u | dq_v | dk | dv]^T [x | 1] gives dWq (two halves), dWk, dWv
 //      and every bias gradient (the column of ones); g^T ctx gives dWo;
-//      dP^T PE gives dW_pos.
-// ragged dk = 44: shared rows use the forward's odd-float4 stride with
-// zeros past dk, so every dot product runs over whole float4s.
+//      dP^T PE gives dW_pos. bf16: wgrad_mma_kernel on gemm.cuh's
+//      transposed tiles; fp32: wgrad_kernel, SIMT.
+// fp32 is the check dtype and stays SIMT throughout.
+// fp32, ragged dk = 44: shared rows use the forward's odd-float4 stride
+// with zeros past dk, so every dot product runs over whole float4s.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -896,25 +900,30 @@ __global__ void __launch_bounds__(256) dkv_kernel(
   }
 }
 
-// dP[prow, h * dk + d] = sum over batch rows and query tiles of the dq
-// kernel's window partials; query tile qt's window cell w is P row
-// T - 32 - 32 qt + w.
+// dP[prow, h * dk + d] = sum over batch rows and query blocks of the dq
+// kernels' window partials, in that order; query block qt's window cell w
+// is P row T - qb - qb qt + w (qb: the block's queries, 32 for dq_kernel,
+// 64 for dq_mma_kernel). blockIdx.y sums batch rows b_per y .. into
+// dpos + y (2T - 1) H dk (the bf16 path splits the batch so that enough
+// loads are in flight, and sum_parts_kernel adds the groups in order).
 __global__ void dpos_kernel(const float* __restrict__ dpart,
                             float* __restrict__ dpos, int batch, int heads,
-                            int dk, int t_len, int n_qt, int win) {
+                            int dk, int t_len, int n_qt, int win, int qb,
+                            int b_per) {
   const int n_pos = 2 * t_len - 1, d_model = heads * dk;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_pos * d_model) return;
   const int prow = i / d_model, c = i - prow * d_model;
   const int hh = c / dk, dd = c - hh * dk;
+  const int b_lo = blockIdx.y * b_per, b_hi = min(batch, b_lo + b_per);
   float s = 0.f;
-  for (int b = 0; b < batch; ++b)
+  for (int b = b_lo; b < b_hi; ++b)
     for (int qt = 0; qt < n_qt; ++qt) {
-      const int w = prow - (t_len - kBQ - kBQ * qt);
+      const int w = prow - (t_len - qb - qb * qt);
       if (w < 0 || w >= win) continue;
       s += dpart[((((size_t)b * heads + hh) * n_qt + qt) * win + w) * dk + dd];
     }
-  dpos[i] = s;
+  dpos[(size_t)blockIdx.y * n_pos * d_model + i] = s;
 }
 
 // part[split][n][k] = sum over this split's rows m of a[m, n] * x[m, k],
@@ -973,32 +982,676 @@ __global__ void __launch_bounds__(256) wgrad_kernel(
   }
 }
 
+template <typename TO>
 __global__ void sum_parts_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int n_parts,
-                                 int n) {
+                                 TO* __restrict__ out, int n_parts, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * n + i];
-  out[i] = s;
+  out[i] = from_f<TO>(s);
 }
 
 constexpr int kSplitRows = 512;  // rows per weight-gradient partial
 
-template <typename TA, typename TX>
+// bf16 weight gradients on the tensor cores: one 128 x 64 tile of
+// part[split] = a^T [x | 1] (gemm.cuh's gemm_tn_tile) per block, the rows
+// of a split reduced in order.
+__global__ void __launch_bounds__(128) wgrad_mma_kernel(
+    const bf16* __restrict__ a, int n, const bf16* __restrict__ xx, int kx,
+    int ones, int m_rows, int rows_per_split, float* __restrict__ part) {
+  extern __shared__ __align__(16) char smem[];
+  const int kout = kx + ones;
+  const int m_lo = blockIdx.z * rows_per_split;
+  const int m_hi = min(m_rows, m_lo + rows_per_split);
+  float* out = part + (size_t)blockIdx.z * n * kout;
+  gemm_tn_tile(smem, a, n, xx, kx, ones != 0, m_lo, m_hi, blockIdx.x * 128,
+               blockIdx.y * 64, [&](int i, int j, float v) {
+                 if (i < n && j < kout) out[(size_t)i * kout + j] = v;
+               });
+}
+
+// out (n, kx + ones) = a^T [x | 1] over m_rows rows, split over rows into
+// partials summed in split order (deterministic): fp32 (the check dtype)
+// on wgrad_kernel, bf16 on wgrad_mma_kernel (n % 8 == 0, kx % 8 == 0).
+template <typename T>
 cudaError_t wgrad(const void* a, int n, const void* x, int kx, int ones,
                   int m_rows, float* part, float* out, cudaStream_t stream) {
   const int splits = (m_rows + kSplitRows - 1) / kSplitRows;
   const int kout = kx + ones;
-  const dim3 grid((n + kTile - 1) / kTile, (kout + kTile - 1) / kTile,
-                  splits);
-  wgrad_kernel<TA, TX><<<grid, 256, 0, stream>>>(
-      (const TA*)a, n, (const TX*)x, kx, ones, m_rows, kSplitRows, part);
+  if constexpr (sizeof(T) == 2) {
+    cudaError_t err = cudaFuncSetAttribute(
+        wgrad_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTNSmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((n + 127) / 128, (kout + 63) / 64, splits);
+    wgrad_mma_kernel<<<grid, 128, kTNSmem, stream>>>(
+        (const bf16*)a, n, (const bf16*)x, kx, ones, m_rows, kSplitRows,
+        part);
+  } else {
+    const dim3 grid((n + kTile - 1) / kTile, (kout + kTile - 1) / kTile,
+                    splits);
+    wgrad_kernel<T, T><<<grid, 256, 0, stream>>>(
+        (const T*)a, n, (const T*)x, kx, ones, m_rows, kSplitRows, part);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total = n * kout;
-  sum_parts_kernel<<<(total + 255) / 256, 256, 0, stream>>>(part, out, splits,
-                                                           total);
+  sum_parts_kernel<float><<<(total + 255) / 256, 256, 0, stream>>>(
+      part, out, splits, total);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores: dq_mma_kernel and dkv_mma_kernel,
+// 4 warps of 16 query rows per block, with core_mma_kernel's staging
+// (8-byte cp.async into rows padded to DKP at an odd 16-byte stride) and
+// its scores: the content term Qu K^T and the
+// position term through the skew tile G (G = Qv P_win^T read back at
+// G[r][j - r + 15]), each a product on mma.sync.m16n8k16.
+// ---------------------------------------------------------------------------
+
+template <int DKP>
+struct BwdMma {
+  static constexpr int kSE = DKP + 8;       // staged row stride (bf16)
+  static constexpr int kGPS = kGW + 8;      // skewed dS row stride (bf16)
+  static constexpr int kAS = DKP + 4;       // position-gradient ring (fp32)
+  static constexpr int kPS = kMS + 8;       // dropped p / dS tile (bf16)
+  static constexpr int kTile = (2 * kMS + kMP) * kSE;   // K, V, P rows
+  static constexpr int kQTile = (3 * kMQ + kMP) * kSE;  // Qu, dctx, Qv, P
+  // the dkv pass's dropped p and dS tiles fit in the consumed Qv and P rows
+  // of the current query tile where DKP >= 48
+  static constexpr bool kAliasPD = (kMQ + kMP) * kSE >= 2 * kMQ * kPS;
+  static constexpr size_t kSkew = sizeof(float) * 4 * 16 * kGS;
+  // dq: K, V, P double-buffered, the block's Qv rows, the position-
+  // gradient ring and the skew tiles (G' aliases G); 112,640 bytes at
+  // DKP = 48, two blocks per SM
+  static constexpr size_t kDqSmem =
+      sizeof(bf16) * (2 * (size_t)kTile + (size_t)kMQ * kSE) +
+      sizeof(float) * (size_t)kMP * kAS + kSkew;
+  // dkv: K, V, one query tile, the skew tiles (and the p and dS tiles
+  // unless aliased); 71,680 bytes at DKP = 48, so three blocks (168
+  // registers a thread) share an SM: more warps in flight than a second,
+  // prefetched query tile would buy (0.0705 against 0.1116 ms)
+  static constexpr size_t kDkvSmem =
+      sizeof(bf16) * ((size_t)2 * kMS * kSE + (size_t)kQTile) + kSkew +
+      (kAliasPD ? 0 : sizeof(bf16) * 2 * (size_t)kMQ * kPS);
+};
+
+// Scores of a warp's 16 query rows tw .. tw + 15 against the 64 keys
+// s0 .. of a staged tile (K rows Kt, V rows Vt, the warp's 80 position rows
+// Pw), as core_mma_kernel computes them, and their gradients: into ds
+// p (keep dP / (1 - rate) - D) / sqrt(dk) with p = exp(score - lse) and
+// dP = dctx . v, into pd the dropped probabilities keep p / (1 - rate);
+// zero outside the valid rows and keys. Accumulator layout (n8 tile n of
+// keys, element e): row g + 8 (e / 2), key 8 n + 2 t4 + e % 2.
+template <int DKP>
+__device__ __forceinline__ void bwd_scores(
+    const uint32_t (&qa)[DKP / 16][4], const uint32_t (&qb)[DKP / 16][4],
+    const uint32_t (&qd)[DKP / 16][4], const bf16* Kt, const bf16* Vt,
+    const bf16* Pw, float* G, int tw, int s0, int t_len,
+    const float* __restrict__ kb_row, const float (&lse_r)[2],
+    const float (&dsum_r)[2], float scale, int left, int right,
+    uint32_t stream, uint32_t thresh, float dscale, int tp,
+    float (&ds)[kMS / 8][4], float (&pd)[kMS / 8][4]) {
+  constexpr int kSE = DKP + 8, kKS = DKP / 16;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int b_row = lane % 8 + (lane / 16) * 8;
+  const int b_col = ((lane / 8) % 2) * 8;
+  {
+    float ga[kGW / 8][4];
+#pragma unroll
+    for (int n = 0; n < kGW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ga[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+      for (int nn = 0; nn < kGW / 16; ++nn) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, Pw + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+        mma_bf16(ga[2 * nn], qb[ks], bq[0], bq[1]);
+        mma_bf16(ga[2 * nn + 1], qb[ks], bq[2], bq[3]);
+      }
+    __syncwarp();  // the previous tile's skew reads are done
+#pragma unroll
+    for (int n = 0; n < kGW / 8; ++n) {
+      const int c = 8 * n + 2 * t4;
+      G[g * kGS + c] = ga[n][0];
+      G[g * kGS + c + 1] = ga[n][1];
+      G[(g + 8) * kGS + c] = ga[n][2];
+      G[(g + 8) * kGS + c + 1] = ga[n][3];
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[n][e] = pd[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+    for (int nn = 0; nn < kMS / 16; ++nn) {
+      uint32_t bk[4], bv[4];
+      ldmatrix_x4(bk, Kt + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+      mma_bf16(ds[2 * nn], qa[ks], bk[0], bk[1]);
+      mma_bf16(ds[2 * nn + 1], qa[ks], bk[2], bk[3]);
+      ldmatrix_x4(bv, Vt + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+      mma_bf16(pd[2 * nn], qd[ks], bv[0], bv[1]);
+      mma_bf16(pd[2 * nn + 1], qd[ks], bv[2], bv[3]);
+    }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = g + 8 * hr, t = tw + r;
+#pragma unroll
+    for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int jc = 8 * n + 2 * t4 + e, s = s0 + jc;
+        float dsv = 0.f, pdv = 0.f;
+        if (t < t_len && s < t_len) {
+          float x = (ds[n][2 * hr + e] + G[r * kGS + jc - r + 15]) * scale +
+                    kb_row[s];
+          if (!in_window(t, s, left, right)) x = -1e30f;
+          const float p = expf(x - lse_r[hr]);
+          float kf = 1.f;
+          if (thresh)
+            kf = dropout_keep(stream,
+                              (uint32_t)t * (uint32_t)tp + (uint32_t)s,
+                              thresh)
+                     ? dscale
+                     : 0.f;
+          pdv = p * kf;
+          dsv = p * (pd[n][2 * hr + e] * kf - dsum_r[hr]) * scale;
+        }
+        ds[n][2 * hr + e] = dsv;
+        pd[n][2 * hr + e] = pdv;
+      }
+  }
+}
+
+// A fragments (m16 x k16, row-major) of rows 16 w .. of a staged tile.
+template <int DKP>
+__device__ __forceinline__ void load_rows(uint32_t (&f)[DKP / 16][4],
+                                          const bf16* tile, int warp,
+                                          int lane) {
+#pragma unroll
+  for (int ks = 0; ks < DKP / 16; ++ks)
+    ldmatrix_x4(f[ks], tile + (16 * warp + lane % 16) * (DKP + 8) + ks * 16 +
+                           (lane / 16) * 8);
+}
+
+// The A fragments (m16 x k16, row-major) of rows tw .. tw + 15 of a head,
+// row t at m + at(t), read from global memory (dk % 4 == 0: each pair of
+// columns is one aligned 4-byte word).
+template <int DKP, class At>
+__device__ __forceinline__ void rows_global(uint32_t (&f)[DKP / 16][4],
+                                            const bf16* m, At at, int tw,
+                                            int t_len, int dk) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int ks = 0; ks < DKP / 16; ++ks)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = tw + g + 8 * (q & 1), c = 16 * ks + 2 * t4 + 8 * (q >> 1);
+      f[ks][q] = t < t_len && c < dk
+                     ? *reinterpret_cast<const uint32_t*>(m + at(t) + c)
+                     : 0u;
+    }
+}
+
+// D = dctx . ctx of the thread's rows tw + g, tw + g + 8 from the A
+// fragments of dctx (qd) and ctx, summed over the four lanes of a row; lane
+// t4 = 0 writes them to dsum_out.
+template <int DKP>
+__device__ __forceinline__ void row_dsum(const uint32_t (&qd)[DKP / 16][4],
+                                         const uint32_t (&qc)[DKP / 16][4],
+                                         float* dsum_out, int bh, int tw,
+                                         int t_len, float (&dsum_r)[2]) {
+  const int lane = threadIdx.x % 32, g = lane / 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float s = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DKP / 16; ++ks)
+#pragma unroll
+      for (int q = hr; q < 4; q += 2) {
+        const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(
+            &qd[ks][q]);
+        const __nv_bfloat162 c = *reinterpret_cast<const __nv_bfloat162*>(
+            &qc[ks][q]);
+        s += __bfloat162float(a.x) * __bfloat162float(c.x) +
+             __bfloat162float(a.y) * __bfloat162float(c.y);
+      }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    dsum_r[hr] = s;
+    const int t = tw + g + 8 * hr;
+    if (lane % 4 == 0 && t < t_len) dsum_out[(size_t)bh * t_len + t] = s;
+  }
+}
+
+// dq_u = dS K and dq_v = dS P[t - s] per (batch row, head, 64 queries)
+// over 64-key tiles, and the block's position-gradient window: dS is
+// written into a per-warp skewed tile G' (G'[r][j - r + 15] = dS[r][j],
+// zero elsewhere, over the warp's G), so that dq_v = G' P_win and the
+// warp's 80 window rows of dP are G'^T Qv, each a product on the tensor
+// cores. The window of key tile j is the block's rows 64 j .. 64 j + 127,
+// eight 16-row slabs, and warp w's 80 rows are slabs 3 - w .. 7 - w: warp
+// w sums slabs w and w + 4 over the warps that cover them, in warp order,
+// into a 128-row ring (fixed order, no atomics). Slab w + 4 of tile j is
+// slab w of tile j + 1, so each warp owns its ring rows, and slab w is
+// complete after tile j: the warp writes it to the block's partial
+// (dpart, window row W = P row T - 64 - q0 + W). The query rows' A
+// fragments come straight from global memory (the block stages only Qv,
+// the B operand of the other warps' slabs), which keeps the block at
+// 112,640 bytes of shared memory and two blocks per SM at DKP = 48.
+template <int DKP>
+__global__ void __launch_bounds__(128) dq_mma_kernel(
+    const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
+    const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
+    const bf16* __restrict__ pos,                              // (H,2T-1,dk)
+    const float* __restrict__ key_bias,                        // (B, T)
+    const float* __restrict__ lse,                             // (B, H, T)
+    const bf16* __restrict__ dctx,                             // (B,H,T,dk)
+    const bf16* __restrict__ ctx, HeadLayout cl,
+    bf16* __restrict__ grads, HeadLayout gl, long long gc,
+    float* __restrict__ dsum,                                  // (B, H, T)
+    float* __restrict__ dpart,  // (B, H, n_qt, win, dk)
+    int t_len, int heads, int dk, float scale, uint32_t seed,
+    uint32_t b_stride, uint32_t thresh, float dscale, int tp, int win,
+    int left, int right) {
+  using S = BwdMma<DKP>;
+  constexpr int kSE = S::kSE, kKS = DKP / 16, kND = DKP / 8;
+  constexpr int kGPS = S::kGPS, kAS = S::kAS;
+  extern __shared__ __align__(16) char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);  // 2 x (K, V, P rows)
+  bf16* Qvs = tiles + 2 * S::kTile;                   // the block's Qv rows
+  float* acc = reinterpret_cast<float*>(Qvs + kMQ * kSE);  // window ring
+  float* Gall = acc + kMP * kAS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  float* G = Gall + warp * 16 * kGS;
+  bf16* Gp = reinterpret_cast<bf16*>(G);  // G' once the scores are read
+
+  const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
+  const int q0 = blockIdx.x * kMQ, tw = q0 + 16 * warp;
+  const uint32_t stream = seed + b_stride * (uint32_t)b + (uint32_t)hh;
+  const int n_pos = 2 * t_len - 1;
+  const size_t head_off = (size_t)bh * t_len * dk;
+  const bf16* pos_h = pos + (size_t)hh * n_pos * dk;
+  const float* kb_row = key_bias + (size_t)b * t_len;
+  const int n_tiles = (t_len + kMS - 1) / kMS;
+
+  auto stage_tile = [&](int j, int buf) {
+    bf16* kt = tiles + buf * S::kTile;
+    const int s0 = j * kMS;
+    stage_async<DKP>(kt, kk + head_off, s0, kMS, t_len, dk);
+    stage_async<DKP>(kt + kMS * kSE, vv + head_off, s0, kMS, t_len, dk);
+    stage_async<DKP>(kt + 2 * kMS * kSE, pos_h, t_len - kMQ - q0 + s0, kMP,
+                     n_pos, dk);
+  };
+  stage_async<DKP>(Qvs, qv + head_off, q0, kMQ, t_len, dk);
+  stage_tile(0, 0);
+  cp_async_commit();
+  for (int i = tid; i < kMP * kAS; i += blockDim.x) acc[i] = 0.f;
+
+  // the warp's query rows as A fragments, straight from global memory
+  uint32_t qa[kKS][4], qb[kKS][4], qd[kKS][4];
+  float lse_r[2], dsum_r[2];
+  {
+    const long long hrow = (long long)head_off;
+    auto head_at = [&](int t) { return hrow + (long long)t * dk; };
+    rows_global<DKP>(qa, qu, head_at, tw, t_len, dk);
+    rows_global<DKP>(qb, qv, head_at, tw, t_len, dk);
+    rows_global<DKP>(qd, dctx, head_at, tw, t_len, dk);
+    uint32_t qc[kKS][4];
+    rows_global<DKP>(qc, ctx, [&](int t) { return cl.at(b, hh, t); }, tw,
+                     t_len, dk);
+    row_dsum<DKP>(qd, qc, dsum, bh, tw, t_len, dsum_r);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = tw + g + 8 * hr;
+      lse_r[hr] = t < t_len ? lse[(size_t)bh * t_len + t] : 0.f;
+    }
+  }
+  float dqu[kND][4], dqv[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqu[n][e] = dqv[n][e] = 0.f;
+  float* part = dpart + ((size_t)bh * gridDim.x + blockIdx.x) * win * dk;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      stage_tile(j + 1, (j + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and at j = 0 the zeroed ring) landed
+    const bf16* Kt = tiles + (j & 1) * S::kTile;
+    const bf16* Vt = Kt + kMS * kSE;
+    const bf16* Pw = Vt + kMS * kSE + (kMQ - 16 - 16 * warp) * kSE;
+    float ds[kMS / 8][4], pd[kMS / 8][4];
+    bwd_scores<DKP>(qa, qb, qd, Kt, Vt, Pw, G, tw, j * kMS, t_len, kb_row,
+                    lse_r, dsum_r, scale, left, right, stream, thresh, dscale,
+                    tp, ds, pd);
+
+    // dq_u += dS K: dS rounded to bf16 as the A operand, K through
+    // ldmatrix.trans (k = key, n = d)
+#pragma unroll
+    for (int kc = 0; kc < kMS / 16; ++kc) {
+      const uint32_t pa[4] = {pack_bf16(ds[2 * kc][0], ds[2 * kc][1]),
+                              pack_bf16(ds[2 * kc][2], ds[2 * kc][3]),
+                              pack_bf16(ds[2 * kc + 1][0], ds[2 * kc + 1][1]),
+                              pack_bf16(ds[2 * kc + 1][2], ds[2 * kc + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < kND / 2; ++dd) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(
+            kb, Kt + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                    16 * dd + (lane / 16) * 8);
+        mma_bf16(dqu[2 * dd], pa, kb[0], kb[1]);
+        mma_bf16(dqu[2 * dd + 1], pa, kb[2], kb[3]);
+      }
+    }
+
+    // dS into the skewed tile G', over G
+    __syncwarp();  // every lane has read its scores' G
+    for (int i = lane; i < 16 * kGPS / 2; i += 32)
+      reinterpret_cast<uint32_t*>(Gp)[i] = 0u;
+    __syncwarp();
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = g + 8 * hr;
+#pragma unroll
+      for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          Gp[r * kGPS + 8 * n + 2 * t4 + e - r + 15] =
+              __float2bfloat16(ds[n][2 * hr + e]);
+    }
+    __syncwarp();
+
+    // dq_v += G' P_win (k = window row, n = d)
+#pragma unroll
+    for (int kc = 0; kc < kGW / 16; ++kc) {
+      uint32_t pa[4];
+      ldmatrix_x4(pa, Gp + (lane % 16) * kGPS + kc * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int dd = 0; dd < kND / 2; ++dd) {
+        uint32_t pb[4];
+        ldmatrix_x4_trans(
+            pb, Pw + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                    16 * dd + (lane / 16) * 8);
+        mma_bf16(dqv[2 * dd], pa, pb[0], pb[1]);
+        mma_bf16(dqv[2 * dd + 1], pa, pb[2], pb[3]);
+      }
+    }
+
+    __syncthreads();  // every warp's G' is written; tile j is consumed
+
+    // the block window's slabs m = warp and warp + 4 (rows 64 j + 16 m ..):
+    // the sum over the warps w' whose window covers them of G'_w'^T Qv_w'
+    // (slab m - 3 + w' of w'), in w' order. Slab warp + 4 is slab warp of
+    // the next tile, so each warp owns its ring rows and slab warp is
+    // complete here.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = warp + 4 * half;
+      float o[kND][4];
+#pragma unroll
+      for (int n = 0; n < kND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+      for (int wq = 0; wq < 4; ++wq) {
+        const int kq = m - 3 + wq;
+        if (kq < 0 || kq >= kGW / 16) continue;
+        const bf16* gq = reinterpret_cast<const bf16*>(Gall + wq * 16 * kGS);
+        uint32_t pa[4];
+        ldmatrix_x4_trans(pa, gq + (lane % 8 + (lane / 16) * 8) * kGPS +
+                                  16 * kq + ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int dd = 0; dd < kND / 2; ++dd) {
+          uint32_t qb4[4];
+          ldmatrix_x4_trans(
+              qb4, Qvs + (16 * wq + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                       16 * dd + (lane / 16) * 8);
+          mma_bf16(o[2 * dd], pa, qb4[0], qb4[1]);
+          mma_bf16(o[2 * dd + 1], pa, qb4[2], qb4[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int w = kMS * j + 16 * m + g + (e / 2) * 8;
+          acc[(w & (kMP - 1)) * kAS + 8 * n + 2 * t4 + (e % 2)] += o[n][e];
+        }
+    }
+    __syncwarp();
+    // slab warp (rows 64 j + 16 warp ..) to the partial, and zeroed
+    for (int r = 0; r < 16; ++r) {
+      const int w = kMS * j + 16 * warp + r;
+      for (int dd = lane; dd < dk; dd += 32) {
+        float* a = acc + (w & (kMP - 1)) * kAS + dd;
+        part[(size_t)w * dk + dd] = *a;
+        *a = 0.f;
+      }
+    }
+  }
+  __syncwarp();
+  for (int r = 0; r < 16; ++r) {
+    const int w = kMS * n_tiles + 16 * warp + r;
+    for (int dd = lane; dd < dk; dd += 32)
+      part[(size_t)w * dk + dd] = acc[(w & (kMP - 1)) * kAS + dd];
+  }
+
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = tw + g + (e / 2) * 8, c = 8 * n + 2 * t4 + (e % 2);
+      if (t >= t_len || c >= dk) continue;
+      bf16* dst = grads + gl.at(b, hh, t);
+      dst[c] = __float2bfloat16(dqu[n][e]);
+      dst[gc + c] = __float2bfloat16(dqv[n][e]);
+    }
+}
+
+// dk = dS^T Qu and dv = P_dropped^T dctx per (batch row, head, 64 keys)
+// over 64-query tiles: each warp recomputes its 16 query rows' scores
+// against the block's keys (bwd_scores, the forward's orientation, so the
+// skew is the forward's), the block's dropped p and dS go to shared memory
+// as bf16 (the dropped p rounded as the forward's P V takes it), and warp
+// w accumulates keys 16 w .. 16 w + 15 over the tile's 64 queries through
+// ldmatrix.trans, in query order.
+template <int DKP>
+__global__ void __launch_bounds__(128) dkv_mma_kernel(
+    const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
+    const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
+    const bf16* __restrict__ pos,                              // (H,2T-1,dk)
+    const float* __restrict__ key_bias,                        // (B, T)
+    const float* __restrict__ lse,                             // (B, H, T)
+    const bf16* __restrict__ dctx,                             // (B,H,T,dk)
+    const float* __restrict__ dsum,                            // (B, H, T)
+    bf16* __restrict__ grads, HeadLayout gl, long long gc, int t_len,
+    int heads, int dk, float scale, uint32_t seed, uint32_t b_stride,
+    uint32_t thresh, float dscale, int tp, int left, int right) {
+  using S = BwdMma<DKP>;
+  constexpr int kSE = S::kSE, kND = DKP / 8, kPS = S::kPS;
+  extern __shared__ __align__(16) char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kMS * kSE;
+  bf16* Qt = Vs + kMS * kSE;  // the query tile: Qu, dctx, Qv kMQ, P kMP rows
+  float* Gall = reinterpret_cast<float*>(Qt + S::kQTile);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  float* G = Gall + warp * 16 * kGS;
+
+  const int bh = blockIdx.y, b = bh / heads, hh = bh - b * heads;
+  const int k0 = blockIdx.x * kMS;
+  const uint32_t stream = seed + b_stride * (uint32_t)b + (uint32_t)hh;
+  const int n_pos = 2 * t_len - 1;
+  const size_t head_off = (size_t)bh * t_len * dk;
+  const bf16* pos_h = pos + (size_t)hh * n_pos * dk;
+  const float* kb_row = key_bias + (size_t)b * t_len;
+  const int n_tiles = (t_len + kMQ - 1) / kMQ;
+
+  auto stage_q = [&](int i) {
+    const int q0 = i * kMQ;
+    stage_async<DKP>(Qt, qu + head_off, q0, kMQ, t_len, dk);
+    stage_async<DKP>(Qt + kMQ * kSE, dctx + head_off, q0, kMQ, t_len, dk);
+    stage_async<DKP>(Qt + 2 * kMQ * kSE, qv + head_off, q0, kMQ, t_len, dk);
+    stage_async<DKP>(Qt + 3 * kMQ * kSE, pos_h, t_len - kMQ - q0 + k0, kMP,
+                     n_pos, dk);
+  };
+  stage_async<DKP>(Ks, kk + head_off, k0, kMS, t_len, dk);
+  stage_async<DKP>(Vs, vv + head_off, k0, kMS, t_len, dk);
+
+  float dkk[kND][4], dvv[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkk[n][e] = dvv[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    stage_q(i);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // query tile i (and at i = 0 the keys) landed
+    const bf16* Dt = Qt + kMQ * kSE;
+    const bf16* Pw = Qt + 3 * kMQ * kSE + (kMQ - 16 - 16 * warp) * kSE;
+    const int tw = i * kMQ + 16 * warp;
+    uint32_t qa[DKP / 16][4], qb[DKP / 16][4], qd[DKP / 16][4];
+    load_rows<DKP>(qa, Qt, warp, lane);
+    load_rows<DKP>(qb, Qt + 2 * kMQ * kSE, warp, lane);
+    load_rows<DKP>(qd, Dt, warp, lane);
+    float lse_r[2], dsum_r[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = tw + g + 8 * hr;
+      lse_r[hr] = t < t_len ? lse[(size_t)bh * t_len + t] : 0.f;
+      dsum_r[hr] = t < t_len ? dsum[(size_t)bh * t_len + t] : 0.f;
+    }
+    float ds[kMS / 8][4], pd[kMS / 8][4];
+    bwd_scores<DKP>(qa, qb, qd, Ks, Vs, Pw, G, tw, k0, t_len, kb_row, lse_r,
+                    dsum_r, scale, left, right, stream, thresh, dscale, tp,
+                    ds, pd);
+    // the tile's dropped p and dS, over its consumed Qv and P rows once
+    // every warp has read them (where they fit)
+    bf16* PD = S::kAliasPD
+                   ? Qt + 2 * kMQ * kSE
+                   : reinterpret_cast<bf16*>(Gall + 4 * 16 * kGS);
+    bf16* DS = PD + kMQ * kPS;
+    if (S::kAliasPD) __syncthreads();
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * warp + g + 8 * hr;
+#pragma unroll
+      for (int n = 0; n < kMS / 8; ++n) {
+        const int c = 8 * n + 2 * t4;
+        *reinterpret_cast<uint32_t*>(PD + r * kPS + c) =
+            pack_bf16(pd[n][2 * hr], pd[n][2 * hr + 1]);
+        *reinterpret_cast<uint32_t*>(DS + r * kPS + c) =
+            pack_bf16(ds[n][2 * hr], ds[n][2 * hr + 1]);
+      }
+    }
+    __syncthreads();  // the tile's p and dS are complete
+
+    // keys 16 w ..: A = P_dropped^T / dS^T (k = query), B = dctx / Qu rows
+#pragma unroll
+    for (int kc = 0; kc < kMQ / 16; ++kc) {
+      uint32_t ap[4], as[4];
+      const int arow = (16 * kc + lane % 8 + (lane / 16) * 8) * kPS +
+                       16 * warp + ((lane / 8) % 2) * 8;
+      ldmatrix_x4_trans(ap, PD + arow);
+      ldmatrix_x4_trans(as, DS + arow);
+#pragma unroll
+      for (int dd = 0; dd < kND / 2; ++dd) {
+        const int brow = (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                         16 * dd + (lane / 16) * 8;
+        uint32_t bd[4], bu[4];
+        ldmatrix_x4_trans(bd, Dt + brow);
+        mma_bf16(dvv[2 * dd], ap, bd[0], bd[1]);
+        mma_bf16(dvv[2 * dd + 1], ap, bd[2], bd[3]);
+        ldmatrix_x4_trans(bu, Qt + brow);
+        mma_bf16(dkk[2 * dd], as, bu[0], bu[1]);
+        mma_bf16(dkk[2 * dd + 1], as, bu[2], bu[3]);
+      }
+    }
+    __syncthreads();  // query tile i, p and dS are consumed
+  }
+
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int s = k0 + 16 * warp + g + (e / 2) * 8;
+      const int c = 8 * n + 2 * t4 + (e % 2);
+      if (s >= t_len || c >= dk) continue;
+      bf16* dst = grads + gl.at(b, hh, s);
+      dst[2 * gc + c] = __float2bfloat16(dkk[n][e]);
+      dst[3 * gc + c] = __float2bfloat16(dvv[n][e]);
+    }
+}
+
+constexpr int kDposGroups = 8;  // batch groups of the bf16 dP sum
+
+// The bf16 score gradients: dq_mma_kernel (which also writes D into dsum),
+// dkv_mma_kernel, and dpos_kernel summing the window partials over groups
+// of batch rows into `part`, whose groups sum_parts_kernel adds into dP
+// (2T - 1, H dk) in bf16.
+template <int DKP>
+cudaError_t score_grads_mma(const void* qu, const void* qv, const void* k,
+                            const void* v, const void* p,
+                            const float* key_bias, const float* lse,
+                            const void* dctx, const void* ctx, HeadLayout cl,
+                            void* grads, HeadLayout gl, long long gc,
+                            float* dsum, float* dpart, void* dpos,
+                            float* part, int batch,
+                            int t_len, int heads, int dk, uint32_t seed,
+                            uint32_t b_stride, uint32_t thresh, float dscale,
+                            int tp, int left, int right,
+                            cudaStream_t stream) {
+  using S = BwdMma<DKP>;
+  const int n_pos = 2 * t_len - 1, d = heads * dk;
+  const int n_qt = (t_len + kMQ - 1) / kMQ, n_kt = (t_len + kMS - 1) / kMS;
+  const int win = kMS * (n_kt + 1);
+  const float scale = 1.f / sqrtf((float)dk);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(dq_mma_kernel<DKP>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)S::kDqSmem)) != cudaSuccess)
+    return err;
+  dq_mma_kernel<DKP><<<dim3(n_qt, batch * heads), 128, S::kDqSmem, stream>>>(
+      (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v,
+      (const bf16*)p, key_bias, lse, (const bf16*)dctx, (const bf16*)ctx, cl,
+      (bf16*)grads, gl, gc, dsum, dpart, t_len, heads, dk, scale, seed,
+      b_stride, thresh, dscale, tp, win, left, right);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = cudaFuncSetAttribute(dkv_mma_kernel<DKP>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)S::kDkvSmem)) != cudaSuccess)
+    return err;
+  dkv_mma_kernel<DKP><<<dim3(n_kt, batch * heads), 128, S::kDkvSmem,
+                         stream>>>(
+      (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v,
+      (const bf16*)p, key_bias, lse, (const bf16*)dctx, dsum, (bf16*)grads,
+      gl, gc, t_len, heads, dk, scale, seed, b_stride, thresh, dscale, tp,
+      left, right);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int b_per = (batch + kDposGroups - 1) / kDposGroups;
+  const int groups = (batch + b_per - 1) / b_per;
+  const int total = n_pos * d;
+  dpos_kernel<<<dim3((total + 255) / 256, groups), 256, 0, stream>>>(
+      dpart, part, batch, heads, dk, t_len, n_qt, win, kMQ, b_per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sum_parts_kernel<bf16><<<(total + 255) / 256, 256, 0, stream>>>(
+      part, (bf16*)dpos, groups, total);
   return cudaGetLastError();
 }
 
@@ -1008,11 +1661,10 @@ size_t dq_smem(int dk, int win) {
                           kBQ * (kBS + 1) + (size_t)win * dk);
 }
 
-// dq_kernel, dkv_kernel and dpos_kernel: the four per-head gradients into
-// grads (component c of row (b, h, t) at gl.at(b, h, t) + c * gc) and dP
-// (2T - 1, H dk) into dpos, from dctx (B, H, T, dk) and ctx (layout cl).
+// The fp32 score gradients (the check dtype): dq_kernel, dkv_kernel and
+// dpos_kernel, SIMT.
 template <typename T>
-cudaError_t score_grads(const void* qu, const void* qv, const void* k,
+cudaError_t score_grads_simt(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
                         const float* lse, const void* dctx, const void* ctx,
                         HeadLayout cl, void* grads, HeadLayout gl,
@@ -1052,8 +1704,38 @@ cudaError_t score_grads(const void* qu, const void* qv, const void* k,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   dpos_kernel<<<(n_pos * d + 255) / 256, 256, 0, stream>>>(
-      dpart, dpos, batch, heads, dk, t_len, n_qt, win);
+      dpart, dpos, batch, heads, dk, t_len, n_qt, win, kBQ, batch);
   return cudaGetLastError();
+}
+
+// The four per-head gradients into grads (component c of row (b, h, t) at
+// gl.at(b, h, t) + c * gc) and dP (2T - 1, H dk) into dpos (fp32, or bf16
+// in the bf16 path), from dctx (B, H, T, dk) and ctx (layout cl): bf16 on
+// the tensor cores (score_grads_mma), fp32 on the SIMT kernels.
+template <typename T>
+cudaError_t score_grads(const void* qu, const void* qv, const void* k,
+                        const void* v, const void* p, const float* key_bias,
+                        const float* lse, const void* dctx, const void* ctx,
+                        HeadLayout cl, void* grads, HeadLayout gl,
+                        long long gc, float* dsum, float* dpart, float* dpos,
+                        float* part, int batch, int t_len, int heads, int dk,
+                        uint32_t seed, uint32_t b_stride, uint32_t thresh,
+                        float dscale, int tp, int left, int right,
+                        cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    auto* fn = dk <= 16   ? score_grads_mma<16>
+               : dk <= 32 ? score_grads_mma<32>
+               : dk <= 48 ? score_grads_mma<48>
+                          : score_grads_mma<64>;
+    return fn(qu, qv, k, v, p, key_bias, lse, dctx, ctx, cl, grads, gl, gc,
+              dsum, dpart, dpos, part, batch, t_len, heads, dk, seed,
+              b_stride, thresh, dscale, tp, left, right, stream);
+  } else {
+    return score_grads_simt<T>(qu, qv, k, v, p, key_bias, lse, dctx, ctx, cl,
+                               grads, gl, gc, dsum, dpart, dpos, batch, t_len,
+                               heads, dk, seed, b_stride, thresh, dscale, tp,
+                               left, right, stream);
+  }
 }
 
 template <typename T>
@@ -1068,29 +1750,29 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs dc{};
   dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 1};
-  const dim3 grid1((rows + kTile - 1) / kTile, (d + kTile - 1) / kTile, 1);
-  proj_kernel<T><<<grid1, 256, 0, stream>>>(dc, d, d, t_len, heads, dk);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = project<T>(dc, 1, rows, d, d, t_len, heads, dk, stream);
   if (err != cudaSuccess) return (int)err;
 
   err = score_grads<T>(qu, qv, k, v, p, key_bias, lse, dctx, ctx,
                        rows_layout(t_len, heads, dk), grads,
                        rows_layout(t_len, 4 * heads, dk), d, dsum, dpart,
-                       dpos, batch, t_len, heads, dk, seed, (uint32_t)heads,
+                       dpos, part, batch, t_len, heads, dk, seed,
+                       (uint32_t)heads,
                        thresh, dscale, tp, -1, -1, stream);
   if (err != cudaSuccess) return (int)err;
 
   Jobs dxj{};
   dxj.job[0] = {grads, wcat, nullptr, nullptr, dx, nullptr, rows, 0};
-  proj_kernel<T><<<grid1, 256, 0, stream>>>(dxj, 4 * d, d, t_len, heads, dk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = project<T>(dxj, 1, rows, 4 * d, d, t_len, heads, dk,
+                        stream)) != cudaSuccess)
+    return (int)err;
 
-  if ((err = wgrad<T, T>(grads, 4 * d, x, d, 1, rows, part, dw_all,
-                         stream)) != cudaSuccess ||
-      (err = wgrad<T, T>(g, d, ctx, d, 0, rows, part, dwo, stream)) !=
+  if ((err = wgrad<T>(grads, 4 * d, x, d, 1, rows, part, dw_all,
+                      stream)) != cudaSuccess ||
+      (err = wgrad<T>(g, d, ctx, d, 0, rows, part, dwo, stream)) !=
           cudaSuccess)
     return (int)err;
-  return (int)wgrad<float, T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
+  return (int)wgrad<T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1138,10 +1820,11 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
   const HeadLayout hl = heads_layout(t_len, heads, dk);
   cudaError_t err = score_grads<T>(
       qu, qv, k, v, p, key_bias, lse, g, ctx, hl, grads, hl,
-      (long long)batch * heads * t_len * dk, dsum, dpart, dpos, batch, t_len,
-      heads, dk, seed, b_stride, thresh, dscale, tp, left, right, stream);
+      (long long)batch * heads * t_len * dk, dsum, dpart, dpos, part, batch,
+      t_len, heads, dk, seed, b_stride, thresh, dscale, tp, left, right,
+      stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)wgrad<float, T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
+  return (int)wgrad<T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
 }
 
 }  // namespace
@@ -1181,10 +1864,13 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
 // the working dtype. wo_t = Wo^T (d, d) and wcat = [Wq; Wq; Wk; Wv]^T
 // (d, 4d) in the working dtype; pe (2T-1, d) in the working dtype. Scratch:
 // dctx (B, H, T, dk) and grads (B, T, 4d) in the working dtype, dsum
-// (B, H, T), dpart (B, H, ceil(T/32), 32 ceil(T/32) + 31, dk), part (at
-// least ceil(B T / 512) * 4d * (d + 1)) fp32. Outputs: dx (B, T, d) in the
-// working dtype; fp32 dpos (2T-1, d), dw_all (4d, d + 1) = [dq_u | dq_v |
-// dk | dv]^T [x | 1], dwo (d, d), dwpos (d, d).
+// (B, H, T), dpart (fp32: (B, H, ceil(T/32), 32 ceil(T/32) + 31, dk);
+// bf16: (B, H, ceil(T/64), 64 (ceil(T/64) + 1), dk)), dpos (2T-1, d; fp32,
+// holding bf16 in the bf16 path), part (at least ceil(B T / 512) * 4d *
+// (d + 1), and in bf16 groups * (2T-1) * d with groups =
+// ceil(B / ceil(B / 8))) fp32. Outputs: dx (B, T, d) in the working dtype;
+// fp32 dw_all (4d, d + 1) = [dq_u | dq_v | dk | dv]^T [x | 1], dwo (d, d),
+// dwpos (d, d).
 extern "C" int tat_attention_bwd(
     int bf16, const void* g, const void* x, const void* wo_t,
     const void* wcat, const void* qu, const void* qv, const void* k,
@@ -1240,9 +1926,9 @@ extern "C" int tat_relpos_attention(int bf16, const void* qu, const void* qv,
 // p, ctx, lse; the same window and dropout arguments) and the cotangent g
 // (B, H, T, dk) in the working dtype; pe (2T-1, d) in the working dtype.
 // Outputs: grads (4, B, H, T, dk) = dq_u, dq_v, dk, dv in the working
-// dtype; fp32 dpos (2T-1, d) and dwpos (d, d). fp32 scratch: dsum
-// (B, H, T), dpart (B, H, ceil(T/32), 32 ceil(T/32) + 31, dk), part (at
-// least ceil((2T-1) / 512) * d * d).
+// dtype; fp32 dwpos (d, d). Scratch as tat_attention_bwd's: dsum, dpart,
+// dpos, and part (at least ceil((2T-1) / 512) * d * d, and in bf16
+// groups * (2T-1) * d).
 extern "C" int tat_relpos_attention_bwd(
     int bf16, const void* g, const void* qu, const void* qv, const void* k,
     const void* v, const void* p, const void* key_bias, const void* lse,

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks for sm_80 and later
 // (the port builds for sm_90a): cp.async copies into shared memory with
 // zero fill, ldmatrix fragment loads and the bf16 mma.sync.m16n8k16
-// product with fp32 accumulation. Used by subsampling.cu and attention.cu.
+// product with fp32 accumulation. Used by subsampling.cu, attention.cu and
+// logmel.cu.
 //
 // Fragment layout of m16n8k16 (lane = 4 g + t): A (16 x 16, row-major)
 // a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),
@@ -33,6 +34,14 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 8 : 0));
+}
+
+// 4 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

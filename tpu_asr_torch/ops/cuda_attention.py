@@ -23,9 +23,12 @@ projections, the attention weights and the context. The plain version keeps
 JAX's rel_shift construction; the kernel gathers the shifted positions.
 The kernels' shared core takes a local window (`local_window`); the block
 wrapper still refuses one (att_context_size is outside the model slice).
-In bf16 the forward's projections and core run on the tensor cores, which
-take D % 8 == 0 and dk % 4 == 0 (`attention_refusal`, which the model's
-'auto' route also asks); fp32 keeps the SIMT kernels. The weight matrices in
+In bf16 the projections, the forward's core, the backward's score
+gradients and its weight gradients run on the tensor cores, which take
+D % 8 == 0 and dk % 4 == 0 (`attention_refusal`, which the model's 'auto'
+route also asks); fp32 keeps the SIMT kernels, whose backward keeps a
+T-long position window in shared memory (T <= 1024 at dk 44,
+`bwd_refusal`). The weight matrices in
 the working dtype and the folded biases cu = bq + u, cv = bq + v are built
 once per weight version (`_kernels.prepared`); the key bias depends on the
 mask and is built per call.
@@ -68,10 +71,45 @@ def _row_stride(dk: int) -> int:
 
 
 def _bwd_smem(t: int, dk: int) -> int:
-    """Shared memory (bytes) of attention.cu's dq_kernel at T."""
+    """Shared memory (bytes) of attention.cu's fp32 dq_kernel at T: it
+    keeps the block's whole relative-position window."""
     win = -(-t // 32) * 32 + 31
     ks = _row_stride(dk)
     return 4 * (ks * (3 * 32 + 2 * 32 + 63) + 32 * 33 + win * dk)
+
+
+def bwd_refusal(dtype: torch.dtype, t: int, dk: int) -> Optional[str]:
+    """Why the backward would refuse T, or None. fp32 (dq_kernel, SIMT)
+    keeps a T-long position window per block in shared memory; bf16
+    (dq_mma_kernel) streams it through a 128-row ring, so its shared
+    memory does not grow with T."""
+    if dtype == torch.float32 and _bwd_smem(t, dk) > K.SMEM_LIMIT:
+        return (f"the fp32 backward at T={t} needs {_bwd_smem(t, dk)} B of "
+                f"shared memory (> {K.SMEM_LIMIT})")
+    return None
+
+
+def _part_size(dtype: torch.dtype, b: int, t: int, d: int,
+               wgrad: int) -> int:
+    """fp32 scratch `part`: the weight-gradient partials (`wgrad` floats)
+    and, in bf16, dpos_kernel's per-group sums of dP: ceil(B / ceil(B / 8))
+    groups of (2T - 1) x D."""
+    if dtype != torch.bfloat16:
+        return wgrad
+    groups = -(-b // -(-b // 8))
+    return max(wgrad, groups * (2 * t - 1) * d)
+
+
+def _dpart_shape(dtype: torch.dtype, b: int, h: int, t: int, dk: int):
+    """The dq kernels' position-window partials: per (batch row, head,
+    query block) a window of relative positions. bf16 (dq_mma_kernel):
+    64-query blocks, 64 (ceil(T / 64) + 1) rows; fp32 (dq_kernel):
+    32-query blocks, 32 ceil(T / 32) + 31 rows."""
+    if dtype == torch.bfloat16:
+        n = -(-t // 64)
+        return (b, h, n, 64 * (n + 1), dk)
+    n = -(-t // 32)
+    return (b, h, n, 32 * n + 31, dk)
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -190,11 +228,8 @@ def attention_refusal(dtype: torch.dtype, d: int, h: int, t: int,
     if dtype == torch.bfloat16 and (d % 8 or (d // h) % 4):
         return (f"{name}: in bf16 the kernel takes D % 8 == 0 and "
                 f"dk % 4 == 0 (got D={d}, dk={d // h})")
-    if train and _bwd_smem(t, d // h) > K.SMEM_LIMIT:
-        return (f"{name}: the backward at T={t} needs "
-                f"{_bwd_smem(t, d // h)} B of shared memory "
-                f"(> {K.SMEM_LIMIT})")
-    return None
+    why = bwd_refusal(dtype, t, d // h) if train else None
+    return f"{name}: {why}" if why else None
 
 
 def _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, h,
@@ -275,12 +310,9 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
     h = n_heads
     dk = d // h
     dev = x.device
-    n_qt = -(-t // 32)
-    win = n_qt * 32 + 31
-    smem = _bwd_smem(t, dk)
-    if smem > K.SMEM_LIMIT:
-        raise ValueError(f"fused_relpos_attention_block_bwd: T={t} needs "
-                         f"{smem} B of shared memory (> {K.SMEM_LIMIT})")
+    why = bwd_refusal(dt, t, dk)
+    if why:
+        raise ValueError(f"fused_relpos_attention_block_bwd: {why}")
     f32 = lambda *s: torch.empty(s, device=dev)
     gc = g.to(dt).contiguous()
     wo_t = wo.t().contiguous()
@@ -293,8 +325,10 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
     dpos, dw_all = f32(2 * t - 1, d), f32(4 * d, d + 1)
     dwo, dwpos = f32(d, d), f32(d, d)
     tensors = (gc, x, wo_t, wcat, qu, qv, k, v, p, key_bias, lse, ctx_buf,
-               pe_t, dctx, grads, f32(b, h, t), f32(b, h, n_qt, win, dk),
-               dpos, dx, f32(splits * 4 * d * (d + 1)), dw_all, dwo, dwpos)
+               pe_t, dctx, grads, f32(b, h, t),
+               f32(*_dpart_shape(dt, b, h, t, dk)), dpos, dx,
+               f32(_part_size(dt, b, t, d, splits * 4 * d * (d + 1))),
+               dw_all, dwo, dwpos)
     K.check_cuda("fused_relpos_attention_block_bwd", *tensors)
     K.call("tat_attention_bwd", _BWD_ARGS, dev, int(dt == torch.bfloat16),
            *(z.data_ptr() for z in tensors), b, t, d, h,
@@ -445,14 +479,17 @@ def fused_relpos_attention_bwd(g, q_u, q_v, k, v, p, ctx_out, lse, key_bias,
     d = h * dk
     dev = q_u.device
     n_pos = 2 * t - 1
-    n_qt = -(-t // 32)
+    why = bwd_refusal(dt, t, dk)
+    if why:
+        raise ValueError(f"fused_relpos_attention_bwd: {why}")
     f32 = lambda *s: torch.empty(s, device=dev)
     grads = torch.empty((4, b, h, t, dk), dtype=dt, device=dev)
     dwpos = f32(d, d)
     tensors = (g.to(dt).contiguous(), q_u, q_v, k, v, p, key_bias, lse,
                ctx_out, pe.to(dt).contiguous(), grads, f32(b, h, t),
-               f32(b, h, n_qt, n_qt * 32 + 31, dk), f32(n_pos, d),
-               f32(-(-n_pos // SPLIT_ROWS) * d * d), dwpos)
+               f32(*_dpart_shape(dt, b, h, t, dk)), f32(n_pos, d),
+               f32(_part_size(dt, b, t, d, -(-n_pos // SPLIT_ROWS) * d * d)),
+               dwpos)
     K.check_cuda("fused_relpos_attention_bwd", *tensors)
     K.call("tat_relpos_attention_bwd", _HEADS_BWD_ARGS, dev,
            int(dt == torch.bfloat16), *(z.data_ptr() for z in tensors),
@@ -479,10 +516,9 @@ def _check_heads(q_u, q_v, k, v, w_pos, mask, train: bool):
     if dt == torch.bfloat16 and (d % 8 or dk % 4):
         raise ValueError(f"fused_relpos_attention: in bf16 the kernel takes "
                          f"D % 8 == 0 and dk % 4 == 0 (got D={d}, dk={dk})")
-    if train and _bwd_smem(t, dk) > K.SMEM_LIMIT:
-        raise ValueError(f"fused_relpos_attention: the backward at T={t} "
-                         f"needs {_bwd_smem(t, dk)} B of shared memory "
-                         f"(> {K.SMEM_LIMIT})")
+    why = bwd_refusal(dt, t, dk) if train else None
+    if why:
+        raise ValueError(f"fused_relpos_attention: {why}")
 
 
 def fused_relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor,

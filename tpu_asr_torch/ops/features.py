@@ -1,9 +1,11 @@
 """Mel-spectrogram frontend, eval path: the PyTorch counterpart of
 tpu_asr/ops/features.py::FilterbankFeatures.
 
-    preemphasis -> reflect pad by n_fft // 2 -> windowed DFT power -> mel
-    -> log(x + guard)            [ops/cuda_features.py: kernel or plain]
-    -> per-feature normalisation over valid frames -> pad_value fill
+    preemphasis -> reflect pad by n_fft // 2 -> windowed |DFT|^mag_power
+    -> mel -> log(x + guard) when cfg.log
+                                 [ops/cuda_features.py: kernel or plain]
+    -> normalisation over valid frames ('per_feature', 'all_features' or
+       none) -> pad_value fill
 
 Constants are re-derived here in numpy (the JAX package's ops modules import
 JAX): the hann window (symmetric, centred in n_fft) is folded into the DFT
@@ -22,7 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_asr_torch.config import PreprocessorConfig
-from tpu_asr_torch.ops.cuda_features import fused_logmel, logmel_plain
+from tpu_asr_torch.ops._kernels import use_kernel
+from tpu_asr_torch.ops.cuda_features import (fused_logmel, logmel_plain,
+                                             logmel_refusal)
 
 
 def _hz_to_mel(freqs: np.ndarray) -> np.ndarray:
@@ -91,10 +95,11 @@ def stft_seq_len(length: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
 class FilterbankFeatures(nn.Module):
     """wav (B, L) -> normalised log-mel (B, n_mels, T) fp32 + frames (B,).
 
-    backend: 'auto' or 'pallas' -> `fused_logmel` (the CUDA kernel for a
-    CUDA tensor, its plain version for a CPU tensor); 'xla' -> the plain
-    version. The constants are non-persistent buffers: `.to(device)` moves
-    them and `state_dict()` leaves them out."""
+    backend: 'auto' or 'pallas' -> `fused_logmel` (a CUDA kernel for a
+    CUDA tensor, its plain version for a CPU tensor) where a kernel takes
+    the shape (`uses_kernel`); 'xla' -> the plain version. The constants
+    are non-persistent buffers: `.to(device)` moves them and `state_dict()`
+    leaves them out."""
 
     def __init__(self, cfg: Optional[PreprocessorConfig] = None,
                  backend: str = "auto"):
@@ -102,9 +107,8 @@ class FilterbankFeatures(nn.Module):
         self.cfg = c = cfg or PreprocessorConfig()
         if backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown features backend: {backend!r}")
-        if c.normalize != "per_feature" or not c.log or c.mag_power != 2.0:
-            raise ValueError("the port's frontend implements log power-mel "
-                             "with normalize='per_feature' only")
+        if c.normalize not in ("per_feature", "all_features", None, "none"):
+            raise ValueError(f"unknown normalize mode: {c.normalize}")
         self.backend = backend
         self.n_fft, self.hop = c.n_fft, c.hop_length
         fb = mel_filterbank(c.sample_rate, c.n_fft, c.features, c.lowfreq,
@@ -118,6 +122,11 @@ class FilterbankFeatures(nn.Module):
 
     def seq_len(self, length: torch.Tensor) -> torch.Tensor:
         return stft_seq_len(length, self.n_fft, self.hop)
+
+    def uses_kernel(self) -> bool:
+        """Whether the route takes the kernel wrapper."""
+        return use_kernel(self.backend, logmel_refusal(
+            self.n_fft, self.hop, self.fb_t.shape[0]))
 
     def forward(self, signal: torch.Tensor, length: torch.Tensor,
                 train: bool = False,
@@ -134,17 +143,26 @@ class FilterbankFeatures(nn.Module):
         pad = self.n_fft // 2
         xp = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0].contiguous()
         n_frames = (xp.shape[1] - self.n_fft) // self.hop + 1
-        logmel = logmel_plain if self.backend == "xla" else fused_logmel
+        logmel = fused_logmel if self.uses_kernel() else logmel_plain
         mel = logmel(xp, n_frames, self.basis, self.fb_t, self.hop,
-                     c.log_zero_guard_value)                    # (B, T, M)
+                     c.log_zero_guard_value, c.mag_power,
+                     bool(c.log))                               # (B, T, M)
 
         seq_len = self.seq_len(length)
         valid = (torch.arange(n_frames, device=mel.device)[None, :]
                  < seq_len[:, None]).to(mel.dtype)[..., None]   # (B, T, 1)
-        n = torch.clamp(seq_len.to(mel.dtype), min=2.0)[:, None, None]
-        mean = (mel * valid).sum(dim=1, keepdim=True) / n
-        var = ((mel - mean) ** 2 * valid).sum(dim=1, keepdim=True) / (n - 1.0)
-        mel = (mel - mean) / (torch.sqrt(torch.clamp(var, min=0.0)) + 1e-5)
+        if c.normalize in ("per_feature", "all_features"):
+            # per feature: statistics over valid frames; all features: over
+            # valid frames and every mel bin together
+            dims = (1,) if c.normalize == "per_feature" else (1, 2)
+            n = torch.clamp(seq_len.to(mel.dtype), min=2.0)[:, None, None]
+            if c.normalize == "all_features":
+                n = n * mel.shape[2]
+            mean = (mel * valid).sum(dim=dims, keepdim=True) / n
+            var = ((mel - mean) ** 2 * valid).sum(dim=dims,
+                                                  keepdim=True) / (n - 1.0)
+            mel = (mel - mean) / (torch.sqrt(torch.clamp(var, min=0.0))
+                                  + 1e-5)
         mel = mel * valid + c.pad_value * (1.0 - valid)
         out = mel.transpose(1, 2)                               # (B, M, T)
         if c.pad_to > 1 and out.shape[-1] % c.pad_to:

@@ -1,0 +1,197 @@
+"""Per-launch device times of single kernel wrappers on one CUDA card.
+
+    python3 tpu_asr_torch/profile_kernels.py [--root TREE] [--kernels ...]
+        [--label NAME] [--out FILE]
+
+For each kernel wrapper named in --kernels, at the shape the main path
+gives it: the median of 20 wrapper calls (CUDA events around each call),
+the device time per call (the union of the card's busy spans in
+torch.profiler, so host work between launches does not count), and the
+device time of each launch by kernel name.
+
+  logmel               fused_logmel, fp32, B=32 x 15 s of audio
+  attention_bwd        fused_relpos_attention_block_bwd, bf16, the student's
+                       sublayer (B=32, T=376, D=88, 2 heads, dropout 0.1)
+  attention_heads_bwd  fused_relpos_attention_bwd, bf16, the same shape
+
+--root TREE imports tpu_asr_torch from another checkout (a `git archive`
+of an earlier commit), so that two versions can be timed in turns within
+one run on one card: it needs only the wrappers' public signatures. Output
+lines start with the label (default: the tree's directory name).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+KERNELS = ("logmel", "attention_bwd", "attention_heads_bwd")
+BATCH, SECONDS, SR = 32, 15, 16000
+
+
+def median_ms(torch, fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_split(torch, fn, iters: int = 5):
+    """(device ms per call, [(kernel, ms per call, launches per call)])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_asr_torch.profile_forward import device_activity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy, _, names = device_activity(prof, iters)
+    rows = sorted(((k, ms, n) for k, (ms, n) in names.items()),
+                  key=lambda r: -r[1])
+    return busy, rows
+
+
+def short(name: str) -> str:
+    return (name.replace("(anonymous namespace)::", "")
+            .removeprefix("void ").split("(")[0])
+
+
+def logmel_call(torch):
+    from tpu_asr_torch.config import PreprocessorConfig
+    from tpu_asr_torch.ops.cuda_features import fused_logmel
+    from tpu_asr_torch.ops.features import FilterbankFeatures
+
+    pre = PreprocessorConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    feat = FilterbankFeatures(pre).cuda()
+    audio = torch.randn(BATCH, SECONDS * SR, generator=gen,
+                        device="cuda") * 0.1
+    pad = pre.n_fft // 2
+    xp = torch.nn.functional.pad(audio[:, None], (pad, pad),
+                                 mode="reflect")[:, 0].contiguous()
+    n_frames = (xp.shape[1] - pre.n_fft) // pre.hop_length + 1
+    args = (xp, n_frames, feat.basis, feat.fb_t, pre.hop_length,
+            pre.log_zero_guard_value)
+    return lambda: fused_logmel(*args)
+
+
+def student_shape(torch, gen):
+    from tpu_asr_torch.config import ModelConfig, make_student_config
+
+    enc = make_student_config(ModelConfig()).encoder
+    t = SECONDS * SR // 160 + 1
+    for _ in range(2):                  # two stride-2 convolutions: 376
+        t = (t - 1) // 2 + 1
+    lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    lengths[0] = t
+    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+    return enc, t, mask
+
+
+def attention_bwd_call(torch):
+    from tpu_asr_torch.models.conformer import rel_positional_encoding
+    from tpu_asr_torch.ops.cuda_attention import (
+        fused_relpos_attention_block, fused_relpos_attention_block_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    enc, t, mask = student_shape(torch, gen)
+    d, h = enc.d_model, enc.n_heads
+    dk = d // h
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    pw = (n(d, d, sc=d ** -0.5), n(d, sc=0.1), n(d, d, sc=d ** -0.5),
+          n(d, sc=0.1), n(d, d, sc=d ** -0.5), n(d, sc=0.1),
+          n(h, dk, sc=0.1), n(h, dk, sc=0.1), n(d, d, sc=d ** -0.5),
+          n(d, d, sc=d ** -0.5))
+    x = n(BATCH, t, d, sc=0.5).to(torch.bfloat16)
+    leaves = [z.detach().requires_grad_() for z in (x, *pw)]
+    rate, seed = enc.dropout, 2 ** 31 - 5
+    out = fused_relpos_attention_block(
+        *leaves, rel_positional_encoding(t, d, "cuda"), mask, h,
+        dropout_rate=rate, dropout_seed=seed)
+    g = (n(BATCH, t, d) * mask[..., None]).to(torch.bfloat16)
+    saved = out.grad_fn.saved_tensors
+    return lambda: fused_relpos_attention_block_bwd(g, *saved, h, rate, seed)
+
+
+def attention_heads_bwd_call(torch):
+    from tpu_asr_torch.ops.cuda_attention import (fused_relpos_attention,
+                                                  fused_relpos_attention_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    enc, t, mask = student_shape(torch, gen)
+    h = enc.n_heads
+    dk = enc.d_model // h
+    leaves = [(torch.randn(BATCH, h, t, dk, generator=gen, device="cuda")
+               * 0.5).to(torch.bfloat16).requires_grad_() for _ in range(4)]
+    w_pos = (torch.randn(h * dk, h * dk, generator=gen, device="cuda")
+             * (h * dk) ** -0.5).to(torch.bfloat16).requires_grad_()
+    rate, seed = enc.dropout_att, 2 ** 31 - 7
+    out = fused_relpos_attention(*leaves, w_pos, mask, (-1, -1), rate, seed)
+    g = (torch.randn(out.shape, generator=gen, device="cuda")
+         * mask[:, None, :, None]).to(torch.bfloat16)
+    saved = out.grad_fn.saved_tensors
+    return lambda: fused_relpos_attention_bwd(g, *saved, (-1, -1), rate,
+                                              seed)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=None,
+                    help="checkout whose tpu_asr_torch is timed")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--out", default=None, help="also append lines here")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root or
+                           os.path.join(os.path.dirname(__file__), ".."))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p) != here]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    label = args.label or os.path.basename(root.rstrip("/"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import tpu_asr_torch
+    where = os.path.dirname(tpu_asr_torch.__file__)
+    print(f"{label}: tpu_asr_torch from {where}, "
+          f"{torch.cuda.get_device_name(0)}")
+    makers = {"logmel": logmel_call, "attention_bwd": attention_bwd_call,
+              "attention_heads_bwd": attention_heads_bwd_call}
+    lines = []
+    for name in args.kernels.split(","):
+        fn = makers[name](torch)
+        with torch.no_grad():
+            ms = median_ms(torch, fn)
+            dev, rows = device_split(torch, fn)
+        lines.append(f"{label} {name}: call {ms:.4f} ms (median of 20, CUDA "
+                     f"events), device {dev:.4f} ms per call (torch.profiler)")
+        for k, kms, calls in rows:
+            lines.append(f"{label} {name}:   {short(k)[:60]} {kms:.4f} ms "
+                         f"({calls:g} per call)")
+    for line in lines:
+        print(line, flush=True)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
