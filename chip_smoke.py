@@ -43,7 +43,18 @@ Phases, each on its own output lines:
      3.35 TB/s or operations over the peak rate of the operands' type).
      The backward kernels give bit-equal gradients on two calls (no
      atomics), and the FFN and CTC kernels are also held to their plain
-     versions at ragged edges the main path does not reach. The bf16
+     versions at ragged edges the main path does not reach. The FFN
+     forward and backward also at the teacher's width (B=8 x 15 s, D=176,
+     d_ff 704, dropout 0.1, fp32 and bf16, the same rules) and at
+     d256/1024 (B=4), whose backward runs on ffn.cu's Small weight ring
+     (checked by kernel name); at d320/1280 the forward on the Small ring
+     without gradients and autograd through it refused (the backward's
+     tiles exceed shared memory); at D=512, d_ff 2048 refused (the
+     forward's); the 'auto' route of a training ConformerLayer at the
+     teacher's width launching the kernel, and beside each FFN check the
+     module path's times
+     (LN + two F.linear + SiLU, and autograd through it: the yardstick);
+     device times of the bf16 FFN kernels at the student's shape. The bf16
      attention backward's device time per launch (torch.profiler), and the
      backward at T=1100 (B=2, bf16: past the fp32 kernel's shared-memory
      limit of T <= 1024) against plain, bit-equal on two calls.
@@ -85,10 +96,10 @@ Phases, each on its own output lines:
      2e-2 in fp32, 3e-2 of max(1, |ref|) in bf16. The conv within 1e-4 of
      the output's scale in fp32, 3e-2 in bf16. Median kernel and plain times, the
      bound, and beside the int8 FFN the bf16 eval FFN sublayer it replaces
-     (LN + two cuBLAS products). Also the fused FFN forward (rate 0) at the
-     teacher's D=176, d_ff 704 against its plain version (phase 6's FFN
-     tolerances, timed), and autograd through it refused there (its
-     backward takes D <= 128).
+     (LN + two cuBLAS products). Also the fused FFN (rate 0) at the
+     teacher's D=176, d_ff 704, forward and backward against its plain
+     version by phase 6's rules, timed beside the bf16 eval FFN sublayer
+     and the module path.
   11. int8 model: ModelConfig() with quantization='int8' and
      conv_backend='pallas' in fp32 on 8 clips, kernels against plain:
      every eval kernel launched, equal encoded_len; each layer on the plain
@@ -145,6 +156,7 @@ LONG_T = 1100          # beyond the fp32 attention backward's T <= 1024
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, data sheet
 # SIMT fp32, bf16 and int8 tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+FFN_GRADS = ["dx", "d_ln_scale", "d_ln_bias", "dw1", "db1", "dw2", "db2"]
 
 
 def check(ok, msg: str) -> None:
@@ -653,6 +665,112 @@ def grads_close(got, want, tol, names, floor, verbose=True):
     return worst_abs, worst_rel
 
 
+def ffn_weights(gen, d, f):
+    """LN scale and bias, w1 (f, d), b1, w2 (d, f), b2: fp32, seeded."""
+    return (1.0 + normal(gen, d, scale=0.1), normal(gen, d, scale=0.1),
+            normal(gen, f, d, scale=d ** -0.5), normal(gen, f, scale=0.1),
+            normal(gen, d, f, scale=f ** -0.5), normal(gen, d, scale=0.1))
+
+
+def ffn_module_path(x, ln_w, ln_b, w1, b1, w2, b2):
+    """The FFN sublayer as the port's modules compute it in x's dtype:
+    LayerNorm in fp32, F.linear, SiLU, F.linear with the weights cast at
+    use, the 0.5 residual; no dropout. The kernels' yardstick, timed
+    beside them (forward, and autograd through it for the backward); the
+    port never calls it."""
+    F = torch.nn.functional
+    dt = x.dtype
+    y = F.layer_norm(x.float(), (x.shape[-1],), ln_w, ln_b, 1e-6).to(dt)
+    h = F.silu(F.linear(y, w1.to(dt), b1.to(dt)))
+    return x + 0.5 * F.linear(h, w2.to(dt), b2.to(dt))
+
+
+def ffn_forward_check(x, fw, rate, seed, label):
+    """fused_ffn_sublayer without gradients against the plain version on x
+    (B, T, D): within fp32 1e-4 / bf16 1e-2, relative and absolute of
+    max(1, |ref|). Returns (the kernel's output in fp32, max |err|)."""
+    from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_plain,
+                                            fused_ffn_sublayer)
+    dt = x.dtype
+    with torch.no_grad():
+        got = fused_ffn_sublayer(x, *fw, rate, seed).float()
+        want = ffn_sublayer_plain(x, *fw, rate, seed).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ref = want.abs().max().item()
+    rtol, atol = ((1e-4, 1e-4 * max(1.0, ref)) if dt == torch.float32
+                  else (1e-2, 1e-2 * max(1.0, ref)))
+    check(torch.allclose(got, want, rtol=rtol, atol=atol),
+          f"ffn {str(dt)[6:]} dropout {rate} {label}: max |err| {err:.3e} "
+          f"(rtol {rtol}, atol {atol:.3g})")
+    return got, err
+
+
+def ffn_small_ring(fn, kernel, label):
+    """Every launch of `kernel` in fn() ran on ffn.cu's Small weight ring
+    (Cfg<64, 64, 2>, taken where the row tiles leave no room for Big);
+    prints fn's device time."""
+    dev, names = device_ms(fn, iters=2)
+    rings = {"Small" if "Cfg<64, 64, 2>" in k else "Big"
+             for k in names if kernel in k}
+    check(rings == {"Small"}, f"{label}: {kernel} ran on the Small ring "
+          f"(busy {dev:.4f} ms per call: {top_kernels(names, 3)})")
+
+
+def ffn_compare(x, g, fw, rate, seed, label):
+    """fused_ffn_sublayer and its backward against the plain version on x
+    (B, T, D) for the cotangent g: the output within fp32 1e-4 / bf16 1e-2
+    (relative, and absolute of max(1, |ref|)), the gradients by
+    grads_close at 1e-3 / 1e-4 (fp32) or 5e-2 / 1e-2 (bf16), two backward
+    calls bit-equal. Returns (forward row, backward row, the backward
+    call) with rows (max_abs_err, ms, plain_ms, bound, None); prints the
+    module path's times beside the kernels'."""
+    from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_plain,
+                                            fused_ffn_sublayer,
+                                            fused_ffn_sublayer_bwd)
+    dt = x.dtype
+    dts = str(dt)[6:]
+    b, t, d = x.shape
+    f = fw[2].shape[0]
+    got, err = ffn_forward_check(x, fw, rate, seed, label)
+    leaves = [z.detach().requires_grad_() for z in (x, *fw)]
+    out_k = fused_ffn_sublayer(*leaves, rate, seed)
+    got_g = torch.autograd.grad(out_k, leaves, g, retain_graph=True)
+    leaves_p = [z.detach().requires_grad_() for z in (x, *fw)]
+    out_p = ffn_sublayer_plain(*leaves_p, rate, seed)
+    want_g = torch.autograd.grad(out_p, leaves_p, g, retain_graph=True)
+    torch.cuda.synchronize()
+    tol, floor = (1e-3, 1e-4) if dt == torch.float32 else (5e-2, 1e-2)
+    print(f"ffn_bwd {dts} dropout {rate} {label}, kernels vs plain:")
+    err_abs, _ = grads_close(got_g, want_g, tol, FFN_GRADS, floor)
+    saved = out_k.grad_fn.saved_tensors
+    bwd = lambda: fused_ffn_sublayer_bwd(*saved, g, rate, seed)
+    check(all(torch.equal(a, b_) for a, b_ in zip(bwd(), bwd())),
+          f"ffn_bwd {dts} {label}: two calls give bit-equal gradients")
+    with torch.no_grad():
+        fwd_row = (err, median_ms(lambda: fused_ffn_sublayer(x, *fw, rate,
+                                                             seed)),
+                   median_ms(lambda: ffn_sublayer_plain(x, *fw, rate, seed)),
+                   bound(4 * b * t * d * f,
+                         nbytes(x, *fw) + got.numel() * x.element_size(),
+                         dts), None)
+        module_ms = median_ms(lambda: ffn_module_path(x, *fw))
+    bwd_row = (err_abs, median_ms(bwd),
+               median_ms(lambda: torch.autograd.grad(out_p, leaves_p, g,
+                                                     retain_graph=True)),
+               bound(10 * b * t * d * f, nbytes(x, g, *fw) + nbytes(*got_g),
+                     dts), None)
+    leaves_m = [z.detach().requires_grad_() for z in (x, *fw)]
+    out_m = ffn_module_path(*leaves_m)
+    module_bwd_ms = median_ms(lambda: torch.autograd.grad(
+        out_m, leaves_m, g, retain_graph=True))
+    print(f"time ffn {dts} {label}: kernel {fwd_row[1]:.4f} ms, module path "
+          f"(LN + two F.linear + SiLU) {module_ms:.4f} ms; ffn_bwd kernel "
+          f"{bwd_row[1]:.4f} ms, autograd through the module path "
+          f"{module_bwd_ms:.4f} ms (median of 20, CUDA events)")
+    return fwd_row, bwd_row, bwd
+
+
 def train_kernel_phase(tcfg):
     """Each training kernel against its plain version at the student's
     shapes. Returns {name: (max_abs_err, ms, plain_ms, bound, library_ms)}
@@ -662,14 +780,13 @@ def train_kernel_phase(tcfg):
     import torch.nn.functional as F
 
     from tpu_asr_torch.config import make_student_config
-    from tpu_asr_torch.models.conformer import rel_positional_encoding
+    from tpu_asr_torch.models.conformer import (ConformerLayer,
+                                                rel_positional_encoding)
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention_block, fused_relpos_attention_block_bwd,
         relpos_attention_plain)
     from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd, ctc_nll_plain
-    from tpu_asr_torch.ops.cuda_ffn import (ffn_sublayer_plain,
-                                            fused_ffn_sublayer,
-                                            fused_ffn_sublayer_bwd)
+    from tpu_asr_torch.ops.cuda_ffn import fused_ffn_sublayer
     from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling,
                                                     out_len, subsampling_plain)
 
@@ -791,57 +908,68 @@ def train_kernel_phase(tcfg):
           f"call): {dev:.4f} ({top_kernels(names, 9)})")
     long_attention_bwd(pw, h, rate, seed)
 
-    # FFN forward and backward
-    fw = (1.0 + normal(gen, d, scale=0.1), normal(gen, d, scale=0.1),
-          normal(gen, f, d, scale=d ** -0.5), normal(gen, f, scale=0.1),
-          normal(gen, d, f, scale=f ** -0.5), normal(gen, d, scale=0.1))
+    # FFN forward and backward: the student's width at B=32, the teacher's
+    # (d176/704) at B=8, and a width the kernels refuse in training
+    fw = ffn_weights(gen, d, f)
     xf = normal(gen, BATCH, t, d)
     gf = normal(gen, BATCH, t, d)
-    fnames = ["dx", "d_ln_scale", "d_ln_bias", "dw1", "db1", "dw2", "db2"]
     for dt in (torch.float32, torch.bfloat16):
         dts = str(dt)[6:]
-        x = xf.to(dt)
-        with torch.no_grad():
-            got = fused_ffn_sublayer(x, *fw, rate, seed).float()
-            want = ffn_sublayer_plain(x, *fw, rate, seed).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ref = want.abs().max().item()
-        rtol, atol = ((1e-4, 1e-4 * max(1.0, ref)) if dt == torch.float32
-                      else (1e-2, 1e-2 * max(1.0, ref)))
-        check(torch.allclose(got, want, rtol=rtol, atol=atol),
-              f"ffn {dts} dropout {rate} (B={BATCH}, T={t}, D={d}, "
-              f"d_ff={f}): max |err| {err:.3e} (rtol {rtol}, atol "
-              f"{atol:.3g})")
-        with torch.no_grad():
-            per_dt["ffn"][dts] = (
-                err, median_ms(lambda: fused_ffn_sublayer(x, *fw, rate, seed)),
-                median_ms(lambda: ffn_sublayer_plain(x, *fw, rate, seed)),
-                bound(4 * BATCH * t * d * f,
-                      nbytes(x, *fw) + got.numel() * x.element_size(), dts),
-                None)
-        leaves = [z.detach().requires_grad_() for z in (x, *fw)]
-        out_k = fused_ffn_sublayer(*leaves, rate, seed)
-        g = gf.to(dt)
-        got_g = torch.autograd.grad(out_k, leaves, g, retain_graph=True)
-        leaves_p = [z.detach().requires_grad_() for z in (x, *fw)]
-        out_p = ffn_sublayer_plain(*leaves_p, rate, seed)
-        want_g = torch.autograd.grad(out_p, leaves_p, g, retain_graph=True)
-        torch.cuda.synchronize()
-        tol, floor = (1e-3, 1e-4) if dt == torch.float32 else (5e-2, 1e-2)
-        print(f"ffn_bwd {dts} dropout {rate}, kernels vs plain:")
-        err_abs, _ = grads_close(got_g, want_g, tol, fnames, floor)
-        saved = out_k.grad_fn.saved_tensors
-        bwd = lambda: fused_ffn_sublayer_bwd(*saved, g, rate, seed)
-        check(all(torch.equal(a, b) for a, b in zip(bwd(), bwd())),
-              f"ffn_bwd {dts}: two calls give bit-equal gradients")
-        per_dt["ffn_bwd"][dts] = (
-            err_abs, median_ms(lambda: fused_ffn_sublayer_bwd(
-                *saved, g, rate, seed)),
-            median_ms(lambda: torch.autograd.grad(out_p, leaves_p, g,
-                                                  retain_graph=True)),
-            bound(10 * BATCH * t * d * f,
-                  nbytes(x, g, *fw) + nbytes(*got_g), dts), None)
+        per_dt["ffn"][dts], per_dt["ffn_bwd"][dts], bwd = ffn_compare(
+            xf.to(dt), gf.to(dt), fw, rate, seed,
+            f"(B={BATCH}, T={t}, D={d}, d_ff={f})")
+    xb = xf.to(torch.bfloat16)
+    dev, names = device_ms(lambda: fused_ffn_sublayer(xb, *fw, rate, seed))
+    dev_b, names_b = device_ms(bwd)
+    print(f"device ffn bfloat16 (torch.profiler, busy ms per call): "
+          f"{dev:.4f} ({top_kernels(names, 1)}); ffn_bwd {dev_b:.4f} "
+          f"({top_kernels(names_b, 3)})")
+    tw = ffn_weights(gen, 2 * d, 2 * f)
+    xt, gt = normal(gen, 8, t, 2 * d), normal(gen, 8, t, 2 * d)
+    for dt in (torch.float32, torch.bfloat16):
+        ffn_compare(xt.to(dt), gt.to(dt), tw, rate, seed,
+                    f"teacher width (B=8, T={t}, D={2 * d}, d_ff={2 * f})")
+    # d256/1024, the widest JAX's ffn_train_kernel_fits admits: the
+    # backward's row tiles leave no room for the Big ring, so it runs on
+    # Small; at d320/1280 the forward runs on Small too, and autograd is
+    # refused (only the backward's tiles exceed shared memory)
+    ww = ffn_weights(gen, 256, 1024)
+    xw, gw = normal(gen, 4, t, 256), normal(gen, 4, t, 256)
+    nw = ffn_weights(gen, 320, 1280)
+    xn = normal(gen, 4, t, 320)
+    for dt in (torch.float32, torch.bfloat16):
+        dts = str(dt)[6:]
+        label = f"(B=4, T={t}, D=256, d_ff=1024)"
+        _, _, bwd_w = ffn_compare(xw.to(dt), gw.to(dt), ww, rate, seed,
+                                  label)
+        ffn_small_ring(bwd_w, "ffn_bwd_rows_kernel",
+                       f"ffn_bwd {dts} {label}")
+        xnd = xn.to(dt)
+        label = f"(B=4, T={t}, D=320, d_ff=1280)"
+        ffn_forward_check(xnd, nw, rate, seed, label)
+        ffn_small_ring(lambda: fused_ffn_sublayer(xnd, *nw, rate, seed),
+                       "ffn_fwd_kernel", f"ffn {dts} {label}")
+        xg = xnd[:1, :4].clone().requires_grad_()
+        refused(lambda: fused_ffn_sublayer(xg, *nw, rate, seed),
+                f"autograd through fused_ffn_sublayer {dts} at D=320, "
+                f"d_ff=1280 (the backward's tiles exceed shared memory)")
+    big = ffn_weights(gen, 512, 2048)
+    refused(lambda: fused_ffn_sublayer(
+        normal(gen, 1, 4, 512).to(torch.bfloat16).requires_grad_(), *big,
+        rate, seed), "autograd through fused_ffn_sublayer at D=512, "
+        "d_ff=2048 (the forward's tiles exceed shared memory)")
+    # the 'auto' route of a training ConformerLayer at the teacher's width
+    # takes the kernel, as JAX's ffn_train_kernel_fits admits d176/704
+    layer = ConformerLayer(tcfg.encoder).cuda().to(torch.bfloat16)
+    xl = normal(gen, 2, t, tcfg.encoder.d_model).to(
+        torch.bfloat16).requires_grad_()
+    before = fused_ffn_sublayer.launches
+    layer._ffn(layer.norm_feed_forward1, layer.feed_forward1, xl, seed)
+    check(tcfg.encoder.ffn_backend == "auto"
+          and layer.ffn_train_uses_kernel(xl, layer.feed_forward1)
+          and fused_ffn_sublayer.launches == before + 1,
+          f"'auto' training route at D={tcfg.encoder.d_model}, d_ff="
+          f"{tcfg.encoder.d_ff} takes the FFN kernel")
 
     # CTC forward and backward, fp32
     v = scfg.decoder.num_classes + 1
@@ -1463,13 +1591,6 @@ def eval_kernel_phase(cfg):
     lengths[0] = t
     mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
 
-    def ffn_weights(d_, f_):
-        return (1.0 + normal(gen, d_, scale=0.1), normal(gen, d_, scale=0.1),
-                normal(gen, f_, d_, scale=d_ ** -0.5),
-                normal(gen, f_, scale=0.1),
-                normal(gen, d_, f_, scale=f_ ** -0.5),
-                normal(gen, d_, scale=0.1))
-
     def conv_weights(d_, k_):
         return (normal(gen, 2 * d_, d_, scale=d_ ** -0.5),
                 normal(gen, 2 * d_, scale=0.1),
@@ -1480,7 +1601,7 @@ def eval_kernel_phase(cfg):
                 normal(gen, d_, scale=0.1))
 
     # int8 FFN at D=176, d_ff 704
-    fw = ffn_weights(d, f)
+    fw = ffn_weights(gen, d, f)
     xf = normal(gen, BATCH, t, d)
     per_dt = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1493,35 +1614,24 @@ def eval_kernel_phase(cfg):
                 bound(4 * m * d * f, nbytes(x, *fw) + nbytes(x), "int8"),
                 None)
     ffn_int8_compare(normal(gen, 3, 37, d), fw, "odd T (3 x 37 rows)")
-    sw = ffn_weights(88, 352)
+    sw = ffn_weights(gen, 88, 352)
     xs = normal(gen, BATCH, t, 88)
     for dt in (torch.float32, torch.bfloat16):
         ffn_int8_compare(xs.to(dt), sw, f"student D=88, d_ff=352 "
                          f"(B={BATCH}, T={t})")
-    big = ffn_weights(520, 2048)
+    big = ffn_weights(gen, 520, 2048)
     refused(lambda: fused_ffn_sublayer_int8(normal(gen, 1, 4, 520), *big),
             "fused_ffn_sublayer_int8 at D=520")
 
-    # the fused FFN forward at the teacher's width in eval (rate 0): the
-    # tolerances of phase 6's FFN check; its backward keeps D <= 128
+    # the fused FFN at the teacher's width, rate 0: the forward in eval and
+    # autograd through it, by phase 6's rules (ffn_compare)
+    gt = normal(gen, BATCH, t, d)
     for dt in (torch.float32, torch.bfloat16):
-        x = xf.to(dt)
-        with torch.no_grad():
-            got = fused_ffn_sublayer(x, *fw).float()
-            want = ffn_sublayer_plain(x, *fw).float()
-        torch.cuda.synchronize()
-        err, ref = (got - want).abs().max().item(), want.abs().max().item()
-        rtol, atol = ((1e-4, 1e-4 * max(1.0, ref)) if dt == torch.float32
-                      else (1e-2, 1e-2 * max(1.0, ref)))
-        check(torch.allclose(got, want, rtol=rtol, atol=atol),
-              f"ffn (eval) {str(dt)[6:]} at the teacher's width (B={BATCH}, "
-              f"T={t}, D={d}, d_ff={f}): max |err| {err:.3e} (rtol {rtol}, "
-              f"atol {atol:.3g})")
-    refused(lambda: fused_ffn_sublayer(xf.detach().requires_grad_(), *fw),
-            f"autograd through fused_ffn_sublayer at D={d}")
-    with torch.no_grad():
-        ffn_ms = median_ms(lambda: fused_ffn_sublayer(x, *fw))
-        ffn_plain_ms = median_ms(lambda: ffn_sublayer_plain(x, *fw))
+        fwd_row, bwd_row, _ = ffn_compare(
+            xf.to(dt), gt.to(dt), fw, 0.0, 0,
+            f"teacher width (B={BATCH}, T={t}, D={d}, d_ff={f})")
+    ffn_ms, ffn_plain_ms = fwd_row[1], fwd_row[2]
+    x = xf.to(torch.bfloat16)
 
     # the bf16 eval FFN sublayer int8 replaces: LN + two cuBLAS products
     ln_w, ln_b, w1, b1, w2, b2 = fw
@@ -1579,8 +1689,10 @@ def eval_kernel_phase(cfg):
     ffn_bound, _ = bound(4 * m * d * f, 2 * nbytes(x) + nbytes(*fw),
                          "bfloat16")
     print(f"time ffn (eval) bfloat16 at D={d}, d_ff={f}: kernel {ffn_ms:.4f} "
-          f"ms, plain {ffn_plain_ms:.4f} ms, bound {ffn_bound:.4f} ms "
-          f"(median of 20, CUDA events)")
+          f"ms, plain {ffn_plain_ms:.4f} ms, bound {ffn_bound:.4f} ms, the "
+          f"bf16 eval FFN sublayer (its yardstick) {bf16_ms:.4f} ms (median "
+          f"of 20, CUDA events); ffn_bwd bfloat16 kernel {bwd_row[1]:.4f} ms, "
+          f"plain {bwd_row[2]:.4f} ms, bound {bwd_row[3][0]:.4f} ms")
     return {"ffn_int8": per_dt[torch.bfloat16],
             "conv_module": conv_dt[torch.bfloat16]}
 

@@ -4,8 +4,9 @@ numpy from a seed.
 
 - the plain version in bf16 against fused_ffn_sublayer in interpret mode,
   values and VJP, at dropout 0 and at 0.1 with the same seed (the masks are
-  the same counter hash): values rtol/atol 2e-2, gradients atol
-  2e-2 * max(1, |ref|max) (bf16 operands, sums of up to T * B products);
+  the same counter hash), at d88/352 and d176/704: values rtol/atol 2e-2,
+  gradients atol 2e-2 * max(1, |ref|max) (bf16 operands, sums of up to
+  T * B products);
 - the plain version in fp32 against JAX's XLA LayerNorm + FeedForward
   modules, values and gradients at 1e-4;
 - the wrapper runs the plain version on the CPU and launches nothing.
@@ -42,11 +43,18 @@ def _torch_grads(args):
     return [ds, dsb, dw1.T, db1, dw2.T, db2]
 
 
-@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 12345),
-                                       (0.1, 2 ** 31 - 3)])
-def test_plain_bf16_matches_pallas_interpret(rate, seed):
+@pytest.mark.parametrize("rate,seed,d,f", [
+    pytest.param(0.0, 0, 88, 352, id="0.0-0"),
+    pytest.param(0.1, 12345, 88, 352, id="0.1-12345"),
+    pytest.param(0.1, 2 ** 31 - 3, 88, 352, id="0.1-2147483645"),
+    pytest.param(0.0, 0, 176, 704, id="0.0-0-d176"),
+    pytest.param(0.1, 12345, 176, 704, id="0.1-12345-d176"),
+])
+def test_plain_bf16_matches_pallas_interpret(rate, seed, d, f):
+    """At the student's width and the teacher's (d176/704, which the
+    backward kernel now takes in training)."""
     rng = np.random.default_rng(0)
-    b, t, d, f = 3, 21, 88, 352
+    b, t = (3, 21) if d == 88 else (2, 13)
     p = _params(rng, d, f)
     x = rng.normal(size=(b, t, d)).astype(np.float32)
     g = rng.normal(size=(b, t, d)).astype(np.float32)

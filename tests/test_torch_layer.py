@@ -19,9 +19,10 @@ ConformerLayer, then `layer_params`:
 - the plain version in bf16 stays within bf16 rounding of fp32;
 - the wrapper runs the plain version on the CPU (no launch), refuses
   autograd, other devices and shapes it does not take;
-- the fused FFN's gate (ops/cuda_ffn.py): the forward takes the teacher's
-  D=176 with d_ff 704, not D=512 with d_ff 2048 (shared memory), and the
-  backward only D <= 128.
+- the fused FFN's gate (ops/cuda_ffn.py): the forward and the backward
+  take the teacher's D=176 with d_ff 704; the backward refuses D=256 with
+  d_ff 1280, which the forward takes; both refuse D=512 with d_ff 2048
+  (shared memory).
 """
 
 import dataclasses
@@ -184,15 +185,22 @@ def test_wrapper_runs_plain_on_cpu_and_refuses():
 
 
 def test_ffn_gate_takes_the_teacher_width_in_eval_only():
-    def check(d, f, train):
-        meta = lambda *s: torch.empty(s, device="meta")
+    """The FFN kernels' width gate: the teacher's d176/704 in eval and, since
+    the backward no longer keeps D in registers, in training too;
+    d256/1280 in eval only (the backward's tiles exceed shared memory);
+    d512/2048 in neither (the forward's do)."""
+    def check(d, f, train, dtype=torch.float32):
+        meta = lambda *s: torch.empty(s, device="meta", dtype=dtype)
         cuda_ffn._check(meta(2, 3, d), meta(d), meta(f, d), meta(d, f),
                         train)
 
     assert cuda_ffn.fwd_smem(176, 704) <= 227 * 1024
     check(176, 704, train=False)
     check(88, 352, train=True)
-    with pytest.raises(ValueError, match="D <= 128"):
-        check(176, 704, train=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        check(176, 704, train=True, dtype=dtype)
+        check(256, 1280, train=False, dtype=dtype)
+        with pytest.raises(ValueError, match="backward kernel"):
+            check(256, 1280, train=True, dtype=dtype)
     with pytest.raises(ValueError, match="shared memory"):
         check(512, 2048, train=False)

@@ -7,7 +7,11 @@
   refused shape; 'xla' is always plain. Cases: subsampling (C % 8, C above
   its limit), the block attention (dk 128; and in training T = 1100, past
   the fp32 backward's shared memory, which the bf16 backward takes), the
-  training FFN (its backward at D=176), the FM loop (C=176, max_steps 17)
+  training FFN (d320/1280, whose forward fits shared memory and whose
+  backward does not: refused only under autograd; d512/2048, where the
+  forward does not fit either and JAX's `ffn_train_kernel_fits` refuses
+  too; d88 to d256 agree with it),
+  the FM loop (C=176, max_steps 17)
   and the log-mel frontend (n_fft 402 and 4096 refused; 512 takes the FFT
   kernel, 400 the DFT kernel), each beside a shape the kernel takes.
 - The forward passes follow the resolution: with the kernel wrapper
@@ -15,7 +19,8 @@
   runs the plain version and a flagship shape calls the wrapper.
 - The kernel-layout weight copies (`_kernels.prepared`) are built once per
   weight version: reused while the weights stand, rebuilt after an
-  in-place update and after a dtype change.
+  in-place update and after a dtype change (subsampling, block attention,
+  FFN).
 """
 
 import pytest
@@ -83,7 +88,8 @@ CASES = [
     ("subsampling", 12, 176),
     ("subsampling", 1032, 88),
     ("attention", (256, 2), (176, 4)),       # dk 128 / 44
-    ("ffn_train", 176, 88),                  # backward takes D <= 128
+    ("ffn_train", 320, 176),                 # backward's tiles > 227 KB
+    ("ffn_train", 512, 176),                 # forward's tiles > 227 KB
     ("fm", (176, 8), (88, 8)),
     ("fm", (88, 17), (88, 16)),
     ("attention_train", (torch.float32, 1100), (torch.bfloat16, 1100)),
@@ -114,11 +120,25 @@ def test_pallas_raises_where_the_kernel_refuses(kind, refused, flagship):
 
 
 def test_ffn_route_takes_the_kernel_without_gradients():
-    """Without autograd the FFN backward's limit does not count."""
-    layer = _layer("auto", 176)
+    """Without autograd the FFN backward's limit does not count: d320/1280
+    is refused under autograd (the backward's tiles), taken without."""
+    layer = _layer("auto", 320)
+    x = torch.zeros(2, 5, 320, requires_grad=True)
+    assert not layer.ffn_train_uses_kernel(x, layer.feed_forward1)
     with torch.no_grad():
-        assert layer.ffn_train_uses_kernel(torch.zeros(2, 5, 176),
-                                           layer.feed_forward1)
+        assert layer.ffn_train_uses_kernel(x, layer.feed_forward1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,f", [(88, 352), (176, 704), (256, 1024),
+                                 (512, 2048)])
+def test_ffn_train_gate_agrees_with_jax(d, f, dtype):
+    """The training FFN kernels take a width exactly where JAX's 'auto'
+    gate `ffn_train_kernel_fits` does at B=32 x 15 s (T'=376)."""
+    from tpu_asr.ops.pallas_ffn import ffn_train_kernel_fits
+    from tpu_asr_torch.ops.cuda_ffn import ffn_refusal
+    assert (ffn_refusal(dtype, d, f, train=True) is None) == \
+        ffn_train_kernel_fits(32, 376, d, f)
 
 
 class _Recorder:
@@ -164,7 +184,7 @@ def test_forward_follows_the_route(kind, monkeypatch):
             x = torch.randn(2, 5, d, requires_grad=True)
             return layer._ffn(layer.norm_feed_forward1, layer.feed_forward1,
                               x, 3)
-        shapes = (176, 88)
+        shapes = (320, 176)
     elif kind == "logmel":
         rec = _Recorder(cuda_features.logmel_plain)
         monkeypatch.setattr(features, "fused_logmel", rec)
@@ -237,6 +257,33 @@ def test_prepared_attention_weights_rebuild_on_update():
     assert again[5] is not first[5]
     torch.testing.assert_close(
         again[5], att.linear_q.bias + att.pos_bias_u.reshape(16))
+
+
+def test_prepared_ffn_weights_rebuild_on_update():
+    """The FFN kernels' padded W1, W2, W1^T, W2^T in the working dtype:
+    built once per weight version, anew after an in-place update."""
+    from tpu_asr_torch.ops import cuda_ffn
+    torch.manual_seed(3)
+    ff = conformer.FeedForward(20, 72)
+    w1, w2 = ff.linear1.weight, ff.linear2.weight
+    first = cuda_ffn._kernel_weights(w1, w2, torch.bfloat16)
+    assert all(a is b for a, b in zip(
+        first, cuda_ffn._kernel_weights(w1, w2, torch.bfloat16)))
+    assert [tuple(a.shape) for a in first] == [(80, 32), (32, 80), (32, 80),
+                                               (80, 32)]
+    w1p, w2p, w1t, w2t = first
+    assert torch.equal(w1p[:72, :20], w1.to(torch.bfloat16))
+    assert torch.equal(w2t[:72, :20], w2.t().to(torch.bfloat16))
+    assert torch.equal(w1t[:20, :72], w1.t().to(torch.bfloat16))
+    assert w1p[72:].abs().sum() == 0 and w1p[:, 20:].abs().sum() == 0
+    with torch.no_grad():                       # an optimizer step
+        w2.add_(0.5)
+    again = cuda_ffn._kernel_weights(w1, w2, torch.bfloat16)
+    assert again[1] is not first[1]
+    assert torch.equal(again[1][:20, :72], w2.to(torch.bfloat16))
+    assert torch.equal(again[3][:72, :20], w2.t().to(torch.bfloat16))
+    fp32 = cuda_ffn._kernel_weights(w1, w2, torch.float32)
+    assert fp32[0].dtype == torch.float32 and fp32[0] is not again[0]
 
 
 @pytest.mark.parametrize("t", [1024, 1025, 4000])

@@ -3,8 +3,9 @@
 // row-major (PyTorch's Linear layout, K contiguous in both), C tile
 // 128 x 16 WN (WN = 4 or 6: 64 or 96 columns) in fp32 registers, handed
 // element by element to an epilogue. Shared by subsampling.cu (conv2 as an
-// implicit GEMM, the out-Linear) and attention.cu (the bf16 projections;
-// gemm_tn_tile: its bf16 weight gradients).
+// implicit GEMM, the out-Linear), attention.cu (the bf16 projections;
+// gemm_tn_tile: its bf16 weight gradients) and ffn.cu (gemm_tn_tile in
+// both dtypes: the weight gradients).
 //
 // K is walked in 64-byte tiles (32 bf16 or 16 fp32 values) through a
 // 3-stage ring of cp.async 16-byte copies, so K must be a multiple of
@@ -307,6 +308,54 @@ __device__ void gemm_tn_tile(char* smem, const __nv_bfloat16* a, int na,
       for (int e = 0; e < 4; ++e)
         epi(i0 + wi + 16 * ii + g + (e / 2) * 8,
             j0 + wj + 8 * jn + 2 * t + (e % 2), acc[ii][jn][e]);
+}
+
+// The fp32 twin of gemm_tn_tile (the check dtype: SIMT FMAs, no TF32): the
+// same C tile over the same rows, without the ones column; the rows walked
+// 32 at a time through one shared stage of kTNSmemF32 bytes; 128 threads,
+// 16 x 4 outputs each.
+constexpr int kTNSmemF32 = kTNM * (128 + 64) * 4;   // 24,576 bytes
+
+template <class Epi>
+__device__ void gemm_tn_tile(char* smem, const float* a, int na,
+                             const float* b, int nb, int m_lo, int m_hi,
+                             int i0, int j0, Epi epi) {
+  float* as = reinterpret_cast<float*>(smem);   // 32 x 128
+  float* bs = as + kTNM * 128;                  // 32 x 64
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int m0 = m_lo; m0 < m_hi; m0 += kTNM) {
+    __syncthreads();
+    for (int p = tid; p < kTNM * 128; p += 128) {
+      const int r = p / 128, c = p % 128, m = m0 + r, i = i0 + c;
+      as[p] = (m < m_hi && i < na) ? a[(size_t)m * na + i] : 0.f;
+    }
+    for (int p = tid; p < kTNM * 64; p += 128) {
+      const int r = p / 64, c = p % 64, m = m0 + r, j = j0 + c;
+      bs[p] = (m < m_hi && j < nb) ? b[(size_t)m * nb + j] : 0.f;
+    }
+    __syncthreads();
+    for (int r = 0; r < kTNM; ++r) {
+      float av[16], bv[4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) av[i] = as[r * 128 + ty + 8 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[r * 64 + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      epi(i0 + ty + 8 * i, j0 + tx + 16 * j, acc[i][j]);
 }
 
 // The tile width (n8 tiles per warp, 4 or 6) that pads N least; a tie

@@ -1,8 +1,7 @@
 // Row-tile building blocks of 256-thread blocks that own 32 rows (8 warps x
 // 4 rows): a product of an fp32 tile in shared memory with a weight matrix
 // staged through shared memory in 32-deep chunks, and flax's LayerNorm of
-// the tile's rows. Used by the fused FFN (ffn.cu) and the fused Conformer
-// layer (layer.cu).
+// the tile's rows. Used by the fused Conformer layer (layer.cu).
 #pragma once
 
 #include "common.cuh"

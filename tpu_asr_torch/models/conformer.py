@@ -20,8 +20,9 @@ shape; 'auto' calls them where the kernel takes the shape and the plain
 versions elsewhere, as JAX's 'auto' falls back to XLA (`use_kernel`, asking
 each wrapper's own refusal predicate); 'xla' calls the plain versions. The
 FFN sublayers, as JAX routes them: in training the fused kernel ('pallas',
-or 'auto' where it takes the shape: its backward takes D <= 128) or its
-plain version, whatever `quantization` says; in eval with
+or 'auto' where its forward and backward fit shared memory: d88 to d256,
+as JAX's `ffn_train_kernel_fits` at B=32 x 15 s, not d512) or its plain
+version, whatever `quantization` says; in eval with
 `quantization='int8'` the int8 kernel (its plain version under 'xla'); in
 eval with `ffn_backend='pallas'` the fused kernel at dropout 0; otherwise
 plain PyTorch. The conv module runs the eval kernel with

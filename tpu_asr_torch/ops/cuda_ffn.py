@@ -18,10 +18,14 @@ the SiLU, 2 * (seed + b) + 1 over (t, D) on the output, kept values scaled by
 
 A CPU tensor runs the plain version (autograd differentiates it); a CUDA
 tensor launches the forward kernel and, under autograd, the backward
-kernels (`fused_ffn_sublayer_bwd`). The forward takes any D whose tiles fit
-shared memory (`fwd_smem`: the teacher's D=176 with d_ff 704 in eval, not
-D=512 with d_ff 2048); the backward takes D <= MAX_BWD_D = 128, and a call
-that would need it above that raises before the forward launches.
+kernels (`fused_ffn_sublayer_bwd`: three launches, one workspace). The
+kernels take W1, W2, W1^T and W2^T in the working dtype, zero-padded to
+multiples of 16, built once per weight version (`_kernel_weights`). Both
+take any D and d_ff whose row tiles fit shared memory (`fwd_smem`,
+`bwd_smem`): in training the student's d88/352, the teacher's d176/704
+and d256/1024, every width that JAX's `ffn_train_kernel_fits` admits at
+B=32 x 15 s; not d512/2048, which JAX refuses too. A call whose backward
+autograd would need beyond that raises before the forward launches.
 
 int8 serving, counterpart of tpu_asr/ops/pallas_ffn.py::
 fused_ffn_sublayer_int8 (eval only: it has no gradient and raises when
@@ -49,14 +53,26 @@ from tpu_asr_torch.ops.dropout import batch_streams, keep_mask, threshold
 from tpu_asr_torch.ops.quant import int8_matmul, quantize_weight
 
 EPS = 1e-6
-MAX_BWD_D = 128          # the backward's dW kernel keeps D in registers
 INT8_MAX_D, INT8_MAX_F = 512, 2048
 _INT8_ARGS = (K.INT,) + (K.PTR,) * 10 + (K.INT,) * 3 + (K.PTR,)
 _FWD_ARGS = ((K.INT,) + (K.PTR,) * 8 + (K.INT,) * 4 + (K.UINT,) * 2
              + (K.FLOAT, K.PTR))
-_BWD_ARGS = ((K.INT,) + (K.PTR,) * 20 + (K.INT,) * 6 + (K.UINT,) * 2
+_BWD_ARGS = ((K.INT,) + (K.PTR,) * 11 + (K.INT,) * 5 + (K.UINT,) * 2
              + (K.FLOAT, K.PTR))
 ROW_CHUNK = 512          # rows per weight-gradient partial in the backward
+# ffn.cu's row tiles per working dtype: (rows, padding elements per row)
+_TILE = {torch.bfloat16: (64, 8), torch.float32: (32, 4)}
+_RING = 2 * 64 * 80      # the least weight ring (ffn.cu Small): 2 x 64 x 80 B
+_RED = 8 * 64            # column-sum slots (fp32) of the backward
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _tile_bytes(dtype: torch.dtype, cols: int) -> int:
+    rows, pad = _TILE[dtype]
+    return rows * (_pad16(cols) + pad) * dtype.itemsize
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -93,27 +109,47 @@ def ffn_sublayer_plain(x, ln_w, ln_b, w1, b1, w2, b2, dropout_rate=0.0,
     return (x.float() + 0.5 * o).to(dt)
 
 
-def fwd_smem(d: int, f: int) -> int:
-    """Shared memory (bytes) of the forward kernel (ffn.cu fwd): the
-    32-row LN and hidden tiles and one staged weight chunk."""
-    return 4 * (32 * (d + f) + 32 * 129)
+def fwd_smem(d: int, f: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory (bytes) of the forward kernel (ffn.cu fwd_smem): the
+    LN and hidden row tiles and the least weight ring."""
+    return _tile_bytes(dtype, d) + _tile_bytes(dtype, f) + _RING
+
+
+def bwd_smem(d: int, f: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory (bytes) of the backward's row-tile kernel (ffn.cu
+    bwd_smem): the y, do and dh1 tiles, the ring, the column-sum slots, the
+    rows' LN statistics and output-mask streams."""
+    return (2 * _tile_bytes(dtype, d) + _tile_bytes(dtype, f) + _RING
+            + 4 * (_RED + 4 * _TILE[dtype][0]))
+
+
+def bwd_workspace(dtype: torch.dtype, m: int, d: int, f: int) -> int:
+    """Bytes of the backward's one workspace (ffn.cu bwd): y, do, hd and dh1
+    in the working dtype, then the fp32 per-tile and per-row-chunk
+    partials."""
+    tiles = -(-m // _TILE[dtype][0])
+    chunks = -(-m // ROW_CHUNK)
+    return (2 * m * (_pad16(d) + _pad16(f)) * dtype.itemsize
+            + 4 * (tiles * (3 * d + f) + chunks * 2 * f * d))
 
 
 def ffn_refusal(dtype: torch.dtype, d: int, f: int,
                 train: bool) -> Optional[str]:
-    """Why the kernels would refuse D, d_ff and dtype: the forward takes
-    any D whose tiles fit shared memory, the backward (needed when
-    `train`) D <= MAX_BWD_D; None when they take it."""
+    """Why the kernels would refuse D, d_ff and dtype: the forward's row
+    tiles, and when `train` the backward's, must fit shared memory; None
+    when they take it."""
     if dtype not in (torch.float32, torch.bfloat16):
         return f"fused_ffn_sublayer: unsupported dtype {dtype}"
-    if fwd_smem(d, f) > K.SMEM_LIMIT:
-        return (f"fused_ffn_sublayer: D={d}, d_ff={f} needs "
-                f"{fwd_smem(d, f)} B of shared memory in the forward kernel "
-                f"(> {K.SMEM_LIMIT})")
-    if train and d > MAX_BWD_D:
-        return (f"fused_ffn_sublayer: the backward kernel takes D <= "
-                f"{MAX_BWD_D} (got D={d}); call it without gradients (eval) "
-                f"or use the plain version")
+    need = [("forward", fwd_smem(d, f, dtype), "use the plain version")]
+    if train:
+        need.append(("backward", bwd_smem(d, f, dtype),
+                     "call it without gradients (eval) or use the plain "
+                     "version"))
+    for what, nbytes, hint in need:
+        if nbytes > K.SMEM_LIMIT:
+            return (f"fused_ffn_sublayer: D={d}, d_ff={f} needs {nbytes} B "
+                    f"of shared memory in the {what} kernel "
+                    f"(> {K.SMEM_LIMIT}); {hint}")
     return None
 
 
@@ -135,6 +171,23 @@ def _drop_args(rate: float, seed: int):
     return int(seed) & 0xFFFFFFFF, thresh, 1.0 / (1.0 - rate) if rate else 1.0
 
 
+@K.prepared
+def _kernel_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype):
+    """(W1, W2, W1^T, W2^T) in `dtype`, zero-padded to multiples of 16:
+    (Fp, Dp), (Dp, Fp), (Dp, Fp), (Fp, Dp), as ffn.cu reads them. Built
+    once per weight version."""
+    f, d = w1.shape
+    fp, dp = _pad16(f), _pad16(d)
+
+    def pad(w, rows, cols):
+        out = torch.zeros(rows, cols, dtype=dtype, device=w.device)
+        out[:w.shape[0], :w.shape[1]] = w
+        return out
+
+    w1p, w2p = pad(w1, fp, dp), pad(w2, dp, fp)
+    return w1p, w2p, w1p.t().contiguous(), w2p.t().contiguous()
+
+
 class _FFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, rate, seed):
@@ -142,23 +195,23 @@ class _FFN(torch.autograd.Function):
         b, t, d = x.shape
         f = w1.shape[0]
         xc = x.contiguous()
-        w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+        w1p, w2p = _kernel_weights(w1, w2, dt)[:2]
         vec = [z.float().contiguous() for z in (ln_w, ln_b, b1, b2)]
         out = torch.empty_like(xc)
-        tensors = (xc, vec[0], vec[1], w1c, vec[2], w2c, vec[3], out)
+        tensors = (xc, vec[0], vec[1], w1p, vec[2], w2p, vec[3], out)
         K.check_cuda("fused_ffn_sublayer", *tensors)
         K.call("tat_ffn_fwd", _FWD_ARGS, x.device, int(dt == torch.bfloat16),
                *(z.data_ptr() for z in tensors), b * t, t, d, f,
                *_drop_args(rate, seed))
         fused_ffn_sublayer.launches += 1
         ctx.rate, ctx.seed = rate, seed
-        ctx.save_for_backward(xc, vec[0], vec[1], w1c, vec[2], w2c)
+        ctx.save_for_backward(xc, vec[0], vec[1], w1, vec[2], w2)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        xc, ln_w, ln_b, w1c, b1, w2c = ctx.saved_tensors
-        grads = fused_ffn_sublayer_bwd(xc, ln_w, ln_b, w1c, b1, w2c, g,
+        xc, ln_w, ln_b, w1, b1, w2 = ctx.saved_tensors
+        grads = fused_ffn_sublayer_bwd(xc, ln_w, ln_b, w1, b1, w2, g,
                                        ctx.rate, ctx.seed)
         return grads + (None, None)
 
@@ -166,29 +219,28 @@ class _FFN(torch.autograd.Function):
 def fused_ffn_sublayer_bwd(x, ln_w, ln_b, w1, b1, w2, g, dropout_rate=0.0,
                            dropout_seed: int = 0):
     """(dx, d ln_w, d ln_b, dw1, db1, dw2, db2) of the sublayer at x for the
-    cotangent g: two backward kernels and the fixed-order partial sums.
-    x, w1, w2 in the working dtype; the weight grads are fp32."""
+    cotangent g: the row-tile kernel, the weight-gradient kernel and the
+    fixed-order partial sums, one workspace. x in the working dtype, the
+    vectors fp32; the gradients are fp32 views of one buffer."""
     dt = x.dtype
     b, t, d = x.shape
     f = w1.shape[0]
     m = b * t
     dev = x.device
-    chunks = -(-m // ROW_CHUNK)
-    tiles = -(-m // 32)
-    f32 = lambda *s: torch.empty(s, device=dev)
+    w1p, _, w1t, w2t = _kernel_weights(w1, w2, dt)
     gc = g.to(dt).contiguous()
     dx = torch.empty_like(x)
-    scratch = (f32(tiles, d), f32(tiles, d), f32(chunks, f, d),
-               f32(chunks, d, f), f32(chunks, f), f32(chunks, d))
-    grads = (f32(d), f32(d), f32(f, d), f32(d, f), f32(f), f32(d))
-    tensors = (x, gc, ln_w, ln_b, w1, b1, w2, dx) + scratch + grads
+    work = torch.empty(bwd_workspace(dt, m, d, f), dtype=torch.uint8,
+                       device=dev)
+    grads = torch.empty(3 * d + f + 2 * f * d, device=dev)
+    tensors = (x, gc, ln_w, ln_b, w1p, b1, w2t, w1t, dx, work, grads)
     K.check_cuda("fused_ffn_sublayer_bwd", *tensors)
     K.call("tat_ffn_bwd", _BWD_ARGS, dev, int(dt == torch.bfloat16),
-           *(z.data_ptr() for z in tensors), m, t, d, f, ROW_CHUNK, chunks,
+           *(z.data_ptr() for z in tensors), m, t, d, f, ROW_CHUNK,
            *_drop_args(dropout_rate, dropout_seed))
     fused_ffn_sublayer_bwd.launches += 1
-    ds, dsb, dw1, dw2, db1, db2 = grads
-    return dx, ds, dsb, dw1, db1, dw2, db2
+    ds, dsb, db2, db1, dw1, dw2 = grads.split((d, d, d, f, f * d, f * d))
+    return dx, ds, dsb, dw1.view(f, d), db1, dw2.view(d, f), db2
 
 
 def fused_ffn_sublayer(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
@@ -196,7 +248,8 @@ def fused_ffn_sublayer(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
                        dropout_seed: int = 0) -> torch.Tensor:
     """Same contract as `ffn_sublayer_plain`. On the card, a shape the
     forward kernel does not take raises, and so does one whose backward
-    autograd would need (D > MAX_BWD_D), before anything launches."""
+    autograd would need and the backward kernel does not take
+    (`ffn_refusal`), before anything launches."""
     if x.device.type == "cpu":
         return ffn_sublayer_plain(x, ln_w, ln_b, w1, b1, w2, b2,
                                   dropout_rate, dropout_seed)

@@ -37,22 +37,26 @@ import torch
 SR = 16000
 SHAPES = ((32, 15.0), (8, 16.0))        # (clips, seconds)
 ITERS, TOP = 10, 8
-# kernel name prefixes of the port's own sources -> group
-GROUPS = (("ffn_int8_kernel", "ffn int8"), ("conv_module_kernel",
-                                            "conv module"),
+# names of the port's own kernels (csrc/*.cu; matched as substrings of the
+# profiler's names, first entry first) -> group
+GROUPS = (("ffn_int8_kernel", "ffn int8"),
+          ("conv_module_kernel", "conv module"),
           ("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
-          ("fm_partial_sum", "fm bwd"), ("core_kernel", "attention fwd"),
+          ("fm_partial_sum", "fm bwd"),
+          ("core_kernel", "attention fwd"),
           ("core_mma_kernel", "attention fwd"),
           ("proj_kernel", "attention proj"),
           ("proj_mma_kernel", "attention proj"),
-          ("dq_kernel", "attention bwd"), ("dkv_kernel", "attention bwd"),
+          ("dq_kernel", "attention bwd"), ("dq_mma_kernel", "attention bwd"),
+          ("dkv_kernel", "attention bwd"), ("dkv_mma_kernel", "attention bwd"),
           ("dpos_kernel", "attention bwd"), ("wgrad_kernel", "attention bwd"),
-          ("sum_parts_kernel", "attention bwd"), ("ffn_fwd", "ffn fwd"),
-          ("ffn_bwd", "ffn bwd"), ("sum_rows_kernel", "ffn bwd"),
+          ("wgrad_mma_kernel", "attention bwd"),
+          ("sum_parts_kernel", "attention bwd"),
+          ("ffn_fwd", "ffn fwd"), ("ffn_bwd", "ffn bwd"),
           ("ctc_fwd", "ctc fwd"), ("ctc_bwd", "ctc bwd"),
           ("conv1_kernel", "subsampling"), ("conv2_kernel", "subsampling"),
           ("linear_kernel", "subsampling"),
-          ("logmel", "logmel"))
+          ("logmel", "logmel"), ("layer_kernel", "conformer layer"))
 
 
 def group_of(name: str) -> str:

@@ -13,6 +13,10 @@ device time of each launch by kernel name.
   attention_bwd        fused_relpos_attention_block_bwd, bf16, the student's
                        sublayer (B=32, T=376, D=88, 2 heads, dropout 0.1)
   attention_heads_bwd  fused_relpos_attention_bwd, bf16, the same shape
+  ffn                  fused_ffn_sublayer, bf16, the student's sublayer
+                       (B=32, T=376, D=88, d_ff 352, dropout 0.1), fp32
+                       weights as the model holds them
+  ffn_bwd              fused_ffn_sublayer_bwd, bf16, the same shape
 
 --root TREE imports tpu_asr_torch from another checkout (a `git archive`
 of an earlier commit), so that two versions can be timed in turns within
@@ -26,7 +30,8 @@ import argparse
 import os
 import sys
 
-KERNELS = ("logmel", "attention_bwd", "attention_heads_bwd")
+KERNELS = ("logmel", "attention_bwd", "attention_heads_bwd", "ffn",
+           "ffn_bwd")
 BATCH, SECONDS, SR = 32, 15, 16000
 
 
@@ -148,6 +153,39 @@ def attention_heads_bwd_call(torch):
                                               seed)
 
 
+def ffn_args(torch):
+    """(x, LN scale, LN bias, w1, b1, w2, b2, rate, seed) at the student's
+    sublayer: x bf16, the parameters fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    enc, t, _ = student_shape(torch, gen)
+    d, f = enc.d_model, enc.d_ff
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    fw = (1.0 + n(d, sc=0.1), n(d, sc=0.1), n(f, d, sc=d ** -0.5),
+          n(f, sc=0.1), n(d, f, sc=f ** -0.5), n(d, sc=0.1))
+    x = n(BATCH, t, d).to(torch.bfloat16)
+    return (x, *fw, enc.dropout, 2 ** 31 - 5)
+
+
+def ffn_call(torch):
+    from tpu_asr_torch.ops.cuda_ffn import fused_ffn_sublayer
+
+    args = ffn_args(torch)
+    return lambda: fused_ffn_sublayer(*args)
+
+
+def ffn_bwd_call(torch):
+    from tpu_asr_torch.ops.cuda_ffn import (fused_ffn_sublayer,
+                                            fused_ffn_sublayer_bwd)
+
+    x, *fw, rate, seed = ffn_args(torch)
+    leaves = [z.detach().requires_grad_() for z in (x, *fw)]
+    out = fused_ffn_sublayer(*leaves, rate, seed)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device="cuda").manual_seed(61), device="cuda").to(torch.bfloat16)
+    saved = out.grad_fn.saved_tensors
+    return lambda: fused_ffn_sublayer_bwd(*saved, g, rate, seed)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -173,7 +211,8 @@ def main(argv=None) -> int:
     print(f"{label}: tpu_asr_torch from {where}, "
           f"{torch.cuda.get_device_name(0)}")
     makers = {"logmel": logmel_call, "attention_bwd": attention_bwd_call,
-              "attention_heads_bwd": attention_heads_bwd_call}
+              "attention_heads_bwd": attention_heads_bwd_call,
+              "ffn": ffn_call, "ffn_bwd": ffn_bwd_call}
     lines = []
     for name in args.kernels.split(","):
         fn = makers[name](torch)
