@@ -67,13 +67,18 @@ Phases, each on its own output lines:
      timed steps; the loss stays finite, every training kernel (forward and
      backward) launched, and ms per step, audio seconds per second and peak
      memory are printed.
-  8. fm kernels: the flow-matching Euler loop forward and backward against
-     its plain version at the flagship KD shapes (rows = 32 x 16 layers,
-     T'=376, C=88, H=128, 8 steps), fp32 and bf16, with both output
-     cotangents nonzero; a ragged case (per-row steps 1..16, max_steps 16,
-     fewer rows); two backward calls bit-equal; shapes outside the kernel's
-     build refused. Max error per output and per gradient against a stated
-     tolerance, median kernel and plain times and the bound.
+  8. fm kernels: ptxas's registers and spills of every FM kernel (the
+     build's nvcc.log); the flow-matching Euler loop forward and backward
+     against its plain version at the flagship KD shapes (rows = 32 x 16
+     layers, T'=376, C=88, H=128, 8 steps), fp32 (SIMT) and bf16 (tensor
+     cores), with both output cotangents nonzero; a ragged case (per-row
+     steps 1..16, max_steps 16, 48 rows) in both; bf16 at (C, H) = (64,
+     64) (64 rows, 8 steps) and (128, 256) (the ragged case); two backward
+     calls bit-equal at every shape; fp32 C=64, bf16 C=136, bf16 H=48 and
+     max_steps 17 refused. Max error per output and per gradient against a
+     stated tolerance; for the timed shapes median kernel and plain times,
+     the device time per launch (torch.profiler), the bound, and the
+     memory one backward call allocates.
   9. KD train: one flowkd_mlp8 train step (frozen ModelConfig() teacher,
      logit KD 0.1, FM-KT mlp 8 steps over 16 layers) in fp32 at full width
      on B=8 x 15 s, once on the kernels and once on the plain versions from
@@ -1234,9 +1239,9 @@ def timed_summary(ms: float) -> str:
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
-def fm_inputs(gen, rows, t, max_steps, steps=None):
-    """x0, steps, w1x, a, c, w2, b2 of the Euler loop at C=88, H=128."""
-    c, h = 88, 128
+def fm_inputs(gen, rows, t, max_steps, steps=None, c=88, h=128):
+    """x0, steps, w1x, a, c, w2, b2 of the Euler loop at C features and H
+    hidden units (the flagship's C=88, H=128 by default)."""
     if steps is None:
         steps = torch.full((rows,), max_steps, device="cuda")
     return (normal(gen, rows, t, c), steps, normal(gen, c, h, scale=c ** -0.5),
@@ -1247,12 +1252,15 @@ def fm_inputs(gen, rows, t, max_steps, steps=None):
 def fm_compare(args, max_steps, dt, label, time_it=False):
     """fused_fm_euler (forward and backward) against fm_euler_plain on the
     same inputs in compute dtype dt; returns (fwd row, bwd row) when
-    time_it, as train_kernel_phase's rows."""
+    time_it, as train_kernel_phase's rows, and prints the device time per
+    launch of each beside them."""
     from tpu_asr_torch.ops.cuda_fm import (fm_euler_plain, fused_fm_euler,
                                            fused_fm_euler_bwd)
     dts = str(dt)[6:]
     x0, steps, *w = args
     x0 = x0.to(dt)
+    c, h = w[0].shape
+    label = f"{label} C={c} H={h}"
     gen = torch.Generator(device="cuda").manual_seed(21)
     gx, gv = normal(gen, *x0.shape).to(dt), normal(gen, *x0.shape).to(dt)
     kw = dict(max_steps=max_steps, compute_dtype=dt)
@@ -1308,9 +1316,10 @@ def fm_compare(args, max_steps, dt, label, time_it=False):
         return None
     # the work this run's data needs: min(n, max_steps) steps per row
     row_steps = steps.clamp(min=1, max=max_steps).sum().item()
-    mac = x0.shape[1] * 88 * 128 * row_steps
+    mac = x0.shape[1] * c * h * row_steps
     n_bytes = nbytes(x0, *w) + 2 * nbytes(x0)
-    fwd = (max(errs), median_ms(lambda: fused_fm_euler(x0, steps, *w, **kw)),
+    fwd_call = lambda: fused_fm_euler(x0, steps, *w, **kw)
+    fwd = (max(errs), median_ms(fwd_call),
            median_ms(lambda: fm_euler_plain(x0, steps, *w, **kw), iters=5),
            bound(4 * mac, n_bytes, dts), None)
     plain_bwd = lambda: torch.autograd.grad(out_p, leaves_p, (gx, gv),
@@ -1318,15 +1327,79 @@ def fm_compare(args, max_steps, dt, label, time_it=False):
     bwd_row = (err_bwd, median_ms(bwd), median_ms(plain_bwd, iters=5),
                bound(12 * mac, nbytes(x0, gx, gv, *w) + nbytes(*g_k), dts),
                None)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bwd()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    with torch.no_grad():
+        fwd_dev = device_ms(fwd_call)
+    bwd_dev = device_ms(bwd)
+    for name, row, (dev_ms, names) in (("fm", fwd, fwd_dev),
+                                       ("fm_bwd", bwd_row, bwd_dev)):
+        print(f"time {name} {dts} ({label}): kernel {row[1]:.4f} ms, device "
+              f"{dev_ms:.4f} ms per launch ({top_kernels(names, 4)}), plain "
+              f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]}) "
+              f"(median of 20, plain of 5, CUDA events; torch.profiler)")
+    print(f"fm_bwd {dts} ({label}): {peak:.1f} MiB allocated by one call "
+          f"beyond its inputs (scratch and outputs)")
     return fwd, bwd_row
+
+
+def nvcc_registers(prefix: str):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    ptxas (nvcc.log of the built library, -Xptxas -v) for each kernel whose
+    name starts with `prefix`, each printed."""
+    import re
+
+    from tpu_asr_torch.ops import _kernels
+    log = (_kernels.build().parent / "nvcc.log").read_text()
+    out, name, spills = {}, None, (-1, -1)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = short_symbol(m.group(1)), (-1, -1)
+            continue
+        if name is None or not name.startswith(prefix):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name] = (int(m.group(1)), *spills)
+            print(f"ptxas {name}: {m.group(1)} registers, spill stores "
+                  f"{spills[0]} B, loads {spills[1]} B")
+            name = None
+    return out
+
+
+def short_symbol(name: str) -> str:
+    """A mangled kernel symbol of csrc (a namespace, then the kernel) as
+    `kernel` or `kernel<N>` (its first integer template argument)."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", name)
+    k = m and re.match(r"(\d+)", name[m.end() + int(m.group(1)):])
+    if not k:
+        return name
+    at = m.end() + int(m.group(1)) + k.end()
+    end = at + int(k.group(1))
+    arg = re.match(r"ILi(\d+)E", name[end:])
+    return name[at:end] + (f"<{arg.group(1)}>" if arg else "")
 
 
 def fm_kernel_phase():
     """The FM kernels against their plain version at the flagship KD
-    shapes, fp32 and bf16, a ragged case, and the refused shapes. Returns
-    {"fm": row, "fm_bwd": row} in bf16 (the main path's dtype)."""
+    shapes, fp32 and bf16, a ragged case, bf16 at two other widths, and
+    the refused shapes. Returns {"fm": row, "fm_bwd": row} in bf16 (the
+    main path's dtype)."""
     from tpu_asr_torch.ops.cuda_fm import fused_fm_euler
 
+    regs = nvcc_registers("fm_")
+    check(len(regs) >= 7 and all(st == 0 and ld == 0
+                                 for _, st, ld in regs.values()),
+          f"ptxas: {len(regs)} FM kernels, none spills")
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows, t, ms = BATCH * 16, 376, 8
     args = fm_inputs(gen, rows, t, ms)
@@ -1338,12 +1411,25 @@ def fm_kernel_phase():
     for dt in (torch.float32, torch.bfloat16):
         fm_compare(fm_inputs(gen, 48, t, 16, ragged), 16, dt,
                    f"rows=48 T={t} per-row steps 1..16, max_steps 16")
+    fm_compare(fm_inputs(gen, 64, t, ms, c=64, h=64), ms, torch.bfloat16,
+               f"rows=64 T={t} steps={ms}", time_it=True)
+    fm_compare(fm_inputs(gen, 48, t, 16, ragged, c=128, h=256), 16,
+               torch.bfloat16,
+               f"rows=48 T={t} per-row steps 1..16, max_steps 16",
+               time_it=True)
     x0, steps, w1, a, c, w2, b2 = fm_inputs(gen, 4, 9, 8)
-    for label, args, ms_ in (
-            ("C=64", (x0[..., :64], steps, w1[:64], a, c, w2[:, :64], b2), 8),
-            ("max_steps 17", (x0, steps, w1, a, c, w2, b2), 17)):
+    x136, _, w136, _, _, w2_136, b136 = fm_inputs(gen, 4, 9, 8, c=136)
+    for label, dt, args, ms_ in (
+            ("fp32 C=64", torch.float32,
+             (x0[..., :64], steps, w1[:64], a, c, w2[:, :64], b2[:64]), 8),
+            ("bf16 C=136", torch.bfloat16,
+             (x136, steps, w136, a, c, w2_136, b136), 8),
+            ("bf16 H=48", torch.bfloat16,
+             (x0, steps, w1[:, :48], a[:48], c[:48], w2[:48], b2), 8),
+            ("bf16 max_steps 17", torch.bfloat16,
+             (x0, steps, w1, a, c, w2, b2), 17)):
         refused(lambda: fused_fm_euler(*args, max_steps=ms_,
-                                       compute_dtype=torch.bfloat16),
+                                       compute_dtype=dt),
                 f"fused_fm_euler at {label}")
     for name, i in (("fm", 0), ("fm_bwd", 1)):
         for dt, rows_ in per_dt.items():

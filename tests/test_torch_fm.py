@@ -12,8 +12,12 @@ in interpret mode on the CPU, inputs made with numpy from a seed:
   output cotangents reach the backward, against jax.grad through the
   kernel's custom VJP: rtol 1e-4, atol 1e-5 (tests/test_pallas_fm.py's
   tolerance between the two JAX backends);
+- the same at a second width (C = 40, H = 64, ragged steps), which the
+  bf16 kernel takes and the fp32 kernel does not;
 - on CPU tensors the wrapper runs the plain loop and launches nothing, and
-  the kernel's argument check refuses what the CUDA kernel does not take.
+  the kernel's argument check refuses what the CUDA kernels do not take,
+  per dtype: bf16 any C % 8 == 0 up to 128 and H % 32 == 0 up to 256, fp32
+  C = 88 and H = 128 only, max_steps 1..16 and no float16 in either.
 """
 
 import jax
@@ -24,18 +28,21 @@ import torch
 
 from tpu_asr.ops.pallas_fm import fused_fm_euler as jax_fm
 from tpu_asr_torch.ops import _kernels
-from tpu_asr_torch.ops.cuda_fm import (check_kernel_args, fm_euler_plain,
+from tpu_asr_torch.ops.cuda_fm import (_aligned, check_kernel_args,
+                                       fm_euler_plain, fm_refusal,
                                        fused_fm_euler, fused_fm_euler_bwd)
 
 ROWS, T, C, H = 6, 9, 24, 32
 STEPS = {"uniform": ([3] * ROWS, 3), "per_row": ([1, 2, 3, 4, 2, 1], 4)}
+WIDE = (40, 64)                          # a second (C, H): bf16 only
+WIDE_STEPS = ([5, 1, 3, 6, 2, 4], 6)
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, c=C, h=H):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)
-    return (f(ROWS, T, C), f(C, H, scale=C ** -0.5), f(H, scale=0.3),
-            f(H, scale=0.1), f(H, C, scale=H ** -0.5), f(C, scale=0.1))
+    return (f(ROWS, T, c), f(c, h, scale=c ** -0.5), f(h, scale=0.3),
+            f(h, scale=0.1), f(h, c, scale=h ** -0.5), f(c, scale=0.1))
 
 
 def _jax_run(args, steps, ms, dtype):
@@ -65,11 +72,24 @@ def test_plain_matches_pallas_kernel(kind, dtype):
                                    atol=tol, err_msg=name)
 
 
-@pytest.mark.parametrize("kind", sorted(STEPS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_kernel_at_another_width(dtype):
+    steps, ms = WIDE_STEPS
+    args = _inputs(4, *WIDE)
+    want = _jax_run(args, steps, ms, getattr(jnp, dtype))
+    got = _port_run(args, steps, ms, getattr(torch, dtype))
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    for g, w, name in zip(got, want, ("x_final", "last_v")):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), rtol=tol,
+                                   atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", sorted(STEPS) + ["wide"])
 def test_gradients_match_pallas_kernel(kind):
-    steps, ms = STEPS[kind]
-    args = _inputs(1)
-    r = np.random.default_rng(2).normal(size=(ROWS, T, C)).astype(np.float32)
+    steps, ms = WIDE_STEPS if kind == "wide" else STEPS[kind]
+    args = _inputs(1, *WIDE) if kind == "wide" else _inputs(1)
+    r = np.random.default_rng(2).normal(size=args[0].shape).astype(np.float32)
 
     def jax_obj(*z):
         x, v = jax_fm(z[0], jnp.asarray(steps, jnp.int32), *z[1:],
@@ -99,15 +119,50 @@ def test_wrapper_runs_plain_on_cpu_and_launches_nothing():
     assert _kernels.library.cache_info().currsize == 0
 
 
-@pytest.mark.parametrize("case", ["c64", "h64", "steps17", "steps0",
-                                  "float16"])
+# case: (C, H, max_steps, compute dtype) the kernels refuse, and a word of
+# the refusal (the limit it names)
+REFUSED = {
+    "c64": (64, 128, 8, torch.float32, "fp32 kernel takes C=88"),
+    "h64": (88, 64, 8, torch.float32, "fp32 kernel takes C=88, H=128"),
+    "steps17": (88, 128, 17, torch.bfloat16, "max_steps 17"),
+    "steps0": (88, 128, 0, torch.bfloat16, "max_steps 0"),
+    "float16": (88, 128, 8, torch.float16, "compute dtype"),
+    "bf16_c136": (136, 128, 8, torch.bfloat16, "C % 8 == 0 up to 128"),
+    "bf16_c90": (90, 128, 8, torch.bfloat16, "C % 8 == 0 up to 128"),
+    "bf16_h272": (88, 272, 8, torch.bfloat16, "H % 32 == 0 up to 256"),
+    "bf16_h48": (88, 48, 8, torch.bfloat16, "H % 32 == 0 up to 256"),
+    "fp32_steps17": (88, 128, 17, torch.float32, "max_steps 17"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
 def test_kernel_refuses_shapes_outside_its_build(case):
-    c = 64 if case == "c64" else 88
-    h = 64 if case == "h64" else 128
-    ms = {"steps17": 17, "steps0": 0}.get(case, 8)
-    dtype = torch.float16 if case == "float16" else torch.bfloat16
+    c, h, ms, dtype, why = REFUSED[case]
     x0 = torch.zeros(2, 5, c, dtype=dtype)
     check_kernel_args(torch.zeros(2, 5, 88), torch.zeros(88, 128),
                       torch.zeros(128, 88), 16, torch.bfloat16)
-    with pytest.raises(ValueError, match="fused_fm_euler"):
+    with pytest.raises(ValueError, match="fused_fm_euler") as err:
         check_kernel_args(x0, torch.zeros(c, h), torch.zeros(h, c), ms, dtype)
+    assert why in str(err.value)
+
+
+@pytest.mark.parametrize("c,h", [(64, 64), (40, 64), (8, 32), (128, 256),
+                                 (88, 128)])
+def test_bf16_kernel_takes_its_widths(c, h):
+    """bf16: any C % 8 == 0 up to 128 and H % 32 == 0 up to 256, 1..16
+    steps; fp32 only the flagship's C = 88, H = 128."""
+    for ms in (1, 16):
+        assert fm_refusal(c, h, ms, torch.bfloat16) is None
+        check_kernel_args(torch.zeros(2, 5, c, dtype=torch.bfloat16),
+                          torch.zeros(c, h), torch.zeros(h, c), ms,
+                          torch.bfloat16)
+    assert (fm_refusal(c, h, 8, torch.float32) is None) == ((c, h) ==
+                                                            (88, 128))
+
+
+def test_aligned_copies_only_misaligned_views():
+    base = torch.arange(40, dtype=torch.bfloat16)
+    assert _aligned(base) is base
+    view = base[3:35]
+    copy = _aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)

@@ -11,7 +11,9 @@
   backward does not: refused only under autograd; d512/2048, where the
   forward does not fit either and JAX's `ffn_train_kernel_fits` refuses
   too; d88 to d256 agree with it),
-  the FM loop (C=176, max_steps 17)
+  the FM loop (C=176, max_steps 17; a student of C=64 with hidden_dim 64,
+  refused in fp32 and taken in bf16, whose kernel takes any C % 8 == 0 up
+  to 128 and H % 32 == 0 up to 256)
   and the log-mel frontend (n_fft 402 and 4096 refused; 512 takes the FFT
   kernel, 400 the DFT kernel), each beside a shape the kernel takes.
 - The forward passes follow the resolution: with the kernel wrapper
@@ -53,9 +55,11 @@ def _layer(backend, d):
                                         ffn_backend=backend))
 
 
-def _fm(backend, c):
+def _fm(backend, c, hidden=128, dtype=torch.float32):
     return FlowMatchingModule(FlowMatchingConfig(student_dim=c,
-                                                 euler_backend=backend))
+                                                 hidden_dim=hidden,
+                                                 euler_backend=backend),
+                              dtype)
 
 
 def _route(kind, backend, shape):
@@ -78,8 +82,8 @@ def _route(kind, backend, shape):
         layer = _layer(backend, shape)
         x = torch.zeros(2, 5, shape, requires_grad=True)
         return layer.ffn_train_uses_kernel(x, layer.feed_forward1)
-    c, max_steps = shape
-    fm = _fm(backend, c)
+    c, max_steps, *hidden_dtype = shape
+    fm = _fm(backend, c, *hidden_dtype)
     return fm.uses_kernel(fm.euler_weights()[0], max_steps)
 
 
@@ -95,6 +99,7 @@ CASES = [
     ("attention_train", (torch.float32, 1100), (torch.bfloat16, 1100)),
     ("logmel", 402, 512),
     ("logmel", 4096, 400),
+    ("fm", (64, 8, 64, torch.float32), (64, 8, 64, torch.bfloat16)),
 ]
 
 

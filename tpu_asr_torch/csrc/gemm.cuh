@@ -203,28 +203,41 @@ __device__ void gemm_tile(char* smem, ALoad& a, const T* b, int n_len,
 // A tile of C = A^T B for 128 threads, bf16 on the tensor cores: A (M, NA)
 // and B (M, NB) row-major, reduced over the rows m in [m_lo, m_hi) (the
 // weight gradients: activations^T x inputs, both stored row by row). C tile
-// rows i0 .. i0 + 127 (columns of A), columns j0 .. j0 + 63 (columns of B;
-// with `ones`, column NB of B reads 1, so that C's column NB holds the
-// column sums of A: the bias gradients). The rows are walked 32 at a time
-// through a 3-stage ring of 16-byte cp.async copies (NA % 8 == 0,
+// rows i0 .. i0 + 127 (columns of A), columns j0 .. j0 + WJ - 1 (columns of
+// B, WJ = 64 or 128; with `ones`, column NB of B reads 1, so that C's column
+// NB holds the column sums of A: the bias gradients). The rows are walked 32
+// at a time through a 3-stage ring of 16-byte cp.async copies (NA % 8 == 0,
 // NB % 8 == 0, rows 16-byte aligned); pieces past the last row or column
 // are zero-filled by the copy. Both operands are read transposed through
-// ldmatrix.trans: staged rows are 272 (A) and 144 (B) bytes apart, odd
+// ldmatrix.trans: staged rows are 272 (A) and 2 WJ + 16 (B) bytes apart, odd
 // multiples of 16, so the eight rows an ldmatrix reads fall in distinct
-// banks. 4 warps in 2 x 2, each a 64 x 32 tile (4 x 4 m16n8k16 products
-// per 16-row step).
+// banks. 4 warps in 2 x 2, each a 64 x WJ / 2 tile (4 x WJ / 16 m16n8k16
+// products per 16-row step).
 // ---------------------------------------------------------------------------
 
 constexpr int kTNM = 32;               // rows of m per stage
 constexpr int kTNA = 128 * 2 + 16;     // bytes per staged A row
-constexpr int kTNB = 64 * 2 + 16;      // bytes per staged B row
-constexpr int kTNStage = kTNM * (kTNA + kTNB);
-constexpr int kTNSmem = kGStages * kTNStage;   // 39,936 bytes
+template <int WJ>
+__host__ __device__ constexpr int tn_b_row() {   // bytes per staged B row
+  return WJ * 2 + 16;
+}
+template <int WJ>
+__host__ __device__ constexpr int tn_stage() {
+  return kTNM * (kTNA + tn_b_row<WJ>());
+}
+template <int WJ>  // 39,936 bytes at WJ = 64, 52,224 at 128
+__host__ __device__ constexpr int tn_smem() {
+  return kGStages * tn_stage<WJ>();
+}
+constexpr int kTNSmem = tn_smem<64>();
 
-template <class Epi>
+template <int WJ = 64, class Epi>
 __device__ void gemm_tn_tile(char* smem, const __nv_bfloat16* a, int na,
                              const __nv_bfloat16* b, int nb, bool ones,
                              int m_lo, int m_hi, int i0, int j0, Epi epi) {
+  static_assert(WJ == 64 || WJ == 128, "tile width");
+  constexpr int kB = tn_b_row<WJ>(), kStage = tn_stage<WJ>();
+  constexpr int kJT = WJ / 16;         // n8 tiles per warp
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nk = (m_hi - m_lo + kTNM - 1) / kTNM;
   auto issue = [&](int kt, char* st) {
@@ -238,61 +251,60 @@ __device__ void gemm_tn_tile(char* smem, const __nv_bfloat16* a, int na,
     }
     char* sb = st + kTNM * kTNA;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {      // B: 32 rows x 8 pieces
-      const int p = tid + 128 * u, r = p / 8, c = p % 8;
+    for (int u = 0; u < WJ / 32; ++u) {  // B: 32 rows x WJ / 8 pieces
+      const int p = tid + 128 * u, r = p / (WJ / 8), c = p % (WJ / 8);
       const int m = m0 + r, j = j0 + 8 * c;
       if (ones && j == nb) {
         const uint32_t one = m < m_hi ? 0x3F80u : 0u;   // bf16 1.0
-        *reinterpret_cast<uint4*>(sb + r * kTNB + c * 16) =
+        *reinterpret_cast<uint4*>(sb + r * kB + c * 16) =
             make_uint4(one, 0u, 0u, 0u);
       } else {
         const bool v = m < m_hi && j < nb;
-        cp_async16(sb + r * kTNB + c * 16, v ? b + (size_t)m * nb + j : b,
-                   v);
+        cp_async16(sb + r * kB + c * 16, v ? b + (size_t)m * nb + j : b, v);
       }
     }
   };
 #pragma unroll
   for (int s = 0; s < kGStages - 1; ++s) {
-    if (s < nk) issue(s, smem + s * kTNStage);
+    if (s < nk) issue(s, smem + s * kStage);
     cp_async_commit();
   }
 
-  float acc[4][4][4];
+  float acc[4][kJT][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kJT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const int wi = (warp % 2) * 64, wj = (warp / 2) * 32;
+  const int wi = (warp % 2) * 64, wj = (warp / 2) * (WJ / 2);
 
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<kGStages - 2>();
     __syncthreads();  // tile kt landed; tile kt - 1 is consumed
     const int nxt = kt + kGStages - 1;
-    if (nxt < nk) issue(nxt, smem + (nxt % kGStages) * kTNStage);
+    if (nxt < nk) issue(nxt, smem + (nxt % kGStages) * kStage);
     cp_async_commit();
-    const char* sa = smem + (kt % kGStages) * kTNStage;
+    const char* sa = smem + (kt % kGStages) * kStage;
     const char* sb = sa + kTNM * kTNA;
 #pragma unroll
     for (int kc = 0; kc < kTNM / 16; ++kc) {
-      uint32_t af[4][4], bf[2][4];
+      uint32_t af[4][4], bf[kJT / 2][4];
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
         ldmatrix_x4_trans(af[ii],
                           sa + (16 * kc + lane % 8 + (lane / 16) * 8) * kTNA +
                               (wi + 16 * ii + ((lane / 8) % 2) * 8) * 2);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
+      for (int jj = 0; jj < kJT / 2; ++jj)
         ldmatrix_x4_trans(bf[jj],
                           sb + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) *
-                                   kTNB +
+                                   kB +
                               (wj + 16 * jj + (lane / 16) * 8) * 2);
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-        for (int jn = 0; jn < 4; ++jn)
+        for (int jn = 0; jn < kJT; ++jn)
           mma_bf16(acc[ii][jn], af[ii], bf[jn / 2][(jn % 2) * 2],
                    bf[jn / 2][(jn % 2) * 2 + 1]);
     }
@@ -303,7 +315,7 @@ __device__ void gemm_tn_tile(char* smem, const __nv_bfloat16* a, int na,
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
+    for (int jn = 0; jn < kJT; ++jn)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         epi(i0 + wi + 16 * ii + g + (e / 2) * 8,

@@ -16,24 +16,30 @@ fp32 accumulation; h, v and x round to the compute dtype where the TPU
 kernel rounds them (`_fm_fwd_kernel`), so for fp32 nothing rounds.
 
 A CPU tensor runs the plain version (autograd differentiates it); a CUDA
-tensor launches `fm_fwd` and, under autograd, `fm_bwd` (a forward replay
-and the backward walk), or raises. The kernels take C = 88 features,
-H = 128 hidden units and max_steps <= 16, in fp32 or bf16.
+tensor launches the forward kernel and, under autograd, the backward (a
+forward replay and the backward walk, then the weight-gradient products),
+or raises. The kernels take max_steps <= 16; in bf16 (the tensor-core
+kernels) any C % 8 == 0 up to 128 features and H % 32 == 0 up to 256
+hidden units, in fp32 (the SIMT check kernels) C = 88 and H = 128.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from tpu_asr_torch.ops import _kernels as K
 
-KERNEL_C, KERNEL_H, MAX_STEPS = 88, 128, 16
+MAX_STEPS = 16
+FP32_C, FP32_H = 88, 128            # the fp32 kernels' only widths
+BF16_MAX_C, BF16_MAX_H = 128, 256   # bf16: C % 8 == 0, H % 32 == 0
 DTYPES = (torch.float32, torch.bfloat16)
-N_PART = 2 * KERNEL_C * KERNEL_H + 2 * KERNEL_H + KERNEL_C
-_FWD_ARGS = (K.INT,) + (K.PTR,) * 9 + (K.INT,) * 4 + (K.PTR,)
-_BWD_ARGS = (K.INT,) + (K.PTR,) * 12 + (K.INT,) * 4 + (K.PTR,)
+_FWD_ARGS = (K.INT,) + (K.PTR,) * 9 + (K.INT,) * 5 + (K.PTR,)
+_BWD_ARGS = (K.INT,) + (K.PTR,) * 12 + (K.INT,) * 5 + (K.PTR,)
+_SCRATCH_ARGS = (K.INT,) * 6 + (K.PTR, K.PTR)
 
 
 def fm_euler_plain(x0, steps, w1x, a, c, w2, b2, *, max_steps: int,
@@ -63,15 +69,24 @@ def fm_euler_plain(x0, steps, w1x, a, c, w2, b2, *, max_steps: int,
 def fm_refusal(c: int, hidden: int, max_steps: int,
                compute_dtype) -> Optional[str]:
     """Why the kernels would refuse C features, `hidden` units, max_steps
-    and compute_dtype, or None when they take them."""
-    if c != KERNEL_C or hidden != KERNEL_H:
-        return (f"fused_fm_euler: the kernel takes C={KERNEL_C}, "
-                f"H={KERNEL_H} (got C={c}, H={hidden})")
+    and compute_dtype (naming the limit the call breaks), or None when they
+    take them."""
+    if compute_dtype not in DTYPES:
+        return f"fused_fm_euler: unsupported compute dtype {compute_dtype}"
     if not 1 <= max_steps <= MAX_STEPS:
         return (f"fused_fm_euler: max_steps {max_steps} outside "
                 f"1..{MAX_STEPS}")
-    if compute_dtype not in DTYPES:
-        return f"fused_fm_euler: unsupported compute dtype {compute_dtype}"
+    if compute_dtype == torch.float32:
+        if (c, hidden) != (FP32_C, FP32_H):
+            return (f"fused_fm_euler: the fp32 kernel takes C={FP32_C}, "
+                    f"H={FP32_H} (got C={c}, H={hidden})")
+        return None
+    if c % 8 or not 8 <= c <= BF16_MAX_C:
+        return (f"fused_fm_euler: the bf16 kernel takes C % 8 == 0 up to "
+                f"{BF16_MAX_C} (got C={c})")
+    if hidden % 32 or not 32 <= hidden <= BF16_MAX_H:
+        return (f"fused_fm_euler: the bf16 kernel takes H % 32 == 0 up to "
+                f"{BF16_MAX_H} (got H={hidden})")
     return None
 
 
@@ -88,22 +103,37 @@ def check_kernel_args(x0, w1x, w2, max_steps: int, compute_dtype) -> None:
         raise ValueError(why)
 
 
-def _grid(device) -> int:
-    """One persistent block per SM (the backward's partial count)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it whose data start on 16 bytes (the kernels read
+    the weights in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _dims(x0, w1x):
+    """The C arguments after the flag: rows, T, C, H."""
+    rows, t, c = x0.shape
+    return rows, t, c, w1x.shape[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(device, bf16: int, rows: int, t: int, c: int, h: int,
+                   max_steps: int) -> int:
+    """Bytes of the backward's scratch (csrc/fm.cu::tat_fm_bwd_scratch)."""
+    size = ctypes.c_longlong(0)
+    K.call("tat_fm_bwd_scratch", _SCRATCH_ARGS, device, bf16, rows, t, c,
+           h, max_steps, ctypes.addressof(size))
+    return size.value
 
 
 class _FM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x0, n, w1x, a, c, w2, b2, max_steps):
-        rows, t, _ = x0.shape
         xo, vo = torch.empty_like(x0), torch.empty_like(x0)
         tensors = (x0, n, w1x, a, c, w2, b2, xo, vo)
         K.check_cuda("fused_fm_euler", *tensors)
         K.call("tat_fm_fwd", _FWD_ARGS, x0.device,
                int(x0.dtype == torch.bfloat16),
-               *(z.data_ptr() for z in tensors), rows, t, max_steps,
-               _grid(x0.device))
+               *(z.data_ptr() for z in tensors), *_dims(x0, w1x), max_steps)
         fused_fm_euler.launches += 1
         ctx.max_steps = max_steps
         ctx.save_for_backward(x0, n, w1x, a, c, w2, b2)
@@ -121,23 +151,24 @@ class _FM(torch.autograd.Function):
 def fused_fm_euler_bwd(x0, n, w1x, a, c, w2, b2, gx, gv, max_steps: int):
     """(dx, dW1x, da, dc, dW2, db2) for the cotangents gx of x_final and gv
     of last_v (None: zero). x0, w1x, w2 in the compute dtype, n, a, c, b2
-    fp32; dx in the compute dtype, the rest fp32 (one partial per block,
-    summed in a fixed order: bit-equal from call to call)."""
-    rows, t, _ = x0.shape
+    fp32; dx in the compute dtype, the rest fp32 (partials summed in a
+    fixed order: bit-equal from call to call)."""
     dev = x0.device
     zero = lambda g: (torch.zeros_like(x0) if g is None
-                      else g.to(x0.dtype).contiguous())
+                      else _aligned(g.to(x0.dtype).contiguous()))
     gx, gv = zero(gx), zero(gv)
-    grid = _grid(dev)
+    bf16 = int(x0.dtype == torch.bfloat16)
+    dims = _dims(x0, w1x)
+    _, _, cc, hh = dims
     dx = torch.empty_like(x0)
-    part = torch.empty(grid, N_PART, device=dev)
-    out = torch.empty(N_PART, device=dev)
-    tensors = (x0, n, w1x, a, c, w2, b2, gx, gv, dx, part, out)
+    scratch = torch.empty(_scratch_bytes(dev, bf16, *dims, max_steps),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty(2 * cc * hh + 2 * hh + cc, device=dev)
+    tensors = (x0, n, w1x, a, c, w2, b2, gx, gv, dx, scratch, out)
     K.check_cuda("fused_fm_euler_bwd", *tensors)
-    K.call("tat_fm_bwd", _BWD_ARGS, dev, int(x0.dtype == torch.bfloat16),
-           *(z.data_ptr() for z in tensors), rows, t, max_steps, grid)
+    K.call("tat_fm_bwd", _BWD_ARGS, dev, bf16,
+           *(z.data_ptr() for z in tensors), *dims, max_steps)
     fused_fm_euler_bwd.launches += 1
-    cc, hh = KERNEL_C, KERNEL_H
     dw1, dw2, da, dc, db2 = torch.split(out, (cc * hh, hh * cc, hh, hh, cc))
     return dx, dw1.view(cc, hh), da, dc, dw2.view(hh, cc), db2
 
@@ -156,9 +187,9 @@ def fused_fm_euler(x0, steps, w1x, a, c, w2, b2, *, max_steps: int,
     check_kernel_args(x0, w1x, w2, max_steps, compute_dtype)
     cdt, f32 = compute_dtype, torch.float32
     n = steps.to(f32).clamp(min=1.0).contiguous()
-    xo, vo = _FM.apply(x0.to(cdt).contiguous(), n, w1x.to(cdt).contiguous(),
-                       a.to(f32).contiguous(), c.to(f32).contiguous(),
-                       w2.to(cdt).contiguous(), b2.to(f32).contiguous(),
+    ready = lambda z, dt: _aligned(z.to(dt).contiguous())
+    xo, vo = _FM.apply(ready(x0, cdt), n, ready(w1x, cdt), ready(a, f32),
+                       ready(c, f32), ready(w2, cdt), ready(b2, f32),
                        max_steps)
     return xo.to(x0.dtype), vo.to(x0.dtype)
 

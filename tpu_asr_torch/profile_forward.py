@@ -42,7 +42,6 @@ ITERS, TOP = 10, 8
 GROUPS = (("ffn_int8_kernel", "ffn int8"),
           ("conv_module_kernel", "conv module"),
           ("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
-          ("fm_partial_sum", "fm bwd"),
           ("core_kernel", "attention fwd"),
           ("core_mma_kernel", "attention fwd"),
           ("proj_kernel", "attention proj"),

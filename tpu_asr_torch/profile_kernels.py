@@ -17,6 +17,11 @@ device time of each launch by kernel name.
                        (B=32, T=376, D=88, d_ff 352, dropout 0.1), fp32
                        weights as the model holds them
   ffn_bwd              fused_ffn_sublayer_bwd, bf16, the same shape
+  fm                   fused_fm_euler, bf16, the flowkd_mlp8 KD step's call
+                       (rows = 32 x 16 layers, T=376, C=88, H=128, 8
+                       steps), fp32 weights as the model holds them
+  fm_bwd               fused_fm_euler_bwd, bf16, the same shape, both output
+                       cotangents nonzero
 
 --root TREE imports tpu_asr_torch from another checkout (a `git archive`
 of an earlier commit), so that two versions can be timed in turns within
@@ -31,7 +36,7 @@ import os
 import sys
 
 KERNELS = ("logmel", "attention_bwd", "attention_heads_bwd", "ffn",
-           "ffn_bwd")
+           "ffn_bwd", "fm", "fm_bwd")
 BATCH, SECONDS, SR = 32, 15, 16000
 
 
@@ -186,6 +191,39 @@ def ffn_bwd_call(torch):
     return lambda: fused_ffn_sublayer_bwd(*saved, g, rate, seed)
 
 
+def fm_args(torch):
+    """(x0, steps, w1x, a, c, w2, b2) of the KD step's Euler loop: x0 bf16,
+    the weights fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    rows, t, c, h = BATCH * 16, 376, 88, 128
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    steps = torch.full((rows,), 8, dtype=torch.int32, device="cuda")
+    return (n(rows, t, c).to(torch.bfloat16), steps, n(c, h, sc=c ** -0.5),
+            n(h, sc=0.3), n(h, sc=0.1), n(h, c, sc=h ** -0.5), n(c, sc=0.1))
+
+
+def fm_call(torch):
+    from tpu_asr_torch.ops.cuda_fm import fused_fm_euler
+
+    args = fm_args(torch)
+    return lambda: fused_fm_euler(*args, max_steps=8,
+                                  compute_dtype=torch.bfloat16)
+
+
+def fm_bwd_call(torch):
+    from tpu_asr_torch.ops.cuda_fm import fused_fm_euler, fused_fm_euler_bwd
+
+    x0, steps, *w = fm_args(torch)
+    leaves = [z.detach().requires_grad_() for z in (x0, *w)]
+    xo, _ = fused_fm_euler(leaves[0], steps, *leaves[1:], max_steps=8,
+                           compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    gx, gv = (torch.randn(xo.shape, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    saved = xo.grad_fn.saved_tensors
+    return lambda: fused_fm_euler_bwd(*saved, gx, gv, 8)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -212,7 +250,8 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
     makers = {"logmel": logmel_call, "attention_bwd": attention_bwd_call,
               "attention_heads_bwd": attention_heads_bwd_call,
-              "ffn": ffn_call, "ffn_bwd": ffn_bwd_call}
+              "ffn": ffn_call, "ffn_bwd": ffn_bwd_call, "fm": fm_call,
+              "fm_bwd": fm_bwd_call}
     lines = []
     for name in args.kernels.split(","):
         fn = makers[name](torch)
