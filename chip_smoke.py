@@ -89,20 +89,26 @@ Phases, each on its own output lines:
      tokens: 2 warm-up steps, counters reset, 10 timed steps; losses finite,
      every kernel (the teacher's logmel, subsampling C=176 and attention
      forward included) launched; ms per step, audio s/s and peak memory.
-  10. eval kernels: the int8 FFN sublayer and the conv module against their
+  10. eval kernels: ptxas's registers and spills of the int8 FFN and conv
+     module kernels (none may spill); the int8 FFN sublayer and the conv
+     module against their
      plain versions at the int8 teacher's serving shape (B=32 x 15 s,
      T'=376, D=176, d_ff 704, conv k=31, ragged lengths), fp32 and bf16:
      the conv with folded batch norm, layer norm and a causal (30, 0)
-     context; both also at an odd T, at the student's D=88, and refusing a
-     shape outside their build. The int8 FFN: rows whose every quantized
-     value lies more than 1e-4 quanta from a rounding tie match to 1e-5
+     context; both also at an odd T, at the student's D=88, at
+     conformer-LARGE's D=512 (d_ff 2048; B=4, the largest shared-memory
+     tiles), and refusing a shape outside their build. The int8 FFN: rows
+     whose every quantized value lies more than 1e-4 quanta from a rounding tie match to 1e-5
      (one ulp in bf16); at most 1% of the rows differ beyond it (a quantization step flips
      where the LN sums run in another order; counts printed); max error
      2e-2 in fp32, 3e-2 of max(1, |ref|) in bf16. The conv within 1e-4 of
      the output's scale in fp32, 3e-2 in bf16. Median kernel and plain times, the
      bound, and beside the int8 FFN the bf16 eval FFN sublayer it replaces
-     (LN + two cuBLAS products). Also the fused FFN (rate 0) at the
-     teacher's D=176, d_ff 704, forward and backward against its plain
+     (LN + two cuBLAS products); beside the bf16 conv kernel the module path
+     it replaces (ConformerConvolution with conv_backend='auto': cuBLAS
+     products, cuDNN's depthwise conv), timed and its device time; the
+     device time a launch of both bf16 kernels (torch.profiler). Also the
+     fused FFN (rate 0) at the teacher's D=176, d_ff 704, forward and backward against its plain
      version by phase 6's rules, timed beside the bf16 eval FFN sublayer
      and the module path.
   11. int8 model: ModelConfig() with quantization='int8' and
@@ -205,10 +211,13 @@ def median_ms(fn, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, iters: int = 5):
+def device_ms(fn, iters: int = 5, per_launch: bool = False):
     """(device ms per call, {kernel: ms per call}) of fn() in
     torch.profiler: the union of the card's busy spans, so host work
-    between launches does not count."""
+    between launches does not count. With per_launch, each kernel's
+    recorded time over its recorded launches, which stays right when the
+    profiler drops some of the run's events (both per-call figures then
+    read low)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_asr_torch.profile_forward import device_activity
@@ -220,7 +229,8 @@ def device_ms(fn, iters: int = 5):
             fn()
         torch.cuda.synchronize()
     busy, _, names = device_activity(prof, iters)
-    return busy, {k: v[0] for k, v in names.items()}
+    return busy, {k: v[0] / v[1] if per_launch else v[0]
+                  for k, v in names.items()}
 
 
 def top_kernels(names, n: int = 3) -> str:
@@ -1376,7 +1386,8 @@ def nvcc_registers(prefix: str):
 
 def short_symbol(name: str) -> str:
     """A mangled kernel symbol of csrc (a namespace, then the kernel) as
-    `kernel` or `kernel<N>` (its first integer template argument)."""
+    `kernel`, `kernel<N>` (its first integer template argument) or
+    `kernel<float>` / `kernel<bf16>` (its first type argument)."""
     import re
 
     m = re.match(r"_ZN(\d+)", name)
@@ -1386,7 +1397,11 @@ def short_symbol(name: str) -> str:
     at = m.end() + int(m.group(1)) + k.end()
     end = at + int(k.group(1))
     arg = re.match(r"ILi(\d+)E", name[end:])
-    return name[at:end] + (f"<{arg.group(1)}>" if arg else "")
+    if arg:
+        return f"{name[at:end]}<{arg.group(1)}>"
+    typ = re.match(r"I(f|13__nv_bfloat16)", name[end:])
+    return name[at:end] + (f"<{'float' if typ.group(1) == 'f' else 'bf16'}>"
+                           if typ else "")
 
 
 def fm_kernel_phase():
@@ -1651,6 +1666,27 @@ def conv_compare(x, mask, w, pad, norm, label):
     return err
 
 
+def conv_module_path(enc, w):
+    """The port's ConformerConvolution with conv_backend='auto' on the card,
+    holding the conv kernel's weights w (the folded affine as a BatchNorm of
+    mean 0, variance 1 - eps), in eval."""
+    from tpu_asr_torch.models.conformer import ConformerConvolution
+    w1, b1, wd, bd, nw, nb, w2, b2 = w
+    mod = ConformerConvolution(dataclasses.replace(
+        enc, conv_backend="auto", conv_norm_type="batch_norm"))
+    bn = mod.batch_norm
+    sd = {"pointwise_conv1.weight": w1[..., None],
+          "pointwise_conv1.bias": b1, "depthwise_conv.weight": wd[:, None],
+          "depthwise_conv.bias": bd, "pointwise_conv2.weight": w2[..., None],
+          "pointwise_conv2.bias": b2, "batch_norm.weight": nw,
+          "batch_norm.bias": nb,
+          "batch_norm.running_mean": torch.zeros_like(nw),
+          "batch_norm.running_var": torch.full_like(nw, 1.0 - bn.eps),
+          "batch_norm.num_batches_tracked": torch.tensor(0)}
+    mod.load_state_dict(sd, strict=True)
+    return mod.cuda().eval()
+
+
 def eval_kernel_phase(cfg):
     """The int8 FFN and the conv module against their plain versions at the
     int8 teacher's serving shape. Returns {name: row} in bf16 (the main
@@ -1666,6 +1702,11 @@ def eval_kernel_phase(cfg):
                                             layer_norm)
     from tpu_asr_torch.ops.cuda_subsampling import out_len
 
+    regs = {**nvcc_registers("ffn_int8"), **nvcc_registers("conv_module")}
+    check(len(regs) >= 4 and all(st == 0 and ld == 0
+                                 for _, st, ld in regs.values()),
+          f"ptxas: {len(regs)} int8 FFN and conv module kernels, none "
+          f"spills")
     gen = torch.Generator(device="cuda").manual_seed(30)
     enc = cfg.encoder
     d, f, k = enc.d_model, enc.d_ff, enc.conv_kernel_size
@@ -1677,14 +1718,17 @@ def eval_kernel_phase(cfg):
     lengths[0] = t
     mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
 
-    def conv_weights(d_, k_):
-        return (normal(gen, 2 * d_, d_, scale=d_ ** -0.5),
-                normal(gen, 2 * d_, scale=0.1),
-                normal(gen, d_, k_, scale=k_ ** -0.5),
-                normal(gen, d_, scale=0.1), 1.0 + normal(gen, d_, scale=0.1),
-                normal(gen, d_, scale=0.1), normal(gen, d_, d_,
-                                                   scale=d_ ** -0.5),
-                normal(gen, d_, scale=0.1))
+    def conv_weights(d_, k_, g=gen):
+        return (normal(g, 2 * d_, d_, scale=d_ ** -0.5),
+                normal(g, 2 * d_, scale=0.1),
+                normal(g, d_, k_, scale=k_ ** -0.5),
+                normal(g, d_, scale=0.1), 1.0 + normal(g, d_, scale=0.1),
+                normal(g, d_, scale=0.1), normal(g, d_, d_, scale=d_ ** -0.5),
+                normal(g, d_, scale=0.1))
+
+    # the D=512 checks draw from their own generator, so that every other
+    # check of the phase sees the inputs it saw before they were added
+    gl = torch.Generator(device="cuda").manual_seed(31)
 
     # int8 FFN at D=176, d_ff 704
     fw = ffn_weights(gen, d, f)
@@ -1705,6 +1749,11 @@ def eval_kernel_phase(cfg):
     for dt in (torch.float32, torch.bfloat16):
         ffn_int8_compare(xs.to(dt), sw, f"student D=88, d_ff=352 "
                          f"(B={BATCH}, T={t})")
+    # conformer-LARGE's widths: the largest hq and yq tiles
+    lw = ffn_weights(gl, 512, 2048)
+    xl = normal(gl, 4, t, 512)
+    for dt in (torch.float32, torch.bfloat16):
+        ffn_int8_compare(xl.to(dt), lw, f"D=512, d_ff=2048 (B=4, T={t})")
     big = ffn_weights(gen, 520, 2048)
     refused(lambda: fused_ffn_sublayer_int8(normal(gen, 1, 4, 520), *big),
             "fused_ffn_sublayer_int8 at D=520")
@@ -1762,9 +1811,43 @@ def eval_kernel_phase(cfg):
     for dt in (torch.float32, torch.bfloat16):
         conv_compare(normal(gen, BATCH, t, 88).to(dt), mask, sw, pad,
                      "layer_norm", f"student D=88 (B={BATCH}, T={t})")
+    lw = conv_weights(512, k, gl)
+    xl = normal(gl, 4, t, 512)
+    for dt in (torch.float32, torch.bfloat16):
+        for norm in ("affine", "layer_norm"):
+            conv_compare(xl.to(dt), mask[:4], lw, pad, norm,
+                         f"D=512 (B=4, T={t}, k={k})")
     refused(lambda: fused_conv_module(
         normal(gen, 1, 8, d), mask[:1, :8], *conv_weights(d, 35), (17, 17)),
         "fused_conv_module at k=35")
+
+    # the bf16 module path the conv kernel replaces, as ConformerConvolution
+    # runs it with conv_backend='auto' (cuBLAS products, cuDNN's depthwise
+    # conv), on the same input and weights (the folded affine as a
+    # BatchNorm of mean 0 and variance 1 - eps)
+    conv_mod = conv_module_path(enc, cw)
+    xc16 = xc.to(torch.bfloat16)
+    with torch.no_grad():
+        mod_ms = median_ms(lambda: conv_mod(xc16, mask))
+        mod_dev = device_ms(lambda: conv_mod(xc16, mask), per_launch=True)
+        conv_dev = device_ms(lambda: fused_conv_module(xc16, mask, *cw, pad),
+                             per_launch=True)
+        ffn_dev = device_ms(lambda: fused_ffn_sublayer_int8(x16, *fw),
+                            per_launch=True)
+        err = (conv_mod(xc16, mask).float()
+               - fused_conv_module(xc16, mask, *cw, pad).float()).abs().max()
+    print(f"conv module path (bf16, 'auto') against the bf16 kernel: max "
+          f"|diff| {err.item():.3e} (each rounds to bf16 at other places)")
+    print(f"time conv module bfloat16 (B={BATCH}, T={t}, D={d}, k={k}): "
+          f"kernel {conv_dt[torch.bfloat16][1]:.4f} ms, device a launch "
+          f"{top_kernels(conv_dev[1], 1)}; module path (conv_backend="
+          f"'auto') {mod_ms:.4f} ms, device {mod_dev[0]:.4f} ms a call, a "
+          f"launch {top_kernels(mod_dev[1], 4)} (median of 20, CUDA events; "
+          f"torch.profiler)")
+    print(f"time ffn_int8 bfloat16 (B={BATCH}, T={t}, D={d}, d_ff={f}): "
+          f"kernel {per_dt[torch.bfloat16][1]:.4f} ms, device a launch "
+          f"{top_kernels(ffn_dev[1], 1)} (median of 20, CUDA events; "
+          f"torch.profiler)")
     for name, rows in (("ffn_int8", per_dt), ("conv_module", conv_dt)):
         for dt, (err, ms, plain_ms, (b_ms, by), _) in rows.items():
             print(f"time {name} {str(dt)[6:]}: kernel {ms:.4f} ms, plain "

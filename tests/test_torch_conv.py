@@ -5,7 +5,8 @@ the CPU, inputs made with numpy from a seed.
 
 - conv_module_plain in fp32 against the JAX ConformerConvolution's XLA
   path within 1e-5: folded batch norm with randomised statistics, layer
-  norm, and the causal context (k - 1, 0), ragged masks;
+  norm, and the causal context (k - 1, 0), ragged masks; also at D=512,
+  k=31 (folded batch norm; causal layer norm);
 - the same against fused_conv_module in interpret mode within rtol 2e-2,
   atol 1.2e-2: the Pallas kernel rounds its dot operands to bf16 even for
   fp32 input (the tolerance of tests/test_pallas_conv.py);
@@ -90,6 +91,20 @@ def _port_args(cfg, variables):
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_matches_jax_module(name):
     cfg, mod, variables, x, mask = _setup(name)
+    want = mod.apply(variables, jnp.asarray(x), jnp.asarray(mask), False)
+    args, kind = _port_args(cfg, variables)
+    got = conv_module_plain(torch.from_numpy(x), torch.from_numpy(mask),
+                            *args, cfg.conv_context, kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["batch_norm", "causal"])
+def test_plain_matches_jax_module_at_d512(name):
+    """conformer-LARGE's width, which the conv kernel takes and the Pallas
+    kernel refuses (D % 128 == 0 leaves it no spare lane for the mask)."""
+    cfg, mod, variables, x, mask = _setup(name, b=2, t=24, d=512, k=31,
+                                          seed=5)
     want = mod.apply(variables, jnp.asarray(x), jnp.asarray(mask), False)
     args, kind = _port_args(cfg, variables)
     got = conv_module_plain(torch.from_numpy(x), torch.from_numpy(mask),

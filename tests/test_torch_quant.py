@@ -5,7 +5,8 @@ package on the CPU, inputs made with numpy from a seed.
 - quantize_weight / quantize_activation: int8 values equal to JAX's, scales
   within 1 ulp; int8_dense at 1e-6 (the same exact integer sums);
 - ffn_sublayer_int8_plain against fused_ffn_sublayer_int8 in interpret
-  mode: fp32 at D=176 / d_ff=704 and at D=64 within 2e-4 (the kernel and
+  mode: fp32 at D=176 / d_ff=704, at D=64 and at conformer-LARGE's
+  D=512 / d_ff=2048 within 2e-4 (the kernel and
   the plain version take the same quantization decisions; only the order
   of the LN sums differs, about 1e-6), bf16 with odd T within 2e-2;
 - a 2-layer d64 CTCModel with quantization='int8' in eval against the JAX
@@ -96,7 +97,8 @@ def _pallas(x, p):
                        j(p["w2"]), j(p["b2"]), interpret=True)
 
 
-@pytest.mark.parametrize("b,t,d,f", [(2, 61, 176, 704), (3, 50, 64, 256)])
+@pytest.mark.parametrize("b,t,d,f", [(2, 61, 176, 704), (3, 50, 64, 256),
+                                     (1, 6, 512, 2048)])
 def test_plain_fp32_matches_pallas_interpret(b, t, d, f):
     rng = np.random.default_rng(3)
     p = _ffn_params(rng, d, f)

@@ -22,7 +22,8 @@
 - The kernel-layout weight copies (`_kernels.prepared`) are built once per
   weight version: reused while the weights stand, rebuilt after an
   in-place update and after a dtype change (subsampling, block attention,
-  FFN).
+  FFN, the int8 FFN, the conv module and its folded BatchNorm, which is
+  rebuilt after a change of its running statistics).
 """
 
 import pytest
@@ -289,6 +290,86 @@ def test_prepared_ffn_weights_rebuild_on_update():
     assert torch.equal(again[3][:72, :20], w2.t().to(torch.bfloat16))
     fp32 = cuda_ffn._kernel_weights(w1, w2, torch.float32)
     assert fp32[0].dtype == torch.float32 and fp32[0] is not again[0]
+
+
+def test_prepared_int8_weights_rebuild_on_update():
+    """The int8 FFN kernel's quantized, padded weights and fp32 vectors:
+    built once per weight version, anew after an in-place update."""
+    from tpu_asr_torch.ops import cuda_ffn
+    from tpu_asr_torch.ops.quant import quantize_weight
+    torch.manual_seed(4)
+    ff, ln = conformer.FeedForward(20, 72), torch.nn.LayerNorm(20)
+    args = (ln.weight, ln.bias, ff.linear1.weight, ff.linear1.bias,
+            ff.linear2.weight, ff.linear2.bias)
+    first = cuda_ffn._int8_weights(*args)
+    assert all(a is b for a, b in zip(first, cuda_ffn._int8_weights(*args)))
+    with torch.inference_mode():
+        again = cuda_ffn._int8_weights(*args)
+    assert all(a is b for a, b in zip(first, again))
+    w1q, s1 = quantize_weight(ff.linear1.weight)
+    assert [tuple(a.shape) for a in first] == [(20,), (20,), (72, 32), (72,),
+                                               (72,), (20, 96), (20,), (20,)]
+    assert first[2].dtype == torch.int8 and all(
+        first[i].dtype == torch.float32 for i in (0, 1, 3, 4, 6, 7))
+    assert torch.equal(first[2][:, :20], w1q) and first[2][:, 20:].eq(0).all()
+    assert torch.equal(first[3], s1[:, 0])
+    with torch.no_grad():                       # an optimizer step
+        ff.linear2.weight.mul_(2.0)
+    updated = cuda_ffn._int8_weights(*args)
+    assert updated[5] is not first[5] and updated[2] is not first[2]
+    w2q, s2 = quantize_weight(ff.linear2.weight)
+    assert torch.equal(updated[5][:, :72], w2q)
+    assert torch.equal(updated[6], s2[:, 0])
+
+
+def test_prepared_conv_weights_rebuild_on_update():
+    """The conv kernel's weights in its layout (bf16: W1's rows interleaved
+    by 8 channels, linear then gate, zero-padded) and the folded
+    BatchNorm: built once per version, anew after an in-place update of a
+    weight and of the running variance."""
+    from tpu_asr_torch.ops import cuda_conv
+    torch.manual_seed(5)
+    mod = conformer.ConformerConvolution(EncoderConfig(
+        d_model=20, conv_kernel_size=5, conv_backend="pallas")).eval()
+    pw1, dw, pw2 = mod.pointwise_conv1, mod.depthwise_conv, mod.pointwise_conv2
+    ws = lambda dt: cuda_conv._kernel_weights(
+        pw1.weight, pw1.bias, dw.weight, dw.bias, pw2.weight, pw2.bias, dt)
+    first = ws(torch.bfloat16)
+    assert all(a is b for a, b in zip(first, ws(torch.bfloat16)))
+    w1i, b1, wd, bd, w2p, b2 = first
+    assert tuple(w1i.shape) == (48, 32) and tuple(w2p.shape) == (20, 32)
+    w1 = pw1.weight[..., 0].to(torch.bfloat16)
+    for q in range(3):                          # channels 8q .. 8q + 7
+        n = min(8, 20 - 8 * q)
+        assert torch.equal(w1i[16 * q:16 * q + n, :20], w1[8 * q:8 * q + n])
+        assert torch.equal(w1i[16 * q + 8:16 * q + 8 + n, :20],
+                           w1[20 + 8 * q:20 + 8 * q + n])
+    assert w1i[:, 20:].eq(0).all() and w1i[36:40].eq(0).all()
+    assert torch.equal(w2p[:, :20], pw2.weight[..., 0].to(torch.bfloat16))
+    assert torch.equal(wd, dw.weight[:, 0].t())
+    fp32 = ws(torch.float32)
+    assert torch.equal(fp32[0], pw1.weight[..., 0]) and fp32[0] is not w1i
+    with torch.no_grad():
+        pw2.weight.add_(0.5)
+    updated = ws(torch.bfloat16)
+    assert updated[4] is not w2p
+    assert torch.equal(updated[4][:, :20],
+                       pw2.weight[..., 0].to(torch.bfloat16))
+
+    bn = mod.batch_norm
+    fold = lambda: conformer._prepared_fold(bn.weight, bn.bias,
+                                            bn.running_mean, bn.running_var,
+                                            bn.eps)
+    nw, nb = fold()
+    assert all(a is b for a, b in zip((nw, nb), fold()))
+    with torch.no_grad():                       # commit() of new statistics
+        bn.running_var.mul_(2.0)
+    nw2, nb2 = fold()
+    assert nw2 is not nw
+    torch.testing.assert_close(nw2, bn.weight * torch.rsqrt(
+        bn.running_var + bn.eps), rtol=0, atol=0)
+    torch.testing.assert_close((nw2, nb2), tuple(bn.folded()), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize("t", [1024, 1025, 4000])

@@ -1,14 +1,23 @@
 // Tensor-core and asynchronous-copy building blocks for sm_80 and later
 // (the port builds for sm_90a): cp.async copies into shared memory with
-// zero fill, ldmatrix fragment loads and the bf16 mma.sync.m16n8k16
-// product with fp32 accumulation. Used by subsampling.cu, attention.cu and
-// logmel.cu.
+// zero fill, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 product
+// with fp32 accumulation and the s8 mma.sync.m16n8k32 product with exact
+// int32 accumulation. Used by subsampling.cu, attention.cu, logmel.cu,
+// ffn.cu, fm.cu, conv.cu and ffn_int8.cu.
 //
 // Fragment layout of m16n8k16 (lane = 4 g + t): A (16 x 16, row-major)
 // a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),
 // a3 = (g + 8, 2t + 8..); B (16 x 8, k x n) b0 = (k 2t..2t+1, n g),
 // b1 = (k 2t + 8.., n g); the accumulator c0, c1 = (g, 2t..2t+1),
 // c2, c3 = (g + 8, 2t..2t+1).
+//
+// m16n8k32 s8 (lane = 4 g + t): the same layout with 4-byte units in place
+// of bf16 pairs: a0 = (g, k 4t..4t+3), a1 = (g + 8, 4t..), a2 = (g,
+// 16 + 4t..), a3 = (g + 8, 16 + 4t..); b0 = (k 4t..4t+3, n g), b1 = (k
+// 16 + 4t.., n g); the int32 accumulator as above. So an 8 x 8 b16 matrix
+// of ldmatrix (8 rows of 16 bytes) is an 8-row, 16-deep s8 slice in the
+// natural k order, and the bf16 fragment addressing loads s8 fragments
+// unchanged.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,6 +89,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b on the tensor cores, s8 operands, exact int32 accumulation.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

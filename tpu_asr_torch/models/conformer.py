@@ -49,7 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpu_asr_torch.config import EncoderConfig
-from tpu_asr_torch.ops._kernels import use_kernel
+from tpu_asr_torch.ops._kernels import prepared, use_kernel
 from tpu_asr_torch.ops.cuda_attention import (attention_refusal,
                                               fused_relpos_attention_block,
                                               relpos_attention_plain)
@@ -189,6 +189,17 @@ class FeedForward(nn.Module):
         return _linear(F.silu(_linear(x, self.linear1)), self.linear2)
 
 
+def fold_batch_norm(weight, bias, mean, var, eps: float):
+    """BatchNorm's running statistics as one per-channel affine (w, b)."""
+    w = weight * torch.rsqrt(var + eps)
+    return w, bias - mean * w
+
+
+# the fold for the eval kernel, built once per version of the BatchNorm's
+# parameters and statistics (rebuilt after `commit()` or a training step)
+_prepared_fold = prepared(fold_batch_norm)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over channels with NeMo's keys (weight, bias,
     running_mean, running_var, num_batches_tracked). Eval: the running
@@ -212,8 +223,8 @@ class MaskedBatchNorm(nn.Module):
 
     def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The running statistics as one per-channel fp32 affine (w, b)."""
-        w = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return w, self.bias - self.running_mean * w
+        return fold_batch_norm(self.weight, self.bias, self.running_mean,
+                               self.running_var, self.eps)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
@@ -289,14 +300,16 @@ class ConformerConvolution(nn.Module):
     def _fused(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         norm = self.batch_norm
         if isinstance(norm, MaskedBatchNorm):
-            (nw, nb), kind = norm.folded(), "affine"
+            nw, nb = _prepared_fold(norm.weight, norm.bias, norm.running_mean,
+                                    norm.running_var, norm.eps)
+            kind = "affine"
         else:
             nw, nb, kind = norm.weight, norm.bias, "layer_norm"
         pw1, dw, pw2 = (self.pointwise_conv1, self.depthwise_conv,
                         self.pointwise_conv2)
-        return fused_conv_module(x, mask, pw1.weight[..., 0], pw1.bias,
-                                 dw.weight[:, 0], dw.bias, nw, nb,
-                                 pw2.weight[..., 0], pw2.bias, self.pad, kind)
+        return fused_conv_module(x, mask, pw1.weight, pw1.bias, dw.weight,
+                                 dw.bias, nw, nb, pw2.weight, pw2.bias,
+                                 self.pad, kind)
 
 
 class ConformerLayer(nn.Module):

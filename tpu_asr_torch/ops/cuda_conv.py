@@ -10,10 +10,13 @@ fused_conv_module.
 
 No masking after pointwise 2: masked frames carry values there and the
 layer masks afterwards. Weights arrive in PyTorch layout: w1 (2D, D), wd
-(D, k), w2 (D, D). The products' operands are in x's dtype (fp32 or bf16)
-with fp32 accumulation, rounded where the Pallas kernel rounds its dot
-operands (x, the weights, the SiLU output); every other intermediate stays
-fp32. (The Pallas kernel rounds its operands to bf16 even for fp32 input;
+(D, k), w2 (D, D), or as the module's Conv1d weights (2D, D, 1), (D, 1, k),
+(D, D, 1). The kernel reads them in its own layout, built once per weight
+version (`_kernel_weights`; a model passes its parameters themselves, so
+that the copies are found again). The products' operands are in x's dtype
+(fp32 or bf16) with fp32 accumulation, rounded where the Pallas kernel
+rounds its dot operands (x, the weights, the SiLU output); every other
+intermediate stays fp32. (The Pallas kernel rounds its operands to bf16 even for fp32 input;
 the port keeps fp32 in fp32.) Unlike the Pallas kernel, any D up to 512
 runs: there is no lane to spare.
 
@@ -74,6 +77,33 @@ def conv_module_plain(x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2,
     return (h @ r(w2).t() + b2.float()).to(dt)
 
 
+def _pad(w: torch.Tensor, rows: int, cols: int, dtype) -> torch.Tensor:
+    out = torch.zeros(rows, cols, dtype=dtype, device=w.device)
+    out[:w.shape[0], :w.shape[1]] = w
+    return out
+
+
+@K.prepared
+def _kernel_weights(w1, b1, wd, bd, w2, b2, dtype: torch.dtype):
+    """(w1, b1, wd, bd, w2, b2) as conv.cu reads them: the vectors fp32,
+    wd (k, D) time-major fp32; in fp32 w1 (2D, D) and w2 (D, D); in bf16
+    w1 (2 pad8(D), pad16(D)) with its rows interleaved by 8 channels (the
+    linear rows of channels 8q.., then their gate rows) and w2 (D,
+    pad16(D)), zero past D. Built once per weight version."""
+    d = w2.shape[0]
+    w1, wd, w2 = w1.reshape(2 * d, d), wd.reshape(d, -1), w2.reshape(d, d)
+    vec = lambda z: z.float().contiguous()
+    if dtype == torch.float32:
+        w1k, w2k = vec(w1), vec(w2)
+    else:
+        d8, dk = -(-d // 8) * 8, -(-d // 16) * 16
+        halves = _pad(w1[:d], d8, dk, dtype), _pad(w1[d:], d8, dk, dtype)
+        w1k = torch.stack([h.view(d8 // 8, 8, dk) for h in halves],
+                          1).reshape(2 * d8, dk)
+        w2k = _pad(w2, d, dk, dtype)
+    return w1k, vec(b1), vec(wd.t()), vec(bd), w2k, vec(b2)
+
+
 def fused_conv_module(x: torch.Tensor, mask: torch.Tensor, w1, b1, wd, bd,
                       norm_w, norm_b, w2, b2, pad: Tuple[int, int],
                       norm: str = "affine") -> torch.Tensor:
@@ -82,32 +112,39 @@ def fused_conv_module(x: torch.Tensor, mask: torch.Tensor, w1, b1, wd, bd,
     args = (x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2)
     K.refuse_grad("fused_conv_module", *args)
     b, t, d = x.shape
-    k = wd.shape[1]
+    k = wd.shape[-1]
     pad_l, pad_r = (int(p) for p in pad)
     if norm not in NORMS or pad_l < 0 or pad_r < 0 or pad_l + pad_r + 1 != k:
         raise ValueError(f"fused_conv_module: norm {norm!r} (one of "
                          f"{NORMS}), padding {tuple(pad)} for {k} taps")
-    if x.device.type == "cpu":
-        return conv_module_plain(*args, pad, norm)
-    if not x.is_cuda:
-        raise ValueError(f"fused_conv_module: unsupported device {x.device}")
-    dt = x.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_conv_module: unsupported dtype {dt}")
-    if not (0 < d <= MAX_D and 0 < k <= MAX_K) or mask.shape != (b, t) \
-            or w1.shape != (2 * d, d) or wd.shape != (d, k) \
-            or w2.shape != (d, d):
+    if w1.shape not in ((2 * d, d), (2 * d, d, 1)) \
+            or wd.shape not in ((d, k), (d, 1, k)) \
+            or w2.shape not in ((d, d), (d, d, 1)) or mask.shape != (b, t):
         raise ValueError(f"fused_conv_module: shapes do not match x "
                          f"{tuple(x.shape)} (D <= {MAX_D}), mask "
                          f"{tuple(mask.shape)}, w1 {tuple(w1.shape)}, wd "
                          f"{tuple(wd.shape)} (k <= {MAX_K}), w2 "
                          f"{tuple(w2.shape)}")
+    if x.device.type == "cpu":
+        return conv_module_plain(x, mask, w1.reshape(2 * d, d), b1,
+                                 wd.reshape(d, k), bd, norm_w, norm_b,
+                                 w2.reshape(d, d), b2, pad, norm)
+    if not x.is_cuda:
+        raise ValueError(f"fused_conv_module: unsupported device {x.device}")
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_conv_module: unsupported dtype {dt}")
+    if not (0 < d <= MAX_D and 0 < k <= MAX_K):
+        raise ValueError(f"fused_conv_module: D={d} (<= {MAX_D}), k={k} "
+                         f"(<= {MAX_K})")
+    w1k, b1k, wdk, bdk, w2k, b2k = _kernel_weights(w1, b1, wd, bd, w2, b2, dt)
     vec = lambda z: z.float().contiguous()
     xc = x.contiguous()
     out = torch.empty_like(xc)
-    tensors = (xc, mask.to(torch.uint8).contiguous(), w1.to(dt).contiguous(),
-               vec(b1), wd.float().t().contiguous(), vec(bd), vec(norm_w),
-               vec(norm_b), w2.to(dt).contiguous(), vec(b2), out)
+    m8 = mask.contiguous()
+    m8 = m8.view(torch.uint8) if m8.dtype == torch.bool else m8.to(torch.uint8)
+    tensors = (xc, m8, w1k, b1k, wdk, bdk, vec(norm_w), vec(norm_b), w2k, b2k,
+               out)
     K.check_cuda("fused_conv_module", *tensors)
     K.call("tat_conv_module", _ARGS, x.device, int(dt == torch.bfloat16),
            *(z.data_ptr() for z in tensors), b, t, d, k, pad_l,

@@ -36,8 +36,9 @@ asked for one):
 with the LN output kept in fp32, per-token activation scales
 s = max(max|y|, 1e-8 * 127) * (1 / 127) and y_q = clip(round(y * (1 / s)),
 +-127) (a reciprocal, as the Pallas kernel writes it; ops/quant.py divides),
-and per-output-channel weights quantized by ops/quant.py on each call,
-outside the kernel, as the JAX wrapper does. In bf16 only x and the output
+and per-output-channel weights quantized by ops/quant.py outside the
+kernel, as the JAX wrapper does, but once per weight version
+(`_int8_weights`) and not on every call. In bf16 only x and the output
 round.
 """
 
@@ -285,6 +286,20 @@ def ffn_sublayer_int8_plain(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     return (x.float() + 0.5 * o).to(x.dtype)
 
 
+@K.prepared
+def _int8_weights(ln_w, ln_b, w1, b1, w2, b2):
+    """What ffn_int8.cu reads besides x: the LN scale and bias, W1q
+    (d_ff, pad32(D)) int8 zero past D, s1, b1, W2q (D, pad32(d_ff)) int8
+    zero past d_ff, s2 and b2 (the vectors fp32). Built once per weight
+    version."""
+    pad = lambda q: F.pad(q, (0, -q.shape[1] % 32)).contiguous()
+    vec = lambda z: z.float().contiguous()
+    w1q, s1 = quantize_weight(w1)
+    w2q, s2 = quantize_weight(w2)
+    return (vec(ln_w), vec(ln_b), pad(w1q), vec(s1[:, 0]), vec(b1), pad(w2q),
+            vec(s2[:, 0]), vec(b2))
+
+
 def fused_ffn_sublayer_int8(x: torch.Tensor, ln_w, ln_b, w1, b1, w2,
                             b2) -> torch.Tensor:
     """Same contract as `ffn_sublayer_int8_plain`; raises when autograd
@@ -307,14 +322,9 @@ def fused_ffn_sublayer_int8(x: torch.Tensor, ln_w, ln_b, w1, b1, w2,
             f"fused_ffn_sublayer_int8: shapes do not match x "
             f"{tuple(x.shape)} (D <= {INT8_MAX_D}), w1 {tuple(w1.shape)} "
             f"(d_ff <= {INT8_MAX_F}), w2 {tuple(w2.shape)}")
-    pad = lambda q: F.pad(q, (0, -q.shape[1] % 32)).contiguous()
-    w1q, s1 = quantize_weight(w1)
-    w2q, s2 = quantize_weight(w2)
     xc = x.contiguous()
     out = torch.empty_like(xc)
-    tensors = (xc, ln_w.float().contiguous(), ln_b.float().contiguous(),
-               pad(w1q), s1[:, 0].contiguous(), b1.float().contiguous(),
-               pad(w2q), s2[:, 0].contiguous(), b2.float().contiguous(), out)
+    tensors = (xc, *_int8_weights(*args[1:]), out)
     K.check_cuda("fused_ffn_sublayer_int8", *tensors)
     K.call("tat_ffn_int8", _INT8_ARGS, x.device, int(dt == torch.bfloat16),
            *(z.data_ptr() for z in tensors), xc.numel() // d, d, f)

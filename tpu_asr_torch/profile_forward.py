@@ -41,6 +41,7 @@ ITERS, TOP = 10, 8
 # profiler's names, first entry first) -> group
 GROUPS = (("ffn_int8_kernel", "ffn int8"),
           ("conv_module_kernel", "conv module"),
+          ("conv_module_mma_kernel", "conv module"),
           ("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
           ("core_kernel", "attention fwd"),
           ("core_mma_kernel", "attention fwd"),

@@ -22,6 +22,12 @@ device time of each launch by kernel name.
                        steps), fp32 weights as the model holds them
   fm_bwd               fused_fm_euler_bwd, bf16, the same shape, both output
                        cotangents nonzero
+  ffn_int8             fused_ffn_sublayer_int8, bf16, the int8 serve shape
+                       (ModelConfig(): B=32, T=376, D=176, d_ff 704), fp32
+                       weights as the model holds them
+  conv_module          fused_conv_module, bf16, the same shape (k=31, the
+                       folded BatchNorm's affine, symmetric padding), a
+                       ragged mask, fp32 weights
 
 --root TREE imports tpu_asr_torch from another checkout (a `git archive`
 of an earlier commit), so that two versions can be timed in turns within
@@ -36,7 +42,7 @@ import os
 import sys
 
 KERNELS = ("logmel", "attention_bwd", "attention_heads_bwd", "ffn",
-           "ffn_bwd", "fm", "fm_bwd")
+           "ffn_bwd", "fm", "fm_bwd", "ffn_int8", "conv_module")
 BATCH, SECONDS, SR = 32, 15, 16000
 
 
@@ -98,10 +104,13 @@ def logmel_call(torch):
     return lambda: fused_logmel(*args)
 
 
-def student_shape(torch, gen):
+def student_shape(torch, gen, teacher=False):
+    """(encoder config, T', ragged mask (B, T')) of the student, or of
+    ModelConfig() (the int8 serving model) with `teacher`."""
     from tpu_asr_torch.config import ModelConfig, make_student_config
 
-    enc = make_student_config(ModelConfig()).encoder
+    enc = (ModelConfig() if teacher
+           else make_student_config(ModelConfig())).encoder
     t = SECONDS * SR // 160 + 1
     for _ in range(2):                  # two stride-2 convolutions: 376
         t = (t - 1) // 2 + 1
@@ -224,6 +233,33 @@ def fm_bwd_call(torch):
     return lambda: fused_fm_euler_bwd(*saved, gx, gv, 8)
 
 
+def ffn_int8_call(torch):
+    from tpu_asr_torch.ops.cuda_ffn import fused_ffn_sublayer_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    enc, t, _ = student_shape(torch, gen, teacher=True)
+    d, f = enc.d_model, enc.d_ff
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    fw = (1.0 + n(d, sc=0.1), n(d, sc=0.1), n(f, d, sc=d ** -0.5),
+          n(f, sc=0.1), n(d, f, sc=f ** -0.5), n(d, sc=0.1))
+    x = n(BATCH, t, d).to(torch.bfloat16)
+    return lambda: fused_ffn_sublayer_int8(x, *fw)
+
+
+def conv_module_call(torch):
+    from tpu_asr_torch.ops.cuda_conv import fused_conv_module
+
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    enc, t, mask = student_shape(torch, gen, teacher=True)
+    d, k = enc.d_model, enc.conv_kernel_size
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    cw = (n(2 * d, d, sc=d ** -0.5), n(2 * d, sc=0.1), n(d, k, sc=k ** -0.5),
+          n(d, sc=0.1), 1.0 + n(d, sc=0.1), n(d, sc=0.1),
+          n(d, d, sc=d ** -0.5), n(d, sc=0.1))
+    x = n(BATCH, t, d).to(torch.bfloat16)
+    return lambda: fused_conv_module(x, mask, *cw, enc.conv_context)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -251,7 +287,8 @@ def main(argv=None) -> int:
     makers = {"logmel": logmel_call, "attention_bwd": attention_bwd_call,
               "attention_heads_bwd": attention_heads_bwd_call,
               "ffn": ffn_call, "ffn_bwd": ffn_bwd_call, "fm": fm_call,
-              "fm_bwd": fm_bwd_call}
+              "fm_bwd": fm_bwd_call, "ffn_int8": ffn_int8_call,
+              "conv_module": conv_module_call}
     lines = []
     for name in args.kernels.split(","):
         fn = makers[name](torch)
