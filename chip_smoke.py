@@ -17,7 +17,15 @@ Phases, each on its own output lines:
      printed beside it), and beside the main shape it checks an odd frame
      count from rows off 16-byte alignment, n_fft = 400 (the DFT kernel),
      n_fft = 1024 (the FFT kernel's radix-4/2 stages), mag_power 1 and log
-     False (relative 2e-3 on live bins), each with its device time.
+     False (relative 2e-3 on live bins), each with its device time. The
+     attention's segment mode (packed serving) at the packed serve shape,
+     16 rows x 512 (segments from plan_packing of serve-window lengths,
+     straddling the 64-key tiles; a lone 40-frame segment; an all-guard
+     row), fp32 and bf16 at the attention's tolerances on valid rows and
+     finite on every row; times, the bound from the within-segment score
+     pairs (beside it the pairs the bf16 core's span tiles visit and the
+     dense count) and the device time a launch beside
+     the unpacked kernel's at B=32 x T=401 (16 s buckets).
   4. model: ModelConfig() in float32 with seeded random weights and
      randomised BatchNorm statistics, run once on the kernels ('auto') and
      once with every backend 'xla': max |delta log-prob| < 2e-3, equal
@@ -144,6 +152,20 @@ Phases, each on its own output lines:
      T=1100 (B=2); dk=72 refused; times, bounds and the backward's device
      time per launch. Launch counters are reset before phases 14 and 15
      and must be above 0 after them.
+  16. packed serve: ModelConfig() in fp32 on phase 4's 8 clips,
+     forward_packed on the kernels (rows of 512, guard 16) unpacked per
+     utterance against the per-utterance CTCModel forward on the kernels:
+     max |delta log-prob| < 2e-3, and PackedTranscriber.greedy_ids equal to
+     its ids wherever the top-2 margin exceeds 1e-3; in bf16 the packed ids
+     equal to fp32 on >= 99% of the frames with margin > 1e-1. Then phase
+     5's window through PackedTranscriber (bf16): logmel, subsampling and
+     the attention's segment mode launched, every result a string, RTFx
+     beside phase 5's with the fill ratio and rows a request; and the
+     encoder layers' device time a request, packed against bucketed, with
+     the whole request's, on the first 4 requests.
+Device times (torch.profiler) are busy ms a call over the calls whose
+marker the profiler kept, and each kernel's recorded time over its
+recorded launches (`device_ms`).
 Then one JSON line of per-kernel results, and last the JSON device line.
 Any failed check exits non-zero before the last line.
 """
@@ -164,10 +186,12 @@ SECONDS, BATCH, SR = 15, 32, 16000
 SERVE_POOL, SERVE_BATCH, SERVE_WARMUP, SERVE_REQUESTS = 256, 32, 2, 64
 TOKENS, CHECK_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 48, 8, 2, 10
 LONG_T = 1100          # beyond the fp32 attention backward's T <= 1024
+PACK_ROWS, T_PACK = 16, 512    # the packed serve shape (PackedTranscriber)
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, data sheet
 # SIMT fp32, bf16 and int8 tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 FFN_GRADS = ["dx", "d_ln_scale", "d_ln_bias", "dw1", "db1", "dw2", "db2"]
+DEVICE = "torch.profiler: busy ms a call, each kernel's ms a launch"
 
 
 def check(ok, msg: str) -> None:
@@ -211,26 +235,27 @@ def median_ms(fn, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, iters: int = 5, per_launch: bool = False):
-    """(device ms per call, {kernel: ms per call}) of fn() in
-    torch.profiler: the union of the card's busy spans, so host work
-    between launches does not count. With per_launch, each kernel's
-    recorded time over its recorded launches, which stays right when the
-    profiler drops some of the run's events (both per-call figures then
-    read low)."""
+def device_ms(fn, iters: int = 5):
+    """(device ms per call, {kernel: ms a launch}) of fn() in
+    torch.profiler. Per call: the union of the card's busy spans, so host
+    work between launches does not count, over the calls whose marker the
+    profiler kept (profile_forward.mark_call); a kernel: its recorded time
+    over its recorded launches. Both stay right when the profiler drops
+    some of the run's events, which it sometimes does (3 of 5 launches):
+    a division by the calls made would then read low."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_asr_torch.profile_forward import device_activity
+    from tpu_asr_torch.profile_forward import device_activity, mark_call
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            mark_call()
             fn()
         torch.cuda.synchronize()
     busy, _, names = device_activity(prof, iters)
-    return busy, {k: v[0] / v[1] if per_launch else v[0]
-                  for k, v in names.items()}
+    return busy, {k: ms / n for k, (ms, n) in names.items()}
 
 
 def top_kernels(names, n: int = 3) -> str:
@@ -293,8 +318,8 @@ def kernel_phase(cfg):
     print(f"time logmel float32: bound from the FFT's {flops / 1e9:.3f} GFLOP "
           f"and {nb / 1e6:.1f} MB; the DFT-as-matmul count was "
           f"{dft / 1e9:.2f} GFLOP ({bound(dft, nb, 'float32')[0]:.4f} ms at "
-          f"the fp32 SIMT rate); device time (torch.profiler, busy ms per "
-          f"call) {dev:.4f} ({top_kernels(names)})")
+          f"the fp32 SIMT rate); device time ({DEVICE}) {dev:.4f} "
+          f"({top_kernels(names)})")
     logmel_cases(gen, pre)
 
     # subsampling at the model's C = D = 176 (timed) and at conformer-LARGE's
@@ -345,8 +370,8 @@ def kernel_phase(cfg):
             dev, names = device_ms(lambda: fused_subsampling(x, *w))
             print(f"time subsampling bfloat16 C={ch}: bf16 module path (two "
                   f"F.conv2d, ReLUs, flatten, F.linear; timed only) "
-                  f"{module_ms:.4f} ms; kernel device time (torch.profiler, "
-                  f"busy ms per call) {dev:.4f} ({top_kernels(names)})")
+                  f"{module_ms:.4f} ms; kernel device time ({DEVICE}) "
+                  f"{dev:.4f} ({top_kernels(names)})")
         else:
             print(f"time subsampling bfloat16 C={ch}: kernel "
                   f"{median_ms(lambda: fused_subsampling(x, *w)):.4f} ms")
@@ -395,14 +420,119 @@ def kernel_phase(cfg):
                   nbytes(x, *pw) + got.numel() * x.element_size(),
                   str(dt)[6:]), None)
     dev, names = device_ms(lambda: fused_relpos_attention_block(*aargs))
-    print(f"device attention bfloat16 (torch.profiler, busy ms per call): "
-          f"{dev:.4f} ({top_kernels(names, 4)})")
+    print(f"device attention bfloat16 ({DEVICE}): {dev:.4f} "
+          f"({top_kernels(names, 4)})")
+    results["attention_seg"] = segment_attention(gen, pw, d, h)
     for name, per_dt in results.items():
         for dt, (err, ms, plain_ms, (b_ms, by), _) in per_dt.items():
             print(f"time {name} {dt}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median "
                   f"of 20, CUDA events)")
     return results
+
+
+def packed_seg_map():
+    """(PACK_ROWS, T_PACK) int32 segment map at the packed serve shape: the
+    first rows from plan_packing of seeded serve-window lengths (25-376
+    frames: 1-15 s clips; guard 16), whose segments straddle the 64-key
+    tiles; the row before last one segment of 40 frames at frame 100,
+    shorter than a tile and off its edges; the last row all guard."""
+    from tpu_asr_torch.data.packing import plan_packing
+    rng = np.random.default_rng(16)
+    lengths, plan = [], None
+    while True:
+        trial = lengths + [int(rng.integers(25, 377))]
+        nxt = plan_packing(trial, T_PACK, 16)
+        if nxt.n_rows > PACK_ROWS - 2:
+            break
+        lengths, plan = trial, nxt
+    seg = np.zeros((PACK_ROWS, T_PACK), np.int32)
+    seg[:plan.n_rows] = plan.seg_id
+    seg[PACK_ROWS - 2, 100:140] = 1
+    return seg
+
+
+def segment_pairs(seg: np.ndarray) -> int:
+    """Score pairs (t, s) within one segment, over the rows of a map."""
+    return sum(int((np.bincount(r[r > 0]) ** 2).sum()) for r in seg)
+
+
+def span_pairs(seg: np.ndarray, tile: int = 64) -> int:
+    """Score pairs the bf16 segment core visits over the rows of a map:
+    per 64-query tile, its span's 64-key tiles (attention.cu's rule)."""
+    total = 0
+    for r in seg:
+        for q0 in range(0, len(r), tile):
+            ids = r[q0:q0 + tile]
+            ids = ids[ids > 0]
+            if len(ids):
+                keys = np.nonzero((r >= ids.min()) & (r <= ids.max()))[0]
+                total += ((-(-(keys[-1] + 1) // tile) - keys[0] // tile)
+                          * tile * min(tile, len(r) - q0))
+    return total
+
+
+def segment_attention(gen, pw, d, h):
+    """The block attention's segment mode against its plain version at the
+    packed serve shape (16 rows x 512, the serve model's widths), fp32 and
+    bf16 at the unpacked check's tolerances on valid rows, finite output on
+    every row; times, the device time a launch beside the unpacked
+    kernel's at the bucketed serve shape (B=32 x 16 s, T'=401), and the
+    bound from the within-segment score pairs. {dtype: result row}."""
+    from tpu_asr_torch.ops.cuda_attention import (
+        fused_relpos_attention_block, relpos_attention_plain)
+    from tpu_asr_torch.ops.positions import rel_positional_encoding
+
+    seg_np = packed_seg_map()
+    seg = torch.from_numpy(seg_np).cuda()
+    mask = seg > 0
+    t, dk = T_PACK, d // h
+    pos_emb = rel_positional_encoding(t, d, "cuda")
+    xs = normal(gen, PACK_ROWS, t, d, scale=0.5)
+    pairs, dense = segment_pairs(seg_np), PACK_ROWS * t * t
+    flops = (2 * PACK_ROWS * t * d * d * 4 + 2 * (2 * t - 1) * d * d
+             + 2 * h * pairs * dk * 3)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dts = str(dt)[6:]
+        aargs = (xs.to(dt), *pw, pos_emb, mask, h)
+        run = lambda: fused_relpos_attention_block(*aargs, seg_id=seg)
+        got = run().float()
+        want = relpos_attention_plain(*aargs, seg_id=seg).float()
+        torch.cuda.synchronize()
+        valid = mask[..., None]
+        err = ((got - want).abs() * valid).max().item()
+        rtol, atol = (1e-4, 1e-4) if dt == torch.float32 else (1e-2, 3e-3)
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got * valid, want * valid, rtol=rtol, atol=atol),
+            f"attention_seg {dts} ({PACK_ROWS} rows x {t}, D={d}, H={h}, "
+            f"{int(mask.sum())} valid frames, an all-guard row): finite, "
+            f"valid rows max |err| {err:.3e} (rtol {rtol}, atol {atol})")
+        rows[dts] = (err, median_ms(run),
+                     median_ms(lambda: relpos_attention_plain(*aargs,
+                                                              seg_id=seg)),
+                     bound(flops, nbytes(aargs[0], *pw, seg)
+                           + got.numel() * aargs[0].element_size(), dts),
+                     None)
+    dev, names = device_ms(run)
+    t_b = 401
+    lengths = torch.randint(t_b // 4, t_b + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    lengths[0] = t_b
+    xb = normal(gen, BATCH, t_b, d, scale=0.5).to(torch.bfloat16)
+    bargs = (xb, *pw, rel_positional_encoding(t_b, d, "cuda"),
+             torch.arange(t_b, device="cuda")[None, :] < lengths[:, None], h)
+    dev_b, names_b = device_ms(lambda: fused_relpos_attention_block(*bargs))
+    err, ms, plain_ms, (b_ms, by), _ = rows["bfloat16"]
+    print(f"time attention_seg bfloat16 ({PACK_ROWS} x {t}): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+          f"{pairs} within-segment score pairs a head, {span_pairs(seg_np)} "
+          f"visited by the core's span tiles, dense {dense}); "
+          f"device {dev:.4f} ms a call ({top_kernels(names, 3)} a launch); "
+          f"unpacked at B={BATCH} x T={t_b}: device {dev_b:.4f} ms a call "
+          f"({top_kernels(names_b, 3)} a launch; {BATCH * t_b * t_b} score "
+          f"pairs a head)")
+    return rows
 
 
 def logmel_flops(frames: int, n_fft: int, fb_t, dft: bool = False) -> float:
@@ -576,35 +706,53 @@ def model_phase(cfg):
           f"> 1e-1 (>= 99%)")
 
 
-def serve_phase(cfg, rows=None):
-    """Returns ({row: launches} for `rows` (default SERVING), RTFx)."""
+def serve_tokenizer(cfg):
     from tpu_asr_torch.data.tokenizer import train_bpe
-    from tpu_asr_torch.models.transcribe import Transcriber
-    from tpu_asr_torch.profile_forward import seeded_model, waveforms
-
-    model = seeded_model(cfg, seed=2)
     corpus = ["the quick brown fox jumps over the lazy dog",
               "speech recognition on a graphics card",
               "conformer encoders with connectionist temporal classification",
               "a hundred and twenty eight pieces of vocabulary"] * 4
-    tok = train_bpe(corpus, vocab_size=cfg.decoder.num_classes)
-    tr = Transcriber(model, tok, batch_size=SERVE_BATCH, device="cuda")
+    return train_bpe(corpus, vocab_size=cfg.decoder.num_classes)
+
+
+def serve_requests():
+    """The serve window: SERVE_WARMUP + SERVE_REQUESTS requests of
+    SERVE_BATCH seeded waveforms of 1-15 s, drawn from a pool."""
+    from tpu_asr_torch.profile_forward import waveforms
     rng = np.random.default_rng(2)
     pool = waveforms(rng, SERVE_POOL, 1.0, SECONDS)
-    requests = [[pool[i] for i in rng.choice(SERVE_POOL, SERVE_BATCH,
-                                             replace=False)]
-                for _ in range(SERVE_WARMUP + SERVE_REQUESTS)]
+    return [[pool[i] for i in rng.choice(SERVE_POOL, SERVE_BATCH,
+                                         replace=False)]
+            for _ in range(SERVE_WARMUP + SERVE_REQUESTS)]
+
+
+def serve_phase(cfg, rows=None, packed=False):
+    """Returns ({row: launches} for `rows` (default SERVING), RTFx). With
+    `packed`, the window goes through PackedTranscriber, and the fill
+    ratio and rows a request are printed."""
+    from tpu_asr_torch.models.transcribe import (PackedTranscriber,
+                                                 Transcriber)
+    from tpu_asr_torch.profile_forward import seeded_model
+
+    model = seeded_model(cfg, seed=2)
+    tok = serve_tokenizer(cfg)
+    tr = (PackedTranscriber(model, tok, pre_batch=SERVE_BATCH, device="cuda")
+          if packed else
+          Transcriber(model, tok, batch_size=SERVE_BATCH, device="cuda"))
+    requests = serve_requests()
     for r in requests[:SERVE_WARMUP]:       # cuDNN/cuBLAS set-up per bucket
         tr.transcribe(r)
     torch.cuda.synchronize()
     requests = requests[SERVE_WARMUP:]
     fns = reset_counters()
-    latency, texts = [], []
+    latency, texts, plans = [], [], []
     start = time.perf_counter()
     for r in requests:
         t0 = time.perf_counter()
         texts.append(tr.transcribe(r))      # ends in a device-to-host copy
         latency.append(time.perf_counter() - t0)
+        if packed:
+            plans.append(tr.last_plan)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     counts = {k: fns[k].launches for k in rows or SERVING}
@@ -612,20 +760,144 @@ def serve_phase(cfg, rows=None):
     flat = [t for r in texts for t in r]
     check(len(flat) == SERVE_REQUESTS * SERVE_BATCH
           and all(isinstance(t, str) for t in flat),
-          f"Transcriber ({cfg.compute_dtype}) answered {SERVE_REQUESTS} "
-          f"requests of {SERVE_BATCH} waveforms with strings, "
-          f"e.g. {flat[0]!r}")
+          f"{type(tr).__name__} ({cfg.compute_dtype}) answered "
+          f"{SERVE_REQUESTS} requests of {SERVE_BATCH} waveforms with "
+          f"strings, e.g. {flat[0]!r}")
     check(all(v > 0 for v in counts.values()),
           f"serving path launched every kernel: {counts}")
     enc = cfg.encoder
-    print(f"serve (quantization {enc.quantization}, conv {enc.conv_backend})"
-          f": {SERVE_REQUESTS} requests x {SERVE_BATCH} clips of "
-          f"1-{SECONDS} s, {audio_s:.2f} s of audio in {wall:.4f} s wall: "
-          f"RTFx {audio_s / wall:.1f}; per request median "
-          f"{1e3 * float(np.median(latency)):.2f} ms, max "
+    fill = ""
+    if packed:
+        fill = (f"; packed rows of {T_PACK}: fill ratio "
+                f"{np.mean([p.fill_ratio for p in plans]):.4f}, rows a "
+                f"request {np.mean([p.n_rows for p in plans]):.2f} "
+                f"({min(p.n_rows for p in plans)}-"
+                f"{max(p.n_rows for p in plans)})")
+    print(f"serve{' packed' if packed else ''} (quantization "
+          f"{enc.quantization}, conv {enc.conv_backend}): {SERVE_REQUESTS} "
+          f"requests x {SERVE_BATCH} clips of 1-{SECONDS} s, {audio_s:.2f} s "
+          f"of audio in {wall:.4f} s wall: RTFx {audio_s / wall:.1f}; per "
+          f"request median {1e3 * float(np.median(latency)):.2f} ms, max "
           f"{1e3 * max(latency):.2f} ms (host clock, after "
-          f"{SERVE_WARMUP} warm-up requests)")
+          f"{SERVE_WARMUP} warm-up requests){fill}")
     return counts, audio_s / wall
+
+
+def packed_model_phase(cfg):
+    """Phase 16's checks: ModelConfig() in fp32 on 8 clips, forward_packed
+    on the kernels unpacked per utterance against the per-utterance
+    CTCModel forward on the kernels, and PackedTranscriber.greedy_ids;
+    then in bf16 the packed ids against fp32."""
+    from tpu_asr_torch.data.packing import unpack_rows
+    from tpu_asr_torch.models.transcribe import PackedTranscriber
+    from tpu_asr_torch.profile_forward import seeded_model
+
+    sig_t, len_t = model_clips(1)
+    clips = [sig_t[i, :int(n)].cpu().numpy() for i, n in enumerate(len_t)]
+    tok = serve_tokenizer(cfg)
+
+    def packed(model):
+        tr = PackedTranscriber(model, tok, t_pack=T_PACK, device="cuda")
+        plan, logp, _ = tr.packed_outputs(clips)
+        return tr, plan, unpack_rows(logp.float(), plan)
+
+    model = seeded_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                         seed=1)
+    fns = reset_counters()
+    tr, plan, got = packed(model)
+    counts = {k: fns[k].launches for k in SERVING}
+    with torch.inference_mode():
+        ref = model(sig_t, len_t)
+    torch.cuda.synchronize()
+    check(all(v > 0 for v in counts.values()),
+          f"packed forward on kernels launched every kernel: {counts}")
+    lens = ref.encoded_len.cpu().numpy()
+    ref_lp = ref.log_probs.cpu().numpy()
+    check(np.array_equal(plan.length, lens)
+          and all(np.isfinite(g).all() for g in got),
+          f"{len(lens)} clips packed into {plan.n_rows} rows of {T_PACK} "
+          f"(fill {plan.fill_ratio:.3f}): lengths equal, log-probs finite")
+    delta = max(float(np.abs(g - ref_lp[i, :n]).max())
+                for i, (g, n) in enumerate(zip(got, lens)))
+    check(delta < 2e-3, f"ModelConfig() fp32 forward_packed on kernels, "
+          f"unpacked, against the per-utterance forward on kernels: max "
+          f"|delta log-prob| {delta:.3e} < 2e-3")
+    ids = tr.greedy_ids(clips)
+    top2 = np.sort(ref_lp, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    n_dec = same = 0
+    for i, n in enumerate(lens):
+        dec = margin[i, :n] > 1e-3
+        n_dec += int(dec.sum())
+        same += int((ids[i] == ref_lp[i, :n].argmax(-1))[dec].sum())
+    check(same == n_dec, f"PackedTranscriber.greedy_ids equal to the "
+          f"per-utterance ids on all {n_dec} frames with top-2 margin > 1e-3 "
+          f"(of {int(lens.sum())})")
+    model16 = seeded_model(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                           seed=1)
+    _, _, got16 = packed(model16)
+    n_dec = agree = 0
+    for i, n in enumerate(lens):
+        dec = margin[i, :n] > 1e-1
+        n_dec += int(dec.sum())
+        agree += int((got16[i].argmax(-1) == ref_lp[i, :n].argmax(-1))[dec]
+                     .sum())
+    check(agree >= 0.99 * n_dec, f"bf16 forward_packed on kernels: greedy "
+          f"ids equal to fp32 on {agree} of {n_dec} frames with fp32 top-2 "
+          f"margin > 1e-1 (>= 99%)")
+
+
+def encoder_device_times(cfg, n_requests: int = 4):
+    """The encoder layers' device time (torch.profiler), packed against
+    bucketed, on the first requests of the serve window after the warm-up:
+    the bucketed (32, T') batch of pre-encoded frames (the Transcriber's
+    single batch of the request) and the same frames packed into rows of
+    T_PACK; and each transcriber's whole request."""
+    from tpu_asr_torch.data.packing import (guard_frames, pack_frames,
+                                            plan_packing)
+    from tpu_asr_torch.models.transcribe import (PackedTranscriber,
+                                                 Transcriber, _buckets)
+    from tpu_asr_torch.profile_forward import seeded_model
+
+    model = seeded_model(cfg, seed=2)
+    tok = serve_tokenizer(cfg)
+    trs = (Transcriber(model, tok, batch_size=SERVE_BATCH, device="cuda"),
+           PackedTranscriber(model, tok, pre_batch=SERVE_BATCH,
+                             device="cuda"))
+    guard = guard_frames(cfg.encoder.conv_kernel_size)
+    tot = np.zeros(4)
+    frames = np.zeros(2)
+    pairs = np.zeros(2)
+    for req in serve_requests()[SERVE_WARMUP:SERVE_WARMUP + n_requests]:
+        (_, sig, ln), = _buckets(req, SERVE_BATCH, trs[0].bucket_seconds, SR)
+        with torch.inference_mode():
+            feats, feat_len = model.featurizer(torch.from_numpy(sig).cuda(),
+                                               torch.from_numpy(ln).cuda())
+            pre, pre_len = model.pre_encode(feats, feat_len)
+            plan = plan_packing(pre_len.cpu().numpy(), T_PACK, guard,
+                                row_multiple=4)
+            packed = pack_frames(pre, plan)
+            seg = torch.from_numpy(plan.seg_id).cuda()
+            tot[0] += device_ms(lambda: model.encoder.encode_frames(
+                pre, pre_len), iters=3)[0]
+            tot[1] += device_ms(lambda: model.encoder.encode_frames(
+                packed, None, seg_id=seg), iters=3)[0]
+            for j, tr in enumerate(trs):
+                tot[2 + j] += device_ms(lambda: tr.transcribe(req),
+                                        iters=2)[0]
+        frames += (pre.shape[0] * pre.shape[1], plan.n_rows * T_PACK)
+        pairs += (pre.shape[0] * pre.shape[1] ** 2,
+                  segment_pairs(plan.seg_id))
+    tot /= n_requests
+    print(f"device (torch.profiler, ms a request, mean of {n_requests} "
+          f"serve requests, {cfg.compute_dtype}): encoder layers bucketed "
+          f"{tot[0]:.4f}, packed {tot[1]:.4f} ({tot[1] / tot[0]:.3f}x); "
+          f"whole request Transcriber {tot[2]:.4f}, PackedTranscriber "
+          f"{tot[3]:.4f} ({tot[3] / tot[2]:.3f}x); encoder frames "
+          f"{frames[0] / n_requests:.0f} vs {frames[1] / n_requests:.0f} "
+          f"({frames[1] / frames[0]:.3f}x), score pairs a head "
+          f"{pairs[0] / n_requests:.0f} vs {pairs[1] / n_requests:.0f} "
+          f"({pairs[1] / pairs[0]:.3f}x)")
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -729,7 +1001,7 @@ def ffn_small_ring(fn, kernel, label):
     rings = {"Small" if "Cfg<64, 64, 2>" in k else "Big"
              for k in names if kernel in k}
     check(rings == {"Small"}, f"{label}: {kernel} ran on the Small ring "
-          f"(busy {dev:.4f} ms per call: {top_kernels(names, 3)})")
+          f"({DEVICE}: {dev:.4f}, {top_kernels(names, 3)})")
 
 
 def ffn_compare(x, g, fw, rate, seed, label):
@@ -919,8 +1191,8 @@ def train_kernel_phase(tcfg):
                   dts), None)
 
     dev, names = device_ms(bwd)
-    print(f"device attention_bwd bfloat16 (torch.profiler, busy ms per "
-          f"call): {dev:.4f} ({top_kernels(names, 9)})")
+    print(f"device attention_bwd bfloat16 ({DEVICE}): {dev:.4f} "
+          f"({top_kernels(names, 9)})")
     long_attention_bwd(pw, h, rate, seed)
 
     # FFN forward and backward: the student's width at B=32, the teacher's
@@ -936,8 +1208,8 @@ def train_kernel_phase(tcfg):
     xb = xf.to(torch.bfloat16)
     dev, names = device_ms(lambda: fused_ffn_sublayer(xb, *fw, rate, seed))
     dev_b, names_b = device_ms(bwd)
-    print(f"device ffn bfloat16 (torch.profiler, busy ms per call): "
-          f"{dev:.4f} ({top_kernels(names, 1)}); ffn_bwd {dev_b:.4f} "
+    print(f"device ffn bfloat16 ({DEVICE}): {dev:.4f} "
+          f"({top_kernels(names, 1)}); ffn_bwd {dev_b:.4f} "
           f"({top_kernels(names_b, 3)})")
     tw = ffn_weights(gen, 2 * d, 2 * f)
     xt, gt = normal(gen, 8, t, 2 * d), normal(gen, 8, t, 2 * d)
@@ -1347,7 +1619,8 @@ def fm_compare(args, max_steps, dt, label, time_it=False):
     for name, row, (dev_ms, names) in (("fm", fwd, fwd_dev),
                                        ("fm_bwd", bwd_row, bwd_dev)):
         print(f"time {name} {dts} ({label}): kernel {row[1]:.4f} ms, device "
-              f"{dev_ms:.4f} ms per launch ({top_kernels(names, 4)}), plain "
+              f"{dev_ms:.4f} ms a call ({top_kernels(names, 4)} a launch), "
+              f"plain "
               f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]}) "
               f"(median of 20, plain of 5, CUDA events; torch.profiler)")
     print(f"fm_bwd {dts} ({label}): {peak:.1f} MiB allocated by one call "
@@ -1829,11 +2102,9 @@ def eval_kernel_phase(cfg):
     xc16 = xc.to(torch.bfloat16)
     with torch.no_grad():
         mod_ms = median_ms(lambda: conv_mod(xc16, mask))
-        mod_dev = device_ms(lambda: conv_mod(xc16, mask), per_launch=True)
-        conv_dev = device_ms(lambda: fused_conv_module(xc16, mask, *cw, pad),
-                             per_launch=True)
-        ffn_dev = device_ms(lambda: fused_ffn_sublayer_int8(x16, *fw),
-                            per_launch=True)
+        mod_dev = device_ms(lambda: conv_mod(xc16, mask))
+        conv_dev = device_ms(lambda: fused_conv_module(xc16, mask, *cw, pad))
+        ffn_dev = device_ms(lambda: fused_ffn_sublayer_int8(x16, *fw))
         err = (conv_mod(xc16, mask).float()
                - fused_conv_module(xc16, mask, *cw, pad).float()).abs().max()
     print(f"conv module path (bf16, 'auto') against the bf16 kernel: max "
@@ -2085,8 +2356,8 @@ def layer_kernel_phase(cfg):
     with torch.no_grad():
         dev_ms, names = device_ms(lambda: fused_conformer_layer(*args))
         mod_dev_ms, mod_names = device_ms(lambda: layer(x16, pos_emb, mask))
-    print(f"device conformer_layer bfloat16 (torch.profiler, busy ms per "
-          f"call): kernel {dev_ms:.4f} ({top_kernels(names)}); module path "
+    print(f"device conformer_layer bfloat16 ({DEVICE}): kernel "
+          f"{dev_ms:.4f} ({top_kernels(names)}); module path "
           f"{mod_dev_ms:.4f} ({top_kernels(mod_names, 5)})")
     print(f"time conformer_layer bfloat16 {shape}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, module path (ConformerLayer, attention "
@@ -2227,8 +2498,8 @@ def heads_kernel_phase(cfg):
     with torch.no_grad():
         fwd_dev = device_ms(lambda: fused_relpos_attention(*teacher16))
     bwd_dev = device_ms(bwd)
-    print(f"device attention_heads bfloat16 teacher forward (torch.profiler,"
-          f" busy ms per call): {fwd_dev[0]:.4f} ({top_kernels(fwd_dev[1])})"
+    print(f"device attention_heads bfloat16 teacher forward ({DEVICE}): "
+          f"{fwd_dev[0]:.4f} ({top_kernels(fwd_dev[1])})"
           f"; student backward {bwd_dev[0]:.4f} "
           f"({top_kernels(bwd_dev[1], 6)})")
     for name, (err, ms, plain_ms, (b_ms, by), _) in rows.items():
@@ -2272,6 +2543,8 @@ KERNELS = {
     "attention_heads_bwd": ("tpu_asr_torch/csrc/attention.cu",
                             "tpu_asr/ops/pallas_attention.py:208",
                             "bfloat16"),
+    "attention_seg": ("tpu_asr_torch/csrc/attention.cu",
+                      "tpu_asr/ops/pallas_attention.py:669", "bfloat16"),
 }
 STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
            "ffn_bwd", "ctc", "ctc_bwd")
@@ -2320,6 +2593,12 @@ def main() -> int:
                                   "attention_heads_bwd")}
     check(all(v > 0 for v in new.values()),
           f"phases 14 and 15 launched their kernels: {new}")
+    packed_model_phase(cfg)
+    packed_counts, packed_rtfx = serve_phase(cfg, packed=True)
+    print(f"serve RTFx: packed (phase 16) {packed_rtfx:.1f}, bucketed "
+          f"(phase 5) {rtfx:.1f}, same run")
+    counts["attention_seg"] = packed_counts["attention"]
+    encoder_device_times(cfg)
     rows = []
     for name, (source, replaces, dt) in KERNELS.items():
         err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]

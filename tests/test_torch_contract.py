@@ -5,7 +5,8 @@
   the port keeps its own copies of the host code it needs);
 - the port's config dataclasses have the JAX package's defaults, and its
   BPE trainer gives the JAX tokenizer's ids;
-- the entry points run on the card unless told otherwise;
+- the entry points (Transcriber, PackedTranscriber) run on the card
+  unless told otherwise;
 - chip_smoke.py refuses to run without a CUDA device and never prints its
   success line there;
 - on CPU tensors the kernel wrappers run their plain versions: a CPU
@@ -36,7 +37,7 @@ from tpu_asr_torch.data.tokenizer import train_bpe
 from tpu_asr_torch.models.conformer import ConformerEncoder
 from tpu_asr_torch.models.ctc_model import CTCModel
 from tpu_asr_torch.models.distil_model import DistilCTCModel
-from tpu_asr_torch.models.transcribe import Transcriber
+from tpu_asr_torch.models.transcribe import PackedTranscriber, Transcriber
 from tpu_asr_torch.ops import _kernels
 from tpu_asr_torch.ops.cuda_attention import (
     fused_relpos_attention, fused_relpos_attention_block,
@@ -105,6 +106,7 @@ def test_port_imports_no_jax():
     for name in ("tpu_asr_torch.models.transcribe",
                  "tpu_asr_torch.convert.from_jax", "tpu_asr_torch.config",
                  "tpu_asr_torch.data.tokenizer", "tpu_asr_torch.data.audio",
+                 "tpu_asr_torch.data.packing",
                  "tpu_asr_torch.train.trainer", "tpu_asr_torch.kd.schedules",
                  "tpu_asr_torch.kd.losses", "tpu_asr_torch.kd.meta_encoders",
                  "tpu_asr_torch.kd.flow_matching",
@@ -144,8 +146,9 @@ def test_train_bpe_gives_jax_ids():
 
 
 def test_transcriber_defaults_to_cuda():
-    sig = inspect.signature(Transcriber.__init__)
-    assert sig.parameters["device"].default == "cuda"
+    for cls in (Transcriber, PackedTranscriber):
+        sig = inspect.signature(cls.__init__)
+        assert sig.parameters["device"].default == "cuda"
 
 
 def test_cpu_train_step_launches_and_builds_nothing():

@@ -1,14 +1,18 @@
 """The profilers' groups (tpu_asr_torch/profile_forward.py GROUPS, read by
 profile_forward and profile_train): every kernel of csrc/*.cu, as
 torch.profiler names it, lands in the group of its own source, never in
-another kernel's group or in the cuBLAS/cuDNN/ATen groups."""
+another kernel's group or in the cuBLAS/cuDNN/ATen groups. And
+`device_activity`'s per-call figures, on synthetic profiler events, stay
+right when the profiler drops a call's events or a call's marker."""
 
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
+from torch.autograd import DeviceType
 
-from tpu_asr_torch.profile_forward import group_of
+from tpu_asr_torch.profile_forward import MARKER, device_activity, group_of
 
 CSRC = Path(__file__).resolve().parents[1] / "tpu_asr_torch" / "csrc"
 FAMILY = {
@@ -50,3 +54,33 @@ def test_backward_groups_by_name():
     for name in ("dq_mma_kernel<48>", "dkv_mma_kernel<48>",
                  "wgrad_mma_kernel"):
         assert group_of(name) == "attention bwd"
+
+
+def _calls(n):
+    """Synthetic CUDA events of n marked calls, each: the marker, kernel a
+    (1 ms) and kernel b twice (0.5 ms each), times in us."""
+    ev = lambda start, dur, name: SimpleNamespace(
+        device_type=DeviceType.CUDA, name=name,
+        time_range=SimpleNamespace(start=start, end=start + dur))
+    out, t = [], 0
+    for _ in range(n):
+        out += [ev(t, 2, f"void {MARKER}(long)"), ev(t + 10, 1000, "a"),
+                ev(t + 1100, 500, "b"), ev(t + 1700, 500, "b")]
+        t += 3000
+    return out
+
+
+@pytest.mark.parametrize("drop", ["none", "a call", "a marker",
+                                  "the markers"])
+def test_device_activity_survives_dropped_events(drop):
+    events = _calls(5)
+    if drop == "a call":
+        events = events[4:]
+    elif drop == "a marker":
+        events = events[:8] + events[9:]
+    elif drop == "the markers":
+        events = [e for e in events if MARKER not in e.name]
+    busy, launches, names = device_activity(
+        SimpleNamespace(events=lambda: events), 5)
+    assert (busy, launches) == (2.0, 3.0)
+    assert names == {"a": (1.0, 1.0), "b": (1.0, 2.0)}

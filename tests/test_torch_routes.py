@@ -167,9 +167,9 @@ def test_forward_follows_the_route(kind, monkeypatch):
         shapes = (12, 16)
     elif kind == "attention":
         rec = _Recorder(
-            lambda *a, dropout_rate, dropout_seed:
+            lambda *a, dropout_rate, dropout_seed, seg_id:
             cuda_attention.relpos_attention_plain(*a, dropout_rate,
-                                                  dropout_seed))
+                                                  dropout_seed, seg_id))
         monkeypatch.setattr(conformer, "fused_relpos_attention_block", rec)
 
         def run(dh):

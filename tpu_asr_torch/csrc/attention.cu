@@ -44,11 +44,20 @@
 //      reads row (j - r + 31); shared-memory rows use a stride whose
 //      float4 count is odd, so the per-lane float4 reads are conflict-free.
 //   3. the projection launch again: context (B*T, D) @ Wo^T.
+// Packed segments (serving, data/packing.py): with a (B, T) segment map the
+// core also sets to -1e30 every score whose key lies in another segment
+// than its query, where the window is applied, as the TPU kernel's
+// _block_scores does with its `seg` operands. The TPU kernel masks the
+// whole T x T tile; here the bf16 core visits only the key tiles that can
+// hold a key of one of its queries' segments (see core_mma_kernel), so the
+// work falls from T^2 to about the sum of the segments' squares a row; the
+// fp32 core (the check dtype) visits every tile.
 // fp32 accumulation; operands in fp32 or bf16 (template), rounded to the
 // working type where the TPU kernel rounds them.
 
 #include <cuda_runtime.h>
 
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -199,7 +208,7 @@ cudaError_t project(const Jobs& jobs, int n_jobs, int m_max, int K, int N,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kSeg>
 __global__ void __launch_bounds__(256) core_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
     const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
@@ -209,14 +218,15 @@ __global__ void __launch_bounds__(256) core_kernel(
     float* __restrict__ lse,                             // (B, H, T) or null
     int t_len, int heads, int dk, float scale, uint32_t seed,
     uint32_t b_stride, uint32_t thresh, float dscale, int tp, int left,
-    int right) {
+    int right, const int* __restrict__ seg) {
   extern __shared__ float4 smem4[];
   const int bh = blockIdx.y, b = bh / heads;
   const uint32_t stream = seed + b_stride * (uint32_t)b +
                           (uint32_t)(bh - b * heads);
-  core_tile<T>(reinterpret_cast<float*>(smem4), qu, qv, kk, vv, pos,
-               key_bias, ctx, cl, lse, bh, blockIdx.x * kBQ, t_len, heads,
-               dk, scale, stream, thresh, dscale, tp, left, right);
+  core_tile<T, kSeg>(reinterpret_cast<float*>(smem4), qu, qv, kk, vv, pos,
+                     key_bias, ctx, cl, lse, bh, blockIdx.x * kBQ, t_len,
+                     heads, dk, scale, stream, thresh, dscale, tp, left,
+                     right, seg);
 }
 
 // Per-row layouts (HeadLayout) of (B, T, H dk) and (B, H, T, dk).
@@ -248,7 +258,24 @@ HeadLayout heads_layout(int t_len, int heads, int dk) {
 //     takes the dropped ones (the same dropout_keep(stream, t * tp + s));
 //   - P V: the dropped probabilities, rounded to bf16 in registers, are
 //     the A operand directly (the m16n8 accumulator of two key tiles is the
-//     m16n8k16 A fragment), V comes through ldmatrix.trans.
+//     m16n8k16 A fragment), V comes through ldmatrix.trans;
+//   - packed segments (seg not null): the block first finds the ids of its
+//     valid queries (seg > 0), [lo, hi], then the first and last key of the
+//     row whose id lies in [lo, hi], and walks only the key tiles between
+//     them, staging only their K, V and position rows (the position rows
+//     follow the key tile, so skipping a key tile skips its P rows). That
+//     span holds every key a valid query can see for any map; packing
+//     places segments end to end with ids rising along the row, so it is
+//     the tile's own segments and the guards between them. A skipped tile
+//     would only have added keys at -1e30, whose weight is exactly 0 once a
+//     finite score has been seen, so the result is the full sweep's.
+//     Inside the span a key of another segment scores -1e30. A query of
+//     segment 0 (guard or pad) gets the uniform average over the span's
+//     keys, and a tile with no valid query visits nothing and writes
+//     zeros: finite garbage that the layer re-masks. The scan reads the
+//     whole row's map in every block; a span table built once per forward
+//     would spare it, but built with torch ops on the device it costs more
+//     than the scans of all the layers it serves (PERF.md, section 6).
 // What bounds it: at B=32, T=376, H=4, dk=44 the products are 4.8 GFLOP
 // per layer, 5 us at the bf16 tensor rate; the SIMT core (core_tile) is
 // held back by its shared-memory operand loads, three float4s per 8 FMAs.
@@ -288,7 +315,7 @@ __device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
   }
 }
 
-template <int DKP>
+template <int DKP, bool kSeg>
 __global__ void __launch_bounds__(128) core_mma_kernel(
     const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
     const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
@@ -298,7 +325,7 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
     float* __restrict__ lse,                                   // or null
     int t_len, int heads, int dk, float scale, uint32_t seed,
     uint32_t b_stride, uint32_t thresh, float dscale, int tp, int left,
-    int right) {
+    int right, const int* __restrict__ seg) {           // kSeg: (B, T)
   using S = CoreMma<DKP>;
   constexpr int kSE = S::kSE, kKS = DKP / 16, kND = DKP / 8;
   extern __shared__ __align__(16) char smem_raw[];
@@ -330,10 +357,51 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
     stage_async<DKP>(kt + 2 * kMS * kSE, pos_h, t_len - kMQ - q0 + s0, kMP,
                      n_pos, dk);
   };
-  stage_async<DKP>(Qu, qu + head_off, q0, kMQ, t_len, dk);
-  stage_async<DKP>(Qv, qv + head_off, q0, kMQ, t_len, dk);
-  stage_tile(0, 0);
-  cp_async_commit();
+  // the key tiles j_lo .. j_hi - 1 to visit: all of them, or with packed
+  // segments those of the span of the tile's valid queries' segments
+  int j_lo = 0, j_hi = n_tiles;
+  const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
+  int seg_q[2] = {0, 0};
+  if constexpr (kSeg) {
+    __shared__ int span[4];  // lowest id, highest id, first key, last key + 1
+    if (threadIdx.x == 0) {
+      span[0] = INT_MAX;
+      span[1] = 0;
+      span[2] = t_len;
+      span[3] = 0;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kMQ && q0 + i < t_len; i += blockDim.x) {
+      const int id = seg_row[q0 + i];
+      if (id > 0) {
+        atomicMin(&span[0], id);
+        atomicMax(&span[1], id);
+      }
+    }
+    __syncthreads();
+    const int lo = span[0], hi = span[1];
+    for (int s = threadIdx.x; lo <= hi && s < t_len; s += blockDim.x) {
+      const int id = seg_row[s];
+      if (id >= lo && id <= hi) {
+        atomicMin(&span[2], s);
+        atomicMax(&span[3], s + 1);
+      }
+    }
+    __syncthreads();
+    j_lo = span[2] / kMS;
+    j_hi = (span[3] + kMS - 1) / kMS;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = tw + g + 8 * hr;
+      seg_q[hr] = t < t_len ? seg_row[t] : 0;
+    }
+  }
+  if (j_lo < j_hi) {
+    stage_async<DKP>(Qu, qu + head_off, q0, kMQ, t_len, dk);
+    stage_async<DKP>(Qv, qv + head_off, q0, kMQ, t_len, dk);
+    stage_tile(j_lo, 0);
+    cp_async_commit();
+  }
 
   uint32_t qa[kKS][4], qb[kKS][4];
   float o[kND][4];
@@ -343,16 +411,17 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
 
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      stage_tile(j + 1, (j + 1) & 1);
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int buf = (j - j_lo) & 1;
+    if (j + 1 < j_hi) {
+      stage_tile(j + 1, buf ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // tile j (and at j = 0 the query rows) landed
-    if (j == 0) {
+    __syncthreads();  // tile j (and at j = j_lo the query rows) landed
+    if (j == j_lo) {
 #pragma unroll
       for (int ks = 0; ks < kKS; ++ks) {
         const int off = (16 * warp + lane % 16) * kSE + ks * 16 +
@@ -361,7 +430,7 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
         ldmatrix_x4(qb[ks], Qv + off);
       }
     }
-    const bf16* Kt = tiles + (j & 1) * S::kTileElems;
+    const bf16* Kt = tiles + buf * S::kTileElems;
     const bf16* Vt = Kt + kMS * kSE;
     const bf16* Pw = Vt + kMS * kSE + (kMQ - 16 - 16 * warp) * kSE;
     const int s0 = j * kMS;
@@ -425,6 +494,9 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
             x = (sc[n][2 * hr + e] + G[r * kGS + jc - r + 15]) * scale +
                 kb_row[s];
             if (!in_window(t, s, left, right)) x = -1e30f;
+            if constexpr (kSeg) {
+              if (seg_row[s] != seg_q[hr]) x = -1e30f;
+            }
           }
           sc[n][2 * hr + e] = x;
           mx = fmaxf(mx, x);
@@ -487,7 +559,8 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
     const int t = tw + g + 8 * hr;
     if (t >= t_len) continue;
     bf16* dst = ctx + cl.at(b, hh, t);
-    const float inv = 1.f / l_r[hr];
+    // with segments a tile with no valid query visits no key: l = 0
+    const float inv = !kSeg || l_r[hr] > 0.f ? 1.f / l_r[hr] : 0.f;
 #pragma unroll
     for (int n = 0; n < kND; ++n) {
       const int c = 8 * n + 2 * t4;
@@ -505,51 +578,54 @@ cudaError_t launch_core_mma(const void* qu, const void* qv, const void* k,
                             float* lse, int batch, int t_len, int heads,
                             int dk, uint32_t seed, uint32_t b_stride,
                             uint32_t thresh, float dscale, int tp, int left,
-                            int right, cudaStream_t stream) {
+                            int right, const int* seg, cudaStream_t stream) {
   const int smem = (int)CoreMma<DKP>::kSmem;
+  auto* kernel =
+      seg ? core_mma_kernel<DKP, true> : core_mma_kernel<DKP, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      core_mma_kernel<DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t_len + kMQ - 1) / kMQ, batch * heads);
-  core_mma_kernel<DKP><<<grid, 128, smem, stream>>>(
+  kernel<<<grid, 128, smem, stream>>>(
       (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v,
       (const bf16*)p, key_bias, (bf16*)ctx, cl, lse, t_len, heads, dk,
       1.f / sqrtf((float)dk), seed, b_stride, thresh, dscale, tp, left,
-      right);
+      right, seg);
   return cudaGetLastError();
 }
 
 // The core over every (batch row, head): head h of batch row b draws the
-// dropout stream seed + b_stride * b + h. fp32 (the check dtype) runs
-// core_kernel, SIMT over 32-query blocks; bf16 core_mma_kernel on the tensor
-// cores (dk % 4 == 0).
+// dropout stream seed + b_stride * b + h; `seg` (B, T) or null is the
+// packed-segment map. fp32 (the check dtype) runs core_kernel, SIMT over
+// 32-query blocks; bf16 core_mma_kernel on the tensor cores (dk % 4 == 0).
 template <typename T>
 cudaError_t launch_core(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
                         void* ctx, HeadLayout cl, float* lse, int batch,
                         int t_len, int heads, int dk, uint32_t seed,
                         uint32_t b_stride, uint32_t thresh, float dscale,
-                        int tp, int left, int right, cudaStream_t stream) {
+                        int tp, int left, int right, const int* seg,
+                        cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     auto* fn = dk <= 16   ? launch_core_mma<16>
                : dk <= 32 ? launch_core_mma<32>
                : dk <= 48 ? launch_core_mma<48>
                           : launch_core_mma<64>;
     return fn(qu, qv, k, v, p, key_bias, ctx, cl, lse, batch, t_len, heads,
-              dk, seed, b_stride, thresh, dscale, tp, left, right, stream);
+              dk, seed, b_stride, thresh, dscale, tp, left, right, seg,
+              stream);
   } else {
     const size_t smem = core_smem(dk);
+    auto* kernel = seg ? core_kernel<T, true> : core_kernel<T, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((t_len + kBQ - 1) / kBQ, batch * heads);
-    core_kernel<T><<<grid, 256, smem, stream>>>(
+    kernel<<<grid, 256, smem, stream>>>(
         (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
         key_bias, (T*)ctx, cl, lse, t_len, heads, dk,
         1.f / sqrtf((float)dk), seed, b_stride, thresh, dscale, tp, left,
-        right);
+        right, seg);
     return cudaGetLastError();
   }
 }
@@ -559,9 +635,9 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
         const void* wpos, const void* wo, const float* cu, const float* cv,
         const float* bk, const float* bv, const void* pe,
         const float* key_bias, void* qu, void* qv, void* k, void* v, void* p,
-        void* ctx, void* out, float* lse, int batch, int t_len, int d,
-        int heads, uint32_t seed, uint32_t thresh, float dscale, int tp,
-        cudaStream_t stream) {
+        void* ctx, void* out, float* lse, const int* seg, int batch,
+        int t_len, int d, int heads, uint32_t seed, uint32_t thresh,
+        float dscale, int tp, cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs proj{};
   proj.job[0] = {x, wq, cu, cv, qu, qv, rows, 1};
@@ -575,7 +651,7 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
   err = launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
                        rows_layout(t_len, heads, dk), lse, batch, t_len,
                        heads, dk, seed, (uint32_t)heads, thresh, dscale, tp,
-                       -1, -1, stream);
+                       -1, -1, seg, stream);
   if (err != cudaSuccess) return (int)err;
 
   Jobs outp{};
@@ -1804,7 +1880,7 @@ int run_heads(const void* qu, const void* qv, const void* k, const void* v,
   return (int)launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
                              heads_layout(t_len, heads, dk), lse, batch,
                              t_len, heads, dk, seed, b_stride, thresh,
-                             dscale, tp, left, right, stream);
+                             dscale, tp, left, right, nullptr, stream);
 }
 
 template <typename T>
@@ -1834,29 +1910,33 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
 // key bias in fp32; dk = d / heads <= 64, and in bf16 d % 8 == 0 and
 // dk % 4 == 0; scratch q_u, q_v, k, v sized
 // (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d); lse (B, H, T) fp32
-// or null. Dropout on the probabilities when thresh > 0: stream seed +
-// b * H + h, idx t * tp + s, kept values scaled by dscale.
+// or null; seg (B, T) int32 packed-segment map or null (the wrapper passes
+// it without lse: the backward has no segment mode). Dropout on the
+// probabilities when thresh > 0: stream seed + b * H + h, idx t * tp + s,
+// kept values scaled by dscale.
 extern "C" int tat_attention(int bf16, const void* x, const void* wq,
                              const void* wk, const void* wv, const void* wpos,
                              const void* wo, const void* cu, const void* cv,
                              const void* bk, const void* bv, const void* pe,
                              const void* key_bias, void* qu, void* qv,
                              void* k, void* v, void* p, void* ctx, void* out,
-                             void* lse, int batch, int t_len, int d,
-                             int heads, unsigned int seed,
+                             void* lse, const void* seg, int batch, int t_len,
+                             int d, int heads, unsigned int seed,
                              unsigned int thresh, float dscale, int tp,
                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float *cu_ = (const float*)cu, *cv_ = (const float*)cv,
               *bk_ = (const float*)bk, *bv_ = (const float*)bv,
               *kb_ = (const float*)key_bias;
+  const int* seg_ = (const int*)seg;
   return bf16 ? run<__nv_bfloat16>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_,
                                    bv_, pe, kb_, qu, qv, k, v, p, ctx, out,
-                                   (float*)lse, batch, t_len, d, heads, seed,
-                                   thresh, dscale, tp, s)
+                                   (float*)lse, seg_, batch, t_len, d, heads,
+                                   seed, thresh, dscale, tp, s)
               : run<float>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_, bv_, pe,
-                           kb_, qu, qv, k, v, p, ctx, out, (float*)lse, batch,
-                           t_len, d, heads, seed, thresh, dscale, tp, s);
+                           kb_, qu, qv, k, v, p, ctx, out, (float*)lse, seg_,
+                           batch, t_len, d, heads, seed, thresh, dscale, tp,
+                           s);
 }
 
 // Backward of tat_attention from its saved forward (x, q_u, q_v, k, v, p,

@@ -67,10 +67,14 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
 // Context rows q0 .. q0 + 31 of head (b, hh), bh = b * heads + hh, into ctx
 // (layout cl) and, when lse is not null, their log-sum-exp into lse
 // (B, H, T). q_u, q_v, k, v are (B, H, T, dk) and pos (H, 2T-1, dk) in T;
-// key_bias (B, T). `smem` holds core_smem(dk) bytes, 16-byte aligned. The
-// block's 256 threads all call it; it starts with a block barrier, so a
-// block may call it for one tile after another.
-template <typename T>
+// key_bias (B, T). With kSeg, `seg` (B, T) is the packed-segment map: a
+// key whose segment differs from the query's scores -1e30, as the window's
+// do (every key tile is still visited; a guard query, segment 0, gets the
+// uniform average over the row's keys); without, seg is not read. `smem`
+// holds core_smem(dk) bytes, 16-byte aligned. The block's 256 threads all
+// call it; it starts with a block barrier, so a block may call it for one
+// tile after another.
+template <typename T, bool kSeg = false>
 __device__ void core_tile(float* smem, const T* __restrict__ qu,
                           const T* __restrict__ qv, const T* __restrict__ kk,
                           const T* __restrict__ vv, const T* __restrict__ pos,
@@ -79,7 +83,7 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
                           float* __restrict__ lse, int bh, int q0, int t_len,
                           int heads, int dk, float scale, uint32_t stream,
                           uint32_t thresh, float dscale, int tp, int left,
-                          int right) {
+                          int right, const int* __restrict__ seg = nullptr) {
   const int ks = row_stride(dk);
   float* Qu = smem;              // kBQ x ks
   float* Qv = Qu + kBQ * ks;     // kBQ x ks
@@ -104,6 +108,13 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
     l_i[r] = o0[r] = o1[r] = 0.f;
   }
   const bool has0 = lane < dk, has1 = lane + 32 < dk;
+  const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
+  int seg_q[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int t = q0 + warp * kRows + r;
+    seg_q[r] = kSeg && t < t_len ? seg_row[t] : 0;
+  }
 
   for (int s0 = 0; s0 < t_len; s0 += kBS) {
     __syncthreads();  // the previous tile is consumed
@@ -117,6 +128,7 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
 
     const int s = s0 + lane;
     const float kb = s < t_len ? key_bias[(size_t)b * t_len + s] : 0.f;
+    const int seg_k = kSeg && s < t_len ? seg_row[s] : 0;
     float sc[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
@@ -149,6 +161,7 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
       const int t = q0 + warp * kRows + r;
       float x = s < t_len ? sc[r] * scale + kb : -INFINITY;
       if (s < t_len && !in_window(t, s, left, right)) x = -1e30f;
+      if (kSeg && s < t_len && seg_k != seg_q[r]) x = -1e30f;
       const float m_new = fmaxf(m_i[r], warp_max(x));
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
       const float p = expf(x - m_use);

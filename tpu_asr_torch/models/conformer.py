@@ -30,6 +30,12 @@ plain PyTorch. The conv module runs the eval kernel with
 `set_backend('xla')` (profile_forward.py) points every route at its plain
 version and `set_backend('auto')` back at the config's choice.
 
+Packed serving (data/packing.py, eval only): `ConformerEncoder.subsample`
+returns the raw subsampled frames, and `encode_frames` with `seg_id`
+(R, T) takes packed rows of them; every attention then sees only keys of
+its query's segment (the attention kernel's segment mode) and every layer
+zeroes the guard frames.
+
 Training (`train=True` with a `torch.Generator`): every dropout site draws
 its mask from the counter hash of ops/dropout.py with a seed drawn per step
 from the generator before the layers run, so a checkpointed layer
@@ -165,7 +171,9 @@ class RelPositionMultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 mask: torch.Tensor, dropout_rate: float = 0.0,
-                dropout_seed: int = 0) -> torch.Tensor:
+                dropout_seed: int = 0,
+                seg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`seg_id` (B, T) int: the packed-segment map (eval only)."""
         args = (x, self.linear_q.weight, self.linear_q.bias,
                 self.linear_k.weight, self.linear_k.bias,
                 self.linear_v.weight, self.linear_v.bias, self.pos_bias_u,
@@ -173,9 +181,11 @@ class RelPositionMultiHeadAttention(nn.Module):
                 self.linear_out.weight, pos_emb, mask, self.n_heads)
         if self.uses_kernel(x):
             out = fused_relpos_attention_block(
-                *args, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                *args, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                seg_id=seg_id)
         else:
-            out = relpos_attention_plain(*args, dropout_rate, dropout_seed)
+            out = relpos_attention_plain(*args, dropout_rate, dropout_seed,
+                                         seg_id)
         return out + self.linear_out.bias.to(out.dtype)
 
 
@@ -335,13 +345,17 @@ class ConformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 mask: torch.Tensor,
-                seeds: Optional[List[int]] = None) -> torch.Tensor:
-        """`seeds` (SEEDS_PER_LAYER ints) selects the training path."""
+                seeds: Optional[List[int]] = None,
+                seg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`seeds` (SEEDS_PER_LAYER ints) selects the training path;
+        `seg_id` (B, T) int, the packed-segment map, runs in eval only."""
         if seeds is not None:
+            if seg_id is not None:
+                raise ValueError("packed segments (seg_id) run in eval only")
             return self._train_forward(x, pos_emb, mask, seeds)
         x = self._eval_ffn(self.norm_feed_forward1, self.feed_forward1, x)
         x = x + self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb,
-                               mask)
+                               mask, seg_id=seg_id)
         x = x + self.conv(_layer_norm(self.norm_conv, x), mask)
         x = self._eval_ffn(self.norm_feed_forward2, self.feed_forward2, x)
         return _layer_norm(self.norm_out, x).masked_fill(~mask[..., None], 0.0)
@@ -398,7 +412,10 @@ class ConformerLayer(nn.Module):
 
 class ConformerEncoder(nn.Module):
     """(B, F, T) log-mel + (B,) frames -> (encoded (B, T', D), lengths (B,),
-    layer_feats (L, B, T', D)); activations in `dtype`."""
+    layer_feats (L, B, T', D)); activations in `dtype`. `forward` is
+    `subsample` then `encode_frames`; packed serving calls them apart,
+    packing between them (tpu_asr/models/conformer.py's `pre_encode_only`
+    and `bypass_pre_encode` with `seg_id`)."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -410,14 +427,37 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                generator: Optional[torch.Generator] = None):
         """`train` needs a CPU `generator`, from which every dropout seed of
         this forward is drawn before the layers run."""
-        c = self.cfg
+        return self.encode_frames(*self.subsample(features, lengths), train,
+                                  generator)
+
+    def subsample(self, features: torch.Tensor, lengths: torch.Tensor):
+        """(B, F, T) log-mel + (B,) frames -> raw subsampled frames
+        (B, T', D) before xscale and masking, and their (B,) lengths."""
         x = self.pre_encode(features.transpose(1, 2).to(self.dtype)
                             .contiguous())
-        out_len = subsampled_length(lengths, c.subsampling_factor)
+        return x, subsampled_length(lengths, self.cfg.subsampling_factor)
+
+    def encode_frames(self, x: torch.Tensor,
+                      lengths: Optional[torch.Tensor], train: bool = False,
+                      generator: Optional[torch.Generator] = None,
+                      seg_id: Optional[torch.Tensor] = None):
+        """Subsampled frames (B, T', D) (`subsample`) + (B,) lengths ->
+        (encoded, lengths, layer_feats). `seg_id` (B, T') int, eval only:
+        the packed-segment map (0 = guard/pad); it replaces `lengths`, sets
+        the mask (seg_id > 0) and the lengths (valid frames a row), and
+        each attention sees only its query's segment."""
+        c = self.cfg
+        if seg_id is not None and train:
+            raise ValueError("packed-segment encoding (seg_id) runs in eval "
+                             "only: packed training is not ported")
+        if x.shape[-1] != c.d_model:
+            raise ValueError(f"encode_frames expects (B, T, d_model="
+                             f"{c.d_model}) frames, got feature dim "
+                             f"{x.shape[-1]}")
+        x, out_len = x.to(self.dtype), lengths
         t = x.shape[1]
         if c.xscaling:
             x = x * math.sqrt(c.d_model)
@@ -428,12 +468,21 @@ class ConformerEncoder(nn.Module):
                                   (1 + SEEDS_PER_LAYER * c.n_layers,),
                                   generator=generator).tolist()
             x = dropout(x, c.dropout_pre_encoder, seeds[0])
-        mask = torch.arange(t, device=x.device)[None, :] < out_len[:, None]
+        seg = None
+        if seg_id is not None:
+            # the attention kernel's segment operand, built once for every
+            # layer, as pos_emb is
+            seg = seg_id.to(device=x.device, dtype=torch.int32).contiguous()
+            mask = seg > 0
+            out_len = mask.sum(1)
+        else:
+            mask = (torch.arange(t, device=x.device)[None, :]
+                    < out_len[:, None])
         x = x.masked_fill(~mask[..., None], 0.0)
         feats = []
         for i, layer in enumerate(self.layers):
             if not train:
-                x = layer(x, pos_emb, mask)
+                x = layer(x, pos_emb, mask, seg_id=seg)
             else:
                 lseeds = seeds[1 + SEEDS_PER_LAYER * i:
                                1 + SEEDS_PER_LAYER * (i + 1)]

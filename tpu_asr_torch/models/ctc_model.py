@@ -72,6 +72,26 @@ class CTCModel(nn.Module):
     def decode_logits(self, encoded: torch.Tensor) -> torch.Tensor:
         return self.decoder(encoded)
 
+    def pre_encode(self, processed_signal: torch.Tensor,
+                   processed_signal_length: torch.Tensor):
+        """The subsampling front of the encoder only: (B, F, T) log-mel ->
+        raw (B, T', D) frames (before xscale and masking) and (B,)
+        lengths. The packed-serving split point (data/packing.py)."""
+        return self.encoder.subsample(processed_signal,
+                                      processed_signal_length)
+
+    def forward_packed(self, packed: torch.Tensor, seg_id: torch.Tensor):
+        """Packed-segment inference: `packed` (R, Tp, D) rows of
+        `pre_encode` frames (data/packing.pack_frames), `seg_id` (R, Tp) int
+        (0 = guard/pad). Each segment's log-probs are those of its
+        per-utterance forward. Returns (log_probs (R, Tp, V+1), greedy ids
+        (R, Tp)); no gradient is taken (packed training is not ported)."""
+        with torch.no_grad():
+            encoded, _, _ = self.encoder.encode_frames(packed, None,
+                                                       seg_id=seg_id)
+            log_probs = self.decoder(encoded)
+        return log_probs, log_probs.argmax(dim=-1)
+
     def _output(self, encoded, encoded_len, layer_feats) -> CTCModelOutput:
         log_probs = self.decoder(encoded)
         return CTCModelOutput(log_probs, encoded_len,

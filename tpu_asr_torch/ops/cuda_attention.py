@@ -23,6 +23,12 @@ projections, the attention weights and the context. The plain version keeps
 JAX's rel_shift construction; the kernel gathers the shifted positions.
 The kernels' shared core takes a local window (`local_window`); the block
 wrapper still refuses one (att_context_size is outside the model slice).
+
+Packed segments (`seg_id`, (B, T) int, data/packing.py): key s is visible
+from query t only where seg_id[t] == seg_id[s], on top of the key bias of
+`mask` (= seg_id > 0): the other scores become -1e30, the rule of
+tpu_asr/ops/pallas_attention.py::_block_scores. The block wrapper runs it
+in the forward only; autograd through it (packed training) raises.
 In bf16 the projections, the forward's core, the backward's score
 gradients and its weight gradients run on the tensor cores, which take
 D % 8 == 0 and dk % 4 == 0 (`attention_refusal`, which the model's 'auto'
@@ -47,7 +53,7 @@ from tpu_asr_torch.ops.dropout import batch_streams, keep_mask, threshold
 from tpu_asr_torch.ops.positions import (position_table,
                                          rel_positional_encoding)
 
-_ARGS = ((K.INT,) + (K.PTR,) * 20 + (K.INT,) * 4 + (K.UINT,) * 2
+_ARGS = ((K.INT,) + (K.PTR,) * 21 + (K.INT,) * 4 + (K.UINT,) * 2
          + (K.FLOAT, K.INT, K.PTR))
 _BWD_ARGS = ((K.INT,) + (K.PTR,) * 23 + (K.INT,) * 4 + (K.UINT,) * 2
              + (K.FLOAT, K.INT, K.PTR))
@@ -150,14 +156,16 @@ def head_streams(dropout_seed: Optional[int], b: int, h: int,
 def attention_context(q_u, q_v, k, v, p, mask, r,
                       att_context_size: Tuple[int, int] = (-1, -1),
                       dropout_rate: float = 0.0,
-                      streams: Optional[torch.Tensor] = None
+                      streams: Optional[torch.Tensor] = None,
+                      seg_id: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """fp32 (B, H, T, dk) context of per-head q_u, q_v, k, v (B, H, T, dk)
     and the projected position table p (2T - 1, H, dk), all fp32 holding
     working-dtype values: the rel_shift construction, key bias -1e30, the
-    window's scores replaced by -1e30, softmax, dropout (streams (B, H),
-    idx t * Tp + s) after the undropped normaliser, and the attention
-    weights rounded by r before the value product."""
+    window's and other segments' (seg_id (B, T)) scores replaced by -1e30,
+    softmax, dropout (streams (B, H), idx t * Tp + s) after the undropped
+    normaliser, and the attention weights rounded by r before the value
+    product."""
     b, h, t, dk = q_u.shape
     ac = q_u @ k.transpose(-1, -2)
     bd = rel_shift(torch.einsum("bhtd,phd->bhtp", q_v, p))
@@ -168,6 +176,9 @@ def attention_context(q_u, q_v, k, v, p, mask, r,
     if left >= 0 or right >= 0:
         scores = scores.masked_fill(
             ~local_window(t, left, right, q_u.device), -1e30)
+    if seg_id is not None:
+        same = seg_id[:, :, None] == seg_id[:, None, :]          # (B, T, T)
+        scores = scores.masked_fill(~same[:, None], -1e30)
     attn = torch.softmax(scores, dim=-1)
     if dropout_rate:
         keep = keep_mask(streams, t, t, dropout_rate,
@@ -180,7 +191,9 @@ def attention_context(q_u, q_v, k, v, p, mask, r,
 def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
                            wo, pos_emb, mask, n_heads: int,
                            dropout_rate: float = 0.0,
-                           dropout_seed: int = 0) -> torch.Tensor:
+                           dropout_seed: int = 0,
+                           seg_id: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     dt = x.dtype
 
     def r(z):               # round to the working dtype, compute in fp32
@@ -202,7 +215,8 @@ def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
     ctx = attention_context(q_u, q_v, k, v, p, mask, r,
                             dropout_rate=dropout_rate,
                             streams=head_streams(dropout_seed, b, h,
-                                                 x.device))
+                                                 x.device),
+                            seg_id=seg_id)
     ctx = r(ctx.transpose(1, 2).reshape(b, t, d))
     return (ctx @ r(wo).t()).to(dt)
 
@@ -233,12 +247,13 @@ def attention_refusal(dtype: torch.dtype, d: int, h: int, t: int,
 
 
 def _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, h,
-           train: bool):
+           train: bool, seg=None):
     b, t, d = x.shape
     dk = d // h
     if (any(w.shape != (d, d) for w in (wq, wk, wv, w_pos, wo))
             or bias_u.shape != (h, dk) or bias_v.shape != (h, dk)
-            or pos_emb.shape != (2 * t - 1, d) or mask.shape != (b, t)):
+            or pos_emb.shape != (2 * t - 1, d) or mask.shape != (b, t)
+            or (seg is not None and seg.shape != (b, t))):
         raise ValueError("fused_relpos_attention_block: shapes do not match "
                          f"x {tuple(x.shape)} with {h} heads")
     why = attention_refusal(x.dtype, d, h, t, train)
@@ -260,7 +275,7 @@ def _block_weights(wq, wk, wv, w_pos, wo, bq, bias_u, bias_v, bk, bv, dt):
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo,
-                pos_emb, mask, n_heads, rate, seed):
+                pos_emb, mask, n_heads, rate, seed, seg):
         dt = x.dtype
         b, t, d = x.shape
         h = n_heads
@@ -278,12 +293,13 @@ class _Attention(torch.autograd.Function):
         ctx_buf, out = new(b, t, d), new(b, t, d)
         lse = (torch.empty((b, h, t), device=x.device) if train else None)
         tensors = [x, *w, cu, cv, bk_, bv_, pe, key_bias, qu, qv, k, v, p,
-                   ctx_buf, out] + ([lse] if train else [])
-        K.check_cuda("fused_relpos_attention_block", *tensors)
+                   ctx_buf, out]
+        K.check_cuda("fused_relpos_attention_block", *tensors,
+                     *(z for z in (lse, seg) if z is not None))
         K.call("tat_attention", _ARGS, x.device, int(dt == torch.bfloat16),
-               *(z.data_ptr() for z in tensors[:19]),
-               lse.data_ptr() if train else None, b, t, d, h,
-               *_drop_args(rate, seed), _round_up(t, 128))
+               *(z.data_ptr() for z in tensors),
+               *(None if z is None else z.data_ptr() for z in (lse, seg)),
+               b, t, d, h, *_drop_args(rate, seed), _round_up(t, 128))
         fused_relpos_attention_block.launches += 1
         if train:
             ctx.n_heads, ctx.rate, ctx.seed = h, rate, seed
@@ -295,7 +311,7 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, g):
         grads = fused_relpos_attention_block_bwd(
             g, *ctx.saved_tensors, ctx.n_heads, ctx.rate, ctx.seed)
-        return grads + (None,) * 5
+        return grads + (None,) * 6
 
 
 def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
@@ -360,26 +376,33 @@ def fused_relpos_attention_block(
 ) -> torch.Tensor:
     """Same contract as `relpos_attention_plain`. A CPU tensor runs the
     plain version; a CUDA tensor launches the forward kernel (three
-    launches) and, under autograd, the backward. Limited context and packed
-    segments are outside the port's slice and raise."""
-    if tuple(att_context_size) != (-1, -1) or seg_id is not None:
+    launches) and, under autograd, the backward. `seg_id` (B, T) int, the
+    packed-segment map, runs in the forward only (the kernel's segment
+    mode); under autograd it raises, as does a limited context."""
+    if tuple(att_context_size) != (-1, -1):
         raise ValueError(
             "fused_relpos_attention_block supports full-context attention "
-            "only (att_context_size=(-1, -1), no seg_id)")
+            "only (att_context_size=(-1, -1))")
     args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
             mask)
+    train = torch.is_grad_enabled() and any(
+        z.requires_grad for z in args if isinstance(z, torch.Tensor))
+    if seg_id is not None and train:
+        raise ValueError(
+            "fused_relpos_attention_block: seg_id runs without gradients "
+            "only; the segment mode of the backward comes with packed "
+            "training (call it under torch.no_grad())")
     if x.device.type == "cpu":
         return relpos_attention_plain(*args, n_heads, dropout_rate,
-                                      dropout_seed)
+                                      dropout_seed, seg_id)
     if not x.is_cuda:
         raise ValueError(f"fused_relpos_attention_block: unsupported device "
                          f"{x.device}")
-    train = torch.is_grad_enabled() and any(
-        z.requires_grad for z in args if isinstance(z, torch.Tensor))
+    seg = None if seg_id is None else seg_id.to(torch.int32).contiguous()
     _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, n_heads,
-           train)
+           train, seg)
     return _Attention.apply(*args, n_heads, float(dropout_rate),
-                            int(dropout_seed))
+                            int(dropout_seed), seg)
 
 
 fused_relpos_attention_block.launches = 0

@@ -14,7 +14,8 @@ Per shape and backend it prints one line with:
     time included);
   - `host_ms`: median host-clock time of forward + synchronize;
   - `device_ms`: device time per forward, the union of all kernel and copy
-    intervals that torch.profiler records over 3 forwards, divided by 3;
+    intervals that torch.profiler records over 3 forwards, divided by the
+    forwards whose marker it kept (`mark_call`);
   - `busy`: device_ms / event_ms, the share of the forward the card works;
   - `launches`: device activities per forward.
 then the device time per forward by group (the port's kernels by name,
@@ -37,6 +38,8 @@ import torch
 SR = 16000
 SHAPES = ((32, 15.0), (8, 16.0))        # (clips, seconds)
 ITERS, TOP = 10, 8
+# torch.cuda._sleep's kernel, launched once before each profiled call
+MARKER = "spin_kernel"
 # names of the port's own kernels (csrc/*.cu; matched as substrings of the
 # profiler's names, first entry first) -> group
 GROUPS = (("ffn_int8_kernel", "ffn int8"),
@@ -153,21 +156,40 @@ def set_backend(model, backend: str) -> None:
             m.ctc_backend = "scan" if plain else backend
 
 
-def device_activity(prof, n_forwards: int):
-    """(union device ms per forward, launches per forward,
-    {name: (ms per forward, calls per forward)}) from a profiler run."""
+def mark_call() -> None:
+    """Launch the marker kernel (MARKER) before a profiled call, so that
+    `device_activity` counts the calls whose events the profiler kept."""
+    torch.cuda._sleep(0)
+
+
+def device_activity(prof, n_calls: int):
+    """(union device ms per call, launches per call,
+    {name: (ms per call, launches per call)}) from a profiler run of
+    n_calls calls. torch.profiler sometimes keeps only part of a run's
+    events: 3 of 5 launches of a phase, or a call's events without its
+    marker. Where each call was preceded by `mark_call`, the markers cut
+    the run into calls, the median of their launch counts is a call's
+    launches, and the recorded launches over it the number of calls the
+    figures are divided by, so they read neither low nor high; without
+    markers they are divided by n_calls. Each kernel's ms per call over
+    its launches per call is its time a launch in any case. The markers
+    themselves count nowhere."""
     from torch.autograd import DeviceType
 
-    spans, per_name = [], defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans, per_name, segments = [], defaultdict(lambda: [0.0, 0]), []
+    for start, end, name in events:
+        if MARKER in name:
+            segments.append(0)
             continue
-        start, end = e.time_range.start, e.time_range.end
+        if segments:
+            segments[-1] += 1
         spans.append((start, end))
-        per_name[e.name][0] += (end - start) / 1e3
-        per_name[e.name][1] += 1
+        per_name[name][0] += (end - start) / 1e3
+        per_name[name][1] += 1
     busy_us, cur_start, cur_end = 0.0, None, None
-    for start, end in sorted(spans):
+    for start, end in spans:
         if cur_end is None or start > cur_end:
             if cur_end is not None:
                 busy_us += cur_end - cur_start
@@ -176,9 +198,10 @@ def device_activity(prof, n_forwards: int):
             cur_end = max(cur_end, end)
     if cur_end is not None:
         busy_us += cur_end - cur_start
-    names = {k: (v[0] / n_forwards, v[1] / n_forwards)
-             for k, v in per_name.items()}
-    return busy_us / 1e3 / n_forwards, len(spans) / n_forwards, names
+    per_call = float(np.median(segments)) if segments else 0.0
+    calls = len(spans) / per_call if per_call else n_calls
+    names = {k: (v[0] / calls, v[1] / calls) for k, v in per_name.items()}
+    return busy_us / 1e3 / calls, len(spans) / calls, names
 
 
 def profile_shape(model, batch: int, seconds: float, out=None):
@@ -211,6 +234,7 @@ def profile_shape(model, batch: int, seconds: float, out=None):
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
+                    mark_call()
                     model(sig, lens)
                 torch.cuda.synchronize()
         event_ms, host_ms = float(np.median(events)), float(np.median(host))

@@ -6,10 +6,17 @@
 For each kernel wrapper named in --kernels, at the shape the main path
 gives it: the median of 20 wrapper calls (CUDA events around each call),
 the device time per call (the union of the card's busy spans in
-torch.profiler, so host work between launches does not count), and the
-device time of each launch by kernel name.
+torch.profiler, so host work between launches does not count, over the
+calls whose marker the profiler kept: profile_forward.mark_call), and the
+device time of each kernel a launch (its recorded time over its recorded
+launches) with its launches per call.
 
   logmel               fused_logmel, fp32, B=32 x 15 s of audio
+  attention            fused_relpos_attention_block, bf16, the serve
+                       model's sublayer (D=176, 4 heads) at the bucketed
+                       serve shape (B=32 x 16 s: T=401), ragged lengths
+  attention_seg        the same wrapper's segment mode at the packed serve
+                       shape (16 rows x 512, chip_smoke.py's packed_seg_map)
   attention_bwd        fused_relpos_attention_block_bwd, bf16, the student's
                        sublayer (B=32, T=376, D=88, 2 heads, dropout 0.1)
   attention_heads_bwd  fused_relpos_attention_bwd, bf16, the same shape
@@ -41,9 +48,11 @@ import argparse
 import os
 import sys
 
-KERNELS = ("logmel", "attention_bwd", "attention_heads_bwd", "ffn",
-           "ffn_bwd", "fm", "fm_bwd", "ffn_int8", "conv_module")
+KERNELS = ("logmel", "attention", "attention_seg", "attention_bwd",
+           "attention_heads_bwd", "ffn", "ffn_bwd", "fm", "fm_bwd",
+           "ffn_int8", "conv_module")
 BATCH, SECONDS, SR = 32, 15, 16000
+PACK_ROWS, T_PACK = 16, 512      # the packed serve shape (PackedTranscriber)
 
 
 def median_ms(torch, fn, iters: int = 20) -> float:
@@ -62,21 +71,52 @@ def median_ms(torch, fn, iters: int = 20) -> float:
     return times[len(times) // 2]
 
 
+def own_profile_forward():
+    """This script's own profile_forward.py (`device_activity`,
+    `mark_call`), loaded by path: with --root, `tpu_asr_torch` is the other
+    checkout's, whose profile_forward may predate them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_kernels_profile_forward",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "profile_forward.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def packed_seg_map():
+    """chip_smoke.py's phase 3 segment map (the repo root's, loaded by
+    path, whichever tree --root names)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_kernels_chip_smoke",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                     "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.packed_seg_map()
+
+
 def device_split(torch, fn, iters: int = 5):
-    """(device ms per call, [(kernel, ms per call, launches per call)])."""
+    """(device ms per call, [(kernel, ms a launch, launches per call)])."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_asr_torch.profile_forward import device_activity
+    pf = own_profile_forward()
+    device_activity, mark_call = pf.device_activity, pf.mark_call
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            mark_call()
             fn()
         torch.cuda.synchronize()
     busy, _, names = device_activity(prof, iters)
-    rows = sorted(((k, ms, n) for k, (ms, n) in names.items()),
-                  key=lambda r: -r[1])
+    rows = sorted(((k, ms / n, n) for k, (ms, n) in names.items()),
+                  key=lambda r: -r[1] * r[2])
     return busy, rows
 
 
@@ -119,6 +159,48 @@ def student_shape(torch, gen, teacher=False):
     lengths[0] = t
     mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
     return enc, t, mask
+
+
+def serve_attention_args(torch, gen, t):
+    """The serve model's attention weights (D=176, 4 heads) and x (B, t, D)
+    bf16 with B = 32 or, at t = T_PACK, PACK_ROWS packed rows."""
+    from tpu_asr_torch.config import ModelConfig
+    from tpu_asr_torch.models.conformer import rel_positional_encoding
+
+    enc = ModelConfig().encoder
+    d, h = enc.d_model, enc.n_heads
+    dk = d // h
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    pw = (n(d, d, sc=d ** -0.5), n(d, sc=0.1), n(d, d, sc=d ** -0.5),
+          n(d, sc=0.1), n(d, d, sc=d ** -0.5), n(d, sc=0.1),
+          n(h, dk, sc=0.1), n(h, dk, sc=0.1), n(d, d, sc=d ** -0.5),
+          n(d, d, sc=d ** -0.5))
+    b = PACK_ROWS if t == T_PACK else BATCH
+    x = n(b, t, d, sc=0.5).to(torch.bfloat16)
+    return x, pw, rel_positional_encoding(t, d, "cuda"), h
+
+
+def attention_call(torch):
+    from tpu_asr_torch.ops.cuda_attention import fused_relpos_attention_block
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t = 401
+    x, pw, pe, h = serve_attention_args(torch, gen, t)
+    lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    lengths[0] = t
+    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+    return lambda: fused_relpos_attention_block(x, *pw, pe, mask, h)
+
+
+def attention_seg_call(torch):
+    from tpu_asr_torch.ops.cuda_attention import fused_relpos_attention_block
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, pw, pe, h = serve_attention_args(torch, gen, T_PACK)
+    seg = torch.from_numpy(packed_seg_map()).cuda()
+    return lambda: fused_relpos_attention_block(x, *pw, pe, seg > 0, h,
+                                                seg_id=seg)
 
 
 def attention_bwd_call(torch):
@@ -284,7 +366,9 @@ def main(argv=None) -> int:
     where = os.path.dirname(tpu_asr_torch.__file__)
     print(f"{label}: tpu_asr_torch from {where}, "
           f"{torch.cuda.get_device_name(0)}")
-    makers = {"logmel": logmel_call, "attention_bwd": attention_bwd_call,
+    makers = {"logmel": logmel_call, "attention": attention_call,
+              "attention_seg": attention_seg_call,
+              "attention_bwd": attention_bwd_call,
               "attention_heads_bwd": attention_heads_bwd_call,
               "ffn": ffn_call, "ffn_bwd": ffn_bwd_call, "fm": fm_call,
               "fm_bwd": fm_bwd_call, "ffn_int8": ffn_int8_call,
@@ -299,7 +383,7 @@ def main(argv=None) -> int:
                      f"events), device {dev:.4f} ms per call (torch.profiler)")
         for k, kms, calls in rows:
             lines.append(f"{label} {name}:   {short(k)[:60]} {kms:.4f} ms "
-                         f"({calls:g} per call)")
+                         f"a launch ({calls:g} per call)")
     for line in lines:
         print(line, flush=True)
     if args.out:

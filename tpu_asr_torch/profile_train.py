@@ -35,8 +35,9 @@ import time
 import numpy as np
 import torch
 
-from tpu_asr_torch.profile_forward import (device_activity, print_groups,
-                                           seed_weights, set_backend)
+from tpu_asr_torch.profile_forward import (device_activity, mark_call,
+                                           print_groups, seed_weights,
+                                           set_backend)
 
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
@@ -106,6 +107,7 @@ def profile_backend(backend: str, config: str = "ctc_student",
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED):
+            mark_call()
             state, metrics = step(state, batch, 0)
         torch.cuda.synchronize()
     step_ms = float(np.median(host))
