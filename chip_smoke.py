@@ -163,6 +163,31 @@ Phases, each on its own output lines:
      beside phase 5's with the fill ratio and rows a request; and the
      encoder layers' device time a request, packed against bucketed, with
      the whole request's, on the first 4 requests.
+  17. packed KD train, on bench_train.py's packed_train batches (512
+     utterances of lognormal durations around 6.2 s in 4 linear buckets,
+     audio-matched batch sizes: 4 x 56, 2 x 40 and 1 x 32 utterances,
+     each bucket's plans padded to one row count in rows of 512): (a)
+     ptxas registers and spills of the attention backward's segment
+     mode (the tensor-core kernels may not spill; the fp32 check kernels
+     printed); the block attention under autograd with the
+     segment map of a 56-utterance batch (20 rows x 512, an all-guard row
+     among them) at the student's width (D=88, 2 heads), dropout 0.1, fp32
+     and bf16, against autograd through the plain version by phase 6's
+     rule, every gradient finite, two backward calls bit-equal; the same
+     on a map whose ids do not rise along the row (3 x 200); the bf16
+     backward's time, plain time, bound (from the within-segment score
+     pairs) and device time a launch beside the unpacked backward at the
+     bucketed shape of the same utterances (56 x 209). (b) one fp32 packed
+     flowkd_mlp8 step on 8 of those utterances, kernels against plain
+     (losses 1e-4 relative, gradients by phase 9's rule, the teacher
+     unchanged), the segment-mode backward launched. (c) bf16 flowkd_mlp8
+     steps over all 7 batches, bucketed and packed
+     (profile_train.profile_packed), each after a warm-up pass, counters
+     reset before the timed pass: audio s/s, ms a step,
+     device ms a step and its groups (torch.profiler), the student
+     encoder's forward and backward device time a batch, their ratios, the
+     fill ratio and rows a batch; every kernel launched, every packed
+     attention backward in its segment mode.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
 recorded launches (`device_ms`).
@@ -191,6 +216,8 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, data sheet
 # SIMT fp32, bf16 and int8 tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 FFN_GRADS = ["dx", "d_ln_scale", "d_ln_bias", "dw1", "db1", "dw2", "db2"]
+ATT_GRADS = ["dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "d_pos_bias_u",
+             "d_pos_bias_v", "dw_pos", "dwo"]
 DEVICE = "torch.profiler: busy ms a call, each kernel's ms a launch"
 
 
@@ -431,27 +458,6 @@ def kernel_phase(cfg):
     return results
 
 
-def packed_seg_map():
-    """(PACK_ROWS, T_PACK) int32 segment map at the packed serve shape: the
-    first rows from plan_packing of seeded serve-window lengths (25-376
-    frames: 1-15 s clips; guard 16), whose segments straddle the 64-key
-    tiles; the row before last one segment of 40 frames at frame 100,
-    shorter than a tile and off its edges; the last row all guard."""
-    from tpu_asr_torch.data.packing import plan_packing
-    rng = np.random.default_rng(16)
-    lengths, plan = [], None
-    while True:
-        trial = lengths + [int(rng.integers(25, 377))]
-        nxt = plan_packing(trial, T_PACK, 16)
-        if nxt.n_rows > PACK_ROWS - 2:
-            break
-        lengths, plan = trial, nxt
-    seg = np.zeros((PACK_ROWS, T_PACK), np.int32)
-    seg[:plan.n_rows] = plan.seg_id
-    seg[PACK_ROWS - 2, 100:140] = 1
-    return seg
-
-
 def segment_pairs(seg: np.ndarray) -> int:
     """Score pairs (t, s) within one segment, over the rows of a map."""
     return sum(int((np.bincount(r[r > 0]) ** 2).sum()) for r in seg)
@@ -482,6 +488,7 @@ def segment_attention(gen, pw, d, h):
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention_block, relpos_attention_plain)
     from tpu_asr_torch.ops.positions import rel_positional_encoding
+    from tpu_asr_torch.profile_forward import packed_seg_map
 
     seg_np = packed_seg_map()
     seg = torch.from_numpy(seg_np).cuda()
@@ -607,7 +614,9 @@ def subsampling_module_path(x, w1, b1, w2, b2, w_out):
 
 
 def reset_counters():
-    """Set every kernel wrapper's launch count to 0; {row name: wrapper}."""
+    """Set every kernel wrapper's launch count to 0, and the attention
+    backward's count of its segment mode (`seg_launches`); returns a
+    function that reads {row name: launches since}."""
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention, fused_relpos_attention_block,
         fused_relpos_attention_block_bwd, fused_relpos_attention_bwd)
@@ -632,7 +641,10 @@ def reset_counters():
            "attention_heads_bwd": fused_relpos_attention_bwd}
     for fn in fns.values():
         fn.launches = 0
-    return fns
+    fused_relpos_attention_block_bwd.seg_launches = 0
+    return lambda: {**{k: fn.launches for k, fn in fns.items()},
+                    "attention_seg_bwd":
+                        fused_relpos_attention_block_bwd.seg_launches}
 
 
 def model_clips(seed: int):
@@ -652,10 +664,10 @@ def model_phase(cfg):
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     model = seeded_model(cfg32, seed=1)
     sig_t, len_t = model_clips(1)
-    fns = reset_counters()
+    read = reset_counters()
     with torch.inference_mode():
         got = model(sig_t, len_t)
-        counts = {k: f.launches for k, f in fns.items()}
+        counts = read()
         set_backend(model, "xla")
         want = model(sig_t, len_t)
         set_backend(model, "auto")
@@ -744,7 +756,7 @@ def serve_phase(cfg, rows=None, packed=False):
         tr.transcribe(r)
     torch.cuda.synchronize()
     requests = requests[SERVE_WARMUP:]
-    fns = reset_counters()
+    read = reset_counters()
     latency, texts, plans = [], [], []
     start = time.perf_counter()
     for r in requests:
@@ -755,7 +767,7 @@ def serve_phase(cfg, rows=None, packed=False):
             plans.append(tr.last_plan)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    counts = {k: fns[k].launches for k in rows or SERVING}
+    counts = {k: n for k, n in read().items() if k in (rows or SERVING)}
     audio_s = sum(len(w) for r in requests for w in r) / SR
     flat = [t for r in texts for t in r]
     check(len(flat) == SERVE_REQUESTS * SERVE_BATCH
@@ -803,9 +815,9 @@ def packed_model_phase(cfg):
 
     model = seeded_model(dataclasses.replace(cfg, compute_dtype="float32"),
                          seed=1)
-    fns = reset_counters()
+    read = reset_counters()
     tr, plan, got = packed(model)
-    counts = {k: fns[k].launches for k in SERVING}
+    counts = {k: n for k, n in read().items() if k in SERVING}
     with torch.inference_mode():
         ref = model(sig_t, len_t)
     torch.cuda.synchronize()
@@ -1081,7 +1093,6 @@ def train_kernel_phase(tcfg):
     gen = torch.Generator(device="cuda").manual_seed(3)
     enc, pre = scfg.encoder, scfg.preprocessor
     d, h, f = enc.d_model, enc.n_heads, enc.d_ff
-    dk = d // h
     n_frames = SECONDS * SR // pre.hop_length + 1
     t = out_len(out_len(n_frames))
     rate, seed = enc.dropout, 2 ** 31 - 5      # streams wrap past int32
@@ -1123,12 +1134,7 @@ def train_kernel_phase(tcfg):
                       str(dt)[6:]), None)
 
     # attention forward (dropout) and backward
-    pw = (normal(gen, d, d, scale=d ** -0.5), normal(gen, d, scale=0.1),
-          normal(gen, d, d, scale=d ** -0.5), normal(gen, d, scale=0.1),
-          normal(gen, d, d, scale=d ** -0.5), normal(gen, d, scale=0.1),
-          normal(gen, h, dk, scale=0.1), normal(gen, h, dk, scale=0.1),
-          normal(gen, d, d, scale=d ** -0.5), normal(gen, d, d,
-                                                      scale=d ** -0.5))
+    pw = attention_weights(gen, d, h)
     pos_emb = rel_positional_encoding(t, d, "cuda")
     lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
                             device="cuda")
@@ -1137,8 +1143,6 @@ def train_kernel_phase(tcfg):
     valid = mask[..., None]
     xa = normal(gen, BATCH, t, d, scale=0.5)
     ga = normal(gen, BATCH, t, d) * valid
-    names = ["dx", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "d_pos_bias_u",
-             "d_pos_bias_v", "dw_pos", "dwo"]
     for dt in (torch.float32, torch.bfloat16):
         dts = str(dt)[6:]
         x = xa.to(dt)
@@ -1175,7 +1179,7 @@ def train_kernel_phase(tcfg):
         # rounded to bf16 at other points than autograd's roundings
         tol, floor = (1e-3, 1e-4) if dt == torch.float32 else (5e-2, 1e-2)
         print(f"attention_bwd {dts} dropout {rate}, kernels vs plain:")
-        err_abs, _ = grads_close(got_g, want_g, tol, names, floor)
+        err_abs, _ = grads_close(got_g, want_g, tol, ATT_GRADS, floor)
         saved = out_k.grad_fn.saved_tensors
         bwd = lambda: fused_relpos_attention_block_bwd(g, *saved, h, rate,
                                                        seed)
@@ -1364,9 +1368,7 @@ def long_attention_bwd(pw, h, rate, seed, t=LONG_T):
     torch.cuda.synchronize()
     print(f"attention_bwd bfloat16 T={t} (B=2) dropout {rate}, kernels vs "
           f"plain:")
-    grads_close(got, want, 5e-2, ["dx", "dwq", "dbq", "dwk", "dbk", "dwv",
-                                  "dbv", "d_pos_bias_u", "d_pos_bias_v",
-                                  "dw_pos", "dwo"], 1e-2, verbose=False)
+    grads_close(got, want, 5e-2, ATT_GRADS, 1e-2, verbose=False)
     saved = out_k.grad_fn.saved_tensors
     bwd = lambda: fused_relpos_attention_block_bwd(g, *saved, h, rate, seed)
     check(all(torch.equal(a, b) for a, b in zip(bwd(), bwd())),
@@ -1503,7 +1505,7 @@ def timed_steps(model, batch, seed: int):
         state, _ = step(state, batch, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fns = reset_counters()
+    read = reset_counters()
     metrics = []
     start = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -1511,7 +1513,7 @@ def timed_steps(model, batch, seed: int):
         metrics.append(m)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - start) / TRAIN_STEPS
-    return ms, {k: f.launches for k, f in fns.items()}, metrics
+    return ms, read(), metrics
 
 
 def timed_summary(ms: float) -> str:
@@ -1635,6 +1637,7 @@ def nvcc_registers(prefix: str):
     import re
 
     from tpu_asr_torch.ops import _kernels
+    from tpu_asr_torch.profile_forward import short_symbol
     log = (_kernels.build().parent / "nvcc.log").read_text()
     out, name, spills = {}, None, (-1, -1)
     for line in log.splitlines():
@@ -1655,26 +1658,6 @@ def nvcc_registers(prefix: str):
                   f"{spills[0]} B, loads {spills[1]} B")
             name = None
     return out
-
-
-def short_symbol(name: str) -> str:
-    """A mangled kernel symbol of csrc (a namespace, then the kernel) as
-    `kernel`, `kernel<N>` (its first integer template argument) or
-    `kernel<float>` / `kernel<bf16>` (its first type argument)."""
-    import re
-
-    m = re.match(r"_ZN(\d+)", name)
-    k = m and re.match(r"(\d+)", name[m.end() + int(m.group(1)):])
-    if not k:
-        return name
-    at = m.end() + int(m.group(1)) + k.end()
-    end = at + int(k.group(1))
-    arg = re.match(r"ILi(\d+)E", name[end:])
-    if arg:
-        return f"{name[at:end]}<{arg.group(1)}>"
-    typ = re.match(r"I(f|13__nv_bfloat16)", name[end:])
-    return name[at:end] + (f"<{'float' if typ.group(1) == 'f' else 'bf16'}>"
-                           if typ else "")
 
 
 def fm_kernel_phase():
@@ -2148,11 +2131,11 @@ def int8_model_phase(cfg):
                                          conv_backend="auto"), seed=16)
     set_backend(fp_model, "xla")
     sig_t, len_t = model_clips(17)
-    fns = reset_counters()
+    read = reset_counters()
     inputs = []
     with torch.inference_mode():
         got = model(sig_t, len_t)
-        counts = {k: fns[k].launches for k in INT8_SERVING}
+        counts = {k: n for k, n in read().items() if k in INT8_SERVING}
         set_backend(model, "xla")
         hooks = [layer.register_forward_pre_hook(
             lambda mod, args: inputs.append(args))
@@ -2509,6 +2492,317 @@ def heads_kernel_phase(cfg):
     return rows
 
 
+def attention_weights(gen, d, h):
+    """wq, bq, wk, bk, wv, bv, pos_bias_u, pos_bias_v, w_pos, wo: fp32,
+    seeded, matrices scaled by fan-in."""
+    dk = d // h
+    return (normal(gen, d, d, scale=d ** -0.5), normal(gen, d, scale=0.1),
+            normal(gen, d, d, scale=d ** -0.5), normal(gen, d, scale=0.1),
+            normal(gen, d, d, scale=d ** -0.5), normal(gen, d, scale=0.1),
+            normal(gen, h, dk, scale=0.1), normal(gen, h, dk, scale=0.1),
+            normal(gen, d, d, scale=d ** -0.5),
+            normal(gen, d, d, scale=d ** -0.5))
+
+
+def seg_bwd_compare(seg, x, g, pw, h, rate, seed, label):
+    """The block attention with `seg` (B, T) under autograd, kernels
+    against autograd through the plain version, x's dtype: the output on
+    valid rows and finite on every row, every gradient finite and within
+    phase 6's rule, two backward calls bit-equal. Returns (largest
+    gradient error, the kernel's gradients, the backward's closure, the
+    tensors it reads, the plain output and its leaves)."""
+    from tpu_asr_torch.ops.cuda_attention import (
+        fused_relpos_attention_block, fused_relpos_attention_block_bwd,
+        relpos_attention_plain)
+    from tpu_asr_torch.ops.positions import rel_positional_encoding
+
+    dts = str(x.dtype)[6:]
+    t, d = x.shape[1:]
+    mask = seg > 0
+    pos_emb = rel_positional_encoding(t, d, "cuda")
+    leaves = [z.detach().requires_grad_() for z in (x, *pw)]
+    out_k = fused_relpos_attention_block(*leaves, pos_emb, mask, h,
+                                         dropout_rate=rate,
+                                         dropout_seed=seed, seg_id=seg)
+    got = torch.autograd.grad(out_k, leaves, g, retain_graph=True)
+    leaves_p = [z.detach().requires_grad_() for z in (x, *pw)]
+    out_p = relpos_attention_plain(*leaves_p, pos_emb, mask, h, rate, seed,
+                                   seg)
+    want = torch.autograd.grad(out_p, leaves_p, g, retain_graph=True)
+    torch.cuda.synchronize()
+    valid = mask[..., None]
+    rtol, atol = (1e-4, 1e-4) if x.dtype == torch.float32 else (1e-2, 3e-3)
+    err = ((out_k.float() - out_p.float()).abs() * valid).max().item()
+    check(bool(torch.isfinite(out_k).all()) and torch.allclose(
+        out_k.float() * valid, out_p.float() * valid, rtol=rtol, atol=atol),
+        f"attention_seg {dts} {label} forward under autograd: finite, valid "
+        f"rows max |err| {err:.3e} (rtol {rtol}, atol {atol})")
+    check(all(bool(torch.isfinite(z).all()) for z in got),
+          f"attention_seg_bwd {dts} {label}: every gradient finite")
+    tol, floor = (1e-3, 1e-4) if x.dtype == torch.float32 else (5e-2, 1e-2)
+    print(f"attention_seg_bwd {dts} {label} dropout {rate}, kernels vs "
+          f"plain:")
+    err_abs, _ = grads_close(got, want, tol, ATT_GRADS, floor)
+    saved, seg_saved = out_k.grad_fn.saved_tensors, out_k.grad_fn.seg
+    bwd = lambda: fused_relpos_attention_block_bwd(g, *saved, h, rate, seed,
+                                                   seg_saved)
+    check(all(torch.equal(a, c) for a, c in zip(bwd(), bwd())),
+          f"attention_seg_bwd {dts} {label}: two calls give bit-equal "
+          f"gradients")
+    return err_abs, got, bwd, (*saved, seg_saved), out_p, leaves_p
+
+
+def shuffled_seg_map(t: int = 200) -> np.ndarray:
+    """(3, t) segment map whose ids do not rise along a row: 2, 1, 3, 1
+    with guards; 2, 1, 2 end to end (a segment around another); one
+    segment of id 4 off both ends."""
+    seg = np.zeros((3, t), np.int32)
+    seg[0, :40], seg[0, 48:100], seg[0, 108:150], seg[0, 158:] = 2, 1, 3, 1
+    seg[1, :70], seg[1, 70:140], seg[1, 140:] = 2, 1, 2
+    seg[2, 30:t - 30] = 4
+    return seg
+
+
+def seg_bwd_kernel_check(scfg, plan, bucketed):
+    """Phase 17a: the segment-mode backward against autograd through the
+    plain version at the student's width on `plan`'s rows (an all-guard
+    row among them), fp32 and bf16, dropout 0.1; a shuffled map at a small
+    size; ptxas registers and spills; times, the bound from the
+    within-segment pairs and the device time a launch beside the unpacked
+    backward at the bucketed shape of the same audio (`bucketed`: its
+    (B,) subsampled lengths and T'). Returns the bf16 row."""
+    from tpu_asr_torch.ops.cuda_attention import (
+        fused_relpos_attention_block, fused_relpos_attention_block_bwd)
+    from tpu_asr_torch.ops.positions import rel_positional_encoding
+
+    regs = {k: v for k, v in {**nvcc_registers("dq_mma"),
+                              **nvcc_registers("dkv_mma")}.items()
+            if k.endswith(", true>")}
+    check(regs and all(v[1:] == (0, 0) for v in regs.values()),
+          f"ptxas: the segment mode's tensor-core backward kernels "
+          f"{sorted(regs)} spill nothing")
+    nvcc_registers("dq_kernel")       # the fp32 check kernels, printed
+    nvcc_registers("dkv_kernel")
+    enc = scfg.encoder
+    d, h = enc.d_model, enc.n_heads
+    dk = d // h
+    rate, seed = enc.dropout, 2 ** 31 - 5
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    pw = attention_weights(gen, d, h)
+    seg_np = plan.seg_id
+    r, t = seg_np.shape
+    check((seg_np == 0).all(axis=1).any(), f"the plan's {r} rows of {t} "
+          f"hold an all-guard row")
+    seg = torch.from_numpy(seg_np).cuda()
+    valid = (seg > 0)[..., None]
+    xa = normal(gen, r, t, d, scale=0.5)
+    ga = normal(gen, r, t, d) * valid
+    label = f"({r} rows x {t}, D={d}, H={h}, {int(valid.sum())} valid)"
+    for dt in (torch.float32, torch.bfloat16):
+        err, got, bwd, reads, out_p, leaves_p = seg_bwd_compare(
+            seg, xa.to(dt), ga.to(dt), pw, h, rate, seed, label)
+    g = ga.to(torch.bfloat16)
+    pairs = segment_pairs(seg_np)
+    # as attention_flops(backward=True), the T x T products over the
+    # within-segment pairs
+    flops = (2 * r * t * d * d * 8 + 2 * (2 * t - 1) * d * d
+             + 2 * h * pairs * dk * 8)
+    nb = nbytes(g, *reads) + nbytes(*got)
+    ms = median_ms(bwd)
+    plain_ms = median_ms(lambda: torch.autograd.grad(out_p, leaves_p, g,
+                                                     retain_graph=True))
+    b_ms, by = bound(flops, nb, "bfloat16")
+    dev, names = device_ms(bwd)
+    # the unpacked backward on the same utterances, bucketed
+    lens, tb = bucketed
+    nb_rows = len(lens)
+    lens = torch.as_tensor(lens, device="cuda")
+    mask_b = torch.arange(tb, device="cuda")[None, :] < lens[:, None]
+    xb = normal(gen, nb_rows, tb, d, scale=0.5).to(torch.bfloat16)
+    leaves_b = [z.detach().requires_grad_() for z in (xb, *pw)]
+    out_b = fused_relpos_attention_block(
+        *leaves_b, rel_positional_encoding(tb, d, "cuda"), mask_b, h,
+        dropout_rate=rate, dropout_seed=seed)
+    gb = (normal(gen, nb_rows, tb, d) * mask_b[..., None]).to(torch.bfloat16)
+    saved_b = out_b.grad_fn.saved_tensors
+    dev_b, names_b = device_ms(lambda: fused_relpos_attention_block_bwd(
+        gb, *saved_b, h, rate, seed))
+    print(f"time attention_seg_bwd bfloat16 {label}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; {pairs} "
+          f"within-segment score pairs over the heads' rows, "
+          f"{span_pairs(seg_np)} visited by the span tiles, dense "
+          f"{r * t * t}); device {dev:.4f} ms a call "
+          f"({top_kernels(names, 6)} a launch); unpacked at the bucketed "
+          f"shape B={nb_rows} x T={tb} (the same utterances): device "
+          f"{dev_b:.4f} ms a call ({top_kernels(names_b, 6)} a launch; "
+          f"{nb_rows * tb * tb} score pairs, "
+          f"{nb_rows * (-(-tb // 64) * 64) ** 2} in its 64-key tiles)")
+    row = (err, ms, plain_ms, (b_ms, by), None)
+
+    # a map whose ids do not rise along a row, fp32 and bf16
+    seg_s = torch.from_numpy(shuffled_seg_map()).cuda()
+    xs = normal(gen, 3, seg_s.shape[1], d, scale=0.5)
+    gs = normal(gen, 3, seg_s.shape[1], d) * (seg_s > 0)[..., None]
+    for dt in (torch.float32, torch.bfloat16):
+        seg_bwd_compare(seg_s, xs.to(dt), gs.to(dt), pw, h, rate, seed,
+                        "(shuffled ids, 3 rows x 200)")
+    return row
+
+
+def packed_kd_check(scfg, tcfg, batch):
+    """Phase 17b: one fp32 packed flowkd_mlp8 step (`batch`: CHECK_BATCH
+    utterances with their plan) on the kernels against the plain versions,
+    the same weights and seeds: each loss within 1e-4 relative, every
+    student and FM gradient by phase 9's rule, the teacher's parameters and
+    statistics bit-unchanged, and the segment-mode backward launched."""
+    import copy
+
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.profile_forward import set_backend
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+
+    f32 = lambda cfg: dataclasses.replace(cfg, compute_dtype="float32")
+    model = kd_model(f32(scfg), f32(tcfg), 20)
+    init = copy.deepcopy(model.state_dict())
+    runs = {}
+    for backend in ("auto", "xla"):
+        model.load_state_dict(init)
+        set_backend(model, backend)
+        read = reset_counters()
+        state = DistilTrainState.create(model, OptimConfig())
+        state, metrics = make_distil_train_step(model, packed=True)(
+            state, batch, 21)
+        torch.cuda.synchronize()
+        runs[backend] = (
+            {k[5:]: v.item() for k, v in metrics.items()
+             if k.startswith("loss/")},
+            {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None},
+            read())
+        check(all(torch.equal(v, init[k]) for k, v in
+                  model.state_dict().items() if k.startswith("teacher.")),
+              f"fp32 packed flowkd_mlp8 step ({backend}): the teacher's "
+              f"parameters and statistics bit-unchanged")
+    set_backend(model, "auto")
+    (lk, gk, ck), (lp, gp, cp) = runs["auto"], runs["xla"]
+    n_utt = batch["signal"].shape[0]
+    rows = batch["pk_seg"].shape
+    check(ck["attention_seg_bwd"] > 0 and cp["attention_seg_bwd"] == 0,
+          f"fp32 packed step: the segment-mode backward launched "
+          f"{ck['attention_seg_bwd']} times on the kernels, "
+          f"{cp['attention_seg_bwd']} on the plain versions")
+    check(set(lk) == {"ctc", "flow_matching", "logit_kd", "total"},
+          f"fp32 packed step losses {sorted(lk)}")
+    for loss in sorted(lk):
+        check(math.isfinite(lk[loss])
+              and abs(lk[loss] - lp[loss]) <= 1e-4 * abs(lp[loss]),
+              f"fp32 packed flowkd_mlp8 step ({n_utt} utterances in "
+              f"{rows[0]} rows of {rows[1]}, dropout, SpecAugment, dither) "
+              f"loss/{loss}: kernels {lk[loss]:.6f} vs plain {lp[loss]:.6f} "
+              f"(1e-4 rel)")
+    check(set(gk) == set(gp), f"fp32 packed step: {len(gk)} student and FM "
+          f"gradients")
+    print("fp32 packed flowkd_mlp8 step gradients, kernels vs plain:")
+    grads_close([gk[n] for n in gk], [gp[n] for n in gk], 1e-2, list(gk),
+                1e-4, verbose=False)
+
+
+def encoder_step_ms(model, batches, packed: bool) -> float:
+    """Device ms (torch.profiler) of the student encoder's training forward
+    and backward a batch, on the pre-encoded frames of each batch: packed
+    rows (encode_packed with the plan) or the bucketed batch
+    (encode_frames); mean over the batches."""
+    total = 0.0
+    for batch in batches:
+        with torch.no_grad():
+            x, lens = model.student.pre_encode_aug(batch["signal"],
+                                                   batch["signal_len"])
+            if packed:
+                seg = batch["pk_seg"].long()
+                x = torch.where((seg > 0)[..., None],
+                                x[batch["pk_src_utt"].long(),
+                                  batch["pk_src_pos"].long()], 0)
+        gen = torch.Generator().manual_seed(0)
+
+        def run():
+            if packed:
+                out = model.student.encode_packed(x, seg, True,
+                                                  {"dropout": gen})[0]
+            else:
+                out = model.student.encoder.encode_frames(x, lens, True,
+                                                          gen)[0]
+            out.float().square().mean().backward()
+
+        total += device_ms(run, iters=2)[0]
+    return total / len(batches)
+
+
+def packed_train_phase(tcfg):
+    """Phase 17, packed KD training. Returns ({'attention_seg_bwd': the
+    bf16 row of 17a}, {'attention_seg_bwd': its launches in 17c's timed
+    packed pass})."""
+    from tpu_asr_torch.config import make_student_config
+    from tpu_asr_torch.data.packing import train_pack_arrays
+    from tpu_asr_torch.models.conformer import subsampled_length
+    from tpu_asr_torch.ops.features import stft_seq_len
+    from tpu_asr_torch.profile_train import (T_PACK as TP, packed_batches,
+                                             profile_packed)
+
+    scfg = make_student_config(tcfg)
+    batches = packed_batches(scfg)
+    plans = [p for *_, p in batches]
+    # 17a on the largest batch whose rows hold an all-guard row
+    i = next(k for k, (b, _, _, p) in enumerate(batches)
+             if (p.seg_id == 0).all(axis=1).any())
+    big = max(b["signal"].shape[0] for b, *_ in batches)
+    check(batches[i][0]["signal"].shape[0] == big,
+          f"17a takes a batch of the largest size ({big} utterances)")
+    t_bucket = lambda b: int(subsampled_length(stft_seq_len(
+        b["signal"].shape[1], scfg.preprocessor.n_fft,
+        scfg.preprocessor.hop_length)))
+    row = seg_bwd_kernel_check(scfg, plans[i],
+                               (plans[i].length, t_bucket(batches[i][0])))
+
+    # 17b: CHECK_BATCH utterances of that batch, packed without padding
+    b0 = batches[i][0]
+    cb = {k: v[:CHECK_BATCH] for k, v in b0.items()}
+    cb["signal"] = cb["signal"][:, :int(cb["signal_len"].max())]
+    pre, enc = scfg.preprocessor, scfg.encoder
+    pk, _ = train_pack_arrays(cb["signal_len"].cpu().numpy(), pre.n_fft,
+                              pre.hop_length, enc.subsampling_factor,
+                              enc.subsampling, enc.conv_kernel_size, TP)
+    cb.update({k: torch.from_numpy(v).cuda() for k, v in pk.items()})
+    packed_kd_check(scfg, tcfg, cb)
+
+    # 17c: bench_train.py's packed_train, bucketed and packed, bf16
+    res = profile_packed(batches=batches, counters=reset_counters)
+    for tag, r in res.items():
+        check(all(math.isfinite(x) for x in r.losses),
+              f"bf16 flowkd_mlp8 {tag} steps: losses finite")
+    enc_ms = {tag: encoder_step_ms(r.model, r.batches, tag == "packed")
+              for tag, r in res.items()}
+    pk_counts = res["packed"].counts
+    want = ("logmel", "subsampling", "attention", "attention_bwd",
+            "attention_seg_bwd", "ffn", "ffn_bwd", "ctc", "ctc_bwd", "fm",
+            "fm_bwd")
+    check(all(pk_counts[k] > 0 for k in want)
+          and pk_counts["attention_seg_bwd"]
+          == pk_counts["attention_bwd"]
+          and res["bucketed"].counts["attention_seg_bwd"] == 0,
+          f"packed steps launched every kernel, every attention backward in "
+          f"its segment mode: { {k: pk_counts[k] for k in want} }")
+    print(f"student encoder's forward and backward, device ms a batch, "
+          f"packed over bucketed (same run): {enc_ms['packed']:.4f} / "
+          f"{enc_ms['bucketed']:.4f} = "
+          f"{enc_ms['packed'] / enc_ms['bucketed']:.3f}x; "
+          f"rows a batch {[p.n_rows for p in plans]} of {TP} against "
+          f"bucketed (rows, T') "
+          f"{[(b['signal'].shape[0], t_bucket(b)) for b, *_ in batches]}")
+    return ({"attention_seg_bwd": row},
+            {"attention_seg_bwd": pk_counts["attention_seg_bwd"]})
+
+
 SERVING = ("logmel", "subsampling", "attention")
 # row: (source, TPU kernel it replaces, dtype of the main path)
 KERNELS = {
@@ -2545,6 +2839,8 @@ KERNELS = {
                             "bfloat16"),
     "attention_seg": ("tpu_asr_torch/csrc/attention.cu",
                       "tpu_asr/ops/pallas_attention.py:669", "bfloat16"),
+    "attention_seg_bwd": ("tpu_asr_torch/csrc/attention.cu",
+                          "tpu_asr/ops/pallas_attention.py:717", "bfloat16"),
 }
 STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
            "ffn_bwd", "ctc", "ctc_bwd")
@@ -2582,13 +2878,13 @@ def main() -> int:
     counts.update({k: int8_counts[k] for k in ("ffn_int8", "conv_module")})
     kd_train_phase(teacher_config("flowkd_mlp8_int8_teacher"),
                    "flowkd_mlp8_int8_teacher")
-    fns = reset_counters()
+    read = reset_counters()
     measured.update(layer_kernel_phase(cfg))
-    counts["conformer_layer"] = fns["conformer_layer"].launches
-    fns = reset_counters()
+    counts["conformer_layer"] = read()["conformer_layer"]
+    read = reset_counters()
     measured.update(heads_kernel_phase(cfg))
-    counts.update({k: fns[k].launches
-                   for k in ("attention_heads", "attention_heads_bwd")})
+    counts.update({k: n for k, n in read().items()
+                   if k in ("attention_heads", "attention_heads_bwd")})
     new = {k: counts[k] for k in ("conformer_layer", "attention_heads",
                                   "attention_heads_bwd")}
     check(all(v > 0 for v in new.values()),
@@ -2599,6 +2895,9 @@ def main() -> int:
           f"(phase 5) {rtfx:.1f}, same run")
     counts["attention_seg"] = packed_counts["attention"]
     encoder_device_times(cfg)
+    seg_rows, seg_counts = packed_train_phase(cfg)
+    measured.update(seg_rows)
+    counts.update(seg_counts)
     rows = []
     for name, (source, replaces, dt) in KERNELS.items():
         err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]

@@ -15,8 +15,9 @@ valid query rows only (padded rows are garbage by contract).
 - one head with dropout 0.1 against the Pallas block in interpret mode,
   bf16 forward, rtol 2e-2, atol 1e-2 (the tolerance of the test above);
 - gradients of the module in fp32 against jax.vjp of the XLA module, 1e-4;
-- the kernel wrapper refuses what the port's slice does not run: a limited
-  context, and packed segments (seg_id) under autograd.
+- the kernel wrapper refuses what the port's slice does not run, a limited
+  context, and takes packed segments (seg_id) under autograd: on CPU
+  tensors the plain version's gradients.
 """
 
 import jax
@@ -131,16 +132,33 @@ def _wrapper_args(t=12, d=16, h=2):
 
 
 @pytest.mark.parametrize("option", [{"att_context_size": (8, 0)},
-                                    {"att_context_size": (-1, 4)},
-                                    {"seg_id": torch.ones(2, 12,
-                                                          dtype=torch.int32)}])
+                                    {"att_context_size": (-1, 4)}])
 def test_wrapper_refuses_options_outside_the_slice(option):
-    """The weights require grad and grad mode is on: seg_id, which runs in
-    the forward only, is refused for the backward it would need."""
-    match = "packed training" if "seg_id" in option else \
-        "full-context attention"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="full-context attention"):
         fused_relpos_attention_block(*_wrapper_args(), **option)
+
+
+def test_wrapper_takes_seg_id_under_autograd():
+    """The weights require grad and grad mode is on: with seg_id (packed
+    training) the wrapper on CPU tensors is the plain version, gradients
+    included, and the segments change them."""
+    args = _wrapper_args()
+    seg = torch.ones(2, 12, dtype=torch.int32)
+    seg[0, 7:] = 2
+    seg[1, 7:] = 0
+    weights = [a for a in args if isinstance(a, torch.Tensor)
+               and a.requires_grad]
+    assert weights
+    runs = []
+    for fn, kw in ((fused_relpos_attention_block, {"seg_id": seg}),
+                   (relpos_attention_plain, {"seg_id": seg}),
+                   (fused_relpos_attention_block, {})):
+        out = fn(*args, **kw)
+        runs.append(torch.autograd.grad(out.square().sum(), weights))
+    for a, b in zip(runs[0], runs[1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert any(not torch.allclose(a, c) for a, c in zip(runs[0], runs[2]))
+    assert fused_relpos_attention_block.launches == 0
 
 
 def test_wrapper_dropout_draws_seeded_masks():

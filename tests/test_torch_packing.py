@@ -18,8 +18,9 @@ bridge (tpu_asr_torch.convert.from_jax).
   tests/test_packing.py holds JAX) with equal greedy ids;
 - PackedTranscriber(device='cpu') gives the texts of JAX's
   PackedTranscriber and of the port's Transcriber;
-- a CPU packed forward launches no kernel and builds nothing; packed
-  training raises.
+- a CPU packed forward launches no kernel and builds nothing; the encoder
+  takes packed rows in training too (tests/test_torch_packed_train.py
+  holds packed training against JAX).
 """
 
 import jax
@@ -220,7 +221,7 @@ def test_segment_attention_bf16_matches_pallas_interpret(t, d, h):
 
 def test_wrapper_runs_seg_id_on_cpu_without_grad():
     """The kernel wrapper on CPU tensors: the plain version, segment mode
-    included, under no_grad; under autograd seg_id raises."""
+    included, under no_grad; under autograd too, gradients included."""
     rng = np.random.default_rng(12)
     t, d, h = 40, 32, 2
     mod = _torch_mha(_attention_params(rng, d, h), d, h)
@@ -232,8 +233,14 @@ def test_wrapper_runs_seg_id_on_cpu_without_grad():
         got = fused_relpos_attention_block(*args, seg_id=seg)
         want = relpos_attention_plain(*args, seg_id=seg)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="packed training"):
-        fused_relpos_attention_block(*args, seg_id=seg)
+    weights = [a for a in args if isinstance(a, torch.Tensor)
+               and a.requires_grad]
+    got = torch.autograd.grad(
+        fused_relpos_attention_block(*args, seg_id=seg).sum(), weights)
+    want = torch.autograd.grad(
+        relpos_attention_plain(*args, seg_id=seg).sum(), weights)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 # --------------------------------------------------------------------------
@@ -381,11 +388,32 @@ def test_cpu_packed_forward_launches_and_builds_nothing(models):
     assert _kernels.library.cache_info().currsize == 0
 
 
-def test_packed_training_raises(models):
+def test_packed_training_encodes(models):
+    """encode_frames(train=True) takes packed rows: gradients reach every
+    weight of the layers, guard frames stay zero, and a segment sees only itself
+    (the same frames encode alike beside another segment and alone in a
+    row; the encoder's dropout is 0, and BatchNorm's statistics are the
+    batch's, shared by both rows)."""
     cfg, _, _, port = models
-    x = torch.zeros(2, 16, cfg.encoder.d_model)
-    seg = torch.ones(2, 16, dtype=torch.int32)
-    with pytest.raises(ValueError, match="eval only"):
-        port.encoder.encode_frames(
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(2, 16, cfg.encoder.d_model))
+                         .astype(np.float32))
+    x[1, 9:15] = x[0, 9:15]
+    seg = torch.zeros(2, 16, dtype=torch.int32)
+    seg[0, :6], seg[0, 9:15], seg[1, 9:15] = 1, 2, 1
+    port.train()
+    try:
+        out, lens, _ = port.encoder.encode_frames(
             x, None, train=True, generator=torch.Generator().manual_seed(0),
             seg_id=seg)
+        out.square().sum().backward()
+    finally:
+        port.eval()
+    grads = [p.grad for p in port.encoder.layers.parameters()]
+    port.zero_grad(set_to_none=True)
+    np.testing.assert_array_equal(lens.numpy(), [12, 6])
+    out = out.detach()
+    assert float(out[seg == 0].abs().max()) == 0.0
+    torch.testing.assert_close(out[1, 9:15], out[0, 9:15], rtol=1e-5,
+                               atol=1e-5)
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)

@@ -56,6 +56,21 @@ def test_backward_groups_by_name():
         assert group_of(name) == "attention bwd"
 
 
+@pytest.mark.parametrize("name,group", [
+    ("dq_mma_kernel<48, true>", "attention bwd (segments)"),
+    ("dkv_mma_kernel<48, true>", "attention bwd (segments)"),
+    ("dq_kernel<float, true>", "attention bwd (segments)"),
+    ("core_mma_kernel<48, true>", "attention fwd (segments)"),
+    ("dq_mma_kernel<48, false>", "attention bwd"),
+    ("core_mma_kernel<48, false>", "attention fwd")])
+def test_segment_mode_groups_by_itself(name, group):
+    """The attention kernels' segment mode (kSeg = true), as the profiler
+    names a template kernel, lands in a group of its own beside its
+    kernel's."""
+    assert group_of(f"void (anonymous namespace)::{name}(float const*)") \
+        == group
+
+
 def _calls(n):
     """Synthetic CUDA events of n marked calls, each: the marker, kernel a
     (1 ms) and kernel b twice (0.5 ms each), times in us."""

@@ -44,14 +44,17 @@
 //      reads row (j - r + 31); shared-memory rows use a stride whose
 //      float4 count is odd, so the per-lane float4 reads are conflict-free.
 //   3. the projection launch again: context (B*T, D) @ Wo^T.
-// Packed segments (serving, data/packing.py): with a (B, T) segment map the
-// core also sets to -1e30 every score whose key lies in another segment
-// than its query, where the window is applied, as the TPU kernel's
-// _block_scores does with its `seg` operands. The TPU kernel masks the
+// Packed segments (serving and training, data/packing.py): with a (B, T)
+// segment map the core also sets to -1e30 every score whose key lies in
+// another segment than its query, where the window is applied, as the TPU
+// kernel's _block_scores does with its `seg` operands, and the backward
+// does the same (as _block_bwd_kernel's with_seg). The TPU kernels mask the
 // whole T x T tile; here the bf16 core visits only the key tiles that can
-// hold a key of one of its queries' segments (see core_mma_kernel), so the
-// work falls from T^2 to about the sum of the segments' squares a row; the
-// fp32 core (the check dtype) visits every tile.
+// hold a key of one of its queries' segments (see core_mma_kernel), and the
+// bf16 backward visits exactly the (query tile, key tile) pairs the core
+// visited (dq_mma_kernel, dkv_mma_kernel), so the work falls from T^2 to
+// about the sum of the segments' squares a row; the fp32 kernels (the
+// check dtype) visit every tile.
 // fp32 accumulation; operands in fp32 or bf16 (template), rounded to the
 // working type where the TPU kernel rounds them.
 
@@ -272,7 +275,9 @@ HeadLayout heads_layout(int t_len, int heads, int dk) {
 //     Inside the span a key of another segment scores -1e30. A query of
 //     segment 0 (guard or pad) gets the uniform average over the span's
 //     keys, and a tile with no valid query visits nothing and writes
-//     zeros: finite garbage that the layer re-masks. The scan reads the
+//     zeros (and lse = +1e30, so the backward's p is 0 there): finite
+//     garbage that the layer re-masks. The span comes from seg_span, which
+//     the backward's passes call too. The scan reads the
 //     whole row's map in every block; a span table built once per forward
 //     would spare it, but built with torch ops on the device it costs more
 //     than the scans of all the layers it serves (PERF.md, section 6).
@@ -297,6 +302,64 @@ struct CoreMma {
       sizeof(bf16) * ((size_t)2 * kMQ * kSE + 2 * (size_t)kTileElems) +
       sizeof(float) * 4 * 16 * kGS;
 };
+
+// The key tiles [j_lo, j_hi) that the kMQ queries q0 .. of a packed row
+// visit (seg_row: the row's (T) segment map): with [lo, hi] the ids of the
+// valid queries (id > 0), the kMS-key tiles from the first to the last key
+// whose id lies in [lo, hi]; (0, 0) when no query is valid. The forward's
+// core and both backward passes take their tiles from here, so each
+// backward recomputes exactly the scores its forward summed. Every thread
+// of a 128-thread block calls it with the same arguments and `span`, 4 ints
+// of shared memory; it starts and ends with a block barrier, so a loop may
+// call it once a tile.
+__device__ __forceinline__ void seg_span(const int* __restrict__ seg_row,
+                                         int q0, int t_len, int* span,
+                                         int& j_lo, int& j_hi) {
+  const unsigned full = 0xffffffffu;
+  __syncthreads();  // a previous call's span is read
+  if (threadIdx.x == 0) {
+    span[0] = INT_MAX;
+    span[1] = 0;
+    span[2] = t_len;
+    span[3] = 0;
+  }
+  __syncthreads();
+  int lo = INT_MAX, hi = 0;
+  for (int i = threadIdx.x; i < kMQ && q0 + i < t_len; i += blockDim.x) {
+    const int id = seg_row[q0 + i];
+    if (id > 0) {
+      lo = min(lo, id);
+      hi = max(hi, id);
+    }
+  }
+  lo = __reduce_min_sync(full, lo);
+  hi = __reduce_max_sync(full, hi);
+  if (threadIdx.x % 32 == 0 && lo <= hi) {
+    atomicMin(&span[0], lo);
+    atomicMax(&span[1], hi);
+  }
+  __syncthreads();
+  lo = span[0];
+  hi = span[1];
+  int first = t_len, last = 0;
+  for (int s = threadIdx.x; lo <= hi && s < t_len; s += blockDim.x) {
+    const int id = seg_row[s];
+    if (id >= lo && id <= hi) {
+      first = min(first, s);
+      last = s + 1;
+    }
+  }
+  first = __reduce_min_sync(full, first);
+  last = __reduce_max_sync(full, last);
+  if (threadIdx.x % 32 == 0 && first < last) {
+    atomicMin(&span[2], first);
+    atomicMax(&span[3], last);
+  }
+  __syncthreads();
+  const bool any = span[2] < span[3];
+  j_lo = any ? span[2] / kMS : 0;
+  j_hi = any ? (span[3] + kMS - 1) / kMS : 0;
+}
 
 // Rows first .. first + n - 1 of a (valid, dk) bf16 matrix into dst (row
 // stride DKP + 8) in 8-byte pieces, zero outside [0, valid) and past dk
@@ -364,32 +427,7 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
   int seg_q[2] = {0, 0};
   if constexpr (kSeg) {
     __shared__ int span[4];  // lowest id, highest id, first key, last key + 1
-    if (threadIdx.x == 0) {
-      span[0] = INT_MAX;
-      span[1] = 0;
-      span[2] = t_len;
-      span[3] = 0;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kMQ && q0 + i < t_len; i += blockDim.x) {
-      const int id = seg_row[q0 + i];
-      if (id > 0) {
-        atomicMin(&span[0], id);
-        atomicMax(&span[1], id);
-      }
-    }
-    __syncthreads();
-    const int lo = span[0], hi = span[1];
-    for (int s = threadIdx.x; lo <= hi && s < t_len; s += blockDim.x) {
-      const int id = seg_row[s];
-      if (id >= lo && id <= hi) {
-        atomicMin(&span[2], s);
-        atomicMax(&span[3], s + 1);
-      }
-    }
-    __syncthreads();
-    j_lo = span[2] / kMS;
-    j_hi = (span[3] + kMS - 1) / kMS;
+    seg_span(seg_row, q0, t_len, span, j_lo, j_hi);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int t = tw + g + 8 * hr;
@@ -567,7 +605,11 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
       if (c < dk) dst[c] = __float2bfloat16(o[n][2 * hr] * inv);
       if (c + 1 < dk) dst[c + 1] = __float2bfloat16(o[n][2 * hr + 1] * inv);
     }
-    if (lse && t4 == 0) lse[(size_t)bh * t_len + t] = m_r[hr] + logf(l_r[hr]);
+    // a row that saw no key gets lse = +1e30: every backward p = exp(x -
+    // lse) on it is 0, where -inf would give inf and then NaN
+    if (lse && t4 == 0)
+      lse[(size_t)bh * t_len + t] =
+          !kSeg || l_r[hr] > 0.f ? m_r[hr] + logf(l_r[hr]) : 1e30f;
   }
 }
 
@@ -696,11 +738,16 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
 //      dP^T PE gives dW_pos. bf16: wgrad_mma_kernel on gemm.cuh's
 //      transposed tiles; fp32: wgrad_kernel, SIMT.
 // fp32 is the check dtype and stays SIMT throughout.
+// Packed segments: every pass recomputes exactly the scores its forward
+// summed, so a valid query's p sums to 1. A guard query (segment 0) scores
+// -1e30 on every key it visits and its lse rounds to -1e30, so it gets
+// p = 1 on each of them: the gradients hold for a cotangent that is zero
+// on guard rows, as the encoder gives one (every layer zeroes them).
 // fp32, ragged dk = 44: shared rows use the forward's odd-float4 stride
 // with zeros past dk, so every dot product runs over whole float4s.
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool kSeg>
 __global__ void __launch_bounds__(256) dq_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
     const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
@@ -713,7 +760,8 @@ __global__ void __launch_bounds__(256) dq_kernel(
     float* __restrict__ dsum,                            // (B, H, T)
     float* __restrict__ dpart,  // (B, H, n_qt, win, dk)
     int t_len, int heads, int dk, float scale, uint32_t seed, uint32_t b_stride,
-    uint32_t thresh, float dscale, int tp, int win, int left, int right) {
+    uint32_t thresh, float dscale, int tp, int win, int left, int right,
+    const int* __restrict__ seg) {  // kSeg: (B, T) segment map
   extern __shared__ float4 smem4[];
   const int ks = row_stride(dk);
   float* Qu = reinterpret_cast<float*>(smem4);  // kBQ x ks
@@ -740,6 +788,7 @@ __global__ void __launch_bounds__(256) dq_kernel(
   __syncthreads();
 
   const bool has0 = lane < dk, has1 = lane + 32 < dk;
+  const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
   float dsr[kRows], lser[kRows], dqu0[kRows], dqu1[kRows], dqv0[kRows],
       dqv1[kRows];
 #pragma unroll
@@ -767,6 +816,7 @@ __global__ void __launch_bounds__(256) dq_kernel(
 
     const int s = s0 + lane;
     const float kb = s < t_len ? key_bias[(size_t)b * t_len + s] : 0.f;
+    const int seg_k = kSeg && s < t_len ? seg_row[s] : 0;
     float sc[kRows], dp[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
@@ -795,6 +845,7 @@ __global__ void __launch_bounds__(256) dq_kernel(
       if (t < t_len && s < t_len) {
         float x = sc[r] * scale + kb;
         if (!in_window(t, s, left, right)) x = -1e30f;
+        if (kSeg && seg_k != seg_row[t]) x = -1e30f;
         const float p = expf(x - lser[r]);
         float kf = 1.f;
         if (thresh)
@@ -852,7 +903,7 @@ __global__ void __launch_bounds__(256) dq_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kSeg>
 __global__ void __launch_bounds__(256) dkv_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
     const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
@@ -863,7 +914,8 @@ __global__ void __launch_bounds__(256) dkv_kernel(
     const float* __restrict__ dsum,                      // (B, H, T)
     T* __restrict__ grads, HeadLayout gl, long long gc,  // 4 grads, gl + c gc
     int t_len, int heads, int dk, float scale, uint32_t seed, uint32_t b_stride,
-    uint32_t thresh, float dscale, int tp, int left, int right) {
+    uint32_t thresh, float dscale, int tp, int left, int right,
+    const int* __restrict__ seg) {  // kSeg: (B, T) segment map
   extern __shared__ float4 smem4[];
   const int ks = row_stride(dk);
   float* Ks = reinterpret_cast<float*>(smem4);  // kBS x ks: this block's keys
@@ -884,6 +936,7 @@ __global__ void __launch_bounds__(256) dkv_kernel(
   stage_rows(Ks, kk + head_off, s0, kBS, t_len, dk, ks);
   stage_rows(Vs, vv + head_off, s0, kBS, t_len, dk, ks);
   const bool has0 = lane < dk, has1 = lane + 32 < dk;
+  const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
   float kbr[kRows], dk0[kRows], dk1[kRows], dv0[kRows], dv1[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -905,6 +958,7 @@ __global__ void __launch_bounds__(256) dkv_kernel(
     const bool tin = t < t_len;
     const float lse_t = tin ? lse[(size_t)bh * t_len + t] : 0.f;
     const float d_t = tin ? dsum[(size_t)bh * t_len + t] : 0.f;
+    const int seg_t = kSeg && tin ? seg_row[t] : 0;
     float sc[kRows], dp[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
@@ -933,6 +987,7 @@ __global__ void __launch_bounds__(256) dkv_kernel(
       if (tin && s < t_len) {
         float x = sc[r] * scale + kbr[r];
         if (!in_window(t, s, left, right)) x = -1e30f;
+        if (kSeg && seg_row[s] != seg_t) x = -1e30f;
         const float p = expf(x - lse_t);
         float kf = 1.f;
         if (thresh)
@@ -1159,9 +1214,11 @@ struct BwdMma {
 // Pw), as core_mma_kernel computes them, and their gradients: into ds
 // p (keep dP / (1 - rate) - D) / sqrt(dk) with p = exp(score - lse) and
 // dP = dctx . v, into pd the dropped probabilities keep p / (1 - rate);
-// zero outside the valid rows and keys. Accumulator layout (n8 tile n of
-// keys, element e): row g + 8 (e / 2), key 8 n + 2 t4 + e % 2.
-template <int DKP>
+// zero outside the valid rows and keys. With kSeg a key whose segment
+// (seg_row[s]) differs from its query's (seg_q, the thread's two rows)
+// scores -1e30, as the forward's core has it. Accumulator layout (n8 tile n
+// of keys, element e): row g + 8 (e / 2), key 8 n + 2 t4 + e % 2.
+template <int DKP, bool kSeg>
 __device__ __forceinline__ void bwd_scores(
     const uint32_t (&qa)[DKP / 16][4], const uint32_t (&qb)[DKP / 16][4],
     const uint32_t (&qd)[DKP / 16][4], const bf16* Kt, const bf16* Vt,
@@ -1169,6 +1226,7 @@ __device__ __forceinline__ void bwd_scores(
     const float* __restrict__ kb_row, const float (&lse_r)[2],
     const float (&dsum_r)[2], float scale, int left, int right,
     uint32_t stream, uint32_t thresh, float dscale, int tp,
+    const int* __restrict__ seg_row, const int (&seg_q)[2],
     float (&ds)[kMS / 8][4], float (&pd)[kMS / 8][4]) {
   constexpr int kSE = DKP + 8, kKS = DKP / 16;
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
@@ -1229,6 +1287,9 @@ __device__ __forceinline__ void bwd_scores(
           float x = (ds[n][2 * hr + e] + G[r * kGS + jc - r + 15]) * scale +
                     kb_row[s];
           if (!in_window(t, s, left, right)) x = -1e30f;
+          if constexpr (kSeg) {
+            if (seg_row[s] != seg_q[hr]) x = -1e30f;
+          }
           const float p = expf(x - lse_r[hr]);
           float kf = 1.f;
           if (thresh)
@@ -1322,7 +1383,13 @@ __device__ __forceinline__ void row_dsum(const uint32_t (&qd)[DKP / 16][4],
 // fragments come straight from global memory (the block stages only Qv,
 // the B operand of the other warps' slabs), which keeps the block at
 // 112,640 bytes of shared memory and two blocks per SM at DKP = 48.
-template <int DKP>
+// Packed segments (kSeg, seg (B, T)): the block walks only the key tiles
+// j_lo .. j_hi - 1 of its forward's span (seg_span), and a key of another
+// segment scores -1e30 (bwd_scores). A skipped tile adds exactly zero: its
+// pairs were never in the forward's sum. Its window rows still belong to
+// the partial that dpos_kernel sums whole, so the rows outside 64 j_lo ..
+// 64 j_hi + 63 are written as zeros.
+template <int DKP, bool kSeg>
 __global__ void __launch_bounds__(128) dq_mma_kernel(
     const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
     const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
@@ -1336,7 +1403,7 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
     float* __restrict__ dpart,  // (B, H, n_qt, win, dk)
     int t_len, int heads, int dk, float scale, uint32_t seed,
     uint32_t b_stride, uint32_t thresh, float dscale, int tp, int win,
-    int left, int right) {
+    int left, int right, const int* __restrict__ seg) {  // kSeg: (B, T)
   using S = BwdMma<DKP>;
   constexpr int kSE = S::kSE, kKS = DKP / 16, kND = DKP / 8;
   constexpr int kGPS = S::kGPS, kAS = S::kAS;
@@ -1367,9 +1434,24 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
     stage_async<DKP>(kt + 2 * kMS * kSE, pos_h, t_len - kMQ - q0 + s0, kMP,
                      n_pos, dk);
   };
-  stage_async<DKP>(Qvs, qv + head_off, q0, kMQ, t_len, dk);
-  stage_tile(0, 0);
-  cp_async_commit();
+  // the key tiles j_lo .. j_hi - 1 to visit: all, or the forward's span
+  int j_lo = 0, j_hi = n_tiles;
+  const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
+  int seg_q[2] = {0, 0};
+  if constexpr (kSeg) {
+    __shared__ int span[4];
+    seg_span(seg_row, q0, t_len, span, j_lo, j_hi);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = tw + g + 8 * hr;
+      seg_q[hr] = t < t_len ? seg_row[t] : 0;
+    }
+  }
+  if (!kSeg || j_lo < j_hi) {
+    stage_async<DKP>(Qvs, qv + head_off, q0, kMQ, t_len, dk);
+    stage_tile(j_lo, 0);
+    cp_async_commit();
+  }
   for (int i = tid; i < kMP * kAS; i += blockDim.x) acc[i] = 0.f;
 
   // the warp's query rows as A fragments, straight from global memory
@@ -1397,23 +1479,29 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqu[n][e] = dqv[n][e] = 0.f;
   float* part = dpart + ((size_t)bh * gridDim.x + blockIdx.x) * win * dk;
+  if constexpr (kSeg) {  // the window rows no visited tile reaches
+    for (int i = tid; i < kMS * j_lo * dk; i += blockDim.x) part[i] = 0.f;
+    for (int i = kMS * (j_hi + 1) * dk + tid; i < win * dk; i += blockDim.x)
+      part[i] = 0.f;
+    __syncthreads();  // the zeroed ring, where no tile is visited
+  }
 
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      stage_tile(j + 1, (j + 1) & 1);
+  for (int j = j_lo; j < j_hi; ++j) {
+    if (j + 1 < j_hi) {
+      stage_tile(j + 1, (j + 1 - j_lo) & 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // tile j (and at j = 0 the zeroed ring) landed
-    const bf16* Kt = tiles + (j & 1) * S::kTile;
+    __syncthreads();  // tile j (and at j = j_lo the zeroed ring) landed
+    const bf16* Kt = tiles + ((j - j_lo) & 1) * S::kTile;
     const bf16* Vt = Kt + kMS * kSE;
     const bf16* Pw = Vt + kMS * kSE + (kMQ - 16 - 16 * warp) * kSE;
     float ds[kMS / 8][4], pd[kMS / 8][4];
-    bwd_scores<DKP>(qa, qb, qd, Kt, Vt, Pw, G, tw, j * kMS, t_len, kb_row,
-                    lse_r, dsum_r, scale, left, right, stream, thresh, dscale,
-                    tp, ds, pd);
+    bwd_scores<DKP, kSeg>(qa, qb, qd, Kt, Vt, Pw, G, tw, j * kMS, t_len,
+                          kb_row, lse_r, dsum_r, scale, left, right, stream,
+                          thresh, dscale, tp, seg_row, seg_q, ds, pd);
 
     // dq_u += dS K: dS rounded to bf16 as the A operand, K through
     // ldmatrix.trans (k = key, n = d)
@@ -1521,7 +1609,7 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
   }
   __syncwarp();
   for (int r = 0; r < 16; ++r) {
-    const int w = kMS * n_tiles + 16 * warp + r;
+    const int w = kMS * j_hi + 16 * warp + r;
     for (int dd = lane; dd < dk; dd += 32)
       part[(size_t)w * dk + dd] = acc[(w & (kMP - 1)) * kAS + dd];
   }
@@ -1544,8 +1632,11 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
 // skew is the forward's), the block's dropped p and dS go to shared memory
 // as bf16 (the dropped p rounded as the forward's P V takes it), and warp
 // w accumulates keys 16 w .. 16 w + 15 over the tile's 64 queries through
-// ldmatrix.trans, in query order.
-template <int DKP>
+// ldmatrix.trans, in query order. Packed segments (kSeg, seg (B, T)): the
+// block visits query tile i only where the forward's core visited this key
+// tile for it (seg_span of tile i), for any map, so each skipped pair adds
+// exactly zero; a key of another segment scores -1e30 (bwd_scores).
+template <int DKP, bool kSeg>
 __global__ void __launch_bounds__(128) dkv_mma_kernel(
     const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
     const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
@@ -1556,7 +1647,8 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
     const float* __restrict__ dsum,                            // (B, H, T)
     bf16* __restrict__ grads, HeadLayout gl, long long gc, int t_len,
     int heads, int dk, float scale, uint32_t seed, uint32_t b_stride,
-    uint32_t thresh, float dscale, int tp, int left, int right) {
+    uint32_t thresh, float dscale, int tp, int left, int right,
+    const int* __restrict__ seg) {  // kSeg: (B, T)
   using S = BwdMma<DKP>;
   constexpr int kSE = S::kSE, kND = DKP / 8, kPS = S::kPS;
   extern __shared__ __align__(16) char smem_raw[];
@@ -1587,6 +1679,8 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
   };
   stage_async<DKP>(Ks, kk + head_off, k0, kMS, t_len, dk);
   stage_async<DKP>(Vs, vv + head_off, k0, kMS, t_len, dk);
+  const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
+  if constexpr (kSeg) cp_async_commit();  // drained at the end if unvisited
 
   float dkk[kND][4], dvv[kND][4];
 #pragma unroll
@@ -1595,6 +1689,18 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
     for (int e = 0; e < 4; ++e) dkk[n][e] = dvv[n][e] = 0.f;
 
   for (int i = 0; i < n_tiles; ++i) {
+    int seg_q[2] = {0, 0};
+    if constexpr (kSeg) {
+      __shared__ int span[4];
+      int j_lo, j_hi;
+      seg_span(seg_row, i * kMQ, t_len, span, j_lo, j_hi);
+      if ((int)blockIdx.x < j_lo || (int)blockIdx.x >= j_hi) continue;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = i * kMQ + 16 * warp + g + 8 * hr;
+        seg_q[hr] = t < t_len ? seg_row[t] : 0;
+      }
+    }
     stage_q(i);
     cp_async_commit();
     cp_async_wait<0>();
@@ -1614,9 +1720,9 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
       dsum_r[hr] = t < t_len ? dsum[(size_t)bh * t_len + t] : 0.f;
     }
     float ds[kMS / 8][4], pd[kMS / 8][4];
-    bwd_scores<DKP>(qa, qb, qd, Ks, Vs, Pw, G, tw, k0, t_len, kb_row, lse_r,
-                    dsum_r, scale, left, right, stream, thresh, dscale, tp,
-                    ds, pd);
+    bwd_scores<DKP, kSeg>(qa, qb, qd, Ks, Vs, Pw, G, tw, k0, t_len, kb_row,
+                          lse_r, dsum_r, scale, left, right, stream, thresh,
+                          dscale, tp, seg_row, seg_q, ds, pd);
     // the tile's dropped p and dS, over its consumed Qv and P rows once
     // every warp has read them (where they fit)
     bf16* PD = S::kAliasPD
@@ -1661,6 +1767,7 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
     }
     __syncthreads();  // query tile i, p and dS are consumed
   }
+  if constexpr (kSeg) cp_async_wait<0>();
 
 #pragma unroll
   for (int n = 0; n < kND; ++n)
@@ -1680,7 +1787,8 @@ constexpr int kDposGroups = 8;  // batch groups of the bf16 dP sum
 // The bf16 score gradients: dq_mma_kernel (which also writes D into dsum),
 // dkv_mma_kernel, and dpos_kernel summing the window partials over groups
 // of batch rows into `part`, whose groups sum_parts_kernel adds into dP
-// (2T - 1, H dk) in bf16.
+// (2T - 1, H dk) in bf16. `seg` (B, T) or null: the packed-segment map,
+// which selects the kernels' segment mode.
 template <int DKP>
 cudaError_t score_grads_mma(const void* qu, const void* qv, const void* k,
                             const void* v, const void* p,
@@ -1691,34 +1799,35 @@ cudaError_t score_grads_mma(const void* qu, const void* qv, const void* k,
                             float* part, int batch,
                             int t_len, int heads, int dk, uint32_t seed,
                             uint32_t b_stride, uint32_t thresh, float dscale,
-                            int tp, int left, int right,
+                            int tp, int left, int right, const int* seg,
                             cudaStream_t stream) {
   using S = BwdMma<DKP>;
   const int n_pos = 2 * t_len - 1, d = heads * dk;
   const int n_qt = (t_len + kMQ - 1) / kMQ, n_kt = (t_len + kMS - 1) / kMS;
   const int win = kMS * (n_kt + 1);
   const float scale = 1.f / sqrtf((float)dk);
+  auto* dq = seg ? dq_mma_kernel<DKP, true> : dq_mma_kernel<DKP, false>;
+  auto* dkv = seg ? dkv_mma_kernel<DKP, true> : dkv_mma_kernel<DKP, false>;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(dq_mma_kernel<DKP>,
+  if ((err = cudaFuncSetAttribute(dq,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)S::kDqSmem)) != cudaSuccess)
     return err;
-  dq_mma_kernel<DKP><<<dim3(n_qt, batch * heads), 128, S::kDqSmem, stream>>>(
+  dq<<<dim3(n_qt, batch * heads), 128, S::kDqSmem, stream>>>(
       (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v,
       (const bf16*)p, key_bias, lse, (const bf16*)dctx, (const bf16*)ctx, cl,
       (bf16*)grads, gl, gc, dsum, dpart, t_len, heads, dk, scale, seed,
-      b_stride, thresh, dscale, tp, win, left, right);
+      b_stride, thresh, dscale, tp, win, left, right, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(dkv_mma_kernel<DKP>,
+  if ((err = cudaFuncSetAttribute(dkv,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)S::kDkvSmem)) != cudaSuccess)
     return err;
-  dkv_mma_kernel<DKP><<<dim3(n_kt, batch * heads), 128, S::kDkvSmem,
-                         stream>>>(
+  dkv<<<dim3(n_kt, batch * heads), 128, S::kDkvSmem, stream>>>(
       (const bf16*)qu, (const bf16*)qv, (const bf16*)k, (const bf16*)v,
       (const bf16*)p, key_bias, lse, (const bf16*)dctx, dsum, (bf16*)grads,
       gl, gc, t_len, heads, dk, scale, seed, b_stride, thresh, dscale, tp,
-      left, right);
+      left, right, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int b_per = (batch + kDposGroups - 1) / kDposGroups;
   const int groups = (batch + b_per - 1) / b_per;
@@ -1738,7 +1847,9 @@ size_t dq_smem(int dk, int win) {
 }
 
 // The fp32 score gradients (the check dtype): dq_kernel, dkv_kernel and
-// dpos_kernel, SIMT.
+// dpos_kernel, SIMT. With `seg` (B, T) the segment mode: every key tile is
+// visited, as core_kernel<T, true> visits them, and a key of another
+// segment scores -1e30.
 template <typename T>
 cudaError_t score_grads_simt(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
@@ -1748,35 +1859,37 @@ cudaError_t score_grads_simt(const void* qu, const void* qv, const void* k,
                         int batch, int t_len, int heads, int dk,
                         uint32_t seed, uint32_t b_stride, uint32_t thresh,
                         float dscale, int tp, int left, int right,
-                        cudaStream_t stream) {
+                        const int* seg, cudaStream_t stream) {
   const int n_pos = 2 * t_len - 1, d = heads * dk;
   const int n_qt = (t_len + kBQ - 1) / kBQ, win = n_qt * kBQ + kBS - 1;
   const float scale = 1.f / sqrtf((float)dk);
   const size_t smem_q = dq_smem(dk, win);
+  auto* dq = seg ? dq_kernel<T, true> : dq_kernel<T, false>;
+  auto* dkv = seg ? dkv_kernel<T, true> : dkv_kernel<T, false>;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(dq_kernel<T>,
+  if ((err = cudaFuncSetAttribute(dq,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_q)) != cudaSuccess)
     return err;
-  dq_kernel<T><<<dim3(n_qt, batch * heads), 256, smem_q, stream>>>(
+  dq<<<dim3(n_qt, batch * heads), 256, smem_q, stream>>>(
       (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
       key_bias, lse, (const T*)dctx, (const T*)ctx, cl, (T*)grads, gl, gc,
       dsum, dpart, t_len, heads, dk, scale, seed, b_stride, thresh, dscale, tp,
-      win, left, right);
+      win, left, right, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int ks = row_stride(dk);
   const size_t smem_kv =
       sizeof(float) * (size_t)ks * (2 * kBS + 3 * kBQ + kBQ + kBS - 1);
-  if ((err = cudaFuncSetAttribute(dkv_kernel<T>,
+  if ((err = cudaFuncSetAttribute(dkv,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_kv)) != cudaSuccess)
     return err;
-  dkv_kernel<T><<<dim3((t_len + kBS - 1) / kBS, batch * heads), 256, smem_kv,
-                  stream>>>(
+  dkv<<<dim3((t_len + kBS - 1) / kBS, batch * heads), 256, smem_kv,
+        stream>>>(
       (const T*)qu, (const T*)qv, (const T*)k, (const T*)v, (const T*)p,
       key_bias, lse, (const T*)dctx, dsum, (T*)grads, gl, gc, t_len, heads,
-      dk, scale, seed, b_stride, thresh, dscale, tp, left, right);
+      dk, scale, seed, b_stride, thresh, dscale, tp, left, right, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   dpos_kernel<<<(n_pos * d + 255) / 256, 256, 0, stream>>>(
@@ -1787,7 +1900,8 @@ cudaError_t score_grads_simt(const void* qu, const void* qv, const void* k,
 // The four per-head gradients into grads (component c of row (b, h, t) at
 // gl.at(b, h, t) + c * gc) and dP (2T - 1, H dk) into dpos (fp32, or bf16
 // in the bf16 path), from dctx (B, H, T, dk) and ctx (layout cl): bf16 on
-// the tensor cores (score_grads_mma), fp32 on the SIMT kernels.
+// the tensor cores (score_grads_mma), fp32 on the SIMT kernels; `seg`
+// (B, T) or null selects the segment mode.
 template <typename T>
 cudaError_t score_grads(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
@@ -1797,7 +1911,7 @@ cudaError_t score_grads(const void* qu, const void* qv, const void* k,
                         float* part, int batch, int t_len, int heads, int dk,
                         uint32_t seed, uint32_t b_stride, uint32_t thresh,
                         float dscale, int tp, int left, int right,
-                        cudaStream_t stream) {
+                        const int* seg, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     auto* fn = dk <= 16   ? score_grads_mma<16>
                : dk <= 32 ? score_grads_mma<32>
@@ -1805,12 +1919,12 @@ cudaError_t score_grads(const void* qu, const void* qv, const void* k,
                           : score_grads_mma<64>;
     return fn(qu, qv, k, v, p, key_bias, lse, dctx, ctx, cl, grads, gl, gc,
               dsum, dpart, dpos, part, batch, t_len, heads, dk, seed,
-              b_stride, thresh, dscale, tp, left, right, stream);
+              b_stride, thresh, dscale, tp, left, right, seg, stream);
   } else {
     return score_grads_simt<T>(qu, qv, k, v, p, key_bias, lse, dctx, ctx, cl,
                                grads, gl, gc, dsum, dpart, dpos, batch, t_len,
                                heads, dk, seed, b_stride, thresh, dscale, tp,
-                               left, right, stream);
+                               left, right, seg, stream);
   }
 }
 
@@ -1820,9 +1934,9 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
             const void* p, const float* key_bias, const float* lse,
             const void* ctx, const void* pe, void* dctx, void* grads,
             float* dsum, float* dpart, float* dpos, void* dx, float* part,
-            float* dw_all, float* dwo, float* dwpos, int batch, int t_len,
-            int d, int heads, uint32_t seed, uint32_t thresh, float dscale,
-            int tp, cudaStream_t stream) {
+            float* dw_all, float* dwo, float* dwpos, const int* seg,
+            int batch, int t_len, int d, int heads, uint32_t seed,
+            uint32_t thresh, float dscale, int tp, cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs dc{};
   dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 1};
@@ -1833,8 +1947,8 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
                        rows_layout(t_len, heads, dk), grads,
                        rows_layout(t_len, 4 * heads, dk), d, dsum, dpart,
                        dpos, part, batch, t_len, heads, dk, seed,
-                       (uint32_t)heads,
-                       thresh, dscale, tp, -1, -1, stream);
+                       (uint32_t)heads, thresh, dscale, tp, -1, -1, seg,
+                       stream);
   if (err != cudaSuccess) return (int)err;
 
   Jobs dxj{};
@@ -1898,7 +2012,7 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
       qu, qv, k, v, p, key_bias, lse, g, ctx, hl, grads, hl,
       (long long)batch * heads * t_len * dk, dsum, dpart, dpos, part, batch,
       t_len, heads, dk, seed, b_stride, thresh, dscale, tp, left, right,
-      stream);
+      nullptr, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)wgrad<T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
 }
@@ -1910,8 +2024,8 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
 // key bias in fp32; dk = d / heads <= 64, and in bf16 d % 8 == 0 and
 // dk % 4 == 0; scratch q_u, q_v, k, v sized
 // (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d); lse (B, H, T) fp32
-// or null; seg (B, T) int32 packed-segment map or null (the wrapper passes
-// it without lse: the backward has no segment mode). Dropout on the
+// or null; seg (B, T) int32 packed-segment map or null (under autograd the
+// backward takes the same map, tat_attention_bwd). Dropout on the
 // probabilities when thresh > 0: stream seed + b * H + h, idx t * tp + s,
 // kept values scaled by dscale.
 extern "C" int tat_attention(int bf16, const void* x, const void* wq,
@@ -1950,27 +2064,30 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
 // (d + 1), and in bf16 groups * (2T-1) * d with groups =
 // ceil(B / ceil(B / 8))) fp32. Outputs: dx (B, T, d) in the working dtype;
 // fp32 dw_all (4d, d + 1) = [dq_u | dq_v | dk | dv]^T [x | 1], dwo (d, d),
-// dwpos (d, d).
+// dwpos (d, d). seg: the forward's (B, T) int32 packed-segment map, or
+// null.
 extern "C" int tat_attention_bwd(
     int bf16, const void* g, const void* x, const void* wo_t,
     const void* wcat, const void* qu, const void* qv, const void* k,
     const void* v, const void* p, const void* key_bias, const void* lse,
     const void* ctx, const void* pe, void* dctx, void* grads, void* dsum,
     void* dpart, void* dpos, void* dx, void* part, void* dw_all, void* dwo,
-    void* dwpos, int batch, int t_len, int d, int heads, unsigned int seed,
-    unsigned int thresh, float dscale, int tp, void* stream) {
+    void* dwpos, const void* seg, int batch, int t_len, int d, int heads,
+    unsigned int seed, unsigned int thresh, float dscale, int tp,
+    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   auto F = [](const void* q) { return (float*)q; };
+  const int* seg_ = (const int*)seg;
   return bf16 ? run_bwd<__nv_bfloat16>(
                     g, x, wo_t, wcat, qu, qv, k, v, p, F(key_bias), F(lse),
                     ctx, pe, dctx, grads, F(dsum), F(dpart), F(dpos), dx,
-                    F(part), F(dw_all), F(dwo), F(dwpos), batch, t_len, d,
-                    heads, seed, thresh, dscale, tp, s)
+                    F(part), F(dw_all), F(dwo), F(dwpos), seg_, batch, t_len,
+                    d, heads, seed, thresh, dscale, tp, s)
               : run_bwd<float>(g, x, wo_t, wcat, qu, qv, k, v, p,
                                F(key_bias), F(lse), ctx, pe, dctx, grads,
                                F(dsum), F(dpart), F(dpos), dx, F(part),
-                               F(dw_all), F(dwo), F(dwpos), batch, t_len, d,
-                               heads, seed, thresh, dscale, tp, s);
+                               F(dw_all), F(dwo), F(dwpos), seg_, batch,
+                               t_len, d, heads, seed, thresh, dscale, tp, s);
 }
 
 // Per-head attention (fused_relpos_attention). The wrapper guarantees:

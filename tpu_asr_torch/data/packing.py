@@ -1,4 +1,4 @@
-"""Packed-segment batching for serving: the port's copy of
+"""Packed-segment batching for serving and training: the port's copy of
 tpu_asr/data/packing.py (the plan is numpy; the gather is one torch index
 on the device).
 
@@ -15,6 +15,8 @@ segment mode of `fused_relpos_attention_block`), relative-position scores
 are translation-invariant, and every layer zeroes guard frames, so the
 depthwise conv reads only zeros across a guard of at least (k - 1) / 2
 frames: a segment's log-probs are those of its per-utterance forward.
+Training (`train_pack_arrays`) plans a batch from its sample counts alone,
+through the length arithmetic of the featurizer and the subsampling.
 """
 
 from __future__ import annotations
@@ -58,11 +60,12 @@ class PackPlan:
 
 
 def plan_packing(lengths: Sequence[int], t_pack: int, guard: int,
-                 row_multiple: int = 1) -> PackPlan:
+                 row_multiple: int = 1, pad_rows_to: int = 0) -> PackPlan:
     """First-fit-decreasing packing of segments of `lengths` frames into
     rows of `t_pack` frames, `guard` zeroed frames between neighbours (none
     before the first or after the last). `row_multiple` rounds the row
-    count up."""
+    count up; `pad_rows_to` sets it exactly (one shape for the batches of
+    a bucket), adding all-guard rows."""
     lengths = np.asarray(lengths, np.int64)
     n = len(lengths)
     if n and int(lengths.max()) > t_pack:
@@ -87,6 +90,11 @@ def plan_packing(lengths: Sequence[int], t_pack: int, guard: int,
             cursors.append(ln)
     n_rows = max(len(cursors), 1)
     n_rows = -(-n_rows // row_multiple) * row_multiple
+    if pad_rows_to:
+        if len(cursors) > pad_rows_to:
+            raise ValueError(f"packing needs {len(cursors)} rows > "
+                             f"pad_rows_to={pad_rows_to}")
+        n_rows = pad_rows_to
 
     seg_id = np.zeros((n_rows, t_pack), np.int32)
     src_utt = np.zeros((n_rows, t_pack), np.int32)
@@ -115,6 +123,35 @@ def pack_frames(feats: torch.Tensor, plan: PackPlan,
     packed = feats[idx(src_utt), idx(plan.src_pos)]
     valid = torch.from_numpy(plan.seg_id > 0).to(feats.device)
     return packed.masked_fill(~valid[..., None], 0)
+
+
+def train_pack_arrays(signal_lens, n_fft: int, hop_length: int,
+                      subsampling_factor: int, subsampling: str,
+                      conv_kernel_size: int, t_pack: int,
+                      row_multiple: int = 1, pad_rows_to: int = 0):
+    """The packed-training plan of one batch from its (B,) sample counts,
+    through the frame arithmetic alone (stft_seq_len, then
+    subsampled_length; no model runs): ({'pk_src_utt', 'pk_src_pos',
+    'pk_seg'}: (R, Tp) int32, {'pk_row', 'pk_start'}: (B,) int32 numpy
+    arrays, for train/trainer.make_distil_train_step(packed=True)), and the
+    PackPlan. The port subsamples by 'striding' only."""
+    from tpu_asr_torch.models.conformer import subsampled_length
+    from tpu_asr_torch.ops.features import stft_seq_len
+
+    if subsampling != "striding":
+        raise ValueError(f"train_pack_arrays: tpu_asr_torch subsamples by "
+                         f"'striding' only (got {subsampling!r})")
+    lens = np.asarray(signal_lens, np.int64)
+    enc = subsampled_length(stft_seq_len(lens, n_fft, hop_length),
+                            subsampling_factor)
+    plan = plan_packing(enc, t_pack=t_pack,
+                        guard=guard_frames(conv_kernel_size),
+                        row_multiple=row_multiple, pad_rows_to=pad_rows_to)
+    return {"pk_src_utt": plan.src_utt.astype(np.int32),
+            "pk_src_pos": plan.src_pos.astype(np.int32),
+            "pk_seg": plan.seg_id.astype(np.int32),
+            "pk_row": plan.row.astype(np.int32),
+            "pk_start": plan.start.astype(np.int32)}, plan
 
 
 def unpack_rows(rows, plan: PackPlan) -> List[np.ndarray]:

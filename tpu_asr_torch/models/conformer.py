@@ -30,11 +30,13 @@ plain PyTorch. The conv module runs the eval kernel with
 `set_backend('xla')` (profile_forward.py) points every route at its plain
 version and `set_backend('auto')` back at the config's choice.
 
-Packed serving (data/packing.py, eval only): `ConformerEncoder.subsample`
-returns the raw subsampled frames, and `encode_frames` with `seg_id`
-(R, T) takes packed rows of them; every attention then sees only keys of
-its query's segment (the attention kernel's segment mode) and every layer
-zeroes the guard frames.
+Packed segments (data/packing.py), serving and training:
+`ConformerEncoder.subsample` returns the raw subsampled frames, and
+`encode_frames` with `seg_id` (R, T) takes packed rows of them; every
+attention then sees only keys of its query's segment (the attention
+kernel's segment mode, forward and backward) and every layer zeroes the
+guard frames. In training BatchNorm's statistics run over the packed
+(R, T) frames, guards included, as JAX's do over the packed layout.
 
 Training (`train=True` with a `torch.Generator`): every dropout site draws
 its mask from the counter hash of ops/dropout.py with a seed drawn per step
@@ -173,7 +175,7 @@ class RelPositionMultiHeadAttention(nn.Module):
                 mask: torch.Tensor, dropout_rate: float = 0.0,
                 dropout_seed: int = 0,
                 seg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`seg_id` (B, T) int: the packed-segment map (eval only)."""
+        """`seg_id` (B, T) int: the packed-segment map."""
         args = (x, self.linear_q.weight, self.linear_q.bias,
                 self.linear_k.weight, self.linear_k.bias,
                 self.linear_v.weight, self.linear_v.bias, self.pos_bias_u,
@@ -348,11 +350,9 @@ class ConformerLayer(nn.Module):
                 seeds: Optional[List[int]] = None,
                 seg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`seeds` (SEEDS_PER_LAYER ints) selects the training path;
-        `seg_id` (B, T) int, the packed-segment map, runs in eval only."""
+        `seg_id` (B, T) int is the packed-segment map."""
         if seeds is not None:
-            if seg_id is not None:
-                raise ValueError("packed segments (seg_id) run in eval only")
-            return self._train_forward(x, pos_emb, mask, seeds)
+            return self._train_forward(x, pos_emb, mask, seeds, seg_id)
         x = self._eval_ffn(self.norm_feed_forward1, self.feed_forward1, x)
         x = x + self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb,
                                mask, seg_id=seg_id)
@@ -396,12 +396,12 @@ class ConformerLayer(nn.Module):
         return use_kernel(self.ffn_backend, ffn_refusal(
             x.dtype, x.shape[-1], ff.linear1.weight.shape[0], train))
 
-    def _train_forward(self, x, pos_emb, mask, seeds):
+    def _train_forward(self, x, pos_emb, mask, seeds, seg_id=None):
         c = self.cfg
         x = self._ffn(self.norm_feed_forward1, self.feed_forward1, x,
                       seeds[0])
         h = self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb, mask,
-                           c.dropout_att, seeds[1])
+                           c.dropout_att, seeds[1], seg_id)
         x = x + dropout(h, c.dropout, seeds[2])
         h = self.conv(_layer_norm(self.norm_conv, x), mask, train=True)
         x = x + dropout(h, c.dropout, seeds[3])
@@ -445,14 +445,14 @@ class ConformerEncoder(nn.Module):
                       generator: Optional[torch.Generator] = None,
                       seg_id: Optional[torch.Tensor] = None):
         """Subsampled frames (B, T', D) (`subsample`) + (B,) lengths ->
-        (encoded, lengths, layer_feats). `seg_id` (B, T') int, eval only:
-        the packed-segment map (0 = guard/pad); it replaces `lengths`, sets
-        the mask (seg_id > 0) and the lengths (valid frames a row), and
-        each attention sees only its query's segment."""
+        (encoded, lengths, layer_feats). `seg_id` (B, T') int: the
+        packed-segment map (0 = guard/pad); it replaces `lengths`, sets the
+        mask (seg_id > 0) and the lengths (valid frames a row), and each
+        attention sees only its query's segment, in eval and in training
+        (JAX's `bypass_pre_encode` with `seg_id`: xscale and the
+        pre-encoder dropout as for unpacked frames; a checkpointed layer
+        recomputes with the same map and dropout seeds)."""
         c = self.cfg
-        if seg_id is not None and train:
-            raise ValueError("packed-segment encoding (seg_id) runs in eval "
-                             "only: packed training is not ported")
         if x.shape[-1] != c.d_model:
             raise ValueError(f"encode_frames expects (B, T, d_model="
                              f"{c.d_model}) frames, got feature dim "
@@ -487,10 +487,10 @@ class ConformerEncoder(nn.Module):
                 lseeds = seeds[1 + SEEDS_PER_LAYER * i:
                                1 + SEEDS_PER_LAYER * (i + 1)]
                 if c.remat:
-                    x = checkpoint(layer, x, pos_emb, mask, lseeds,
+                    x = checkpoint(layer, x, pos_emb, mask, lseeds, seg,
                                    use_reentrant=False)
                 else:
-                    x = layer(x, pos_emb, mask, lseeds)
+                    x = layer(x, pos_emb, mask, lseeds, seg)
             feats.append(x)
         if train:
             for layer in self.layers:

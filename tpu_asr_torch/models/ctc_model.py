@@ -59,15 +59,24 @@ class CTCModel(nn.Module):
                rngs: Optional[Dict[str, torch.Generator]] = None):
         """Preprocess (+ dither and SpecAugment when training) and encode:
         (encoded (B, T', D), lengths (B,), layer_feats (L, B, T', D))."""
+        feats, feat_len, rngs = self._features(input_signal,
+                                               input_signal_length, train,
+                                               rngs)
+        return self.encoder(feats, feat_len, train, rngs.get("dropout"))
+
+    def _features(self, input_signal, input_signal_length, train: bool,
+                  rngs: Optional[Dict[str, torch.Generator]]):
+        """Log-mel (B, F, T) and (B,) frames, with dither and SpecAugment
+        drawn from rngs['specaug'] when training; and the rngs."""
         if train and rngs is None:
-            raise ValueError("CTCModel.encode(train=True) needs rngs")
+            raise ValueError("CTCModel: training needs rngs")
         rngs = rngs or {}
         feats, feat_len = self.featurizer(input_signal, input_signal_length,
                                           train, rngs.get("specaug"))
         if train and self.cfg.spec_augment is not None:
             feats = spec_augment(feats, feat_len, self.cfg.spec_augment,
                                  rngs["specaug"])
-        return self.encoder(feats, feat_len, train, rngs.get("dropout"))
+        return feats, feat_len, rngs
 
     def decode_logits(self, encoded: torch.Tensor) -> torch.Tensor:
         return self.decoder(encoded)
@@ -85,12 +94,35 @@ class CTCModel(nn.Module):
         `pre_encode` frames (data/packing.pack_frames), `seg_id` (R, Tp) int
         (0 = guard/pad). Each segment's log-probs are those of its
         per-utterance forward. Returns (log_probs (R, Tp, V+1), greedy ids
-        (R, Tp)); no gradient is taken (packed training is not ported)."""
+        (R, Tp)) without gradient; packed training runs `pre_encode_aug`
+        and `encode_packed` (DistilCTCModel.forward_packed_train)."""
         with torch.no_grad():
-            encoded, _, _ = self.encoder.encode_frames(packed, None,
-                                                       seg_id=seg_id)
-            log_probs = self.decoder(encoded)
+            log_probs = self.decoder(self.encode_packed(packed, seg_id)[0])
         return log_probs, log_probs.argmax(dim=-1)
+
+    def pre_encode_aug(self, input_signal, input_signal_length,
+                       train: bool = False,
+                       rngs: Optional[Dict[str, torch.Generator]] = None):
+        """Featurize (+ dither and SpecAugment from rngs['specaug'] when
+        `train`) and subsample: (B, L) waveforms -> raw (B, T', D) frames
+        (before xscale and masking) and (B,) lengths. The packed-training
+        split point: augmentation stays per utterance, before the frames are
+        gathered into packed rows (data/packing.py)."""
+        feats, feat_len, _ = self._features(input_signal,
+                                            input_signal_length, train, rngs)
+        return self.encoder.subsample(feats, feat_len)
+
+    def encode_packed(self, packed: torch.Tensor, seg_id: torch.Tensor,
+                      train: bool = False,
+                      rngs: Optional[Dict[str, torch.Generator]] = None):
+        """The encoder on packed rows (R, Tp, D) of `pre_encode_aug` frames
+        with the (R, Tp) segment map, in training (dropout seeds from
+        rngs['dropout']) or eval: (encoded (R, Tp, D), valid frames a row
+        (R,), layer_feats (L, R, Tp, D))."""
+        if train and rngs is None:
+            raise ValueError("CTCModel.encode_packed(train=True) needs rngs")
+        return self.encoder.encode_frames(
+            packed, None, train, (rngs or {}).get("dropout"), seg_id=seg_id)
 
     def _output(self, encoded, encoded_len, layer_feats) -> CTCModelOutput:
         log_probs = self.decoder(encoded)

@@ -21,6 +21,13 @@ tpu_asr/models/distil_model.py, for CTC, logit KD and flow-matching KD
   reference), 'logit_kd' (kd_alpha x logit KL against the teacher's
   decoder on its last layer) and 'total'.
 
+Packed-segment training (`forward_packed_train`, JAX's method of that
+name): the student's and the teacher's encoders run on packed rows of
+several utterances (data/packing.train_pack_arrays), the student forward
+and backward through the attention kernels' segment mode; the per-layer
+features are gathered back to the bucketed (B, T', D) layout, so every
+loss is computed as in the unpacked step (`forward_with_student_encode`).
+
 Layerwise KD, DiffKD, diffm, interCTC, the dynamic step router and
 per-layer step counts raise until the port implements them.
 """
@@ -117,17 +124,91 @@ class DistilCTCModel(nn.Module):
                 train: bool = False,
                 rngs: Optional[Dict[str, torch.Generator]] = None
                 ) -> DistilOutput:
-        d = self.distill
         encoded, encoded_len, stu_feats = self.student.encode(
             input_signal, input_signal_length, train, rngs)
+        return self.forward_with_student_encode(
+            encoded, encoded_len, stu_feats, input_signal,
+            input_signal_length, transcripts, transcript_lengths, train)
+
+    def forward_packed_train(self, input_signal: torch.Tensor,
+                             input_signal_length: torch.Tensor,
+                             transcripts: Optional[torch.Tensor],
+                             transcript_lengths: Optional[torch.Tensor],
+                             pk_src_utt: torch.Tensor,
+                             pk_src_pos: torch.Tensor, pk_seg: torch.Tensor,
+                             pk_row: torch.Tensor, pk_start: torch.Tensor,
+                             train: bool = True,
+                             rngs: Optional[Dict[str, torch.Generator]] = None
+                             ) -> DistilOutput:
+        """The packed-segment step's forward. The plan (data/packing.py::
+        train_pack_arrays, on the model's device): `pk_src_utt`,
+        `pk_src_pos`, `pk_seg` (R, Tp) — for each packed frame its
+        utterance, its frame there and its segment id (0 = guard/pad) — and
+        `pk_row`, `pk_start` (B,), where utterance b lies. The student
+        featurizes and subsamples per utterance (with dither and SpecAugment
+        when training), its frames are gathered into the packed rows and
+        encoded there; its encoder output and per-layer features are
+        gathered back to (B, T', D) and zeroed past each length. The frozen
+        teacher encodes the same plan in eval. The losses then are those of
+        the unpacked step on these tensors: at dropout 0 with a layer-norm
+        conv module they equal it (BatchNorm's training statistics run over
+        the packed frames, guards included, as JAX's do)."""
+        ix = lambda z: torch.as_tensor(z, device=input_signal.device).long()
+        src_utt, src_pos, seg, row, start = map(
+            ix, (pk_src_utt, pk_src_pos, pk_seg, pk_row, pk_start))
+        x_src, enc_len = self.student.pre_encode_aug(
+            input_signal, input_signal_length, train, rngs)
+        t_prime, t_pack = x_src.shape[1], seg.shape[1]
+        valid_rows = (seg > 0)[..., None]
+        packed = torch.where(valid_rows, x_src[src_utt, src_pos], 0)
+        encoded_p, _, stu_feats_p = self.student.encode_packed(
+            packed, seg, train, rngs)
+
+        # back to the bucketed per-utterance layout
+        dev = x_src.device
+        frames = torch.arange(t_prime, device=dev)
+        pos_c = (start[:, None] + frames[None, :]).clamp(max=t_pack - 1)
+        valid = (frames[None, :] < enc_len[:, None])[..., None]
+        rows = row[:, None]
+        encoded = torch.where(valid, encoded_p[rows, pos_c], 0)
+        stu_feats = torch.where(valid, stu_feats_p[:, rows, pos_c], 0)
+
+        tch_all = None
+        if train and self.needs_teacher:
+            with torch.no_grad():
+                xt_src, _ = self.teacher.pre_encode_aug(input_signal,
+                                                        input_signal_length)
+                packed_t = torch.where(valid_rows, xt_src[src_utt, src_pos],
+                                       0)
+                _, _, tch_p = self.teacher.encode_packed(packed_t, seg)
+                tch_all = torch.where(valid, tch_p[:, rows, pos_c], 0)
+        return self.forward_with_student_encode(
+            encoded, enc_len, stu_feats, input_signal, input_signal_length,
+            transcripts, transcript_lengths, train, tch_all_feat=tch_all)
+
+    def forward_with_student_encode(
+            self, encoded: torch.Tensor, encoded_len: torch.Tensor,
+            stu_feats: torch.Tensor, input_signal: torch.Tensor,
+            input_signal_length: torch.Tensor,
+            transcripts: Optional[torch.Tensor] = None,
+            transcript_lengths: Optional[torch.Tensor] = None,
+            train: bool = False,
+            tch_all_feat: Optional[torch.Tensor] = None) -> DistilOutput:
+        """Everything after the student's encode: the frozen teacher (or
+        its precomputed per-layer features `tch_all_feat` (L, B, T', Dt),
+        as the packed step gathers them), flow matching, the decoder and
+        the losses."""
+        d = self.distill
         losses: Dict[str, torch.Tensor] = {}
         zero = torch.zeros((), device=encoded.device)
 
         tch_feats = tch_last = None
         if train and self.needs_teacher:
-            with torch.no_grad():
-                _, _, tch_feats = self.teacher.encode(input_signal,
-                                                      input_signal_length)
+            tch_feats = tch_all_feat
+            if tch_feats is None:
+                with torch.no_grad():
+                    _, _, tch_feats = self.teacher.encode(
+                        input_signal, input_signal_length)
             tch_last = tch_feats[-1]
 
         decoder_in = encoded

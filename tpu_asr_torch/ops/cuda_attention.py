@@ -28,7 +28,12 @@ Packed segments (`seg_id`, (B, T) int, data/packing.py): key s is visible
 from query t only where seg_id[t] == seg_id[s], on top of the key bias of
 `mask` (= seg_id > 0): the other scores become -1e30, the rule of
 tpu_asr/ops/pallas_attention.py::_block_scores. The block wrapper runs it
-in the forward only; autograd through it (packed training) raises.
+in the forward (packed serving) and, under autograd, in the backward
+(packed training: the kernels' segment mode, which recomputes exactly the
+key set each query's forward summed); a row that saw no key saves
+lse = +1e30, so its backward probabilities are 0. The kernels' gradients
+hold for a cotangent that is zero on guard rows (id 0), which the encoder
+gives: its layers zero them.
 In bf16 the projections, the forward's core, the backward's score
 gradients and its weight gradients run on the tensor cores, which take
 D % 8 == 0 and dk % 4 == 0 (`attention_refusal`, which the model's 'auto'
@@ -55,7 +60,7 @@ from tpu_asr_torch.ops.positions import (position_table,
 
 _ARGS = ((K.INT,) + (K.PTR,) * 21 + (K.INT,) * 4 + (K.UINT,) * 2
          + (K.FLOAT, K.INT, K.PTR))
-_BWD_ARGS = ((K.INT,) + (K.PTR,) * 23 + (K.INT,) * 4 + (K.UINT,) * 2
+_BWD_ARGS = ((K.INT,) + (K.PTR,) * 24 + (K.INT,) * 4 + (K.UINT,) * 2
              + (K.FLOAT, K.INT, K.PTR))
 _HEADS_ARGS = ((K.INT,) + (K.PTR,) * 10 + (K.INT,) * 6 + (K.UINT,) * 3
                + (K.FLOAT, K.INT, K.PTR))
@@ -302,7 +307,9 @@ class _Attention(torch.autograd.Function):
                b, t, d, h, *_drop_args(rate, seed), _round_up(t, 128))
         fused_relpos_attention_block.launches += 1
         if train:
-            ctx.n_heads, ctx.rate, ctx.seed = h, rate, seed
+            # seg is an int map without gradient, kept beside the saved
+            # tensors: the backward's segment mode reads the same map
+            ctx.n_heads, ctx.rate, ctx.seed, ctx.seg = h, rate, seed, seg
             ctx.save_for_backward(x, *w, qu, qv, k, v, p, ctx_buf, lse,
                                   key_bias, pe)
         return out
@@ -310,17 +317,20 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         grads = fused_relpos_attention_block_bwd(
-            g, *ctx.saved_tensors, ctx.n_heads, ctx.rate, ctx.seed)
+            g, *ctx.saved_tensors, ctx.n_heads, ctx.rate, ctx.seed, ctx.seg)
         return grads + (None,) * 6
 
 
 def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
                                      v, p, ctx_buf, lse, key_bias, pe,
                                      n_heads: int, dropout_rate: float = 0.0,
-                                     dropout_seed: int = 0):
+                                     dropout_seed: int = 0,
+                                     seg: Optional[torch.Tensor] = None):
     """Grads (dx, dwq, dbq, dwk, dbk, dwv, dbv, d bias_u, d bias_v, dw_pos,
     dwo) of the sublayer from its saved forward (weights in x's dtype,
-    PyTorch layouts) for the cotangent g."""
+    PyTorch layouts) for the cotangent g. `seg`: the forward's (B, T) int32
+    segment map, or None; with it the segment mode launches, and
+    `seg_launches` counts it beside `launches`."""
     dt = x.dtype
     b, t, d = x.shape
     h = n_heads
@@ -329,6 +339,10 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
     why = bwd_refusal(dt, t, dk)
     if why:
         raise ValueError(f"fused_relpos_attention_block_bwd: {why}")
+    if seg is not None and (seg.shape != (b, t) or seg.dtype != torch.int32
+                            or not seg.is_contiguous()):
+        raise ValueError("fused_relpos_attention_block_bwd: seg must be a "
+                         f"contiguous ({b}, {t}) int32 map")
     f32 = lambda *s: torch.empty(s, device=dev)
     gc = g.to(dt).contiguous()
     wo_t = wo.t().contiguous()
@@ -345,11 +359,15 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
                f32(*_dpart_shape(dt, b, h, t, dk)), dpos, dx,
                f32(_part_size(dt, b, t, d, splits * 4 * d * (d + 1))),
                dw_all, dwo, dwpos)
-    K.check_cuda("fused_relpos_attention_block_bwd", *tensors)
+    K.check_cuda("fused_relpos_attention_block_bwd", *tensors,
+                 *(() if seg is None else (seg,)))
     K.call("tat_attention_bwd", _BWD_ARGS, dev, int(dt == torch.bfloat16),
-           *(z.data_ptr() for z in tensors), b, t, d, h,
+           *(z.data_ptr() for z in tensors),
+           None if seg is None else seg.data_ptr(), b, t, d, h,
            *_drop_args(dropout_rate, dropout_seed), _round_up(t, 128))
     fused_relpos_attention_block_bwd.launches += 1
+    if seg is not None:
+        fused_relpos_attention_block_bwd.seg_launches += 1
     dw, cols = dw_all[:, :d], dw_all[:, d]
     dcu, dcv = cols[:d], cols[d:2 * d]
     return (dx, dw[:d] + dw[d:2 * d], dcu + dcv, dw[2 * d:3 * d],
@@ -377,8 +395,8 @@ def fused_relpos_attention_block(
     """Same contract as `relpos_attention_plain`. A CPU tensor runs the
     plain version; a CUDA tensor launches the forward kernel (three
     launches) and, under autograd, the backward. `seg_id` (B, T) int, the
-    packed-segment map, runs in the forward only (the kernel's segment
-    mode); under autograd it raises, as does a limited context."""
+    packed-segment map, runs the kernels' segment mode, forward and
+    backward. A limited context raises."""
     if tuple(att_context_size) != (-1, -1):
         raise ValueError(
             "fused_relpos_attention_block supports full-context attention "
@@ -387,11 +405,6 @@ def fused_relpos_attention_block(
             mask)
     train = torch.is_grad_enabled() and any(
         z.requires_grad for z in args if isinstance(z, torch.Tensor))
-    if seg_id is not None and train:
-        raise ValueError(
-            "fused_relpos_attention_block: seg_id runs without gradients "
-            "only; the segment mode of the backward comes with packed "
-            "training (call it under torch.no_grad())")
     if x.device.type == "cpu":
         return relpos_attention_plain(*args, n_heads, dropout_rate,
                                       dropout_seed, seg_id)
@@ -407,6 +420,7 @@ def fused_relpos_attention_block(
 
 fused_relpos_attention_block.launches = 0
 fused_relpos_attention_block_bwd.launches = 0
+fused_relpos_attention_block_bwd.seg_launches = 0
 
 
 # ---------------------------------------------------------------------------

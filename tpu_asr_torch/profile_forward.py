@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +38,7 @@ import torch
 
 SR = 16000
 SHAPES = ((32, 15.0), (8, 16.0))        # (clips, seconds)
+PACK_ROWS, T_PACK = 16, 512    # the packed serve shape (PackedTranscriber)
 ITERS, TOP = 10, 8
 # torch.cuda._sleep's kernel, launched once before each profiled call
 MARKER = "spin_kernel"
@@ -63,9 +65,11 @@ GROUPS = (("ffn_int8_kernel", "ffn int8"),
 
 
 def group_of(name: str) -> str:
+    """A kernel's group; an attention kernel's segment mode (packed rows,
+    its `kSeg` template argument true) is a group of its own."""
     for prefix, group in GROUPS:
         if prefix in name:
-            return group
+            return f"{group} (segments)" if ", true>" in name else group
     if ("gemm" in name or "cutlass" in name or "sm90" in name
             or "nvjet" in name):
         return "cuBLAS/cuDNN products"
@@ -83,6 +87,51 @@ def print_groups(names, device_ms: float) -> None:
     for group, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  group {ms:8.3f} ms {100 * ms / device_ms:5.1f}% "
               f"x{calls:<6g} {group}")
+
+
+def short_symbol(name: str) -> str:
+    """A mangled kernel symbol of csrc (a namespace, then the kernel) as
+    `kernel`, `kernel<N>` (its first integer template argument) or
+    `kernel<float>` / `kernel<bf16>` (its first type argument), with a
+    bool second argument (the attention kernels' segment mode) as
+    `kernel<N, true>`."""
+    m = re.match(r"_ZN(\d+)", name)
+    k = m and re.match(r"(\d+)", name[m.end() + int(m.group(1)):])
+    if not k:
+        return name
+    at = m.end() + int(m.group(1)) + k.end()
+    end = at + int(k.group(1))
+    flag = lambda a: ("" if a.group(2) is None
+                      else ", true" if a.group(2) == "1" else ", false")
+    arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?", name[end:])
+    if arg:
+        return f"{name[at:end]}<{arg.group(1)}{flag(arg)}>"
+    typ = re.match(r"I(f|13__nv_bfloat16)(?:Lb([01])E)?", name[end:])
+    return name[at:end] + (
+        f"<{'float' if typ.group(1) == 'f' else 'bf16'}{flag(typ)}>"
+        if typ else "")
+
+
+def packed_seg_map():
+    """(PACK_ROWS, T_PACK) int32 segment map at the packed serve shape: the
+    first rows from plan_packing of seeded serve-window lengths (25-376
+    frames: 1-15 s clips; guard 16), whose segments straddle the 64-key
+    tiles; the row before last one segment of 40 frames at frame 100,
+    shorter than a tile and off its edges; the last row all guard."""
+    from tpu_asr_torch.data.packing import plan_packing
+    rng = np.random.default_rng(16)
+    lengths, plan = [], None
+    while True:
+        trial = lengths + [int(rng.integers(25, 377))]
+        nxt = plan_packing(trial, T_PACK, 16)
+        if nxt.n_rows > PACK_ROWS - 2:
+            break
+        lengths, plan = trial, nxt
+    seg = np.zeros((PACK_ROWS, T_PACK), np.int32)
+    seg[:plan.n_rows] = plan.seg_id
+    seg[PACK_ROWS - 2, 100:140] = 1
+    return seg
+
 
 
 def seeded_model(cfg, seed: int, device="cuda"):

@@ -16,9 +16,14 @@ launches) with its launches per call.
                        model's sublayer (D=176, 4 heads) at the bucketed
                        serve shape (B=32 x 16 s: T=401), ragged lengths
   attention_seg        the same wrapper's segment mode at the packed serve
-                       shape (16 rows x 512, chip_smoke.py's packed_seg_map)
+                       shape (16 rows x 512, profile_forward.packed_seg_map)
   attention_bwd        fused_relpos_attention_block_bwd, bf16, the student's
                        sublayer (B=32, T=376, D=88, 2 heads, dropout 0.1)
+  attention_seg_bwd    the same wrapper's segment mode on the plan of
+                       chip_smoke.py's phase 17a (a 56-utterance batch of
+                       bench_train.py's packed_train in 20 rows x 512, an
+                       all-guard row among them; profile_train's
+                       packed_batches), the student's sublayer
   attention_heads_bwd  fused_relpos_attention_bwd, bf16, the same shape
   ffn                  fused_ffn_sublayer, bf16, the student's sublayer
                        (B=32, T=376, D=88, d_ff 352, dropout 0.1), fp32
@@ -49,7 +54,7 @@ import os
 import sys
 
 KERNELS = ("logmel", "attention", "attention_seg", "attention_bwd",
-           "attention_heads_bwd", "ffn", "ffn_bwd", "fm", "fm_bwd",
+           "attention_seg_bwd", "attention_heads_bwd", "ffn", "ffn_bwd", "fm", "fm_bwd",
            "ffn_int8", "conv_module")
 BATCH, SECONDS, SR = 32, 15, 16000
 PACK_ROWS, T_PACK = 16, 512      # the packed serve shape (PackedTranscriber)
@@ -73,8 +78,9 @@ def median_ms(torch, fn, iters: int = 20) -> float:
 
 def own_profile_forward():
     """This script's own profile_forward.py (`device_activity`,
-    `mark_call`), loaded by path: with --root, `tpu_asr_torch` is the other
-    checkout's, whose profile_forward may predate them."""
+    `mark_call`, `packed_seg_map`), loaded by path: with --root,
+    `tpu_asr_torch` is the other checkout's, whose profile_forward may
+    predate them."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -84,20 +90,6 @@ def own_profile_forward():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def packed_seg_map():
-    """chip_smoke.py's phase 3 segment map (the repo root's, loaded by
-    path, whichever tree --root names)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "profile_kernels_chip_smoke",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                     "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.packed_seg_map()
 
 
 def device_split(torch, fn, iters: int = 5):
@@ -198,18 +190,32 @@ def attention_seg_call(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     x, pw, pe, h = serve_attention_args(torch, gen, T_PACK)
-    seg = torch.from_numpy(packed_seg_map()).cuda()
+    seg = torch.from_numpy(own_profile_forward().packed_seg_map()).cuda()
     return lambda: fused_relpos_attention_block(x, *pw, pe, seg > 0, h,
                                                 seg_id=seg)
 
 
-def attention_bwd_call(torch):
+def packed_train_seg():
+    """(R, 512) int32 segment map of chip_smoke.py's phase 17a: the first
+    packed_train batch whose plan holds an all-guard row."""
+    from tpu_asr_torch.config import ModelConfig, make_student_config
+    from tpu_asr_torch.profile_train import packed_batches
+
+    plans = [p for *_, p in packed_batches(
+        make_student_config(ModelConfig()), "cpu")]
+    return next(p.seg_id for p in plans if (p.seg_id == 0).all(1).any())
+
+
+def attention_bwd_call(torch, seg=None):
     from tpu_asr_torch.models.conformer import rel_positional_encoding
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention_block, fused_relpos_attention_block_bwd)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     enc, t, mask = student_shape(torch, gen)
+    if seg is not None:
+        seg = torch.from_numpy(seg).cuda()
+        t, mask = seg.shape[1], seg > 0
     d, h = enc.d_model, enc.n_heads
     dk = d // h
     n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
@@ -217,15 +223,22 @@ def attention_bwd_call(torch):
           n(d, sc=0.1), n(d, d, sc=d ** -0.5), n(d, sc=0.1),
           n(h, dk, sc=0.1), n(h, dk, sc=0.1), n(d, d, sc=d ** -0.5),
           n(d, d, sc=d ** -0.5))
-    x = n(BATCH, t, d, sc=0.5).to(torch.bfloat16)
+    x = n(mask.shape[0], t, d, sc=0.5).to(torch.bfloat16)
     leaves = [z.detach().requires_grad_() for z in (x, *pw)]
     rate, seed = enc.dropout, 2 ** 31 - 5
     out = fused_relpos_attention_block(
         *leaves, rel_positional_encoding(t, d, "cuda"), mask, h,
-        dropout_rate=rate, dropout_seed=seed)
-    g = (n(BATCH, t, d) * mask[..., None]).to(torch.bfloat16)
+        dropout_rate=rate, dropout_seed=seed,
+        **({} if seg is None else {"seg_id": seg}))
+    g = (n(mask.shape[0], t, d) * mask[..., None]).to(torch.bfloat16)
     saved = out.grad_fn.saved_tensors
-    return lambda: fused_relpos_attention_block_bwd(g, *saved, h, rate, seed)
+    more = () if seg is None else (out.grad_fn.seg,)
+    return lambda: fused_relpos_attention_block_bwd(g, *saved, h, rate, seed,
+                                                    *more)
+
+
+def attention_seg_bwd_call(torch):
+    return attention_bwd_call(torch, packed_train_seg())
 
 
 def attention_heads_bwd_call(torch):
@@ -369,6 +382,7 @@ def main(argv=None) -> int:
     makers = {"logmel": logmel_call, "attention": attention_call,
               "attention_seg": attention_seg_call,
               "attention_bwd": attention_bwd_call,
+              "attention_seg_bwd": attention_seg_bwd_call,
               "attention_heads_bwd": attention_heads_bwd_call,
               "ffn": ffn_call, "ffn_bwd": ffn_bwd_call, "fm": fm_call,
               "fm_bwd": fm_bwd_call, "ffn_int8": ffn_int8_call,

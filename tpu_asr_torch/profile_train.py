@@ -2,7 +2,7 @@
 kernels ('auto') and on the plain PyTorch versions ('xla').
 
     python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8|
-        flowkd_mlp8_int8_teacher] [--out FILE]
+        flowkd_mlp8_int8_teacher] [--packed] [--out FILE]
 
 DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
 at its own compute dtype (bf16) with seeded random weights and
@@ -22,6 +22,16 @@ backend it prints one line with:
 then the device time per step by group (the port's kernels by name, the
 rest as cuBLAS/cuDNN/ATen) and the top device activities. `--out` also
 writes the profiler's own tables.
+
+`--packed` (with `--config flowkd_mlp8`) profiles on the kernels, instead,
+bench_train.py's packed_train batches (`packed_batches`: 512 utterances of
+lognormal durations in 4 linear buckets, audio-matched batch sizes, each
+bucket's batches at one row count): the packed step
+(make_distil_train_step(packed=True), rows of 512 frames) and the bucketed
+step on the same utterances, each over one pass of all the batches after
+one warm-up pass: audio s/s, ms and device ms a step, and the device time
+a step by group, the segment mode's attention kernels in groups of their
+own; `--out` then writes each path's profile sorted by host time.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import dataclasses
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,6 +53,9 @@ from tpu_asr_torch.profile_forward import (device_activity, mark_call,
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
 CONFIGS = ("ctc_student", "flowkd_mlp8", "flowkd_mlp8_int8_teacher")
+# bench_train.py's packed_train: utterances, seed, the longest clip (s),
+# rows of T_PACK subsampled frames, 4 linear duration buckets
+N_UTTS, PACK_SEED, MAX_S, T_PACK, BUCKETS = 512, 3, 16.7, 512, 4
 
 
 def distill_config(name: str):
@@ -77,6 +91,152 @@ def make_batch(device="cuda"):
             "tokens": torch.from_numpy(rng.integers(0, 128, size=(B, TOKENS))
                                        ).to(device),
             "token_len": torch.full((B,), TOKENS, device=device)}
+
+
+def packed_batches(scfg, device="cuda"):
+    """bench_train.py's packed_train batches, drawn in its order from
+    default_rng(3): N_UTTS durations lognormal(ln 6.2, 0.55) clipped to
+    1-16.7 s; BUCKETS linear duration buckets over [0, 16.7] s, each
+    utterance cut to its bucket's edge, every batch padded to that edge,
+    with batch size max(8, round(B * SECONDS / edge / 8) * 8) and only full
+    batches; each batch's plan (data/packing.train_pack_arrays, rows of
+    T_PACK) padded to the most rows of its bucket's batches, so a bucket
+    has one shape. Returns [(bucketed batch, the same batch with its plan,
+    audio seconds, PackPlan)], tensors on `device`."""
+    from tpu_asr_torch.data.packing import train_pack_arrays
+
+    rng = np.random.default_rng(PACK_SEED)
+    durs = np.clip(rng.lognormal(np.log(6.2), 0.55, N_UTTS), 1.0, MAX_S)
+    edges = np.linspace(MAX_S / BUCKETS, MAX_S, BUCKETS)
+    bucket_of = np.searchsorted(edges, durs, side="left")
+    pre, enc = scfg.preprocessor, scfg.encoder
+    plan_of = lambda lens, pad=0: train_pack_arrays(
+        lens, pre.n_fft, pre.hop_length, enc.subsampling_factor,
+        enc.subsampling, enc.conv_kernel_size, T_PACK, pad_rows_to=pad)
+    out = []
+    for b_i, edge in enumerate(edges):
+        ids = np.where(bucket_of == b_i)[0]
+        cap = int(np.ceil(edge * SR))
+        bsz = max(8, int(round(B * SECONDS / edge / 8)) * 8)
+        chunks = []
+        for ci in range(len(ids) // bsz):
+            c = ids[ci * bsz:(ci + 1) * bsz]
+            lens = np.minimum((durs[c] * SR).astype(np.int64), cap)
+            chunks.append((c, lens, plan_of(lens)[1].n_rows))
+        rows = max((r for _, _, r in chunks), default=0)
+        for c, lens, _ in chunks:
+            pk, plan = plan_of(lens, rows)
+            sig = rng.normal(size=(bsz, cap)).astype(np.float32) * 0.1
+            for r, n in enumerate(lens):
+                sig[r, n:] = 0.0
+            tokens = rng.integers(0, 128, size=(bsz, TOKENS))
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            batch = {"signal": t(sig), "signal_len": t(lens),
+                     "tokens": t(tokens),
+                     "token_len": torch.full((bsz,), TOKENS, device=device)}
+            out.append((batch, {**batch, **{k: t(v) for k, v in pk.items()}},
+                        float(durs[c].sum()), plan))
+    return out
+
+
+def timed_pass(step, state, batches, seed: int = 0):
+    """One pass of `step` over `batches`, timed on the host clock up to a
+    synchronize: (state, host ms a step, [metrics])."""
+    torch.cuda.synchronize()
+    metrics = []
+    t0 = time.perf_counter()
+    for batch in batches:
+        state, m = step(state, batch, seed)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) * 1e3 / len(batches), metrics
+
+
+def profiled_pass(step, state, batches, seed: int = 0):
+    """One pass of `step` over `batches` under torch.profiler, a marker
+    before each step: (state, device ms a step, launches a step,
+    {name: (ms, launches) a step}, the profile)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            mark_call()
+            state, _ = step(state, batch, seed)
+        torch.cuda.synchronize()
+    return (state, *device_activity(prof, len(batches)), prof)
+
+
+class PackedRun(NamedTuple):
+    """One path of profile_packed: audio s/s and ms a step on the host
+    clock, device ms and launches a step, each step's total loss, the
+    kernels' launch counts over the timed pass (None without `counters`),
+    and the model and batches it ran."""
+    audio_s_per_s: float
+    step_ms: float
+    device_ms: float
+    launches: float
+    losses: list
+    counts: Optional[dict]
+    model: torch.nn.Module
+    batches: list
+
+
+def profile_packed(out=None, batches=None, counters=None) -> dict:
+    """The flowkd_mlp8 step on bench_train.py's packed_train batches
+    (`batches`, by default packed_batches'), bucketed and packed, on the
+    kernels (see the module docstring). `counters`, where given, is called
+    just before each path's timed pass and returns a function that reads
+    the kernels' launch counts just after it. Returns {'bucketed' |
+    'packed': PackedRun}."""
+    from tpu_asr_torch.config import OptimConfig, make_student_config
+    from tpu_asr_torch.models.distil_model import DistilCTCModel
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+
+    tcfg = teacher_config("flowkd_mlp8")
+    scfg = make_student_config(tcfg)
+    batches = batches or packed_batches(scfg)
+    audio = sum(a for _, _, a, _ in batches)
+    plans = [p for _, _, _, p in batches]
+    print(f"packed_train batches: {len(batches)} of "
+          f"{[b['signal'].shape[0] for b, _, _, _ in batches]} utterances, "
+          f"{audio:.1f} s of audio; rows a batch "
+          f"{[p.n_rows for p in plans]} of {T_PACK}, fill "
+          f"{np.mean([p.fill_ratio for p in plans]):.4f}; bucketed (rows, "
+          f"samples) {[tuple(b['signal'].shape) for b, _, _, _ in batches]}")
+    res = {}
+    for col, tag in ((0, "bucketed"), (1, "packed")):
+        model = seed_weights(DistilCTCModel(scfg, tcfg,
+                                            distill_config("flowkd_mlp8")),
+                             1).cuda()
+        state = DistilTrainState.create(model, OptimConfig())
+        step = make_distil_train_step(model, packed=col == 1)
+        run = [b[col] for b in batches]
+        state, _, _ = timed_pass(step, state, run)       # every shape once
+        read = counters() if counters is not None else None
+        state, host, metrics = timed_pass(step, state, run)
+        counts = read() if read is not None else None
+        _, dev, launches, names, prof = profiled_pass(step, state, run)
+        loss = [m["loss/total"].item() for m in metrics]
+        res[tag] = PackedRun(audio / (host * len(batches) / 1e3), host, dev,
+                             launches, loss, counts, model, run)
+        print(f"train step flowkd_mlp8 {tag} ({scfg.compute_dtype}): "
+              f"audio_s_per_s {res[tag].audio_s_per_s:.1f} "
+              f"step_ms {host:.3f} device_ms {dev:.3f} busy "
+              f"{dev / host:.3f} launches {launches:.0f} loss "
+              f"{[round(x, 4) for x in loss]}")
+        print_groups(names, dev)
+        if out is not None:
+            out.write(f"== train step flowkd_mlp8 {tag}, {len(run)} steps, by "
+                      f"host time\n" + prof.key_averages().table(
+                          sort_by="self_cpu_time_total", row_limit=40) + "\n")
+    b, p = res["bucketed"], res["packed"]
+    print(f"packed over bucketed (same run): audio s/s "
+          f"{p.audio_s_per_s:.1f} / {b.audio_s_per_s:.1f} = "
+          f"{p.audio_s_per_s / b.audio_s_per_s:.3f}x; device ms a step "
+          f"{p.device_ms:.4f} / {b.device_ms:.4f} = "
+          f"{p.device_ms / b.device_ms:.3f}x")
+    return res
 
 
 def profile_backend(backend: str, config: str = "ctc_student",
@@ -130,9 +290,14 @@ def profile_backend(backend: str, config: str = "ctc_student",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="ctc_student", choices=CONFIGS)
+    ap.add_argument("--packed", action="store_true",
+                    help="flowkd_mlp8 on bench_train.py's packed_train "
+                         "batches, packed and bucketed")
     ap.add_argument("--out", default=None,
                     help="file for the profiler tables")
     args = ap.parse_args(argv)
+    if args.packed and args.config != "flowkd_mlp8":
+        ap.error("--packed profiles --config flowkd_mlp8")
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
@@ -142,7 +307,9 @@ def main(argv=None) -> int:
     print(smi.splitlines()[0])
     out = open(args.out, "w") if args.out else None
     try:
-        for backend in ("auto", "xla"):
+        if args.packed:
+            profile_packed(out)
+        for backend in () if args.packed else ("auto", "xla"):
             profile_backend(backend, args.config, out)
     finally:
         if out is not None:

@@ -50,18 +50,30 @@ def step_rngs(seed: int, step: int,
             "dropout": torch.Generator().manual_seed(base ^ 0x5DEECE66D)}
 
 
-def make_distil_train_step(model: DistilCTCModel) -> Callable:
+PACK_KEYS = ("pk_src_utt", "pk_src_pos", "pk_seg", "pk_row", "pk_start")
+
+
+def make_distil_train_step(model: DistilCTCModel,
+                           packed: bool = False) -> Callable:
     """Returns train_step(state, batch, seed) -> (state, metrics); batch
     holds `signal` (B, L) f32, `signal_len` (B,), `tokens` (B, S) and
-    `token_len` (B,) on the model's device."""
+    `token_len` (B,) on the model's device. `packed`: packed-segment
+    training (model.forward_packed_train); the batch also carries the plan
+    of data/packing.train_pack_arrays, `pk_src_utt`, `pk_src_pos`, `pk_seg`
+    (R, Tp) and `pk_row`, `pk_start` (B,), as tensors or numpy arrays."""
 
     def train_step(state: DistilTrainState, batch: Dict[str, torch.Tensor],
                    seed: int) -> Tuple[DistilTrainState, Dict]:
         dev = batch["signal"].device
         model.train()
-        out = model(batch["signal"], batch["signal_len"], batch["tokens"],
-                    batch["token_len"], train=True,
-                    rngs=step_rngs(seed, state.step, dev))
+        rngs = step_rngs(seed, state.step, dev)
+        args = (batch["signal"], batch["signal_len"], batch["tokens"],
+                batch["token_len"])
+        if packed:
+            out = model.forward_packed_train(
+                *args, *(batch[k] for k in PACK_KEYS), train=True, rngs=rngs)
+        else:
+            out = model(*args, train=True, rngs=rngs)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         out.losses["total"].backward()
