@@ -65,7 +65,19 @@ Phases, each on its own output lines:
      device times of the bf16 FFN kernels at the student's shape. The bf16
      attention backward's device time per launch (torch.profiler), and the
      backward at T=1100 (B=2, bf16: past the fp32 kernel's shared-memory
-     limit of T <= 1024) against plain, bit-equal on two calls.
+     limit of T <= 1024) against plain, bit-equal on two calls. The CTC
+     kernels (ctc_kernel_phase): ptxas registers and spills of all six
+     templates (none may spill); at the main shape the NLL and d log-probs
+     against ctc_nll_plain and autograd through it, then each kernel
+     against its own plain version (the alpha lattice on the frames it
+     runs and the NLL against ctc_alpha_plain; d log-probs against
+     ctc_nll_bwd_plain fed the kernel's saved forward, under a cotangent
+     in [0.5, 2); two backward calls bit-equal), the device time of each a
+     launch; the same at the packed_train bucket's T'=418, at 2S+1 = 201
+     (int32 indices, short inputs, an empty target, an impossible
+     alignment whose rows must be exactly 0) and at 2S+1 = 1023
+     (T'=1100), each checked by kernel name to run its template; a batch
+     with no labels (S = 0) against the plain versions.
   7. train: one DistilCTCModel train step of the student in fp32 at full
      width (16 layers) on B=8 x 15 s, once on the kernels and once on the
      plain versions, from the same weights and seeds (dropout, dither and
@@ -222,10 +234,12 @@ DEVICE = "torch.profiler: busy ms a call, each kernel's ms a launch"
 
 
 def check(ok, msg: str) -> None:
-    """Print the check; a failed one ends the run with exit code 1."""
+    """Print the check; a failed one is printed to standard error too and
+    ends the run with exit code 1."""
     ok = bool(ok)
     print(("ok   " if ok else "FAIL ") + msg, flush=True)
     if not ok:
+        print("chip_smoke: FAIL " + msg, file=sys.stderr, flush=True)
         sys.exit(1)
 
 
@@ -283,6 +297,21 @@ def device_ms(fn, iters: int = 5):
         torch.cuda.synchronize()
     busy, _, names = device_activity(prof, iters)
     return busy, {k: ms / n for k, (ms, n) in names.items()}
+
+
+def profiled_kernels(fn, *parts: str, iters: int = 5, tries: int = 5):
+    """device_ms(fn, iters), repeated until each of `parts` names a kernel the
+    profiler recorded: torch.profiler sometimes drops all of a run's events
+    of one kernel. Returns (busy ms a call, {kernel: ms a launch}) of the
+    last run."""
+    for i in range(tries):
+        dev, names = device_ms(fn, iters)
+        missing = [p for p in parts if not any(p in k for k in names)]
+        if not missing:
+            break
+        print(f"torch.profiler recorded no launch of {missing} in run "
+              f"{i + 1} of at most {tries}")
+    return dev, names
 
 
 def top_kernels(names, n: int = 3) -> str:
@@ -1009,7 +1038,7 @@ def ffn_small_ring(fn, kernel, label):
     """Every launch of `kernel` in fn() ran on ffn.cu's Small weight ring
     (Cfg<64, 64, 2>, taken where the row tiles leave no room for Big);
     prints fn's device time."""
-    dev, names = device_ms(fn, iters=2)
+    dev, names = profiled_kernels(fn, kernel, iters=2)
     rings = {"Small" if "Cfg<64, 64, 2>" in k else "Big"
              for k in names if kernel in k}
     check(rings == {"Small"}, f"{label}: {kernel} ran on the Small ring "
@@ -1076,15 +1105,12 @@ def train_kernel_phase(tcfg):
     for the kernels new to training, in the main path's dtype (bf16, CTC
     fp32); the student's subsampling and attention forward are printed
     (their JSON rows keep the serving shapes)."""
-    import torch.nn.functional as F
-
     from tpu_asr_torch.config import make_student_config
     from tpu_asr_torch.models.conformer import (ConformerLayer,
                                                 rel_positional_encoding)
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention_block, fused_relpos_attention_block_bwd,
         relpos_attention_plain)
-    from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd, ctc_nll_plain
     from tpu_asr_torch.ops.cuda_ffn import fused_ffn_sublayer
     from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling,
                                                     out_len, subsampling_plain)
@@ -1263,8 +1289,133 @@ def train_kernel_phase(tcfg):
           f"{tcfg.encoder.d_ff} takes the FFN kernel")
 
     # CTC forward and backward, fp32
+    ctc_rows, lp, tg = ctc_kernel_phase(gen)
+    results.update(ctc_rows)
+
+    ragged_edges(lp, tg, fw, rate, seed)
+    for name in ("attention_bwd", "ffn", "ffn_bwd"):
+        results[name] = per_dt[name][main_dt[name]]
+    for name, dts in per_dt.items():
+        for dt, (err, ms, plain_ms, (b_ms, by), _) in dts.items():
+            print(f"time {name} {dt}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) "
+                  f"(median of 20, CUDA events)")
+    for name in ("ctc", "ctc_bwd"):
+        err, ms, plain_ms, (b_ms, by), lib = results[name]
+        print(f"time {name} float32: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), F.ctc_loss "
+              f"{'forward+backward' if name == 'ctc_bwd' else 'forward'} "
+              f"{lib:.4f} ms")
+    return results
+
+
+def ctc_case(lp, tg, il, tl, blank, label, gen):
+    """The CTC kernels against their own plain versions on one input, fp32:
+    the forward's alpha lattice (the frames it runs, positions < 2S+1) and
+    NLL against ctc_alpha_plain; the backward's d log-probs against
+    ctc_nll_bwd_plain fed the kernel's own saved alpha and NLL, under a
+    cotangent g in [0.5, 2); two backward calls bit-equal; an impossible
+    alignment's rows exactly 0. Returns (d log-probs max |err|, NLL max
+    |err|, the saved forward, g)."""
+    from tpu_asr_torch.ops.cuda_ctc import (ctc_alpha_plain, ctc_nll,
+                                            ctc_nll_bwd, ctc_nll_bwd_plain)
+
+    b, t, _ = lp.shape
+    l = 2 * tg.shape[1] + 1
+    before = ctc_nll.launches
+    leaf = lp.detach().requires_grad_()
+    nll_k = ctc_nll(leaf, tg, il, tl, blank)
+    saved = nll_k.grad_fn.saved_tensors
+    with torch.no_grad():
+        alpha_p, nll_p = ctc_alpha_plain(lp, tg, il, tl, blank)
+    torch.cuda.synchronize()
+    rows = (torch.arange(t, device="cuda")[None, :]
+            < il.clamp(min=1, max=t)[:, None])
+    ak, ap = saved[4][:, :, :l][rows], alpha_p[rows]
+    nll_k = nll_k.detach()
+    a_err = (ak - ap).abs().max().item()
+    n_err = (nll_k - nll_p).abs().max().item()
+    # the kernel's log-sum-exp rounds another way (ex2/lg2.approx, ~2 ulp,
+    # and the largest term's exp taken as 1): each step adds fp32 rounding
+    # of the lattice's magnitude, the NLL check's rule
+    check(ctc_nll.launches == before + 1
+          and torch.allclose(ak, ap, rtol=1e-5, atol=1e-3)
+          and torch.allclose(nll_k, nll_p, rtol=1e-5, atol=1e-3),
+          f"ctc fp32 {label}: the kernel launched; alpha (t < ilen) max "
+          f"|err| {a_err:.3e}, NLL {n_err:.3e} against ctc_alpha_plain "
+          f"(rtol 1e-5, atol 1e-3)")
+    g = torch.rand(b, generator=gen, device="cuda") * 1.5 + 0.5
+    got = ctc_nll_bwd(*saved, g, blank)
+    want = ctc_nll_bwd_plain(lp, tg, il, tl, saved[4], nll_k, g, blank)
+    again = ctc_nll_bwd(*saved, g, blank)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    # the same algorithm: beta carries fp32 rounding of its magnitude
+    # (~|NLL|) at each of the T steps into the posterior's exponent, as in
+    # the check against autograd, times the largest cotangent
+    fin = nll_p[nll_p < 1e29]
+    tol = 4 * 2.0 ** -24 * fin.abs().max().item() * math.sqrt(t) * 2.0
+    dead = nll_p >= 1e29
+    check(torch.isfinite(got).all() and err < tol
+          and torch.equal(got, again)
+          and bool((got[dead] == 0).all()),
+          f"ctc_bwd fp32 {label}: d log-probs max |err| {err:.3e} < "
+          f"{tol:.3e} against ctc_nll_bwd_plain, two calls bit-equal, "
+          f"{int(dead.sum())} impossible row(s) exactly 0")
+    return err, n_err, saved, g
+
+
+def ctc_route(lp, tg, il, tl, blank, label, gen):
+    """ctc_case, then the device time a launch of each kernel, checked to
+    be the template its 2S+1 picks (P = 4, 8 or 32 positions a lane)."""
+    from tpu_asr_torch.ops.cuda_ctc import ctc_nll, ctc_nll_bwd
+
+    l = 2 * tg.shape[1] + 1
+    p = 4 if l <= 128 else 8 if l <= 256 else 32
+    *_, saved, g = ctc_case(lp, tg, il, tl, blank, label, gen)
+    pick = lambda names, k: [ms for n, ms in names.items() if k in n]
+    with torch.no_grad():
+        _, fwd = profiled_kernels(lambda: ctc_nll(lp, tg, il, tl, blank),
+                                  "ctc_fwd_kernel")
+    _, bwd = profiled_kernels(lambda: ctc_nll_bwd(*saved, g, blank),
+                              "ctc_bwd_kernel")
+    f = pick(fwd, f"ctc_fwd_kernel<{p}>")
+    b = pick(bwd, f"ctc_bwd_kernel<{p}>")
+    check(len(f) == 1 and len(b) == 1,
+          f"ctc {label}: 2S+1 = {l} runs ctc_fwd_kernel<{p}> "
+          f"{f[0] if f else float('nan'):.4f} ms and ctc_bwd_kernel<{p}> "
+          f"{b[0] if b else float('nan'):.4f} ms a launch ({DEVICE})")
+
+
+def ctc_kernel_phase(gen=None):
+    """The CTC kernels, fp32: ptxas registers and spills of each template
+    (none may spill); at the student's main shape (B=32, T'=376, V=129,
+    S=48) the NLL against ctc_nll_plain and d log-probs against autograd
+    through it (the analytic posterior against autograd: the bound below),
+    then each kernel against its own plain version (ctc_case); the same at
+    the packed_train bucket's T'=418, at 2S+1 = 201 (P = 8; int32 indices,
+    short inputs, an empty target, an impossible alignment) and at 2S+1 =
+    1023 (P = 32, T'=1100), each through the template its 2S+1 picks, and
+    a batch with no labels (S = 0).
+    Returns ({"ctc": row, "ctc_bwd": row}, the main log-probs, targets)."""
+    import torch.nn.functional as F
+
+    from tpu_asr_torch.config import ModelConfig, make_student_config
+    from tpu_asr_torch.ops.cuda_ctc import (ctc_nll, ctc_nll_bwd,
+                                            ctc_nll_bwd_plain, ctc_nll_plain)
+    from tpu_asr_torch.ops.cuda_subsampling import out_len
+
+    gen = gen or torch.Generator(device="cuda").manual_seed(3)
+    scfg = make_student_config(ModelConfig())
+    t = out_len(out_len(SECONDS * SR // scfg.preprocessor.hop_length + 1))
     v = scfg.decoder.num_classes + 1
     blank = v - 1
+    regs = nvcc_registers("ctc_")
+    check(len(regs) == 6 and all(st == 0 and ld == 0
+                                 for _, st, ld in regs.values()),
+          f"ptxas: the 6 CTC kernels (fwd and bwd at P = 4, 8, 32) do not "
+          f"spill: {regs}")
+
     lp = torch.log_softmax(normal(gen, BATCH, t, v, scale=2.0), dim=-1)
     tg = torch.randint(0, blank, (BATCH, TOKENS), generator=gen,
                        device="cuda")
@@ -1288,6 +1439,7 @@ def train_kernel_phase(tcfg):
         if backward:
             torch.autograd.grad(loss, lpt)
 
+    results = {}
     with torch.no_grad():
         results["ctc"] = (
             err, median_ms(lambda: ctc_nll(lp, tg, il, tl)),
@@ -1308,32 +1460,61 @@ def train_kernel_phase(tcfg):
     # the posterior's exponent: 4 x 2^-24 x max|NLL| x sqrt(T)
     tol = 4 * 2.0 ** -24 * want.abs().max().item() * math.sqrt(t)
     check(err < tol, f"ctc_bwd fp32: d log-probs max |err| {err:.3e} < "
-          f"{tol:.3e} (max|NLL| {want.abs().max().item():.1f}, T={t})")
-    saved = nll_k.grad_fn.saved_tensors
+          f"{tol:.3e} against autograd through ctc_nll_plain (max|NLL| "
+          f"{want.abs().max().item():.1f}, T={t})")
+    bwd_err, _, saved, g = ctc_case(
+        lp, tg, il, tl, blank, f"(B={BATCH}, T={t}, S={TOKENS})", gen)
     ones = torch.ones(BATCH, device="cuda")
+    # bytes: lp and the alpha lattice read once, d log-probs written once
     results["ctc_bwd"] = (
-        err, median_ms(lambda: ctc_nll_bwd(*saved, ones, blank)),
-        median_ms(lambda: torch.autograd.grad(nll_p.sum(), leaf_p,
-                                              retain_graph=True), iters=5),
+        bwd_err, median_ms(lambda: ctc_nll_bwd(*saved, ones, blank)),
+        median_ms(lambda: ctc_nll_bwd_plain(lp, tg, il, tl, saved[4],
+                                            saved[5], ones, blank), iters=5),
         bound(lse_flops + 4 * BATCH * t * l,
-              nbytes(lp) + 2 * 4 * BATCH * t * l, "float32"),
+              2 * nbytes(lp) + 4 * BATCH * t * l, "float32"),
         median_ms(lambda: library(True)))
+    auto_ms = median_ms(lambda: torch.autograd.grad(
+        nll_p.sum(), leaf_p, retain_graph=True), iters=5)
+    print(f"time ctc_bwd float32: autograd through ctc_nll_plain "
+          f"{auto_ms:.4f} ms (median of 5, CUDA events)")
+    with torch.no_grad():
+        dev_f, names_f = device_ms(lambda: ctc_nll(lp, tg, il, tl))
+    dev_b, names_b = device_ms(lambda: ctc_nll_bwd(*saved, ones, blank))
+    print(f"device ctc float32 ({DEVICE}): {dev_f:.4f} "
+          f"({top_kernels(names_f, 2)}); ctc_bwd {dev_b:.4f} "
+          f"({top_kernels(names_b, 2)}); {t - 1} dependent steps")
 
-    ragged_edges(lp, tg, fw, rate, seed)
-    for name in ("attention_bwd", "ffn", "ffn_bwd"):
-        results[name] = per_dt[name][main_dt[name]]
-    for name, dts in per_dt.items():
-        for dt, (err, ms, plain_ms, (b_ms, by), _) in dts.items():
-            print(f"time {name} {dt}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) "
-                  f"(median of 20, CUDA events)")
-    for name in ("ctc", "ctc_bwd"):
-        err, ms, plain_ms, (b_ms, by), lib = results[name]
-        print(f"time {name} float32: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), F.ctc_loss "
-              f"{'forward+backward' if name == 'ctc_bwd' else 'forward'} "
-              f"{lib:.4f} ms")
-    return results
+    # the packed_train bucket's T' (16.7 s), then the other templates
+    tp = out_len(out_len(int(16.7 * SR) // scfg.preprocessor.hop_length + 1))
+    lp2 = torch.log_softmax(normal(gen, BATCH, tp, v, scale=2.0), dim=-1)
+    tg2 = torch.randint(0, blank, (BATCH, TOKENS), generator=gen,
+                        device="cuda")
+    ctc_route(lp2, tg2, torch.full((BATCH,), tp, device="cuda"),
+              torch.full((BATCH,), TOKENS, device="cuda"), blank,
+              f"packed_train bucket (B={BATCH}, T={tp}, S={TOKENS})", gen)
+    s = 100
+    tg3 = torch.randint(0, blank, (4, s), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    tg3[0, 5] = tg3[0, 4]                              # a repeated label
+    ctc_route(lp2[:4].contiguous(), tg3,
+              torch.tensor([tp, 300, 60, tp], device="cuda",
+                           dtype=torch.int32),
+              torch.tensor([s, 90, s, 0], device="cuda", dtype=torch.int32),
+              blank, f"2S+1 = {2 * s + 1} (B=4, T={tp}, input lengths "
+              f"[{tp}, 300, 60, {tp}], target lengths [{s}, 90, {s}, 0], "
+              f"int32)", gen)
+    ctc_case(lp2[:4].contiguous(), tg3[:, :0], torch.tensor(
+        [tp, 300, 60, 1], device="cuda"), torch.zeros(4, device="cuda",
+                                                     dtype=torch.int64),
+             blank, f"S=0 (B=4, T={tp}, no labels)", gen)
+    s, tlong = 511, LONG_T
+    lp4 = torch.log_softmax(normal(gen, 3, tlong, v, scale=2.0), dim=-1)
+    tg4 = torch.randint(0, blank, (3, s), generator=gen, device="cuda")
+    ctc_route(lp4, tg4, torch.tensor([tlong, 700, tlong], device="cuda"),
+              torch.tensor([s, 300, 1], device="cuda"), blank,
+              f"2S+1 = {2 * s + 1} (B=3, T={tlong}, input lengths [{tlong}, "
+              f"700, {tlong}], target lengths [{s}, 300, 1])", gen)
+    return results, lp, tg
 
 
 def long_attention_bwd(pw, h, rate, seed, t=LONG_T):

@@ -40,6 +40,11 @@ launches) with its launches per call.
   conv_module          fused_conv_module, bf16, the same shape (k=31, the
                        folded BatchNorm's affine, symmetric padding), a
                        ragged mask, fp32 weights
+  ctc                  ctc_nll, fp32, the student's CTC (B=32, T'=376,
+                       V=129, S=48, full lengths, int64 targets)
+  ctc_bwd              torch.autograd.grad of the same NLLs' sum with
+                       respect to the log-probs (the backward kernel, with
+                       whatever the wrapper launches around it)
 
 --root TREE imports tpu_asr_torch from another checkout (a `git archive`
 of an earlier commit), so that two versions can be timed in turns within
@@ -55,7 +60,7 @@ import sys
 
 KERNELS = ("logmel", "attention", "attention_seg", "attention_bwd",
            "attention_seg_bwd", "attention_heads_bwd", "ffn", "ffn_bwd", "fm", "fm_bwd",
-           "ffn_int8", "conv_module")
+           "ffn_int8", "conv_module", "ctc", "ctc_bwd")
 BATCH, SECONDS, SR = 32, 15, 16000
 PACK_ROWS, T_PACK = 16, 512      # the packed serve shape (PackedTranscriber)
 
@@ -355,6 +360,35 @@ def conv_module_call(torch):
     return lambda: fused_conv_module(x, mask, *cw, enc.conv_context)
 
 
+def ctc_args(torch):
+    """(log-probs, targets, input lengths, target lengths) of the
+    student's CTC: fp32 (B=32, T'=376, V=129), 48 tokens, int64."""
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    t, v, s = 376, 129, 48
+    lp = torch.log_softmax(torch.randn(BATCH, t, v, generator=gen,
+                                       device="cuda") * 2.0, dim=-1)
+    tg = torch.randint(0, v - 1, (BATCH, s), generator=gen, device="cuda")
+    return (lp, tg, torch.full((BATCH,), t, device="cuda"),
+            torch.full((BATCH,), s, device="cuda"))
+
+
+def ctc_call(torch):
+    from tpu_asr_torch.ops.cuda_ctc import ctc_nll
+
+    args = ctc_args(torch)
+    return lambda: ctc_nll(*args)
+
+
+def ctc_bwd_call(torch):
+    from tpu_asr_torch.ops.cuda_ctc import ctc_nll
+
+    lp, *rest = ctc_args(torch)
+    leaf = lp.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = ctc_nll(leaf, *rest).sum()
+    return lambda: torch.autograd.grad(loss, leaf, retain_graph=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -386,7 +420,8 @@ def main(argv=None) -> int:
               "attention_heads_bwd": attention_heads_bwd_call,
               "ffn": ffn_call, "ffn_bwd": ffn_bwd_call, "fm": fm_call,
               "fm_bwd": fm_bwd_call, "ffn_int8": ffn_int8_call,
-              "conv_module": conv_module_call}
+              "conv_module": conv_module_call, "ctc": ctc_call,
+              "ctc_bwd": ctc_bwd_call}
     lines = []
     for name in args.kernels.split(","):
         fn = makers[name](torch)
