@@ -146,16 +146,23 @@ Phases, each on its own output lines:
   13. int8-teacher KD: phase 9 for flowkd_mlp8_int8_teacher (the teacher's
      FFN sublayers in int8), the int8 FFN launched 32 times per timed
      step.
-  14. layer: the whole eval ConformerLayer kernel against its plain version
-     at ModelConfig() widths (B=32 x 15 s, T'=376, ragged lengths), fp32
-     within 1e-4 and bf16 within 5e-2 of the output's scale; layer norm, a
-     causal (30, 0) conv, a (32, 16) attention window and an odd T in fp32;
-     autograd refused; then the whole 16-layer ModelConfig() encoder in
-     fp32 through the kernel layer by layer (forward hooks) against the
-     CTCModel on its own kernels: max |delta log-prob| < 2e-3 and equal
-     greedy ids where the top-2 margin exceeds 1e-3, each layer's error
-     printed. Times: kernel, plain, the port's ConformerLayer (the module
-     path) on the same input, the bound, and device times (torch.profiler).
+  14. layer: ptxas registers and spills of layer_mma_kernel (none may
+     spill) and its blocks an SM at D=176 and D=88 (>= 2); the whole eval
+     ConformerLayer kernel against its plain version at ModelConfig()
+     widths (B=32 x 15 s, T'=376, ragged lengths), fp32 (layer_kernel)
+     within 1e-4 and bf16 (layer_mma_kernel) within 5e-2 of the output's
+     scale; layer norm, a causal (30, 0) conv, a (32, 16) attention window
+     and an odd T (3 x 37), each in fp32 and bf16; the student's width
+     (D=88, 2 heads, d_ff 352) in both; a bf16 k=35 on layer_kernel<bf16>;
+     two bf16 calls bit-equal; autograd and an fp32 shape past the SIMT
+     kernel's shared memory refused; then the whole 16-layer ModelConfig()
+     encoder through the kernel layer by layer (forward hooks) against the
+     CTCModel on its own kernels, fp32 (max |delta log-prob| < 2e-3, equal
+     greedy ids where the top-2 margin exceeds 1e-3) and bf16 (phase 4's
+     rule: ids equal on >= 99% of the frames whose margin exceeds 1e-1),
+     each layer's error printed. Times: kernel, plain, the port's
+     ConformerLayer (the module path) on the same input, the bound, device
+     times (torch.profiler) and the call's host gap (call - device).
   15. per-head attention: fused_relpos_attention against its plain version,
      the forward at the teacher's shape (B=32, H=4, T=376, dk=44) in fp32
      and bf16; forward and backward at the student's (H=2, dk=44) with
@@ -2394,13 +2401,16 @@ def layer_compare(x, mask, prm, enc, label, norm=None, pad_l=None,
     scale (sums in another order); bf16 within 5e-2 of it: both round the
     same operands to bf16, but a sum taken in another order moves an
     operand across a rounding boundary (2^-8 relative), and the layer
-    chains ten products and four LayerNorms. Returns the max |error|."""
+    chains ten products and four LayerNorms. The label names the kernel
+    the call takes (layer_route). Returns the max |error|."""
     from tpu_asr_torch.ops.cuda_layer import (conformer_layer_plain,
-                                              fused_conformer_layer)
+                                              fused_conformer_layer,
+                                              layer_route)
     norm = norm or ("affine" if enc.conv_norm_type == "batch_norm"
                     else "layer_norm")
     pad_l = enc.conv_context[0] if pad_l is None else pad_l
-    args = (prm, enc.n_heads, enc.conv_kernel_size, pad_l, norm, window)
+    h, k = enc.n_heads, enc.conv_kernel_size
+    args = (prm, h, k, pad_l, norm, window)
     with torch.no_grad():
         got = fused_conformer_layer(x, mask, *args).float()
         want = conformer_layer_plain(x, mask, *args).float()
@@ -2408,72 +2418,44 @@ def layer_compare(x, mask, prm, enc, label, norm=None, pad_l=None,
     err, ref = (got - want).abs().max().item(), want.abs().max().item()
     fp32 = x.dtype == torch.float32
     tol = (1e-4 if fp32 else 5e-2) * max(1.0, ref)
+    kernel = LAYER_ROUTES[layer_route(x.dtype, x.shape[-1], h, k)]
     check(err <= tol and bool(torch.isfinite(got).all()),
-          f"conformer_layer {str(x.dtype)[6:]} {norm} pad_l {pad_l} window "
-          f"{window} {label}: max |err| {err:.3e} <= {tol:.3g} "
-          f"({'1e-4' if fp32 else '5e-2'} x max(1, |ref|max {ref:.3e}))")
+          f"conformer_layer {str(x.dtype)[6:]} ({kernel}) {norm} pad_l "
+          f"{pad_l} window {window} {label}: max |err| {err:.3e} <= "
+          f"{tol:.3g} ({'1e-4' if fp32 else '5e-2'} x max(1, |ref|max "
+          f"{ref:.3e}))")
     return err
 
 
-def layer_kernel_phase(cfg):
-    """Phase 14: the whole eval layer kernel against its plain version at
-    the teacher's serving shape, its variants, the 16-layer encoder through
-    it against the CTCModel on its own kernels, refusals and times. Returns
-    {"conformer_layer": row} in bf16."""
-    from tpu_asr_torch.models.conformer import rel_positional_encoding
-    from tpu_asr_torch.ops.cuda_layer import (conformer_layer_plain,
-                                              fused_conformer_layer,
+LAYER_ROUTES = ("layer_kernel<float>", "layer_kernel<bf16>",
+                "layer_mma_kernel")
+
+
+def layer_encoder_check(cfg, dtype):
+    """The 16-layer encoder of `cfg` in `dtype`, each layer's output
+    replaced by fused_conformer_layer's on the same input (forward hooks),
+    against the CTCModel on its own kernels. fp32: max |delta log-prob| <
+    2e-3 and equal greedy ids where the top-2 margin exceeds 1e-3. bf16
+    (phase 4's rule): greedy ids equal on >= 99% of the frames whose top-2
+    margin exceeds 1e-1; the max |delta log-prob| printed. Each layer's
+    error is printed."""
+    from tpu_asr_torch.ops.cuda_layer import (fused_conformer_layer,
                                               layer_params)
-    from tpu_asr_torch.ops.cuda_subsampling import out_len
     from tpu_asr_torch.profile_forward import seeded_model
 
-    gen = torch.Generator(device="cuda").manual_seed(40)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     enc = cfg.encoder
-    d, h, dff, k = enc.d_model, enc.n_heads, enc.d_ff, enc.conv_kernel_size
-    t = out_len(out_len(SECONDS * SR // cfg.preprocessor.hop_length + 1))
-    lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
-                            device="cuda")
-    lengths[0] = t
-    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
-    xf = normal(gen, BATCH, t, d) * mask[..., None]
-
-    def one_layer(seed, **changes):
-        lcfg = with_encoder(cfg32, n_layers=1, **changes)
-        return seeded_model(lcfg, seed).encoder.layers[0], lcfg.encoder
-
-    layer, lenc = one_layer(41)
-    prm = layer_params(layer)
-    shape = f"(B={BATCH}, T={t}, D={d}, H={h}, d_ff={dff}, k={k})"
-    errs = {dt: layer_compare(xf.to(dt), mask, prm, lenc, shape)
-            for dt in (torch.float32, torch.bfloat16)}
-    ln_layer, ln_enc = one_layer(42, conv_norm_type="layer_norm")
-    ln_prm = layer_params(ln_layer)
-    layer_compare(xf, mask, ln_prm, ln_enc, shape)
-    layer_compare(xf, mask, ln_prm, ln_enc, shape, pad_l=k - 1)
-    layer_compare(xf, mask, prm, lenc, shape, window=(32, 16))
-    odd = torch.arange(37, device="cuda")[None, :] < torch.tensor(
-        [37, 20, 3], device="cuda")[:, None]
-    layer_compare(normal(gen, 3, 37, d) * odd[..., None], odd, prm, lenc,
-                  "odd T (3 x 37)")
-    try:
-        fused_conformer_layer(xf.detach().requires_grad_(), mask, prm, h, k,
-                              lenc.conv_context[0], "affine")
-        ok = False
-    except RuntimeError:
-        ok = True
-    check(ok, "fused_conformer_layer refuses autograd on the card")
-
-    # the 16-layer encoder, layer by layer through the kernel
-    model = seeded_model(cfg32, seed=43)
+    model = seeded_model(dataclasses.replace(cfg, compute_dtype=str(
+        dtype)[6:]), seed=43)
     sig_t, len_t = model_clips(43)
     layer_errs = []
 
     def through_kernel(mod, args, out):
         x, _, m = args
-        got = fused_conformer_layer(x, m, layer_params(mod), h, k,
+        got = fused_conformer_layer(x, m, layer_params(mod), enc.n_heads,
+                                    enc.conv_kernel_size,
                                     mod.cfg.conv_context[0], "affine")
-        layer_errs.append(((got - out).abs() * m[..., None]).max().item())
+        layer_errs.append(((got - out).float().abs() * m[..., None])
+                          .max().item())
         return got
 
     with torch.inference_mode():
@@ -2484,30 +2466,128 @@ def layer_kernel_phase(cfg):
         for hook in hooks:
             hook.remove()
     torch.cuda.synchronize()
-    print("  encoder layer by layer, max |kernel - module| on the same "
-          "input: " + ", ".join(f"{e:.2e}" for e in layer_errs))
+    name = str(dtype)[6:]
+    print(f"  {name} encoder layer by layer, max |kernel - module| on the "
+          f"same input: " + ", ".join(f"{e:.2e}" for e in layer_errs))
     valid = (torch.arange(got.log_probs.shape[1], device="cuda")[None, :]
              < want.encoded_len[:, None])
-    delta = ((got.log_probs - want.log_probs).abs() * valid[..., None]).max()
+    delta = ((got.log_probs.float() - want.log_probs.float()).abs()
+             * valid[..., None]).max().item()
+    fp32 = dtype == torch.float32
     check(len(layer_errs) == enc.n_layers
           and bool(torch.isfinite(got.log_probs).all())
-          and delta.item() < 2e-3,
-          f"ModelConfig() encoder fp32 through fused_conformer_layer "
+          and (delta < 2e-3 or not fp32),
+          f"ModelConfig() encoder {name} through fused_conformer_layer "
           f"({len(layer_errs)} layers), {len(sig_t)} clips of 5-{SECONDS} s:"
           f" max |delta log-prob| against the CTCModel on its kernels "
-          f"{delta.item():.3e} < 2e-3")
-    top2 = want.log_probs.topk(2, dim=-1).values
-    decided = valid & ((top2[..., 0] - top2[..., 1]) > 1e-3)
-    same = (got.greedy == want.greedy) | ~decided
-    check(bool(same.all()), f"encoder through the layer kernel: greedy ids "
-          f"equal on {int(decided.sum())} frames with top-2 margin > 1e-3 "
-          f"(of {int(valid.sum())} valid)")
+          f"{delta:.3e}" + (" < 2e-3" if fp32 else " (printed)"))
+    top2 = want.log_probs.float().topk(2, dim=-1).values
+    margin = 1e-3 if fp32 else 1e-1
+    decided = valid & ((top2[..., 0] - top2[..., 1]) > margin)
+    same = ((got.greedy == want.greedy) & decided).sum().item()
+    n = int(decided.sum())
+    check(same == n if fp32 else same >= 0.99 * n,
+          f"{name} encoder through the layer kernel: greedy ids equal on "
+          f"{same} of {n} frames with top-2 margin > {margin:g} "
+          f"({'all' if fp32 else '>= 99%'}; of {int(valid.sum())} valid)")
+
+
+def layer_kernel_phase(cfg):
+    """Phase 14: the whole eval layer kernel against its plain version at
+    the teacher's serving shape and the student's width, its variants in
+    fp32 and bf16, bit-equal bf16 calls, ptxas and occupancy of the
+    tensor-core kernel, the 16-layer encoder through it in fp32 and bf16,
+    refusals and times. Returns {"conformer_layer": row} in bf16."""
+    from tpu_asr_torch.config import make_student_config
+    from tpu_asr_torch.models.conformer import (ConformerLayer,
+                                                rel_positional_encoding)
+    from tpu_asr_torch.ops.cuda_layer import (conformer_layer_plain,
+                                              fused_conformer_layer,
+                                              layer_blocks_per_sm,
+                                              layer_params)
+    from tpu_asr_torch.ops.cuda_subsampling import out_len
+    from tpu_asr_torch.profile_forward import seeded_model
+
+    regs = nvcc_registers("layer_mma_kernel")
+    check(regs and all(st == 0 and ld == 0 for _, st, ld in regs.values()),
+          f"layer_mma_kernel: {len(regs)} instantiations "
+          f"({', '.join(regs)}), none spills")
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    enc = cfg.encoder
+    d, h, dff, k = enc.d_model, enc.n_heads, enc.d_ff, enc.conv_kernel_size
+    for dd, hh, ff in ((d, h, dff), (88, 2, 352)):
+        blocks = layer_blocks_per_sm(torch.bfloat16, dd, hh, ff, k)
+        check(blocks >= 2, f"layer_mma_kernel at D={dd}, {hh} heads, d_ff "
+              f"{ff}, k={k}: {blocks} blocks an SM resident (>= 2)")
+    t = out_len(out_len(SECONDS * SR // cfg.preprocessor.hop_length + 1))
+    lengths = torch.randint(t // 4, t + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    lengths[0] = t
+    mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+    xf = normal(gen, BATCH, t, d) * mask[..., None]
+
+    def one_layer(seed, base=cfg32, **changes):
+        lcfg = with_encoder(base, n_layers=1, **changes)
+        return seeded_model(lcfg, seed).encoder.layers[0], lcfg.encoder
+
+    layer, lenc = one_layer(41)
+    prm = layer_params(layer)
+    shape = f"(B={BATCH}, T={t}, D={d}, H={h}, d_ff={dff}, k={k})"
+    errs = {dt: layer_compare(xf.to(dt), mask, prm, lenc, shape)
+            for dt in (torch.float32, torch.bfloat16)}
+    ln_layer, ln_enc = one_layer(42, conv_norm_type="layer_norm")
+    ln_prm = layer_params(ln_layer)
+    odd = torch.arange(37, device="cuda")[None, :] < torch.tensor(
+        [37, 20, 3], device="cuda")[:, None]
+    x_odd = normal(gen, 3, 37, d) * odd[..., None]
+    for dt in (torch.float32, torch.bfloat16):
+        layer_compare(xf.to(dt), mask, ln_prm, ln_enc, shape)
+        layer_compare(xf.to(dt), mask, ln_prm, ln_enc, shape, pad_l=k - 1)
+        layer_compare(xf.to(dt), mask, prm, lenc, shape, window=(32, 16))
+        layer_compare(x_odd.to(dt), odd, prm, lenc, "odd T (3 x 37)")
+    # the student's width: D=88, 2 heads, d_ff 352 (K = 88 padded to 96)
+    scfg = make_student_config(cfg32)
+    s_layer, s_enc = one_layer(44, base=scfg)
+    x_s = normal(gen, BATCH, t, s_enc.d_model) * mask[..., None]
+    for dt in (torch.float32, torch.bfloat16):
+        layer_compare(x_s.to(dt), mask, layer_params(s_layer), s_enc,
+                      f"student (D={s_enc.d_model}, H={s_enc.n_heads}, d_ff="
+                      f"{s_enc.d_ff})")
+    # a bf16 shape the tensor-core tiles do not take (k = 35 > 33) runs on
+    # layer_kernel<bf16>
+    k35, k35_enc = one_layer(45, conv_kernel_size=35)
+    layer_compare(x_odd.to(torch.bfloat16), odd, layer_params(k35), k35_enc,
+                  "odd T (3 x 37), k=35")
+    x16 = xf.to(torch.bfloat16)
+    args = (x16, mask, prm, h, k, lenc.conv_context[0], "affine")
+    with torch.no_grad():
+        first, second = (fused_conformer_layer(*args) for _ in range(2))
+    check(torch.equal(first, second), "conformer_layer bfloat16: two calls "
+          "bit-equal")
+    try:
+        fused_conformer_layer(xf.detach().requires_grad_(), mask, prm, h, k,
+                              lenc.conv_context[0], "affine")
+        ok = False
+    except RuntimeError:
+        ok = True
+    check(ok, "fused_conformer_layer refuses autograd on the card")
+    wide = ConformerLayer(dataclasses.replace(
+        lenc, d_model=192, ff_expansion_factor=8)).cuda().eval()
+    refused(lambda: fused_conformer_layer(
+        normal(gen, 2, 8, 192), torch.ones(2, 8, dtype=torch.bool,
+                                           device="cuda"),
+        layer_params(wide), h, k, lenc.conv_context[0], "affine"),
+        "conformer_layer fp32 D=192, d_ff 1536 (layer_kernel's shared "
+        "memory)")
+
+    # the 16-layer encoder, layer by layer through the kernel
+    layer_encoder_check(cfg, torch.float32)
+    layer_encoder_check(cfg, torch.bfloat16)
 
     # times in bf16 on the main input; the module path: the port's
     # ConformerLayer in eval (attention kernel, plain FFN, conv and LNs)
-    x16 = xf.to(torch.bfloat16)
     pos_emb = rel_positional_encoding(t, d, "cuda")
-    args = (x16, mask, prm, h, k, lenc.conv_context[0], "affine")
     with torch.no_grad():
         ms = median_ms(lambda: fused_conformer_layer(*args))
         plain_ms = median_ms(lambda: conformer_layer_plain(*args), iters=5)
@@ -2518,16 +2598,21 @@ def layer_kernel_phase(cfg):
     b_ms, by = bound(layer_flops(BATCH, t, d, h, dff, k),
                      2 * nbytes(x16) + nbytes(mask) + wbytes, "bfloat16")
     with torch.no_grad():
-        dev_ms, names = device_ms(lambda: fused_conformer_layer(*args))
+        dev_ms, names = profiled_kernels(
+            lambda: fused_conformer_layer(*args), "layer_mma_kernel")
         mod_dev_ms, mod_names = device_ms(lambda: layer(x16, pos_emb, mask))
     print(f"device conformer_layer bfloat16 ({DEVICE}): kernel "
           f"{dev_ms:.4f} ({top_kernels(names)}); module path "
           f"{mod_dev_ms:.4f} ({top_kernels(mod_names, 5)})")
-    print(f"time conformer_layer bfloat16 {shape}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, module path (ConformerLayer, attention "
-          f"kernel + plain FFN/conv/LN) {module_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({by}) (median of 20, plain of 5, CUDA events); "
-          f"fp32 max |err| {errs[torch.float32]:.3e}")
+    print(f"conformer_layer bfloat16: the kernel's device time "
+          f"{'below' if dev_ms < mod_dev_ms else 'NOT below'} the module "
+          f"path's ({dev_ms / mod_dev_ms:.3f}x)")
+    print(f"time conformer_layer bfloat16 {shape}: kernel {ms:.4f} ms "
+          f"(call - device {ms - dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"module path (ConformerLayer, attention kernel + plain FFN/conv/"
+          f"LN) {module_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median of "
+          f"20, plain of 5, CUDA events); fp32 max |err| "
+          f"{errs[torch.float32]:.3e}")
     return {"conformer_layer": (errs[torch.bfloat16], ms, plain_ms,
                                 (b_ms, by), None)}
 

@@ -22,7 +22,16 @@ ConformerLayer, then `layer_params`:
 - the fused FFN's gate (ops/cuda_ffn.py): the forward and the backward
   take the teacher's D=176 with d_ff 704; the backward refuses D=256 with
   d_ff 1280, which the forward takes; both refuse D=512 with d_ff 2048
-  (shared memory).
+  (shared memory);
+- the kernels' weight layouts (`_kernel_weights`, built once per weight
+  version): each maps back exactly to layer_params (the fragment-packed
+  matrices of layer_mma_kernel through `frag_unpack`, W1's interleave, the
+  zero padding of D and d_ff, q/k/v stacked, cu = bq + u, wd time-major);
+  the same objects on a second call, new ones after an in-place update;
+- `layer_refusal` refuses nothing on a grid of (D, heads, d_ff, k) that
+  the first layer kernel's rule (dk <= 64, `layer_smem` <= 227 KB) took,
+  and `layer_route` sends the serve and student widths to the tensor-core
+  kernel and k = 35 to the SIMT one.
 """
 
 import dataclasses
@@ -42,6 +51,7 @@ from tpu_asr.ops.pallas_layer import fused_conformer_layer as pallas_layer
 from tpu_asr_torch.convert.from_jax import jax_to_state_dict
 from tpu_asr_torch.models.conformer import ConformerLayer
 from tpu_asr_torch.ops import cuda_ffn
+from tpu_asr_torch.ops import cuda_layer
 from tpu_asr_torch.ops.cuda_layer import (conformer_layer_plain,
                                           fused_conformer_layer, layer_params)
 
@@ -204,3 +214,162 @@ def test_ffn_gate_takes_the_teacher_width_in_eval_only():
             check(256, 1280, train=True, dtype=dtype)
     with pytest.raises(ValueError, match="shared memory"):
         check(512, 2048, train=False)
+
+
+def _random_params(d, h, dff, k, seed=0):
+    """A params dict of KEYS at any (D, heads, d_ff, k), seeded."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"w11": (dff, d), "bb11": (dff,), "w12": (d, dff),
+              "w21": (dff, d), "bb21": (dff,), "w22": (d, dff),
+              "w1": (2 * d, d), "b1": (2 * d,), "wd": (d, k),
+              "bias_u": (h, d // h), "bias_v": (h, d // h)}
+    shapes.update({key: (d, d) for key in ("wq_full", "wk_full", "wv_full",
+                                           "wo_full", "pos_kernel", "w2c")})
+    return {key: torch.randn(shapes.get(key, (d,)), generator=g)
+            for key in cuda_layer.KEYS}
+
+
+@pytest.mark.parametrize("d,h,dff,k", [(176, 4, 704, 31), (88, 2, 352, 31),
+                                       (40, 2, 72, 5)])
+def test_mma_weights_map_back_to_layer_params(d, h, dff, k):
+    """layer_mma_kernel's layout: every matrix fragment-packed (the FFNs'
+    W1 in chunks of 64 rows), padded with zeros (D to 16 in K and 8 in N,
+    d_ff to 64), and the vectors as the kernel reads them; each maps back
+    exactly."""
+    p = _random_params(d, h, dff, k)
+    out, ptrs = cuda_layer._kernel_weights(2, *(p[key] for key in
+                                                cuda_layer.KEYS))
+    assert list(out) == list(cuda_layer._MMA_KEYS) and len(ptrs) == 34
+    bf = lambda z: z.to(torch.bfloat16)
+    d8, dp, fp = -(-d // 8) * 8, -(-d // 16) * 16, -(-dff // 64) * 64
+    unpack = cuda_layer.frag_unpack
+    qkv = out["wqkv"]
+    assert qkv.shape == (dp // 16, 3 * d8 // 8, 8, 4, 2, 2)
+    for i, key in enumerate(("wq_full", "wk_full", "wv_full")):
+        part = unpack(qkv, 3 * d8, d)[i * d8:(i + 1) * d8]
+        assert torch.equal(part[:d], bf(p[key]))
+        assert part[d:].abs().sum() == 0
+    for key in ("pos_kernel", "wo_full", "w2c"):
+        assert torch.equal(unpack(out[key], d, d), bf(p[key]))
+        assert unpack(out[key], d8, dp)[:, d:].abs().sum() == 0
+    for w_in, w_out, bias in (("w11", "w12", "bb11"),
+                              ("w21", "w22", "bb21")):
+        assert out[w_in].shape[:2] == (fp // 64 * dp // 16, 8)
+        assert torch.equal(cuda_layer.frag_unpack_chunks(out[w_in], dff, d),
+                           bf(p[w_in]))
+        assert torch.equal(unpack(out[w_out], d, dff), bf(p[w_out]))
+        full = cuda_layer.frag_unpack_chunks(out[w_in], fp, dp)
+        assert full[dff:].abs().sum() == 0 and full[:, d:].abs().sum() == 0
+        assert unpack(out[w_out], d8, fp)[:, dff:].abs().sum() == 0
+        assert torch.equal(out[bias][:dff], p[bias])
+        assert out[bias][dff:].abs().sum() == 0
+    w1 = unpack(out["w1"], 2 * d8, d).view(d8 // 8, 2, 8, d)
+    assert torch.equal(w1[:, 0].reshape(d8, d)[:d], bf(p["w1"][:d]))
+    assert torch.equal(w1[:, 1].reshape(d8, d)[:d], bf(p["w1"][d:]))
+    assert torch.equal(out["cu"], p["bq"] + p["bias_u"].reshape(d))
+    assert torch.equal(out["cv"], p["bq"] + p["bias_v"].reshape(d))
+    assert torch.equal(out["wd"], p["wd"].t())
+    for key in ("s1", "sb1", "bb12", "sa", "sab", "bk", "bv", "bo", "sc",
+                "scb", "b1", "bd", "nw", "nb", "b2c", "s2", "sb2", "bb22",
+                "sf", "sfb"):
+        assert torch.equal(out[key], p[key]), key
+
+
+def test_frag_pack_holds_the_mma_fragments():
+    """frag_pack's tile (j, s) (stored k-step-major), lane 4 g + t:
+    W[8 j + g][16 s + 2 t + e] (.x) and W[8 j + g][16 s + 8 + 2 t + e]
+    (.y), e = 0, 1: the m16n8k16 B fragment of mma.cuh's layout."""
+    rows, cols = torch.meshgrid(torch.arange(24.0) + 1,
+                                torch.arange(40.0) + 1, indexing="ij")
+    # row and column numbers (exact in bf16), each packed on its own
+    fr, fc = (cuda_layer.frag_pack(w, 24, 48).float() for w in (rows, cols))
+    for j, s, g, t in ((0, 0, 0, 0), (2, 1, 5, 3), (1, 2, 7, 1)):
+        for e in range(2):
+            n, k0 = 8 * j + g, 16 * s + 2 * t + e
+            for h in range(2):
+                kk = k0 + 8 * h
+                assert fr[s, j, g, t, h, e] == (n + 1 if kk < 40 else 0)
+                assert fc[s, j, g, t, h, e] == (kk + 1 if kk < 40 else 0)
+
+
+@pytest.mark.parametrize("route", [0, 1])
+def test_simt_weights_map_back_to_layer_params(route):
+    p = _random_params(40, 2, 72, 5)
+    out, ptrs = cuda_layer._kernel_weights(route, *(p[key] for key in
+                                                    cuda_layer.KEYS))
+    assert list(out) == list(cuda_layer._SIMT_KEYS) and len(ptrs) == 36
+    dt = torch.float32 if route == 0 else torch.bfloat16
+    for key in ("w11", "w12", "wq_full", "wk_full", "wv_full", "pos_kernel",
+                "wo_full", "w1", "w2c", "w21", "w22"):
+        assert out[key].dtype == dt and torch.equal(out[key], p[key].to(dt))
+    assert torch.equal(out["wd"], p["wd"].t())
+    assert torch.equal(out["cu"], p["bq"] + p["bias_u"].reshape(40))
+
+
+def test_layer_weights_built_once_and_rebuilt_on_update():
+    """The wrapper's lookup (`_weights`) returns the same prepared objects
+    for the same tensors and builds anew after an in-place update (an
+    optimizer step) or for another route; inference tensors, which have no
+    version counter, are built on every call."""
+    torch.manual_seed(5)
+    layer = ConformerLayer(dataclasses.replace(
+        _port_enc(), d_model=40, n_heads=2, ff_expansion_factor=2,
+        conv_kernel_size=5))
+    prm = layer_params(layer.eval())
+    first = cuda_layer._weights(2, prm, 40, 2, 5)
+    assert cuda_layer._weights(2, prm, 40, 2, 5) is first
+    assert cuda_layer._weights(1, prm, 40, 2, 5) is not first
+    with torch.no_grad():
+        layer.conv.pointwise_conv2.weight.add_(0.5)
+    again = cuda_layer._weights(2, prm, 40, 2, 5)
+    assert again is not first and again[0]["w2c"] is not first[0]["w2c"]
+    assert torch.equal(cuda_layer.frag_unpack(again[0]["w2c"], 40, 40),
+                       prm["w2c"].to(torch.bfloat16))
+    assert cuda_layer._weights(2, prm, 40, 2, 5) is again
+    with torch.inference_mode():               # no version counters
+        inference = {key: v.clone() for key, v in prm.items()}
+    built = [cuda_layer._weights(2, inference, 40, 2, 5) for _ in range(2)]
+    assert built[0] is not built[1]
+    assert torch.equal(built[0][0]["w2c"], again[0]["w2c"])
+
+
+def _port_enc():
+    from tpu_asr_torch.config import EncoderConfig as PortEncoderConfig
+    return PortEncoderConfig(n_layers=1, dropout=0.0, dropout_att=0.0)
+
+
+def test_layer_refusal_takes_every_shape_the_first_kernel_took():
+    """On a grid of (D, heads, d_ff, k), every shape the first layer
+    kernel's rule took (dk <= 64, layer_smem <= 227 KB) runs on a kernel in
+    fp32 and bf16; the tensor-core kernel takes the serve and student
+    widths; what it does not take runs on layer_kernel<bf16>; a shape
+    outside both rules is refused."""
+    limit = 227 * 1024
+    taken = 0
+    for d in (24, 40, 88, 96, 120, 144, 176, 184, 192, 256, 280, 320):
+        for h in (1, 2, 3, 4, 8):
+            if d % h:
+                continue
+            dk = d // h
+            for dff in (d, 2 * d, 4 * d, 352, 704):
+                for k in (3, 9, 15, 31, 33, 35, 65):
+                    old = (dk <= 64 and cuda_layer.layer_smem(d, dff, k, dk)
+                           <= limit)
+                    for dt in (torch.float32, torch.bfloat16):
+                        why = cuda_layer.layer_refusal(dt, d, h, dff, k)
+                        if old:
+                            assert why is None, (d, h, dff, k, dt, why)
+                    taken += old
+    assert taken > 200
+    route = cuda_layer.layer_route
+    assert route(torch.bfloat16, 176, 4, 31) == 2
+    assert route(torch.bfloat16, 88, 2, 31) == 2
+    assert route(torch.float32, 176, 4, 31) == 0
+    assert route(torch.bfloat16, 176, 4, 35) == 1
+    assert route(torch.bfloat16, 192, 4, 31) == 1
+    assert route(torch.bfloat16, 128, 4, 31) == 1      # dk 32
+    assert route(torch.bfloat16, 96, 2, 31) == 2       # dk 48
+    assert cuda_layer.mma_refusal(176, 4, 31) is None
+    assert "D <= 176" in cuda_layer.mma_refusal(192, 4, 31)
+    assert cuda_layer.layer_refusal(torch.bfloat16, 192, 4, 4096, 31)
+    assert cuda_layer.layer_refusal(torch.float16, 176, 4, 704, 31)

@@ -2,8 +2,9 @@
 // (the port builds for sm_90a): cp.async copies into shared memory with
 // zero fill, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 product
 // with fp32 accumulation and the s8 mma.sync.m16n8k32 product with exact
-// int32 accumulation. Used by subsampling.cu, attention.cu, logmel.cu,
-// ffn.cu, fm.cu, conv.cu, ffn_int8.cu and (its cp.async copies) ctc.cu.
+// int32 accumulation. Used by subsampling.cu, attention.cu (and
+// core_mma.cuh), logmel.cu, ffn.cu, fm.cu, conv.cu, ffn_int8.cu, layer.cu
+// and (its cp.async copies) ctc.cu.
 //
 // Fragment layout of m16n8k16 (lane = 4 g + t): A (16 x 16, row-major)
 // a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),

@@ -83,6 +83,19 @@ def _pad(w: torch.Tensor, rows: int, cols: int, dtype) -> torch.Tensor:
     return out
 
 
+def interleave_glu(w1: torch.Tensor) -> torch.Tensor:
+    """Pointwise 1's (2D, D) weight with its rows interleaved by 8 channels
+    (the linear rows of channels 8q .. 8q + 7, then their gate rows), each
+    half zero-padded to pad8(D) rows: (2 pad8(D), D). The tensor-core
+    kernels' layout (conv.cu, layer.cu), so that a thread holds both halves
+    of a GLU channel."""
+    d = w1.shape[1]
+    d8 = -(-d // 8) * 8
+    halves = [_pad(w1[:d], d8, d, w1.dtype), _pad(w1[d:], d8, d, w1.dtype)]
+    return torch.stack([h.view(d8 // 8, 8, d) for h in halves],
+                       1).reshape(2 * d8, d)
+
+
 @K.prepared
 def _kernel_weights(w1, b1, wd, bd, w2, b2, dtype: torch.dtype):
     """(w1, b1, wd, bd, w2, b2) as conv.cu reads them: the vectors fp32,
@@ -97,9 +110,7 @@ def _kernel_weights(w1, b1, wd, bd, w2, b2, dtype: torch.dtype):
         w1k, w2k = vec(w1), vec(w2)
     else:
         d8, dk = -(-d // 8) * 8, -(-d // 16) * 16
-        halves = _pad(w1[:d], d8, dk, dtype), _pad(w1[d:], d8, dk, dtype)
-        w1k = torch.stack([h.view(d8 // 8, 8, dk) for h in halves],
-                          1).reshape(2 * d8, dk)
+        w1k = _pad(interleave_glu(w1), 2 * d8, dk, dtype)
         w2k = _pad(w2, d, dk, dtype)
     return w1k, vec(b1), vec(wd.t()), vec(bd), w2k, vec(b2)
 

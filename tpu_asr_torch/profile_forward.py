@@ -61,7 +61,8 @@ GROUPS = (("ffn_int8_kernel", "ffn int8"),
           ("ctc_fwd", "ctc fwd"), ("ctc_bwd", "ctc bwd"),
           ("conv1_kernel", "subsampling"), ("conv2_kernel", "subsampling"),
           ("linear_kernel", "subsampling"),
-          ("logmel", "logmel"), ("layer_kernel", "conformer layer"))
+          ("logmel", "logmel"), ("layer_kernel", "conformer layer"),
+          ("layer_mma_kernel", "conformer layer"))
 
 
 def group_of(name: str) -> str:
@@ -94,21 +95,22 @@ def short_symbol(name: str) -> str:
     `kernel`, `kernel<N>` (its first integer template argument) or
     `kernel<float>` / `kernel<bf16>` (its first type argument), with a
     bool second argument (the attention kernels' segment mode) as
-    `kernel<N, true>`."""
+    `kernel<N, true>` and a second integer one (layer_mma_kernel's) as
+    `kernel<N, M>`."""
     m = re.match(r"_ZN(\d+)", name)
     k = m and re.match(r"(\d+)", name[m.end() + int(m.group(1)):])
     if not k:
         return name
     at = m.end() + int(m.group(1)) + k.end()
     end = at + int(k.group(1))
-    flag = lambda a: ("" if a.group(2) is None
-                      else ", true" if a.group(2) == "1" else ", false")
-    arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?", name[end:])
+    flag = lambda b: "" if b is None else ", true" if b == "1" else ", false"
+    arg = re.match(r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?", name[end:])
     if arg:
-        return f"{name[at:end]}<{arg.group(1)}{flag(arg)}>"
+        second = f", {arg.group(2)}" if arg.group(2) else ""
+        return f"{name[at:end]}<{arg.group(1)}{second}{flag(arg.group(3))}>"
     typ = re.match(r"I(f|13__nv_bfloat16)(?:Lb([01])E)?", name[end:])
     return name[at:end] + (
-        f"<{'float' if typ.group(1) == 'f' else 'bf16'}{flag(typ)}>"
+        f"<{'float' if typ.group(1) == 'f' else 'bf16'}{flag(typ.group(2))}>"
         if typ else "")
 
 

@@ -45,6 +45,13 @@ launches) with its launches per call.
   ctc_bwd              torch.autograd.grad of the same NLLs' sum with
                        respect to the log-probs (the backward kernel, with
                        whatever the wrapper launches around it)
+  conformer_layer      fused_conformer_layer, bf16, chip_smoke.py phase
+                       14's shape (ModelConfig(): B=32, T'=376, D=176, 4
+                       heads, d_ff 704, k=31, folded batch norm), ragged
+                       lengths, a seeded layer's fp32 parameters
+  conformer_layer_module  the same layer's eval forward (ConformerLayer:
+                       the attention kernel, plain FFN, conv and LNs) on
+                       the same input, bf16: the yardstick
 
 --root TREE imports tpu_asr_torch from another checkout (a `git archive`
 of an earlier commit), so that two versions can be timed in turns within
@@ -60,7 +67,8 @@ import sys
 
 KERNELS = ("logmel", "attention", "attention_seg", "attention_bwd",
            "attention_seg_bwd", "attention_heads_bwd", "ffn", "ffn_bwd", "fm", "fm_bwd",
-           "ffn_int8", "conv_module", "ctc", "ctc_bwd")
+           "ffn_int8", "conv_module", "ctc", "ctc_bwd", "conformer_layer",
+           "conformer_layer_module")
 BATCH, SECONDS, SR = 32, 15, 16000
 PACK_ROWS, T_PACK = 16, 512      # the packed serve shape (PackedTranscriber)
 
@@ -389,6 +397,38 @@ def ctc_bwd_call(torch):
     return lambda: torch.autograd.grad(loss, leaf, retain_graph=True)
 
 
+def conformer_layer_args(torch):
+    """(layer, x, mask, pos_emb, fused_conformer_layer's arguments) of
+    chip_smoke.py's phase 14 shape in bf16."""
+    from tpu_asr_torch.config import ModelConfig
+    from tpu_asr_torch.models.conformer import (ConformerLayer,
+                                                rel_positional_encoding)
+    from tpu_asr_torch.ops.cuda_layer import layer_params
+
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    enc, t, mask = student_shape(torch, gen, teacher=True)
+    layer = own_profile_forward().seed_weights(ConformerLayer(enc), 83)
+    layer = layer.cuda().eval()
+    x = (torch.randn(BATCH, t, enc.d_model, generator=gen, device="cuda")
+         * mask[..., None]).to(torch.bfloat16)
+    args = (x, mask, layer_params(layer), enc.n_heads, enc.conv_kernel_size,
+            enc.conv_context[0], "affine")
+    return layer, x, mask, rel_positional_encoding(t, enc.d_model,
+                                                   "cuda"), args
+
+
+def conformer_layer_call(torch):
+    from tpu_asr_torch.ops.cuda_layer import fused_conformer_layer
+
+    *_, args = conformer_layer_args(torch)
+    return lambda: fused_conformer_layer(*args)
+
+
+def conformer_layer_module_call(torch):
+    layer, x, mask, pos_emb, _ = conformer_layer_args(torch)
+    return lambda: layer(x, pos_emb, mask)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None,
@@ -421,7 +461,9 @@ def main(argv=None) -> int:
               "ffn": ffn_call, "ffn_bwd": ffn_bwd_call, "fm": fm_call,
               "fm_bwd": fm_bwd_call, "ffn_int8": ffn_int8_call,
               "conv_module": conv_module_call, "ctc": ctc_call,
-              "ctc_bwd": ctc_bwd_call}
+              "ctc_bwd": ctc_bwd_call,
+              "conformer_layer": conformer_layer_call,
+              "conformer_layer_module": conformer_layer_module_call}
     lines = []
     for name in args.kernels.split(","):
         fn = makers[name](torch)
