@@ -168,7 +168,7 @@ Phases, each on its own output lines:
      and bf16; forward and backward at the student's (H=2, dk=44) with
      dropout 0.1 in fp32 and bf16, a (32, 16) window, ragged lengths
      without a seed; two backward calls bit-equal; the bf16 backward at
-     T=1100 (B=2); dk=72 refused; times, bounds and the backward's device
+     T=1100 (B=2); dk=132 refused; times, bounds and the backward's device
      time per launch. Launch counters are reset before phases 14 and 15
      and must be above 0 after them.
   16. packed serve: ModelConfig() in fp32 on phase 4's 8 clips,
@@ -207,6 +207,46 @@ Phases, each on its own output lines:
      encoder's forward and backward device time a batch, their ratios, the
      fill ratio and rows a batch; every kernel launched, every packed
      attention backward in its segment mode.
+  18. conformer-LARGE (bench.py's large_cfg: d512, 18 layers, 8 heads, dk
+     64, d_ff 2048, k=31, no SpecAugment; seeded weights drawn on the card):
+     (a) phase 4's checks on the model; (b) phase 5's serve window in bf16,
+     then with quantization='int8' and conv_backend='pallas' phase 11's
+     row- and layer-level int8 checks (the share of rows that may flip
+     scaled by D + d_ff over ModelConfig()'s 880: 29%) and phase 12's
+     serve window, RTFx
+     beside the fp RTFx; (c) one fp32 CTC step (DistilCTCModel with the CTC
+     loss alone, B=8 x 15 s, dropout, dither) on the kernels against plain
+     by phase 7's rules, then 10 timed bf16 steps at B=32 x 15 s with 48
+     tokens after 2 warm-up: ms a step, audio s/s, peak memory, every
+     kernel of the step launched (the training FFN kernel refuses d512).
+  19. conformer-XLarge (bench.py's xl_cfg: d1024, 24 layers, 8 heads, dk
+     128, k=5): (a) the block attention and the per-head attention at dk
+     128 (B=32 x T'=376, D=1024) against their plain versions, fp32 and
+     bf16, dropout 0 and 0.1, the forward by phase 3's tolerances, the bf16
+     backward by phase 6's rule with two calls bit-equal; the fp32 backward
+     at T=160 (B=8), the longest its shared memory takes at dk 128, and
+     refused past it; the segment mode in bf16 on the packed serve map
+     (16 x 512) by phase 17's rules; dk=132 refused; ptxas registers and
+     spills of the
+     dk-128 kernels; times, bounds, device times, and the kernels' names
+     (core_mma_kernel<128, ...>, dq_mma_kernel<128, ...>,
+     dkv_mma_kernel<128, ...>) from the profiler; (b) the subsampling at
+     C=1024 against plain, fp32 and bf16; (c) phase 4's checks on the model,
+     one attention launch a layer; (d) the model built and seeded on the
+     card (seconds printed), one bf16 forward launching the attention once
+     a layer through core_mma_kernel<128, ...> and no other core (profiler
+     names; beside it the seconds the same build and draw take on the
+     CPU), then phase 5's serve window in bf16; (e) one CTC step at B=8 x
+     15 s from the same weights: bf16 on the kernels and bf16 plain
+     against fp32 plain (the fp32 backward refuses T'=376 at dk 128), the
+     kernels' loss and each gradient within 2x the plain bf16 step's
+     deviation (floored at 2^-8 of the reference's scale; the key and
+     depthwise-conv biases, zero in exact arithmetic, within 5e-2 of 1e-2 x
+     the largest gradient), every attention
+     backward through dq_mma_kernel<128> and dkv_mma_kernel<128> (profiler
+     names and counters); then 2 timed bf16 steps at B=32 x 15 s after 1
+     warm-up.
+Each phase's seconds are printed after it.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
 recorded launches (`device_ms`).
@@ -324,9 +364,13 @@ def profiled_kernels(fn, *parts: str, iters: int = 5, tries: int = 5):
 def top_kernels(names, n: int = 3) -> str:
     """The n kernels with the most device time, 'name ms' each."""
     top = sorted(names.items(), key=lambda kv: -kv[1])[:n]
-    short = lambda k: (k.replace("(anonymous namespace)::", "")
-                       .removeprefix("void ").split("(")[0][:48])
-    return ", ".join(f"{short(k)} {v:.4f}" for k, v in top)
+    return ", ".join(f"{kernel_short(k)[:48]} {v:.4f}" for k, v in top)
+
+
+def kernel_short(name: str) -> str:
+    """A profiler kernel name without namespace, `void` and arguments."""
+    return (name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            .split("(")[0])
 
 
 def normal(gen, *shape, scale=1.0):
@@ -340,8 +384,7 @@ def kernel_phase(cfg):
         fused_relpos_attention_block, relpos_attention_plain)
     from tpu_asr_torch.ops.cuda_features import (_fft_tables, fused_logmel,
                                                  logmel_plain, logmel_route)
-    from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling,
-                                                    out_len, subsampling_plain)
+    from tpu_asr_torch.ops.cuda_subsampling import fused_subsampling, out_len
     from tpu_asr_torch.ops.features import FilterbankFeatures
     from tpu_asr_torch.models.conformer import rel_positional_encoding
 
@@ -392,40 +435,12 @@ def kernel_phase(cfg):
     feats = normal(gen, BATCH, n_frames, pre.features)
     results["subsampling"] = {}
     for ch, d in ((enc.conv_channels, enc.d_model), (512, 512)):
-        w = (normal(gen, ch, 1, 3, 3, scale=0.3), normal(gen, ch, scale=0.1),
-             normal(gen, ch, ch, 3, 3, scale=0.08 * (176 / ch) ** 0.5),
-             normal(gen, ch, scale=0.1),
-             normal(gen, d, ch * f2, scale=0.05 * (176 / ch) ** 0.5))
+        w = subsampling_weights(gen, ch, d, f2)
         timed = ch == enc.conv_channels
         for dt in (torch.float32, torch.bfloat16):
-            x = feats.to(dt)
-            got = fused_subsampling(x, *w).float()
-            want = subsampling_plain(x, *w).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ref = want.abs().max().item()
-            if dt == torch.float32:
-                ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
-                tol = "rtol=atol=1e-3"
-            else:
-                ok = torch.allclose(got, want, rtol=0.05,
-                                    atol=0.03 * max(1.0, ref))
-                tol = "rtol 0.05, atol 0.03*max(1,|ref|max)"
-            check(ok and got.shape == (BATCH, t2, d),
-                  f"subsampling {str(dt)[6:]} C={ch} ({BATCH}, {n_frames}, "
-                  f"{pre.features}) -> ({BATCH}, {t2}, {d}): max |err| "
-                  f"{err:.3e}, |ref|max {ref:.3e} ({tol})")
-            if not timed:
-                continue
-            flops = (2 * 9 * BATCH * out_len(n_frames)
-                     * out_len(pre.features) * ch
-                     + 2 * 9 * BATCH * t2 * f2 * ch * ch
-                     + 2 * BATCH * t2 * ch * f2 * d)
-            results["subsampling"][str(dt)[6:]] = (
-                err, median_ms(lambda: fused_subsampling(x, *w)),
-                median_ms(lambda: subsampling_plain(x, *w)),
-                bound(flops, nbytes(x, *w) + got.numel() * x.element_size(),
-                      str(dt)[6:]), None)
+            row = subsampling_case(feats.to(dt), w, timed)
+            if timed:
+                results["subsampling"][str(dt)[6:]] = row
         x = feats.to(torch.bfloat16)
         if timed:
             wb = [z.to(torch.bfloat16) for z in w]
@@ -492,6 +507,53 @@ def kernel_phase(cfg):
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median "
                   f"of 20, CUDA events)")
     return results
+
+
+def subsampling_weights(gen, ch, d, f2):
+    """w1, b1, w2, b2, w_out of the subsampling at C channels and D outputs,
+    seeded, scaled as at C = 176."""
+    return (normal(gen, ch, 1, 3, 3, scale=0.3), normal(gen, ch, scale=0.1),
+            normal(gen, ch, ch, 3, 3, scale=0.08 * (176 / ch) ** 0.5),
+            normal(gen, ch, scale=0.1),
+            normal(gen, d, ch * f2, scale=0.05 * (176 / ch) ** 0.5))
+
+
+def subsampling_case(x, w, timed: bool):
+    """fused_subsampling against its plain version on x (B, T, 80) in its
+    dtype: fp32 within rtol = atol = 1e-3, bf16 within rtol 0.05 and 0.03
+    of max(1, |ref|max). With `timed`, returns (max_abs_err, kernel ms,
+    plain ms, bound, None); else None."""
+    from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling,
+                                                    out_len, subsampling_plain)
+    b, n_frames, feat = x.shape
+    ch, d = w[0].shape[0], w[4].shape[0]
+    t2, f2 = out_len(out_len(n_frames)), out_len(out_len(feat))
+    dt = x.dtype
+    with torch.no_grad():
+        got = fused_subsampling(x, *w).float()
+        want = subsampling_plain(x, *w).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ref = want.abs().max().item()
+    if dt == torch.float32:
+        ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+        tol = "rtol=atol=1e-3"
+    else:
+        ok = torch.allclose(got, want, rtol=0.05, atol=0.03 * max(1.0, ref))
+        tol = "rtol 0.05, atol 0.03*max(1,|ref|max)"
+    check(ok and got.shape == (b, t2, d),
+          f"subsampling {str(dt)[6:]} C={ch} ({b}, {n_frames}, {feat}) -> "
+          f"({b}, {t2}, {d}): max |err| {err:.3e}, |ref|max {ref:.3e} "
+          f"({tol})")
+    if not timed:
+        return None
+    flops = (2 * 9 * b * out_len(n_frames) * out_len(feat) * ch
+             + 2 * 9 * b * t2 * f2 * ch * ch + 2 * b * t2 * ch * f2 * d)
+    with torch.no_grad():
+        return (err, median_ms(lambda: fused_subsampling(x, *w)),
+                median_ms(lambda: subsampling_plain(x, *w)),
+                bound(flops, nbytes(x, *w) + got.numel() * x.element_size(),
+                      str(dt)[6:]), None)
 
 
 def segment_pairs(seg: np.ndarray) -> int:
@@ -695,7 +757,9 @@ def model_clips(seed: int):
             torch.tensor([len(c) for c in clips], device="cuda"))
 
 
-def model_phase(cfg):
+def model_phase(cfg, name: str = "ModelConfig()"):
+    """Phase 4's checks on `cfg` (`name` in the messages); returns the fp32
+    kernel forward's {row: launches}."""
     from tpu_asr_torch.profile_forward import seeded_model, set_backend
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     model = seeded_model(cfg32, seed=1)
@@ -717,7 +781,7 @@ def model_phase(cfg):
              < want.encoded_len[:, None])
     delta = ((got.log_probs - want.log_probs).abs() * valid[..., None]).max()
     check(bool(torch.isfinite(got.log_probs).all()), "log-probs finite")
-    check(delta.item() < 2e-3, f"ModelConfig() fp32, {len(sig_t)} clips of "
+    check(delta.item() < 2e-3, f"{name} fp32, {len(sig_t)} clips of "
           f"5-{SECONDS} s: max |delta log-prob| kernels vs plain "
           f"{delta.item():.3e} < 2e-3")
     top2 = want.log_probs.topk(2, dim=-1).values
@@ -743,7 +807,7 @@ def model_phase(cfg):
     drift = lambda out: ((out.log_probs.float() - want.log_probs).abs()
                          * valid[..., None]).max().item()
     d_k, d_p = drift(got16), drift(plain16)
-    check(d_k <= 2 * d_p, f"ModelConfig() bf16 against the fp32 plain model: "
+    check(d_k <= 2 * d_p, f"{name} bf16 against the fp32 plain model: "
           f"max |delta log-prob| kernels {d_k:.3e} <= 2 x plain bf16 "
           f"{d_p:.3e}")
     decided = valid & ((top2[..., 0] - top2[..., 1]) > 1e-1)
@@ -752,6 +816,7 @@ def model_phase(cfg):
     check(agree >= 0.99 * n_dec, f"bf16 on kernels: greedy ids equal to "
           f"fp32 plain on {agree} of {n_dec} frames with fp32 top-2 margin "
           f"> 1e-1 (>= 99%)")
+    return counts
 
 
 def serve_tokenizer(cfg):
@@ -1624,46 +1689,14 @@ def student(scfg, seed: int):
 def train_phase(tcfg):
     """The fp32 kernels-vs-plain step check, then the timed bf16 steps.
     Returns {counter name: launches} of the timed steps."""
-    import copy
-
-    from tpu_asr_torch.config import OptimConfig, make_student_config
-    from tpu_asr_torch.profile_forward import set_backend
-    from tpu_asr_torch.train.trainer import (DistilTrainState,
-                                             make_distil_train_step)
+    from tpu_asr_torch.config import make_student_config
 
     scfg = make_student_config(tcfg)
     model = student(dataclasses.replace(scfg, compute_dtype="float32"), 4)
-    init = copy.deepcopy(model.state_dict())
-    batch = train_batch(CHECK_BATCH, 5)
-    runs = {}
-    for backend in ("auto", "xla"):
-        model.load_state_dict(init)
-        set_backend(model, backend)
-        state = DistilTrainState.create(model, OptimConfig())
-        state, metrics = make_distil_train_step(model)(state, batch, 7)
-        torch.cuda.synchronize()
-        runs[backend] = (
-            metrics["loss/total"].item(),
-            {n: p.grad.clone() for n, p in model.named_parameters()},
-            {n: b.clone() for n, b in model.named_buffers()
-             if "running" in n},
-            {n: p.detach().clone() for n, p in model.named_parameters()})
-    (lk, gk, sk, pk), (lp, gp, sp, pp) = runs["auto"], runs["xla"]
-    check(math.isfinite(lk) and abs(lk - lp) <= 1e-4 * abs(lp),
-          f"fp32 student train step (16 layers, B={CHECK_BATCH} x {SECONDS} "
-          f"s, dropout {scfg.encoder.dropout}, SpecAugment, dither): loss "
-          f"kernels {lk:.6f} vs plain {lp:.6f}")
-    # fp32 sums in another order through 16 layers of backward, and the
-    # CTC kernel's analytic posterior against autograd through the scan
-    print("fp32 train step gradients, kernels vs plain:")
-    _, worst = grads_close(list(gk.values()), list(gp.values()), 1e-2,
-                           list(gk), 1e-4, verbose=False)
-    err_bn = max((sk[n] - sp[n]).abs().max().item() for n in sk)
-    check(err_bn < 1e-4, f"BatchNorm running statistics after the step: max "
-          f"|err| {err_bn:.3e} < 1e-4")
-    err_p = max((pk[n] - pp[n]).abs().max().item() for n in pk)
-    check(err_p < 1e-5, f"parameters after the AdamW step: max |err| "
-          f"{err_p:.3e} < 1e-5")
+    fp32_step_check(model, train_batch(CHECK_BATCH, 5), 7,
+                    f"fp32 student train step (16 layers, B={CHECK_BATCH} x "
+                    f"{SECONDS} s, dropout {scfg.encoder.dropout}, "
+                    f"SpecAugment, dither)")
 
     ms, counts, metrics = timed_steps(student(scfg, 6), train_batch(BATCH, 8),
                                       9)
@@ -1680,34 +1713,88 @@ def train_phase(tcfg):
     return counts
 
 
-def timed_steps(model, batch, seed: int):
-    """TRAIN_WARMUP steps, then the launch counters and the peak memory
-    reset and TRAIN_STEPS steps timed on the host clock up to a final
-    synchronize. Returns (ms per step, {row: launches}, [metrics])."""
+def step_run(model, batch, seed: int):
+    """One train step of `model` from a fresh AdamW state: (metrics,
+    {parameter: grad}, {BatchNorm running statistic}, {parameter after the
+    step})."""
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+    state = DistilTrainState.create(model, OptimConfig())
+    state, metrics = make_distil_train_step(model)(state, batch, seed)
+    torch.cuda.synchronize()
+    return (metrics,
+            {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None},
+            {n: b.clone() for n, b in model.named_buffers()
+             if "running" in n},
+            {n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+def fp32_step_check(model, batch, seed: int, label: str) -> None:
+    """One fp32 train step of `model` on the kernels and on the plain
+    versions from the same weights and seeds: the loss within 1e-4
+    relative, every gradient within 1e-2 of its tensor's scale (floor 1e-4
+    of the largest), the BatchNorm running statistics within 1e-4 and the
+    parameters after AdamW within 1e-5."""
+    import copy
+
+    from tpu_asr_torch.profile_forward import set_backend
+
+    init = copy.deepcopy(model.state_dict())
+    runs = {}
+    for backend in ("auto", "xla"):
+        model.load_state_dict(init)
+        set_backend(model, backend)
+        metrics, *rest = step_run(model, batch, seed)
+        runs[backend] = (metrics["loss/total"].item(), *rest)
+    set_backend(model, "auto")
+    (lk, gk, sk, pk), (lp, gp, sp, pp) = runs["auto"], runs["xla"]
+    check(math.isfinite(lk) and abs(lk - lp) <= 1e-4 * abs(lp),
+          f"{label}: loss kernels {lk:.6f} vs plain {lp:.6f}")
+    # fp32 sums in another order through every layer's backward, and the
+    # CTC kernel's analytic posterior against autograd through the scan
+    print("fp32 train step gradients, kernels vs plain:")
+    grads_close(list(gk.values()), list(gp.values()), 1e-2, list(gk), 1e-4,
+                verbose=False)
+    err_bn = max((sk[n] - sp[n]).abs().max().item() for n in sk)
+    check(err_bn < 1e-4, f"BatchNorm running statistics after the step: max "
+          f"|err| {err_bn:.3e} < 1e-4")
+    err_p = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    check(err_p < 1e-5, f"parameters after the AdamW step: max |err| "
+          f"{err_p:.3e} < 1e-5")
+
+
+def timed_steps(model, batch, seed: int, steps: int = TRAIN_STEPS,
+                warmup: int = TRAIN_WARMUP):
+    """`warmup` steps, then the launch counters and the peak memory reset
+    and `steps` steps timed on the host clock up to a final synchronize.
+    Returns (ms per step, {row: launches}, [metrics])."""
     from tpu_asr_torch.config import OptimConfig
     from tpu_asr_torch.train.trainer import (DistilTrainState,
                                              make_distil_train_step)
     state = DistilTrainState.create(model, OptimConfig())
     step = make_distil_train_step(model)
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         state, _ = step(state, batch, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     read = reset_counters()
     metrics = []
     start = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, m = step(state, batch, seed)
         metrics.append(m)
     torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - start) / TRAIN_STEPS
+    ms = 1e3 * (time.perf_counter() - start) / steps
     return ms, read(), metrics
 
 
-def timed_summary(ms: float) -> str:
+def timed_summary(ms: float, steps: int = TRAIN_STEPS,
+                  warmup: int = TRAIN_WARMUP) -> str:
     return (f"{ms:.2f} ms per step, {BATCH * SECONDS / (ms / 1e3):.1f} audio "
-            f"s per s (host clock over {TRAIN_STEPS} steps after "
-            f"{TRAIN_WARMUP} warm-up), peak memory "
+            f"s per s (host clock over {steps} steps after {warmup} "
+            f"warm-up), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
@@ -2308,10 +2395,10 @@ def eval_kernel_phase(cfg):
             "conv_module": conv_dt[torch.bfloat16]}
 
 
-def int8_model_phase(cfg):
+def int8_model_phase(cfg, name: str = "ModelConfig()"):
     """The int8 serving model in fp32 on kernels against plain, end to end
     and layer by layer on the plain model's layer inputs, beside the
-    int8-vs-fp drift of the same weights."""
+    int8-vs-fp drift of the same weights (`name` in the messages)."""
     from tpu_asr_torch.profile_forward import seeded_model, set_backend
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     model = seeded_model(cfg32, seed=16)
@@ -2344,6 +2431,13 @@ def int8_model_phase(cfg):
     # conv kernels sum in another order too, so every row's FFN input moves
     # by fp32 rounding: 0.05-3.9% of the rows flipped per layer, at most
     # 0.38 of the drift, NVIDIA H100 80GB HBM3)
+    # a row flips where any of its FFN sublayers' quantized activations (D
+    # after the LN, d_ff after SiLU, two sublayers) lies within rounding of
+    # a tie, so the share of rows that may flip grows with D + d_ff: 10% at
+    # ModelConfig()'s 176 + 704, in proportion above it (conformer-LARGE's
+    # 512 + 2048: 29%)
+    enc = cfg.encoder
+    budget = 0.1 * max(1.0, (enc.d_model + enc.d_ff) / 880)
     worst = 0.0
     for i, (layer, fp_layer) in enumerate(zip(model.encoder.layers,
                                               fp_model.encoder.layers)):
@@ -2359,10 +2453,11 @@ def int8_model_phase(cfg):
         drift = (out_p - out_fp).abs().amax(-1)[valid].max().item()
         flipped = int((row_err > 1e-4).sum())
         worst = max(worst, row_err.max().item() / drift)
-        check(flipped <= 0.1 * row_err.numel()
+        check(flipped <= budget * row_err.numel()
               and row_err.max().item() <= 0.5 * drift,
               f"  int8 layer {i} on the plain layer input: {flipped} of "
-              f"{row_err.numel()} rows beyond 1e-4 (<= 10%), max |err| "
+              f"{row_err.numel()} rows beyond 1e-4 (<= {100 * budget:.0f}%), "
+              f"max |err| "
               f"{row_err.max().item():.3e} <= half the int8-vs-fp drift "
               f"{drift:.3e}", )
     set_backend(model, "auto")
@@ -2370,7 +2465,7 @@ def int8_model_phase(cfg):
              < want.encoded_len[:, None])
     d = (got.log_probs - want.log_probs).abs()[valid]
     drift = (want.log_probs - fp.log_probs).abs()[valid]
-    print(f"int8 model ModelConfig() int8 + conv kernel fp32, {len(sig_t)} "
+    print(f"int8 model {name} int8 + conv kernel fp32, {len(sig_t)} "
           f"clips of 5-{SECONDS} s, kernels vs plain: max |delta log-prob| "
           f"{d.max().item():.3e}, mean {d.mean().item():.3e}; int8-vs-fp "
           f"drift max {drift.max().item():.3e}, mean "
@@ -2741,9 +2836,9 @@ def heads_kernel_phase(cfg):
     heads_compare(args32, (32, 16), rate, seed, label)
     heads_compare(args32, (-1, -1), rate, None, label + ", ragged, no seed")
     refused(lambda: fused_relpos_attention(
-        *[normal(gen, 1, 2, 8, 72) for _ in range(4)],
-        normal(gen, 144, 144), mask[:1, :8]),
-        "fused_relpos_attention at dk=72")
+        *[normal(gen, 1, 2, 8, 132) for _ in range(4)],
+        normal(gen, 264, 264), mask[:1, :8]),
+        "fused_relpos_attention at dk=132")
     with torch.no_grad():
         fwd_dev = device_ms(lambda: fused_relpos_attention(*teacher16))
     bwd_dev = device_ms(bwd)
@@ -3069,6 +3164,454 @@ def packed_train_phase(tcfg):
             {"attention_seg_bwd": pk_counts["attention_seg_bwd"]})
 
 
+# ---------------------------------------------------------------------------
+# Phases 18 and 19: conformer-LARGE and conformer-XLarge
+# ---------------------------------------------------------------------------
+
+XL_FP32_T = 160     # the fp32 attention backward's longest T at dk 128
+DK128 = ("core_mma_kernel<128", "dq_mma_kernel<128", "dkv_mma_kernel<128")
+
+
+def names_check(fn, parts, absent, label: str, iters: int = 5):
+    """Profile `iters` calls of fn() (profiled_kernels) and check that each
+    of `parts` names a recorded kernel and none of `absent` does. Returns
+    (busy ms a call, {kernel: ms a launch})."""
+    dev, names = profiled_kernels(fn, *parts, iters=iters)
+    short = sorted({kernel_short(k) for k in names})
+    shown = [k for k in short if any(p.split("<")[0] in k
+                                     for p in (*parts, *absent))]
+    check(all(any(p in k for k in short) for p in parts)
+          and not any(a in k for a in absent for k in short),
+          f"{label}: the profiler's attention kernels {shown} hold "
+          f"{list(parts)} and none of {list(absent)}")
+    return dev, names
+
+
+def dk128_kernel_phase():
+    """Phase 19a: the block and per-head attention kernels at dk 128
+    (conformer-XLarge: B=32 x T'=376, D=1024, 8 heads) against their plain
+    versions in fp32 and bf16, dropout 0 and 0.1: the forward by phase
+    3's tolerances, the bf16 backward by phase 6's gradient rule with two
+    calls bit-equal; the fp32 backward at T = XL_FP32_T (B=8), its limit,
+    and refused one frame past it and at T'=376; the segment mode in bf16
+    on the packed serve map by phase 17's rules. ptxas registers and
+    spills, times, bounds and device times. Returns the four dk-128 rows
+    in bf16."""
+    from tpu_asr_torch.models.conformer import rel_positional_encoding
+    from tpu_asr_torch.ops.cuda_attention import (
+        attention_refusal, fused_relpos_attention,
+        fused_relpos_attention_block, fused_relpos_attention_block_bwd,
+        fused_relpos_attention_bwd, relpos_attention_heads_plain,
+        relpos_attention_plain)
+    from tpu_asr_torch.ops.cuda_subsampling import out_len
+
+    for prefix in (*DK128, "core_kernel<float", "dq_kernel<float",
+                   "dkv_kernel<float"):
+        regs = nvcc_registers(prefix)
+        check(regs, f"ptxas built {prefix}: {sorted(regs)}")
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    d, h = 1024, 8
+    t = out_len(out_len(SECONDS * SR // 160 + 1))
+    seed = 2 ** 31 - 9
+
+    def ragged(b, t_):
+        lengths = torch.randint(t_ // 4, t_ + 1, (b,), generator=gen,
+                                device="cuda")
+        lengths[0] = t_
+        return torch.arange(t_, device="cuda")[None, :] < lengths[:, None]
+
+    rows = {}
+    pw = attention_weights(gen, d, h)
+    for b, t_ in ((BATCH, t), (8, XL_FP32_T)):
+        mask = ragged(b, t_)
+        valid = mask[..., None]
+        pos_emb = rel_positional_encoding(t_, d, "cuda")
+        xa = normal(gen, b, t_, d, scale=0.5)
+        ga = normal(gen, b, t_, d) * valid
+        label = f"dk 128 (B={b}, T={t_}, D={d}, H={h})"
+        for dt in (torch.float32, torch.bfloat16):
+            dts = str(dt)[6:]
+            x = xa.to(dt)
+            aargs = (x, *pw, pos_emb, mask, h)
+            grads = dt == torch.bfloat16 or t_ <= XL_FP32_T
+            main = b == BATCH and dt == torch.bfloat16
+            for rate in (0.0, 0.1):
+                with torch.no_grad():
+                    got = fused_relpos_attention_block(
+                        *aargs, dropout_rate=rate, dropout_seed=seed).float()
+                    want = relpos_attention_plain(*aargs, rate, seed).float()
+                torch.cuda.synchronize()
+                err = ((got - want).abs() * valid).max().item()
+                rtol, atol = ((1e-4, 1e-4) if dt == torch.float32
+                              else (1e-2, 3e-3))
+                check(torch.allclose(got * valid, want * valid, rtol=rtol,
+                                     atol=atol),
+                      f"attention {dts} {label} dropout {rate}: valid rows "
+                      f"max |err| {err:.3e} (rtol {rtol}, atol {atol})")
+                if main and rate == 0.0:
+                    with torch.no_grad():
+                        fwd = lambda: fused_relpos_attention_block(*aargs)
+                        rows["attention_dk128"] = (
+                            err, median_ms(fwd),
+                            median_ms(lambda: relpos_attention_plain(*aargs)),
+                            bound(attention_flops(b, t_, d, h),
+                                  nbytes(x, *pw) + got.numel()
+                                  * x.element_size(), dts), None)
+                        dev, names = names_check(
+                            fwd, DK128[:1], ("core_mma_kernel<64",
+                                             "core_kernel"),
+                            f"attention bf16 {label}")
+                    print(f"device attention bfloat16 {label} ({DEVICE}): "
+                          f"{dev:.4f} ({top_kernels(names)})")
+                if not grads:
+                    continue
+                leaves = [z.detach().requires_grad_() for z in (x, *pw)]
+                out_k = fused_relpos_attention_block(
+                    *leaves, pos_emb, mask, h, dropout_rate=rate,
+                    dropout_seed=seed)
+                g = ga.to(dt)
+                got_g = torch.autograd.grad(out_k, leaves, g,
+                                            retain_graph=True)
+                leaves_p = [z.detach().requires_grad_() for z in (x, *pw)]
+                out_p = relpos_attention_plain(*leaves_p, pos_emb, mask, h,
+                                               rate, seed)
+                want_g = torch.autograd.grad(out_p, leaves_p, g,
+                                             retain_graph=True)
+                torch.cuda.synchronize()
+                tol, floor = ((1e-3, 1e-4) if dt == torch.float32
+                              else (5e-2, 1e-2))
+                print(f"attention_bwd {dts} {label} dropout {rate}, kernels "
+                      f"vs plain:")
+                err_abs, _ = grads_close(got_g, want_g, tol, ATT_GRADS,
+                                         floor, verbose=False)
+                saved = out_k.grad_fn.saved_tensors
+                bwd = lambda: fused_relpos_attention_block_bwd(
+                    g, *saved, h, rate, seed)
+                check(all(torch.equal(a, b_) for a, b_ in zip(bwd(), bwd())),
+                      f"attention_bwd {dts} {label} dropout {rate}: two "
+                      f"calls give bit-equal gradients")
+                if main and rate > 0:
+                    rows["attention_bwd_dk128"] = (
+                        err_abs, median_ms(bwd),
+                        median_ms(lambda: torch.autograd.grad(
+                            out_p, leaves_p, g, retain_graph=True)),
+                        bound(attention_flops(b, t_, d, h, backward=True),
+                              nbytes(g, *saved) + nbytes(*got_g), dts), None)
+                    dev, names = names_check(bwd, DK128[1:], (
+                        "dq_mma_kernel<64", "dq_kernel"),
+                        f"attention_bwd bf16 {label}")
+                    print(f"device attention_bwd bfloat16 {label} "
+                          f"({DEVICE}): {dev:.4f} ({top_kernels(names, 6)})")
+    # the segment mode (packed rows) at dk 128: bf16 on the packed serve
+    # map (16 rows x 512), dropout 0.1, the cotangent zero on guard frames
+    from tpu_asr_torch.profile_forward import packed_seg_map
+    seg = torch.from_numpy(packed_seg_map()).cuda()
+    xs = normal(gen, *seg.shape, d, scale=0.5).to(torch.bfloat16)
+    gs = (normal(gen, *seg.shape, d) * (seg > 0)[..., None]).to(torch.bfloat16)
+    seg_bwd_compare(seg, xs, gs, pw, h, 0.1, seed,
+                    f"dk 128 ({seg.shape[0]} x {seg.shape[1]}, D={d}, H={h})")
+    check(attention_refusal(torch.float32, d, h, XL_FP32_T, True) is None
+          and attention_refusal(torch.float32, d, h, XL_FP32_T + 1, True)
+          and attention_refusal(torch.bfloat16, d, h, t, True) is None,
+          f"fp32 attention backward at dk 128 takes T <= {XL_FP32_T}; bf16 "
+          f"takes T={t}")
+    xg = normal(gen, 1, t, d).requires_grad_()
+    refused(lambda: fused_relpos_attention_block(
+        xg, *pw, rel_positional_encoding(t, d, "cuda"), ragged(1, t), h),
+        f"autograd through the fp32 block attention at dk 128, T={t}")
+
+    # the per-head function at dk 128
+    w_pos = normal(gen, d, d, scale=d ** -0.5)
+    for b, t_ in ((BATCH, t), (8, XL_FP32_T)):
+        mask = ragged(b, t_)
+        heads = [normal(gen, b, h, t_, 128, scale=0.5) for _ in range(4)]
+        label = f"dk 128 (B={b}, H={h}, T={t_})"
+        for dt in (torch.float32, torch.bfloat16):
+            args = [z.to(dt) for z in heads] + [w_pos.to(dt), mask]
+            grads = dt == torch.bfloat16 or t_ <= XL_FP32_T
+            main = b == BATCH and dt == torch.bfloat16
+            for rate in (0.0, 0.1):
+                err, gerr, saved, g, plain = heads_compare(
+                    args, (-1, -1), rate, seed, label, grads=grads)
+                if main and rate == 0.0:
+                    flops = (6 * b * h * t_ * t_ * 128
+                             + 2 * (2 * t_ - 1) * d * d)
+                    with torch.no_grad():
+                        rows["attention_heads_dk128"] = (
+                            err, median_ms(lambda: fused_relpos_attention(
+                                *args)),
+                            median_ms(lambda: relpos_attention_heads_plain(
+                                *args)),
+                            bound(flops, nbytes(*args[:5]) + nbytes(args[0]),
+                                  "bfloat16"), None)
+                        dev, names = names_check(
+                            lambda: fused_relpos_attention(*args), DK128[:1],
+                            ("core_mma_kernel<64", "core_kernel"),
+                            f"attention_heads bf16 {label}")
+                    print(f"device attention_heads bfloat16 {label} "
+                          f"({DEVICE}): {dev:.4f} ({top_kernels(names)})")
+                if not grads:
+                    continue
+                bwd = lambda: fused_relpos_attention_bwd(g, *saved, (-1, -1),
+                                                         rate, seed)
+                check(all(torch.equal(a, b_) for a, b_ in zip(bwd(), bwd())),
+                      f"attention_heads_bwd {str(dt)[6:]} {label} dropout "
+                      f"{rate}: two calls give bit-equal gradients")
+                if main and rate > 0:
+                    leaves_p, out_p = plain
+                    flops = (16 * b * h * t_ * t_ * 128
+                             + 2 * (2 * t_ - 1) * d * d)
+                    rows["attention_heads_bwd_dk128"] = (
+                        gerr, median_ms(bwd),
+                        median_ms(lambda: torch.autograd.grad(
+                            out_p, leaves_p, g, retain_graph=True)),
+                        bound(flops, nbytes(g, *saved) + nbytes(*args[:5]),
+                              "bfloat16"), None)
+                    dev, names = names_check(bwd, DK128[1:], (
+                        "dq_mma_kernel<64", "dq_kernel"),
+                        f"attention_heads_bwd bf16 {label}")
+                    print(f"device attention_heads_bwd bfloat16 {label} "
+                          f"({DEVICE}): {dev:.4f} ({top_kernels(names, 6)})")
+    refused(lambda: fused_relpos_attention(
+        *[normal(gen, 1, 2, 8, 132) for _ in range(4)],
+        normal(gen, 264, 264), ragged(1, 8)),
+        "fused_relpos_attention at dk=132")
+    for name, (err, ms, plain_ms, (b_ms, by), _) in rows.items():
+        print(f"time {name} bfloat16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median of 20, "
+              f"CUDA events)")
+    return rows
+
+
+def ctc_train_model(cfg, seed: int):
+    """DistilCTCModel(cfg, ModelConfig(), DistillationConfig()) on the card,
+    seeded: bench_train.py's CTC-only step of a model (the teacher gated
+    off)."""
+    from tpu_asr_torch.config import DistillationConfig, ModelConfig
+    from tpu_asr_torch.models.distil_model import DistilCTCModel
+    from tpu_asr_torch.profile_forward import built_on, seed_weights
+    model = built_on(DistilCTCModel, cfg, ModelConfig(), DistillationConfig())
+    return seed_weights(model, seed).cuda()
+
+
+def model_label(name: str, cfg) -> str:
+    enc = cfg.encoder
+    return (f"{name} ({enc.n_layers} x d{enc.d_model}, {enc.n_heads} heads, "
+            f"d_ff {enc.d_ff}, k={enc.conv_kernel_size})")
+
+
+def timed_ctc_steps(cfg, name: str, steps: int, warmup: int, seed: int):
+    """`steps` timed bf16 CTC steps of `cfg` at B=32 x 15 s with 48 tokens
+    after `warmup`: losses finite, every kernel of the step launched.
+    Returns {row: launches}."""
+    ms, counts, metrics = timed_steps(ctc_train_model(cfg, seed),
+                                      train_batch(BATCH, seed + 1), seed + 2,
+                                      steps, warmup)
+    counts = {k: v for k, v in counts.items() if k in CTC_STEP}
+    losses = torch.stack([m["loss/total"] for m in metrics]).tolist()
+    check(all(math.isfinite(x) for x in losses),
+          f"bf16 {name} CTC steps: losses finite, first {losses[0]:.4f} "
+          f"last {losses[-1]:.4f}")
+    check(all(v > 0 for v in counts.values()),
+          f"{name} CTC steps launched every kernel: {counts}")
+    print(f"train: {model_label(name, cfg)} ({cfg.compute_dtype}) CTC step "
+          f"B={BATCH} x {SECONDS} s, {TOKENS} tokens: "
+          f"{timed_summary(ms, steps, warmup)}")
+    return counts
+
+
+def large_phase():
+    """Phase 18: conformer-LARGE. Returns (RTFx fp, RTFx int8)."""
+    from tpu_asr_torch.profile_forward import model_config
+
+    cfg = model_config("large")
+    name = "conformer-LARGE"
+    t0 = time.perf_counter()
+    model_phase(cfg, model_label(name, cfg))
+    print(f"phase 18a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, rtfx = serve_phase(cfg)
+    int8_cfg = with_encoder(cfg, quantization="int8", conv_backend="pallas")
+    int8_model_phase(int8_cfg, model_label(name, cfg))
+    _, int8_rtfx = serve_phase(int8_cfg, INT8_SERVING)
+    print(f"serve RTFx {name}: int8 + conv kernel {int8_rtfx:.1f}, fp "
+          f"{rtfx:.1f}, same run")
+    print(f"phase 18b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fp32_step_check(ctc_train_model(dataclasses.replace(
+        cfg, compute_dtype="float32"), 20), train_batch(CHECK_BATCH, 21), 22,
+        f"fp32 {model_label(name, cfg)} CTC step (B={CHECK_BATCH} x "
+        f"{SECONDS} s, dropout {cfg.encoder.dropout}, dither)")
+    timed_ctc_steps(cfg, name, TRAIN_STEPS, TRAIN_WARMUP, 23)
+    print(f"phase 18c: {time.perf_counter() - t0:.1f} s")
+    return rtfx, int8_rtfx
+
+
+def bf16_step_check(cfg, name: str, seed: int) -> None:
+    """One CTC step at B=CHECK_BATCH x 15 s from the same weights and
+    seeds: fp32 on the plain versions (the reference), bf16 on the kernels
+    and bf16 plain. The kernels' loss and each parameter's gradient may
+    deviate from the reference by at most 2x the plain bf16 step's
+    deviation, floored at bf16's unit roundoff (2^-8) of the reference's
+    scale (the loss, each gradient tensor's max |g|): the plain bf16 step
+    can land within rounding of fp32 by chance, and a scalar or a small
+    tensor has no spread to average that over. The gradients that are zero
+    in exact arithmetic (key biases, the depthwise conv bias) within 5e-2 of
+    1e-2 x the largest gradient, grads_close's bf16 rule for them. Every
+    attention backward of the kernel step launches dq_mma_kernel<128> and
+    dkv_mma_kernel<128> (profiled), one a layer (counter)."""
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.profile_forward import set_backend
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+
+    batch = train_batch(CHECK_BATCH, seed + 1)
+    runs = {}
+    for dt, backend in (("float32", "xla"), ("bfloat16", "auto"),
+                        ("bfloat16", "xla")):
+        t0 = time.perf_counter()
+        model = ctc_train_model(dataclasses.replace(cfg, compute_dtype=dt),
+                                seed)
+        set_backend(model, backend)
+        read = reset_counters()
+        metrics, grads, *_ = step_run(model, batch, seed + 2)
+        runs[dt, backend] = (metrics["loss/total"].item(), grads, read())
+        print(f"{name} CTC step {dt} {backend} (B={CHECK_BATCH}): "
+              f"{time.perf_counter() - t0:.1f} s with the model's build")
+        if backend == "auto":
+            state = DistilTrainState.create(model, OptimConfig())
+            step = make_distil_train_step(model)
+            names_check(lambda: step(state, batch, seed + 2), DK128,
+                        ("core_mma_kernel<64", "dq_mma_kernel<64",
+                         "core_kernel", "dq_kernel"),
+                        f"bf16 {name} CTC step on the kernels", iters=1)
+        del model
+        torch.cuda.empty_cache()
+    (l_ref, g_ref, _), (l_k, g_k, counts), (l_p, g_p, _) = runs.values()
+    n_layers = cfg.encoder.n_layers
+    runs_fwd = 2 if cfg.encoder.remat else 1   # a checkpointed layer twice
+    check(counts["attention_bwd"] == n_layers
+          and counts["attention"] == runs_fwd * n_layers,
+          f"bf16 {name} CTC step on the kernels: attention forward "
+          f"{counts['attention']} ({runs_fwd} x {n_layers} layers), backward "
+          f"{counts['attention_bwd']} ({n_layers})")
+    unit = 2.0 ** -8
+    dl_k, dl_p = abs(l_k - l_ref), abs(l_p - l_ref)
+    check(math.isfinite(l_k) and dl_k <= 2 * max(dl_p, unit * abs(l_ref)),
+          f"bf16 {name} CTC step (B={CHECK_BATCH} x {SECONDS} s): loss "
+          f"kernels {l_k:.6f}, plain bf16 {l_p:.6f}, fp32 plain {l_ref:.6f}: "
+          f"|delta| {dl_k:.3e} <= 2 x max({dl_p:.3e}, 2^-8 x |ref|)")
+    # the key biases (softmax ignores a per-query constant) and the
+    # depthwise conv bias before BatchNorm have gradient zero in exact
+    # arithmetic (tests/test_torch_train.py names them too): they hold only
+    # the rounding noise of a sum over B x T rows, which the kernels take
+    # over bf16 rows, so they have no deviation of their own to compare and
+    # are held as grads_close holds them in bf16 (5e-2 of 1e-2 x the
+    # largest gradient)
+    top = max(g.abs().max().item() for g in g_ref.values())
+    worst, floored, zero = 0.0, 0, []
+    for n in g_ref:
+        ref = g_ref[n].float()
+        scale = ref.abs().max().item()
+        dk_ = (g_k[n].float() - ref).abs().max().item()
+        dp_ = (g_p[n].float() - ref).abs().max().item()
+        if n.endswith(("linear_k.bias", "depthwise_conv.bias")):
+            zero.append((dk_, dp_, n))
+            continue
+        allow = max(dp_, unit * scale)
+        floored += dp_ < unit * scale
+        worst = max(worst, dk_ / max(allow, 1e-30))
+        if dk_ > 2 * allow:
+            check(False, f"  {n}: kernels' |delta| {dk_:.3e} > 2 x max("
+                  f"plain bf16's {dp_:.3e}, 2^-8 x {scale:.3e})")
+    check(worst <= 2.0, f"bf16 {name} CTC step: {len(g_ref) - len(zero)} "
+          f"gradients, the kernels' deviation from fp32 at most "
+          f"{worst:.3f} x the plain bf16 step's (<= 2; {floored} floored at "
+          f"2^-8 of the scale)")
+    zk, zp, zn = max(zero, default=(0.0, 0.0, "none"))
+    check(zk <= 5e-2 * 1e-2 * top, f"bf16 {name} CTC step: {len(zero)} "
+          f"key and depthwise-conv biases (gradient zero in exact "
+          f"arithmetic), the kernels' largest deviation {zk:.3e} ({zn}; "
+          f"plain bf16's {zp:.3e}) <= 5e-2 x 1e-2 x the largest gradient "
+          f"{top:.3e}")
+
+
+def xlarge_phase():
+    """Phase 19: conformer-XLarge. Returns ({row: measured}, {row:
+    launches})."""
+    from tpu_asr_torch.models.ctc_model import CTCModel
+    from tpu_asr_torch.ops.cuda_subsampling import out_len
+    from tpu_asr_torch.profile_forward import (model_config, seed_weights,
+                                               seeded_model)
+
+    cfg = model_config("xlarge")
+    name = "conformer-XLarge"
+    read = reset_counters()
+    t0 = time.perf_counter()
+    rows = dk128_kernel_phase()
+    heads_counts = read()
+    print(f"phase 19a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    pre = cfg.preprocessor
+    n_frames = SECONDS * SR // pre.hop_length + 1
+    feats = normal(gen, BATCH, n_frames, pre.features)
+    w = subsampling_weights(gen, 1024, 1024, out_len(out_len(pre.features)))
+    for dt in (torch.float32, torch.bfloat16):
+        row = subsampling_case(feats.to(dt), w, dt == torch.bfloat16)
+    rows["subsampling_c1024"] = row
+    err, ms, plain_ms, (b_ms, by), _ = row
+    print(f"time subsampling_c1024 bfloat16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median of 20, CUDA "
+          f"events)")
+    print(f"phase 19b: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    counts = model_phase(cfg, model_label(name, cfg))
+    check(counts["attention"] == cfg.encoder.n_layers,
+          f"{name} fp32 forward on the kernels: {counts['attention']} "
+          f"attention launches, one a layer ({cfg.encoder.n_layers}): "
+          f"'auto' takes the kernel at dk 128")
+    print(f"phase 19c: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    start = time.perf_counter()
+    seed_weights(CTCModel(cfg), 2)
+    on_cpu = time.perf_counter() - start
+    start = time.perf_counter()
+    model = seeded_model(cfg, seed=2)
+    torch.cuda.synchronize()
+    print(f"{name}: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"parameters built and seeded on the card in "
+          f"{time.perf_counter() - start:.2f} s (on the CPU: {on_cpu:.2f} s)")
+    sig_t, len_t = model_clips(1)
+    read = reset_counters()
+    with torch.inference_mode():
+        model(sig_t, len_t)
+        n = read()["attention"]
+        names_check(lambda: model(sig_t, len_t), DK128[:1],
+                    ("core_mma_kernel<64", "core_kernel"),
+                    f"{name} bf16 forward")
+    check(n == cfg.encoder.n_layers, f"{name} bf16 forward: {n} attention "
+          f"launches, one a layer")
+    del model
+    serve_counts, rtfx = serve_phase(cfg)
+    print(f"phase 19d: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    bf16_step_check(cfg, name, 30)
+    train_counts = timed_ctc_steps(cfg, name, 2, 1, 33)
+    print(f"phase 19e: {time.perf_counter() - t0:.1f} s")
+    launches = {"attention_dk128": serve_counts["attention"],
+                "attention_bwd_dk128": train_counts["attention_bwd"],
+                "attention_heads_dk128": heads_counts["attention_heads"],
+                "attention_heads_bwd_dk128":
+                    heads_counts["attention_heads_bwd"],
+                "subsampling_c1024": serve_counts["subsampling"]}
+    return rows, launches, rtfx
+
+
 SERVING = ("logmel", "subsampling", "attention")
 # row: (source, TPU kernel it replaces, dtype of the main path)
 KERNELS = {
@@ -3107,11 +3650,37 @@ KERNELS = {
                       "tpu_asr/ops/pallas_attention.py:669", "bfloat16"),
     "attention_seg_bwd": ("tpu_asr_torch/csrc/attention.cu",
                           "tpu_asr/ops/pallas_attention.py:717", "bfloat16"),
+    "attention_dk128": ("tpu_asr_torch/csrc/attention.cu",
+                        "tpu_asr/ops/pallas_attention.py:669", "bfloat16"),
+    "attention_bwd_dk128": ("tpu_asr_torch/csrc/attention.cu",
+                            "tpu_asr/ops/pallas_attention.py:717",
+                            "bfloat16"),
+    "attention_heads_dk128": ("tpu_asr_torch/csrc/attention.cu",
+                              "tpu_asr/ops/pallas_attention.py:179",
+                              "bfloat16"),
+    "attention_heads_bwd_dk128": ("tpu_asr_torch/csrc/attention.cu",
+                                  "tpu_asr/ops/pallas_attention.py:208",
+                                  "bfloat16"),
+    "subsampling_c1024": ("tpu_asr_torch/csrc/subsampling.cu",
+                          "tpu_asr/ops/pallas_subsampling.py:96",
+                          "bfloat16"),
 }
 STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
            "ffn_bwd", "ctc", "ctc_bwd")
+# the CTC step of conformer-LARGE and XLarge: the training FFN kernel
+# refuses d512 and d1024 (as JAX's ffn_train_kernel_fits does)
+CTC_STEP = ("logmel", "subsampling", "attention", "attention_bwd", "ctc",
+            "ctc_bwd")
 KD = STUDENT + ("fm", "fm_bwd")
 INT8_SERVING = SERVING + ("ffn_int8", "conv_module")
+
+
+def timed_phase(label: str, fn, *args):
+    """fn(*args), then the phase's seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -3126,44 +3695,56 @@ def main() -> int:
     print(f"build: {time.perf_counter() - start:.1f} s -> {lib}")
 
     cfg = ModelConfig()
-    measured = {k: v[KERNELS[k][2]] for k, v in kernel_phase(cfg).items()}
-    model_phase(cfg)
-    counts, rtfx = serve_phase(cfg)
-    measured.update(train_kernel_phase(cfg))
-    counts.update({k: v for k, v in train_phase(cfg).items()
+    measured = {k: v[KERNELS[k][2]]
+                for k, v in timed_phase("3", kernel_phase, cfg).items()}
+    timed_phase("4", model_phase, cfg)
+    counts, rtfx = timed_phase("5", serve_phase, cfg)
+    measured.update(timed_phase("6", train_kernel_phase, cfg))
+    counts.update({k: v for k, v in timed_phase("7", train_phase, cfg).items()
                    if k not in SERVING})
-    measured.update(fm_kernel_phase())
-    kd_counts = kd_train_phase(cfg)
+    measured.update(timed_phase("8", fm_kernel_phase))
+    kd_counts = timed_phase("9", kd_train_phase, cfg)
     counts.update({k: kd_counts[k] for k in ("fm", "fm_bwd")})
     int8_cfg = with_encoder(cfg, quantization="int8", conv_backend="pallas")
-    measured.update(eval_kernel_phase(cfg))
-    int8_model_phase(int8_cfg)
-    int8_counts, int8_rtfx = serve_phase(int8_cfg, INT8_SERVING)
+    measured.update(timed_phase("10", eval_kernel_phase, cfg))
+    timed_phase("11", int8_model_phase, int8_cfg)
+    int8_counts, int8_rtfx = timed_phase("12", serve_phase, int8_cfg,
+                                         INT8_SERVING)
     print(f"serve RTFx: int8 + conv kernel {int8_rtfx:.1f}, fp (phase 5) "
           f"{rtfx:.1f}, same run")
     counts.update({k: int8_counts[k] for k in ("ffn_int8", "conv_module")})
-    kd_train_phase(teacher_config("flowkd_mlp8_int8_teacher"),
-                   "flowkd_mlp8_int8_teacher")
+    timed_phase("13", kd_train_phase,
+                teacher_config("flowkd_mlp8_int8_teacher"),
+                "flowkd_mlp8_int8_teacher")
     read = reset_counters()
-    measured.update(layer_kernel_phase(cfg))
+    measured.update(timed_phase("14", layer_kernel_phase, cfg))
     counts["conformer_layer"] = read()["conformer_layer"]
     read = reset_counters()
-    measured.update(heads_kernel_phase(cfg))
+    measured.update(timed_phase("15", heads_kernel_phase, cfg))
     counts.update({k: n for k, n in read().items()
                    if k in ("attention_heads", "attention_heads_bwd")})
     new = {k: counts[k] for k in ("conformer_layer", "attention_heads",
                                   "attention_heads_bwd")}
     check(all(v > 0 for v in new.values()),
           f"phases 14 and 15 launched their kernels: {new}")
-    packed_model_phase(cfg)
-    packed_counts, packed_rtfx = serve_phase(cfg, packed=True)
+    timed_phase("16", packed_model_phase, cfg)
+    packed_counts, packed_rtfx = timed_phase("16 serve", serve_phase, cfg,
+                                             None, True)
     print(f"serve RTFx: packed (phase 16) {packed_rtfx:.1f}, bucketed "
           f"(phase 5) {rtfx:.1f}, same run")
     counts["attention_seg"] = packed_counts["attention"]
-    encoder_device_times(cfg)
-    seg_rows, seg_counts = packed_train_phase(cfg)
+    timed_phase("16 device", encoder_device_times, cfg)
+    seg_rows, seg_counts = timed_phase("17", packed_train_phase, cfg)
     measured.update(seg_rows)
     counts.update(seg_counts)
+    large_rtfx, large_int8_rtfx = timed_phase("18", large_phase)
+    xl_rows, xl_counts, xl_rtfx = timed_phase("19", xlarge_phase)
+    measured.update(xl_rows)
+    counts.update(xl_counts)
+    print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
+          f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
+          f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "
+          f"{xl_rtfx:.1f}")
     rows = []
     for name, (source, replaces, dt) in KERNELS.items():
         err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]

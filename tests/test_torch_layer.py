@@ -31,7 +31,11 @@ ConformerLayer, then `layer_params`:
 - `layer_refusal` refuses nothing on a grid of (D, heads, d_ff, k) that
   the first layer kernel's rule (dk <= 64, `layer_smem` <= 227 KB) took,
   and `layer_route` sends the serve and student widths to the tensor-core
-  kernel and k = 35 to the SIMT one.
+  kernel and k = 35 to the SIMT one;
+- the layer kernel keeps its own dk limit (LAYER_MAX_DK = 64) while the
+  attention kernels take dk <= 128: at dk 44, 64 and 128, and at
+  conformer-LARGE's and XLarge's widths, `layer_refusal` and `layer_route`
+  answer as before, and d1024 / 8 heads is refused.
 """
 
 import dataclasses
@@ -50,7 +54,7 @@ from tpu_asr.models.ctc_model import CTCModel as JaxCTCModel
 from tpu_asr.ops.pallas_layer import fused_conformer_layer as pallas_layer
 from tpu_asr_torch.convert.from_jax import jax_to_state_dict
 from tpu_asr_torch.models.conformer import ConformerLayer
-from tpu_asr_torch.ops import cuda_ffn
+from tpu_asr_torch.ops import cuda_attention, cuda_ffn
 from tpu_asr_torch.ops import cuda_layer
 from tpu_asr_torch.ops.cuda_layer import (conformer_layer_plain,
                                           fused_conformer_layer, layer_params)
@@ -336,6 +340,34 @@ def test_layer_weights_built_once_and_rebuilt_on_update():
 def _port_enc():
     from tpu_asr_torch.config import EncoderConfig as PortEncoderConfig
     return PortEncoderConfig(n_layers=1, dropout=0.0, dropout_att=0.0)
+
+
+@pytest.mark.parametrize("d,h,dff,k", [
+    (176, 4, 704, 31),      # dk 44: the serve width
+    (128, 2, 512, 31),      # dk 64
+    (256, 2, 1024, 31),     # dk 128
+    (512, 8, 2048, 31),     # conformer-LARGE: dk 64, past shared memory
+    (1024, 8, 4096, 5),     # conformer-XLarge: dk 128
+])
+def test_layer_kernel_keeps_its_own_dk_limit(d, h, dff, k):
+    """The layer kernel's attention phase holds a head row in two column
+    slots a lane: it keeps dk <= 64 (LAYER_MAX_DK) while the attention
+    kernels take dk <= 128 (MAX_DK), and refuses and routes every shape as
+    before the attention kernels widened; d1024 / 8 heads stays refused."""
+    assert cuda_layer.LAYER_MAX_DK == 64 < cuda_attention.MAX_DK == 128
+    dk = d // h
+    fits = dk <= 64 and cuda_layer.layer_smem(d, dff, k, dk) <= 227 * 1024
+    for dt in (torch.float32, torch.bfloat16):
+        mma = dt == torch.bfloat16 and cuda_layer.mma_refusal(d, h, k) is None
+        why = cuda_layer.layer_refusal(dt, d, h, dff, k)
+        assert (why is None) == (fits or mma), (dt, why)
+        if dk > 64:
+            assert f"dk={dk} (<= 64)" in why
+        if why is None:
+            assert cuda_layer.layer_route(dt, d, h, k) == (
+                0 if dt == torch.float32 else 2 if mma else 1)
+    if d == 1024:
+        assert cuda_layer.layer_refusal(torch.bfloat16, d, h, dff, k)
 
 
 def test_layer_refusal_takes_every_shape_the_first_kernel_took():

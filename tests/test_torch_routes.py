@@ -5,7 +5,8 @@
   version elsewhere, as JAX's 'auto' falls back to XLA (`fused_ok`,
   `ffn_train_kernel_fits`, `resolve_euler_backend`); 'pallas' raises on a
   refused shape; 'xla' is always plain. Cases: subsampling (C % 8, C above
-  its limit), the block attention (dk 128; and in training T = 1100, past
+  its limit), the block attention (dk 132, past its dk <= 128; and in
+  training T = 1100, past
   the fp32 backward's shared memory, which the bf16 backward takes), the
   training FFN (d320/1280, whose forward fits shared memory and whose
   backward does not: refused only under autograd; d512/2048, where the
@@ -92,7 +93,7 @@ def _route(kind, backend, shape):
 CASES = [
     ("subsampling", 12, 176),
     ("subsampling", 1032, 88),
-    ("attention", (256, 2), (176, 4)),       # dk 128 / 44
+    ("attention", (264, 2), (176, 4)),       # dk 132 / 44
     ("ffn_train", 320, 176),                 # backward's tiles > 227 KB
     ("ffn_train", 512, 176),                 # forward's tiles > 227 KB
     ("fm", (176, 8), (88, 8)),
@@ -180,7 +181,7 @@ def test_forward_follows_the_route(kind, monkeypatch):
                     torch.randn(2, t, d),
                     conformer.rel_positional_encoding(t, d),
                     torch.ones(2, t, dtype=torch.bool))
-        shapes = ((256, 2), (176, 4))
+        shapes = ((264, 2), (176, 4))
     elif kind == "ffn_train":
         rec = _Recorder(conformer.ffn_sublayer_plain)
         monkeypatch.setattr(conformer, "fused_ffn_sublayer", rec)

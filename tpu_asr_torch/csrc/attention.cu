@@ -210,7 +210,7 @@ cudaError_t project(const Jobs& jobs, int n_jobs, int m_max, int K, int N,
   return cudaGetLastError();
 }
 
-template <typename T, bool kSeg>
+template <typename T, bool kSeg, int kC>
 __global__ void __launch_bounds__(256) core_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
     const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
@@ -225,10 +225,10 @@ __global__ void __launch_bounds__(256) core_kernel(
   const int bh = blockIdx.y, b = bh / heads;
   const uint32_t stream = seed + b_stride * (uint32_t)b +
                           (uint32_t)(bh - b * heads);
-  core_tile<T, kSeg>(reinterpret_cast<float*>(smem4), qu, qv, kk, vv, pos,
-                     key_bias, ctx, cl, lse, bh, blockIdx.x * kBQ, t_len,
-                     heads, dk, scale, stream, thresh, dscale, tp, left,
-                     right, seg);
+  core_tile<T, kSeg, kC>(reinterpret_cast<float*>(smem4), qu, qv, kk, vv,
+                         pos, key_bias, ctx, cl, lse, bh, blockIdx.x * kBQ,
+                         t_len, heads, dk, scale, stream, thresh, dscale, tp,
+                         left, right, seg);
 }
 
 // Per-row layouts (HeadLayout) of (B, T, H dk) and (B, H, T, dk).
@@ -283,7 +283,9 @@ cudaError_t launch_core_mma(const void* qu, const void* qv, const void* k,
 // The core over every (batch row, head): head h of batch row b draws the
 // dropout stream seed + b_stride * b + h; `seg` (B, T) or null is the
 // packed-segment map. fp32 (the check dtype) runs core_kernel, SIMT over
-// 32-query blocks; bf16 core_mma_kernel on the tensor cores (dk % 4 == 0).
+// 32-query blocks, two column slots a lane up to dk = 64 and four up to
+// 128; bf16 core_mma_kernel on the tensor cores (dk % 4 == 0), its rows
+// padded to DKP = 16, 32, 48, 64 or 128.
 template <typename T>
 cudaError_t launch_core(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
@@ -296,13 +298,17 @@ cudaError_t launch_core(const void* qu, const void* qv, const void* k,
     auto* fn = dk <= 16   ? launch_core_mma<16>
                : dk <= 32 ? launch_core_mma<32>
                : dk <= 48 ? launch_core_mma<48>
-                          : launch_core_mma<64>;
+               : dk <= 64 ? launch_core_mma<64>
+                          : launch_core_mma<128>;
     return fn(qu, qv, k, v, p, key_bias, ctx, cl, lse, batch, t_len, heads,
               dk, seed, b_stride, thresh, dscale, tp, left, right, seg,
               stream);
   } else {
     const size_t smem = core_smem(dk);
-    auto* kernel = seg ? core_kernel<T, true> : core_kernel<T, false>;
+    auto* kernel = dk <= 64 ? (seg ? core_kernel<T, true, 2>
+                                   : core_kernel<T, false, 2>)
+                            : (seg ? core_kernel<T, true, 4>
+                                   : core_kernel<T, false, 4>);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -391,7 +397,7 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
 // with zeros past dk, so every dot product runs over whole float4s.
 // ---------------------------------------------------------------------------
 
-template <typename T, bool kSeg>
+template <typename T, bool kSeg, int kC>
 __global__ void __launch_bounds__(256) dq_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
     const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
@@ -431,23 +437,25 @@ __global__ void __launch_bounds__(256) dq_kernel(
   for (int i = threadIdx.x; i < win * dk; i += blockDim.x) acc[i] = 0.f;
   __syncthreads();
 
-  const bool has0 = lane < dk, has1 = lane + 32 < dk;
   const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
-  float dsr[kRows], lser[kRows], dqu0[kRows], dqu1[kRows], dqv0[kRows],
-      dqv1[kRows];
+  // lane l holds columns l + 32 c, c < kC, of dq_u and dq_v
+  float dsr[kRows], lser[kRows], dqu[kRows][kC], dqv[kRows][kC];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = warp * kRows + r, t = q0 + row;
     float dd = 0.f;
     if (t < t_len) {
-      const T* c = ctx + cl.at(b, hh, t);
-      if (has0) dd += Dc[row * ks + lane] * to_f(c[lane]);
-      if (has1) dd += Dc[row * ks + lane + 32] * to_f(c[lane + 32]);
+      const T* cr = ctx + cl.at(b, hh, t);
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        if (lane + 32 * c < dk)
+          dd += Dc[row * ks + lane + 32 * c] * to_f(cr[lane + 32 * c]);
     }
     dsr[r] = warp_sum(dd);
     lser[r] = t < t_len ? lse[(size_t)bh * t_len + t] : 0.f;
     if (t < t_len && lane == 0) dsum[(size_t)bh * t_len + t] = dsr[r];
-    dqu0[r] = dqu1[r] = dqv0[r] = dqv1[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) dqu[r][c] = dqv[r][c] = 0.f;
   }
 
   for (int s0 = 0; s0 < t_len; s0 += kBS) {
@@ -503,17 +511,21 @@ __global__ void __launch_bounds__(256) dq_kernel(
       dS[row * (kBS + 1) + lane] = v;
     }
     for (int j = 0; j < kBS; ++j) {
-      const float k0 = has0 ? Ks[j * ks + lane] : 0.f;
-      const float k1 = has1 ? Ks[j * ks + lane + 32] : 0.f;
+      float kc[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        kc[c] = lane + 32 * c < dk ? Ks[j * ks + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int row = warp * kRows + r;
         const float g = __shfl_sync(0xffffffffu, ds[r], j);
         const float* prow = Ps + (j - row + kBS - 1) * ks;
-        dqu0[r] = fmaf(g, k0, dqu0[r]);
-        dqu1[r] = fmaf(g, k1, dqu1[r]);
-        dqv0[r] = fmaf(g, has0 ? prow[lane] : 0.f, dqv0[r]);
-        dqv1[r] = fmaf(g, has1 ? prow[lane + 32] : 0.f, dqv1[r]);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          dqu[r][c] = fmaf(g, kc[c], dqu[r][c]);
+          dqv[r][c] = fmaf(g, lane + 32 * c < dk ? prow[lane + 32 * c] : 0.f,
+                           dqv[r][c]);
+        }
       }
     }
     __syncthreads();  // dS complete
@@ -536,18 +548,16 @@ __global__ void __launch_bounds__(256) dq_kernel(
     const int t = q0 + warp * kRows + r;
     if (t >= t_len) continue;
     T* dst = grads + gl.at(b, hh, t);
-    if (has0) {
-      dst[lane] = from_f<T>(dqu0[r]);
-      dst[gc + lane] = from_f<T>(dqv0[r]);
-    }
-    if (has1) {
-      dst[lane + 32] = from_f<T>(dqu1[r]);
-      dst[gc + lane + 32] = from_f<T>(dqv1[r]);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if (lane + 32 * c >= dk) continue;
+      dst[lane + 32 * c] = from_f<T>(dqu[r][c]);
+      dst[gc + lane + 32 * c] = from_f<T>(dqv[r][c]);
     }
   }
 }
 
-template <typename T, bool kSeg>
+template <typename T, bool kSeg, int kC>
 __global__ void __launch_bounds__(256) dkv_kernel(
     const T* __restrict__ qu, const T* __restrict__ qv,  // (B, H, T, dk)
     const T* __restrict__ kk, const T* __restrict__ vv,  // (B, H, T, dk)
@@ -579,14 +589,15 @@ __global__ void __launch_bounds__(256) dkv_kernel(
 
   stage_rows(Ks, kk + head_off, s0, kBS, t_len, dk, ks);
   stage_rows(Vs, vv + head_off, s0, kBS, t_len, dk, ks);
-  const bool has0 = lane < dk, has1 = lane + 32 < dk;
   const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
-  float kbr[kRows], dk0[kRows], dk1[kRows], dv0[kRows], dv1[kRows];
+  // lane l holds columns l + 32 c, c < kC, of dk and dv
+  float kbr[kRows], dkk[kRows][kC], dvv[kRows][kC];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int s = s0 + warp * kRows + r;
     kbr[r] = s < t_len ? key_bias[(size_t)b * t_len + s] : 0.f;
-    dk0[r] = dk1[r] = dv0[r] = dv1[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) dkk[r][c] = dvv[r][c] = 0.f;
   }
 
   for (int q0 = 0; q0 < t_len; q0 += kBQ) {
@@ -644,18 +655,22 @@ __global__ void __launch_bounds__(256) dkv_kernel(
       }
     }
     for (int j = 0; j < kBQ; ++j) {
-      const float g0 = has0 ? Dc[j * ks + lane] : 0.f;
-      const float g1 = has1 ? Dc[j * ks + lane + 32] : 0.f;
-      const float u0 = has0 ? Qu[j * ks + lane] : 0.f;
-      const float u1 = has1 ? Qu[j * ks + lane + 32] : 0.f;
+      float gj[kC], uj[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const bool in = lane + 32 * c < dk;
+        gj[c] = in ? Dc[j * ks + lane + 32 * c] : 0.f;
+        uj[c] = in ? Qu[j * ks + lane + 32 * c] : 0.f;
+      }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pj = __shfl_sync(0xffffffffu, pd[r], j);
         const float sj = __shfl_sync(0xffffffffu, ds[r], j);
-        dv0[r] = fmaf(pj, g0, dv0[r]);
-        dv1[r] = fmaf(pj, g1, dv1[r]);
-        dk0[r] = fmaf(sj, u0, dk0[r]);
-        dk1[r] = fmaf(sj, u1, dk1[r]);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          dvv[r][c] = fmaf(pj, gj[c], dvv[r][c]);
+          dkk[r][c] = fmaf(sj, uj[c], dkk[r][c]);
+        }
       }
     }
   }
@@ -664,13 +679,11 @@ __global__ void __launch_bounds__(256) dkv_kernel(
     const int s = s0 + warp * kRows + r;
     if (s >= t_len) continue;
     T* dst = grads + gl.at(b, hh, s);
-    if (has0) {
-      dst[2 * gc + lane] = from_f<T>(dk0[r]);
-      dst[3 * gc + lane] = from_f<T>(dv0[r]);
-    }
-    if (has1) {
-      dst[2 * gc + lane + 32] = from_f<T>(dk1[r]);
-      dst[3 * gc + lane + 32] = from_f<T>(dv1[r]);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if (lane + 32 * c >= dk) continue;
+      dst[2 * gc + lane + 32 * c] = from_f<T>(dkk[r][c]);
+      dst[3 * gc + lane + 32 * c] = from_f<T>(dvv[r][c]);
     }
   }
 }
@@ -826,8 +839,22 @@ cudaError_t wgrad(const void* a, int n, const void* x, int kx, int ones,
 // G[r][j - r + 15]), each a product on mma.sync.m16n8k16.
 // ---------------------------------------------------------------------------
 
+// DKP = 128 (conformer-XLarge): a warp's dq_u and dq_v (or dk and dv)
+// accumulators are 128 registers a thread, and its qa / qb / qd fragments
+// would be 96 more, past the 255 a thread may have. So at DKP > 64 (kQS)
+// the query rows stay in shared memory (dq_mma_kernel stages Qu and dctx
+// beside Qv; dkv_mma_kernel has them in its query tile) and
+// bwd_scores_qs loads each k step's fragments where the products take
+// them, and takes the tile's keys in two halves. dq's shared
+// memory would then be 280,576 bytes with K, V and P double-buffered, above
+// the 232,448 a block may have, so at kQS it single-buffers them (kBufs):
+// 210,944 bytes, one block an SM, and the next key tile is staged once
+// the current one is consumed, under the position-gradient ring's work.
 template <int DKP>
 struct BwdMma {
+  static constexpr bool kQS = CoreMma<DKP>::kQInSmem;
+  static constexpr int kBufs = kQS ? 1 : 2;   // K, V, P tile buffers (dq)
+  static constexpr int kQRows = kQS ? 3 : 1;  // dq's staged query row sets
   static constexpr int kSE = DKP + 8;       // staged row stride (bf16)
   static constexpr int kGPS = kGW + 8;      // skewed dS row stride (bf16)
   static constexpr int kAS = DKP + 4;       // position-gradient ring (fp32)
@@ -840,9 +867,9 @@ struct BwdMma {
   static constexpr size_t kSkew = sizeof(float) * 4 * 16 * kGS;
   // dq: K, V, P double-buffered, the block's Qv rows, the position-
   // gradient ring and the skew tiles (G' aliases G); 112,640 bytes at
-  // DKP = 48, two blocks per SM
+  // DKP = 48, two blocks per SM (at kQS see above)
   static constexpr size_t kDqSmem =
-      sizeof(bf16) * (2 * (size_t)kTile + (size_t)kMQ * kSE) +
+      sizeof(bf16) * (kBufs * (size_t)kTile + (size_t)kQRows * kMQ * kSE) +
       sizeof(float) * (size_t)kMP * kAS + kSkew;
   // dkv: K, V, one query tile, the skew tiles (and the p and dS tiles
   // unless aliased); 71,680 bytes at DKP = 48, so three blocks (168
@@ -951,6 +978,122 @@ __device__ __forceinline__ void bwd_scores(
   }
 }
 
+// bwd_scores at DKP = 128 (BwdMma::kQS): the warp's query fragments come from
+// the staged Qu, Qv and dctx rows su, sv, sd (rows 16 warp ..), loaded a k
+// step at a time; the position products run in two passes of 48 and 32
+// window columns, and the tile's 64 keys in four parts of 16, each rounded
+// to bf16 pairs as soon as it is complete: dsb[n][hr] and pdb[n][hr] hold
+// elements (2 hr, 2 hr + 1) of bwd_scores' ds[n] and pd[n]. So little
+// fp32 state is live beside the warp's 128 accumulators of dq_u and dq_v
+// (or dk and dv), where the whole tile's spilled in the segment mode.
+// Every consumer takes them as bf16, rounded as bwd_scores' callers round
+// them.
+template <int DKP, bool kSeg>
+__device__ __forceinline__ void bwd_scores_qs(
+    const bf16* su, const bf16* sv, const bf16* sd, const bf16* Kt,
+    const bf16* Vt, const bf16* Pw, float* G, int tw, int s0, int t_len,
+    const float* __restrict__ kb_row, const float (&lse_r)[2],
+    const float (&dsum_r)[2], float scale, int left, int right,
+    uint32_t stream, uint32_t thresh, float dscale, int tp,
+    const int* __restrict__ seg_row, const int (&seg_q)[2],
+    uint32_t (&dsb)[kMS / 8][2], uint32_t (&pdb)[kMS / 8][2]) {
+  constexpr int kSE = DKP + 8, kKS = DKP / 16;
+  constexpr int kGP = 3;   // 16-column blocks of the first position pass
+  constexpr int kNP = 2;   // n8 tiles (16 keys) of a part
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int warp = threadIdx.x / 32;
+  const int b_row = lane % 8 + (lane / 16) * 8;
+  const int b_col = ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int gp = 0; gp < 2; ++gp) {
+    const int lo = gp ? kGP : 0, hi = gp ? kGW / 16 : kGP;
+    float ga[2 * kGP][4];
+#pragma unroll
+    for (int n = 0; n < 2 * kGP; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ga[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t qb[4];
+      frag_rows<DKP>(qb, sv, warp, lane, ks);
+#pragma unroll
+      for (int nn = lo; nn < hi; ++nn) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, Pw + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+        mma_bf16(ga[2 * (nn - lo)], qb, bq[0], bq[1]);
+        mma_bf16(ga[2 * (nn - lo) + 1], qb, bq[2], bq[3]);
+      }
+    }
+    if (gp == 0) __syncwarp();  // the previous tile's skew reads are done
+#pragma unroll
+    for (int n = 2 * lo; n < 2 * hi; ++n) {
+      const int c = 8 * n + 2 * t4;
+      G[g * kGS + c] = ga[n - 2 * lo][0];
+      G[g * kGS + c + 1] = ga[n - 2 * lo][1];
+      G[(g + 8) * kGS + c] = ga[n - 2 * lo][2];
+      G[(g + 8) * kGS + c + 1] = ga[n - 2 * lo][3];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int pt = 0; pt < kMS / 8 / kNP; ++pt) {
+    float ds[kNP][4], pd[kNP][4];
+#pragma unroll
+    for (int n = 0; n < kNP; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = pd[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      uint32_t qa[4], qd[4];
+      frag_rows<DKP>(qa, su, warp, lane, ks);
+      frag_rows<DKP>(qd, sd, warp, lane, ks);
+#pragma unroll
+      for (int m = 0; m < kNP / 2; ++m) {
+        const int nn = kNP / 2 * pt + m;
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, Kt + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+        mma_bf16(ds[2 * m], qa, bk[0], bk[1]);
+        mma_bf16(ds[2 * m + 1], qa, bk[2], bk[3]);
+        ldmatrix_x4(bv, Vt + (16 * nn + b_row) * kSE + ks * 16 + b_col);
+        mma_bf16(pd[2 * m], qd, bv[0], bv[1]);
+        mma_bf16(pd[2 * m + 1], qd, bv[2], bv[3]);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = g + 8 * hr, t = tw + r;
+#pragma unroll
+      for (int m = 0; m < kNP; ++m) {
+        float dsv[2] = {0.f, 0.f}, pdv[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jc = 8 * (kNP * pt + m) + 2 * t4 + e, s = s0 + jc;
+          if (t < t_len && s < t_len) {
+            float x = (ds[m][2 * hr + e] + G[r * kGS + jc - r + 15]) * scale +
+                      kb_row[s];
+            if (!in_window(t, s, left, right)) x = -1e30f;
+            if constexpr (kSeg) {
+              if (seg_row[s] != seg_q[hr]) x = -1e30f;
+            }
+            const float p = expf(x - lse_r[hr]);
+            float kf = 1.f;
+            if (thresh)
+              kf = dropout_keep(stream,
+                                (uint32_t)t * (uint32_t)tp + (uint32_t)s,
+                                thresh)
+                       ? dscale
+                       : 0.f;
+            pdv[e] = p * kf;
+            dsv[e] = p * (pd[m][2 * hr + e] * kf - dsum_r[hr]) * scale;
+          }
+        }
+        dsb[kNP * pt + m][hr] = pack_bf16(dsv[0], dsv[1]);
+        pdb[kNP * pt + m][hr] = pack_bf16(pdv[0], pdv[1]);
+      }
+    }
+  }
+}
+
 // A fragments (m16 x k16, row-major) of rows 16 w .. of a staged tile.
 template <int DKP>
 __device__ __forceinline__ void load_rows(uint32_t (&f)[DKP / 16][4],
@@ -1026,7 +1169,9 @@ __device__ __forceinline__ void row_dsum(const uint32_t (&qd)[DKP / 16][4],
 // (dpart, window row W = P row T - 64 - q0 + W). The query rows' A
 // fragments come straight from global memory (the block stages only Qv,
 // the B operand of the other warps' slabs), which keeps the block at
-// 112,640 bytes of shared memory and two blocks per SM at DKP = 48.
+// 112,640 bytes of shared memory and two blocks per SM at DKP = 48. At
+// DKP = 128 (BwdMma::kQS) it stages Qu and dctx too, takes its scores from
+// bwd_scores_qs, and single-buffers the key tiles (see BwdMma).
 // Packed segments (kSeg, seg (B, T)): the block walks only the key tiles
 // j_lo .. j_hi - 1 of its forward's span (seg_span), and a key of another
 // segment scores -1e30 (bwd_scores). A skipped tile adds exactly zero: its
@@ -1051,10 +1196,14 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
   using S = BwdMma<DKP>;
   constexpr int kSE = S::kSE, kKS = DKP / 16, kND = DKP / 8;
   constexpr int kGPS = S::kGPS, kAS = S::kAS;
+  constexpr bool kQS = S::kQS;
   extern __shared__ __align__(16) char smem_raw[];
-  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);  // 2 x (K, V, P rows)
-  bf16* Qvs = tiles + 2 * S::kTile;                   // the block's Qv rows
-  float* acc = reinterpret_cast<float*>(Qvs + kMQ * kSE);  // window ring
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);  // kBufs x (K, V, P rows)
+  bf16* Qvs = tiles + S::kBufs * S::kTile;            // the block's Qv rows
+  bf16* Qus = Qvs + kMQ * kSE;                        // kQS: Qu rows,
+  bf16* Dcs = Qus + kMQ * kSE;                        // and dctx rows
+  // the position-gradient window ring
+  float* acc = reinterpret_cast<float*>(Qvs + S::kQRows * kMQ * kSE);
   float* Gall = acc + kMP * kAS;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
@@ -1093,19 +1242,27 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
   }
   if (!kSeg || j_lo < j_hi) {
     stage_async<DKP>(Qvs, qv + head_off, q0, kMQ, t_len, dk);
+    if constexpr (kQS) {
+      stage_async<DKP>(Qus, qu + head_off, q0, kMQ, t_len, dk);
+      stage_async<DKP>(Dcs, dctx + head_off, q0, kMQ, t_len, dk);
+    }
     stage_tile(j_lo, 0);
     cp_async_commit();
   }
   for (int i = tid; i < kMP * kAS; i += blockDim.x) acc[i] = 0.f;
 
   // the warp's query rows as A fragments, straight from global memory
+  // (at kQS only dctx, for D, and bwd_scores loads them from the staged
+  // rows)
   uint32_t qa[kKS][4], qb[kKS][4], qd[kKS][4];
   float lse_r[2], dsum_r[2];
   {
     const long long hrow = (long long)head_off;
     auto head_at = [&](int t) { return hrow + (long long)t * dk; };
-    rows_global<DKP>(qa, qu, head_at, tw, t_len, dk);
-    rows_global<DKP>(qb, qv, head_at, tw, t_len, dk);
+    if constexpr (!kQS) {
+      rows_global<DKP>(qa, qu, head_at, tw, t_len, dk);
+      rows_global<DKP>(qb, qv, head_at, tw, t_len, dk);
+    }
     rows_global<DKP>(qd, dctx, head_at, tw, t_len, dk);
     uint32_t qc[kKS][4];
     rows_global<DKP>(qc, ctx, [&](int t) { return cl.at(b, hh, t); }, tw,
@@ -1131,7 +1288,9 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
   }
 
   for (int j = j_lo; j < j_hi; ++j) {
-    if (j + 1 < j_hi) {
+    if constexpr (kQS) {  // one buffer: tile j was staged after tile j - 1
+      cp_async_wait<0>();
+    } else if (j + 1 < j_hi) {
       stage_tile(j + 1, (j + 1 - j_lo) & 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -1139,49 +1298,88 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();  // tile j (and at j = j_lo the zeroed ring) landed
-    const bf16* Kt = tiles + ((j - j_lo) & 1) * S::kTile;
+    const bf16* Kt = tiles + (S::kBufs == 2 ? (j - j_lo) & 1 : 0) * S::kTile;
     const bf16* Vt = Kt + kMS * kSE;
     const bf16* Pw = Vt + kMS * kSE + (kMQ - 16 - 16 * warp) * kSE;
-    float ds[kMS / 8][4], pd[kMS / 8][4];
-    bwd_scores<DKP, kSeg>(qa, qb, qd, Kt, Vt, Pw, G, tw, j * kMS, t_len,
-                          kb_row, lse_r, dsum_r, scale, left, right, stream,
-                          thresh, dscale, tp, seg_row, seg_q, ds, pd);
-
-    // dq_u += dS K: dS rounded to bf16 as the A operand, K through
-    // ldmatrix.trans (k = key, n = d)
+    if constexpr (kQS) {
+      // the same steps on dS already rounded to bf16 pairs
+      uint32_t dsb[kMS / 8][2], pdb[kMS / 8][2];
+      bwd_scores_qs<DKP, kSeg>(Qus, Qvs, Dcs, Kt, Vt, Pw, G, tw, j * kMS,
+                               t_len, kb_row, lse_r, dsum_r, scale, left,
+                               right, stream, thresh, dscale, tp, seg_row,
+                               seg_q, dsb, pdb);
 #pragma unroll
-    for (int kc = 0; kc < kMS / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(ds[2 * kc][0], ds[2 * kc][1]),
-                              pack_bf16(ds[2 * kc][2], ds[2 * kc][3]),
-                              pack_bf16(ds[2 * kc + 1][0], ds[2 * kc + 1][1]),
-                              pack_bf16(ds[2 * kc + 1][2], ds[2 * kc + 1][3])};
+      for (int kc = 0; kc < kMS / 16; ++kc) {
+        const uint32_t pa[4] = {dsb[2 * kc][0], dsb[2 * kc][1],
+                                dsb[2 * kc + 1][0], dsb[2 * kc + 1][1]};
 #pragma unroll
-      for (int dd = 0; dd < kND / 2; ++dd) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(
-            kb, Kt + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
-                    16 * dd + (lane / 16) * 8);
-        mma_bf16(dqu[2 * dd], pa, kb[0], kb[1]);
-        mma_bf16(dqu[2 * dd + 1], pa, kb[2], kb[3]);
+        for (int dd = 0; dd < kND / 2; ++dd) {
+          uint32_t kb[4];
+          ldmatrix_x4_trans(
+              kb, Kt + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                      16 * dd + (lane / 16) * 8);
+          mma_bf16(dqu[2 * dd], pa, kb[0], kb[1]);
+          mma_bf16(dqu[2 * dd + 1], pa, kb[2], kb[3]);
+        }
       }
-    }
+      __syncwarp();  // every lane has read its scores' G
+      for (int i = lane; i < 16 * kGPS / 2; i += 32)
+        reinterpret_cast<uint32_t*>(Gp)[i] = 0u;
+      __syncwarp();
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = g + 8 * hr;
+#pragma unroll
+        for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            Gp[r * kGPS + 8 * n + 2 * t4 + e - r + 15] =
+                reinterpret_cast<const bf16*>(&dsb[n][hr])[e];
+      }
+      __syncwarp();
+    } else {
+      float ds[kMS / 8][4], pd[kMS / 8][4];
+      bwd_scores<DKP, kSeg>(qa, qb, qd, Kt, Vt, Pw, G, tw, j * kMS, t_len,
+                            kb_row, lse_r, dsum_r, scale, left, right, stream,
+                            thresh, dscale, tp, seg_row, seg_q, ds, pd);
 
-    // dS into the skewed tile G', over G
-    __syncwarp();  // every lane has read its scores' G
-    for (int i = lane; i < 16 * kGPS / 2; i += 32)
-      reinterpret_cast<uint32_t*>(Gp)[i] = 0u;
-    __syncwarp();
+      // dq_u += dS K: dS rounded to bf16 as the A operand, K through
+      // ldmatrix.trans (k = key, n = d)
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = g + 8 * hr;
+      for (int kc = 0; kc < kMS / 16; ++kc) {
+        const uint32_t pa[4] = {
+            pack_bf16(ds[2 * kc][0], ds[2 * kc][1]),
+            pack_bf16(ds[2 * kc][2], ds[2 * kc][3]),
+            pack_bf16(ds[2 * kc + 1][0], ds[2 * kc + 1][1]),
+            pack_bf16(ds[2 * kc + 1][2], ds[2 * kc + 1][3])};
 #pragma unroll
-      for (int n = 0; n < kMS / 8; ++n)
+        for (int dd = 0; dd < kND / 2; ++dd) {
+          uint32_t kb[4];
+          ldmatrix_x4_trans(
+              kb, Kt + (16 * kc + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                      16 * dd + (lane / 16) * 8);
+          mma_bf16(dqu[2 * dd], pa, kb[0], kb[1]);
+          mma_bf16(dqu[2 * dd + 1], pa, kb[2], kb[3]);
+        }
+      }
+
+      // dS into the skewed tile G', over G
+      __syncwarp();  // every lane has read its scores' G
+      for (int i = lane; i < 16 * kGPS / 2; i += 32)
+        reinterpret_cast<uint32_t*>(Gp)[i] = 0u;
+      __syncwarp();
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          Gp[r * kGPS + 8 * n + 2 * t4 + e - r + 15] =
-              __float2bfloat16(ds[n][2 * hr + e]);
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = g + 8 * hr;
+#pragma unroll
+        for (int n = 0; n < kMS / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            Gp[r * kGPS + 8 * n + 2 * t4 + e - r + 15] =
+                __float2bfloat16(ds[n][2 * hr + e]);
+      }
+      __syncwarp();
     }
-    __syncwarp();
 
     // dq_v += G' P_win (k = window row, n = d)
 #pragma unroll
@@ -1200,45 +1398,97 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
     }
 
     __syncthreads();  // every warp's G' is written; tile j is consumed
+    if constexpr (kQS) {  // the next tile into the one buffer
+      if (j + 1 < j_hi) {
+        stage_tile(j + 1, 0);
+        cp_async_commit();
+      }
+    }
 
     // the block window's slabs m = warp and warp + 4 (rows 64 j + 16 m ..):
     // the sum over the warps w' whose window covers them of G'_w'^T Qv_w'
     // (slab m - 3 + w' of w'), in w' order. Slab warp + 4 is slab warp of
     // the next tile, so each warp owns its ring rows and slab warp is
     // complete here.
+    if constexpr (kQS) {
+      // the same sums a half of the columns at a time, so that a half's 32
+      // accumulators sit beside dq_u and dq_v (244-246 registers; the
+      // whole slab's at once took 254-255 of the 255 a thread may have)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = warp + 4 * half;
-      float o[kND][4];
+      for (int half = 0; half < 2; ++half) {
+        const int m = warp + 4 * half;
 #pragma unroll
-      for (int n = 0; n < kND; ++n)
+        for (int ch = 0; ch < 2; ++ch) {
+          float o[kND / 2][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+          for (int n = 0; n < kND / 2; ++n)
 #pragma unroll
-      for (int wq = 0; wq < 4; ++wq) {
-        const int kq = m - 3 + wq;
-        if (kq < 0 || kq >= kGW / 16) continue;
-        const bf16* gq = reinterpret_cast<const bf16*>(Gall + wq * 16 * kGS);
-        uint32_t pa[4];
-        ldmatrix_x4_trans(pa, gq + (lane % 8 + (lane / 16) * 8) * kGPS +
-                                  16 * kq + ((lane / 8) % 2) * 8);
+            for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 #pragma unroll
-        for (int dd = 0; dd < kND / 2; ++dd) {
-          uint32_t qb4[4];
-          ldmatrix_x4_trans(
-              qb4, Qvs + (16 * wq + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
-                       16 * dd + (lane / 16) * 8);
-          mma_bf16(o[2 * dd], pa, qb4[0], qb4[1]);
-          mma_bf16(o[2 * dd + 1], pa, qb4[2], qb4[3]);
+          for (int wq = 0; wq < 4; ++wq) {
+            const int kq = m - 3 + wq;
+            if (kq < 0 || kq >= kGW / 16) continue;
+            const bf16* gq =
+                reinterpret_cast<const bf16*>(Gall + wq * 16 * kGS);
+            uint32_t pa[4];
+            ldmatrix_x4_trans(pa, gq + (lane % 8 + (lane / 16) * 8) * kGPS +
+                                      16 * kq + ((lane / 8) % 2) * 8);
+#pragma unroll
+            for (int dd = 0; dd < kND / 4; ++dd) {
+              uint32_t qb4[4];
+              ldmatrix_x4_trans(
+                  qb4, Qvs + (16 * wq + lane % 8 + ((lane / 8) % 2) * 8) *
+                                 kSE +
+                           16 * (kND / 4 * ch + dd) + (lane / 16) * 8);
+              mma_bf16(o[2 * dd], pa, qb4[0], qb4[1]);
+              mma_bf16(o[2 * dd + 1], pa, qb4[2], qb4[3]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < kND / 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int w = kMS * j + 16 * m + g + (e / 2) * 8;
+              acc[(w & (kMP - 1)) * kAS + 8 * (kND / 2 * ch + n) + 2 * t4 +
+                  (e % 2)] += o[n][e];
+            }
         }
       }
+    } else {
 #pragma unroll
-      for (int n = 0; n < kND; ++n)
+      for (int half = 0; half < 2; ++half) {
+        const int m = warp + 4 * half;
+        float o[kND][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int w = kMS * j + 16 * m + g + (e / 2) * 8;
-          acc[(w & (kMP - 1)) * kAS + 8 * n + 2 * t4 + (e % 2)] += o[n][e];
+        for (int n = 0; n < kND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+        for (int wq = 0; wq < 4; ++wq) {
+          const int kq = m - 3 + wq;
+          if (kq < 0 || kq >= kGW / 16) continue;
+          const bf16* gq = reinterpret_cast<const bf16*>(Gall + wq * 16 * kGS);
+          uint32_t pa[4];
+          ldmatrix_x4_trans(pa, gq + (lane % 8 + (lane / 16) * 8) * kGPS +
+                                    16 * kq + ((lane / 8) % 2) * 8);
+#pragma unroll
+          for (int dd = 0; dd < kND / 2; ++dd) {
+            uint32_t qb4[4];
+            ldmatrix_x4_trans(
+                qb4, Qvs + (16 * wq + lane % 8 + ((lane / 8) % 2) * 8) * kSE +
+                         16 * dd + (lane / 16) * 8);
+            mma_bf16(o[2 * dd], pa, qb4[0], qb4[1]);
+            mma_bf16(o[2 * dd + 1], pa, qb4[2], qb4[3]);
+          }
         }
+#pragma unroll
+        for (int n = 0; n < kND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int w = kMS * j + 16 * m + g + (e / 2) * 8;
+            acc[(w & (kMP - 1)) * kAS + 8 * n + 2 * t4 + (e % 2)] += o[n][e];
+          }
+      }
     }
     __syncwarp();
     // slab warp (rows 64 j + 16 warp ..) to the partial, and zeroed
@@ -1295,6 +1545,7 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
     const int* __restrict__ seg) {  // kSeg: (B, T)
   using S = BwdMma<DKP>;
   constexpr int kSE = S::kSE, kND = DKP / 8, kPS = S::kPS;
+  constexpr bool kQS = S::kQS;
   extern __shared__ __align__(16) char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + kMS * kSE;
@@ -1352,10 +1603,13 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
     const bf16* Dt = Qt + kMQ * kSE;
     const bf16* Pw = Qt + 3 * kMQ * kSE + (kMQ - 16 - 16 * warp) * kSE;
     const int tw = i * kMQ + 16 * warp;
+    // the warp's fragments (at kQS bwd_scores loads them k step by k step)
     uint32_t qa[DKP / 16][4], qb[DKP / 16][4], qd[DKP / 16][4];
-    load_rows<DKP>(qa, Qt, warp, lane);
-    load_rows<DKP>(qb, Qt + 2 * kMQ * kSE, warp, lane);
-    load_rows<DKP>(qd, Dt, warp, lane);
+    if constexpr (!kQS) {
+      load_rows<DKP>(qa, Qt, warp, lane);
+      load_rows<DKP>(qb, Qt + 2 * kMQ * kSE, warp, lane);
+      load_rows<DKP>(qd, Dt, warp, lane);
+    }
     float lse_r[2], dsum_r[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -1364,9 +1618,16 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
       dsum_r[hr] = t < t_len ? dsum[(size_t)bh * t_len + t] : 0.f;
     }
     float ds[kMS / 8][4], pd[kMS / 8][4];
-    bwd_scores<DKP, kSeg>(qa, qb, qd, Ks, Vs, Pw, G, tw, k0, t_len, kb_row,
-                          lse_r, dsum_r, scale, left, right, stream, thresh,
-                          dscale, tp, seg_row, seg_q, ds, pd);
+    uint32_t dsb[kMS / 8][2], pdb[kMS / 8][2];  // kQS: bf16 pairs
+    if constexpr (kQS)
+      bwd_scores_qs<DKP, kSeg>(Qt, Qt + 2 * kMQ * kSE, Dt, Ks, Vs, Pw, G, tw,
+                               k0, t_len, kb_row, lse_r, dsum_r, scale, left,
+                               right, stream, thresh, dscale, tp, seg_row,
+                               seg_q, dsb, pdb);
+    else
+      bwd_scores<DKP, kSeg>(qa, qb, qd, Ks, Vs, Pw, G, tw, k0, t_len, kb_row,
+                            lse_r, dsum_r, scale, left, right, stream,
+                            thresh, dscale, tp, seg_row, seg_q, ds, pd);
     // the tile's dropped p and dS, over its consumed Qv and P rows once
     // every warp has read them (where they fit)
     bf16* PD = S::kAliasPD
@@ -1374,16 +1635,29 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
                    : reinterpret_cast<bf16*>(Gall + 4 * 16 * kGS);
     bf16* DS = PD + kMQ * kPS;
     if (S::kAliasPD) __syncthreads();
+    if constexpr (kQS) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = 16 * warp + g + 8 * hr;
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * warp + g + 8 * hr;
 #pragma unroll
-      for (int n = 0; n < kMS / 8; ++n) {
-        const int c = 8 * n + 2 * t4;
-        *reinterpret_cast<uint32_t*>(PD + r * kPS + c) =
-            pack_bf16(pd[n][2 * hr], pd[n][2 * hr + 1]);
-        *reinterpret_cast<uint32_t*>(DS + r * kPS + c) =
-            pack_bf16(ds[n][2 * hr], ds[n][2 * hr + 1]);
+        for (int n = 0; n < kMS / 8; ++n) {
+          const int c = 8 * n + 2 * t4;
+          *reinterpret_cast<uint32_t*>(PD + r * kPS + c) = pdb[n][hr];
+          *reinterpret_cast<uint32_t*>(DS + r * kPS + c) = dsb[n][hr];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * warp + g + 8 * hr;
+#pragma unroll
+        for (int n = 0; n < kMS / 8; ++n) {
+          const int c = 8 * n + 2 * t4;
+          *reinterpret_cast<uint32_t*>(PD + r * kPS + c) =
+              pack_bf16(pd[n][2 * hr], pd[n][2 * hr + 1]);
+          *reinterpret_cast<uint32_t*>(DS + r * kPS + c) =
+              pack_bf16(ds[n][2 * hr], ds[n][2 * hr + 1]);
+        }
       }
     }
     __syncthreads();  // the tile's p and dS are complete
@@ -1508,8 +1782,13 @@ cudaError_t score_grads_simt(const void* qu, const void* qv, const void* k,
   const int n_qt = (t_len + kBQ - 1) / kBQ, win = n_qt * kBQ + kBS - 1;
   const float scale = 1.f / sqrtf((float)dk);
   const size_t smem_q = dq_smem(dk, win);
-  auto* dq = seg ? dq_kernel<T, true> : dq_kernel<T, false>;
-  auto* dkv = seg ? dkv_kernel<T, true> : dkv_kernel<T, false>;
+  // two column slots a lane up to dk = 64, four up to 128
+  const bool wide = dk > 64;
+  auto* dq = wide ? (seg ? dq_kernel<T, true, 4> : dq_kernel<T, false, 4>)
+                  : (seg ? dq_kernel<T, true, 2> : dq_kernel<T, false, 2>);
+  auto* dkv = wide ? (seg ? dkv_kernel<T, true, 4> : dkv_kernel<T, false, 4>)
+                   : (seg ? dkv_kernel<T, true, 2>
+                          : dkv_kernel<T, false, 2>);
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(dq,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1560,7 +1839,8 @@ cudaError_t score_grads(const void* qu, const void* qv, const void* k,
     auto* fn = dk <= 16   ? score_grads_mma<16>
                : dk <= 32 ? score_grads_mma<32>
                : dk <= 48 ? score_grads_mma<48>
-                          : score_grads_mma<64>;
+               : dk <= 64 ? score_grads_mma<64>
+                          : score_grads_mma<128>;
     return fn(qu, qv, k, v, p, key_bias, lse, dctx, ctx, cl, grads, gl, gc,
               dsum, dpart, dpos, part, batch, t_len, heads, dk, seed,
               b_stride, thresh, dscale, tp, left, right, seg, stream);
@@ -1665,7 +1945,7 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
 
 // The wrapper guarantees: contiguous tensors on one device; x, weights, the
 // position table pe and scratch in one dtype (fp32 or bf16); biases and the
-// key bias in fp32; dk = d / heads <= 64, and in bf16 d % 8 == 0 and
+// key bias in fp32; dk = d / heads <= 128, and in bf16 d % 8 == 0 and
 // dk % 4 == 0; scratch q_u, q_v, k, v sized
 // (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d); lse (B, H, T) fp32
 // or null; seg (B, T) int32 packed-segment map or null (under autograd the
@@ -1738,7 +2018,7 @@ extern "C" int tat_attention_bwd(
 // contiguous tensors on one device; q_u, q_v, k, v (B, H, T, dk), w_pos
 // (d, d) and the scratch p (H, 2T-1, dk) and ctx (B, H, T, dk) in one dtype
 // (fp32 or bf16) with pe (2T-1, d); key_bias (B, T) fp32; d = H dk,
-// dk <= 64, and in bf16 d % 8 == 0 and dk % 4 == 0; lse (B, H, T) fp32 or
+// dk <= 128, and in bf16 d % 8 == 0 and dk % 4 == 0; lse (B, H, T) fp32 or
 // null. Keys outside the window (left, right) score -1e30; -1 is
 // unlimited. Dropout when thresh > 0: stream seed + b_stride * b + h, idx
 // t * tp + s: b_stride = H gives every head its own stream, b_stride = 0

@@ -73,8 +73,9 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
 // uniform average over the row's keys); without, seg is not read. `smem`
 // holds core_smem(dk) bytes, 16-byte aligned. The block's 256 threads all
 // call it; it starts with a block barrier, so a block may call it for one
-// tile after another.
-template <typename T, bool kSeg = false>
+// tile after another. Lane l holds columns l + 32 c of a head row, c < kC:
+// kC = 2 takes dk <= 64, kC = 4 dk <= 128 (conformer-XLarge).
+template <typename T, bool kSeg = false, int kC = 2>
 __device__ void core_tile(float* smem, const T* __restrict__ qu,
                           const T* __restrict__ qv, const T* __restrict__ kk,
                           const T* __restrict__ vv, const T* __restrict__ pos,
@@ -101,13 +102,14 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
   stage_rows(Qu, qu + head_off, q0, kBQ, t_len, dk, ks);
   stage_rows(Qv, qv + head_off, q0, kBQ, t_len, dk, ks);
 
-  float m_i[kRows], l_i[kRows], o0[kRows], o1[kRows];
+  float m_i[kRows], l_i[kRows], o[kRows][kC];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     m_i[r] = -INFINITY;
-    l_i[r] = o0[r] = o1[r] = 0.f;
+    l_i[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) o[r][c] = 0.f;
   }
-  const bool has0 = lane < dk, has1 = lane + 32 < dk;
   const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
   int seg_q[kRows];
 #pragma unroll
@@ -168,8 +170,8 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
       const float corr = expf(m_i[r] - m_use);
       l_i[r] = l_i[r] * corr + warp_sum(p);
       m_i[r] = m_new;
-      o0[r] *= corr;
-      o1[r] *= corr;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[r][c] *= corr;
       float pd = p;
       if (thresh) {
         pd = dropout_keep(stream, (uint32_t)t * (uint32_t)tp + (uint32_t)s,
@@ -180,13 +182,15 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
       pw[r] = to_f(from_f<T>(pd));  // the value product takes T operands
     }
     for (int j = 0; j < kBS; ++j) {
-      const float v0 = has0 ? Vs[j * ks + lane] : 0.f;
-      const float v1 = has1 ? Vs[j * ks + lane + 32] : 0.f;
+      float vc[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        vc[c] = lane + 32 * c < dk ? Vs[j * ks + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float p = __shfl_sync(0xffffffffu, pw[r], j);
-        o0[r] = fmaf(p, v0, o0[r]);
-        o1[r] = fmaf(p, v1, o1[r]);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) o[r][c] = fmaf(p, vc[c], o[r][c]);
       }
     }
   }
@@ -197,8 +201,9 @@ __device__ void core_tile(float* smem, const T* __restrict__ qu,
     if (t >= t_len) continue;
     T* dst = ctx + cl.at(b, hh, t);
     const float inv = 1.f / l_i[r];
-    if (has0) dst[lane] = from_f<T>(o0[r] * inv);
-    if (has1) dst[lane + 32] = from_f<T>(o1[r] * inv);
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (lane + 32 * c < dk) dst[lane + 32 * c] = from_f<T>(o[r][c] * inv);
     if (lse && lane == 0) lse[(size_t)bh * t_len + t] = m_i[r] + logf(l_i[r]);
   }
 }

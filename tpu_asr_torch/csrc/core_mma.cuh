@@ -22,9 +22,10 @@ using bf16 = __nv_bfloat16;
 // row, head, 64 queries), 4 warps of 16 query rows walk 64-key tiles of K,
 // V and the position window, double-buffered with 8-byte cp.async copies
 // (a head row of dk = 44 bf16 is 88 bytes: 8-byte aligned, not 16) into
-// rows padded with zeros to DKP (dk rounded up to 16) at a stride of
-// DKP + 8 values, an odd number of 16-byte units, so ldmatrix reads are
-// conflict-free. The global layouts stay those the backward reads.
+// rows padded with zeros to DKP (dk rounded up to 16, 32, 48, 64 or 128) at
+// a stride of DKP + 8 values, an odd number of 16-byte units, so ldmatrix
+// reads are conflict-free. The global layouts stay those the backward
+// reads.
 //   - content scores: Qu (16 x DKP) . K tile^T on mma.sync.m16n8k16;
 //   - position scores: warp w's 16 x 64 block needs the 79 relative
 //     positions t - s = tw + 15 - l (l = 0 .. 78, tw its first query), a
@@ -71,14 +72,30 @@ constexpr int kMP = kMQ + kMS;    // position rows staged per key tile
 constexpr int kGW = 80;           // positions of one warp's block (79 + 1)
 constexpr int kGS = 84;           // row stride (floats) of the skew tile
 
+// DKP = 128 (conformer-XLarge's dk): 195,584 bytes of shared memory, one
+// block an SM. A warp's O accumulator is then 64 registers a thread, and
+// the Qu and Qv A fragments would be 64 more, so the core keeps them in the
+// staged rows and loads each k step's fragment where the product takes it
+// (kQInSmem; ldmatrix from rows already in shared memory): a tile's 8 + 8
+// loads instead of spills. DKP <= 64 keeps them in registers.
 template <int DKP>
 struct CoreMma {
   static constexpr int kSE = DKP + 8;                 // staged row stride
   static constexpr int kTileElems = (2 * kMS + kMP) * kSE;  // K, V, P
+  static constexpr bool kQInSmem = DKP > 64;
   static constexpr size_t kSmem =
       sizeof(bf16) * ((size_t)2 * kMQ * kSE + 2 * (size_t)kTileElems) +
       sizeof(float) * 4 * 16 * kGS;
 };
+
+// The A fragment (m16 x k16, row-major) of k step ks of rows 16 w .. of a
+// staged tile (row stride DKP + 8).
+template <int DKP>
+__device__ __forceinline__ void frag_rows(uint32_t (&f)[4], const bf16* tile,
+                                          int warp, int lane, int ks) {
+  ldmatrix_x4(f, tile + (16 * warp + lane % 16) * (DKP + 8) + ks * 16 +
+                     (lane / 16) * 8);
+}
 
 // The key tiles [j_lo, j_hi) that the kMQ queries q0 .. of a packed row
 // visit (seg_row: the row's (T) segment map): with [lo, hi] the ids of the
@@ -176,6 +193,7 @@ __device__ __forceinline__ void core_mma_tile(
     int left, int right, const int* __restrict__ seg) {  // kSeg: (B, T)
   using S = CoreMma<DKP>;
   constexpr int kSE = S::kSE, kKS = DKP / 16, kND = DKP / 8;
+  constexpr bool kQS = S::kQInSmem;
   bf16* Qu = reinterpret_cast<bf16*>(smem_raw);
   bf16* Qv = Qu + kMQ * kSE;
   bf16* tiles = Qv + kMQ * kSE;         // 2 x (K kMS, V kMS, P kMP rows)
@@ -243,13 +261,15 @@ __device__ __forceinline__ void core_mma_tile(
       cp_async_wait<0>();
     }
     __syncthreads();  // tile j (and at j = j_lo the query rows) landed
-    if (j == j_lo) {
+    if constexpr (!kQS) {
+      if (j == j_lo) {
 #pragma unroll
-      for (int ks = 0; ks < kKS; ++ks) {
-        const int off = (16 * warp + lane % 16) * kSE + ks * 16 +
-                        (lane / 16) * 8;
-        ldmatrix_x4(qa[ks], Qu + off);
-        ldmatrix_x4(qb[ks], Qv + off);
+        for (int ks = 0; ks < kKS; ++ks) {
+          const int off = (16 * warp + lane % 16) * kSE + ks * 16 +
+                          (lane / 16) * 8;
+          ldmatrix_x4(qa[ks], Qu + off);
+          ldmatrix_x4(qb[ks], Qv + off);
+        }
       }
     }
     const bf16* Kt = tiles + buf * S::kTileElems;
@@ -267,7 +287,8 @@ __device__ __forceinline__ void core_mma_tile(
 #pragma unroll
         for (int e = 0; e < 4; ++e) ga[n][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < kKS; ++ks)
+      for (int ks = 0; ks < kKS; ++ks) {
+        if constexpr (kQS) frag_rows<DKP>(qb[ks], Qv, warp, lane, ks);
 #pragma unroll
         for (int nn = 0; nn < kGW / 16; ++nn) {
           uint32_t bq[4];
@@ -275,6 +296,7 @@ __device__ __forceinline__ void core_mma_tile(
           mma_bf16(ga[2 * nn], qb[ks], bq[0], bq[1]);
           mma_bf16(ga[2 * nn + 1], qb[ks], bq[2], bq[3]);
         }
+      }
       __syncwarp();  // the previous tile's skew reads are done
 #pragma unroll
       for (int n = 0; n < kGW / 8; ++n) {
@@ -293,7 +315,8 @@ __device__ __forceinline__ void core_mma_tile(
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks)
+    for (int ks = 0; ks < kKS; ++ks) {
+      if constexpr (kQS) frag_rows<DKP>(qa[ks], Qu, warp, lane, ks);
 #pragma unroll
       for (int nn = 0; nn < kMS / 16; ++nn) {
         uint32_t bk[4];
@@ -301,6 +324,7 @@ __device__ __forceinline__ void core_mma_tile(
         mma_bf16(sc[2 * nn], qa[ks], bk[0], bk[1]);
         mma_bf16(sc[2 * nn + 1], qa[ks], bk[2], bk[3]);
       }
+    }
 
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {

@@ -34,12 +34,14 @@ key set each query's forward summed); a row that saw no key saves
 lse = +1e30, so its backward probabilities are 0. The kernels' gradients
 hold for a cotangent that is zero on guard rows (id 0), which the encoder
 gives: its layers zero them.
-In bf16 the projections, the forward's core, the backward's score
-gradients and its weight gradients run on the tensor cores, which take
-D % 8 == 0 and dk % 4 == 0 (`attention_refusal`, which the model's 'auto'
-route also asks); fp32 keeps the SIMT kernels, whose backward keeps a
-T-long position window in shared memory (T <= 1024 at dk 44,
-`bwd_refusal`). The weight matrices in
+Both functions take dk = D / heads <= 128 (MAX_DK; conformer-XLarge's
+d1024 / 8 heads is dk 128). In bf16 the projections, the forward's core,
+the backward's score gradients and its weight gradients run on the tensor
+cores, which take D % 8 == 0 and dk % 4 == 0 (`attention_refusal`, which
+the model's 'auto' route also asks), with a head row padded to 16, 32, 48,
+64 or 128 columns; fp32 keeps the SIMT kernels, whose backward keeps a
+T-long position window in shared memory (T <= 1024 at dk 44, T <= 160 at
+dk 128: `bwd_refusal`). The weight matrices in
 the working dtype and the folded biases cu = bq + u, cv = bq + v are built
 once per weight version (`_kernels.prepared`); the key bias depends on the
 mask and is built per call.
@@ -67,7 +69,7 @@ _HEADS_ARGS = ((K.INT,) + (K.PTR,) * 10 + (K.INT,) * 6 + (K.UINT,) * 3
 _HEADS_BWD_ARGS = ((K.INT,) + (K.PTR,) * 16 + (K.INT,) * 6 + (K.UINT,) * 3
                    + (K.FLOAT, K.INT, K.PTR))
 SPLIT_ROWS = 512             # rows per weight-gradient partial (attention.cu)
-MAX_DK = 64                  # lanes 0..31 and 32..63 hold a head's row
+MAX_DK = 128                 # the widest tiles: 4 lane slots, DKP = 128
 
 
 def _round_up(n: int, m: int) -> int:
@@ -91,9 +93,11 @@ def _bwd_smem(t: int, dk: int) -> int:
 
 def bwd_refusal(dtype: torch.dtype, t: int, dk: int) -> Optional[str]:
     """Why the backward would refuse T, or None. fp32 (dq_kernel, SIMT)
-    keeps a T-long position window per block in shared memory; bf16
-    (dq_mma_kernel) streams it through a 128-row ring, so its shared
-    memory does not grow with T."""
+    keeps a T-long position window per block in shared memory, so it takes
+    T <= 1024 at dk 44, T <= 608 at dk 64 and T <= 160 at dk 128
+    (conformer-XLarge's T' = 376 runs its backward in bf16); bf16
+    (dq_mma_kernel) streams the window through a 128-row ring, so its
+    shared memory does not grow with T."""
     if dtype == torch.float32 and _bwd_smem(t, dk) > K.SMEM_LIMIT:
         return (f"the fp32 backward at T={t} needs {_bwd_smem(t, dk)} B of "
                 f"shared memory (> {K.SMEM_LIMIT})")
@@ -235,9 +239,9 @@ def attention_refusal(dtype: torch.dtype, d: int, h: int, t: int,
                       train: bool) -> Optional[str]:
     """Why the block kernels would refuse x (B, T, D) of `dtype` with h
     heads (and, when `train`, the backward), or None when they take it:
-    dk = D / h <= MAX_DK; in bf16 the tensor-core tiles copy rows in 16-
-    (D) and 8-byte (dk) pieces, so D % 8 == 0 and dk % 4 == 0; the
-    backward's shared memory grows with T."""
+    dk = D / h <= MAX_DK (128); in bf16 the tensor-core tiles copy rows in
+    16- (D) and 8-byte (dk) pieces, so D % 8 == 0 and dk % 4 == 0; the fp32
+    backward's shared memory grows with T (`bwd_refusal`)."""
     name = "fused_relpos_attention_block"
     if dtype not in (torch.float32, torch.bfloat16):
         return f"{name}: unsupported dtype {dtype}"
@@ -569,7 +573,8 @@ def fused_relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor,
     the plain version; a CUDA tensor launches the forward (P = PE w_pos^T,
     then the scores, softmax and value product: two launches) and, under
     autograd, the backward (`fused_relpos_attention_bwd`: the gradients of
-    q_u, q_v, k, v and w_pos, cast to w_pos's dtype). dk <= 64."""
+    q_u, q_v, k, v and w_pos, cast to w_pos's dtype). dk <= MAX_DK (128).
+    """
     if q_u.device.type == "cpu":
         return relpos_attention_heads_plain(q_u, q_v, k, v, w_pos, mask,
                                             att_context_size, dropout_rate,

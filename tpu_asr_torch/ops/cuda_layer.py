@@ -47,8 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_asr_torch.ops import _kernels as K
-from tpu_asr_torch.ops.cuda_attention import (MAX_DK, _row_stride,
-                                              attention_context)
+from tpu_asr_torch.ops.cuda_attention import _row_stride, attention_context
 from tpu_asr_torch.ops.cuda_conv import interleave_glu
 from tpu_asr_torch.ops.cuda_ffn import layer_norm
 from tpu_asr_torch.ops.positions import (position_table,
@@ -61,6 +60,9 @@ KEYS = ("s1", "sb1", "w11", "bb11", "w12", "bb12", "sa", "sab", "wq_full",
         "nw", "nb", "w2c", "b2c", "s2", "sb2", "w21", "bb21", "w22", "bb22",
         "sf", "sfb")
 MMA_MAX_D, MMA_MAX_K, MMA_DK = 176, 33, (32, 48)  # layer_mma_kernel
+# layer_kernel's attention phase (core_tile with two column slots a lane):
+# its own limit, not the attention kernels' MAX_DK
+LAYER_MAX_DK = 64
 _ARGS = ((K.INT, K.PTR, K.INT) + (K.PTR,) * 5 + (ctypes.c_size_t,)
          + (K.INT,) * 10 + (K.PTR, K.PTR))
 
@@ -206,9 +208,9 @@ def layer_refusal(dtype: torch.dtype, d: int, n_heads: int, dff: int,
         return None
     dk = d // n_heads
     smem = layer_smem(d, dff, k, dk)
-    if dk > MAX_DK or smem > K.SMEM_LIMIT:
-        return (f"{name}: dk={dk} (<= {MAX_DK}), D={d}, d_ff={dff}, k={k} "
-                f"need {smem} B of shared memory (<= {K.SMEM_LIMIT})")
+    if dk > LAYER_MAX_DK or smem > K.SMEM_LIMIT:
+        return (f"{name}: dk={dk} (<= {LAYER_MAX_DK}), D={d}, d_ff={dff}, "
+                f"k={k} need {smem} B of shared memory (<= {K.SMEM_LIMIT})")
     return None
 
 

@@ -1,13 +1,17 @@
 """Time and profile the CTCModel forward on one CUDA card, on the
 hand-written kernels ('auto') and on the plain PyTorch versions ('xla').
 
-    python -m tpu_asr_torch.profile_forward [--quantization none|int8]
-        [--conv_backend auto|pallas] [--out FILE]
+    python -m tpu_asr_torch.profile_forward [--model small|large|xlarge]
+        [--quantization none|int8] [--conv_backend auto|pallas] [--out FILE]
 
-`ModelConfig()` at its own compute dtype (bf16) with seeded random weights
-(`seeded_model`), its encoder's `quantization` and `conv_backend` as given
-(int8 serving: `--quantization int8 --conv_backend pallas`), at B=32 x 15 s
-(a full serving batch) and B=8 x 16 s (a small request), clips not padded.
+`--model` (`model_config`): `ModelConfig()` (small, the default),
+conformer-LARGE (d512, 18 layers, 8 heads) or conformer-XLarge (d1024, 24
+layers, 8 heads, dk 128, conv k=5), at its own compute dtype (bf16) with
+seeded random weights (`seeded_model`), its encoder's `quantization` and
+`conv_backend` as given (int8 serving: `--quantization int8 --conv_backend
+pallas`; the int8 FFN kernel takes D <= 512, so not XLarge), at B=32 x
+15 s (a full serving batch) and B=8 x 16 s (a small request), clips not
+padded.
 Per shape and backend it prints one line with:
   - `event_ms`: median over 10 forwards of the time from CUDA events
     recorded around the forward with the card idle before it (host issue
@@ -38,13 +42,21 @@ import torch
 
 SR = 16000
 SHAPES = ((32, 15.0), (8, 16.0))        # (clips, seconds)
+MODELS = ("small", "large", "xlarge")    # model_config
+BIG_D = 512          # from this width models are built and seeded on the card
 PACK_ROWS, T_PACK = 16, 512    # the packed serve shape (PackedTranscriber)
 ITERS, TOP = 10, 8
 # torch.cuda._sleep's kernel, launched once before each profiled call
 MARKER = "spin_kernel"
 # names of the port's own kernels (csrc/*.cu; matched as substrings of the
 # profiler's names, first entry first) -> group
-GROUPS = (("ffn_int8_kernel", "ffn int8"),
+GROUPS = (("core_mma_kernel<128", "attention fwd dk128"),
+          ("core_kernel<float, false, 4>", "attention fwd dk128"),
+          ("dq_mma_kernel<128", "attention bwd dk128"),
+          ("dkv_mma_kernel<128", "attention bwd dk128"),
+          ("dq_kernel<float, false, 4>", "attention bwd dk128"),
+          ("dkv_kernel<float, false, 4>", "attention bwd dk128"),
+          ("ffn_int8_kernel", "ffn int8"),
           ("conv_module_kernel", "conv module"),
           ("conv_module_mma_kernel", "conv module"),
           ("fm_fwd", "fm fwd"), ("fm_bwd", "fm bwd"),
@@ -70,7 +82,8 @@ def group_of(name: str) -> str:
     its `kSeg` template argument true) is a group of its own."""
     for prefix, group in GROUPS:
         if prefix in name:
-            return f"{group} (segments)" if ", true>" in name else group
+            return (f"{group} (segments)" if re.search(r", true[,>]", name)
+                    else group)
     if ("gemm" in name or "cutlass" in name or "sm90" in name
             or "nvjet" in name):
         return "cuBLAS/cuDNN products"
@@ -95,8 +108,9 @@ def short_symbol(name: str) -> str:
     `kernel`, `kernel<N>` (its first integer template argument) or
     `kernel<float>` / `kernel<bf16>` (its first type argument), with a
     bool second argument (the attention kernels' segment mode) as
-    `kernel<N, true>` and a second integer one (layer_mma_kernel's) as
-    `kernel<N, M>`."""
+    `kernel<N, true>`, a second integer one (layer_mma_kernel's) as
+    `kernel<N, M>` and an integer after a type and a bool (the fp32
+    attention kernels' column slots) as `kernel<float, false, 4>`."""
     m = re.match(r"_ZN(\d+)", name)
     k = m and re.match(r"(\d+)", name[m.end() + int(m.group(1)):])
     if not k:
@@ -108,10 +122,12 @@ def short_symbol(name: str) -> str:
     if arg:
         second = f", {arg.group(2)}" if arg.group(2) else ""
         return f"{name[at:end]}<{arg.group(1)}{second}{flag(arg.group(3))}>"
-    typ = re.match(r"I(f|13__nv_bfloat16)(?:Lb([01])E)?", name[end:])
+    typ = re.match(r"I(f|13__nv_bfloat16)(?:Lb([01])E)?(?:Li(\d+)E)?",
+                   name[end:])
+    slots = lambda n: "" if n is None else f", {n}"
     return name[at:end] + (
-        f"<{'float' if typ.group(1) == 'f' else 'bf16'}{flag(typ.group(2))}>"
-        if typ else "")
+        f"<{'float' if typ.group(1) == 'f' else 'bf16'}{flag(typ.group(2))}"
+        f"{slots(typ.group(3))}>" if typ else "")
 
 
 def packed_seg_map():
@@ -136,38 +152,81 @@ def packed_seg_map():
 
 
 
+def model_config(name: str):
+    """The ModelConfig of `name`: 'small' ModelConfig(); 'large'
+    conformer-LARGE, bench.py's large_cfg (d512, 18 layers, 8 heads, d_ff
+    2048, no SpecAugment, 128 classes: 121 M parameters); 'xlarge'
+    conformer-XLarge, bench.py's xl_cfg (d1024, 24 layers, 8 heads: dk 128,
+    conv k=5: 635 M parameters)."""
+    from tpu_asr_torch.config import (DecoderConfig, EncoderConfig,
+                                      ModelConfig)
+    if name == "small":
+        return ModelConfig()
+    if name == "large":
+        return ModelConfig(spec_augment=None,
+                           encoder=EncoderConfig(n_layers=18, d_model=512,
+                                                 n_heads=8),
+                           decoder=DecoderConfig(feat_in=512,
+                                                 num_classes=128))
+    if name == "xlarge":
+        return ModelConfig(spec_augment=None,
+                           encoder=EncoderConfig(n_layers=24, d_model=1024,
+                                                 n_heads=8,
+                                                 conv_kernel_size=5),
+                           decoder=DecoderConfig(feat_in=1024,
+                                                 num_classes=128))
+    raise ValueError(f"unknown model {name!r}; one of {MODELS}")
+
+
+def built_on(module_cls, *args, device="cuda"):
+    """module_cls(*args) for seeding on `device`: built there when the
+    encoder is at least BIG_D wide (conformer-LARGE and XLarge: their
+    default initialisation and seed_weights' draws then run on the card),
+    else on the CPU, so that the smaller models keep the weights every
+    earlier run drew."""
+    if args[0].encoder.d_model < BIG_D:
+        return module_cls(*args)
+    with torch.device(device):
+        return module_cls(*args).to(device)
+
+
 def seeded_model(cfg, seed: int, device="cuda"):
     """CTCModel on `device` in eval mode, with weights from a seeded
-    torch.Generator and randomised BatchNorm running statistics."""
+    torch.Generator and randomised BatchNorm running statistics (drawn on
+    `device` from BIG_D up: `built_on`)."""
     from tpu_asr_torch.models.ctc_model import CTCModel
 
-    return seed_weights(CTCModel(cfg), seed).to(device).eval()
+    model = built_on(CTCModel, cfg, device=device)
+    return seed_weights(model, seed).to(device).eval()
 
 
 def seed_weights(model, seed: int):
-    """Fill a model's weights from a seeded torch.Generator (norm scales
-    near 1, biases small, matrices scaled by fan-in) and randomise its
-    BatchNorm running statistics; returns the model."""
-    gen = torch.Generator().manual_seed(seed)
+    """Fill a model's weights from a torch.Generator seeded with `seed`
+    on the device of its parameters (norm scales near 1, biases small,
+    matrices scaled by fan-in) and randomise its BatchNorm running
+    statistics; returns the model."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    uniform = lambda shape, lo, hi: torch.empty(shape, device=dev).uniform_(
+        lo, hi, generator=gen)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith(("norm_feed_forward1.weight",
                               "norm_self_att.weight", "norm_conv.weight",
                               "norm_feed_forward2.weight", "norm_out.weight",
                               "batch_norm.weight")):
-                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+                p.copy_(1.0 + 0.1 * randn(p.shape))
             elif p.dim() == 1 or name.endswith(("pos_bias_u", "pos_bias_v")):
-                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+                p.copy_(0.1 * randn(p.shape))
             else:
                 fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+                p.copy_(randn(p.shape) / fan_in ** 0.5)
         for name, buf in model.named_buffers():
             if name.endswith("running_mean"):
-                buf.copy_(torch.empty(buf.shape).uniform_(-0.3, 0.3,
-                                                          generator=gen))
+                buf.copy_(uniform(buf.shape, -0.3, 0.3))
             elif name.endswith("running_var"):
-                buf.copy_(torch.empty(buf.shape).uniform_(0.7, 1.5,
-                                                          generator=gen))
+                buf.copy_(uniform(buf.shape, 0.7, 1.5))
     return model
 
 
@@ -307,6 +366,7 @@ def profile_shape(model, batch: int, seconds: float, out=None):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="small", choices=MODELS)
     ap.add_argument("--quantization", default="none",
                     choices=("none", "int8"))
     ap.add_argument("--conv_backend", default="auto",
@@ -317,13 +377,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_forward: no CUDA device", file=sys.stderr)
         return 2
-    from tpu_asr_torch.config import ModelConfig
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
-    cfg = ModelConfig()
+    cfg = model_config(args.model)
     cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
         cfg.encoder, quantization=args.quantization,
         conv_backend=args.conv_backend))

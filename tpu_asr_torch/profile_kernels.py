@@ -25,6 +25,15 @@ launches) with its launches per call.
                        all-guard row among them; profile_train's
                        packed_batches), the student's sublayer
   attention_heads_bwd  fused_relpos_attention_bwd, bf16, the same shape
+  attention_dk128      fused_relpos_attention_block, bf16, conformer-XLarge's
+                       sublayer (B=32, T=376, D=1024, 8 heads: dk 128, the
+                       DKP-128 kernels core_mma_kernel<128, ...>), ragged
+  attention_dk128_bwd  fused_relpos_attention_block_bwd at that shape,
+                       dropout 0.1 (dq_mma_kernel<128, ...>,
+                       dkv_mma_kernel<128, ...>)
+  attention_heads_dk128, attention_heads_dk128_bwd
+                       fused_relpos_attention and its backward, bf16, at
+                       B=32, 8 heads, T=376, dk 128, dropout 0.1
   ffn                  fused_ffn_sublayer, bf16, the student's sublayer
                        (B=32, T=376, D=88, d_ff 352, dropout 0.1), fp32
                        weights as the model holds them
@@ -55,7 +64,9 @@ launches) with its launches per call.
 
 --root TREE imports tpu_asr_torch from another checkout (a `git archive`
 of an earlier commit), so that two versions can be timed in turns within
-one run on one card: it needs only the wrappers' public signatures. Output
+one run on one card: it needs only the wrappers' public signatures (a tree
+from before the attention kernels took dk 128 refuses the four dk-128 rows:
+name the others in --kernels). Output
 lines start with the label (default: the tree's directory name).
 """
 
@@ -68,7 +79,9 @@ import sys
 KERNELS = ("logmel", "attention", "attention_seg", "attention_bwd",
            "attention_seg_bwd", "attention_heads_bwd", "ffn", "ffn_bwd", "fm", "fm_bwd",
            "ffn_int8", "conv_module", "ctc", "ctc_bwd", "conformer_layer",
-           "conformer_layer_module")
+           "conformer_layer_module", "attention_dk128", "attention_dk128_bwd",
+           "attention_heads_dk128", "attention_heads_dk128_bwd")
+XL_D, XL_HEADS = 1024, 8           # conformer-XLarge's attention: dk 128
 BATCH, SECONDS, SR = 32, 15, 16000
 PACK_ROWS, T_PACK = 16, 512      # the packed serve shape (PackedTranscriber)
 
@@ -217,6 +230,81 @@ def packed_train_seg():
     plans = [p for *_, p in packed_batches(
         make_student_config(ModelConfig()), "cpu")]
     return next(p.seg_id for p in plans if (p.seg_id == 0).all(1).any())
+
+
+def xlarge_attention(torch, gen):
+    """conformer-XLarge's attention weights (fp32), x (B, 376, 1024) bf16 and
+    a ragged mask."""
+    from tpu_asr_torch.models.conformer import rel_positional_encoding
+
+    d, h = XL_D, XL_HEADS
+    _, t, mask = student_shape(torch, gen)
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    pw = (n(d, d, sc=d ** -0.5), n(d, sc=0.1), n(d, d, sc=d ** -0.5),
+          n(d, sc=0.1), n(d, d, sc=d ** -0.5), n(d, sc=0.1),
+          n(h, d // h, sc=0.1), n(h, d // h, sc=0.1), n(d, d, sc=d ** -0.5),
+          n(d, d, sc=d ** -0.5))
+    x = n(BATCH, t, d, sc=0.5).to(torch.bfloat16)
+    return x, pw, rel_positional_encoding(t, d, "cuda"), mask
+
+
+def attention_dk128_call(torch):
+    from tpu_asr_torch.ops.cuda_attention import fused_relpos_attention_block
+
+    x, pw, pe, mask = xlarge_attention(torch, torch.Generator(
+        device="cuda").manual_seed(60))
+    return lambda: fused_relpos_attention_block(x, *pw, pe, mask, XL_HEADS)
+
+
+def attention_dk128_bwd_call(torch):
+    from tpu_asr_torch.ops.cuda_attention import (
+        fused_relpos_attention_block, fused_relpos_attention_block_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    x, pw, pe, mask = xlarge_attention(torch, gen)
+    leaves = [z.detach().requires_grad_() for z in (x, *pw)]
+    rate, seed = 0.1, 2 ** 31 - 9
+    out = fused_relpos_attention_block(*leaves, pe, mask, XL_HEADS,
+                                       dropout_rate=rate, dropout_seed=seed)
+    g = (torch.randn(out.shape, generator=gen, device="cuda")
+         * mask[..., None]).to(torch.bfloat16)
+    saved = out.grad_fn.saved_tensors
+    return lambda: fused_relpos_attention_block_bwd(g, *saved, XL_HEADS,
+                                                    rate, seed)
+
+
+def attention_heads_dk128_args(torch, gen):
+    """q_u, q_v, k, v (32, 8, 376, 128) and w_pos bf16 requiring grad, the
+    mask."""
+    _, t, mask = student_shape(torch, gen)
+    leaves = [(torch.randn(BATCH, XL_HEADS, t, XL_D // XL_HEADS,
+                           generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16).requires_grad_() for _ in range(4)]
+    w_pos = (torch.randn(XL_D, XL_D, generator=gen, device="cuda")
+             * XL_D ** -0.5).to(torch.bfloat16).requires_grad_()
+    return leaves + [w_pos], mask
+
+
+def attention_heads_dk128_call(torch):
+    from tpu_asr_torch.ops.cuda_attention import fused_relpos_attention
+
+    args, mask = attention_heads_dk128_args(torch, torch.Generator(
+        device="cuda").manual_seed(62))
+    args = [z.detach() for z in args]
+    return lambda: fused_relpos_attention(*args, mask, (-1, -1), 0.1, 7)
+
+
+def attention_heads_dk128_bwd_call(torch):
+    from tpu_asr_torch.ops.cuda_attention import (fused_relpos_attention,
+                                                  fused_relpos_attention_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    args, mask = attention_heads_dk128_args(torch, gen)
+    out = fused_relpos_attention(*args, mask, (-1, -1), 0.1, 7)
+    g = (torch.randn(out.shape, generator=gen, device="cuda")
+         * mask[:, None, :, None]).to(torch.bfloat16)
+    saved = out.grad_fn.saved_tensors
+    return lambda: fused_relpos_attention_bwd(g, *saved, (-1, -1), 0.1, 7)
 
 
 def attention_bwd_call(torch, seg=None):
@@ -463,7 +551,11 @@ def main(argv=None) -> int:
               "conv_module": conv_module_call, "ctc": ctc_call,
               "ctc_bwd": ctc_bwd_call,
               "conformer_layer": conformer_layer_call,
-              "conformer_layer_module": conformer_layer_module_call}
+              "conformer_layer_module": conformer_layer_module_call,
+              "attention_dk128": attention_dk128_call,
+              "attention_dk128_bwd": attention_dk128_bwd_call,
+              "attention_heads_dk128": attention_heads_dk128_call,
+              "attention_heads_dk128_bwd": attention_heads_dk128_bwd_call}
     lines = []
     for name in args.kernels.split(","):
         fn = makers[name](torch)

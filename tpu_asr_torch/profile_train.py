@@ -2,7 +2,7 @@
 kernels ('auto') and on the plain PyTorch versions ('xla').
 
     python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8|
-        flowkd_mlp8_int8_teacher] [--packed] [--out FILE]
+        flowkd_mlp8_int8_teacher|ctc_large|ctc_xlarge] [--packed] [--out FILE]
 
 DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
 at its own compute dtype (bf16) with seeded random weights and
@@ -11,7 +11,10 @@ the `distill` of bench_train.py's configuration of that name: `ctc_student`
 (CTC only), `flowkd_mlp8` (frozen teacher, logit KD at alpha 0.1 and
 FM-KT with the mlp meta encoder, 8 Euler steps over all 16 layers) or
 `flowkd_mlp8_int8_teacher` (the same with the teacher's FFN sublayers
-through the int8 serving kernel). Per
+through the int8 serving kernel); `ctc_large` and `ctc_xlarge` train
+conformer-LARGE and conformer-XLarge themselves
+(profile_forward.model_config) with the CTC loss alone, as bench_train.py's
+LARGE step does (the teacher gated off). Per
 backend it prints one line with:
   - `step_ms`: median host-clock time of a train step + synchronize over
     5 steps after 2 warm-up steps;
@@ -46,13 +49,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpu_asr_torch.profile_forward import (device_activity, mark_call,
-                                           print_groups, seed_weights,
-                                           set_backend)
+from tpu_asr_torch.profile_forward import (built_on, device_activity,
+                                           mark_call, print_groups,
+                                           seed_weights, set_backend)
 
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
-CONFIGS = ("ctc_student", "flowkd_mlp8", "flowkd_mlp8_int8_teacher")
+CONFIGS = ("ctc_student", "flowkd_mlp8", "flowkd_mlp8_int8_teacher",
+           "ctc_large", "ctc_xlarge")
 # bench_train.py's packed_train: utterances, seed, the longest clip (s),
 # rows of T_PACK subsampled frames, 4 linear duration buckets
 N_UTTS, PACK_SEED, MAX_S, T_PACK, BUCKETS = 512, 3, 16.7, 512, 4
@@ -61,7 +65,7 @@ N_UTTS, PACK_SEED, MAX_S, T_PACK, BUCKETS = 512, 3, 16.7, 512, 4
 def distill_config(name: str):
     """The DistillationConfig of bench_train.py's configuration `name`."""
     from tpu_asr_torch.config import DistillationConfig, FlowMatchingConfig
-    if name == "ctc_student":
+    if name in ("ctc_student", "ctc_large", "ctc_xlarge"):
         return DistillationConfig()
     if name in ("flowkd_mlp8", "flowkd_mlp8_int8_teacher"):
         flow = FlowMatchingConfig(meta_encoder_type="mlp", student_dim=88,
@@ -81,6 +85,19 @@ def teacher_config(name: str):
         cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
             cfg.encoder, quantization="int8"))
     return cfg
+
+
+def student_config(name: str):
+    """The trained model's ModelConfig of configuration `name`: the student
+    of ModelConfig(), or conformer-LARGE / XLarge for ctc_large /
+    ctc_xlarge."""
+    from tpu_asr_torch.config import ModelConfig, make_student_config
+    from tpu_asr_torch.profile_forward import model_config
+    if name in ("ctc_large", "ctc_xlarge"):
+        return model_config(name[4:])
+    if name not in CONFIGS:
+        raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
+    return make_student_config(ModelConfig())
 
 
 def make_batch(device="cuda"):
@@ -241,15 +258,15 @@ def profile_packed(out=None, batches=None, counters=None) -> dict:
 
 def profile_backend(backend: str, config: str = "ctc_student",
                     out=None) -> None:
-    from tpu_asr_torch.config import (ModelConfig, OptimConfig,
-                                      make_student_config)
+    from tpu_asr_torch.config import OptimConfig
     from tpu_asr_torch.models.distil_model import DistilCTCModel
     from tpu_asr_torch.train.trainer import (DistilTrainState,
                                              make_distil_train_step)
 
-    scfg = make_student_config(ModelConfig())
-    model = seed_weights(DistilCTCModel(scfg, teacher_config(config),
-                                        distill_config(config)), 1).cuda()
+    scfg = student_config(config)
+    model = seed_weights(built_on(DistilCTCModel, scfg,
+                                  teacher_config(config),
+                                  distill_config(config)), 1).cuda()
     set_backend(model, backend)
     state = DistilTrainState.create(model, OptimConfig())
     step = make_distil_train_step(model)
