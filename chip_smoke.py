@@ -246,6 +246,24 @@ Phases, each on its own output lines:
      backward through dq_mma_kernel<128> and dkv_mma_kernel<128> (profiler
      names and counters); then 2 timed bf16 steps at B=32 x 15 s after 1
      warm-up.
+  20. fastconformer_local (NeMo's Fast Conformer Large: d512, 17 layers, 8
+     heads, dw_striding x8, k=9, 1024 tokens, window (128, 128); seeded
+     weights drawn on the card): (a) the windowed block attention against
+     its plain version: (128, 128) at B=32 x T'=188 and B=4 x T'=1024,
+     (8, 0) and (-1, 4) at B=8 x T'=300, (128, 128) and (8, 0) with the
+     segment mode on the packed serve map; fp32 and bf16, dropout 0 and
+     0.1; the forward in fp32 by phase 3's tolerances, in bf16 by phase 4's
+     rule against fp32 plain (window_case), finite on every row; the
+     backward by phase 6's rule (fp32 up to T'=600), bit-equal calls;
+     ptxas of the window kernels; times, bounds over the in-window pairs,
+     device times; the windowed bf16 core below 0.25 of the full-context
+     core's device time at B=4 x T'=4096; (b) phase 4's checks on 8 clips
+     of 60-120 s, every attention launch windowed; (c) long-form serving:
+     Transcriber (batch 4) on 16 requests of 4 clips of 5-10 min after 2
+     warm-up, RTFx, wall a request, peak memory; (d) an fp32 CTC step at
+     B=4 x 45 s (T'=563) by phase 7's rules, the windowed backward once a
+     layer, 10 timed bf16 steps at B=32 x 15 s, and the CTC pair at
+     V=1025 against its plain versions with its device times.
 Each phase's seconds are printed after it.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
@@ -712,9 +730,10 @@ def subsampling_module_path(x, w1, b1, w2, b2, w_out):
 
 
 def reset_counters():
-    """Set every kernel wrapper's launch count to 0, and the attention
-    backward's count of its segment mode (`seg_launches`); returns a
-    function that reads {row name: launches since}."""
+    """Set every kernel wrapper's launch count to 0, the attention
+    backward's count of its segment mode (`seg_launches`) and both
+    attention wrappers' counts of a limited window (`window_launches`);
+    returns a function that reads {row name: launches since}."""
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention, fused_relpos_attention_block,
         fused_relpos_attention_block_bwd, fused_relpos_attention_bwd)
@@ -740,9 +759,15 @@ def reset_counters():
     for fn in fns.values():
         fn.launches = 0
     fused_relpos_attention_block_bwd.seg_launches = 0
+    fused_relpos_attention_block.window_launches = 0
+    fused_relpos_attention_block_bwd.window_launches = 0
     return lambda: {**{k: fn.launches for k, fn in fns.items()},
                     "attention_seg_bwd":
-                        fused_relpos_attention_block_bwd.seg_launches}
+                        fused_relpos_attention_block_bwd.seg_launches,
+                    "attention_window":
+                        fused_relpos_attention_block.window_launches,
+                    "attention_window_bwd":
+                        fused_relpos_attention_block_bwd.window_launches}
 
 
 def model_clips(seed: int):
@@ -757,13 +782,16 @@ def model_clips(seed: int):
             torch.tensor([len(c) for c in clips], device="cuda"))
 
 
-def model_phase(cfg, name: str = "ModelConfig()"):
-    """Phase 4's checks on `cfg` (`name` in the messages); returns the fp32
-    kernel forward's {row: launches}."""
+def model_phase(cfg, name: str = "ModelConfig()", rows=None,
+                clips=None, span: str = f"5-{SECONDS} s"):
+    """Phase 4's checks on `cfg` (`name` in the messages) on `clips`
+    ((signal, lengths) on the card; model_clips(1) by default, whose
+    durations `span` names), every kernel of `rows` launched; returns the
+    fp32 kernel forward's {row: launches}."""
     from tpu_asr_torch.profile_forward import seeded_model, set_backend
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     model = seeded_model(cfg32, seed=1)
-    sig_t, len_t = model_clips(1)
+    sig_t, len_t = model_clips(1) if clips is None else clips
     read = reset_counters()
     with torch.inference_mode():
         got = model(sig_t, len_t)
@@ -772,7 +800,7 @@ def model_phase(cfg, name: str = "ModelConfig()"):
         want = model(sig_t, len_t)
         set_backend(model, "auto")
     torch.cuda.synchronize()
-    counts = {k: counts[k] for k in SERVING}
+    counts = {k: counts[k] for k in rows or SERVING}
     check(all(v > 0 for v in counts.values()),
           f"model on kernels launched every kernel: {counts}")
     check(torch.equal(got.encoded_len, want.encoded_len),
@@ -782,7 +810,7 @@ def model_phase(cfg, name: str = "ModelConfig()"):
     delta = ((got.log_probs - want.log_probs).abs() * valid[..., None]).max()
     check(bool(torch.isfinite(got.log_probs).all()), "log-probs finite")
     check(delta.item() < 2e-3, f"{name} fp32, {len(sig_t)} clips of "
-          f"5-{SECONDS} s: max |delta log-prob| kernels vs plain "
+          f"{span}: max |delta log-prob| kernels vs plain "
           f"{delta.item():.3e} < 2e-3")
     top2 = want.log_probs.topk(2, dim=-1).values
     decided = valid & ((top2[..., 0] - top2[..., 1]) > 1e-3)
@@ -820,12 +848,26 @@ def model_phase(cfg, name: str = "ModelConfig()"):
 
 
 def serve_tokenizer(cfg):
+    """A BPE tokenizer of cfg's vocabulary (port's train_bpe): up to 128
+    pieces from four sentences; a larger vocabulary (fastconformer_local's
+    1024) from a seeded corpus of 700 lines over 1,400 random words, which
+    holds enough pair merges to reach it."""
     from tpu_asr_torch.data.tokenizer import train_bpe
+    n = cfg.decoder.num_classes
     corpus = ["the quick brown fox jumps over the lazy dog",
               "speech recognition on a graphics card",
               "conformer encoders with connectionist temporal classification",
               "a hundred and twenty eight pieces of vocabulary"] * 4
-    return train_bpe(corpus, vocab_size=cfg.decoder.num_classes)
+    if n > 128:
+        rng = np.random.default_rng(7)
+        letters = list("abcdefghijklmnopqrstuvwxyz")
+        words = ["".join(rng.choice(letters, size=rng.integers(2, 9)))
+                 for _ in range(1400)]
+        corpus = [" ".join(rng.choice(words, size=12)) for _ in range(700)]
+    tok = train_bpe(corpus, vocab_size=n)
+    check(tok.vocab_size == n, f"tokenizer: {tok.vocab_size} pieces, the "
+          f"model's {n} classes")
+    return tok
 
 
 def serve_requests():
@@ -1668,12 +1710,12 @@ def ragged_edges(lp, tg, fw, rate, seed):
           f"({gk[3].abs().max().item():.1e})")
 
 
-def train_batch(batch: int, seed: int):
+def train_batch(batch: int, seed: int, seconds: int = SECONDS):
     rng = np.random.default_rng(seed)
     return {
-        "signal": torch.from_numpy(rng.normal(size=(batch, SECONDS * SR))
+        "signal": torch.from_numpy(rng.normal(size=(batch, seconds * SR))
                                    .astype(np.float32) * 0.1).cuda(),
-        "signal_len": torch.full((batch,), SECONDS * SR, device="cuda"),
+        "signal_len": torch.full((batch,), seconds * SR, device="cuda"),
         "tokens": torch.from_numpy(rng.integers(0, 128, size=(batch, TOKENS))
                                    ).cuda(),
         "token_len": torch.full((batch,), TOKENS, device="cuda")}
@@ -2938,7 +2980,7 @@ def seg_bwd_kernel_check(scfg, plan, bucketed):
 
     regs = {k: v for k, v in {**nvcc_registers("dq_mma"),
                               **nvcc_registers("dkv_mma")}.items()
-            if k.endswith(", true>")}
+            if k.endswith(", true, false>")}
     check(regs and all(v[1:] == (0, 0) for v in regs.values()),
           f"ptxas: the segment mode's tensor-core backward kernels "
           f"{sorted(regs)} spill nothing")
@@ -3400,14 +3442,15 @@ def model_label(name: str, cfg) -> str:
             f"d_ff {enc.d_ff}, k={enc.conv_kernel_size})")
 
 
-def timed_ctc_steps(cfg, name: str, steps: int, warmup: int, seed: int):
+def timed_ctc_steps(cfg, name: str, steps: int, warmup: int, seed: int,
+                    rows=None):
     """`steps` timed bf16 CTC steps of `cfg` at B=32 x 15 s with 48 tokens
-    after `warmup`: losses finite, every kernel of the step launched.
-    Returns {row: launches}."""
+    after `warmup`: losses finite, every kernel of `rows` (CTC_STEP by
+    default) launched. Returns {row: launches}."""
     ms, counts, metrics = timed_steps(ctc_train_model(cfg, seed),
                                       train_batch(BATCH, seed + 1), seed + 2,
                                       steps, warmup)
-    counts = {k: v for k, v in counts.items() if k in CTC_STEP}
+    counts = {k: v for k, v in counts.items() if k in (rows or CTC_STEP)}
     losses = torch.stack([m["loss/total"] for m in metrics]).tolist()
     check(all(math.isfinite(x) for x in losses),
           f"bf16 {name} CTC steps: losses finite, first {losses[0]:.4f} "
@@ -3612,6 +3655,363 @@ def xlarge_phase():
     return rows, launches, rtfx
 
 
+FC_WINDOW = (128, 128)       # fastconformer_local's att_context_size
+FP32_BWD_T = 600             # the fp32 backward takes T <= 608 at dk 64
+NARROW_T, NARROW_MAX = 4096, 0.25   # windowed core / full-context core
+LONG_POOL, LONG_CLIPS, LONG_WARMUP, LONG_REQUESTS = 12, 4, 2, 16
+
+
+def window_pairs(t: int, left: int, right: int) -> int:
+    """Score pairs (t, s) of one (batch row, head) inside the window
+    -left <= s - t <= right (-1: unlimited) over T keys."""
+    q = np.arange(t)
+    lo = np.maximum(q - left, 0) if left >= 0 else np.zeros(t, np.int64)
+    hi = np.minimum(q + right, t - 1) if right >= 0 else np.full(t, t - 1)
+    return int((hi - lo + 1).sum())
+
+
+def window_tile_pairs(t: int, left: int, right: int, tile: int = 64) -> int:
+    """Score pairs the bf16 windowed core visits for one (batch row, head):
+    per 64-query tile, the 64-key tiles of its window (core_mma.cuh's
+    window_tiles)."""
+    n, total = -(-t // tile), 0
+    for q0 in range(0, t, tile):
+        lo = max(q0 - left, 0) // tile if left >= 0 else 0
+        hi = min(n, (q0 + tile - 1 + right) // tile + 1) if right >= 0 else n
+        total += (hi - lo) * tile * min(tile, t - q0)
+    return total
+
+
+def window_flops(b, t, d, h, pairs, backward=False):
+    """attention_flops with the T x T score products over `pairs` in-window
+    pairs a (batch row, head) instead of T^2."""
+    dk = d // h
+    if not backward:
+        return (2 * b * t * d * d * 4 + 2 * (2 * t - 1) * d * d
+                + 2 * b * h * pairs * dk * 3)
+    return (2 * b * t * d * d * 8 + 2 * (2 * t - 1) * d * d
+            + 2 * b * h * pairs * dk * 8)
+
+
+def window_case(gen, pw, h, b, t, window, seg=None, timed=()):
+    """The block attention with `window` (and the segment map `seg`, (B, T)
+    int32, or ragged lengths) against its plain version, fp32 and bf16,
+    dropout 0 and 0.1: the forward finite on every row, in fp32 on valid
+    rows by phase 3's tolerances; in bf16 by phase 4's rule, against the
+    plain version in fp32 on the same bf16 operands, the kernel's largest
+    deviation at most 2x the plain bf16 version's: a narrow window (9 keys
+    at (8, 0)) leaves context rows near |v|, where the two bf16 orders land
+    on bf16 values up to 2 ulps apart on either side of the fp32 value
+    (4 of 784,384 elements beyond phase 3's tolerance, both 4.7e-3 from
+    fp32 at most, on NVIDIA H100 80GB HBM3, 700 W); the count beyond
+    phase 3's tolerance is printed. The backward (fp32 only up to
+    FP32_BWD_T) by phase 6's gradient rule, finite, two calls bit-equal.
+    Returns the bf16
+    rows named in `timed`, "attention_window" (the forward, dropout 0)
+    and "attention_window_bwd" (the backward, dropout 0.1): (error, kernel
+    ms, plain ms, bound over the in-window pairs, None), each printed with
+    its device time a launch and the pairs the visited tiles cover."""
+    from tpu_asr_torch.ops.cuda_attention import (
+        bwd_refusal, fused_relpos_attention_block,
+        fused_relpos_attention_block_bwd, relpos_attention_plain)
+    from tpu_asr_torch.ops.positions import rel_positional_encoding
+
+    d = pw[0].shape[0]
+    if seg is None:
+        lengths = torch.randint(t // 4, t + 1, (b,), generator=gen,
+                                device="cuda")
+        lengths[0] = t
+        mask = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+    else:
+        mask = seg > 0
+    valid = mask[..., None]
+    pos_emb = rel_positional_encoding(t, d, "cuda")
+    xa = normal(gen, b, t, d, scale=0.5)
+    ga = normal(gen, b, t, d) * valid
+    seed = 2 ** 31 - 11
+    pairs = b * window_pairs(t, *window)
+    visited = b * window_tile_pairs(t, *window)
+    label = (f"window {window} (B={b}, T={t}, D={d}, H={h}"
+             f"{', segments' if seg is not None else ''})")
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dts_ = str(dt)[6:]
+        x = xa.to(dt)
+        aargs = (x, *pw, pos_emb, mask, h)
+        fwd = lambda rate=0.0: fused_relpos_attention_block(
+            *aargs, att_context_size=window, dropout_rate=rate,
+            dropout_seed=seed, seg_id=seg)
+        plain = lambda rate=0.0: relpos_attention_plain(*aargs, rate, seed,
+                                                        seg, window)
+        for rate in (0.0, 0.1):
+            with torch.no_grad():
+                got, want = fwd(rate).float(), plain(rate).float()
+                ref = relpos_attention_plain(
+                    x.float(), *(z.to(dt).float() if z.shape == (d, d)
+                                 else z for z in pw), pos_emb, mask, h, rate,
+                    seed, seg, window)
+            torch.cuda.synchronize()
+            err = ((got - want).abs() * valid).max().item()
+            finite = bool(torch.isfinite(got).all())
+            if dt == torch.float32:
+                check(finite and torch.allclose(got * valid, want * valid,
+                                                rtol=1e-4, atol=1e-4),
+                      f"attention_window {dts_} {label} dropout {rate}: "
+                      f"finite, valid rows max |err| {err:.3e} (rtol 1e-4, "
+                      f"atol 1e-4)")
+            else:
+                e_k = ((got - ref).abs() * valid).max().item()
+                e_p = ((want - ref).abs() * valid).max().item()
+                beyond = int((((got - want).abs() > 3e-3 + 1e-2 * want.abs())
+                              & valid).sum())
+                check(finite and e_k <= 2 * e_p,
+                      f"attention_window {dts_} {label} dropout {rate}: "
+                      f"finite; against fp32 plain, valid rows max |err| "
+                      f"kernel {e_k:.3e} <= 2 x plain bf16 {e_p:.3e}; "
+                      f"kernel vs plain bf16 {err:.3e}, {beyond} of "
+                      f"{int(valid.sum()) * d} beyond phase 3's rtol 1e-2, "
+                      f"atol 3e-3")
+            if ("attention_window" in timed and dt == torch.bfloat16
+                    and rate == 0.0):
+                with torch.no_grad():
+                    rows["attention_window"] = (
+                        err, median_ms(fwd), median_ms(plain),
+                        bound(window_flops(b, t, d, h, pairs // b),
+                              nbytes(x, *pw) + got.numel()
+                              * x.element_size(), dts_), None)
+                    dev, names = device_ms(fwd)
+                print(f"device attention_window bfloat16 {label} ({DEVICE}):"
+                      f" {dev:.4f} ({top_kernels(names, 3)}); score pairs "
+                      f"{pairs} a head in the window, {visited} visited by "
+                      f"the core's tiles, dense {b * t * t}")
+            if bwd_refusal(dt, t, d // h):
+                continue
+            leaves = [z.detach().requires_grad_() for z in (x, *pw)]
+            out_k = fused_relpos_attention_block(
+                *leaves, pos_emb, mask, h, att_context_size=window,
+                dropout_rate=rate, dropout_seed=seed, seg_id=seg)
+            g = ga.to(dt)
+            got_g = torch.autograd.grad(out_k, leaves, g, retain_graph=True)
+            leaves_p = [z.detach().requires_grad_() for z in (x, *pw)]
+            out_p = relpos_attention_plain(*leaves_p, pos_emb, mask, h, rate,
+                                           seed, seg, window)
+            want_g = torch.autograd.grad(out_p, leaves_p, g,
+                                         retain_graph=True)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(z).all()) for z in got_g),
+                  f"attention_window_bwd {dts_} {label} dropout {rate}: "
+                  f"every gradient finite")
+            tol, floor = ((1e-3, 1e-4) if dt == torch.float32
+                          else (5e-2, 1e-2))
+            print(f"attention_window_bwd {dts_} {label} dropout {rate}, "
+                  f"kernels vs plain:")
+            err_abs, _ = grads_close(got_g, want_g, tol, ATT_GRADS, floor,
+                                     verbose=False)
+            saved = out_k.grad_fn.saved_tensors
+            bwd = lambda: fused_relpos_attention_block_bwd(
+                g, *saved, h, rate, seed, seg, window)
+            check(all(torch.equal(a, c) for a, c in zip(bwd(), bwd())),
+                  f"attention_window_bwd {dts_} {label} dropout {rate}: two "
+                  f"calls give bit-equal gradients")
+            if ("attention_window_bwd" in timed and dt == torch.bfloat16
+                    and rate > 0):
+                rows["attention_window_bwd"] = (
+                    err_abs, median_ms(bwd),
+                    median_ms(lambda: torch.autograd.grad(
+                        out_p, leaves_p, g, retain_graph=True)),
+                    bound(window_flops(b, t, d, h, pairs // b, True),
+                          nbytes(g, *saved) + nbytes(*got_g), dts_), None)
+                dev, names = device_ms(bwd)
+                print(f"device attention_window_bwd bfloat16 {label} "
+                      f"({DEVICE}): {dev:.4f} ({top_kernels(names, 4)})")
+    return rows
+
+
+def window_kernel_phase():
+    """Phase 20a: the windowed block attention kernels (D=512, 8 heads,
+    fastconformer_local's widths) against their plain versions: window
+    (128, 128) at B=32 x T'=188 (15 s at x8) and B=4 x T'=1024, (8, 0) and
+    (-1, 4) at B=8 x T'=300, the window with the segment mode on the
+    packed serve map; ptxas of the window kernels; then the narrowing: at
+    B=4 x T'=NARROW_T the windowed bf16 core's device time below
+    NARROW_MAX of the full-context core's. Returns the two KERNELS rows."""
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    d, h = 512, 8
+    for prefix in ("core_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"):
+        regs = {k: v for k, v in nvcc_registers(prefix).items()
+                if k.endswith(", true>")}
+        check(regs, f"ptxas built the window kernels {sorted(regs)}")
+    pw = attention_weights(gen, d, h)
+    # the forward's row at the longer T', the backward's at the CTC step's
+    rows = window_case(gen, pw, h, BATCH, 188, FC_WINDOW,
+                       timed=("attention_window_bwd",))
+    rows.update(window_case(gen, pw, h, 4, 1024, FC_WINDOW,
+                            timed=("attention_window",)))
+    for window in ((8, 0), (-1, 4)):
+        window_case(gen, pw, h, 8, 300, window)
+    from tpu_asr_torch.profile_forward import packed_seg_map
+    seg = torch.from_numpy(packed_seg_map()).cuda()
+    for window in (FC_WINDOW, (8, 0)):
+        window_case(gen, pw, h, seg.shape[0], seg.shape[1], window, seg=seg)
+
+    from tpu_asr_torch.ops.cuda_attention import fused_relpos_attention_block
+    from tpu_asr_torch.ops.positions import rel_positional_encoding
+    b, t = 4, NARROW_T
+    x = normal(gen, b, t, d, scale=0.5).to(torch.bfloat16)
+    args = (x, *pw, rel_positional_encoding(t, d, "cuda"),
+            torch.ones(b, t, dtype=torch.bool, device="cuda"), h)
+    full_name, win_name = ("core_mma_kernel<64, false, false>",
+                           "core_mma_kernel<64, false, true>")
+    with torch.no_grad():
+        _, full = profiled_kernels(
+            lambda: fused_relpos_attention_block(*args), full_name)
+        _, win = profiled_kernels(lambda: fused_relpos_attention_block(
+            *args, att_context_size=FC_WINDOW), win_name)
+    pick = lambda names, k: sum(ms for n, ms in names.items() if k in n)
+    f_ms, w_ms = pick(full, full_name), pick(win, win_name)
+    ideal = window_tile_pairs(t, *FC_WINDOW) / (t * t)
+    check(0 < w_ms < NARROW_MAX * f_ms,
+          f"window narrowing (bf16, B={b}, T={t}, D={d}, H={h}): the "
+          f"windowed core {w_ms:.4f} ms a launch, full context {f_ms:.4f} "
+          f"ms: ratio {w_ms / f_ms:.4f} < {NARROW_MAX} (visited tiles "
+          f"{ideal:.4f} of the dense pairs, in-window pairs "
+          f"{window_pairs(t, *FC_WINDOW) / (t * t):.4f}) ({DEVICE})")
+    for name, (err, ms, plain_ms, (b_ms, by), _) in rows.items():
+        print(f"time {name} bfloat16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) (median of 20, "
+              f"CUDA events)")
+    return rows
+
+
+def long_clips(seed: int, n: int, lo: float, hi: float):
+    """n seeded clips of lo-hi s, zero-padded: (signal, lengths) on the
+    card."""
+    from tpu_asr_torch.profile_forward import waveforms
+    clips = waveforms(np.random.default_rng(seed), n, lo, hi)
+    sig = np.zeros((n, max(len(c) for c in clips)), np.float32)
+    for i, c in enumerate(clips):
+        sig[i, :len(c)] = c
+    return (torch.from_numpy(sig).cuda(),
+            torch.tensor([len(c) for c in clips], device="cuda"))
+
+
+def longform_serve(cfg):
+    """Phase 20c: Transcriber (bf16, batch 4) on LONG_REQUESTS requests of
+    LONG_CLIPS clips of 5-10 min drawn from a seeded pool, after
+    LONG_WARMUP warm-up requests, counters and peak memory reset around the
+    window. Returns ({row: launches}, RTFx)."""
+    from tpu_asr_torch.models.transcribe import Transcriber
+    from tpu_asr_torch.profile_forward import seeded_model, waveforms
+
+    rng = np.random.default_rng(9)
+    pool = waveforms(rng, LONG_POOL, 300.0, 600.0)
+    requests = [[pool[i] for i in rng.choice(LONG_POOL, LONG_CLIPS,
+                                             replace=False)]
+                for _ in range(LONG_WARMUP + LONG_REQUESTS)]
+    tr = Transcriber(seeded_model(cfg, seed=2), serve_tokenizer(cfg),
+                     batch_size=LONG_CLIPS, device="cuda")
+    for r in requests[:LONG_WARMUP]:
+        tr.transcribe(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = reset_counters()
+    latency, texts = [], []
+    start = time.perf_counter()
+    for r in requests[LONG_WARMUP:]:
+        t0 = time.perf_counter()
+        texts.append(tr.transcribe(r))
+        latency.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = {k: n for k, n in read().items() if k in FC_SERVING}
+    audio_s = sum(len(w) for r in requests[LONG_WARMUP:] for w in r) / SR
+    flat = [t for r in texts for t in r]
+    t_max = int(max(len(w) for w in pool) // 160 + 1)
+    check(len(flat) == LONG_REQUESTS * LONG_CLIPS
+          and all(isinstance(t, str) for t in flat),
+          f"Transcriber ({cfg.compute_dtype}) answered {LONG_REQUESTS} "
+          f"long-form requests of {LONG_CLIPS} clips with strings, e.g. "
+          f"{flat[0][:40]!r}")
+    check(all(v > 0 for v in counts.values())
+          and counts["attention_window"] == counts["attention"],
+          f"long-form serving launched every kernel, every attention with "
+          f"its window: {counts}")
+    print(f"serve long-form ({cfg.compute_dtype}): {LONG_REQUESTS} requests "
+          f"x {LONG_CLIPS} clips of 5-10 min (up to {t_max} frames, T' "
+          f"{int(subsampled(cfg, t_max))}), {audio_s:.2f} s of audio in "
+          f"{wall:.4f} s wall: RTFx {audio_s / wall:.1f}; per request median "
+          f"{1e3 * float(np.median(latency)):.2f} ms, max "
+          f"{1e3 * max(latency):.2f} ms (host clock, after {LONG_WARMUP} "
+          f"warm-up requests); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    return counts, audio_s / wall
+
+
+def subsampled(cfg, frames: int) -> int:
+    from tpu_asr_torch.models.conformer import subsampled_length
+    enc = cfg.encoder
+    return int(subsampled_length(torch.tensor(frames), enc.subsampling_factor,
+                                 enc.subsampling))
+
+
+def fastconformer_phase():
+    """Phase 20: FastConformer-Large with limited context
+    (profile_forward.model_config('fastconformer_local')). Returns
+    ({row: measured}, {row: launches}, long-form RTFx)."""
+    from tpu_asr_torch.ops.cuda_ctc import ctc_nll
+    from tpu_asr_torch.profile_forward import model_config
+
+    cfg = model_config("fastconformer_local")
+    enc = cfg.encoder
+    name = "fastconformer_local"
+    t0 = time.perf_counter()
+    rows = window_kernel_phase()
+    print(f"phase 20a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    counts = model_phase(cfg, model_label(name, cfg), FC_SERVING,
+                         long_clips(11, 8, 60.0, 120.0), "60-120 s")
+    check(counts["attention_window"] == counts["attention"] == enc.n_layers
+          and counts["attention"] > 0,
+          f"{name} fp32 forward on the kernels: {counts['attention']} "
+          f"attention launches, one a layer ({enc.n_layers}), each with the "
+          f"window {tuple(enc.att_context_size)}")
+    print(f"phase 20b: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    serve_counts, rtfx = longform_serve(cfg)
+    print(f"phase 20c: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    read = reset_counters()
+    fp32_step_check(ctc_train_model(dataclasses.replace(
+        cfg, compute_dtype="float32"), 80), train_batch(4, 81, 45), 82,
+        f"fp32 {model_label(name, cfg)} CTC step (B=4 x 45 s, T' "
+        f"{subsampled(cfg, 45 * 100 + 1)}, dropout {enc.dropout}, dither)")
+    step = read()
+    check(step["attention_window_bwd"] == enc.n_layers,
+          f"the fp32 step on the kernels ran the windowed backward once a "
+          f"layer: {step['attention_window_bwd']}")
+    train_counts = timed_ctc_steps(cfg, name, TRAIN_STEPS, TRAIN_WARMUP, 83,
+                                   FC_STEP)
+    gen = torch.Generator(device="cuda").manual_seed(84)
+    t = subsampled(cfg, SECONDS * 100 + 1)
+    v = cfg.decoder.num_classes + 1
+    lp = torch.log_softmax(normal(gen, BATCH, t, v, scale=2.0), dim=-1)
+    tg = torch.randint(0, v - 1, (BATCH, TOKENS), generator=gen,
+                       device="cuda")
+    il = torch.full((BATCH,), t, device="cuda")
+    tl = torch.full((BATCH,), TOKENS, device="cuda")
+    before = ctc_nll.launches
+    ctc_route(lp, tg, il, tl, v - 1, f"(B={BATCH}, T={t}, V={v}, "
+              f"S={TOKENS})", gen)
+    check(ctc_nll.launches > before, f"ctc at V={v} launched")
+    print(f"phase 20d: {time.perf_counter() - t0:.1f} s")
+    launches = {"attention_window": serve_counts["attention_window"],
+                "attention_window_bwd": train_counts["attention_window_bwd"]}
+    return rows, launches, rtfx
+
+
 SERVING = ("logmel", "subsampling", "attention")
 # row: (source, TPU kernel it replaces, dtype of the main path)
 KERNELS = {
@@ -3664,6 +4064,11 @@ KERNELS = {
     "subsampling_c1024": ("tpu_asr_torch/csrc/subsampling.cu",
                           "tpu_asr/ops/pallas_subsampling.py:96",
                           "bfloat16"),
+    "attention_window": ("tpu_asr_torch/csrc/attention.cu",
+                         "tpu_asr/ops/pallas_attention.py:646", "bfloat16"),
+    "attention_window_bwd": ("tpu_asr_torch/csrc/attention.cu",
+                             "tpu_asr/ops/pallas_attention.py:646",
+                             "bfloat16"),
 }
 STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
            "ffn_bwd", "ctc", "ctc_bwd")
@@ -3671,6 +4076,11 @@ STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
 # refuses d512 and d1024 (as JAX's ffn_train_kernel_fits does)
 CTC_STEP = ("logmel", "subsampling", "attention", "attention_bwd", "ctc",
             "ctc_bwd")
+# fastconformer_local: dw_striding x8 runs plain (JAX's fused_ok takes
+# striding x4 only), every attention launch with its window
+FC_SERVING = ("logmel", "attention", "attention_window")
+FC_STEP = ("logmel", "attention", "attention_bwd", "attention_window",
+           "attention_window_bwd", "ctc", "ctc_bwd")
 KD = STUDENT + ("fm", "fm_bwd")
 INT8_SERVING = SERVING + ("ffn_int8", "conv_module")
 
@@ -3741,10 +4151,14 @@ def main() -> int:
     xl_rows, xl_counts, xl_rtfx = timed_phase("19", xlarge_phase)
     measured.update(xl_rows)
     counts.update(xl_counts)
+    fc_rows, fc_counts, fc_rtfx = timed_phase("20", fastconformer_phase)
+    measured.update(fc_rows)
+    counts.update(fc_counts)
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "
-          f"{xl_rtfx:.1f}")
+          f"{xl_rtfx:.1f}; fastconformer_local long-form ({LONG_REQUESTS} "
+          f"requests x {LONG_CLIPS} clips of 5-10 min) {fc_rtfx:.1f}")
     rows = []
     for name, (source, replaces, dt) in KERNELS.items():
         err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]

@@ -15,9 +15,8 @@ valid query rows only (padded rows are garbage by contract).
 - one head with dropout 0.1 against the Pallas block in interpret mode,
   bf16 forward, rtol 2e-2, atol 1e-2 (the tolerance of the test above);
 - gradients of the module in fp32 against jax.vjp of the XLA module, 1e-4;
-- the kernel wrapper refuses what the port's slice does not run, a limited
-  context, and takes packed segments (seg_id) under autograd: on CPU
-  tensors the plain version's gradients.
+- the kernel wrapper takes packed segments (seg_id) under autograd: on CPU
+  tensors the plain version's gradients (the window: test_torch_window.py).
 """
 
 import jax
@@ -129,13 +128,6 @@ def _wrapper_args(t=12, d=16, h=2):
             mod.linear_v.bias, mod.pos_bias_u, mod.pos_bias_v,
             mod.linear_pos.weight, mod.linear_out.weight,
             rel_positional_encoding(t, d), torch.from_numpy(mask), h)
-
-
-@pytest.mark.parametrize("option", [{"att_context_size": (8, 0)},
-                                    {"att_context_size": (-1, 4)}])
-def test_wrapper_refuses_options_outside_the_slice(option):
-    with pytest.raises(ValueError, match="full-context attention"):
-        fused_relpos_attention_block(*_wrapper_args(), **option)
 
 
 def test_wrapper_takes_seg_id_under_autograd():

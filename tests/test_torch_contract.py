@@ -289,16 +289,33 @@ def test_eval_only_wrappers_refuse_autograd(wrapper):
 
 
 @pytest.mark.parametrize("option", [
-    {"subsampling": "dw_striding"}, {"subsampling_factor": 8},
-    {"causal_downsampling": True}, {"att_context_size": (16, 16)},
-    {"att_context_style": "chunked_limited"}, {"global_tokens": 1},
-    {"reduction": "pooling", "reduction_factor": 2},
+    {"subsampling": "vggnet"}, {"subsampling_factor": 3},
+    {"self_attention_model": "abs_pos"},
     {"conv_norm_type": "group_norm"}, {"quantization": "int4"},
     {"conv_backend": "triton"}, {"attention_backend": "triton"},
-    {"stochastic_depth_drop_prob": 0.1},
 ])
 def test_options_outside_the_slice_raise(option):
     cfg = dataclasses.replace(EncoderConfig(n_layers=1, d_model=32,
                                             n_heads=2), **option)
     with pytest.raises(ValueError, match="does not implement"):
         ConformerEncoder(cfg)
+
+
+@pytest.mark.parametrize("option", [
+    {"att_context_style": "chunked_limited", "att_context_size": (8, 3)},
+    {"att_context_size": (8, 8), "global_tokens": 2},
+])
+def test_pallas_attention_refuses_chunked_and_global(option):
+    """As JAX: the block kernel implements the 'regular' window alone, so
+    attention_backend='pallas' refuses the chunked and global routes,
+    which 'auto' runs plain."""
+    cfg = dataclasses.replace(EncoderConfig(
+        n_layers=1, d_model=32, n_heads=2, attention_backend="pallas"),
+        **option)
+    enc = ConformerEncoder(cfg)
+    feats, lens = torch.randn(1, 80, 40), torch.tensor([40])
+    with pytest.raises(ValueError, match="attention_backend='pallas'"):
+        enc(feats, lens)
+    for layer in enc.layers:
+        layer.self_attn.backend = "auto"
+    assert torch.isfinite(enc(feats, lens)[0]).all()

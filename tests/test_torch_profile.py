@@ -90,7 +90,10 @@ def test_segment_mode_groups_by_itself(name, group):
     ("core_kernel<float, false, 2>", "attention fwd"),
     ("dq_kernel<float, true, 4>", "attention bwd (segments)"),
     ("core_mma_kernel<128, true>", "attention fwd dk128 (segments)"),
-    ("core_mma_kernel<64, false>", "attention fwd")])
+    ("core_mma_kernel<64, false>", "attention fwd"),
+    ("core_mma_kernel<64, false, true>", "attention fwd (window)"),
+    ("dq_mma_kernel<48, true, true>", "attention bwd (segments, window)"),
+    ("dkv_mma_kernel<64, true, false>", "attention bwd (segments)")])
 def test_dk128_kernels_group_by_themselves(name, group):
     """The DKP-128 tensor-core kernels and the fp32 kernels' four-slot
     instantiations (dk 128) land in groups of their own; a segment mode
@@ -106,6 +109,8 @@ def test_dk128_kernels_group_by_themselves(name, group):
      "core_kernel<float, true, 2>"),
     ("_ZN12_GLOBAL__N_113dq_mma_kernelILi128ELb0EEEvPK",
      "dq_mma_kernel<128, false>"),
+    ("_ZN12_GLOBAL__N_115core_mma_kernelILi64ELb0ELb1EEEvPK",
+     "core_mma_kernel<64, false, true>"),
     ("_ZN12_GLOBAL__N_116layer_mma_kernelILi22ELi48EEEv",
      "layer_mma_kernel<22, 48>")])
 def test_short_symbol_names_every_template_argument(mangled, short):

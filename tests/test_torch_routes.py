@@ -168,9 +168,10 @@ def test_forward_follows_the_route(kind, monkeypatch):
         shapes = (12, 16)
     elif kind == "attention":
         rec = _Recorder(
-            lambda *a, dropout_rate, dropout_seed, seg_id:
+            lambda *a, dropout_rate, dropout_seed, seg_id, att_context_size:
             cuda_attention.relpos_attention_plain(*a, dropout_rate,
-                                                  dropout_seed, seg_id))
+                                                  dropout_seed, seg_id,
+                                                  att_context_size))
         monkeypatch.setattr(conformer, "fused_relpos_attention_block", rec)
 
         def run(dh):

@@ -35,8 +35,15 @@
 //      contracts over dk = 44 per score, where the TPU kernel's sin/cos
 //      rotation factorisation contracts over D = 176. A local window
 //      (left, right) sets the scores of keys with s - t < -left or
-//      s - t > right to -1e30, as the TPU kernel's _local_mask does; the
-//      block sublayer passes (-1, -1), full context.
+//      s - t > right to -1e30, as the TPU kernel's _local_mask does
+//      (-1 on a side: unlimited), in the block sublayer (att_context_size,
+//      NeMo's rel_pos_local_attn) and the per-head attention alike. The
+//      TPU kernel masks the whole T x T tile; the bf16 core visits only
+//      the key tiles the window reaches (core_mma_kernel<.., kWin>), and
+//      the bf16 backward only the (query tile, key tile) pairs the core
+//      visited, so a window of W keys costs about T (W + 128) score pairs
+//      a head instead of T^2. The fp32 kernels (the check dtype) visit
+//      every tile and mask.
 //      bf16: core_mma_kernel on the tensor cores (see core_mma.cuh).
 //      fp32: core_kernel, 32 queries x 32-key tiles of plain SIMT, whose
 //      body is attention_core.cuh's core_tile (layer.cu runs it too): the
@@ -239,7 +246,7 @@ HeadLayout heads_layout(int t_len, int heads, int dk) {
   return {(long long)heads * t_len * dk, (long long)t_len * dk, dk};
 }
 
-template <int DKP, bool kSeg>
+template <int DKP, bool kSeg, bool kWin>
 __global__ void __launch_bounds__(128) core_mma_kernel(
     const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
     const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
@@ -251,10 +258,10 @@ __global__ void __launch_bounds__(128) core_mma_kernel(
     uint32_t b_stride, uint32_t thresh, float dscale, int tp, int left,
     int right, const int* __restrict__ seg) {           // kSeg: (B, T)
   extern __shared__ __align__(16) char smem_raw[];
-  core_mma_tile<DKP, kSeg>(smem_raw, qu, qv, kk, vv, pos, key_bias, ctx, cl,
-                           lse, blockIdx.y, blockIdx.x * kMQ, t_len, heads,
-                           dk, scale, seed, b_stride, thresh, dscale, tp,
-                           left, right, seg);
+  core_mma_tile<DKP, kSeg, kWin>(smem_raw, qu, qv, kk, vv, pos, key_bias,
+                                 ctx, cl, lse, blockIdx.y, blockIdx.x * kMQ,
+                                 t_len, heads, dk, scale, seed, b_stride,
+                                 thresh, dscale, tp, left, right, seg);
 }
 
 template <int DKP>
@@ -266,8 +273,13 @@ cudaError_t launch_core_mma(const void* qu, const void* qv, const void* k,
                             uint32_t thresh, float dscale, int tp, int left,
                             int right, const int* seg, cudaStream_t stream) {
   const int smem = (int)CoreMma<DKP>::kSmem;
-  auto* kernel =
-      seg ? core_mma_kernel<DKP, true> : core_mma_kernel<DKP, false>;
+  // a limited side narrows the key tiles (kWin); (-1, -1) keeps the
+  // full-context kernels
+  const bool lim = left >= 0 || right >= 0;
+  auto* kernel = seg ? (lim ? core_mma_kernel<DKP, true, true>
+                            : core_mma_kernel<DKP, true, false>)
+                     : (lim ? core_mma_kernel<DKP, false, true>
+                            : core_mma_kernel<DKP, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -282,10 +294,12 @@ cudaError_t launch_core_mma(const void* qu, const void* qv, const void* k,
 
 // The core over every (batch row, head): head h of batch row b draws the
 // dropout stream seed + b_stride * b + h; `seg` (B, T) or null is the
-// packed-segment map. fp32 (the check dtype) runs core_kernel, SIMT over
-// 32-query blocks, two column slots a lane up to dk = 64 and four up to
-// 128; bf16 core_mma_kernel on the tensor cores (dk % 4 == 0), its rows
-// padded to DKP = 16, 32, 48, 64 or 128.
+// packed-segment map; (left, right) the window. fp32 (the check dtype) runs
+// core_kernel, SIMT over 32-query blocks, two column slots a lane up to
+// dk = 64 and four up to 128, every key tile visited and the window
+// masked; bf16 core_mma_kernel on the tensor cores (dk % 4 == 0), its rows
+// padded to DKP = 16, 32, 48, 64 or 128, the key tiles narrowed to the
+// window's.
 template <typename T>
 cudaError_t launch_core(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
@@ -328,8 +342,8 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
         const float* bk, const float* bv, const void* pe,
         const float* key_bias, void* qu, void* qv, void* k, void* v, void* p,
         void* ctx, void* out, float* lse, const int* seg, int batch,
-        int t_len, int d, int heads, uint32_t seed, uint32_t thresh,
-        float dscale, int tp, cudaStream_t stream) {
+        int t_len, int d, int heads, int left, int right, uint32_t seed,
+        uint32_t thresh, float dscale, int tp, cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs proj{};
   proj.job[0] = {x, wq, cu, cv, qu, qv, rows, 1};
@@ -343,7 +357,7 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
   err = launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
                        rows_layout(t_len, heads, dk), lse, batch, t_len,
                        heads, dk, seed, (uint32_t)heads, thresh, dscale, tp,
-                       -1, -1, seg, stream);
+                       left, right, seg, stream);
   if (err != cudaSuccess) return (int)err;
 
   Jobs outp{};
@@ -1177,8 +1191,10 @@ __device__ __forceinline__ void row_dsum(const uint32_t (&qd)[DKP / 16][4],
 // segment scores -1e30 (bwd_scores). A skipped tile adds exactly zero: its
 // pairs were never in the forward's sum. Its window rows still belong to
 // the partial that dpos_kernel sums whole, so the rows outside 64 j_lo ..
-// 64 j_hi + 63 are written as zeros.
-template <int DKP, bool kSeg>
+// 64 j_hi + 63 are written as zeros. A local window (kWin) narrows the
+// key tiles to the forward's (window_tiles, intersected with the span),
+// with the same zeros.
+template <int DKP, bool kSeg, bool kWin>
 __global__ void __launch_bounds__(128) dq_mma_kernel(
     const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
     const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
@@ -1228,6 +1244,7 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
                      n_pos, dk);
   };
   // the key tiles j_lo .. j_hi - 1 to visit: all, or the forward's span
+  // and window
   int j_lo = 0, j_hi = n_tiles;
   const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
   int seg_q[2] = {0, 0};
@@ -1240,7 +1257,13 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
       seg_q[hr] = t < t_len ? seg_row[t] : 0;
     }
   }
-  if (!kSeg || j_lo < j_hi) {
+  if constexpr (kWin) {
+    int w_lo, w_hi;
+    window_tiles(q0, left, right, n_tiles, w_lo, w_hi);
+    j_lo = max(j_lo, w_lo);
+    j_hi = min(j_hi, w_hi);
+  }
+  if (!(kSeg || kWin) || j_lo < j_hi) {
     stage_async<DKP>(Qvs, qv + head_off, q0, kMQ, t_len, dk);
     if constexpr (kQS) {
       stage_async<DKP>(Qus, qu + head_off, q0, kMQ, t_len, dk);
@@ -1280,7 +1303,7 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqu[n][e] = dqv[n][e] = 0.f;
   float* part = dpart + ((size_t)bh * gridDim.x + blockIdx.x) * win * dk;
-  if constexpr (kSeg) {  // the window rows no visited tile reaches
+  if constexpr (kSeg || kWin) {  // the window rows no visited tile reaches
     for (int i = tid; i < kMS * j_lo * dk; i += blockDim.x) part[i] = 0.f;
     for (int i = kMS * (j_hi + 1) * dk + tid; i < win * dk; i += blockDim.x)
       part[i] = 0.f;
@@ -1529,8 +1552,12 @@ __global__ void __launch_bounds__(128) dq_mma_kernel(
 // ldmatrix.trans, in query order. Packed segments (kSeg, seg (B, T)): the
 // block visits query tile i only where the forward's core visited this key
 // tile for it (seg_span of tile i), for any map, so each skipped pair adds
-// exactly zero; a key of another segment scores -1e30 (bwd_scores).
-template <int DKP, bool kSeg>
+// exactly zero; a key of another segment scores -1e30 (bwd_scores). A
+// local window (kWin): the block walks the query tiles that reach its
+// keys, queries k0 - right .. k0 + kMS - 1 + left, and of those visits
+// tile i only where the forward's core visited this key tile for it
+// (window_tiles of tile i), as with segments.
+template <int DKP, bool kSeg, bool kWin>
 __global__ void __launch_bounds__(128) dkv_mma_kernel(
     const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
     const bf16* __restrict__ kk, const bf16* __restrict__ vv,  // (B,H,T,dk)
@@ -1575,7 +1602,8 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
   stage_async<DKP>(Ks, kk + head_off, k0, kMS, t_len, dk);
   stage_async<DKP>(Vs, vv + head_off, k0, kMS, t_len, dk);
   const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
-  if constexpr (kSeg) cp_async_commit();  // drained at the end if unvisited
+  if constexpr (kSeg || kWin)
+    cp_async_commit();  // drained at the end if unvisited
 
   float dkk[kND][4], dvv[kND][4];
 #pragma unroll
@@ -1583,8 +1611,18 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) dkk[n][e] = dvv[n][e] = 0.f;
 
-  for (int i = 0; i < n_tiles; ++i) {
+  int i_lo = 0, i_hi = n_tiles;
+  if constexpr (kWin) {
+    if (right >= 0) i_lo = max(k0 - right, 0) / kMQ;
+    if (left >= 0) i_hi = min(n_tiles, (k0 + kMS - 1 + left) / kMQ + 1);
+  }
+  for (int i = i_lo; i < i_hi; ++i) {
     int seg_q[2] = {0, 0};
+    if constexpr (kWin) {
+      int w_lo, w_hi;
+      window_tiles(i * kMQ, left, right, n_tiles, w_lo, w_hi);
+      if ((int)blockIdx.x < w_lo || (int)blockIdx.x >= w_hi) continue;
+    }
     if constexpr (kSeg) {
       __shared__ int span[4];
       int j_lo, j_hi;
@@ -1685,7 +1723,7 @@ __global__ void __launch_bounds__(128) dkv_mma_kernel(
     }
     __syncthreads();  // query tile i, p and dS are consumed
   }
-  if constexpr (kSeg) cp_async_wait<0>();
+  if constexpr (kSeg || kWin) cp_async_wait<0>();
 
 #pragma unroll
   for (int n = 0; n < kND; ++n)
@@ -1706,7 +1744,8 @@ constexpr int kDposGroups = 8;  // batch groups of the bf16 dP sum
 // dkv_mma_kernel, and dpos_kernel summing the window partials over groups
 // of batch rows into `part`, whose groups sum_parts_kernel adds into dP
 // (2T - 1, H dk) in bf16. `seg` (B, T) or null: the packed-segment map,
-// which selects the kernels' segment mode.
+// which selects the kernels' segment mode; a limited side of the window
+// (left, right) selects their narrowed tiles (kWin).
 template <int DKP>
 cudaError_t score_grads_mma(const void* qu, const void* qv, const void* k,
                             const void* v, const void* p,
@@ -1724,8 +1763,15 @@ cudaError_t score_grads_mma(const void* qu, const void* qv, const void* k,
   const int n_qt = (t_len + kMQ - 1) / kMQ, n_kt = (t_len + kMS - 1) / kMS;
   const int win = kMS * (n_kt + 1);
   const float scale = 1.f / sqrtf((float)dk);
-  auto* dq = seg ? dq_mma_kernel<DKP, true> : dq_mma_kernel<DKP, false>;
-  auto* dkv = seg ? dkv_mma_kernel<DKP, true> : dkv_mma_kernel<DKP, false>;
+  const bool lim = left >= 0 || right >= 0;
+  auto* dq = seg ? (lim ? dq_mma_kernel<DKP, true, true>
+                        : dq_mma_kernel<DKP, true, false>)
+                 : (lim ? dq_mma_kernel<DKP, false, true>
+                        : dq_mma_kernel<DKP, false, false>);
+  auto* dkv = seg ? (lim ? dkv_mma_kernel<DKP, true, true>
+                         : dkv_mma_kernel<DKP, true, false>)
+                  : (lim ? dkv_mma_kernel<DKP, false, true>
+                         : dkv_mma_kernel<DKP, false, false>);
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(dq,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1767,7 +1813,8 @@ size_t dq_smem(int dk, int win) {
 // The fp32 score gradients (the check dtype): dq_kernel, dkv_kernel and
 // dpos_kernel, SIMT. With `seg` (B, T) the segment mode: every key tile is
 // visited, as core_kernel<T, true> visits them, and a key of another
-// segment scores -1e30.
+// segment scores -1e30; a window masks in the same way, without narrowing
+// the tiles.
 template <typename T>
 cudaError_t score_grads_simt(const void* qu, const void* qv, const void* k,
                         const void* v, const void* p, const float* key_bias,
@@ -1859,8 +1906,9 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
             const void* ctx, const void* pe, void* dctx, void* grads,
             float* dsum, float* dpart, float* dpos, void* dx, float* part,
             float* dw_all, float* dwo, float* dwpos, const int* seg,
-            int batch, int t_len, int d, int heads, uint32_t seed,
-            uint32_t thresh, float dscale, int tp, cudaStream_t stream) {
+            int batch, int t_len, int d, int heads, int left, int right,
+            uint32_t seed, uint32_t thresh, float dscale, int tp,
+            cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs dc{};
   dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 1};
@@ -1871,7 +1919,7 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
                        rows_layout(t_len, heads, dk), grads,
                        rows_layout(t_len, 4 * heads, dk), d, dsum, dpart,
                        dpos, part, batch, t_len, heads, dk, seed,
-                       (uint32_t)heads, thresh, dscale, tp, -1, -1, seg,
+                       (uint32_t)heads, thresh, dscale, tp, left, right, seg,
                        stream);
   if (err != cudaSuccess) return (int)err;
 
@@ -1949,7 +1997,8 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
 // dk % 4 == 0; scratch q_u, q_v, k, v sized
 // (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d); lse (B, H, T) fp32
 // or null; seg (B, T) int32 packed-segment map or null (under autograd the
-// backward takes the same map, tat_attention_bwd). Dropout on the
+// backward takes the same map, tat_attention_bwd). Keys outside the window
+// (left, right) score -1e30; -1 is unlimited. Dropout on the
 // probabilities when thresh > 0: stream seed + b * H + h, idx t * tp + s,
 // kept values scaled by dscale.
 extern "C" int tat_attention(int bf16, const void* x, const void* wq,
@@ -1959,9 +2008,9 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
                              const void* key_bias, void* qu, void* qv,
                              void* k, void* v, void* p, void* ctx, void* out,
                              void* lse, const void* seg, int batch, int t_len,
-                             int d, int heads, unsigned int seed,
-                             unsigned int thresh, float dscale, int tp,
-                             void* stream) {
+                             int d, int heads, int left, int right,
+                             unsigned int seed, unsigned int thresh,
+                             float dscale, int tp, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float *cu_ = (const float*)cu, *cv_ = (const float*)cv,
               *bk_ = (const float*)bk, *bv_ = (const float*)bv,
@@ -1970,11 +2019,11 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
   return bf16 ? run<__nv_bfloat16>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_,
                                    bv_, pe, kb_, qu, qv, k, v, p, ctx, out,
                                    (float*)lse, seg_, batch, t_len, d, heads,
-                                   seed, thresh, dscale, tp, s)
+                                   left, right, seed, thresh, dscale, tp, s)
               : run<float>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_, bv_, pe,
                            kb_, qu, qv, k, v, p, ctx, out, (float*)lse, seg_,
-                           batch, t_len, d, heads, seed, thresh, dscale, tp,
-                           s);
+                           batch, t_len, d, heads, left, right, seed, thresh,
+                           dscale, tp, s);
 }
 
 // Backward of tat_attention from its saved forward (x, q_u, q_v, k, v, p,
@@ -1989,7 +2038,7 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
 // ceil(B / ceil(B / 8))) fp32. Outputs: dx (B, T, d) in the working dtype;
 // fp32 dw_all (4d, d + 1) = [dq_u | dq_v | dk | dv]^T [x | 1], dwo (d, d),
 // dwpos (d, d). seg: the forward's (B, T) int32 packed-segment map, or
-// null.
+// null; (left, right): the forward's window.
 extern "C" int tat_attention_bwd(
     int bf16, const void* g, const void* x, const void* wo_t,
     const void* wcat, const void* qu, const void* qv, const void* k,
@@ -1997,8 +2046,8 @@ extern "C" int tat_attention_bwd(
     const void* ctx, const void* pe, void* dctx, void* grads, void* dsum,
     void* dpart, void* dpos, void* dx, void* part, void* dw_all, void* dwo,
     void* dwpos, const void* seg, int batch, int t_len, int d, int heads,
-    unsigned int seed, unsigned int thresh, float dscale, int tp,
-    void* stream) {
+    int left, int right, unsigned int seed, unsigned int thresh,
+    float dscale, int tp, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   auto F = [](const void* q) { return (float*)q; };
   const int* seg_ = (const int*)seg;
@@ -2006,12 +2055,13 @@ extern "C" int tat_attention_bwd(
                     g, x, wo_t, wcat, qu, qv, k, v, p, F(key_bias), F(lse),
                     ctx, pe, dctx, grads, F(dsum), F(dpart), F(dpos), dx,
                     F(part), F(dw_all), F(dwo), F(dwpos), seg_, batch, t_len,
-                    d, heads, seed, thresh, dscale, tp, s)
+                    d, heads, left, right, seed, thresh, dscale, tp, s)
               : run_bwd<float>(g, x, wo_t, wcat, qu, qv, k, v, p,
                                F(key_bias), F(lse), ctx, pe, dctx, grads,
                                F(dsum), F(dpart), F(dpos), dx, F(part),
                                F(dw_all), F(dwo), F(dwpos), seg_, batch,
-                               t_len, d, heads, seed, thresh, dscale, tp, s);
+                               t_len, d, heads, left, right, seed, thresh,
+                               dscale, tp, s);
 }
 
 // Per-head attention (fused_relpos_attention). The wrapper guarantees:

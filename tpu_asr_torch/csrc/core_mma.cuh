@@ -59,6 +59,18 @@ using bf16 = __nv_bfloat16;
 //     whole row's map in every block; a span table built once per forward
 //     would spare it, but built with torch ops on the device it costs more
 //     than the scans of all the layers it serves (PERF.md, section 6).
+//   - a local window (kWin, left / right >= 0 on a side that is limited):
+//     the queries q0 .. q0 + 63 see keys q0 - left .. q0 + 63 + right
+//     at most, so the block walks only the key tiles of that range
+//     (window_tiles), with segments the intersection with the span. The
+//     position rows follow the key tile, so they narrow with it. A skipped
+//     tile would only have added keys at -1e30 (the window's mask inside a
+//     visited tile stays in_window's), whose weight is exactly 0 once a
+//     finite score has been seen, and a valid query always sees itself: the
+//     result is the full sweep's, and the work falls from T^2 to about
+//     T (left + right + 128) a head. A padded query whose window holds only
+//     padded keys gets the uniform average over the visited tiles' keys
+//     instead of over the row's: finite garbage that the layer re-masks.
 // What bounds it: at B=32, T=376, H=4, dk=44 the products are 4.8 GFLOP
 // per layer, 5 us at the bf16 tensor rate; the SIMT core (core_tile) is
 // held back by its shared-memory operand loads, three float4s per 8 FMAs.
@@ -155,6 +167,19 @@ __device__ __forceinline__ void seg_span(const int* __restrict__ seg_row,
   j_hi = any ? (span[3] + kMS - 1) / kMS : 0;
 }
 
+// The key tiles [j_lo, j_hi) of n_tiles that the window (left, right)
+// lets the kMQ queries q0 .. reach: keys q0 - left .. q0 + kMQ - 1 + right,
+// a side at -1 unlimited. The forward's core and the dq pass narrow their
+// key tiles to it, and the dkv pass visits query tile i only where its key
+// tile lies in tile i's range, so each backward recomputes exactly the
+// tiles its forward summed.
+__device__ __forceinline__ void window_tiles(int q0, int left, int right,
+                                             int n_tiles, int& j_lo,
+                                             int& j_hi) {
+  j_lo = left < 0 ? 0 : max(q0 - left, 0) / kMS;
+  j_hi = right < 0 ? n_tiles : min(n_tiles, (q0 + kMQ - 1 + right) / kMS + 1);
+}
+
 // Rows first .. first + n - 1 of a (valid, dk) bf16 matrix into dst (row
 // stride DKP + 8) in 8-byte pieces, zero outside [0, valid) and past dk
 // (dk % 4 == 0).
@@ -178,8 +203,10 @@ __device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
 // threads, all of which call it. It reads shared memory from its first
 // instruction, so a block that calls it again first passes a barrier.
 // core_mma_kernel runs one tile a block; layer.cu's layer_mma_kernel walks
-// the tiles of its attention phase with it.
-template <int DKP, bool kSeg>
+// the tiles of its attention phase with it. kWin: the key tiles narrow to
+// the window's (window_tiles); without it every tile is visited and the
+// window, if any, only masks.
+template <int DKP, bool kSeg, bool kWin = false>
 __device__ __forceinline__ void core_mma_tile(
     char* smem_raw,
     const bf16* __restrict__ qu, const bf16* __restrict__ qv,  // (B,H,T,dk)
@@ -223,7 +250,8 @@ __device__ __forceinline__ void core_mma_tile(
                      n_pos, dk);
   };
   // the key tiles j_lo .. j_hi - 1 to visit: all of them, or with packed
-  // segments those of the span of the tile's valid queries' segments
+  // segments those of the span of the tile's valid queries' segments, and
+  // with kWin those the window reaches
   int j_lo = 0, j_hi = n_tiles;
   const int* seg_row = kSeg ? seg + (size_t)b * t_len : nullptr;
   int seg_q[2] = {0, 0};
@@ -235,6 +263,12 @@ __device__ __forceinline__ void core_mma_tile(
       const int t = tw + g + 8 * hr;
       seg_q[hr] = t < t_len ? seg_row[t] : 0;
     }
+  }
+  if constexpr (kWin) {
+    int w_lo, w_hi;
+    window_tiles(q0, left, right, n_tiles, w_lo, w_hi);
+    j_lo = max(j_lo, w_lo);
+    j_hi = min(j_hi, w_hi);
   }
   if (j_lo < j_hi) {
     stage_async<DKP>(Qu, qu + head_off, q0, kMQ, t_len, dk);

@@ -21,8 +21,17 @@ and `mask` the (B, T) key validity. Operands are in x's dtype (fp32 or bf16)
 with fp32 accumulation, rounded where the TPU kernel rounds them: the
 projections, the attention weights and the context. The plain version keeps
 JAX's rel_shift construction; the kernel gathers the shifted positions.
-The kernels' shared core takes a local window (`local_window`); the block
-wrapper still refuses one (att_context_size is outside the model slice).
+
+Limited context (`att_context_size` (left, right), NeMo's
+rel_pos_local_attn; -1 on a side is unlimited): key s is visible from
+query t only where -left <= s - t <= right (`local_window`, the rule of
+tpu_asr/ops/pallas_attention.py::_local_mask), forward and backward, with
+or without `seg_id` (both masks apply). The bf16 kernels visit only the
+key tiles the window reaches (the backward only the tile pairs its forward
+visited), so a window of W keys costs about T (W + 128) score pairs a head
+instead of T^2; fp32 masks every tile. A padded query whose window holds
+only padded keys averages over the visited tiles' keys, not the row's:
+garbage by contract, like every padded row.
 
 Packed segments (`seg_id`, (B, T) int, data/packing.py): key s is visible
 from query t only where seg_id[t] == seg_id[s], on top of the key bias of
@@ -60,9 +69,9 @@ from tpu_asr_torch.ops.dropout import batch_streams, keep_mask, threshold
 from tpu_asr_torch.ops.positions import (position_table,
                                          rel_positional_encoding)
 
-_ARGS = ((K.INT,) + (K.PTR,) * 21 + (K.INT,) * 4 + (K.UINT,) * 2
+_ARGS = ((K.INT,) + (K.PTR,) * 21 + (K.INT,) * 6 + (K.UINT,) * 2
          + (K.FLOAT, K.INT, K.PTR))
-_BWD_ARGS = ((K.INT,) + (K.PTR,) * 24 + (K.INT,) * 4 + (K.UINT,) * 2
+_BWD_ARGS = ((K.INT,) + (K.PTR,) * 24 + (K.INT,) * 6 + (K.UINT,) * 2
              + (K.FLOAT, K.INT, K.PTR))
 _HEADS_ARGS = ((K.INT,) + (K.PTR,) * 10 + (K.INT,) * 6 + (K.UINT,) * 3
                + (K.FLOAT, K.INT, K.PTR))
@@ -119,7 +128,9 @@ def _dpart_shape(dtype: torch.dtype, b: int, h: int, t: int, dk: int):
     """The dq kernels' position-window partials: per (batch row, head,
     query block) a window of relative positions. bf16 (dq_mma_kernel):
     64-query blocks, 64 (ceil(T / 64) + 1) rows; fp32 (dq_kernel):
-    32-query blocks, 32 ceil(T / 32) + 31 rows."""
+    32-query blocks, 32 ceil(T / 32) + 31 rows. O(T^2) fp32 whatever the
+    window: with one, the rows no visited tile reaches are written as
+    zeros."""
     if dtype == torch.bfloat16:
         n = -(-t // 64)
         return (b, h, n, 64 * (n + 1), dk)
@@ -197,12 +208,12 @@ def attention_context(q_u, q_v, k, v, p, mask, r,
     return r(attn) @ v
 
 
-def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
-                           wo, pos_emb, mask, n_heads: int,
-                           dropout_rate: float = 0.0,
-                           dropout_seed: int = 0,
-                           seg_id: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+def project_heads(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
+                  pos_emb, n_heads: int):
+    """The block sublayer's per-head operands of x (B, T, D): q_u = q + u,
+    q_v = q + v, k, v (B, H, T, dk) and the projected position table p
+    (2T - 1, H, dk), fp32 holding values rounded to x's dtype where the
+    kernel rounds them."""
     dt = x.dtype
 
     def r(z):               # round to the working dtype, compute in fp32
@@ -221,11 +232,32 @@ def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
     k = heads(r(xf @ r(wk).t() + bk))
     v = heads(r(xf @ r(wv).t() + bv))
     p = r(r(pos_emb) @ r(w_pos).t()).view(-1, h, dk)          # (2T-1, H, dk)
+    return q_u, q_v, k, v, p
+
+
+def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
+                           wo, pos_emb, mask, n_heads: int,
+                           dropout_rate: float = 0.0,
+                           dropout_seed: int = 0,
+                           seg_id: Optional[torch.Tensor] = None,
+                           att_context_size: Tuple[int, int] = (-1, -1)
+                           ) -> torch.Tensor:
+    """The block sublayer (without the linear_out bias) in plain
+    PyTorch: `attention_context` on the projected heads, with the window
+    `att_context_size` and the segment map `seg_id` (both optional)."""
+    dt = x.dtype
+
+    def r(z):               # round to the working dtype, compute in fp32
+        return z.to(dt).float()
+
+    b, t, d = x.shape
+    h = n_heads
+    q_u, q_v, k, v, p = project_heads(x, wq, bq, wk, bk, wv, bv, bias_u,
+                                      bias_v, w_pos, pos_emb, h)
     ctx = attention_context(q_u, q_v, k, v, p, mask, r,
-                            dropout_rate=dropout_rate,
-                            streams=head_streams(dropout_seed, b, h,
-                                                 x.device),
-                            seg_id=seg_id)
+                            tuple(att_context_size), dropout_rate,
+                            head_streams(dropout_seed, b, h, x.device),
+                            seg_id)
     ctx = r(ctx.transpose(1, 2).reshape(b, t, d))
     return (ctx @ r(wo).t()).to(dt)
 
@@ -284,7 +316,7 @@ def _block_weights(wq, wk, wv, w_pos, wo, bq, bias_u, bias_v, bk, bv, dt):
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo,
-                pos_emb, mask, n_heads, rate, seed, seg):
+                pos_emb, mask, n_heads, rate, seed, seg, window):
         dt = x.dtype
         b, t, d = x.shape
         h = n_heads
@@ -308,12 +340,17 @@ class _Attention(torch.autograd.Function):
         K.call("tat_attention", _ARGS, x.device, int(dt == torch.bfloat16),
                *(z.data_ptr() for z in tensors),
                *(None if z is None else z.data_ptr() for z in (lse, seg)),
-               b, t, d, h, *_drop_args(rate, seed), _round_up(t, 128))
+               b, t, d, h, *window, *_drop_args(rate, seed),
+               _round_up(t, 128))
         fused_relpos_attention_block.launches += 1
+        if window != (-1, -1):
+            fused_relpos_attention_block.window_launches += 1
         if train:
             # seg is an int map without gradient, kept beside the saved
-            # tensors: the backward's segment mode reads the same map
+            # tensors: the backward's segment mode reads the same map, and
+            # its window the same window
             ctx.n_heads, ctx.rate, ctx.seed, ctx.seg = h, rate, seed, seg
+            ctx.window = window
             ctx.save_for_backward(x, *w, qu, qv, k, v, p, ctx_buf, lse,
                                   key_bias, pe)
         return out
@@ -321,20 +358,24 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         grads = fused_relpos_attention_block_bwd(
-            g, *ctx.saved_tensors, ctx.n_heads, ctx.rate, ctx.seed, ctx.seg)
-        return grads + (None,) * 6
+            g, *ctx.saved_tensors, ctx.n_heads, ctx.rate, ctx.seed, ctx.seg,
+            ctx.window)
+        return grads + (None,) * 7
 
 
 def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
                                      v, p, ctx_buf, lse, key_bias, pe,
                                      n_heads: int, dropout_rate: float = 0.0,
                                      dropout_seed: int = 0,
-                                     seg: Optional[torch.Tensor] = None):
+                                     seg: Optional[torch.Tensor] = None,
+                                     att_context_size: Tuple[int, int] = (
+                                         -1, -1)):
     """Grads (dx, dwq, dbq, dwk, dbk, dwv, dbv, d bias_u, d bias_v, dw_pos,
     dwo) of the sublayer from its saved forward (weights in x's dtype,
     PyTorch layouts) for the cotangent g. `seg`: the forward's (B, T) int32
     segment map, or None; with it the segment mode launches, and
-    `seg_launches` counts it beside `launches`."""
+    `seg_launches` counts it beside `launches`. `att_context_size`: the
+    forward's window; a limited one is counted in `window_launches`."""
     dt = x.dtype
     b, t, d = x.shape
     h = n_heads
@@ -365,13 +406,16 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
                dw_all, dwo, dwpos)
     K.check_cuda("fused_relpos_attention_block_bwd", *tensors,
                  *(() if seg is None else (seg,)))
+    window = tuple(int(c) for c in att_context_size)
     K.call("tat_attention_bwd", _BWD_ARGS, dev, int(dt == torch.bfloat16),
            *(z.data_ptr() for z in tensors),
-           None if seg is None else seg.data_ptr(), b, t, d, h,
+           None if seg is None else seg.data_ptr(), b, t, d, h, *window,
            *_drop_args(dropout_rate, dropout_seed), _round_up(t, 128))
     fused_relpos_attention_block_bwd.launches += 1
     if seg is not None:
         fused_relpos_attention_block_bwd.seg_launches += 1
+    if window != (-1, -1):
+        fused_relpos_attention_block_bwd.window_launches += 1
     dw, cols = dw_all[:, :d], dw_all[:, d]
     dcu, dcv = cols[:d], cols[d:2 * d]
     return (dx, dw[:d] + dw[d:2 * d], dcu + dcv, dw[2 * d:3 * d],
@@ -400,18 +444,17 @@ def fused_relpos_attention_block(
     plain version; a CUDA tensor launches the forward kernel (three
     launches) and, under autograd, the backward. `seg_id` (B, T) int, the
     packed-segment map, runs the kernels' segment mode, forward and
-    backward. A limited context raises."""
-    if tuple(att_context_size) != (-1, -1):
-        raise ValueError(
-            "fused_relpos_attention_block supports full-context attention "
-            "only (att_context_size=(-1, -1))")
+    backward; `att_context_size` (left, right) their window, alone or with
+    the segments. `window_launches` counts the launches with a limited
+    window beside `launches`."""
+    window = tuple(int(c) for c in att_context_size)
     args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
             mask)
     train = torch.is_grad_enabled() and any(
         z.requires_grad for z in args if isinstance(z, torch.Tensor))
     if x.device.type == "cpu":
         return relpos_attention_plain(*args, n_heads, dropout_rate,
-                                      dropout_seed, seg_id)
+                                      dropout_seed, seg_id, window)
     if not x.is_cuda:
         raise ValueError(f"fused_relpos_attention_block: unsupported device "
                          f"{x.device}")
@@ -419,12 +462,14 @@ def fused_relpos_attention_block(
     _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, n_heads,
            train, seg)
     return _Attention.apply(*args, n_heads, float(dropout_rate),
-                            int(dropout_seed), seg)
+                            int(dropout_seed), seg, window)
 
 
 fused_relpos_attention_block.launches = 0
+fused_relpos_attention_block.window_launches = 0
 fused_relpos_attention_block_bwd.launches = 0
 fused_relpos_attention_block_bwd.seg_launches = 0
+fused_relpos_attention_block_bwd.window_launches = 0
 
 
 # ---------------------------------------------------------------------------

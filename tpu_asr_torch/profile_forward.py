@@ -1,12 +1,15 @@
 """Time and profile the CTCModel forward on one CUDA card, on the
 hand-written kernels ('auto') and on the plain PyTorch versions ('xla').
 
-    python -m tpu_asr_torch.profile_forward [--model small|large|xlarge]
+    python -m tpu_asr_torch.profile_forward [--model small|large|xlarge|
+        fastconformer_local]
         [--quantization none|int8] [--conv_backend auto|pallas] [--out FILE]
 
 `--model` (`model_config`): `ModelConfig()` (small, the default),
 conformer-LARGE (d512, 18 layers, 8 heads) or conformer-XLarge (d1024, 24
-layers, 8 heads, dk 128, conv k=5), at its own compute dtype (bf16) with
+layers, 8 heads, dk 128, conv k=5) or FastConformer-Large with limited
+context (fastconformer_local: d512, 17 layers, dw_striding x8, window
+(128, 128), 1024 tokens), at its own compute dtype (bf16) with
 seeded random weights (`seeded_model`), its encoder's `quantization` and
 `conv_backend` as given (int8 serving: `--quantization int8 --conv_backend
 pallas`; the int8 FFN kernel takes D <= 512, so not XLarge), at B=32 x
@@ -42,7 +45,7 @@ import torch
 
 SR = 16000
 SHAPES = ((32, 15.0), (8, 16.0))        # (clips, seconds)
-MODELS = ("small", "large", "xlarge")    # model_config
+MODELS = ("small", "large", "xlarge", "fastconformer_local")  # model_config
 BIG_D = 512          # from this width models are built and seeded on the card
 PACK_ROWS, T_PACK = 16, 512    # the packed serve shape (PackedTranscriber)
 ITERS, TOP = 10, 8
@@ -79,11 +82,15 @@ GROUPS = (("core_mma_kernel<128", "attention fwd dk128"),
 
 def group_of(name: str) -> str:
     """A kernel's group; an attention kernel's segment mode (packed rows,
-    its `kSeg` template argument true) is a group of its own."""
+    its `kSeg` template argument true) and its narrowed window (the
+    tensor-core kernels' `kWin`, the third) are groups of their own."""
     for prefix, group in GROUPS:
         if prefix in name:
-            return (f"{group} (segments)" if re.search(r", true[,>]", name)
-                    else group)
+            seg = re.search(r"<[^,<>]+, true[,>]", name)
+            win = re.search(r"<[^,<>]+, (?:true|false), true>", name)
+            modes = ", ".join(m for m, on in (("segments", seg),
+                                              ("window", win)) if on)
+            return f"{group} ({modes})" if modes else group
     if ("gemm" in name or "cutlass" in name or "sm90" in name
             or "nvjet" in name):
         return "cuBLAS/cuDNN products"
@@ -108,7 +115,8 @@ def short_symbol(name: str) -> str:
     `kernel`, `kernel<N>` (its first integer template argument) or
     `kernel<float>` / `kernel<bf16>` (its first type argument), with a
     bool second argument (the attention kernels' segment mode) as
-    `kernel<N, true>`, a second integer one (layer_mma_kernel's) as
+    `kernel<N, true>`, and a bool third one (their window) as
+    `kernel<N, true, false>`, a second integer one (layer_mma_kernel's) as
     `kernel<N, M>` and an integer after a type and a bool (the fp32
     attention kernels' column slots) as `kernel<float, false, 4>`."""
     m = re.match(r"_ZN(\d+)", name)
@@ -118,10 +126,12 @@ def short_symbol(name: str) -> str:
     at = m.end() + int(m.group(1)) + k.end()
     end = at + int(k.group(1))
     flag = lambda b: "" if b is None else ", true" if b == "1" else ", false"
-    arg = re.match(r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?", name[end:])
+    arg = re.match(r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?",
+                   name[end:])
     if arg:
         second = f", {arg.group(2)}" if arg.group(2) else ""
-        return f"{name[at:end]}<{arg.group(1)}{second}{flag(arg.group(3))}>"
+        return (f"{name[at:end]}<{arg.group(1)}{second}{flag(arg.group(3))}"
+                f"{flag(arg.group(4))}>")
     typ = re.match(r"I(f|13__nv_bfloat16)(?:Lb([01])E)?(?:Li(\d+)E)?",
                    name[end:])
     slots = lambda n: "" if n is None else f", {n}"
@@ -157,7 +167,13 @@ def model_config(name: str):
     conformer-LARGE, bench.py's large_cfg (d512, 18 layers, 8 heads, d_ff
     2048, no SpecAugment, 128 classes: 121 M parameters); 'xlarge'
     conformer-XLarge, bench.py's xl_cfg (d1024, 24 layers, 8 heads: dk 128,
-    conv k=5: 635 M parameters)."""
+    conv k=5: 635 M parameters); 'fastconformer_local' the widths of NVIDIA
+    NeMo's Fast Conformer Large (examples/asr/conf/fastconformer/
+    fast-conformer_ctc_bpe.yaml: d512, 17 layers, 8 heads, dw_striding x8
+    with 256 channels, conv k=9, batch norm) with the limited context of
+    its long-form variant (long_fastconformer/: rel_pos_local_attn, window
+    (128, 128)), no SpecAugment, a 1024-piece tokenizer plus the blank:
+    109.3 M parameters."""
     from tpu_asr_torch.config import (DecoderConfig, EncoderConfig,
                                       ModelConfig)
     if name == "small":
@@ -175,6 +191,18 @@ def model_config(name: str):
                                                  conv_kernel_size=5),
                            decoder=DecoderConfig(feat_in=1024,
                                                  num_classes=128))
+    if name == "fastconformer_local":
+        return ModelConfig(
+            spec_augment=None,
+            encoder=EncoderConfig(
+                n_layers=17, d_model=512, n_heads=8, ff_expansion_factor=4,
+                subsampling="dw_striding", subsampling_factor=8,
+                subsampling_conv_channels=256, conv_kernel_size=9,
+                conv_norm_type="batch_norm",
+                self_attention_model="rel_pos_local_attn",
+                att_context_size=(128, 128), att_context_style="regular",
+                global_tokens=0, xscaling=True),
+            decoder=DecoderConfig(feat_in=512, num_classes=1024))
     raise ValueError(f"unknown model {name!r}; one of {MODELS}")
 
 

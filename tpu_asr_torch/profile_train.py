@@ -2,7 +2,8 @@
 kernels ('auto') and on the plain PyTorch versions ('xla').
 
     python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8|
-        flowkd_mlp8_int8_teacher|ctc_large|ctc_xlarge] [--packed] [--out FILE]
+        flowkd_mlp8_int8_teacher|ctc_large|ctc_xlarge|ctc_fastconformer_local]
+        [--packed] [--out FILE]
 
 DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
 at its own compute dtype (bf16) with seeded random weights and
@@ -11,8 +12,9 @@ the `distill` of bench_train.py's configuration of that name: `ctc_student`
 (CTC only), `flowkd_mlp8` (frozen teacher, logit KD at alpha 0.1 and
 FM-KT with the mlp meta encoder, 8 Euler steps over all 16 layers) or
 `flowkd_mlp8_int8_teacher` (the same with the teacher's FFN sublayers
-through the int8 serving kernel); `ctc_large` and `ctc_xlarge` train
-conformer-LARGE and conformer-XLarge themselves
+through the int8 serving kernel); `ctc_large`, `ctc_xlarge` and
+`ctc_fastconformer_local` train conformer-LARGE, conformer-XLarge and
+FastConformer-Large with limited context themselves
 (profile_forward.model_config) with the CTC loss alone, as bench_train.py's
 LARGE step does (the teacher gated off). Per
 backend it prints one line with:
@@ -56,7 +58,9 @@ from tpu_asr_torch.profile_forward import (built_on, device_activity,
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
 CONFIGS = ("ctc_student", "flowkd_mlp8", "flowkd_mlp8_int8_teacher",
-           "ctc_large", "ctc_xlarge")
+           "ctc_large", "ctc_xlarge", "ctc_fastconformer_local")
+CTC_ONLY = ("ctc_student", "ctc_large", "ctc_xlarge",
+            "ctc_fastconformer_local")
 # bench_train.py's packed_train: utterances, seed, the longest clip (s),
 # rows of T_PACK subsampled frames, 4 linear duration buckets
 N_UTTS, PACK_SEED, MAX_S, T_PACK, BUCKETS = 512, 3, 16.7, 512, 4
@@ -65,7 +69,7 @@ N_UTTS, PACK_SEED, MAX_S, T_PACK, BUCKETS = 512, 3, 16.7, 512, 4
 def distill_config(name: str):
     """The DistillationConfig of bench_train.py's configuration `name`."""
     from tpu_asr_torch.config import DistillationConfig, FlowMatchingConfig
-    if name in ("ctc_student", "ctc_large", "ctc_xlarge"):
+    if name in CTC_ONLY:
         return DistillationConfig()
     if name in ("flowkd_mlp8", "flowkd_mlp8_int8_teacher"):
         flow = FlowMatchingConfig(meta_encoder_type="mlp", student_dim=88,
@@ -89,11 +93,11 @@ def teacher_config(name: str):
 
 def student_config(name: str):
     """The trained model's ModelConfig of configuration `name`: the student
-    of ModelConfig(), or conformer-LARGE / XLarge for ctc_large /
-    ctc_xlarge."""
+    of ModelConfig(), or the profile_forward.model_config of the name
+    after `ctc_` for ctc_large, ctc_xlarge and ctc_fastconformer_local."""
     from tpu_asr_torch.config import ModelConfig, make_student_config
     from tpu_asr_torch.profile_forward import model_config
-    if name in ("ctc_large", "ctc_xlarge"):
+    if name in CTC_ONLY[1:]:
         return model_config(name[4:])
     if name not in CONFIGS:
         raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
