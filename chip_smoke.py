@@ -264,6 +264,32 @@ Phases, each on its own output lines:
      B=4 x 45 s (T'=563) by phase 7's rules, the windowed backward once a
      layer, 10 timed bf16 steps at B=32 x 15 s, and the CTC pair at
      V=1025 against its plain versions with its device times.
+  21. the rest of KD, at the flagship widths: (a) flowkd_router16
+     (profile_train: flowkd_mlp8 with the dynamic step router,
+     RouterConfig(max_steps=16, stu_dim=88, tch_dim=176, num_layers=16),
+     strategy 'group', up to 16 Euler steps a row) by phase 9's rules: one
+     fp32 step at B=8 x 15 s on kernels against plain (every loss of the
+     configuration within 1e-4 relative, every gradient by phase 7's rule,
+     router.* among them, the teacher bit-unchanged), both runs drawing
+     the same Gumbel noise from the step's generators: their step counts
+     equal wherever the plain run's top-2 margin of logits + noise
+     exceeds 1e-3 (the rows under it and the flips printed); then 10 timed
+     bf16 steps at B=32 x 15 s: losses finite, every KD kernel launched
+     (the FM pair on ragged per-row counts), the histogram of the drawn
+     counts (at least 3 distinct) and the FM launches a step; the FM pair
+     against its plain version at the shapes the timed steps give it: 512
+     rows x T'=376 at C=88, H=128 on the step counts the router drew in
+     the last timed step, fp32 and bf16, and 512 rows at diffm's latent
+     C=64, H=128, 8 steps, bf16; (b) kd_menu
+     (layerwise KD over all layers, DiffKD, diffm ver 6 with its two latent
+     FMs at C=64, H=128, interCTC on layer 7, logit KD) the same, 3 timed
+     steps (its fp32 FM falls back to plain: the fp32 kernels take C=88
+     only, so (a) holds its bf16 latent FM against plain); (c) flowkd_router16's eval forward in fp32 on phase 4's clips,
+     kernels against plain, the teacher running for the router: step
+     counts by the margin rule, log-probs within 2e-3, greedy ids where
+     the top-2 margin exceeds 1e-3, the FM kernel launched; (d) one bf16
+     flowkd step with each other meta encoder (cnn, swin, conformer, unet;
+     B=8): losses finite, no FM kernel launch.
 Each phase's seconds are printed after it.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
@@ -2029,47 +2055,99 @@ def fm_kernel_phase():
             "fm_bwd": per_dt[torch.bfloat16][1]}
 
 
-def kd_model(scfg, tcfg, seed: int):
+def kd_model(scfg, tcfg, seed: int, distill):
+    """DistilCTCModel with the DistillationConfig `distill`, seeded
+    weights, on the card."""
     from tpu_asr_torch.models.distil_model import DistilCTCModel
     from tpu_asr_torch.profile_forward import seed_weights
-    from tpu_asr_torch.profile_train import distill_config
-    return seed_weights(DistilCTCModel(scfg, tcfg,
-                                       distill_config("flowkd_mlp8")),
-                        seed).cuda()
+    return seed_weights(DistilCTCModel(scfg, tcfg, distill), seed).cuda()
 
 
-def kd_train_phase(tcfg, name: str = "flowkd_mlp8"):
-    """The fp32 KD step (`name`: the flowkd_mlp8 distillation, teacher
-    `tcfg`) on kernels against plain, then the timed bf16 steps. Returns
-    {row name: launches} of the timed steps."""
+def loss_names(d) -> set:
+    """The losses a DistillationConfig `d` gives in training."""
+    from tpu_asr_torch.kd.diffm import LOSSES
+    names = {"ctc", "total"}
+    names |= {"flow_matching"} if d.use_flow_matching else set()
+    names |= ({"router"} if d.use_flow_matching and d.flow.use_dynamic_steps
+              else set())
+    names |= {"logit_kd"} if d.use_logit_distillation else set()
+    names |= {"layer_kd"} if d.use_layerwise_distillation else set()
+    names |= {"diffkd"} if d.use_diffkd else set()
+    names |= {f"diffm/{k}" for k in LOSSES} if d.use_diffm else set()
+    return names
+
+
+def router_steps(model):
+    """A forward hook on model.router keeping each call's (steps, logits);
+    returns (the list, the hook's handle)."""
+    calls = []
+    handle = model.router.register_forward_hook(
+        lambda m, args, out: calls.append((out[0].detach(),
+                                           out[2]["logits"].detach())))
+    return calls, handle
+
+
+def router_flips(steps_k, steps_p, scores_p, label: str) -> None:
+    """Step counts of a kernels run against a plain run drawn from the
+    same generators: equal wherever the plain run's top-2 margin of the
+    scores (logits + Gumbel noise in training, logits in eval) exceeds
+    1e-3; the rows under that margin are printed."""
+    top2 = scores_p.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 1e-3
+    differ = steps_k != steps_p
+    check(not bool((differ & decided).any()),
+          f"{label}: router step counts of kernels and plain equal on all "
+          f"{int(decided.sum())} of {decided.numel()} rows whose plain top-2 "
+          f"margin exceeds 1e-3")
+    print(f"{label}: {int((~decided).sum())} rows under the 1e-3 margin, "
+          f"{int(differ.sum())} step counts differ (flips)")
+
+
+def kd_train_phase(tcfg, name: str = "flowkd_mlp8",
+                   steps: int = TRAIN_STEPS):
+    """The fp32 KD step (`name`: a profile_train distillation, teacher
+    `tcfg`) on kernels against plain, then `steps` timed bf16 steps.
+    Returns ({row name: launches} of the timed steps, [router steps of
+    each timed step] when the configuration routes)."""
     import copy
 
     from tpu_asr_torch.config import OptimConfig, make_student_config
+    from tpu_asr_torch.convert.from_jax import KD_MODULES
+    from tpu_asr_torch.kd.router import gumbel_noise
     from tpu_asr_torch.profile_forward import set_backend
+    from tpu_asr_torch.profile_train import distill_config
     from tpu_asr_torch.train.trainer import (DistilTrainState,
-                                             make_distil_train_step)
+                                             make_distil_train_step,
+                                             step_rngs)
 
     f32 = lambda cfg: dataclasses.replace(cfg, compute_dtype="float32")
     scfg = make_student_config(with_encoder(tcfg, quantization="none"))
-    model = kd_model(f32(scfg), f32(tcfg), 10)
+    distill = distill_config(name)
+    routed = distill.use_flow_matching and distill.flow.use_dynamic_steps
+    model = kd_model(f32(scfg), f32(tcfg), 10, distill)
     init = copy.deepcopy(model.state_dict())
     batch = train_batch(CHECK_BATCH, 11)
     int8 = tcfg.encoder.quantization == "int8"
-    # (student and FM, teacher): an int8 teacher's quantization decisions
-    # flip where sums run in another order (phase 11), which moves the
-    # teacher-dependent losses, so its plain run keeps the teacher on the
-    # kernels and a third run, all plain, is printed
+    # (student and KD modules, teacher): an int8 teacher's quantization
+    # decisions flip where sums run in another order (phase 11), which
+    # moves the teacher-dependent losses, so its plain run keeps the
+    # teacher on the kernels and a third run, all plain, is printed
     variants = [("auto", "auto"), ("xla", "auto" if int8 else "xla")]
     if int8:
         variants.append(("xla", "xla"))
-    runs = {}
+    runs, routes = {}, {}
     for backend, teacher_backend in variants:
         model.load_state_dict(init)
         set_backend(model, backend)
         set_backend(model.teacher, teacher_backend)
+        if routed:
+            calls, hook = router_steps(model)
         state = DistilTrainState.create(model, OptimConfig())
         state, metrics = make_distil_train_step(model)(state, batch, 12)
         torch.cuda.synchronize()
+        if routed:
+            hook.remove()
+            routes[backend] = calls[0]
         run = runs[backend, teacher_backend] = (
             {k[5:]: v.item() for k, v in metrics.items()
              if k.startswith("loss/")},
@@ -2084,8 +2162,17 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8"):
               f"the teacher's {len(run[2])} parameters and statistics "
               f"bit-unchanged, no teacher gradient")
     set_backend(model, "auto")
+    if routed:
+        # both runs drew the same Gumbel noise: the step's generator
+        (steps_k, _), (steps_p, logits_p) = routes["auto"], routes["xla"]
+        g = gumbel_noise(logits_p.shape, step_rngs(12, 0, "cuda")["gumbel"],
+                         "cuda")
+        router_flips(steps_k, steps_p, logits_p + g, f"fp32 {name} step")
+        hist = torch.bincount(steps_k.reshape(-1).long(), minlength=17)
+        print(f"fp32 {name} step: drawn step counts (layers x rows) "
+              f"{hist[1:].tolist()} of 1..16")
     (lk, gk, _), (lp, gp, _) = runs[variants[0]], runs[variants[1]]
-    check(set(lk) == {"ctc", "flow_matching", "logit_kd", "total"},
+    check(set(lk) == loss_names(distill),
           f"fp32 {name} step losses {sorted(lk)}")
     for loss in sorted(lk):
         check(math.isfinite(lk[loss])
@@ -2107,38 +2194,162 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8"):
               f"flips included): " + ", ".join(
                   f"{k} {lk[k]:.6f} vs {la[k]:.6f} (rel "
                   f"{abs(lk[k] - la[k]) / abs(la[k]):.2e})" for k in sorted(lk)))
-    check(set(gk) == set(gp) and any(n.startswith("flow_matching.")
-                                     for n in gk),
-          f"fp32 {name} step: {len(gk)} student and FM gradients")
+    kd_mods = [m for m in KD_MODULES if hasattr(model, m)]
+    check(set(gk) == set(gp) and all(any(n.startswith(m + ".") for n in gk)
+                                     for m in kd_mods),
+          f"fp32 {name} step: {len(gk)} student and KD-module gradients "
+          f"({', '.join(kd_mods)} among them)")
     print(f"fp32 {name} step gradients, kernels vs plain:")
     grads_close([gk[n] for n in gk], [gp[n] for n in gk], 1e-2, list(gk),
                 1e-4, verbose=False)
-    fm_names = [n for n in gk if n.startswith("flow_matching.")]
-    grads_close([gk[n] for n in fm_names], [gp[n] for n in fm_names], 1e-2,
-                fm_names, 1e-4)
+    kd_names = [n for n in gk if n.split(".")[0] in kd_mods]
+    grads_close([gk[n] for n in kd_names], [gp[n] for n in kd_names], 1e-2,
+                kd_names, 1e-4)
+    del model
 
-    ms, counts, metrics = timed_steps(kd_model(scfg, tcfg, 13),
-                                      train_batch(BATCH, 14), 15)
-    names = ("ctc", "flow_matching", "logit_kd", "total")
+    model = kd_model(scfg, tcfg, 13, distill)
+    calls, hook = router_steps(model) if routed else ([], None)
+    ms, counts, metrics = timed_steps(model, train_batch(BATCH, 14), 15,
+                                      steps)
+    if hook is not None:
+        hook.remove()
+    names = sorted(loss_names(distill))
     losses = torch.stack([torch.stack([m[f"loss/{k}"] for k in names])
                           for m in metrics])
+    rounded = lambda row: [round(x, 4) for x in row.tolist()]
     check(bool(torch.isfinite(losses).all()),
-          f"bf16 {name} steps: losses finite; first {names} "
-          f"{[round(x, 4) for x in losses[0].tolist()]}, last "
-          f"{[round(x, 4) for x in losses[-1].tolist()]}")
-    int8 = tcfg.encoder.quantization == "int8"
+          f"bf16 {name} steps: losses finite; first "
+          f"{dict(zip(names, rounded(losses[0])))}, last "
+          f"{rounded(losses[-1])}")
     counts = {k: v for k, v in counts.items()
               if k in KD or (k == "ffn_int8" and int8)}
     check(all(v > 0 for v in counts.values()),
           f"{name} steps launched every kernel: {counts}")
     if tcfg.encoder.quantization == "int8":
-        want = 2 * tcfg.encoder.n_layers * TRAIN_STEPS
+        want = 2 * tcfg.encoder.n_layers * steps
         check(counts["ffn_int8"] == want, f"the int8 teacher launched the "
-              f"int8 FFN {counts['ffn_int8']} times in {TRAIN_STEPS} steps "
+              f"int8 FFN {counts['ffn_int8']} times in {steps} steps "
               f"(2 x {tcfg.encoder.n_layers} layers per step: {want})")
     print(f"kd train: {name} ({scfg.compute_dtype}, student 16 x d"
           f"{scfg.encoder.d_model}, teacher 16 x d{tcfg.encoder.d_model}) "
-          f"B={BATCH} x {SECONDS} s, {TOKENS} tokens: {timed_summary(ms)}")
+          f"B={BATCH} x {SECONDS} s, {TOKENS} tokens: "
+          f"{timed_summary(ms, steps)}; fm kernel launches a step "
+          f"{counts['fm'] / steps:g}, fm_bwd {counts['fm_bwd'] / steps:g}")
+    # the timed steps' router calls (the warm-up's first)
+    timed = [s for s, _ in calls[-steps:]]
+    return counts, timed
+
+
+def router_eval_check(tcfg) -> None:
+    """flowkd_router16's eval forward in fp32 on phase 4's clips, kernels
+    against plain: the teacher runs for the router's input; step counts
+    equal where the plain logits' top-2 margin exceeds 1e-3, max |delta
+    log-prob| < 2e-3, greedy ids equal where the top-2 margin exceeds 1e-3,
+    the FM kernel launched."""
+    from tpu_asr_torch.config import make_student_config
+    from tpu_asr_torch.profile_forward import set_backend
+    from tpu_asr_torch.profile_train import distill_config
+
+    f32 = lambda cfg: dataclasses.replace(cfg, compute_dtype="float32")
+    model = kd_model(f32(make_student_config(tcfg)), f32(tcfg), 16,
+                     distill_config("flowkd_router16")).eval()
+    sig, lens = model_clips(1)
+    outs = {}
+    for backend in ("auto", "xla"):
+        set_backend(model, backend)
+        calls, hook = router_steps(model)
+        read = reset_counters()
+        with torch.no_grad():
+            out = model(sig, lens)
+        torch.cuda.synchronize()
+        hook.remove()
+        outs[backend] = (out, calls[0], read())
+        check(out.tch_feats is not None, f"router eval ({backend}): the "
+              f"teacher ran for the router's input")
+    (ok, (sk, _), ck), (op, (sp, lp), _) = outs["auto"], outs["xla"]
+    router_flips(sk, sp, lp, "router eval forward (fp32)")
+    err = (ok.log_probs - op.log_probs).abs().max().item()
+    check(err < 2e-3, f"router eval forward: max |delta log-prob| kernels "
+          f"vs plain {err:.3e} < 2e-3")
+    top2 = op.log_probs.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 1e-3
+    check(bool((ok.greedy == op.greedy)[sure].all()),
+          f"router eval forward: greedy ids equal on all {int(sure.sum())} "
+          f"frames whose top-2 margin exceeds 1e-3")
+    check(ck["fm"] > 0 and ck["attention"] > 0,
+          f"router eval forward launched the FM kernel ({ck['fm']}) and "
+          f"the attention ({ck['attention']})")
+
+
+def meta_encoder_steps(tcfg) -> None:
+    """One bf16 flowkd_mlp8 step with each of the other meta encoders at
+    B=8 x 15 s: losses finite, the FM kernel not launched (the generic
+    Euler loop, per layer)."""
+    from tpu_asr_torch.config import make_student_config
+    from tpu_asr_torch.profile_train import distill_config
+
+    scfg = make_student_config(tcfg)
+    base = distill_config("flowkd_mlp8")
+    for kind in ("cnn", "swin", "conformer", "unet"):
+        distill = dataclasses.replace(base, flow=dataclasses.replace(
+            base.flow, meta_encoder_type=kind))
+        model = kd_model(scfg, tcfg, 17, distill)
+        t0 = time.perf_counter()
+        _, counts, metrics = timed_steps(model, train_batch(CHECK_BATCH, 18),
+                                         19, steps=1, warmup=0)
+        loss = {k[5:]: round(v.item(), 4) for k, v in metrics[0].items()
+                if k.startswith("loss/")}
+        check(all(math.isfinite(v) for v in loss.values())
+              and counts["fm"] == 0 and counts["fm_bwd"] == 0,
+              f"bf16 flowkd step, meta encoder {kind} (16 layers, 8 steps, "
+              f"B={CHECK_BATCH}): losses finite {loss}, fm launches "
+              f"{counts['fm']}, fm_bwd {counts['fm_bwd']}; "
+              f"{time.perf_counter() - t0:.2f} s")
+        del model
+
+
+def kd_fm_shapes(drawn):
+    """The FM pair against its plain version at the shapes phase 21's
+    timed steps give it: flowkd_router16's 16 x B rows at C=88, H=128 on
+    the (layers, B) step counts its router drew (rows B-major, as the model
+    stacks them; ragged 1..16 at max_steps 16), fp32 and bf16; kd_menu's
+    diffm latent FMs, 16 x B rows at the latent width, in bf16 (the fp32
+    kernel takes only C=88)."""
+    from tpu_asr_torch.config import DiffmConfig
+    from tpu_asr_torch.kd.diffm import latent_fm_config
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows, t = BATCH * 16, 376
+    steps = drawn.t().reshape(-1)
+    check(steps.numel() == rows, f"flowkd_router16's router gave {rows} "
+          f"row step counts ({steps.numel()})")
+    for dt in (torch.float32, torch.bfloat16):
+        fm_compare(fm_inputs(gen, rows, t, 16, steps), 16, dt,
+                   f"rows={rows} T={t} flowkd_router16's drawn steps "
+                   f"{int(steps.min())}..{int(steps.max())}, max_steps 16")
+    lat = latent_fm_config(DiffmConfig())
+    n = lat.training_sampling
+    fm_compare(fm_inputs(gen, rows, t, n, c=lat.student_dim,
+                         h=lat.hidden_dim), n, torch.bfloat16,
+               f"rows={rows} T={t} steps={n} (kd_menu's diffm latent FM)")
+
+
+def kd_rest_phase(tcfg):
+    """Phase 21: flowkd_router16 and kd_menu (kd_train_phase), the step
+    count histogram, the FM pair at both configurations' shapes
+    (kd_fm_shapes), the router's eval forward, the other meta encoders.
+    Returns {row: launches} of flowkd_router16's timed steps."""
+    counts, timed = kd_train_phase(tcfg, "flowkd_router16")
+    hist = torch.bincount(torch.stack(timed).reshape(-1).long(),
+                          minlength=17)[1:].tolist()
+    check(sum(1 for n in hist if n) >= 3,
+          f"flowkd_router16: at least 3 distinct step counts drawn")
+    print(f"flowkd_router16: drawn step counts 1..16 over {len(timed)} "
+          f"timed steps x 16 layers x {BATCH} rows: {hist}")
+    kd_fm_shapes(timed[-1])
+    kd_train_phase(tcfg, "kd_menu", steps=3)
+    router_eval_check(tcfg)
+    meta_encoder_steps(tcfg)
     return counts
 
 
@@ -3062,11 +3273,13 @@ def packed_kd_check(scfg, tcfg, batch):
 
     from tpu_asr_torch.config import OptimConfig
     from tpu_asr_torch.profile_forward import set_backend
+    from tpu_asr_torch.profile_train import distill_config
     from tpu_asr_torch.train.trainer import (DistilTrainState,
                                              make_distil_train_step)
 
     f32 = lambda cfg: dataclasses.replace(cfg, compute_dtype="float32")
-    model = kd_model(f32(scfg), f32(tcfg), 20)
+    model = kd_model(f32(scfg), f32(tcfg), 20,
+                     distill_config("flowkd_mlp8"))
     init = copy.deepcopy(model.state_dict())
     runs = {}
     for backend in ("auto", "xla"):
@@ -4113,7 +4326,7 @@ def main() -> int:
     counts.update({k: v for k, v in timed_phase("7", train_phase, cfg).items()
                    if k not in SERVING})
     measured.update(timed_phase("8", fm_kernel_phase))
-    kd_counts = timed_phase("9", kd_train_phase, cfg)
+    kd_counts, _ = timed_phase("9", kd_train_phase, cfg)
     counts.update({k: kd_counts[k] for k in ("fm", "fm_bwd")})
     int8_cfg = with_encoder(cfg, quantization="int8", conv_backend="pallas")
     measured.update(timed_phase("10", eval_kernel_phase, cfg))
@@ -4154,6 +4367,7 @@ def main() -> int:
     fc_rows, fc_counts, fc_rtfx = timed_phase("20", fastconformer_phase)
     measured.update(fc_rows)
     counts.update(fc_counts)
+    timed_phase("21", kd_rest_phase, cfg)
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "

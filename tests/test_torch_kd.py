@@ -4,7 +4,9 @@ from a seed:
 
 - the three noise schedules and their derivatives at 1e-6 relative;
 - logit_kl_loss and layerwise_mse_loss at 1e-6 relative;
-- MLPMetaEncoder at 1e-6; the other meta encoders raise;
+- MLPMetaEncoder at 1e-6; the other meta encoders build, and refuse
+  euler_backend='pallas' as JAX's do (their parity:
+  tests/test_torch_meta.py);
 - FlowMatchingModule (fp32, per-row step counts, stacked layers with
   loss_layers) for every shape transform and both metrics, training and
   eval: loss at 1e-5 relative, x_final at 1e-5, and, for training, the
@@ -15,7 +17,12 @@ from a seed:
   interpret mode: loss within 2e-2 relative and x_final within 3e-2
   (bf16 rounding of x, h and v at the same points, fp32 sums in another
   order);
-- the group loss raises.
+- the group loss (the dynamic router's), with and without loss_layers,
+  against JAX's euler_backend 'pallas' (the kernel in interpret mode) and
+  'xla' routes: loss at 1e-5 relative and the gradients at rtol 1e-4,
+  atol 1e-6, over rows with 1..4 steps of max_steps 4 (every count
+  present, one row above max_steps for the form without loss_layers,
+  which leaves it out); rows that are not whole stacked layers raise.
 """
 
 import dataclasses
@@ -32,7 +39,7 @@ from tpu_asr.kd import losses as jax_losses
 from tpu_asr.kd import schedules as jax_schedules
 from tpu_asr.kd.flow_matching import FlowMatchingModule as JaxFM
 from tpu_asr.kd.meta_encoders import MLPMetaEncoder as JaxMLP
-from tpu_asr_torch.convert.from_jax import flow_to_state_dict
+from tpu_asr_torch.convert.from_jax import kd_to_state_dict
 from tpu_asr_torch.kd import losses, schedules
 from tpu_asr_torch.kd.flow_matching import FlowMatchingModule
 from tpu_asr_torch.kd.meta_encoders import MLPMetaEncoder, build_meta_encoder
@@ -101,8 +108,18 @@ def test_mlp_meta_encoder_matches_jax():
 
 @pytest.mark.parametrize("kind", ["cnn", "swin", "conformer", "unet"])
 def test_other_meta_encoders_raise(kind):
-    with pytest.raises(ValueError, match="does not implement"):
-        build_meta_encoder(kind, in_dim=CS + 8, out_dim=CS, hidden_dim=16)
+    """They build (their parity: tests/test_torch_meta.py); the fused
+    Euler kernel implements only the mlp, so euler_backend='pallas'
+    raises with them, and an unknown kind raises."""
+    x = torch.zeros(B, 17, CS + 8)
+    assert build_meta_encoder(kind, in_dim=CS + 8, out_dim=CS,
+                              hidden_dim=16)(x).shape == (B, 17, CS)
+    with pytest.raises(ValueError, match="only the 'mlp'"):
+        FlowMatchingModule(_flow(PC, meta_encoder_type=kind,
+                                 euler_backend="pallas"))
+    with pytest.raises(ValueError, match="Unknown meta_encoder"):
+        build_meta_encoder(kind + "x", in_dim=CS + 8, out_dim=CS,
+                           hidden_dim=16)
 
 
 def _teacher_dim(kw):
@@ -126,7 +143,7 @@ def _fm_pair(seed=0, dtype="float32", **kw):
     params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * f(*a.shape),
                           v["params"])
     pm = FlowMatchingModule(_flow(PC, **kw), getattr(torch, dtype))
-    pm.load_state_dict(flow_to_state_dict(params), strict=True)
+    pm.load_state_dict(kd_to_state_dict(params), strict=True)
     return jm, params, pm
 
 
@@ -163,7 +180,7 @@ def test_flow_matching_module_matches_jax(transform, loss, schedule):
     np.testing.assert_allclose(got_x.detach().numpy(), np.asarray(want_x),
                                rtol=1e-5, atol=1e-5)
     (got_loss + (got_x * got_x).mean()).backward()
-    want_sd = flow_to_state_dict(want_gp)
+    want_sd = kd_to_state_dict(want_gp)
     for name, p in pm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want_sd[name].numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
@@ -200,12 +217,43 @@ def test_flow_matching_module_bf16_matches_pallas_kernel():
                                atol=3e-2)
 
 
+@pytest.mark.parametrize("layers", [None, L])
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_group_loss_matches_jax(backend, layers):
+    jm, params, pm = _fm_pair(9)
+    jm = JaxFM(_flow(JC, euler_backend=backend))
+    s, t, _ = _stacked(10)
+    # rows b-major: (b, l) = (0, 0) 1 step, (0, 1) 2, (1, 0) 3, (1, 1) 4,
+    # (2, 0) 2, (2, 1) 4 (5 for the form without layers: above max_steps)
+    steps = np.array([1, 2, 3, 4, 2, 4 if layers else 5], np.int32)
+
+    def jax_obj(p, sf):
+        return jm.apply({"params": p}, sf, jnp.asarray(t),
+                        steps=jnp.asarray(steps), max_steps=4, train=True,
+                        group_loss=True, loss_layers=layers)[0]
+
+    want, (want_gp, want_gs) = jax.value_and_grad(jax_obj, argnums=(0, 1))(
+        params, jnp.asarray(s))
+    sf = torch.from_numpy(s).requires_grad_()
+    got, _ = pm(sf, torch.from_numpy(t), steps=torch.from_numpy(steps),
+                max_steps=4, train=True, group_loss=True, loss_layers=layers)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    got.backward()
+    want_sd = kd_to_state_dict(want_gp)
+    for name, p in pm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_sd[name].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(sf.grad.numpy(), np.asarray(want_gs),
+                               rtol=1e-4, atol=1e-6)
+
+
 def test_group_loss_raises():
+    """The group loss over rows that are not whole stacked layers."""
     _, _, pm = _fm_pair(9)
     s, t, steps = _stacked(10)
-    with pytest.raises(ValueError, match="does not implement"):
+    with pytest.raises(ValueError, match="stacked layers"):
         pm(torch.from_numpy(s), torch.from_numpy(t), steps=torch.from_numpy(
-            steps), max_steps=4, train=True, group_loss=True)
+            steps), max_steps=4, train=True, group_loss=True, loss_layers=4)
 
 
 def test_xla_backend_is_the_plain_loop():

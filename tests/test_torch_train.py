@@ -37,7 +37,8 @@ batch made with numpy from a seed.
   statistics stay bit-unchanged and get no gradient; then the eval
   forward from JAX's weights (FM output into the decoder, no teacher) at
   1e-4;
-- the KD options outside the slice raise.
+- configurations the KD model cannot run raise (every KD option itself is
+  held to JAX in tests/test_torch_kd_menu.py and its siblings).
 """
 
 import dataclasses
@@ -336,7 +337,7 @@ def test_bridge_maps_the_whole_flowkd_tree():
     assert len(sd) - 2 * n_layers == n_leaves + (n_layers - 1) * stacked
     assert set(sd) == set(model.state_dict())
     with pytest.raises(ValueError, match="no port counterpart"):
-        distil_to_state_dict({**params, "router": {}}, stats,
+        distil_to_state_dict({**params, "bogus": {}}, stats,
                              model.student_cfg, model.teacher_cfg)
 
 
@@ -431,22 +432,37 @@ def test_checkpointed_layers_update_batch_norm_once():
 
 
 @pytest.mark.parametrize("option", [
-    {"use_layerwise_distillation": True}, {"use_diffkd": True},
-    {"use_diffm": True}, {"interctc_layers": (0,)},
-    {"flow": None}, {"flow.use_dynamic_steps": True},
-    {"flow.sampling_steps_per_layer": (3, 3)},
-    {"flow.meta_encoder_type": "cnn"}, {"group_loss": True}])
+    {"use_layerwise_distillation": True, "layer_kd_scope": "first"},
+    {"use_diffkd": True, "diffkd": None}, {"use_diffm": True, "diffm": None},
+    {"interctc_layers": (2,)}, {"flow": None},
+    {"flow.use_dynamic_steps": True},
+    {"flow.sampling_steps_per_layer": (3, 3, 3)},
+    {"flow.meta_encoder_type": "bogus"}, {"group_loss": True}])
 def test_kd_options_outside_the_slice_raise(option):
+    """Every KD option is ported (tests/test_torch_kd_menu.py and its
+    siblings); a configuration the model cannot run raises: a layerwise
+    scope other than 'last'/'all', DiffKD or diffm without their config,
+    an interCTC layer past the student's 2, FM without its config, the
+    router without RouterConfig, per-layer steps for 3 layers, an unknown
+    meta encoder, and the group loss over rows that are not whole stacked
+    layers."""
     teacher, student = _configs(PC)
     distill = _distill(PC, "flowkd")
-    (key, value), = option.items()
-    if key.startswith("flow."):
+    option = dict(option)
+    if "group_loss" in option:
+        model = DistilCTCModel(student, teacher, distill)
+        with pytest.raises(ValueError, match="stacked layers"):
+            model.flow_matching(torch.zeros(2, 5, 32), torch.zeros(2, 5, 64),
+                                train=True, group_loss=True, loss_layers=3)
+        return
+    (key, value), = [(k, v) for k, v in option.items()
+                     if k.startswith("flow.")] or [(None, None)]
+    if key is not None:
         distill = dataclasses.replace(distill, flow=dataclasses.replace(
             distill.flow, **{key[5:]: value}))
-    elif key != "group_loss":
+    else:
         distill = dataclasses.replace(distill, **option)
-    with pytest.raises(ValueError, match="does not implement"):
-        model = DistilCTCModel(student, teacher, distill)
-        feats = torch.zeros(2, 5, 32)
-        model.flow_matching(feats, torch.zeros(2, 5, 64), train=True,
-                            group_loss=True)
+    match = ("Unknown meta_encoder" if key == "flow.meta_encoder_type"
+             else "DistillationConfig for a 2-layer student")
+    with pytest.raises(ValueError, match=match):
+        DistilCTCModel(student, teacher, distill)

@@ -20,14 +20,25 @@ The exact inverse of tpu_asr/convert/nemo_import.py::convert_state_dict:
 - the global-attention projections linear_{q,k,v}_global and the encoder's
   out_proj as Linear layers
 - DistilCTCModel's params and batch_stats: 'student', 'teacher'
-  -> student.*, teacher.*; 'flow_matching' -> flow_matching.*
-                                        (distil_to_state_dict)
+  -> student.*, teacher.*; the KD modules 'flow_matching' (any meta
+  encoder), 'router', 'layer_proj', 'diffkd_mod' and 'diffm_pipeline'
+  under their own names               (distil_to_state_dict, kd_to_state_dict)
+- in the KD modules: Conv kernel (k, in/groups, out) -> Conv1d weight (out,
+  in/groups, k); ConvTranspose kernel (k, in, out) -> ConvTranspose1d
+  weight (in, out, k) flipped in time (torch's ConvTranspose1d(k=4, s=2,
+  p=1) is flax's with padding (2, 2) and the kernel reversed); attention
+  DenseGeneral query/key/value (d, heads, dh) -> Linear (heads * dh, d),
+  out (heads, dh, d_out) -> Linear (d_out, heads * dh); Embed embedding ->
+  weight; flax's automatic names LayerNorm_0, Dense_0, Dense_1 -> norm,
+  linear1, linear2; block{i}, down{i}, up{i} -> blocks.{i}, downs.{i},
+  ups.{i}
 
 Leaves may be numpy or JAX arrays; this module imports no JAX.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -147,25 +158,51 @@ def _layers(stacked, stats, prefix, sd) -> None:
             sd[f"{k}.conv.batch_norm.num_batches_tracked"] = torch.tensor(0)
 
 
-def flow_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """A JAX FlowMatchingModule's params (the `mlp` meta encoder) -> the
-    port's FlowMatchingModule `state_dict`."""
+KD_MODULES = ("flow_matching", "router", "layer_proj", "diffkd_mod",
+              "diffm_pipeline")
+_AUTO_NAMES = {"LayerNorm_0": "norm", "Dense_0": "linear1",
+               "Dense_1": "linear2"}
+_LISTS = {"block": "blocks", "down": "downs", "up": "ups"}
+
+
+def kd_to_state_dict(params: Dict[str, Any],
+                     prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The params of a JAX KD module (FlowMatchingModule with any meta
+    encoder, DynamicStepRouter, DiffKDModule, LatentKDPipeline, or a
+    Dense) -> its port counterpart's `state_dict` (see the module note),
+    keys under `prefix.` when given."""
     sd: Dict[str, torch.Tensor] = {}
-    euler = params["euler"]
-    dense = {"euler.time_embed": euler["time_embed"],
-             "euler.meta_encoder.fc1": euler["meta_encoder"]["fc1"],
-             "euler.meta_encoder.fc2": euler["meta_encoder"]["fc2"]}
-    if "shape_transform" in params:
-        dense["shape_transform"] = params["shape_transform"]
-    for key, p in dense.items():
-        sd[f"{key}.weight"] = _t(p["kernel"]).T.contiguous()
-        sd[f"{key}.bias"] = _t(p["bias"])
-    if "shape_transform_conv" in params:     # kernel (1, C, C_t)
-        p = params["shape_transform_conv"]
-        sd["shape_transform_conv.weight"] = _t(p["kernel"])[0].T \
-            .contiguous()[..., None]
-        sd["shape_transform_conv.bias"] = _t(p["bias"])
+    _kd_tree(params, prefix, "", sd)
     return sd
+
+
+def _kd_tree(tree, prefix: str, name: str, sd) -> None:
+    key = lambda leaf: f"{prefix}.{leaf}" if prefix else leaf
+    if "embedding" in tree:
+        sd[key("weight")] = _t(tree["embedding"])
+        return
+    if "scale" in tree:
+        _norm(sd, prefix, tree)
+        return
+    if "kernel" in tree:
+        k = _t(tree["kernel"])
+        if k.dim() == 2:                                      # Dense
+            sd[key("weight")] = k.T.contiguous()
+        elif name in ("query", "key", "value"):               # (d, h, dh)
+            sd[key("weight")] = k.reshape(k.shape[0], -1).T.contiguous()
+        elif name == "out":                                   # (h, dh, o)
+            sd[key("weight")] = k.reshape(-1, k.shape[-1]).T.contiguous()
+        elif re.fullmatch(r"up\d+", name):                    # transposed
+            sd[key("weight")] = k.flip(0).permute(1, 2, 0).contiguous()
+        else:                                                 # Conv
+            sd[key("weight")] = k.permute(2, 1, 0).contiguous()
+        sd[key("bias")] = _t(tree["bias"]).reshape(-1)
+        return
+    for sub, child in tree.items():
+        m = re.fullmatch(r"(block|down|up)(\d+)", sub)
+        leaf = (f"{_LISTS[m[1]]}.{m[2]}" if m
+                else _AUTO_NAMES.get(sub, sub))
+        _kd_tree(child, key(leaf), sub, sd)
 
 
 def distil_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
@@ -175,9 +212,9 @@ def distil_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
     """A JAX DistilCTCModel's whole tree -> the port's DistilCTCModel
     `state_dict`: params['student'] and batch_stats['student'] ->
     `student.*`, params['teacher'] and batch_stats['teacher'] ->
-    `teacher.*` (needs `teacher_cfg`), params['flow_matching'] ->
-    `flow_matching.*`. Any other subtree raises."""
-    left = set(params) - {"student", "teacher", "flow_matching"}
+    `teacher.*` (needs `teacher_cfg`), each KD module of KD_MODULES ->
+    `<its name>.*`. Any other subtree raises."""
+    left = set(params) - {"student", "teacher", *KD_MODULES}
     if left:
         raise ValueError(f"distil_to_state_dict: no port counterpart for "
                          f"{sorted(left)}")
@@ -191,9 +228,9 @@ def distil_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any],
         sd.update({f"teacher.{k}": v for k, v in jax_to_state_dict(
             params["teacher"], batch_stats.get("teacher", {}),
             teacher_cfg).items()})
-    if "flow_matching" in params:
-        sd.update({f"flow_matching.{k}": v for k, v in
-                   flow_to_state_dict(params["flow_matching"]).items()})
+    for name in KD_MODULES:
+        if name in params:
+            sd.update(kd_to_state_dict(params[name], name))
     return sd
 
 

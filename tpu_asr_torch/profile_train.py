@@ -2,8 +2,8 @@
 kernels ('auto') and on the plain PyTorch versions ('xla').
 
     python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8|
-        flowkd_mlp8_int8_teacher|ctc_large|ctc_xlarge|ctc_fastconformer_local]
-        [--packed] [--out FILE]
+        flowkd_mlp8_int8_teacher|flowkd_router16|kd_menu|ctc_large|
+        ctc_xlarge|ctc_fastconformer_local] [--packed] [--out FILE]
 
 DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
 at its own compute dtype (bf16) with seeded random weights and
@@ -12,7 +12,12 @@ the `distill` of bench_train.py's configuration of that name: `ctc_student`
 (CTC only), `flowkd_mlp8` (frozen teacher, logit KD at alpha 0.1 and
 FM-KT with the mlp meta encoder, 8 Euler steps over all 16 layers) or
 `flowkd_mlp8_int8_teacher` (the same with the teacher's FFN sublayers
-through the int8 serving kernel); `ctc_large`, `ctc_xlarge` and
+through the int8 serving kernel), `flowkd_router16` (flowkd_mlp8 with
+the dynamic step router: bench_train.py's RouterConfig(max_steps=16,
+stu_dim=88, tch_dim=176, num_layers=16), strategy 'group', up to 16
+Euler steps a row) or `kd_menu` (logit KD 0.1, layerwise KD over all
+layers, DiffKD, diffm ver 6 and interCTC on layer 7, no FM-KT);
+`ctc_large`, `ctc_xlarge` and
 `ctc_fastconformer_local` train conformer-LARGE, conformer-XLarge and
 FastConformer-Large with limited context themselves
 (profile_forward.model_config) with the CTC loss alone, as bench_train.py's
@@ -58,7 +63,8 @@ from tpu_asr_torch.profile_forward import (built_on, device_activity,
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
 CONFIGS = ("ctc_student", "flowkd_mlp8", "flowkd_mlp8_int8_teacher",
-           "ctc_large", "ctc_xlarge", "ctc_fastconformer_local")
+           "flowkd_router16", "kd_menu", "ctc_large", "ctc_xlarge",
+           "ctc_fastconformer_local")
 CTC_ONLY = ("ctc_student", "ctc_large", "ctc_xlarge",
             "ctc_fastconformer_local")
 # bench_train.py's packed_train: utterances, seed, the longest clip (s),
@@ -68,15 +74,32 @@ N_UTTS, PACK_SEED, MAX_S, T_PACK, BUCKETS = 512, 3, 16.7, 512, 4
 
 def distill_config(name: str):
     """The DistillationConfig of bench_train.py's configuration `name`."""
-    from tpu_asr_torch.config import DistillationConfig, FlowMatchingConfig
+    from tpu_asr_torch.config import (DiffKDConfig, DiffmConfig,
+                                      DistillationConfig, FlowMatchingConfig,
+                                      RouterConfig)
     if name in CTC_ONLY:
         return DistillationConfig()
+    flow = FlowMatchingConfig(meta_encoder_type="mlp", student_dim=88,
+                              teacher_dim=176, student_head_num=2,
+                              training_sampling=8, inference_sampling=8)
     if name in ("flowkd_mlp8", "flowkd_mlp8_int8_teacher"):
-        flow = FlowMatchingConfig(meta_encoder_type="mlp", student_dim=88,
-                                  teacher_dim=176, student_head_num=2,
-                                  training_sampling=8, inference_sampling=8)
         return DistillationConfig(use_logit_distillation=True, kd_alpha=0.1,
                                   use_flow_matching=True, flow=flow)
+    if name == "flowkd_router16":
+        flow = dataclasses.replace(flow, use_dynamic_steps=True,
+                                   router_strategy="group",
+                                   router_max_sampling_steps=16)
+        return DistillationConfig(
+            use_logit_distillation=True, kd_alpha=0.1,
+            use_flow_matching=True, flow=flow,
+            router=RouterConfig(max_steps=16, stu_dim=88, tch_dim=176,
+                                num_layers=16))
+    if name == "kd_menu":
+        return DistillationConfig(
+            use_logit_distillation=True, kd_alpha=0.1,
+            use_layerwise_distillation=True, layer_kd_scope="all",
+            use_diffkd=True, diffkd=DiffKDConfig(), use_diffm=True,
+            diffm=DiffmConfig(model_version=6), interctc_layers=(7,))
     raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
 
 

@@ -6,10 +6,11 @@ One step: forward with training randomness, loss, backward, the optional
 optional global-norm clipping, and the optimizer update at the schedule's
 learning rate for this step. Per-step randomness comes from generators
 seeded from (seed, step), the analogue of JAX's fold_in(base_rng, step):
-the same seed and step give the same dither, SpecAugment masks and dropout
-masks. Metrics stay on the device: 'loss/<name>' for each loss,
-'grad_norm' (before clipping) and, with skip_nan_grad,
-'nonfinite_grad_elems'.
+the same seed and step give the same dither, SpecAugment masks, dropout
+masks, router draws and diffm noise. Metrics stay on the device:
+'loss/<name>' for each loss, the model's own metrics (the router's mean
+step count, the interCTC losses), 'grad_norm' (before clipping) and, with
+skip_nan_grad, 'nonfinite_grad_elems'.
 """
 
 from __future__ import annotations
@@ -43,11 +44,15 @@ class DistilTrainState:
 
 def step_rngs(seed: int, step: int,
               device) -> Dict[str, torch.Generator]:
-    """'specaug' on `device` (dither, SpecAugment) and 'dropout' on the CPU
-    (the dropout seeds), both seeded from (seed, step)."""
+    """'specaug' on `device` (dither, SpecAugment), 'dropout' on the CPU
+    (the dropout seeds), 'gumbel' (the router's draw) and 'noise' (diffm's
+    noise, the fresh layerwise projection) on `device`, all seeded from
+    (seed, step)."""
     base = (int(seed) * 1_000_003 + int(step)) % (2 ** 63)
-    return {"specaug": torch.Generator(device=device).manual_seed(base),
-            "dropout": torch.Generator().manual_seed(base ^ 0x5DEECE66D)}
+    gen = lambda salt, dev=device: torch.Generator(device=dev).manual_seed(
+        base ^ salt)
+    return {"specaug": gen(0), "dropout": gen(0x5DEECE66D, "cpu"),
+            "gumbel": gen(0x2545F491), "noise": gen(0x9E3779B9)}
 
 
 PACK_KEYS = ("pk_src_utt", "pk_src_pos", "pk_seg", "pk_row", "pk_start")
@@ -81,6 +86,7 @@ def make_distil_train_step(model: DistilCTCModel,
                   if p.grad is not None]
         grads = [p.grad for p in params]
         metrics = {f"loss/{k}": v.detach() for k, v in out.losses.items()}
+        metrics.update({k: v.detach() for k, v in out.metrics.items()})
         if model.student_cfg.skip_nan_grad:
             bad = [~torch.isfinite(g) for g in grads]
             metrics["nonfinite_grad_elems"] = sum(b.sum() for b in bad)
