@@ -290,6 +290,29 @@ Phases, each on its own output lines:
      the top-2 margin exceeds 1e-3, the FM kernel launched; (d) one bf16
      flowkd step with each other meta encoder (cnn, swin, conformer, unet;
      B=8): losses finite, no FM kernel launch.
+  22. the CLI (tpu_asr_torch/cli/): 64 WAV clips of 1-15 s of seeded noise
+     with texts from a fixed word list (48 train, 16 val manifests) and a
+     full-width `.nemo` in NGC's layout (a seeded ModelConfig() teacher's
+     state_dict, a 128-piece BPE tokenizer artifact, model_config.yaml in
+     NeMo's block style from this script's own emitter, read by the port's
+     YAML reader); asr_train's `main` with the flowkd_mlp8 flags (logit KD
+     0.1, flow matching 8 steps), --batch_size 32 --epochs 1 and the val
+     manifest, on the card: every logged value finite, launch counters over
+     the run above 0 for logmel, subsampling, attention forward and
+     backward, FFN forward and backward, CTC forward and backward and the
+     FM pair; the first logged loss within 1e-5 relative of the train step
+     applied directly to the same first batch from the same initial state;
+     checkpoints/last restored bit-equal (its student against the student
+     export) and saved again bit-equal; asr_inference on `last` with the
+     same flags giving the fit's final evaluate WER and loss (1e-5); on the
+     student export (CTC only) --packed_eval in the config's bf16 giving
+     the bucketed loss within 1e-4 (both WERs printed: greedy ids flip
+     where a random model's top-2 margin is within bf16 rounding) with
+     segment-mode attention launches, and in fp32 (the same Trainer
+     methods) the bucketed WER and its loss within 1e-5; --resume_ckpt
+     with --epochs 2 continuing at the saved step and ending at twice it.
+     The fit's seconds and steps/s and evaluate's audio s per s (host
+     clock), beside the card's name and power limit.
 Each phase's seconds are printed after it.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
@@ -756,10 +779,10 @@ def subsampling_module_path(x, w1, b1, w2, b2, w_out):
 
 
 def reset_counters():
-    """Set every kernel wrapper's launch count to 0, the attention
-    backward's count of its segment mode (`seg_launches`) and both
-    attention wrappers' counts of a limited window (`window_launches`);
-    returns a function that reads {row name: launches since}."""
+    """Set every kernel wrapper's launch count to 0, both attention
+    wrappers' counts of their segment mode (`seg_launches`) and of a
+    limited window (`window_launches`); returns a function that reads {row
+    name: launches since}."""
     from tpu_asr_torch.ops.cuda_attention import (
         fused_relpos_attention, fused_relpos_attention_block,
         fused_relpos_attention_block_bwd, fused_relpos_attention_bwd)
@@ -784,10 +807,13 @@ def reset_counters():
            "attention_heads_bwd": fused_relpos_attention_bwd}
     for fn in fns.values():
         fn.launches = 0
+    fused_relpos_attention_block.seg_launches = 0
     fused_relpos_attention_block_bwd.seg_launches = 0
     fused_relpos_attention_block.window_launches = 0
     fused_relpos_attention_block_bwd.window_launches = 0
     return lambda: {**{k: fn.launches for k, fn in fns.items()},
+                    "attention_seg":
+                        fused_relpos_attention_block.seg_launches,
                     "attention_seg_bwd":
                         fused_relpos_attention_block_bwd.seg_launches,
                     "attention_window":
@@ -4298,6 +4324,379 @@ KD = STUDENT + ("fm", "fm_bwd")
 INT8_SERVING = SERVING + ("ffn_int8", "conv_module")
 
 
+CLI_WORDS = (
+    "the of and to in a is that for it as was with be by on not he this are "
+    "or his from at which but have an they you were her she there one all "
+    "we their has been if more when will would who so no time may out up "
+    "about said what its into than them only some could new these two also "
+    "first any like over such our after most made many people").split()
+CLI_CLIPS, CLI_VAL = 64, 16
+CLI_DEVICE = "cuda"
+
+
+def nemo_yaml(obj, indent: int = 0) -> str:
+    """Block-style YAML of a config dict, as NeMo's model_config.yaml is
+    written: sequences at their key's indent, strings single-quoted, floats
+    with a dot (1.0e-05), null, true / false."""
+    def scalar(v):
+        if v is None:
+            return "null"
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, int):
+            return str(v)
+        if isinstance(v, float):
+            r = repr(v)
+            mant, _, exp = r.partition("e")
+            return (mant if "." in mant else mant + ".0") + (
+                "e" + exp if exp else "")
+        return "'" + str(v).replace("'", "''") + "'"
+
+    pad, lines = " " * indent, []
+    for k, v in obj.items():
+        if isinstance(v, dict) and v:
+            lines += [f"{pad}{k}:", nemo_yaml(v, indent + 2)]
+        elif isinstance(v, list) and v:
+            lines += [f"{pad}{k}:"] + [f"{pad}- {scalar(x)}" for x in v]
+        else:
+            lines.append(f"{pad}{k}: " + ("{}" if isinstance(v, dict) else
+                                          "[]" if isinstance(v, list) else
+                                          scalar(v)))
+    return "\n".join(lines)
+
+
+def cli_corpus(root):
+    """64 WAV clips of 1-15 s of seeded noise with texts from CLI_WORDS,
+    written as a train (48) and a val (16) manifest, and a full-width
+    `.nemo`: a seeded ModelConfig() teacher's state_dict, its tokenizer
+    (BPE, 128 pieces, as `<uniq>_tokenizer.model`) and model_config.yaml
+    from `nemo_yaml`. Returns (train, val, nemo, val audio seconds)."""
+    import tarfile
+
+    from tpu_asr_torch.config import ModelConfig
+    from tpu_asr_torch.data.audio import write_wav
+    from tpu_asr_torch.data.manifest import ManifestEntry, write_manifest
+    from tpu_asr_torch.data.tokenizer import train_bpe
+    from tpu_asr_torch.models.ctc_model import CTCModel
+    from tpu_asr_torch.profile_forward import seed_weights
+
+    rng = np.random.default_rng(22)
+    entries = []
+    for i in range(CLI_CLIPS):
+        dur = float(np.round(rng.uniform(1.0, 15.0), 3))
+        x = (rng.normal(size=int(SR * dur)) * 0.1).astype(np.float32)
+        write_wav(root / f"clip{i}.wav", x, SR)
+        words = rng.choice(CLI_WORDS, size=max(1, int(dur * 1.5)))
+        entries.append(ManifestEntry(str(root / f"clip{i}.wav"), dur,
+                                     " ".join(words)))
+    write_manifest(root / "train.jsonl", entries[CLI_VAL:])
+    write_manifest(root / "val.jsonl", entries[:CLI_VAL])
+    cfg = ModelConfig()
+    tok = train_bpe([e.text for e in entries] + [" ".join(CLI_WORDS)],
+                    cfg.decoder.num_classes)
+    pack = root / "nemo"
+    pack.mkdir()
+    tok_name = "5e1f0c0de0c1_tokenizer.model"
+    tok.save_proto(pack / tok_name)
+    teacher = seed_weights(CTCModel(cfg), 22)
+    torch.save(teacher.state_dict(), pack / "model_weights.ckpt")
+    enc, pre = cfg.encoder, cfg.preprocessor
+    (pack / "model_config.yaml").write_text(nemo_yaml({
+        "sample_rate": cfg.sample_rate,
+        "tokenizer": {"dir": None, "type": "bpe",
+                      "model_path": f"nemo:{tok_name}"},
+        "preprocessor": {
+            "_target_": "nemo.collections.asr.modules."
+                        "AudioToMelSpectrogramPreprocessor",
+            "sample_rate": pre.sample_rate, "normalize": pre.normalize,
+            "window_size": pre.window_size,
+            "window_stride": pre.window_stride, "window": pre.window,
+            "features": pre.features, "n_fft": pre.n_fft,
+            "dither": pre.dither, "pad_to": pre.pad_to},
+        "spec_augment": {"freq_masks": 2, "time_masks": 10,
+                         "freq_width": 27, "time_width": 0.05},
+        "encoder": {
+            "_target_": "nemo.collections.asr.modules.ConformerEncoder",
+            "feat_in": enc.feat_in, "feat_out": -1,
+            "n_layers": enc.n_layers, "d_model": enc.d_model,
+            "subsampling": enc.subsampling,
+            "subsampling_factor": enc.subsampling_factor,
+            "subsampling_conv_channels": -1, "ff_expansion_factor": 4,
+            "self_attention_model": "rel_pos", "n_heads": enc.n_heads,
+            "att_context_size": [-1, -1], "xscaling": True,
+            "untie_biases": True, "pos_emb_max_len": 5000,
+            "conv_kernel_size": enc.conv_kernel_size,
+            "conv_norm_type": "batch_norm", "dropout": 0.1,
+            "dropout_pre_encoder": 0.1, "dropout_emb": 0.0,
+            "dropout_att": 0.1},
+        "decoder": {"_target_": "nemo.collections.asr.modules."
+                                "ConvASRDecoder",
+                    "feat_in": enc.d_model,
+                    "num_classes": cfg.decoder.num_classes,
+                    "vocabulary": list(tok.vocab)},
+        "optim": {"name": "adamw", "lr": 2.0, "betas": [0.9, 0.98],
+                  "weight_decay": 0.001,
+                  "sched": {"name": "NoamAnnealing", "warmup_steps": 10000,
+                            "min_lr": 1.0e-06}},
+        "target": "nemo.collections.asr.models.ctc_bpe_models."
+                  "EncDecCTCModelBPE"}) + "\n")
+    nemo = root / "teacher.nemo"
+    with tarfile.open(nemo, "w:") as tar:       # NGC's layout: "./" members
+        tar.add(pack, arcname=".")
+    return (str(root / "train.jsonl"), str(root / "val.jsonl"), str(nemo),
+            sum(e.duration for e in entries[:CLI_VAL]))
+
+
+def timing(cls, name: str, log: list):
+    """Wrap cls.name so each call appends (seconds, result) to `log`;
+    returns a function that restores it."""
+    orig = getattr(cls, name)
+
+    sync = torch.cuda.synchronize if CLI_DEVICE == "cuda" else lambda: None
+
+    def wrapped(self, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = orig(self, *a, **kw)
+        sync()
+        log.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(cls, name, wrapped)
+    return lambda: setattr(cls, name, orig)
+
+
+def eval_log_probs(log: list):
+    """Record in `log`, per utterance, the log-probs over its own frames
+    that an evaluation takes its per-utterance CTC NLL of: the bucketed
+    eval step's (train/trainer.py) and `Trainer.evaluate_packed`'s. Returns
+    a function that undoes it."""
+    import tpu_asr_torch.ops.ctc as ctc_ops
+    import tpu_asr_torch.train.trainer as trainer_mod
+
+    orig = ctc_ops.ctc_loss
+
+    def wrapped(lp, tokens, lens, *a, **kw):
+        log.extend(lp[i, :n].float().cpu()
+                   for i, n in enumerate(lens.tolist()))
+        return orig(lp, tokens, lens, *a, **kw)
+
+    trainer_mod.ctc_loss = ctc_ops.ctc_loss = wrapped
+
+    def undo():
+        trainer_mod.ctc_loss = ctc_ops.ctc_loss = orig
+
+    return undo
+
+
+def frame_flips(ref: list, got: list, label: str) -> None:
+    """Greedy ids per frame of `got` against `ref` (lists of per-utterance
+    (T, V) log-probs): equal on at least 99% of the frames whose top-2
+    margin in `ref` exceeds 1e-1, as phase 16 holds bf16 packed ids. The
+    frames whose ids differ are printed with their margins."""
+    same_shape = len(ref) == len(got) and all(
+        a.shape == b.shape for a, b in zip(ref, got))
+    check(same_shape, f"{label}: {len(got)} utterances with the frames and "
+          f"classes of the reference's {len(ref)}")
+    frames = decided = agree = 0
+    flipped = []
+    for a, b in zip(ref, got):
+        top2 = a.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = a.argmax(-1) == b.argmax(-1)
+        flipped += margin[~same].tolist()
+        dec = margin > 1e-1
+        frames += len(margin)
+        decided += int(dec.sum())
+        agree += int(same[dec].sum())
+    flipped.sort(reverse=True)
+    print(f"{label}: ids differ on {len(flipped)} of {frames} frames; "
+          f"their top-2 margins (reference), largest first: "
+          f"{[float(f'{m:.3e}') for m in flipped[:12]]}"
+          f"{' ...' if len(flipped) > 12 else ''}")
+    check(agree >= 0.99 * decided,
+          f"{label}: greedy ids equal on {agree} of {decided} frames whose "
+          f"top-2 margin exceeds 1e-1 (>= 99%)")
+
+
+def cli_phase():
+    """Phase 22: the port's CLIs at the flagship widths (asr_train with the
+    flowkd_mlp8 flags from a full-width `.nemo`, then asr_inference).
+    Returns {counter: launches} of the fit window."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tpu_asr_torch.cli import asr_inference, asr_train, common
+    from tpu_asr_torch.config import DistillationConfig
+    from tpu_asr_torch.data.dataset import (AudioToBPEDataset,
+                                            make_dataloader, to_device)
+    from tpu_asr_torch.models.distil_model import DistilCTCModel
+    from tpu_asr_torch.train.loop import Trainer
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+    from tpu_asr_torch.utils.checkpoint import (load_student,
+                                                restore_train_state,
+                                                save_train_state)
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        t0 = time.perf_counter()
+        train, val, nemo, val_audio = cli_corpus(root)
+        print(f"cli: corpus of {CLI_CLIPS} clips and the .nemo written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out = root / "out"
+        kd = ["--use_logit_distillation", "true", "--kd_alpha", "0.1",
+              "--use_flow_matching", "true", "--flow_steps", "8"]
+        argv = ["--train_manifest", train, "--val_manifest", val,
+                "--teacher_nemo", nemo, "--output_dir", str(out),
+                "--batch_size", str(BATCH), "--epochs", "1", *kd]
+        if CLI_DEVICE == "cpu":
+            argv += ["--platform", "cpu"]
+        fits, evals = [], []
+        undo = [timing(Trainer, "fit", fits),
+                timing(Trainer, "evaluate", evals)]
+        read = reset_counters()
+        results = asr_train.main(argv)
+        counts = read()
+        fit_s, state = fits[0]
+        steps = state.step
+        ckpt = out / "run" / "checkpoints"
+        rows = [json.loads(line) for line in open(out / "run" /
+                                                  "metrics.jsonl")]
+        losses = [r["loss/total"] for r in rows if "loss/total" in r]
+        check(steps > 0 and all(math.isfinite(x) for x in losses)
+              and all(math.isfinite(r[k]) for r in rows for k in r),
+              f"cli fit: {steps} steps, every logged value finite, "
+              f"first loss {losses[0]:.6f}")
+        fit_rows = ("logmel", "subsampling", "attention", "attention_bwd",
+                    "ffn", "ffn_bwd", "ctc", "ctc_bwd", "fm", "fm_bwd")
+        check(all(counts[k] > 0 for k in fit_rows),
+              f"cli fit launched every kernel of its path: "
+              f"{ {k: counts[k] for k in fit_rows} }")
+        print(f"cli: fit {fit_s:.2f} s, {steps} steps, "
+              f"{steps / fit_s:.3f} steps/s (host clock, one epoch of "
+              f"{CLI_CLIPS - CLI_VAL} clips at B<={BATCH}, the val pass "
+              "included)")
+
+        # the first logged loss against the train step applied directly
+        args = asr_train.build_train_parser("x").parse_args(argv)
+        manifests = common.prepare_manifests(args, "librispeech")
+        scfg, _, model, teacher_sd, tok = common._build(args, manifests,
+                                                        False, None)
+        cfg = common._train_config(args, scfg, model.distill, train=True)
+        model = model.to(CLI_DEVICE)
+        model.teacher.load_state_dict(teacher_sd)
+        ref_state = DistilTrainState.create(model, cfg.optim)
+        first = next(to_device(make_dataloader(
+            AudioToBPEDataset(train, tok), cfg.train_ds, epoch=0),
+            CLI_DEVICE))
+        first.pop("texts"), first.pop("utt_idx")
+        _, m = make_distil_train_step(model)(ref_state, first, cfg.seed)
+        want = m["loss/total"].item()
+        check(abs(losses[0] - want) <= 1e-5 * abs(want),
+              f"cli fit's first logged loss {losses[0]:.6f} = the train "
+              f"step on the same first batch {want:.6f} (1e-5 relative)")
+
+        # the checkpoint restores bit-equal (the student export was written
+        # from the same in-memory state), and saves again the same
+        restore_train_state(ckpt, ref_state)
+        student = torch.load(ckpt / "student", map_location=CLI_DEVICE,
+                             weights_only=True)
+        got = model.student.state_dict()
+        check(ref_state.step == steps and all(
+            torch.equal(got[k], v) for k, v in student.items()),
+            f"checkpoints/last restores bit-equal at step {steps} "
+            f"({len(student)} student tensors)")
+        save_train_state(root, ref_state, name="again")
+        a = torch.load(ckpt / "last", weights_only=True)
+        b = torch.load(root / "again", weights_only=True)
+        check(all(torch.equal(a["model"][k], v) for k, v in
+                  b["model"].items()) and a["step"] == b["step"],
+              "a restored checkpoint saves again bit-equal")
+        del model, ref_state
+
+        # asr_inference on `last` with the training's flags
+        base = ["--test_manifest", val, "--teacher_nemo", nemo,
+                "--output_dir", str(out), "--batch_size", str(BATCH)]
+        if CLI_DEVICE == "cpu":
+            base += ["--platform", "cpu"]
+        evals.clear()
+        inf = asr_inference.main(["--ckpt_path", str(ckpt / "last"), *base,
+                                  *kd])["test"]
+        eval_s = evals[0][0]
+        fit_val = results["val"]
+        check(inf["wer"] == fit_val["wer"] and abs(inf["loss"] - fit_val[
+            "loss"]) <= 1e-5 * abs(fit_val["loss"]),
+            f"asr_inference on checkpoints/last: wer {inf['wer']:.4f} loss "
+            f"{inf['loss']:.6f} = the fit's final evaluate wer "
+            f"{fit_val['wer']:.4f} loss {fit_val['loss']:.6f}")
+        print(f"cli: evaluate {eval_s:.2f} s for {val_audio:.1f} s of "
+              f"audio, {val_audio / eval_s:.1f} audio s per s (host clock, "
+              f"{CLI_VAL} clips, B<={BATCH}, flowkd_mlp8 eval path)")
+
+        # the student export, CTC only: bucketed against packed, through
+        # the CLI in the config's bf16 (loss, WER, and the greedy ids of
+        # every frame) and through the same Trainer methods in fp32
+        lp_plain, lp_packed = [], []
+        undo_lp = eval_log_probs(lp_plain)
+        plain = asr_inference.main(["--ckpt_path", str(ckpt / "student"),
+                                    *base])["test"]
+        undo_lp()
+        undo_lp = eval_log_probs(lp_packed)
+        read = reset_counters()
+        packed = asr_inference.main(["--ckpt_path", str(ckpt / "student"),
+                                     *base, "--packed_eval"])["test"]
+        seg = read()["attention_seg"]
+        undo_lp()
+        check(abs(packed["loss"] - plain["loss"]) <= 1e-4 * abs(
+            plain["loss"]) and seg > 0,
+            f"--packed_eval on the student export (bf16): loss "
+            f"{packed['loss']:.6f} vs bucketed {plain['loss']:.6f} (1e-4), "
+            f"wer {packed['wer']:.4f} vs {plain['wer']:.4f}, {seg} "
+            f"segment-mode attention launches")
+        frame_flips(lp_plain, lp_packed,
+                    "--packed_eval on the student export (bf16), per frame")
+        fp32 = DistilCTCModel(dataclasses.replace(scfg,
+                                                  compute_dtype="float32"),
+                              scfg, DistillationConfig())
+        load_student(ckpt / "student", fp32.student)
+        trainer = Trainer(fp32, dataclasses.replace(
+            cfg, distillation=fp32.distill), tok, root / "fp32",
+            device=CLI_DEVICE)
+        trainer.init_state()
+        read = reset_counters()
+        p32, b32 = trainer.evaluate_packed(val), trainer.evaluate(val)
+        check(p32["wer"] == b32["wer"] and abs(p32["loss"] - b32["loss"])
+              <= 1e-5 * abs(b32["loss"]) and read()["attention_seg"] > 0,
+              f"fp32 evaluate_packed on the student export: wer "
+              f"{p32['wer']:.4f} loss {p32['loss']:.6f} = evaluate wer "
+              f"{b32['wer']:.4f} loss {b32['loss']:.6f} (1e-5)")
+        del fp32, trainer
+
+        # --resume_ckpt continues at the saved step
+        saved = torch.load(ckpt / "last", weights_only=True)
+        fits.clear()
+        argv[argv.index("--epochs") + 1] = "2"
+        asr_train.main(argv + ["--resume_ckpt", str(ckpt / "last")])
+        resumed = fits[0][1]
+        check(saved["step"] == steps and saved["epoch"] == 1
+              and resumed.step == 2 * steps and resumed.epoch == 2,
+              f"--resume_ckpt continued at step {saved['step']} (epoch 1) "
+              f"and ended at step {resumed.step} (epoch 2)")
+        for u in undo:
+            u()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(f"cli ({smi}): fit {fit_s:.2f} s, {steps / fit_s:.3f} steps/s;"
+              f" evaluate {val_audio / eval_s:.1f} audio s per s")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def timed_phase(label: str, fn, *args):
     """fn(*args), then the phase's seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -4351,11 +4750,11 @@ def main() -> int:
     check(all(v > 0 for v in new.values()),
           f"phases 14 and 15 launched their kernels: {new}")
     timed_phase("16", packed_model_phase, cfg)
-    packed_counts, packed_rtfx = timed_phase("16 serve", serve_phase, cfg,
-                                             None, True)
+    packed_counts, packed_rtfx = timed_phase(
+        "16 serve", serve_phase, cfg, SERVING + ("attention_seg",), True)
     print(f"serve RTFx: packed (phase 16) {packed_rtfx:.1f}, bucketed "
           f"(phase 5) {rtfx:.1f}, same run")
-    counts["attention_seg"] = packed_counts["attention"]
+    counts["attention_seg"] = packed_counts["attention_seg"]
     timed_phase("16 device", encoder_device_times, cfg)
     seg_rows, seg_counts = timed_phase("17", packed_train_phase, cfg)
     measured.update(seg_rows)
@@ -4368,6 +4767,7 @@ def main() -> int:
     measured.update(fc_rows)
     counts.update(fc_counts)
     timed_phase("21", kd_rest_phase, cfg)
+    timed_phase("22", cli_phase)
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "

@@ -14,7 +14,13 @@
   train step (also with an int8 teacher) launches nothing and builds
   nothing;
 - the eval-only wrappers (int8 FFN, conv module) refuse autograd;
-- EncoderConfig options outside the port's slice raise.
+- EncoderConfig options outside the port's slice raise;
+- the CLIs (tpu_asr_torch/cli/): importing every module and running each
+  entry point's --help loads none of jax, jaxlib, flax, tpu_asr, optax,
+  orbax, yaml and datasets (the machine with the card has none of them);
+  without a CUDA device and without --platform cpu they exit with an
+  error; each flag whose path is not ported exits naming it, and so does
+  a --resume_ckpt that names no file.
 """
 
 import ast
@@ -319,3 +325,76 @@ def test_pallas_attention_refuses_chunked_and_global(option):
     for layer in enc.layers:
         layer.self_attn.backend = "auto"
     assert torch.isfinite(enc(feats, lens)[0]).all()
+
+
+CLI_ENTRY = ("asr_train", "asr_train_GS", "asr_train_diffm",
+             "asr_train_diffm_GS", "asr_inference", "asr_inference_CV",
+             "asr_inference_diffm")
+CLI_HELP = """
+import contextlib, importlib, io, json, pkgutil, sys
+import tpu_asr_torch.cli
+for m in pkgutil.walk_packages(tpu_asr_torch.cli.__path__,
+                               "tpu_asr_torch.cli."):
+    importlib.import_module(m.name)
+codes = []
+for name in sys.argv[1:]:
+    mod = importlib.import_module("tpu_asr_torch.cli." + name)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        try:
+            mod.main(["--help"])
+        except SystemExit as e:
+            codes.append((e.code, "--platform" in out.getvalue()))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "tpu_asr", "optax", "orbax", "yaml",
+    "datasets"))
+print(json.dumps({"codes": codes, "bad": bad}))
+"""
+
+
+def test_cli_help_loads_no_jax_yaml_or_datasets():
+    proc = subprocess.run([sys.executable, "-c", CLI_HELP, *CLI_ENTRY],
+                          cwd=ROOT, env=_env(), capture_output=True,
+                          text=True, timeout=120, check=True)
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["codes"] == [[0, True]] * len(CLI_ENTRY)
+    assert out["bad"] == []
+    proc = subprocess.run([sys.executable, "-m", "tpu_asr_torch.cli.asr_train",
+                           "--help"], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "--teacher_int8" in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["asr_train", "asr_inference"])
+def test_cli_without_cuda_exits(monkeypatch, entry):
+    import importlib
+    mod = importlib.import_module(f"tpu_asr_torch.cli.{entry}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--test_manifest", "none.jsonl", "--ckpt_path", "none"] \
+        if entry == "asr_inference" else ["--train_manifest", "none.jsonl"]
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        mod.main(argv)
+
+
+@pytest.mark.parametrize("entry,flags,what", [
+    ("asr_train", ["--gpus", "2"], "--gpus 2"),
+    ("asr_train", ["--host_devices", "4"], "--host_devices 4"),
+    ("asr_train", ["--steps_per_dispatch", "2"], "--steps_per_dispatch 2"),
+    ("asr_train", ["--cache_teacher"], "--cache_teacher"),
+    ("asr_train", ["--cache_teacher_all"], "--cache_teacher_all"),
+    ("asr_inference", ["--export_path", "x.tasrx", "--ckpt_path", "x"],
+     "--export_path"),
+    ("asr_inference", ["--gpus", "8", "--ckpt_path", "x"], "--gpus 8"),
+    ("asr_train", ["--resume_ckpt", "no/such/last"],
+     "no/such/last: no such checkpoint"),
+])
+def test_cli_refused_flags_exit(entry, flags, what):
+    import importlib
+    mod = importlib.import_module(f"tpu_asr_torch.cli.{entry}")
+    with pytest.raises(SystemExit, match=what):
+        mod.main(flags + ["--platform", "cpu", "--train_manifest", "t.jsonl"])
+
+
+def test_cli_refuses_hugging_face_manifests():
+    from tpu_asr_torch.cli import asr_train
+    with pytest.raises(SystemExit, match="data_script_path"):
+        asr_train.main(["--platform", "cpu"])

@@ -343,6 +343,8 @@ class _Attention(torch.autograd.Function):
                b, t, d, h, *window, *_drop_args(rate, seed),
                _round_up(t, 128))
         fused_relpos_attention_block.launches += 1
+        if seg is not None:
+            fused_relpos_attention_block.seg_launches += 1
         if window != (-1, -1):
             fused_relpos_attention_block.window_launches += 1
         if train:
@@ -445,8 +447,8 @@ def fused_relpos_attention_block(
     launches) and, under autograd, the backward. `seg_id` (B, T) int, the
     packed-segment map, runs the kernels' segment mode, forward and
     backward; `att_context_size` (left, right) their window, alone or with
-    the segments. `window_launches` counts the launches with a limited
-    window beside `launches`."""
+    the segments. `seg_launches` counts the launches in segment mode and
+    `window_launches` those with a limited window, beside `launches`."""
     window = tuple(int(c) for c in att_context_size)
     args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
             mask)
@@ -466,6 +468,7 @@ def fused_relpos_attention_block(
 
 
 fused_relpos_attention_block.launches = 0
+fused_relpos_attention_block.seg_launches = 0
 fused_relpos_attention_block.window_launches = 0
 fused_relpos_attention_block_bwd.launches = 0
 fused_relpos_attention_block_bwd.seg_launches = 0

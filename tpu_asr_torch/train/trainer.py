@@ -11,6 +11,11 @@ masks, router draws and diffm noise. Metrics stay on the device:
 'loss/<name>' for each loss, the model's own metrics (the router's mean
 step count, the interCTC losses), 'grad_norm' (before clipping) and, with
 skip_nan_grad, 'nonfinite_grad_elems'.
+
+`make_distil_eval_step` is the counterpart of JAX's of that name: the model
+in eval mode under `torch.no_grad()`, its losses, the per-sample CTC NLLs
+(`per_sample_ctc`, so an evaluation can weigh real rows only) and the
+greedy tokens, all left on the device.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from tpu_asr_torch.config import OptimConfig
 from tpu_asr_torch.models.distil_model import DistilCTCModel
+from tpu_asr_torch.ops.ctc import ctc_greedy_decode, ctc_loss
 from tpu_asr_torch.train.optim import (Schedule, build_optimizer,
                                        clip_by_global_norm, global_norm,
                                        set_lr)
@@ -34,6 +40,8 @@ class DistilTrainState:
     schedule: Schedule
     optim_cfg: OptimConfig
     step: int = 0
+    epoch: int = 0          # the fit loop's epoch in progress
+    epoch_step: int = 0     # the step at which that epoch began
 
     @classmethod
     def create(cls, model: DistilCTCModel,
@@ -103,3 +111,28 @@ def make_distil_train_step(model: DistilCTCModel,
         return state, metrics
 
     return train_step
+
+
+def make_distil_eval_step(model: DistilCTCModel) -> Callable:
+    """Returns eval_step(state, batch) -> (metrics, (tokens (B, T') int32
+    left-packed with -1 padding, n_tokens (B,))): 'loss/<name>' for each
+    loss and, when the batch has tokens, 'per_sample_ctc' (B,), the CTC
+    NLL of each row. The model is put in eval mode."""
+
+    def eval_step(state: DistilTrainState, batch: Dict[str, torch.Tensor]):
+        model.eval()
+        with torch.no_grad():
+            out = model(batch["signal"], batch["signal_len"],
+                        batch.get("tokens"), batch.get("token_len"),
+                        train=False)
+            blank = out.log_probs.shape[-1] - 1
+            decoded = ctc_greedy_decode(out.greedy, out.encoded_len, blank)
+            metrics = {f"loss/{k}": v for k, v in out.losses.items()}
+            if batch.get("tokens") is not None:
+                metrics["per_sample_ctc"] = ctc_loss(
+                    out.log_probs, batch["tokens"], out.encoded_len,
+                    batch["token_len"], reduction="none",
+                    backend=model.ctc_backend)
+        return metrics, decoded
+
+    return eval_step

@@ -1,0 +1,121 @@
+"""Checkpoints and resume: the port's counterpart of
+tpu_asr/utils/checkpoint.py, with `torch.save` files in place of orbax
+directories and JAX's names: `checkpoints/last`, rotated to `last-vN` when
+a run starts afresh, `student` (and `student_config.json`) for inference,
+and the trainer's `tokenizer.model` sidecar beside them.
+
+- `save_train_state`: the model's `state_dict` (BatchNorm statistics, the
+  frozen teacher and the KD modules included), the optimizer's
+  `state_dict`, the step and the fit loop's place (the epoch in progress
+  and the step it began at, so a resumed fit goes on where it stopped),
+  written to a temporary file and renamed over
+  the target, so a preemption cannot leave half a checkpoint.
+- `restore_train_state`: loads such a file into a state built the same way
+  (the same model and optimizer, parameters in the same order).
+- `export_student` / `load_student`: the student's weights only; the KD
+  wrapper (teacher, flow matching, router, ...) is not part of them.
+- `install_preemption_handler`: SIGTERM only raises a flag; the fit loop
+  saves and exits 143 where its state is whole (after a step, after an
+  epoch), never from inside an optimizer update.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import sys
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+
+def _atomic_save(obj, target: Path) -> Path:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f".{target.name}.tmp{os.getpid()}")
+    torch.save(obj, tmp)
+    os.replace(tmp, target)
+    return target
+
+
+def rotate_last(ckpt_dir) -> None:
+    """last -> last-vN (the first free N), as a fresh run starts."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    last = ckpt_dir / "last"
+    if last.exists():
+        n = 1
+        while (ckpt_dir / f"last-v{n}").exists():
+            n += 1
+        last.rename(ckpt_dir / f"last-v{n}")
+
+
+def save_train_state(ckpt_dir, state, name: str = "last") -> Path:
+    """Write {step, epoch, epoch_step, model, optimizer} of a
+    DistilTrainState."""
+    return _atomic_save({"step": int(state.step), "epoch": state.epoch,
+                         "epoch_step": state.epoch_step,
+                         "model": state.model.state_dict(),
+                         "optimizer": state.optimizer.state_dict()},
+                        Path(ckpt_dir).absolute() / name)
+
+
+def restore_train_state(ckpt_dir, state, name: str = "last"):
+    """Load `ckpt_dir/name` into `state` (its model and optimizer) in
+    place; returns the state."""
+    dev = next(state.model.parameters()).device
+    saved = torch.load(Path(ckpt_dir).absolute() / name, map_location=dev,
+                       weights_only=True)
+    state.model.load_state_dict(saved["model"], strict=True)
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    state.epoch, state.epoch_step = saved["epoch"], saved["epoch_step"]
+    return state
+
+
+def export_student(ckpt_dir, state, student_cfg,
+                   name: str = "student") -> Path:
+    """The student's `state_dict` alone, and its config as JSON beside it
+    (`<name>_config.json`)."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    target = _atomic_save(state.model.student.state_dict(), ckpt_dir / name)
+    (ckpt_dir / f"{name}_config.json").write_text(
+        json.dumps(student_cfg.to_dict(), indent=2))
+    return target
+
+
+def load_student(ckpt_path, student: torch.nn.Module) -> torch.nn.Module:
+    """Load a student export into `student` (a CTCModel of its config)."""
+    dev = next(student.parameters()).device
+    student.load_state_dict(torch.load(ckpt_path, map_location=dev,
+                                       weights_only=True), strict=True)
+    return student
+
+
+class Preemption:
+    """Set by the SIGTERM handler; `requested` is read by the fit loop at
+    its step boundaries."""
+
+    def __init__(self):
+        self.requested = False
+
+    def exit_if_requested(self, save_fn: Callable[[], None]) -> None:
+        """Checkpoint and exit 143 when a SIGTERM has arrived."""
+        if self.requested:
+            save_fn()
+            sys.exit(143)
+
+
+def install_preemption_handler(flag: Preemption, sig=signal.SIGTERM):
+    """On SIGTERM set `flag.requested` (the state may be mid-update, so
+    the handler saves nothing). Returns the previous handler, for
+    `restore_signal_handler`."""
+
+    def handler(signum, frame):
+        flag.requested = True
+
+    return signal.signal(sig, handler)
+
+
+def restore_signal_handler(prev, sig=signal.SIGTERM) -> None:
+    signal.signal(sig, prev if prev is not None else signal.SIG_DFL)
