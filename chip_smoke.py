@@ -313,6 +313,34 @@ Phases, each on its own output lines:
      with --epochs 2 continuing at the saved step and ending at twice it.
      The fit's seconds and steps/s and evaluate's audio s per s (host
      clock), beside the card's name and power limit.
+  23. the serving surface, seeded weights, fp32 unless stated: (a)
+     cache-aware streaming of bench.py's streaming configuration
+     (ModelConfig() with causal subsampling and conv, chunked_limited
+     (108, 3): 16 mel frames a chunk, 4 encoded frames, 108 frames of
+     left context): B=1 over a 15 s clip and B=8 over clips of 4-15 s
+     (exhausted streams ride along with chunk_len 0), the per-chunk
+     log-probs concatenated against the same model's offline forward on
+     the same features (max |delta log-prob| < 2e-3, greedy ids equal
+     where the offline top-2 margin exceeds 1e-3), in bf16 ids equal on >=
+     99% of the frames with margin > 1e-1; CacheAwareStreamer.stream's
+     launches (logmel > 0, attention and subsampling 0: a cached step runs
+     plain, as in JAX) and its ids against the offline greedy ids; the
+     per-chunk step latency at B=1 and B=8 (bench.py's 50 steps after
+     warm-up, 3 repeats: median and range) and the device's busy ms a step
+     and share; (b) ModelConfig() at B=32 x 15 s on the
+     kernels, then beam_batch W=16: the top beam of 2 rows against the
+     host prefix search on the same log-probs with each frame cut to its
+     top 2W tokens (the host search's own pruning), tokens equal and
+     scores within rtol and atol 1e-4; with a seeded 3-gram NgramLM on all
+     32 rows against the same call on a CPU copy of the log-probs (the
+     same rule); beam RTFx beside greedy RTFx (forward and decode to
+     text, host clock), the serving kernels launched; (c) greedy
+     CTCDecoding with timestamps, every ConfidenceConfig preserve flag and
+     alignments on (b)'s log-probs against their CPU copy (tokens, offsets
+     and alignments equal, confidences within 1e-5), and
+     ChunkedTranscriber on a 120 s clip (16 s windows, 2 s overlap): the
+     same text as on a CPU copy of the model's plain path, and its RTFx.
+     Every time beside the card's name and power limit.
 Each phase's seconds are printed after it.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
@@ -324,6 +352,7 @@ Any failed check exits non-zero before the last line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -357,16 +386,22 @@ def check(ok, msg: str) -> None:
         sys.exit(1)
 
 
+@functools.cache
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them; queried
+    once a run."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def card() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])            # name, power limit
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     # fp32 references in full fp32: cuDNN convolutions default to TF32
@@ -4686,15 +4721,369 @@ def cli_phase():
               f"and ended at step {resumed.step} (epoch 2)")
         for u in undo:
             u()
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
-        print(f"cli ({smi}): fit {fit_s:.2f} s, {steps / fit_s:.3f} steps/s;"
+        print(f"cli ({card_line()}): fit {fit_s:.2f} s, "
+              f"{steps / fit_s:.3f} steps/s;"
               f" evaluate {val_audio / eval_s:.1f} audio s per s")
         return counts
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+STREAM_STEPS, STREAM_REPEATS, STREAM_WARMUP = 50, 3, 3
+BEAM_WIDTH, BEAM_ITERS, CHUNKED_SECONDS = 16, 3, 120
+
+
+def scores_close(got: float, want: float) -> bool:
+    """tests/test_beam_search.py's score bound: rtol and atol 1e-4."""
+    return abs(got - want) <= 1e-4 + 1e-4 * abs(want)
+
+
+def streaming_config(cfg):
+    """bench.py's streaming configuration of cfg: causal subsampling and
+    conv, chunked_limited attention of 4-frame chunks (16 mel frames, 160
+    ms) with 108 frames (about 4.3 s) of left context."""
+    return with_encoder(cfg, causal_downsampling=True,
+                        conv_context_size="causal",
+                        att_context_style="chunked_limited",
+                        att_context_size=(108, 3))
+
+
+def stream_batch(streamer, feats, feat_len):
+    """Stream (B, F, T) mel features of B streams of unequal length in
+    lockstep chunks (an exhausted stream rides along with chunk_len 0);
+    returns each stream's (frames, V+1) log-probs, concatenated."""
+    sc = streamer.stream_cfg
+    dev, n = feats.device, feat_len.tolist()
+    state = streamer.init_state(len(n))
+    steps = []
+    with torch.inference_mode():
+        for pos in range(0, max(n), sc.chunk_size):
+            takes = torch.tensor([max(0, min(sc.chunk_size, k - pos))
+                                  for k in n], device=dev)
+            chunk = feats[:, :, pos:pos + sc.chunk_size]
+            chunk = torch.nn.functional.pad(
+                chunk, (0, sc.chunk_size - chunk.shape[2]))
+            keep = (torch.arange(sc.chunk_size, device=dev)[None, :]
+                    < takes[:, None])
+            lp, enc_len, state = streamer.step(state, chunk * keep[:, None],
+                                               takes)
+            steps.append((lp, enc_len))
+    lens = torch.stack([e for _, e in steps]).tolist()      # (steps, B)
+    return [torch.cat([lp[i, :lens[k][i]] for k, (lp, _) in
+                       enumerate(steps)]) for i in range(len(n))]
+
+
+def stream_vs_offline(streamer, feats, feat_len, label):
+    """The streamed log-probs of every stream against the same model's
+    offline forward on the same features (phase 4's fp32 rule); returns
+    (streamed ids, offline ids, offline top-2 margins), per stream."""
+    streamed = stream_batch(streamer, feats, feat_len)
+    with torch.inference_mode():
+        off = streamer.model.forward_features(feats, feat_len)
+    delta, n_dec, same, out = 0.0, 0, True, []
+    for i, got in enumerate(streamed):
+        n = int(off.encoded_len[i])
+        check(got.shape[0] == n, f"{label} stream {i}: {got.shape[0]} "
+              f"streamed frames, the offline forward's {n}")
+        want = off.log_probs[i, :n]
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        out.append((got.argmax(-1), want.argmax(-1), margin))
+        delta = max(delta, (got.float() - want).abs().max().item())
+        decided = margin > 1e-3
+        n_dec += int(decided.sum())
+        same &= bool(((got.argmax(-1) == want.argmax(-1)) | ~decided).all())
+    return delta, n_dec, same, out
+
+
+def streaming_latency(streamer, b: int, gen):
+    """bench.py's per-chunk step latency at B=b: STREAM_STEPS full chunks
+    after STREAM_WARMUP, host clock to a synchronize, STREAM_REPEATS
+    times; and the device's busy ms a step (torch.profiler)."""
+    sc = streamer.stream_cfg
+    chunk = torch.randn(b, streamer.cfg.preprocessor.features, sc.chunk_size,
+                        generator=gen, device="cuda")
+    clen = torch.full((b,), sc.chunk_size, device="cuda")
+    state = [streamer.init_state(b)]
+
+    def one():
+        _, _, state[0] = streamer.step(state[0], chunk, clen)
+
+    with torch.inference_mode():
+        for _ in range(STREAM_WARMUP):
+            one()
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(STREAM_REPEATS):
+            t0 = time.perf_counter()
+            for _ in range(STREAM_STEPS):
+                one()
+            torch.cuda.synchronize()
+            reps.append(1e3 * (time.perf_counter() - t0) / STREAM_STEPS)
+        busy, _ = device_ms(one, iters=3)
+    return reps, busy
+
+
+def streaming_phase(cfg):
+    """Phase 23a: cache-aware streaming of bench.py's streaming
+    configuration of cfg."""
+    from tpu_asr_torch.models.streaming import CacheAwareStreamer
+    from tpu_asr_torch.profile_forward import seeded_model, waveforms
+
+    scfg = streaming_config(cfg)
+    rng = np.random.default_rng(23)
+    clips = [waveforms(rng, 1, SECONDS, SECONDS)[0]] + waveforms(
+        rng, 7, 4.0, SECONDS)
+    sig = np.zeros((len(clips), max(len(c) for c in clips)), np.float32)
+    for i, c in enumerate(clips):
+        sig[i, :len(c)] = c
+    sig_t = torch.from_numpy(sig).to("cuda")
+    len_t = torch.tensor([len(c) for c in clips], device="cuda")
+
+    model = seeded_model(dataclasses.replace(scfg, compute_dtype="float32"),
+                         seed=23, device="cuda")
+    streamer = CacheAwareStreamer(model, device="cuda")
+    sc = streamer.stream_cfg
+    print(f"streaming: chunk {sc.chunk_size} mel frames "
+          f"({sc.chunk_size * 10} ms), {sc.valid_out_len} encoded frames a "
+          f"step, attention cache {sc.last_channel_cache_size} frames, conv "
+          f"cache {sc.last_time_cache_size}, pre-encode tail "
+          f"{sc.pre_encode_cache_size} mel frames")
+    with torch.inference_mode():
+        feats, feat_len = model.featurizer(sig_t, len_t)
+    t0 = time.perf_counter()
+    for label, idx in (("B=1, 15 s", [0]),
+                       ("B=8, 4-15 s", list(range(len(clips))))):
+        delta, n_dec, same, ref = stream_vs_offline(
+            streamer, feats[idx], feat_len[idx], f"fp32 {label}")
+        check(delta < 2e-3, f"streaming fp32 {label}: max |delta log-prob| "
+              f"streamed vs offline {delta:.3e} < 2e-3")
+        check(same, f"streaming fp32 {label}: greedy ids equal on {n_dec} "
+              f"frames with offline top-2 margin > 1e-3")
+
+    # the entry point a user calls: featurize (log-mel kernel), then the
+    # chunk steps, which take no kernel (the route is plain with a cache)
+    read = reset_counters()
+    ids = streamer.stream(clips[0], return_ids=True)
+    counts = {k: v for k, v in read().items() if v}
+    check(counts.get("logmel", 0) > 0 and not counts.get("attention")
+          and not counts.get("subsampling"),
+          f"CacheAwareStreamer.stream launches: {counts} (logmel > 0; "
+          f"attention and subsampling 0: cached steps run plain, as in JAX)")
+    with torch.inference_mode():
+        off = model(sig_t[:1], len_t[:1])
+    n = int(off.encoded_len[0])
+    top2 = off.log_probs[0, :n].topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 1e-3
+    off_ids = off.greedy[0, :n]
+    got_ids = torch.tensor(ids, device="cuda")
+    check(len(ids) == n and bool(((got_ids == off_ids) | ~decided).all()),
+          f"CacheAwareStreamer.stream (15 s): {len(ids)} frame ids, equal "
+          f"to the offline greedy ids on {int(decided.sum())} frames with "
+          f"top-2 margin > 1e-3")
+
+    # bf16, the config's own dtype: per frame, phase 16's rule
+    model16 = seeded_model(scfg, seed=23, device="cuda")
+    streamer16 = CacheAwareStreamer(model16, device="cuda")
+    streamed16 = stream_batch(streamer16, feats, feat_len)
+    agree = n_dec = 0
+    for (_, want_ids, margin), got in zip(ref, streamed16):
+        decided = margin > 1e-1
+        n_dec += int(decided.sum())
+        agree += int(((got.argmax(-1) == want_ids) & decided).sum())
+    check(agree >= 0.99 * n_dec, f"streaming bf16 B=8: ids equal to the fp32 "
+          f"offline forward on {agree} of {n_dec} frames with top-2 margin "
+          f"> 1e-1 (>= 99%); the streamed checks took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lat = {}
+    for b in (1, 8):
+        t0 = time.perf_counter()
+        reps, busy = streaming_latency(streamer, b, gen)
+        lat[b] = float(np.median(reps))
+        print(f"streaming step latency (fp32, B={b}, {card_line()}): median "
+              f"{lat[b]:.3f} ms, {min(reps):.3f}-{max(reps):.3f} over "
+              f"{STREAM_REPEATS} repeats of {STREAM_STEPS} steps after "
+              f"{STREAM_WARMUP} warm-up (host clock); device busy "
+              f"{busy:.3f} ms a step, busy share {busy / lat[b]:.3f}; "
+              f"real-time budget 160 ms a chunk "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return lat
+
+
+def beam_phase(cfg):
+    """Phase 23b: cfg in fp32 at B=32 x 15 s on the kernels, then
+    beam_batch W=16: the host oracle on 2 rows, the n-gram LM on the card
+    against the CPU, beam and greedy RTFx. Returns (log-probs, lengths,
+    tokenizer, {decoding: RTFx}) for 23c."""
+    from tpu_asr_torch.ops.beam_search import NEG_INF
+    from tpu_asr_torch.ops.decoding import CTCDecoding, ctc_prefix_beam_search
+    from tpu_asr_torch.ops.ngram_lm import NgramLM
+    from tpu_asr_torch.profile_forward import seeded_model
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    model = seeded_model(cfg, seed=24, device="cuda")
+    tok = serve_tokenizer(cfg)
+    rng = np.random.default_rng(24)
+    sig = torch.from_numpy((rng.normal(size=(BATCH, SECONDS * SR)) * 0.1)
+                           .astype(np.float32)).to("cuda")
+    lens = torch.full((BATCH,), SECONDS * SR, device="cuda")
+    with torch.inference_mode():
+        out = model(sig, lens)
+    lp, enc_len = out.log_probs, out.encoded_len
+    beam = CTCDecoding(tok, "beam_batch", beam_width=BEAM_WIDTH)
+    # the host search keeps each frame's top 2W tokens, the device search
+    # all V: the same candidates only where every frame has 2W finite ones
+    top = lp[:2].topk(2 * BEAM_WIDTH, dim=-1)
+    cut = torch.full_like(lp[:2], NEG_INF).scatter(-1, top.indices,
+                                                    top.values)
+    hyps = beam.ctc_decoder_predictions_tensor(cut, enc_len[:2], True)
+    lp_host = cut.cpu().numpy()
+    for i in range(2):
+        ref = ctc_prefix_beam_search(lp_host[i], int(enc_len[i]),
+                                     BEAM_WIDTH)[0]
+        check(hyps[i].y_sequence == ref.y_sequence
+              and scores_close(hyps[i].score, ref.score),
+              f"beam_batch W={BEAM_WIDTH} row {i}, each frame cut to its "
+              f"top {2 * BEAM_WIDTH} tokens: top beam "
+              f"({len(ref.y_sequence)} tokens) = the host prefix search's, "
+              f"score {hyps[i].score:.5f} vs {ref.score:.5f} (rtol and atol "
+              f"1e-4)")
+
+    seqs = [rng.integers(0, cfg.decoder.num_classes,
+                         size=rng.integers(5, 16)).tolist()
+            for _ in range(60)]
+    lm = NgramLM.train(seqs, order=3)
+    t0 = time.perf_counter()
+    ng = CTCDecoding(tok, "beam_batch", beam_width=BEAM_WIDTH, ngram_lm=lm,
+                     lm_weight=0.5)
+    got = ng.ctc_decoder_predictions_tensor(lp, enc_len, True)
+    n_states = ng.ngram_tables[0].shape[0]
+    want = ng.ctc_decoder_predictions_tensor(lp.cpu(), enc_len.cpu(), True)
+    worst = max(abs(g.score - w.score) for g, w in zip(got, want))
+    check(all(g.y_sequence == w.y_sequence
+              and scores_close(g.score, w.score) for g, w in zip(got, want)),
+          f"beam_batch W={BEAM_WIDTH} with a 3-gram LM ({n_states} automaton "
+          f"states, weight 0.5) on the card = on a CPU copy of the log-probs "
+          f"for {len(got)} rows: tokens equal, scores within rtol and atol "
+          f"1e-4 (max |delta| {worst:.2e}; {time.perf_counter() - t0:.1f} s)")
+
+    audio_s = BATCH * SECONDS
+
+    def serve(decode):
+        with torch.inference_mode():
+            o = model(sig, lens)
+            return decode(o)
+
+    greedy = CTCDecoding(tok)
+    # greedy twice: the Transcribers' ids path and the log-probs path, so
+    # that the ids path's saving is measured, not assumed
+    runs = {"greedy": lambda o: greedy.greedy_ids_predictions(
+                o.greedy, o.encoded_len, o.log_probs.shape[-1] - 1),
+            "greedy_log_probs":
+                lambda o: greedy.ctc_decoder_predictions_tensor(
+                    o.log_probs, o.encoded_len),
+            "beam": lambda o: beam.ctc_decoder_predictions_tensor(
+                o.log_probs, o.encoded_len)}
+    rtfx, counts, texts_of = {}, {}, {}
+    for name, decode in runs.items():
+        serve(decode)
+        torch.cuda.synchronize()
+        read = reset_counters()
+        t0 = time.perf_counter()
+        for _ in range(BEAM_ITERS):
+            texts = serve(decode)
+        wall = (time.perf_counter() - t0) / BEAM_ITERS
+        launched = read()
+        counts[name] = {k: launched[k] for k in SERVING}
+        rtfx[name] = audio_s / wall
+        texts_of[name] = texts
+        check(len(texts) == BATCH and all(isinstance(t, str) for t in texts),
+              f"{name} at B={BATCH} x {SECONDS} s answered with strings")
+    check(all(v > 0 for v in counts["beam"].values()),
+          f"beam serving launched the serving kernels: {counts['beam']}")
+    check(texts_of["greedy"] == texts_of["greedy_log_probs"],
+          f"greedy at B={BATCH}: the ids path's texts = the log-probs "
+          f"path's")
+    print(f"beam ({card_line()}): B={BATCH} x {SECONDS} s, W={BEAM_WIDTH}, "
+          f"{cfg.compute_dtype} forward: beam RTFx {rtfx['beam']:.1f}, greedy "
+          f"RTFx {rtfx['greedy']:.1f} on the model's ids, "
+          f"{rtfx['greedy_log_probs']:.1f} on its log-probs (host clock, "
+          f"mean of {BEAM_ITERS} after 1 warm-up, text out)")
+    return lp, enc_len, tok, rtfx
+
+
+def decoding_phase(cfg, lp, enc_len, tok):
+    """Phase 23c: the greedy decoding layer with every payload on the
+    card's log-probs against their CPU copy, and ChunkedTranscriber on a
+    120 s clip against a CPU copy of the model."""
+    import copy
+
+    from tpu_asr_torch.models.transcribe import ChunkedTranscriber
+    from tpu_asr_torch.ops.confidence import ConfidenceConfig
+    from tpu_asr_torch.ops.decoding import CTCDecoding
+    from tpu_asr_torch.profile_forward import seeded_model, waveforms
+
+    dec = CTCDecoding(tok, compute_timestamps=True, preserve_alignments=True,
+                      confidence_cfg=ConfidenceConfig(
+                          preserve_frame_confidence=True,
+                          preserve_token_confidence=True,
+                          preserve_word_confidence=True))
+    got = dec.ctc_decoder_predictions_tensor(lp, enc_len, True)
+    want = dec.ctc_decoder_predictions_tensor(lp.cpu(), enc_len.cpu(), True)
+    same, worst = True, 0.0
+    for g, w in zip(got, want, strict=True):
+        same &= (g.y_sequence == w.y_sequence and g.timestamp == w.timestamp
+                 and np.array_equal(g.alignments[0], w.alignments[0])
+                 and np.array_equal(g.alignments[1], w.alignments[1]))
+        for field in ("frame_confidence", "token_confidence",
+                      "word_confidence"):
+            a, b = getattr(g, field), getattr(w, field)
+            same &= len(a) == len(b)
+            if a and len(a) == len(b):
+                worst = max(worst, float(np.abs(np.subtract(a, b)).max()))
+    check(same, f"greedy with timestamps, confidence and alignments, "
+          f"{len(got)} rows: tokens, offsets, alignments and the number of "
+          f"confidences on the card equal to the CPU's")
+    words = sum(len(h.timestamp["word"]) for h in got)
+    check(worst < 1e-5, f"greedy payload for {len(got)} rows ({words} word "
+          f"offsets): frame, token and word confidences within {worst:.2e} "
+          f"of the CPU's (< 1e-5)")
+
+    model = seeded_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                         seed=25, device="cuda")
+    cpu_model = copy.deepcopy(model).cpu()
+    clip = waveforms(np.random.default_rng(25), 1, CHUNKED_SECONDS,
+                     CHUNKED_SECONDS)[0]
+    card = ChunkedTranscriber(model, tok, device="cuda")
+    card.transcribe(clip)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = card.transcribe(clip)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_text = ChunkedTranscriber(cpu_model, tok,
+                                  device="cpu").transcribe(clip)
+    cpu_s = time.perf_counter() - t0
+    check(text == cpu_text and len(text) > 0,
+          f"ChunkedTranscriber ({CHUNKED_SECONDS} s, fp32, 16 s windows, 2 s "
+          f"overlap): {len(text.split())} words, the same text on the card "
+          f"as on a CPU copy of the model's plain path ({cpu_s:.1f} s)")
+    print(f"chunked ({card_line()}): RTFx {CHUNKED_SECONDS / wall:.1f} "
+          f"({wall:.3f} s wall for {CHUNKED_SECONDS} s of audio, host clock)")
+
+
+def serving_surface_phase(cfg):
+    """Phase 23: streaming, beam search, the decoding layer and
+    ChunkedTranscriber."""
+    lat = timed_phase("23a", streaming_phase, cfg)
+    lp, enc_len, tok, rtfx = timed_phase("23b", beam_phase, cfg)
+    timed_phase("23c", decoding_phase, cfg, lp, enc_len, tok)
+    print(f"serving surface ({card_line()}): fp32 streaming step B=1 "
+          f"{lat[1]:.3f} ms, B=8 {lat[8]:.3f} ms; beam RTFx "
+          f"{rtfx['beam']:.1f}, greedy {rtfx['greedy']:.1f} (ids) / "
+          f"{rtfx['greedy_log_probs']:.1f} (log-probs)")
 
 
 def timed_phase(label: str, fn, *args):
@@ -4768,6 +5157,7 @@ def main() -> int:
     counts.update(fc_counts)
     timed_phase("21", kd_rest_phase, cfg)
     timed_phase("22", cli_phase)
+    timed_phase("23", serving_surface_phase, cfg)
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "

@@ -5,14 +5,14 @@
   the port keeps its own copies of the host code it needs);
 - the port's config dataclasses have the JAX package's defaults, and its
   BPE trainer gives the JAX tokenizer's ids;
-- the entry points (Transcriber, PackedTranscriber) run on the card
-  unless told otherwise;
+- the entry points (Transcriber, PackedTranscriber, ChunkedTranscriber,
+  CacheAwareStreamer) run on the card unless told otherwise;
 - chip_smoke.py refuses to run without a CUDA device and never prints its
   success line there;
 - on CPU tensors the kernel wrappers run their plain versions: a CPU
-  forward (also int8 with the conv kernel route), student train step or KD
-  train step (also with an int8 teacher) launches nothing and builds
-  nothing;
+  forward (also int8 with the conv kernel route), streaming step, student
+  train step or KD train step (also with an int8 teacher) launches nothing
+  and builds nothing;
 - the eval-only wrappers (int8 FFN, conv module) refuse autograd;
 - EncoderConfig options outside the port's slice raise;
 - the CLIs (tpu_asr_torch/cli/): importing every module and running each
@@ -32,6 +32,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -43,7 +44,9 @@ from tpu_asr_torch.data.tokenizer import train_bpe
 from tpu_asr_torch.models.conformer import ConformerEncoder
 from tpu_asr_torch.models.ctc_model import CTCModel
 from tpu_asr_torch.models.distil_model import DistilCTCModel
-from tpu_asr_torch.models.transcribe import PackedTranscriber, Transcriber
+from tpu_asr_torch.models.streaming import CacheAwareStreamer
+from tpu_asr_torch.models.transcribe import (ChunkedTranscriber,
+                                             PackedTranscriber, Transcriber)
 from tpu_asr_torch.ops import _kernels
 from tpu_asr_torch.ops.cuda_attention import (
     fused_relpos_attention, fused_relpos_attention_block,
@@ -118,7 +121,12 @@ def test_port_imports_no_jax():
                  "tpu_asr_torch.kd.flow_matching",
                  "tpu_asr_torch.ops.cuda_fm", "tpu_asr_torch.ops.quant",
                  "tpu_asr_torch.ops.cuda_conv", "tpu_asr_torch.ops.cuda_layer",
-                 "tpu_asr_torch.ops.positions", "chip_smoke"):
+                 "tpu_asr_torch.ops.positions",
+                 "tpu_asr_torch.models.streaming",
+                 "tpu_asr_torch.models.vocab", "tpu_asr_torch.ops.decoding",
+                 "tpu_asr_torch.ops.confidence",
+                 "tpu_asr_torch.ops.beam_search",
+                 "tpu_asr_torch.ops.ngram_lm", "chip_smoke"):
         assert name in out["modules"]
     assert "tpu_asr_torch.host" not in out["modules"]
     assert out["bad"] == []
@@ -152,9 +160,51 @@ def test_train_bpe_gives_jax_ids():
 
 
 def test_transcriber_defaults_to_cuda():
-    for cls in (Transcriber, PackedTranscriber):
+    for cls in (Transcriber, PackedTranscriber, ChunkedTranscriber,
+                CacheAwareStreamer):
         sig = inspect.signature(cls.__init__)
         assert sig.parameters["device"].default == "cuda"
+
+
+def test_entry_points_raise_without_a_card():
+    """Without a CUDA device and without device="cpu" each serving entry
+    point raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    enc = port_config.EncoderConfig(
+        n_layers=1, d_model=32, n_heads=2, conv_kernel_size=7,
+        causal_downsampling=True, conv_context_size="causal",
+        att_context_style="chunked_limited", att_context_size=(8, 3))
+    cfg = port_config.ModelConfig(
+        encoder=enc, decoder=port_config.DecoderConfig(feat_in=32,
+                                                       num_classes=16))
+    tok = train_bpe(["a b c"], vocab_size=8)
+    for make in (lambda m: Transcriber(m, tok),
+                 lambda m: PackedTranscriber(m, tok),
+                 lambda m: ChunkedTranscriber(m, tok),
+                 lambda m: CacheAwareStreamer(m, tok)):
+        with pytest.raises((AssertionError, RuntimeError)):
+            make(CTCModel(cfg))
+
+
+def test_cpu_stream_step_launches_and_builds_nothing():
+    """A streaming session on CPU tensors (the featurizer, then cached
+    steps) runs the plain versions: nothing launched, nothing built."""
+    enc = port_config.EncoderConfig(
+        n_layers=2, d_model=32, n_heads=2, conv_kernel_size=7,
+        causal_downsampling=True, conv_context_size="causal",
+        att_context_style="chunked_limited", att_context_size=(8, 3))
+    cfg = port_config.ModelConfig(
+        spec_augment=None, encoder=enc,
+        decoder=port_config.DecoderConfig(feat_in=32, num_classes=16),
+        compute_dtype="float32")
+    torch.manual_seed(0)
+    streamer = CacheAwareStreamer(CTCModel(cfg), device="cpu")
+    ids = streamer.stream(np.random.default_rng(0).normal(
+        size=8000).astype(np.float32) * 0.1, return_ids=True)
+    assert len(ids) == 13 and all(0 <= i <= 16 for i in ids)
+    assert all(w.launches == 0 for w in WRAPPERS)
+    assert _kernels.library.cache_info().currsize == 0
 
 
 def test_cpu_train_step_launches_and_builds_nothing():

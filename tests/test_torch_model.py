@@ -29,7 +29,7 @@ from tpu_asr.ops.ctc import ctc_greedy_decode as jax_ctc_greedy_decode
 from tpu_asr_torch.convert.from_jax import jax_to_state_dict
 from tpu_asr_torch.models.ctc_model import CTCModel
 from tpu_asr_torch.models.transcribe import Transcriber
-from tpu_asr_torch.ops.ctc import ctc_greedy_decode
+from tpu_asr_torch.ops.ctc import ctc_greedy_decode_ids
 
 CONFIGS = {
     "tiny": (ModelConfig(
@@ -145,7 +145,8 @@ def test_greedy_decode_of_model_ids_matches_jax(v):
     want_tokens, want_n = jax_ctc_greedy_decode(jnp.asarray(log_probs),
                                                 jnp.asarray(lens))
     ids = torch.from_numpy(log_probs).argmax(dim=-1)
-    tokens, n = ctc_greedy_decode(ids, torch.from_numpy(lens), blank=v - 1)
+    tokens, n = ctc_greedy_decode_ids(ids, torch.from_numpy(lens),
+                                      blank=v - 1)
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(want_tokens))
     np.testing.assert_array_equal(n.numpy(), np.asarray(want_n))
 

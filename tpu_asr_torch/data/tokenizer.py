@@ -1,5 +1,6 @@
 """SentencePiece-compatible BPE tokenizer: the port's own copy of
-`SentencePieceBPETokenizer` and `train_bpe` from the JAX package's
+`SentencePieceBPETokenizer`, `AggregateTokenizer`, `CharTokenizer`,
+`WordPieceTokenizer` and `train_bpe` from the JAX package's
 tpu_asr/data/tokenizer.py (same pieces, same ids), standard library only.
 
 - a minimal protobuf wire-format reader and writer for SentencePiece
@@ -374,6 +375,194 @@ class SentencePieceBPETokenizer:
     def ids_to_pieces(self, ids: Iterable[int]) -> List[str]:
         return [self.pieces[i] for i in ids if 0 <= i < len(self.pieces)]
 
+
+
+class AggregateTokenizer:
+    """Multiple per-language tokenizers concatenated into one id space with
+    per-language offsets (NeMo's aggregate tokenizer variant, SURVEY.md N13).
+    `text_to_ids(text, lang)` selects the sub-tokenizer; decode routes each id
+    back through its owner."""
+
+    def __init__(self, tokenizers: Dict[str, "SentencePieceBPETokenizer"]):
+        self.langs = list(tokenizers)
+        self.tokenizers = tokenizers
+        self.offsets: Dict[str, int] = {}
+        off = 0
+        for lang in self.langs:
+            self.offsets[lang] = off
+            off += tokenizers[lang].vocab_size
+        self._total = off
+
+    @property
+    def vocab_size(self) -> int:
+        return self._total
+
+    @property
+    def vocab(self) -> List[str]:
+        out: List[str] = []
+        for lang in self.langs:
+            out.extend(f"{lang}:{p}" for p in self.tokenizers[lang].vocab)
+        return out
+
+    def text_to_ids(self, text: str, lang: Optional[str] = None) -> List[int]:
+        lang = lang or self.langs[0]
+        off = self.offsets[lang]
+        return [off + i for i in self.tokenizers[lang].text_to_ids(text)]
+
+    def _owner(self, idx: int):
+        for lang in reversed(self.langs):
+            if idx >= self.offsets[lang]:
+                return lang, idx - self.offsets[lang]
+        return self.langs[0], idx
+
+    def ids_to_text(self, ids: Iterable[int]) -> str:
+        parts: List[str] = []
+        cur_lang, cur_ids = None, []
+        for i in ids:
+            lang, local = self._owner(int(i))
+            if lang != cur_lang and cur_ids:
+                parts.append(self.tokenizers[cur_lang].ids_to_text(cur_ids))
+                cur_ids = []
+            cur_lang = lang
+            cur_ids.append(local)
+        if cur_ids:
+            parts.append(self.tokenizers[cur_lang].ids_to_text(cur_ids))
+        return " ".join(p for p in parts if p)
+
+
+class CharTokenizer:
+    """Character-level tokenizer (NeMo's char-vocabulary CTC models — the
+    `labels`-based EncDecCTCModel variant, SURVEY.md N2/N13)."""
+
+    def __init__(self, vocab: Sequence[str]):
+        self.pieces = list(vocab)
+        self.piece_to_id = {c: i for i, c in enumerate(self.pieces)}
+
+    @classmethod
+    def from_corpus(cls, corpus: Iterable[str]) -> "CharTokenizer":
+        chars = sorted({ch for line in corpus for ch in line})
+        return cls(chars)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.pieces)
+
+    @property
+    def vocab(self) -> List[str]:
+        return list(self.pieces)
+
+    def text_to_ids(self, text: str) -> List[int]:
+        return [self.piece_to_id[c] for c in text if c in self.piece_to_id]
+
+    def ids_to_text(self, ids: Iterable[int]) -> str:
+        return "".join(self.pieces[i] for i in ids
+                       if 0 <= i < len(self.pieces))
+
+    def save(self, path) -> None:
+        Path(path).write_text(json.dumps({"char_vocab": self.pieces},
+                                         ensure_ascii=False))
+
+    @classmethod
+    def from_file(cls, path) -> "CharTokenizer":
+        return cls(json.loads(Path(path).read_text())["char_vocab"])
+
+
+class WordPieceTokenizer:
+    """WordPiece ('wpe') tokenizer — the BERT-style greedy longest-match
+    scheme NeMo's `tokenizer.type: wpe` uses via HuggingFace BertTokenizer
+    (SURVEY.md N13 'aggregate/char/wpe variants'). Continuation pieces carry
+    the '##' prefix; unknown spans map to [UNK]."""
+
+    UNK = "[UNK]"
+
+    def __init__(self, vocab: Sequence[str], lowercase: bool = True):
+        self.pieces = list(vocab)
+        if self.UNK not in self.pieces:
+            self.pieces.insert(0, self.UNK)
+        self.piece_to_id = {p: i for i, p in enumerate(self.pieces)}
+        self.lowercase = lowercase
+        self.unk_id = self.piece_to_id[self.UNK]
+
+    @classmethod
+    def from_corpus(cls, corpus: Iterable[str], vocab_size: int,
+                    lowercase: bool = True) -> "WordPieceTokenizer":
+        """Greedy frequency-based builder: all characters, then the most
+        frequent whole words / prefixes until vocab_size."""
+        from collections import Counter
+        words = Counter()
+        chars = set()
+        for line in corpus:
+            if lowercase:
+                line = line.lower()
+            for w in line.split():
+                words[w] += 1
+                chars.update(w)
+        vocab = [cls.UNK] + sorted(chars) + sorted(
+            "##" + c for c in chars)
+        for w, _ in words.most_common():
+            if len(vocab) >= vocab_size:
+                break
+            if w not in vocab:
+                vocab.append(w)
+        return cls(vocab[:max(vocab_size, len(chars) * 2 + 1)], lowercase)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.pieces)
+
+    @property
+    def vocab(self) -> List[str]:
+        return list(self.pieces)
+
+    def _word_to_ids(self, word: str) -> List[int]:
+        ids, pos, first = [], 0, True
+        while pos < len(word):
+            end = len(word)
+            cur = None
+            while end > pos:
+                piece = word[pos:end]
+                if not first:
+                    piece = "##" + piece
+                if piece in self.piece_to_id:
+                    cur = self.piece_to_id[piece]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_id]     # whole word -> [UNK] (BERT rule)
+            ids.append(cur)
+            pos = end
+            first = False
+        return ids
+
+    def text_to_ids(self, text: str) -> List[int]:
+        if self.lowercase:
+            text = text.lower()
+        out: List[int] = []
+        for w in text.split():
+            out.extend(self._word_to_ids(w))
+        return out
+
+    def ids_to_text(self, ids: Iterable[int]) -> str:
+        words: List[str] = []
+        for i in ids:
+            if not 0 <= i < len(self.pieces):
+                continue
+            p = self.pieces[i]
+            if p.startswith("##") and words:
+                words[-1] += p[2:]
+            else:
+                words.append(p)
+        return " ".join(words)
+
+    def save(self, path) -> None:
+        Path(path).write_text(json.dumps(
+            {"wpe_vocab": self.pieces, "lowercase": self.lowercase},
+            ensure_ascii=False))
+
+    @classmethod
+    def from_file(cls, path) -> "WordPieceTokenizer":
+        d = json.loads(Path(path).read_text())
+        return cls(d["wpe_vocab"], d.get("lowercase", True))
 
 
 def train_bpe(corpus: Iterable[str], vocab_size: int,

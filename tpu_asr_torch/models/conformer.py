@@ -19,8 +19,7 @@ context or a limited window (`att_context_size`) in the 'regular'
 `global_attn_separate`'s own projections). Mid-stack or final time
 reduction (pooling or striding), `feat_out`'s projection, stochastic depth
 in training; batch-norm or layer-norm conv modules with any conv context,
-int8 serving (`quantization='int8'`). No caches (cache-aware streaming is
-its own entry point in JAX). Any other EncoderConfig value raises
+int8 serving (`quantization='int8'`). Any other EncoderConfig value raises
 (`check_supported`) instead of running a different path. Backends:
 `subsampling_backend` and `attention_backend`
 'pallas' call the kernel wrappers (the CUDA kernels for CUDA tensors, the
@@ -50,6 +49,14 @@ attention then sees only keys of its query's segment (the attention
 kernel's segment mode, forward and backward) and every layer zeroes the
 guard frames. In training BatchNorm's statistics run over the packed
 (R, T) frames, guards included, as JAX's do over the packed layout.
+
+Cache-aware streaming (`ConformerEncoder.stream_step`, JAX's encoder with
+`cache`): per-layer caches of the last C post-LN attention inputs and of
+the last `pad_l` post-GLU conv inputs, both rolled by each sample's own
+valid count; keys and values over [cache; chunk], queries over the chunk;
+the causal pre-encode's recomputed leading frames dropped. As in JAX, a
+cached step runs plain PyTorch throughout: the attention, conv and
+subsampling kernels take no cache, and the FFN sublayers run unfused.
 
 Training (`train=True` with a `torch.Generator`): every dropout site draws
 its mask from the counter hash of ops/dropout.py with a seed drawn per step
@@ -89,7 +96,8 @@ from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
                                                 subsampling_plain,
                                                 subsampling_refusal)
 from tpu_asr_torch.ops.dropout import dropout, keep_mask
-from tpu_asr_torch.ops.positions import rel_positional_encoding  # noqa: F401
+from tpu_asr_torch.ops.positions import (position_table,
+                                         rel_positional_encoding)
 
 SEEDS_PER_LAYER = 5      # ffn1, attention probabilities, attention out,
 #                          conv out, ffn2
@@ -336,9 +344,22 @@ class RelPositionMultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 mask: torch.Tensor, dropout_rate: float = 0.0,
                 dropout_seed: int = 0,
-                seg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seg_id: Optional[torch.Tensor] = None,
+                kv_cache: Optional[torch.Tensor] = None,
+                kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`seg_id` (B, T) int: the packed-segment map ('regular' style
-        without global tokens only, as in JAX)."""
+        without global tokens only, as in JAX). `kv_cache` (B, C, D): the
+        right-aligned history of post-LN inputs of cache-aware streaming,
+        `kv_valid` (B,) its valid frames; `pos_emb` then has C + 2T - 1
+        rows. With a cache neither 'auto' nor 'pallas' takes the kernel, as
+        in JAX: it scores square problems only."""
+        if kv_cache is not None:
+            if seg_id is not None:
+                raise ValueError(
+                    "packed-segment attention (seg_id) supports only the "
+                    "offline 'regular' attention style without global tokens")
+            out = self._cached_plain(x, pos_emb, mask, kv_cache, kv_valid)
+            return out + self.linear_out.bias.to(out.dtype)
         if seg_id is not None and not self.kernel_route:
             raise ValueError(
                 "packed-segment attention (seg_id) supports only the "
@@ -360,6 +381,46 @@ class RelPositionMultiHeadAttention(nn.Module):
             out = self._masked_plain(x, pos_emb, mask, dropout_rate,
                                      dropout_seed)
         return out + self.linear_out.bias.to(out.dtype)
+
+    def _cached_plain(self, x, pos_emb, mask, kv_cache, kv_valid
+                      ) -> torch.Tensor:
+        """JAX's kv-cache branch (tpu_asr/models/conformer.py
+        RelPositionMultiHeadAttention with `kv_cache`) at its rounding
+        points: projections in x's dtype, content and position scores
+        accumulated in fp32 and rounded to it, their scaled sum and the
+        key mask (-30000 in bf16, -1e30 otherwise) added in it, the softmax
+        in fp32. Key s of [cache; x] is valid when s >= C - kv_valid (the
+        cache) or its frame is (the chunk). As in JAX, no window mask
+        applies: the cache's length bounds the left context. Without the
+        linear_out bias."""
+        dt = x.dtype
+        b, t, d = x.shape
+        h, dk = self.n_heads, d // self.n_heads
+        c_len = kv_cache.shape[1]
+        kv_in = torch.cat([kv_cache.to(dt), x], dim=1)
+        t_kv = kv_in.shape[1]
+        heads = lambda z, n: z.view(b, n, h, dk).transpose(1, 2)
+        q = _linear(x, self.linear_q)
+        k = heads(_linear(kv_in, self.linear_k), t_kv)
+        v = heads(_linear(kv_in, self.linear_v), t_kv)
+        p = F.linear(pos_emb.to(dt), self.linear_pos.weight.to(dt))
+        p = p.view(-1, h, dk)
+        q_u = heads(q + self.pos_bias_u.to(dt).reshape(d), t)
+        q_v = heads(q + self.pos_bias_v.to(dt).reshape(d), t)
+        ac = (q_u.float() @ k.float().transpose(-1, -2)).to(dt)
+        bd = rel_shift(torch.einsum("bhtd,phd->bhtp", q_v.float(),
+                                    p.float()).to(dt), t_kv)
+        cache_ok = (torch.arange(c_len, device=x.device)[None, :]
+                    >= c_len - kv_valid[:, None])
+        kv_mask = torch.cat([cache_ok, mask], dim=1)
+        neg = -30000.0 if dt == torch.bfloat16 else -1.0e30
+        key_bias = torch.zeros(kv_mask.shape, dtype=dt, device=x.device)
+        key_bias = key_bias.masked_fill(~kv_mask, neg)[:, None, None, :]
+        scores = (ac + bd) / math.sqrt(dk) + key_bias
+        attn = torch.softmax(scores.float(), dim=-1)
+        ctx = (attn.to(dt).float() @ v.float()).transpose(1, 2)
+        ctx = ctx.reshape(b, t, d).to(dt)
+        return F.linear(ctx, self.linear_out.weight.to(dt))
 
     def _masked_plain(self, x, pos_emb, mask, dropout_rate: float,
                       dropout_seed: int) -> torch.Tensor:
@@ -520,7 +581,8 @@ class ConformerConvolution(nn.Module):
     """pointwise (d -> 2d) + GLU -> zero padded frames -> depthwise (k) ->
     BatchNorm or LayerNorm -> SiLU -> pointwise (d -> d); NeMo's Conv1d
     keys. `backend` 'pallas' runs the eval kernel in eval (BatchNorm folded
-    in fp32), anything else plain PyTorch."""
+    in fp32), anything else plain PyTorch; a streaming step
+    (`time_cache`) runs plain, as in JAX."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -535,17 +597,35 @@ class ConformerConvolution(nn.Module):
         self.pointwise_conv2 = nn.Conv1d(d, d, 1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
-        if self.backend == "pallas" and not train:
+                train: bool = False,
+                time_cache: Optional[torch.Tensor] = None):
+        """`time_cache` (B, pad_l, D), streaming only (a causal context):
+        the last `pad_l` post-GLU inputs of the stream take the place of
+        the left zero pad; returns (out, new_cache), the new cache being
+        the `pad_l` frames that end at each sample's last valid frame."""
+        if self.backend == "pallas" and not train and time_cache is None:
             return self._fused(x, mask)
         dt = x.dtype
         h = F.glu(_linear(x, self.pointwise_conv1), dim=-1)
         h = h.masked_fill(~mask[..., None], 0.0)
+        pad, new_cache = self.pad, None
+        if time_cache is not None:
+            pad_l, pad_r = pad
+            if pad_r != 0:
+                raise ValueError("streaming conv requires "
+                                 "conv_context_size='causal'")
+            h = torch.cat([time_cache.to(dt), h], dim=1)
+            j = (mask.sum(1)[:, None]
+                 + torch.arange(pad_l, device=h.device)[None, :])
+            new_cache = torch.gather(
+                h, 1, j[..., None].expand(-1, -1, h.shape[-1]))
+            pad = (0, 0)
         dw = self.depthwise_conv
-        h = F.conv1d(F.pad(h.transpose(1, 2), self.pad), dw.weight.to(dt),
+        h = F.conv1d(F.pad(h.transpose(1, 2), pad), dw.weight.to(dt),
                      dw.bias.to(dt), groups=dw.groups).transpose(1, 2)
         h = F.silu(self.batch_norm(h, train))
-        return _linear(h, self.pointwise_conv2)
+        out = _linear(h, self.pointwise_conv2)
+        return out if time_cache is None else (out, new_cache)
 
     def _fused(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         norm = self.batch_norm
@@ -589,17 +669,54 @@ class ConformerLayer(nn.Module):
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 mask: torch.Tensor,
                 seeds: Optional[List[int]] = None,
-                seg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seg_id: Optional[torch.Tensor] = None,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]] = None):
         """`seeds` (SEEDS_PER_LAYER ints) selects the training path;
-        `seg_id` (B, T) int is the packed-segment map."""
+        `seg_id` (B, T) int is the packed-segment map; `cache`
+        (last_channel (B, C, D), last_channel_len (B,), last_time
+        (B, pad_l, D)) the streaming step, which returns (x, new
+        last_channel, new last_time)."""
         if seeds is not None:
             return self._train_forward(x, pos_emb, mask, seeds, seg_id)
+        if cache is not None:
+            return self._cached_forward(x, pos_emb, mask, *cache)
         x = self._eval_ffn(self.norm_feed_forward1, self.feed_forward1, x)
         x = x + self.self_attn(_layer_norm(self.norm_self_att, x), pos_emb,
                                mask, seg_id=seg_id)
         x = x + self.conv(_layer_norm(self.norm_conv, x), mask)
         x = self._eval_ffn(self.norm_feed_forward2, self.feed_forward2, x)
         return _layer_norm(self.norm_out, x).masked_fill(~mask[..., None], 0.0)
+
+    def _cached_forward(self, x, pos_emb, mask, lc, lc_len, lt):
+        """The eval layer of a streaming step (JAX's ConformerLayer with
+        `cache`): the FFN sublayers unfused; the channel cache takes the
+        chunk's post-LN attention inputs, rolled by each sample's valid
+        count so that validity stays right-aligned (a partial final
+        chunk's pad frames never enter it). int8 streaming is refused: JAX
+        runs its unfused int8_dense FFN there, which the port has no copy
+        of."""
+        if self.cfg.quantization == "int8":
+            raise ValueError("cache-aware streaming with quantization='int8' "
+                             "is not ported")
+
+        def ffn(norm, ff, z):
+            return z + 0.5 * ff(_layer_norm(norm, z))
+
+        x = ffn(self.norm_feed_forward1, self.feed_forward1, x)
+        h = _layer_norm(self.norm_self_att, x)
+        tot = torch.cat([lc, h.to(lc.dtype)], dim=1)
+        j = (mask.sum(1)[:, None]
+             + torch.arange(lc.shape[1], device=x.device)[None, :])
+        new_lc = torch.gather(tot, 1, j[..., None].expand(-1, -1,
+                                                          tot.shape[-1]))
+        x = x + self.self_attn(h, pos_emb, mask, kv_cache=lc, kv_valid=lc_len)
+        h, new_lt = self.conv(_layer_norm(self.norm_conv, x), mask,
+                              time_cache=lt)
+        x = x + h
+        x = ffn(self.norm_feed_forward2, self.feed_forward2, x)
+        x = _layer_norm(self.norm_out, x).masked_fill(~mask[..., None], 0.0)
+        return x, new_lc, new_lt
 
     def _eval_ffn(self, norm: nn.LayerNorm, ff: FeedForward,
                   x: torch.Tensor) -> torch.Tensor:
@@ -802,6 +919,46 @@ class ConformerEncoder(nn.Module):
         if self.out_proj is not None:
             x = _linear(x, self.out_proj)
         return x, out_len, torch.stack(feats)
+
+    def stream_step(self, features: torch.Tensor, lengths: torch.Tensor,
+                    cache: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                    drop_extra_pre_encoded: int = 0):
+        """One cache-aware streaming step (JAX's encoder with `cache`):
+        (B, F, T) log-mel of a chunk prefixed with its pre-encode context
+        and (B,) frames counting it; `cache` the stacked (last_channel
+        (L, B, C, D), last_channel_len (B,), last_time (L, B, pad_l, D)).
+        The first `drop_extra_pre_encoded` subsampled frames, recomputed
+        context, are dropped. Returns (encoded, lengths, new cache); the
+        new valid count is min(old + lengths, C). Time reduction is
+        refused: JAX's cached path has no reduction stage."""
+        c = self.cfg
+        if self.reduces:
+            raise ValueError("cache-aware streaming is incompatible with "
+                             "time reduction")
+        lc, lc_len, lt = cache
+        x, out_len = self.subsample(features, lengths)
+        if drop_extra_pre_encoded > 0:
+            x = x[:, drop_extra_pre_encoded:]
+            out_len = (out_len - drop_extra_pre_encoded).clamp(min=0)
+        t = x.shape[1]
+        if c.xscaling:
+            x = x * math.sqrt(c.d_model)
+        pos_emb = position_table(t, c.d_model, x.device,
+                                 cache_len=lc.shape[2])
+        mask = torch.arange(t, device=x.device)[None, :] < out_len[:, None]
+        x = x.masked_fill(~mask[..., None], 0.0)
+        new_lc, new_lt = [], []
+        for i, layer in enumerate(self.layers):
+            x, lc_i, lt_i = layer(x, pos_emb, mask,
+                                  cache=(lc[i], lc_len, lt[i]))
+            new_lc.append(lc_i)
+            new_lt.append(lt_i)
+        new_len = torch.minimum(lc_len + out_len,
+                                torch.full_like(lc_len, lc.shape[2]))
+        if self.out_proj is not None:
+            x = _linear(x, self.out_proj)
+        return x, out_len, (torch.stack(new_lc), new_len,
+                            torch.stack(new_lt))
 
     def _run(self, layers, first: int, x, pos_emb, mask, seeds, keep, seg):
         """The layers (global indices first ..) on x: (x, [each layer's

@@ -124,6 +124,20 @@ class CTCModel(nn.Module):
         return self.encoder.encode_frames(
             packed, None, train, (rngs or {}).get("dropout"), seg_id=seg_id)
 
+    def stream_step(self, processed_signal: torch.Tensor,
+                    processed_signal_length: torch.Tensor, cache,
+                    drop_extra_pre_encoded: int):
+        """One cache-aware streaming step (JAX's CTCModel.stream_step):
+        (B, F, T) log-mel of a chunk prefixed with its pre-encode context
+        frames, (B,) frames counting them, the stacked encoder caches
+        (models/streaming.py keeps both). Returns (log_probs, encoded
+        lengths, new cache) without gradient."""
+        with torch.no_grad():
+            encoded, enc_len, new_cache = self.encoder.stream_step(
+                processed_signal, processed_signal_length, cache,
+                drop_extra_pre_encoded)
+            return self.decoder(encoded), enc_len, new_cache
+
     def _output(self, encoded, encoded_len, layer_feats) -> CTCModelOutput:
         log_probs = self.decoder(encoded)
         return CTCModelOutput(log_probs, encoded_len,

@@ -138,12 +138,19 @@ def _dpart_shape(dtype: torch.dtype, b: int, h: int, t: int, dk: int):
     return (b, h, n, 32 * n + 31, dk)
 
 
-def rel_shift(x: torch.Tensor) -> torch.Tensor:
-    """Transformer-XL shift (B, H, T, 2T-1) -> (B, H, T, T):
-    out[..., t, s] = x[..., t, T - 1 - t + s]."""
+def rel_shift(x: torch.Tensor, t_kv: Optional[int] = None) -> torch.Tensor:
+    """Transformer-XL shift (B, H, Tq, Tq + Tkv - 1) -> (B, H, Tq, Tkv):
+    out[..., t, s] = x[..., t, Tq - 1 - t + s]. Tkv defaults to Tq (the
+    square case); Tkv = C + Tq scores C cached keys prepended to the
+    queries' own (cache-aware streaming)."""
     b, h, t, p = x.shape
+    if t_kv is None:
+        t_kv = p - t + 1
+    if p != t + t_kv - 1:
+        raise ValueError(f"rel_shift: {p} positions for {t} queries and "
+                         f"{t_kv} keys")
     x = F.pad(x, (1, 0)).view(b, h, p + 1, t)[:, :, 1:].reshape(b, h, t, p)
-    return x[..., :t]
+    return x[..., :t_kv]
 
 
 def local_window(t: int, left: int, right: int, device=None) -> torch.Tensor:

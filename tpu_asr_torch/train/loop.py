@@ -312,8 +312,7 @@ class Trainer:
                                torch.from_numpy(tl).to(dev),
                                reduction="none",
                                backend=self.model.ctc_backend)
-                toks, ntoks = ctc_greedy_decode(lp_u.argmax(-1), idx(ech),
-                                                blank)
+                toks, ntoks = ctc_greedy_decode(lp_u, idx(ech), blank)
             per_nll = nll.cpu().numpy().astype(np.float64)
             tlf = tl.astype(np.float64)
             if reduction == "mean":

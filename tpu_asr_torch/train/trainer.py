@@ -27,7 +27,7 @@ import torch
 
 from tpu_asr_torch.config import OptimConfig
 from tpu_asr_torch.models.distil_model import DistilCTCModel
-from tpu_asr_torch.ops.ctc import ctc_greedy_decode, ctc_loss
+from tpu_asr_torch.ops.ctc import ctc_greedy_decode_ids, ctc_loss
 from tpu_asr_torch.train.optim import (Schedule, build_optimizer,
                                        clip_by_global_norm, global_norm,
                                        set_lr)
@@ -126,7 +126,8 @@ def make_distil_eval_step(model: DistilCTCModel) -> Callable:
                         batch.get("tokens"), batch.get("token_len"),
                         train=False)
             blank = out.log_probs.shape[-1] - 1
-            decoded = ctc_greedy_decode(out.greedy, out.encoded_len, blank)
+            decoded = ctc_greedy_decode_ids(out.greedy, out.encoded_len,
+                                            blank)
             metrics = {f"loss/{k}": v for k, v in out.losses.items()}
             if batch.get("tokens") is not None:
                 metrics["per_sample_ctc"] = ctc_loss(
