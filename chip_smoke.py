@@ -341,6 +341,27 @@ Phases, each on its own output lines:
      ChunkedTranscriber on a 120 s clip (16 s windows, 2 s overlap): the
      same text as on a CPU copy of the model's plain path, and its RTFx.
      Every time beside the card's name and power limit.
+  24. data parallelism (tpu_asr_torch/parallel/), flowkd_mlp8 and
+     flowkd_router16 at the flagship widths from seeded weights: (a) one
+     fp32 step pair at B=8 x 15 s (dropout, SpecAugment, dither) under DDP
+     in a one-rank NCCL group against the step without DDP: every loss
+     within 1e-5 relative, the BatchNorm running statistics after step 1
+     within 1e-5, the parameters after step 2 by tests/test_torch_train.py's
+     fp32 rule (elements whose first gradient exceeds 1e-4 x the largest,
+     within 1e-5 x |ref| + 2e-2 x the learning rate); last, with the card
+     to itself, 10 bf16 steps at B=32 x 15 s after 2 warm-up without DDP,
+     then with, host clock, every KD kernel launched by the DDP steps
+     (profile_train --ddp times them in turns); (b) two gloo
+     ranks sharing the card (parallel/launch.py; NCCL refuses two ranks on
+     one device), 4 rows each of the same 8, 2 fp32 steps of each
+     configuration, against one rank on all 8: the same rules, the
+     router's counts equal wherever its Gumbel margin exceeds 1e-3, and on
+     each rank every KD kernel launched (counters reset before its steps);
+     (c) the two ranks fit a CTC student 2 steps on 16 seeded clips and
+     evaluate 8 bucketed and packed; their checkpoint restored at one rank
+     gives the same WER and the loss within 1e-5. The ranks start first and
+     run beside (a)'s check and (b)'s one-rank runs. NCCL across cards is
+     not exercised (one card).
 Each phase's seconds are printed after it.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
@@ -404,7 +425,11 @@ def card() -> None:
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    # fp32 references in full fp32: cuDNN convolutions default to TF32
+    full_fp32()
+
+
+def full_fp32() -> None:
+    """fp32 references in full fp32: cuDNN convolutions default to TF32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5086,6 +5111,310 @@ def serving_surface_phase(cfg):
           f"{rtfx['greedy_log_probs']:.1f} (log-probs)")
 
 
+DDP_ROWS, DDP_STEPS = 8, 2       # 24a's check and 24b: the global batch
+DDP_CONFIGS = ("flowkd_mlp8", "flowkd_router16")
+DDP_EVAL_CLIPS, DDP_EVAL_VAL = 16, 8
+
+
+def ddp_step_runs(model, batch, seed: int, steps: int = DDP_STEPS):
+    """`steps` train steps of `model` from a fresh AdamW state on this
+    rank's rows of `batch` (all of it without a process group), counters
+    reset just before and read just after. Returns numpy / host values:
+    per step the losses summed over the ranks, the gradients of the first
+    step, the BatchNorm running statistics after it, the router's counts
+    and Gumbel margins of each step gathered over the ranks, the
+    parameters after the last step, the launches, the learning rates."""
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.parallel import mesh
+    from tpu_asr_torch.train.loop import global_metrics
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+
+    n = batch["signal"].shape[0] // mesh.process_count()
+    r = mesh.row_offset(n)
+    local = {k: v[r:r + n] for k, v in batch.items()}
+    routes, hook = [], None
+    if model.routed:
+        def keep(mod, args, out):
+            top2 = out[2]["scores"].detach().topk(2, dim=-1).values
+            routes.append((mesh.all_gather_rows(out[0], 1).cpu().numpy(),
+                           mesh.all_gather_rows(top2[..., 0] - top2[..., 1],
+                                                1).cpu().numpy()))
+        hook = model.router.register_forward_hook(keep)
+    state = DistilTrainState.create(model, OptimConfig())
+    step = make_distil_train_step(model)
+    out = {"losses": [], "lr": []}
+    read = reset_counters()
+    for i in range(steps):
+        out["lr"].append(float(state.schedule(state.step)))
+        state, metrics = step(state, local, seed)
+        out["losses"].append({k[5:]: v for k, v in
+                              global_metrics(metrics).items()
+                              if k.startswith("loss/")})
+        if i == 0:
+            out["grads"] = {k: p.grad.cpu().numpy() for k, p in
+                            model.named_parameters() if p.grad is not None}
+            out["stats1"] = {k: b.cpu().numpy() for k, b in
+                             model.named_buffers() if "running" in k}
+    torch.cuda.synchronize()
+    out["launches"] = read()
+    out["params"] = {k: p.detach().cpu().numpy()
+                     for k, p in model.named_parameters()}
+    out["routes"] = routes
+    if hook is not None:
+        hook.remove()
+    return out
+
+
+def ddp_compare(got, want, label: str) -> None:
+    """24a and 24b's gates: every loss of every step within 1e-5 relative;
+    the BatchNorm running statistics after the first step within 1e-5;
+    the parameters after the last step by tests/test_torch_train.py's fp32
+    rule (the elements whose first gradient exceeds 1e-4 x the largest,
+    within 1e-5 x |ref| + 2e-2 x the learning rate: Adam turns a
+    gradient's rounding into a step at the learning rate's scale; the
+    running statistics after the second step carry that noise through the
+    depthwise-conv bias, whose gradient is zero in exact arithmetic); the
+    router's counts equal where their Gumbel margin exceeds 1e-3."""
+    for i, (lg, lw) in enumerate(zip(got["losses"], want["losses"])):
+        check(set(lg) == set(lw) and all(
+            math.isfinite(lg[k]) and abs(lg[k] - lw[k]) <= 1e-5 * abs(lw[k])
+            for k in lw), f"{label} step {i + 1}: losses " + ", ".join(
+                f"{k} {lg[k]:.6f} vs {lw[k]:.6f}" for k in sorted(lw))
+            + " (1e-5 rel)")
+    err = max(float(np.abs(got["stats1"][k] - w).max())
+              for k, w in want["stats1"].items())
+    check(err <= 1e-5, f"{label}: BatchNorm running statistics after step "
+          f"1, max |err| {err:.3e} <= 1e-5")
+    grads = want["grads"]
+    top = max(float(np.abs(g).max()) for g in grads.values())
+    lr = want["lr"][-1]
+    worst, kept, total = 0.0, 0, 0
+    for k, g in grads.items():
+        mask = np.abs(g) > 1e-4 * top
+        w, p = want["params"][k][mask], got["params"][k][mask]
+        excess = np.abs(p - w) - (1e-5 * np.abs(w) + 2e-2 * lr)
+        worst = max(worst, float(excess.max(initial=-np.inf)))
+        kept, total = kept + int(mask.sum()), total + mask.size
+    check(worst <= 0 and kept >= 0.9 * total,
+          f"{label}: parameters after {len(got['losses'])} steps within "
+          f"1e-5 x |ref| + 2e-2 x lr ({lr:.3e}) on {kept} of {total} "
+          f"elements (decided: |grad| > 1e-4 x {top:.3e}); worst excess "
+          f"{worst:.3e}")
+    for i, ((sg, _), (sw, mw)) in enumerate(zip(got["routes"],
+                                                  want["routes"])):
+        sure = mw > 1e-3
+        check(bool((sg[sure] == sw[sure]).all()),
+              f"{label} step {i + 1}: router counts equal on all "
+              f"{int(sure.sum())} of {sure.size} (layer, row) pairs whose "
+              f"Gumbel margin exceeds 1e-3; {int((sg != sw).sum())} differ")
+
+
+def flowkd_model(name: str, seed: int, dtype: str = "float32"):
+    """The flowkd configuration `name` (profile_train) at the flagship
+    widths with seeded weights on the card, in `dtype`: dropout 0.1,
+    SpecAugment and dither on (ModelConfig()'s own)."""
+    from tpu_asr_torch.config import ModelConfig, make_student_config
+    from tpu_asr_torch.profile_train import distill_config
+
+    cast = lambda cfg: dataclasses.replace(cfg, compute_dtype=dtype)
+    tcfg = ModelConfig()
+    return kd_model(cast(make_student_config(tcfg)), cast(tcfg), seed,
+                    distill_config(name))
+
+
+def ddp_eval_setup(root):
+    """24c: DDP_EVAL_CLIPS seeded WAV clips of 1-15 s (train and val
+    manifests), a BPE tokenizer, a fp32 CTC student of ModelConfig() and its
+    TrainConfig with global batches of DDP_ROWS."""
+    from tpu_asr_torch.config import (DataConfig, DistillationConfig,
+                                      ModelConfig, OptimConfig, TrainConfig,
+                                      make_student_config)
+    from tpu_asr_torch.data.audio import write_wav
+    from tpu_asr_torch.data.manifest import ManifestEntry, write_manifest
+    from tpu_asr_torch.data.tokenizer import train_bpe
+
+    rng = np.random.default_rng(24)
+    entries = []
+    for i in range(DDP_EVAL_CLIPS):
+        dur = float(np.round(rng.uniform(1.0, 15.0), 3))
+        write_wav(root / f"clip{i}.wav", (rng.normal(size=int(SR * dur))
+                                          * 0.1).astype(np.float32), SR)
+        entries.append(ManifestEntry(str(root / f"clip{i}.wav"), dur, " ".join(
+            rng.choice(CLI_WORDS, size=max(1, int(dur * 1.5))))))
+    write_manifest(root / "train.jsonl", entries[DDP_EVAL_VAL:])
+    write_manifest(root / "val.jsonl", entries[:DDP_EVAL_VAL])
+    tcfg = ModelConfig()
+    tok = train_bpe([e.text for e in entries] + [" ".join(CLI_WORDS)],
+                    tcfg.decoder.num_classes)
+    scfg = dataclasses.replace(make_student_config(tcfg),
+                               compute_dtype="float32")
+    ds = dict(batch_size=DDP_ROWS, max_duration=16.7)
+    cfg = TrainConfig(model=scfg, distillation=DistillationConfig(),
+                      optim=OptimConfig(d_model=scfg.encoder.d_model),
+                      train_ds=DataConfig(shuffle=True, **ds),
+                      test_ds=DataConfig(shuffle=False, **ds), max_epochs=1)
+    return (str(root / "train.jsonl"), str(root / "val.jsonl"), tok, scfg,
+            tcfg, cfg)
+
+
+def ddp_trainer(setup, workdir):
+    from tpu_asr_torch.config import DistillationConfig
+    from tpu_asr_torch.train.loop import Trainer
+
+    _, _, tok, scfg, tcfg, cfg = setup
+    model = kd_model(scfg, tcfg, 46, DistillationConfig())
+    return Trainer(model, cfg, tok, workdir, device="cuda")
+
+
+def ddp_rank(batch, eval_setup, workdir):
+    """One gloo rank of 24b and 24c (parallel/launch.py): ddp_step_runs of
+    each DDP_CONFIGS on this rank's rows of `batch` (numpy); then a fit of
+    2 steps, its checkpoint (rank 0's), evaluate and evaluate_packed of the
+    val manifest, each rank on its own rows. Also the seconds of each
+    part."""
+    full_fp32()
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    runs = {}
+    for name in DDP_CONFIGS:
+        runs[name] = ddp_step_runs(flowkd_model(name, 47), batch, 48)
+        torch.cuda.empty_cache()
+        lap(name)
+    tr = ddp_trainer(eval_setup, workdir)
+    tr.fit(eval_setup[0], max_steps=2)
+    lap("fit")
+    bucketed = tr.evaluate(eval_setup[1])
+    lap("evaluate")
+    packed = tr.evaluate_packed(eval_setup[1])
+    lap("evaluate_packed")
+    return runs, bucketed, packed, seconds
+
+
+def ddp_phase():
+    """Phase 24, data parallelism: (b) two gloo ranks sharing the card
+    against one rank, the ranks started first; while they run, (a)'s check
+    of NCCL at world 1 against the step without DDP; (c) their distributed
+    evaluation and the restore of their checkpoint at one rank; last, with
+    the card to itself, (a)'s timed steps without and with DDP."""
+    import copy
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from tpu_asr_torch.parallel import launch, mesh
+    from tpu_asr_torch.utils.checkpoint import restore_train_state
+
+    def nccl_world_1(fn, *args):
+        mesh.init_distributed(1, 0, "nccl", "cuda:0",
+                              f"tcp://127.0.0.1:{launch.free_port()}", 300)
+        try:
+            return fn(*args)
+        finally:
+            mesh.shutdown()
+
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        parts[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ddp_"))
+    try:
+        setup = ddp_eval_setup(root)
+        batch = train_batch(DDP_ROWS, 41)
+        host = {k: v.cpu().numpy() for k, v in batch.items()}
+        lap("setup")
+        with ThreadPoolExecutor(1) as pool:
+            started = pool.submit(
+                launch.launch, ddp_rank, (host, setup, str(root / "fit")),
+                ["cuda:0", "cuda:0"], timeout=600,
+                coll_timeout=300)
+            # (a) the DDP step in a one-rank NCCL group against the step
+            # without, from the same weights and seeds
+            model = flowkd_model("flowkd_mlp8", 40)
+            init = copy.deepcopy(model.state_dict())
+            plain = ddp_step_runs(model, batch, 42)
+            model.load_state_dict(init)
+            ddp_compare(nccl_world_1(ddp_step_runs, model, batch, 42), plain,
+                        f"24a: flowkd_mlp8 fp32 B={DDP_ROWS} x {SECONDS} s, "
+                        f"DDP over NCCL at world 1 vs no DDP")
+            del model, init
+            want = {}
+            for name in DDP_CONFIGS:
+                want[name] = ddp_step_runs(flowkd_model(name, 47), batch, 48)
+                torch.cuda.empty_cache()
+            lap("24a check and 24b's one-rank runs, beside the ranks")
+            ranks = started.result()
+        lap("the rest of the ranks' run")
+        print(f"24b/c: 2 gloo ranks on cuda:0; rank 0's parts (s): "
+              f"{ranks[0][3]}")
+        for name in DDP_CONFIGS:
+            got = ranks[0][0][name]
+            ddp_compare(got, want[name], f"24b: {name} fp32, 2 gloo ranks "
+                        f"x {DDP_ROWS // 2} rows vs 1 rank x {DDP_ROWS} (x "
+                        f"{SECONDS} s, dropout 0.1, SpecAugment, dither)")
+            for r, rank in enumerate(ranks):
+                n = rank[0][name]["launches"]
+                check(all(n[k] > 0 for k in KD), f"24b: {name} rank {r} "
+                      f"launched every KD kernel: { {k: n[k] for k in KD} }")
+        # (c) the ranks' evaluation against one rank's restore
+        (_, bucketed, packed, _), tr = ranks[0], ddp_trainer(setup,
+                                                             root / "one")
+        check(ranks[1][1] == bucketed and ranks[1][2] == packed,
+              "24c: both ranks report the same (summed) evaluation")
+        tr.init_state()
+        tr.state = restore_train_state(root / "fit" / "checkpoints",
+                                       tr.state)
+        check(tr.state.step == 2, f"24c: the 2-rank checkpoint restored at "
+              f"step {tr.state.step}")
+        for label, got, one in (("bucketed", bucketed,
+                                 tr.evaluate(setup[1])),
+                                ("packed", packed,
+                                 tr.evaluate_packed(setup[1]))):
+            check(got["num_utts"] == one["num_utts"] == DDP_EVAL_VAL
+                  and got["wer"] == one["wer"]
+                  and abs(got["loss"] - one["loss"]) <= 1e-5 * abs(
+                      one["loss"]),
+                  f"24c: {label} evaluation of {DDP_EVAL_VAL} clips, 2 ranks "
+                  f"wer {got['wer']:.4f} loss {got['loss']:.6f} vs the "
+                  f"checkpoint restored at 1 rank wer {one['wer']:.4f} loss "
+                  f"{one['loss']:.6f} (wer equal, loss 1e-5 rel)")
+        del tr
+        lap("24c at one rank")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (a) timed, from the same state: without DDP, then with
+    timed = flowkd_model("flowkd_mlp8", 43, "bfloat16")
+    timed_init = copy.deepcopy(timed.state_dict())
+    big = train_batch(BATCH, 44)
+    plain_ms, _, _ = timed_steps(timed, big, 45)
+    timed.load_state_dict(timed_init)
+    ddp_ms, counts, _ = nccl_world_1(timed_steps, timed, big, 45)
+    check(all(counts[k] > 0 for k in KD), f"24a: the DDP steps launched "
+          f"every KD kernel: { {k: counts[k] for k in KD} }")
+    print(f"24a: flowkd_mlp8 bf16 B={BATCH} x {SECONDS} s on {card_line()}: "
+          f"DDP (NCCL, world 1) {ddp_ms:.2f} ms a step, without DDP "
+          f"{plain_ms:.2f} ms (host clock, {TRAIN_STEPS} steps after "
+          f"{TRAIN_WARMUP} warm-up each, in one call; ratio "
+          f"{ddp_ms / plain_ms:.3f}; turns and device time: profile_train "
+          f"--ddp)")
+    lap("24a timed")
+    print(f"24: parts (s) {parts}")
+    print("24: NCCL between two or more cards is not exercised here: one "
+          "card (NCCL refuses two ranks on one device)")
+
+
 def timed_phase(label: str, fn, *args):
     """fn(*args), then the phase's seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -5158,6 +5487,7 @@ def main() -> int:
     timed_phase("21", kd_rest_phase, cfg)
     timed_phase("22", cli_phase)
     timed_phase("23", serving_surface_phase, cfg)
+    timed_phase("24", ddp_phase)
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "

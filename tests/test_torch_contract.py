@@ -19,8 +19,11 @@
   entry point's --help loads none of jax, jaxlib, flax, tpu_asr, optax,
   orbax, yaml and datasets (the machine with the card has none of them);
   without a CUDA device and without --platform cpu they exit with an
-  error; each flag whose path is not ported exits naming it, and so does
-  a --resume_ckpt that names no file.
+  error; each flag whose path is not ported exits naming it (inference
+  runs on one rank: its --gpus and --host_devices above 1), and so does
+  a --resume_ckpt that names no file;
+- the data-parallel modules (tpu_asr_torch/parallel/) load none of JAX,
+  flax or tpu_asr either.
 """
 
 import ast
@@ -126,7 +129,9 @@ def test_port_imports_no_jax():
                  "tpu_asr_torch.models.vocab", "tpu_asr_torch.ops.decoding",
                  "tpu_asr_torch.ops.confidence",
                  "tpu_asr_torch.ops.beam_search",
-                 "tpu_asr_torch.ops.ngram_lm", "chip_smoke"):
+                 "tpu_asr_torch.ops.ngram_lm",
+                 "tpu_asr_torch.parallel.mesh",
+                 "tpu_asr_torch.parallel.launch", "chip_smoke"):
         assert name in out["modules"]
     assert "tpu_asr_torch.host" not in out["modules"]
     assert out["bad"] == []
@@ -426,8 +431,9 @@ def test_cli_without_cuda_exits(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("entry,flags,what", [
-    ("asr_train", ["--gpus", "2"], "--gpus 2"),
-    ("asr_train", ["--host_devices", "4"], "--host_devices 4"),
+    ("asr_inference", ["--gpus", "2", "--ckpt_path", "x"], "--gpus 2"),
+    ("asr_inference", ["--host_devices", "4", "--ckpt_path", "x"],
+     "--host_devices 4"),
     ("asr_train", ["--steps_per_dispatch", "2"], "--steps_per_dispatch 2"),
     ("asr_train", ["--cache_teacher"], "--cache_teacher"),
     ("asr_train", ["--cache_teacher_all"], "--cache_teacher_all"),

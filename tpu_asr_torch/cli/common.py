@@ -7,6 +7,16 @@ wrappers, runnable with `python -m tpu_asr_torch.cli.<name>`.
 - Device: `--platform ''` (the default) runs on the CUDA card and exits
   with an error when there is none; `--platform cpu` runs on the CPU (as
   the tests do). Nothing falls back to the CPU on its own.
+- Data parallelism (the train CLIs): `--gpus N` (-1: every visible card)
+  with N > 1 starts N ranks (parallel/launch.py), one a card, joined over
+  NCCL; `--platform cpu --gpus N` or `--host_devices N` starts N ranks on
+  the CPU over gloo (JAX's virtual devices). Under a launcher that set
+  WORLD_SIZE (torchrun) the process joins that group instead. `--batch_size`
+  is the GLOBAL batch: each rank takes its block of every batch, and the
+  run takes the steps one rank takes (tpu_asr_torch/train/loop.py). Rank 0
+  alone writes the tokenizer sidecar, metrics and checkpoints.
+  `--gpus` above the visible cards exits with a message; inference runs on
+  one rank.
 - `--teacher_nemo PATH` imports a local `.nemo` (convert/nemo_import.py);
   without it the teacher is randomly initialized, from `--config` (read
   with the port's YAML reader) and a fallback BPE tokenizer trained on the
@@ -21,7 +31,7 @@ wrappers, runnable with `python -m tpu_asr_torch.cli.<name>`.
   input is the student's own encoder output).
 
 Refused with a message naming what is missing (SystemExit): `--gpus` or
-`--host_devices` above 1 (data parallelism), `--steps_per_dispatch` > 1,
+`--host_devices` above 1 for inference, `--steps_per_dispatch` > 1,
 `--cache_teacher` / `--cache_teacher_all`, `--export_path`, and building
 manifests from a Hugging Face `--data_script_path` (no explicit
 manifests), which needs the `datasets` package.
@@ -77,8 +87,8 @@ def add_common_data_args(p: argparse.ArgumentParser):
                    help="'' runs on the CUDA card (an error without one); "
                         "'cpu' runs on the CPU")
     p.add_argument("--host_devices", type=int, default=0,
-                   help="with --platform cpu: number of CPU processes "
-                        "(only 1: data parallelism is not ported)")
+                   help="with --platform cpu: number of CPU ranks of "
+                        "data-parallel training (gloo)")
     p.add_argument("--data_dir", type=str, default="data")
     p.add_argument("--output_dir", type=str, default="outputs")
     p.add_argument("--batch_size", type=int, default=8)
@@ -150,8 +160,9 @@ def build_train_parser(description: str, gigaspeech: bool = False,
                    default="configs/conformer_ctc_small.yaml")
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--gpus", type=int, default=1,
-                   help="accelerator count (only 1, or -1 = the one card: "
-                        "data parallelism is not ported)")
+                   help="ranks of data-parallel training, one a card "
+                        "(-1: every visible card); with --platform cpu, "
+                        "CPU ranks (gloo)")
     p.add_argument("--resume_ckpt", type=str, default=None,
                    help="a checkpoint file (e.g. <output_dir>/run/"
                         "checkpoints/last) to continue from; it must exist")
@@ -311,13 +322,15 @@ def prepare_manifests(args, corpus: str) -> Dict[str, str]:
     return out
 
 
-def refuse_flags(args) -> None:
-    """SystemExit for a flag whose path the port does not have."""
+def refuse_flags(args, training: bool = False) -> None:
+    """SystemExit for a flag whose path the port does not have (inference
+    runs on one rank)."""
     bad = []
-    if getattr(args, "gpus", 1) not in (1, -1, 0):
-        bad.append(f"--gpus {args.gpus} (data parallelism, DDP)")
-    if getattr(args, "host_devices", 0) > 1:
-        bad.append(f"--host_devices {args.host_devices} (data parallelism)")
+    if not training and getattr(args, "gpus", 1) not in (1, -1, 0):
+        bad.append(f"--gpus {args.gpus} (inference runs on one rank)")
+    if not training and getattr(args, "host_devices", 0) > 1:
+        bad.append(f"--host_devices {args.host_devices} (inference runs "
+                   "on one rank)")
     if args.steps_per_dispatch > 1:
         bad.append(f"--steps_per_dispatch {args.steps_per_dispatch}")
     if args.cache_teacher or args.cache_teacher_all:
@@ -330,14 +343,40 @@ def refuse_flags(args) -> None:
 
 
 def device_of(args) -> str:
-    """'cpu' with --platform cpu, else 'cuda'; SystemExit without a card."""
+    """'cpu' with --platform cpu, else 'cuda' (this rank's card in a
+    process group); SystemExit without a card."""
     if getattr(args, "platform", "") == "cpu":
         return "cpu"
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("tpu_asr_torch: no CUDA device; pass --platform "
                          "cpu to run on the CPU")
+    from tpu_asr_torch.parallel import mesh
+    if mesh.initialized():
+        return f"cuda:{torch.cuda.current_device()}"
     return "cuda"
+
+
+def rank_devices(args):
+    """The devices of the training ranks the flags ask for: N CPU ranks for
+    --platform cpu with --host_devices N or --gpus N, else one card a rank
+    (--gpus N, -1 for every visible card). SystemExit for more cards than
+    are visible."""
+    gpus = getattr(args, "gpus", 1)
+    hosts = getattr(args, "host_devices", 0)
+    if getattr(args, "platform", "") == "cpu":
+        return ["cpu"] * max(hosts, gpus, 1)
+    if hosts > 1:
+        raise SystemExit(f"tpu_asr_torch: --host_devices {hosts} starts CPU "
+                         "ranks; pass --platform cpu (or --gpus N for cards)")
+    device_of(args)
+    import torch
+    seen = torch.cuda.device_count()
+    n = seen if gpus == -1 else max(gpus, 1)
+    if n > seen:
+        raise SystemExit(f"tpu_asr_torch: --gpus {gpus} asks for {n} cards; "
+                         f"{seen} visible")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +444,7 @@ def _build(args, manifests, train_teacher: bool, diffm_version,
 
 def _train_config(args, student_cfg, distill, train: bool):
     from tpu_asr_torch.config import (DataConfig, OptimConfig, TrainConfig)
+    from tpu_asr_torch.parallel import mesh
 
     ds = dict(sample_rate=args.data_sample_rate, batch_size=args.batch_size,
               decode_cache_dir=args.decode_cache_dir)
@@ -413,20 +453,37 @@ def _train_config(args, student_cfg, distill, train: bool):
               max_epochs=args.epochs) if train else {}
     return TrainConfig(model=student_cfg, distillation=distill,
                        optim=OptimConfig(d_model=student_cfg.encoder.d_model),
-                       test_ds=DataConfig(shuffle=False, **ds), dp_size=1,
-                       **kw)
+                       test_ds=DataConfig(shuffle=False, **ds),
+                       dp_size=mesh.process_count(), **kw)
 
 
 def run_training(args, corpus: str = "librispeech",
                  diffm_version: Optional[int] = None) -> Dict[str, Dict]:
+    """Train from the flags; data-parallel when they ask for more than one
+    rank (the module's docstring). The results are rank 0's."""
+    from tpu_asr_torch.parallel import mesh
+    from tpu_asr_torch.parallel.launch import launch
     from tpu_asr_torch.train.loop import Trainer
     from tpu_asr_torch.utils.checkpoint import export_student
 
-    refuse_flags(args)
-    device = device_of(args)
+    refuse_flags(args, training=True)
     if args.resume_ckpt is not None and not os.path.isfile(args.resume_ckpt):
         raise SystemExit(f"--resume_ckpt {args.resume_ckpt}: no such "
                          "checkpoint file")
+    if not mesh.initialized():
+        if "WORLD_SIZE" in os.environ:         # a launcher's rank (torchrun)
+            mesh.init_distributed(device="cpu" if args.platform == "cpu"
+                                  else None)
+            try:
+                return run_training(args, corpus, diffm_version)
+            finally:
+                mesh.shutdown()
+        devices = rank_devices(args)
+        if len(devices) > 1:
+            return launch(run_training, (args, corpus, diffm_version),
+                          devices=devices, timeout=None)[0]
+    device = device_of(args)
+    main = mesh.is_main_process()
     manifests = prepare_manifests(args, corpus)
     train_teacher = getattr(args, "train_teacher_model", False) or \
         not getattr(args, "train_student_model", True)
@@ -435,9 +492,10 @@ def run_training(args, corpus: str = "librispeech",
     cfg = _train_config(args, student_cfg, model.distill, train=True)
     workdir = Path(args.output_dir) / (os.getenv("EXP_NAME") or "run")
     trainer = Trainer(model, cfg, tokenizer, workdir, device=device)
-    if hasattr(tokenizer, "save"):
+    if hasattr(tokenizer, "save") and main:
         trainer.ckpt_dir.mkdir(parents=True, exist_ok=True)
         tokenizer.save(trainer.ckpt_dir / "tokenizer.model")
+    mesh.sync_processes("tokenizer_sidecar")
     trainer.init_state()
     if teacher_sd is not None and model.needs_teacher:
         trainer.load_teacher_params(teacher_sd)
@@ -447,9 +505,10 @@ def run_training(args, corpus: str = "librispeech",
     for split in ("val", "test"):
         if split in manifests:
             results[split] = trainer.evaluate(manifests[split])
-            print(f"[{split}] wer={results[split]['wer']:.4f} "
-                  f"loss={results[split]['loss']:.4f} "
-                  f"({int(results[split]['num_utts'])} utts)")
+            if main:
+                print(f"[{split}] wer={results[split]['wer']:.4f} "
+                      f"loss={results[split]['loss']:.4f} "
+                      f"({int(results[split]['num_utts'])} utts)")
     export_student(trainer.ckpt_dir, trainer.state, student_cfg)
     return results
 

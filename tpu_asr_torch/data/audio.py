@@ -20,7 +20,6 @@ from pathlib import Path
 from typing import Tuple
 
 import numpy as np
-from scipy.signal import resample_poly
 
 
 def read_audio(path) -> Tuple[np.ndarray, int]:
@@ -127,6 +126,7 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return x
     g = gcd(orig_sr, target_sr)
+    from scipy.signal import resample_poly   # slow to import: at first use
     return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 
 

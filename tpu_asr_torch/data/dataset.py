@@ -11,6 +11,18 @@ quantum, `num_shards` / `shard_index` stripes and `pad_batch_to` cyclic
 padding. Its worker threads decode a batch's samples, and the batch keeps
 the manifest order whatever order they finish in.
 
+Data parallelism (`world`, `rank`): the port plans each epoch's batches
+once, from the whole manifest and the shared seed, which is the plan the
+single-rank run draws; each batch is padded cyclically to a multiple of
+`world` (JAX's `pad_batch_to=dp_size`) and rank r takes its block of rows
+[r B/world, (r+1) B/world). So every rank has the same number of steps and
+the same padded shape at each step (the token width is the global batch's),
+and the blocks concatenate to the single-rank batch. A rank decodes only its
+own rows; `texts` holds its real rows, which come first in its block. (JAX's
+multi-process loader stripes the manifest first and plans each stripe on its
+own, so its processes can disagree on the count and the shapes of their
+batches; ROADMAP.md, "Faults of the reference".)
+
 `to_device` takes the place of JAX's `prefetch_to_device`: it copies each
 host batch from pinned memory with `non_blocking=True`, one batch ahead.
 
@@ -106,10 +118,14 @@ class AudioToBPEDataset:
             pass
         return signal
 
+    def tokens(self, i: int) -> np.ndarray:
+        return np.asarray(self.tokenizer.text_to_ids(self.entries[i].text),
+                          np.int32)
+
     def __getitem__(self, i: int) -> Sample:
         e = self.entries[i]
-        tokens = np.asarray(self.tokenizer.text_to_ids(e.text), np.int32)
-        return Sample(self._load_signal(e), tokens, e.text, e.duration)
+        return Sample(self._load_signal(e), self.tokens(i), e.text,
+                      e.duration)
 
 
 def _bucket_edges(max_duration: float, num_buckets: int,
@@ -124,12 +140,16 @@ def make_dataloader(dataset: AudioToBPEDataset, cfg: DataConfig,
                     token_quantum: int = 16, num_shards: int = 1,
                     shard_index: int = 0, num_workers: int = 4,
                     pad_batch_to: Optional[int] = None,
-                    skip_batches: int = 0
+                    skip_batches: int = 0, world: int = 1, rank: int = 0
                     ) -> Iterator[Dict[str, np.ndarray]]:
     """Yields dict batches of numpy arrays with bucket-quantized shapes,
     plus `texts` (the real rows) and `utt_idx` (dataset index a row).
     `skip_batches` leaves out the epoch's first batches without decoding
-    them (a fit resumed mid-epoch)."""
+    them (a fit resumed mid-epoch). `world` > 1: rank `rank`'s block of
+    each batch of the agreed plan (the module's docstring)."""
+    if world > 1 and (num_shards > 1 or pad_batch_to):
+        raise ValueError("make_dataloader: world > 1 plans the whole "
+                         "manifest; num_shards and pad_batch_to do not apply")
     n = len(dataset)
     order = np.arange(n)
     if cfg.shuffle:
@@ -171,23 +191,38 @@ def make_dataloader(dataset: AudioToBPEDataset, cfg: DataConfig,
 
     pool = (ThreadPoolExecutor(max_workers=num_workers)
             if num_workers > 1 else None)
+    load = lambda ids: (list(pool.map(dataset.__getitem__, ids))
+                        if pool is not None else [dataset[i] for i in ids])
     try:
         for b, idxs in batches:
-            samples = (list(pool.map(dataset.__getitem__, idxs))
-                       if pool is not None else [dataset[i] for i in idxs])
-            yield _collate(samples, int(edges[b]), token_quantum,
-                           pad_batch_to, idxs=idxs)
+            if world == 1:
+                yield _collate(load(idxs), int(edges[b]), token_quantum,
+                               pad_batch_to, idxs=idxs)
+                continue
+            n = len(idxs)
+            rows = -(-n // world)                    # rows a rank
+            block = [idxs[i % n] for i in range(rank * rows,
+                                                (rank + 1) * rows)]
+            max_tok = max(len(dataset.tokens(i)) for i in idxs)
+            yield _collate(load(block), int(edges[b]), token_quantum,
+                           idxs=block, n_real=min(max(n - rank * rows, 0),
+                                                  rows), max_tok=max_tok)
     finally:
         if pool is not None:
             pool.shutdown(wait=False)
 
 
 def _collate(samples, pad_sig: int, token_quantum: int,
-             pad_batch_to: Optional[int] = None,
-             idxs=None) -> Dict[str, np.ndarray]:
-    max_tok = max((len(s.tokens) for s in samples), default=1)
+             pad_batch_to: Optional[int] = None, idxs=None,
+             n_real: Optional[int] = None,
+             max_tok: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """`n_real`: the real rows among `samples` (the rest repeat rows of the
+    global batch); `max_tok`: the global batch's longest token row."""
+    if max_tok is None:
+        max_tok = max((len(s.tokens) for s in samples), default=1)
     pad_tok = max(token_quantum,
                   int(math.ceil(max_tok / token_quantum) * token_quantum))
+    texts = [s.text for s in samples[:n_real]]
     n_real = bs = len(samples)
     if pad_batch_to and bs % pad_batch_to:
         bs += pad_batch_to - bs % pad_batch_to
@@ -205,7 +240,7 @@ def _collate(samples, pad_sig: int, token_quantum: int,
         token_len[i] = tl
     out = {"signal": signal, "signal_len": signal_len,
            "tokens": tokens, "token_len": token_len,
-           "texts": [s.text for s in samples]}
+           "texts": texts}
     if idxs is not None:
         out["utt_idx"] = np.asarray([idxs[i % n_real] for i in range(bs)],
                                     np.int32)

@@ -12,7 +12,8 @@ fp32.
 `loss_layers=L` declares that the rows are L encoder layers stacked into
 the batch: every mean is over equal-size layer slabs, so L times the mean
 over all rows is the per-layer loss summed over layers (the reference's
-aggregation, asr_train.py:754-757).
+aggregation, asr_train.py:754-757). Under data parallelism each mean is
+the rank's share (parallel/mesh.py batch_mean).
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ from torch import nn
 
 from tpu_asr_torch.config import DiffKDConfig
 from tpu_asr_torch.kd.meta_encoders import conv_btc
+from tpu_asr_torch.parallel.mesh import batch_mean
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.square(a.float() - b.float()).mean()
+    return batch_mean(torch.square(a.float() - b.float()))
 
 
 class DiffKDModule(nn.Module):

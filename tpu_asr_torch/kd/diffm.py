@@ -24,6 +24,9 @@ Versions (`_compute_v_losses_one_layer`, :645-729):
 Only the submodules a version calls are built, as flax creates only the
 parameters a call reaches.
 
+Under data parallelism each loss is the rank's share (parallel/mesh.py
+batch_mean) and the noise is the global batch's, cut to the rank's rows.
+
 `loss_layers=L`: the rows are L encoder layers stacked B-major; every loss
 is then the per-layer loss summed over layers (the elementwise means scaled
 by L, the FMs with their own loss_layers).
@@ -41,6 +44,7 @@ from torch import nn
 from tpu_asr_torch.config import DiffmConfig, FlowMatchingConfig
 from tpu_asr_torch.kd.flow_matching import FlowMatchingModule
 from tpu_asr_torch.kd.meta_encoders import conv_btc
+from tpu_asr_torch.parallel.mesh import batch_mean, draw_rows
 
 LOSSES = ("recon_loss", "kd_loss_pre", "fm_loss_pre", "kd_loss_post",
           "fm_loss_post")
@@ -68,8 +72,8 @@ class NoiseAdapter(nn.Module):
 
     def forward(self, z: torch.Tensor,
                 generator: torch.Generator) -> torch.Tensor:
-        eps = torch.randn(z.shape, generator=generator, device=z.device,
-                          dtype=z.dtype)
+        eps = draw_rows(lambda s: torch.randn(
+            s, generator=generator, device=z.device, dtype=z.dtype), z.shape)
         gamma = self.gamma(z)
         return gamma * z + (1.0 - gamma) * eps
 
@@ -115,7 +119,7 @@ class LatentKDPipeline(nn.Module):
 
     def _kd_crit(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         d = a.float() - b.float()
-        return (d.abs() if self.kd_loss_type == "l1" else d * d).mean()
+        return batch_mean(d.abs() if self.kd_loss_type == "l1" else d * d)
 
     def forward(self, stu_feat: torch.Tensor, tch_feat: torch.Tensor,
                 train: bool = False, loss_layers: Optional[int] = None,
@@ -135,8 +139,8 @@ class LatentKDPipeline(nn.Module):
         rec = conv_btc(self.tae_dec, z_t)
         z_t = z_t.detach()
         out = {k: torch.zeros((), device=stu_feat.device) for k in LOSSES}
-        out["recon_loss"] = lscale * torch.square(
-            rec.float() - tch_feat.float()).mean()
+        out["recon_loss"] = lscale * batch_mean(torch.square(
+            rec.float() - tch_feat.float()))
         z_s = conv_btc(self.sproj, stu_feat.to(self.dtype))
         fm = lambda mod, z: mod(z, z_t, train=train, loss_layers=loss_layers,
                                 generator=rngs.get("dropout"))

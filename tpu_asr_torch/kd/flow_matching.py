@@ -30,6 +30,9 @@ asr_train.py:1220-1377).
   counts of each group's mean error; with `loss_layers=L` the groups are
   (layer, step count) pairs of the B-major rows (row = b * L + l), which
   is the per-layer group loss summed over layers.
+- Under data parallelism (parallel/mesh.py) the loss is the rank's share:
+  the element mean over the ranks' count, each group's sum over the global
+  group's count.
 
 Parameters carry the JAX module's paths: `euler.time_embed`,
 `euler.meta_encoder.*` (the `mlp`'s fc1 and fc2, or the other meta
@@ -51,6 +54,7 @@ from tpu_asr_torch.kd.schedules import get_noise_schedule
 from tpu_asr_torch.ops._kernels import use_kernel
 from tpu_asr_torch.ops.cuda_fm import (fm_euler_plain, fm_refusal,
                                        fused_fm_euler)
+from tpu_asr_torch.parallel.mesh import batch_mean, global_sum
 
 BACKENDS = ("auto", "pallas", "xla")
 
@@ -193,8 +197,8 @@ class FlowMatchingModule(nn.Module):
                 loss = self._group_loss(err.reshape(b, -1), steps_b,
                                         max_steps, loss_layers)
             else:
-                loss = err.mean() if loss_layers is None else \
-                    loss_layers * err.mean()
+                loss = batch_mean(err) if loss_layers is None else \
+                    loss_layers * batch_mean(err)
         return loss, x
 
     @staticmethod
@@ -203,7 +207,9 @@ class FlowMatchingModule(nn.Module):
                     ) -> torch.Tensor:
         """Sum over groups of the group's mean of `err` (rows, elements):
         groups by step count 1..max_steps, or with `loss_layers` by (layer
-        row % L, min(step count, max_steps)); an empty group adds 0."""
+        row % L, min(step count, max_steps)); an empty group adds 0. Under
+        data parallelism a group's count is that of the global batch, so
+        this rank's sums over it are its share."""
         rows, dev = err.shape[0], err.device
         if loss_layers is not None:
             per_row = err.mean(dim=1)
@@ -211,13 +217,13 @@ class FlowMatchingModule(nn.Module):
             seg = ((torch.arange(rows, device=dev) % loss_layers)
                    * (max_steps + 1) + steps_b.long().clamp(max=max_steps))
             sums = torch.zeros(n_seg, device=dev).index_add_(0, seg, per_row)
-            counts = torch.zeros(n_seg, device=dev).index_add_(
-                0, seg, torch.ones(rows, device=dev))
+            counts = global_sum(torch.zeros(n_seg, device=dev).index_add_(
+                0, seg, torch.ones(rows, device=dev)))
         else:
             ks = torch.arange(1, max_steps + 1, device=dev)
             in_group = (steps_b[:, None] == ks).float()           # (rows, K)
             sums = err.sum(dim=1) @ in_group
-            counts = in_group.sum(dim=0)
+            counts = global_sum(in_group.sum(dim=0))
             counts_el = counts * err.shape[1]
             return torch.where(counts > 0, sums / counts_el.clamp(min=1.0),
                                0.0).sum()

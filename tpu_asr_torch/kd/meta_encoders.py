@@ -29,6 +29,10 @@ counter-based hash (ops/dropout.py) with one seed a site drawn from the
 `dropout` generator; flax's nn.Dropout bits are not reproduced. LayerNorm's
 epsilon is flax's 1e-6, the batch-statistics norm's 1e-5.
 
+Under data parallelism (parallel/mesh.py) the batch-statistics norm reduces
+its statistics over the global batch, and a dropout site's streams begin at
+the rank's row offset, so both equal the single-rank run's.
+
 Parameter names follow the JAX paths, with flax's automatic names given
 words: a feed-forward's LayerNorm_0 / Dense_0 / Dense_1 are `norm`,
 `linear1`, `linear2`, the conv module's LayerNorm_0 is `norm`, and the
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_asr_torch.ops.dropout import dropout as hash_dropout
+from tpu_asr_torch.parallel.mesh import global_mean, row_offset
 
 LN_EPS = 1e-6           # flax nn.LayerNorm
 BN_EPS = 1e-5           # _BatchStatNorm
@@ -80,7 +85,7 @@ def _drop(x: torch.Tensor, rate: float, train: bool,
         raise ValueError("meta encoder dropout in training needs the "
                          "'dropout' generator")
     seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
-    return hash_dropout(x, rate, seed)
+    return hash_dropout(x, rate, (seed + row_offset(x.shape[0])) & 0xFFFFFFFF)
 
 
 class MLPMetaEncoder(nn.Module):
@@ -172,8 +177,8 @@ class _BatchStatNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(0, 1))
-        var = torch.square(xf - mean).mean(dim=(0, 1))
+        mean = global_mean(xf, (0, 1))
+        var = global_mean(torch.square(xf - mean), (0, 1))
         y = (xf - mean) * torch.rsqrt(var + BN_EPS)
         return (y * self.weight + self.bias).to(x.dtype)
 

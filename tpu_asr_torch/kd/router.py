@@ -17,6 +17,11 @@ loss is summed over layers; per layer it is
   budget_weight * (mean_b steps - budget_target)^2
   - entropy_weight * mean_b H(probs).
 
+Under data parallelism (parallel/mesh.py) the draw is the global batch's
+cut to the rank's samples, the budget term's batch mean is the global one,
+and the loss is the rank's share (budget term and entropy mean over the
+ranks' count), so the shares add up to the single-rank loss.
+
 Reference quirks kept: the budget term is built from the integer steps and
 carries no gradient (the entropy term is the router's only gradient); the
 straight-through one-hot is not built.
@@ -36,6 +41,8 @@ from torch import nn
 
 from tpu_asr_torch.config import RouterConfig
 from tpu_asr_torch.kd.meta_encoders import dense
+from tpu_asr_torch.parallel.mesh import (all_gather_rows, draw_rows,
+                                         global_mean, process_count)
 
 STRATEGIES = ("batch_mode", "batch_avg", "batch_median", "group")
 
@@ -99,8 +106,10 @@ class DynamicStepRouter(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Dict[str, torch.Tensor]]:
         """(steps (L, B) int32, router loss summed over layers, {'logits',
-        'probs' (L, B, K), 'expected_steps' (L, B)}). Training needs the
-        `gumbel` generator, on the features' device."""
+        'probs', 'scores' (L, B, K): the logits with the Gumbel draw over
+        the temperature in training, whose argmax is the count,
+        'expected_steps' (L, B)}). Training needs the `gumbel` generator,
+        on the features' device."""
         c = self.cfg
         k = c.max_steps
         logits = self.logits(stu_feat, tch_feat, layer_ids)
@@ -112,20 +121,25 @@ class DynamicStepRouter(nn.Module):
             if generator is None:
                 raise ValueError("DynamicStepRouter: training needs the "
                                  "'gumbel' generator")
-            g = gumbel_noise(logits.shape, generator, logits.device)
-            y_soft = torch.softmax((logits + g) / c.temperature, dim=-1)
+            g = draw_rows(lambda s: gumbel_noise(s, generator,
+                                                 logits.device),
+                          logits.shape, dim=1)
+            scores = (logits + g) / c.temperature
+            y_soft = torch.softmax(scores, dim=-1)
             steps = y_soft.argmax(dim=-1).to(torch.int32) + 1
             if c.budget_target is not None and c.budget_weight > 0:
-                mean = steps.float().mean(dim=1)                 # (L,)
+                mean = global_mean(steps.float(), 1)             # (L,)
                 loss = loss + c.budget_weight * torch.square(
-                    mean - c.budget_target).sum()
+                    mean - c.budget_target).sum() / process_count()
             if c.entropy_weight > 0:
                 ent = -(probs * torch.log(probs.clamp(min=1e-8))).sum(-1)
-                loss = loss - c.entropy_weight * ent.mean(dim=1).sum()
+                loss = loss - c.entropy_weight * (
+                    ent.mean(dim=1) / process_count()).sum()
         else:
+            scores = logits
             steps = probs.argmax(dim=-1).to(torch.int32) + 1
         return steps, loss, {"logits": logits, "probs": probs,
-                             "expected_steps": expected}
+                             "expected_steps": expected, "scores": scores}
 
 
 def aggregate_steps(steps: torch.Tensor, strategy: str,
@@ -135,7 +149,10 @@ def aggregate_steps(steps: torch.Tensor, strategy: str,
     frequent count, the smallest among ties (torch.mode's rule, JAX's first
     argmax); 'batch_avg' the mean rounded half to even; 'batch_median' the
     lower middle element; the last two clipped to 1..max_steps. 'group'
-    keeps per-sample counts and is the caller's (raises here)."""
+    keeps per-sample counts and is the caller's (raises here). Under data
+    parallelism the batch is the global one: every rank's counts are
+    gathered first, so every rank takes the single-rank run's count."""
+    steps = all_gather_rows(steps, dim=-1)
     if strategy == "batch_mode":
         counts = F.one_hot(steps.long() - 1, max_steps).sum(dim=-2)
         return (counts.argmax(dim=-1) + 1).to(torch.int32)

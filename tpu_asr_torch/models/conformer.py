@@ -98,6 +98,7 @@ from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
 from tpu_asr_torch.ops.dropout import dropout, keep_mask
 from tpu_asr_torch.ops.positions import (position_table,
                                          rel_positional_encoding)
+from tpu_asr_torch.parallel.mesh import global_mean, global_rows, row_offset
 
 SEEDS_PER_LAYER = 5      # ffn1, attention probabilities, attention out,
 #                          conv out, ffn2
@@ -106,6 +107,20 @@ BACKENDS = ("auto", "pallas", "xla")
 SUBSAMPLINGS = ("striding", "dw_striding", "stacking", "stacking_norm")
 ATTENTION_MODELS = ("rel_pos", "rel_pos_local_attn")
 REDUCTIONS = ("pooling", "striding")
+
+
+def shift_seeds(seeds: List[int], offset: int, n_heads: int) -> List[int]:
+    """The encoder's dropout seeds (the pre-encoder's, then SEEDS_PER_LAYER
+    a layer) for rows that begin at `offset` of the global batch: each
+    site's streams are affine in the row (ops/dropout.py), so the base moves
+    by the streams a row takes there (n_heads for the attention
+    probabilities, 1 elsewhere), modulo 2^32, and the rows draw the masks of
+    the same rows in the single-rank run."""
+    if not offset:
+        return seeds
+    per_row = [1] + [1, n_heads, 1, 1, 1] * ((len(seeds) - 1)
+                                              // SEEDS_PER_LAYER)
+    return [(s + offset * k) & 0xFFFFFFFF for s, k in zip(seeds, per_row)]
 
 
 def _power_of_two(n: int) -> bool:
@@ -517,7 +532,11 @@ class MaskedBatchNorm(nn.Module):
     statistics folded into one per-channel affine in fp32, applied in x's
     dtype. Training: the batch statistics over (B, T), padded frames
     included, in fp32; `commit()` then moves the running statistics once
-    (momentum 0.9 in flax terms, unbiased variance)."""
+    (momentum 0.9 in flax terms, unbiased variance). Under data
+    parallelism (parallel/mesh.py) the statistics are the global batch's,
+    reduced across the ranks in the forward and the backward (the
+    reference's sync_batchnorm), and the unbiased factor takes the global
+    count."""
 
     MOMENTUM = 0.9
 
@@ -542,9 +561,9 @@ class MaskedBatchNorm(nn.Module):
             w, b = self.folded()
             return x * w.to(x.dtype) + b.to(x.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 1))
-        var = (xf - mean).square().mean(dim=(0, 1))
-        n = x.shape[0] * x.shape[1]
+        mean = global_mean(xf, (0, 1))
+        var = global_mean((xf - mean).square(), (0, 1))
+        n = global_rows(x.shape[0]) * x.shape[1]
         self._batch_stats = (mean.detach(), var.detach(), n)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
@@ -880,9 +899,10 @@ class ConformerEncoder(nn.Module):
             x = x * math.sqrt(c.d_model)
         seeds, keep = None, None
         if train:
-            seeds = torch.randint(0, 2 ** 31 - 1,
-                                  (1 + SEEDS_PER_LAYER * c.n_layers,),
-                                  generator=generator).tolist()
+            seeds = shift_seeds(torch.randint(
+                0, 2 ** 31 - 1, (1 + SEEDS_PER_LAYER * c.n_layers,),
+                generator=generator).tolist(), row_offset(x.shape[0]),
+                c.n_heads)
             x = dropout(x, c.dropout_pre_encoder, seeds[0])
             if c.stochastic_depth_drop_prob > 0.0:
                 u = torch.rand(c.n_layers, generator=generator).tolist()

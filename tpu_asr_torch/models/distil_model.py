@@ -73,6 +73,7 @@ from tpu_asr_torch.kd.router import (STRATEGIES, DynamicStepRouter,
                                      aggregate_steps)
 from tpu_asr_torch.models.ctc_model import CTCModel
 from tpu_asr_torch.ops.ctc import ctc_loss
+from tpu_asr_torch.parallel.mesh import batch_mean
 
 
 class DistilOutput(NamedTuple):
@@ -182,7 +183,7 @@ class DistilCTCModel(nn.Module):
                 stu_feats, tch_feats, torch.arange(n_layers, device=dev),
                 train, rngs.get("gumbel"))
             metrics["router/batch_mean_sampling_steps_mean"] = \
-                steps.float().mean()
+                batch_mean(steps.float())
             max_steps = f.router_max_sampling_steps
             if f.router_strategy == "group":
                 return steps, max_steps, True, router_loss

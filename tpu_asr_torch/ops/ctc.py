@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpu_asr_torch.ops.cuda_ctc import NEG_INF, ctc_nll, ctc_nll_plain
+from tpu_asr_torch.parallel.mesh import batch_mean, global_sum
 
 REDUCTIONS = ("none", "mean_batch", "sum", "mean", "mean_volume")
 
@@ -24,7 +25,9 @@ def ctc_loss(log_probs: torch.Tensor, targets: torch.Tensor,
     NLLs), 'mean' (NLL / target length, then batch mean), 'mean_volume'
     (sum / total target tokens), 'sum' or 'none'. backend 'auto'/'pallas'
     runs `ctc_nll` (the CUDA kernels for a CUDA tensor), 'scan'/'xla' the
-    plain recursion."""
+    plain recursion. Under data parallelism (parallel/mesh.py) a reduced
+    loss is this rank's share of the global batch's: its NLL sum over the
+    global rows or the global target tokens."""
     if reduction not in REDUCTIONS:
         raise ValueError(f"unknown reduction: {reduction}")
     if backend in ("auto", "pallas"):
@@ -41,12 +44,13 @@ def ctc_loss(log_probs: torch.Tensor, targets: torch.Tensor,
     if reduction == "none":
         return nll
     if reduction == "mean_batch":
-        return nll.mean()
+        return batch_mean(nll)
     if reduction == "sum":
         return nll.sum()
     if reduction == "mean":
-        return (nll / target_lengths.to(nll.dtype).clamp(min=1.0)).mean()
-    return nll.sum() / target_lengths.sum().to(nll.dtype).clamp(min=1.0)
+        return batch_mean(nll / target_lengths.to(nll.dtype).clamp(min=1.0))
+    return nll.sum() / global_sum(
+        target_lengths.sum().to(nll.dtype)).clamp(min=1.0)
 
 
 def _pack(keep: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

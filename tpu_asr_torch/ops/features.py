@@ -27,6 +27,7 @@ from tpu_asr_torch.config import PreprocessorConfig
 from tpu_asr_torch.ops._kernels import use_kernel
 from tpu_asr_torch.ops.cuda_features import (fused_logmel, logmel_plain,
                                              logmel_refusal)
+from tpu_asr_torch.parallel.mesh import draw_rows
 
 
 def _hz_to_mel(freqs: np.ndarray) -> np.ndarray:
@@ -136,8 +137,8 @@ class FilterbankFeatures(nn.Module):
         c = self.cfg
         x = signal.float()
         if train and c.dither > 0.0 and generator is not None:
-            x = x + c.dither * torch.randn(x.shape, generator=generator,
-                                           device=x.device)
+            x = x + c.dither * draw_rows(lambda s: torch.randn(
+                s, generator=generator, device=x.device), x.shape)
         if c.preemph:
             x = torch.cat([x[:, :1], x[:, 1:] - c.preemph * x[:, :-1]], dim=1)
         pad = self.n_fft // 2

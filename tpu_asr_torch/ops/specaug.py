@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from tpu_asr_torch.config import SpecAugmentConfig
+from tpu_asr_torch.parallel.mesh import draw_rows
 
 
 def spec_augment(spec: torch.Tensor, length: torch.Tensor,
@@ -24,12 +25,14 @@ def spec_augment(spec: torch.Tensor, length: torch.Tensor,
     b, d, t = spec.shape
     dev = spec.device
     kw = dict(generator=generator, device=dev)
+    # each row's draws are those of its row in the global batch
+    rand = lambda shape: draw_rows(lambda s: torch.rand(s, **kw), shape)
+    randint = lambda lo, hi, shape: draw_rows(
+        lambda s: torch.randint(lo, hi, s, **kw), shape)
     mask = torch.zeros((b, d, t), dtype=torch.bool, device=dev)
     if cfg.freq_masks > 0:
-        widths = torch.randint(0, cfg.freq_width + 1, (b, cfg.freq_masks),
-                               **kw)
-        starts = torch.randint(0, max(1, d - cfg.freq_width),
-                               (b, cfg.freq_masks), **kw)
+        widths = randint(0, cfg.freq_width + 1, (b, cfg.freq_masks))
+        starts = randint(0, max(1, d - cfg.freq_width), (b, cfg.freq_masks))
         f_idx = torch.arange(d, device=dev)[None, None, :]
         fmask = (f_idx >= starts[..., None]) & (
             f_idx < (starts + widths)[..., None])
@@ -39,10 +42,10 @@ def spec_augment(spec: torch.Tensor, length: torch.Tensor,
             max_w = (length.float() * cfg.time_width).long().clamp(min=1)
         else:
             max_w = torch.full((b,), int(cfg.time_width), device=dev)
-        u_w = torch.rand((b, cfg.time_masks), **kw)
+        u_w = rand((b, cfg.time_masks))
         widths = (u_w * (max_w[:, None] + 1).float()).long()
         start_hi = (length[:, None] - widths).clamp(min=1)
-        u_s = torch.rand((b, cfg.time_masks), **kw)
+        u_s = rand((b, cfg.time_masks))
         starts = (u_s * start_hi.float()).long()
         t_idx = torch.arange(t, device=dev)[None, None, :]
         tmask = (t_idx >= starts[..., None]) & (

@@ -311,11 +311,15 @@ def device_activity(prof, n_calls: int):
     figures are divided by, so they read neither low nor high; without
     markers they are divided by n_calls. Each kernel's ms per call over
     its launches per call is its time a launch in any case. The markers
-    themselves count nowhere."""
+    themselves count nowhere, and neither do the device-side ranges of
+    record_function annotations (`Optimizer.step#AdamW.step`,
+    `DistributedDataParallel.forward`): they span work, idle gaps
+    included, and are no work themselves."""
     from torch.autograd import DeviceType
 
     events = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+                    for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
     spans, per_name, segments = [], defaultdict(lambda: [0.0, 0]), []
     for start, end, name in events:
         if MARKER in name:

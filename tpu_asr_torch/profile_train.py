@@ -3,7 +3,7 @@ kernels ('auto') and on the plain PyTorch versions ('xla').
 
     python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8|
         flowkd_mlp8_int8_teacher|flowkd_router16|kd_menu|ctc_large|
-        ctc_xlarge|ctc_fastconformer_local] [--packed] [--out FILE]
+        ctc_xlarge|ctc_fastconformer_local] [--packed | --ddp] [--out FILE]
 
 DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
 at its own compute dtype (bf16) with seeded random weights and
@@ -32,6 +32,12 @@ backend it prints one line with:
 then the device time per step by group (the port's kernels by name, the
 rest as cuBLAS/cuDNN/ATen) and the top device activities. `--out` also
 writes the profiler's own tables.
+
+`--ddp` profiles the step on the kernels in turns without and with
+DistributedDataParallel (train/trainer.py) in a one-rank NCCL group
+(parallel/mesh.py), from the same weights: what the data-parallel path
+costs a step where nothing crosses a card; `--out` also writes each
+turn's profile sorted by host time.
 
 `--packed` (with `--config flowkd_mlp8`) profiles on the kernels, instead,
 bench_train.py's packed_train batches (`packed_batches`: 512 utterances of
@@ -284,9 +290,20 @@ def profile_packed(out=None, batches=None, counters=None) -> dict:
 
 
 def profile_backend(backend: str, config: str = "ctc_student",
-                    out=None) -> None:
+                    out=None, ddp: bool = False) -> None:
+    """`ddp`: the step under DistributedDataParallel in a one-rank NCCL
+    group."""
+    if ddp:
+        from tpu_asr_torch.parallel import launch, mesh
+        mesh.init_distributed(1, 0, "nccl", "cuda:0",
+                              f"tcp://127.0.0.1:{launch.free_port()}", 300)
+        try:
+            return profile_backend(backend, config, out)
+        finally:
+            mesh.shutdown()
     from tpu_asr_torch.config import OptimConfig
     from tpu_asr_torch.models.distil_model import DistilCTCModel
+    from tpu_asr_torch.parallel.mesh import initialized
     from tpu_asr_torch.train.trainer import (DistilTrainState,
                                              make_distil_train_step)
 
@@ -295,6 +312,8 @@ def profile_backend(backend: str, config: str = "ctc_student",
                                   teacher_config(config),
                                   distill_config(config)), 1).cuda()
     set_backend(model, backend)
+    if initialized():
+        backend += " DDP (NCCL, world 1)"
     state = DistilTrainState.create(model, OptimConfig())
     step = make_distil_train_step(model)
     batch = make_batch()
@@ -329,6 +348,9 @@ def profile_backend(backend: str, config: str = "ctc_student",
         out.write(f"== train step {config} {backend}\n")
         out.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=50) + "\n")
+        out.write(f"== train step {config} {backend}, by host time\n")
+        out.write(prof.key_averages().table(
+            sort_by="self_cpu_time_total", row_limit=40) + "\n")
 
 
 def main(argv=None) -> int:
@@ -337,11 +359,16 @@ def main(argv=None) -> int:
     ap.add_argument("--packed", action="store_true",
                     help="flowkd_mlp8 on bench_train.py's packed_train "
                          "batches, packed and bucketed")
+    ap.add_argument("--ddp", action="store_true",
+                    help="the kernels' step without and with DDP in a "
+                         "one-rank NCCL group, in turns")
     ap.add_argument("--out", default=None,
                     help="file for the profiler tables")
     args = ap.parse_args(argv)
     if args.packed and args.config != "flowkd_mlp8":
         ap.error("--packed profiles --config flowkd_mlp8")
+    if args.packed and args.ddp:
+        ap.error("--packed and --ddp are two profiles; ask for one")
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
@@ -353,8 +380,12 @@ def main(argv=None) -> int:
     try:
         if args.packed:
             profile_packed(out)
-        for backend in () if args.packed else ("auto", "xla"):
-            profile_backend(backend, args.config, out)
+        elif args.ddp:
+            for ddp in (False, True, True, False):
+                profile_backend("auto", args.config, out, ddp)
+        else:
+            for backend in ("auto", "xla"):
+                profile_backend(backend, args.config, out)
     finally:
         if out is not None:
             out.close()

@@ -1,7 +1,7 @@
 """The fit loop and evaluation: the port's counterpart of
 tpu_asr/train/loop.py (the Lightning `Trainer.fit` / `trainer.test` of
 reference asr_train.py:1690-1890 and NeMo ctc_models.py:549-692), on one
-device.
+device or on one rank of a data-parallel group.
 
 - `fit`: epochs of bucketed batches (data/dataset.py; each host batch
   copied to the device one batch ahead), the KD train step
@@ -25,8 +25,19 @@ device.
 - Metrics go to <workdir>/metrics.jsonl, one JSON object a line. JAX's
   W&B passthrough is not ported.
 
+Data parallelism (parallel/mesh.py): in an initialised process group of N
+ranks every rank builds the same Trainer and calls the same methods. Each
+takes its block of every batch of one agreed plan (data/dataset.py), the
+step runs under DDP (train/trainer.py), and the run takes the steps that
+one rank takes with the same flags: `batch_size` is the GLOBAL batch. Rank
+0 alone writes metrics and checkpoints (barriers around them); every rank
+writes its own heartbeat. The logged losses are the sums of the ranks'
+shares, read at a log boundary; `evaluate` and `evaluate_packed` sum
+(scores, words, loss, tokens, utterances) over the ranks and count only
+real rows. `cfg.dp_size` is -1 or the world size.
+
 Not ported: `steps_per_dispatch` > 1, the teacher feature caches and
-data parallelism; the Trainer raises for them.
+tensor parallelism; the Trainer raises for them.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from tpu_asr_torch.config import TrainConfig
 from tpu_asr_torch.data.dataset import (AudioToBPEDataset, make_dataloader,
                                         to_device)
 from tpu_asr_torch.models.distil_model import DistilCTCModel
+from tpu_asr_torch.parallel import mesh
 from tpu_asr_torch.train.trainer import (DistilTrainState,
                                          make_distil_eval_step,
                                          make_distil_train_step)
@@ -59,13 +71,17 @@ from tpu_asr_torch.utils.wer import WERMetric
 
 class MetricsLogger:
     """JSONL metrics: <workdir>/metrics.jsonl, one {"step": ..., name:
-    float} object a line."""
+    float} object a line; written by rank 0 alone."""
 
     def __init__(self, workdir):
         self.path = Path(workdir) / "metrics.jsonl"
-        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.enabled = mesh.is_main_process()
+        if self.enabled:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
 
     def log(self, metrics: Dict, step: int) -> None:
+        if not self.enabled:
+            return
         row = {"step": int(step)}
         for k, v in metrics.items():
             try:
@@ -84,9 +100,19 @@ def refusals(cfg: TrainConfig):
     if cfg.cache_teacher or cfg.cache_teacher_all:
         out.append("the teacher feature caches (cache_teacher, "
                    "cache_teacher_all)")
-    if cfg.dp_size > 1 or cfg.tp_size > 1:
-        out.append("data or tensor parallelism (dp_size, tp_size > 1)")
+    if cfg.tp_size > 1:
+        out.append("tensor parallelism (tp_size > 1)")
+    world = mesh.process_count()
+    if cfg.dp_size not in (-1, world):
+        out.append(f"dp_size={cfg.dp_size} in a world of {world} rank(s): "
+                   "start the ranks with tpu_asr_torch.parallel.launch, "
+                   "the CLIs' --gpus N or torchrun")
     return out
+
+
+# the step's metrics computed after the gradient reduction, equal on every
+# rank; every other metric is the rank's share of the global value
+_NOT_SHARES = ("grad_norm", "nonfinite_grad_elems")
 
 
 class Trainer:
@@ -100,6 +126,7 @@ class Trainer:
             raise ValueError("tpu_asr_torch's Trainer does not run "
                              + "; ".join(refused))
         self.device = torch.device(device)
+        self.world, self.rank = mesh.process_count(), mesh.process_index()
         self.model = model.to(self.device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -171,7 +198,8 @@ class Trainer:
         while state.epoch < cfg.max_epochs and not done:
             epoch = state.epoch
             raw = make_dataloader(dataset, cfg.train_ds, epoch=epoch,
-                                  skip_batches=state.step - state.epoch_step)
+                                  skip_batches=state.step - state.epoch_step,
+                                  world=self.world, rank=self.rank)
             for batch in to_device(raw, self.device):
                 texts = batch.pop("texts", None)
                 batch.pop("utt_idx", None)
@@ -192,11 +220,11 @@ class Trainer:
                             | {"straggler/n_flagged":
                                len(rep["stragglers"])}, step)
                 if crossed(step, 1, self.log_every) or step == 1:
-                    row = {k: v.item() for k, v in metrics.items()}
+                    row = global_metrics(metrics)
                     row["epoch"] = epoch
                     row["steps_per_sec"] = (step - step0) / max(
                         time.perf_counter() - t0, 1e-9)
-                    if (self.train_wer_every and texts
+                    if (self.train_wer_every
                             and crossed(step, 1, self.train_wer_every)):
                         row["train_wer"] = self._batch_wer(batch, texts)
                     self.logger.log(row, step)
@@ -215,18 +243,25 @@ class Trainer:
         return state
 
     def _batch_wer(self, batch, texts) -> float:
-        """Greedy WER on the current train batch."""
+        """Greedy WER on the current train batch (its real rows, over every
+        rank)."""
         _, (tokens, n_tokens) = self._eval_step(self.state, batch)
         wer = WERMetric()
+        texts = texts or []
         wer.update(self._hyps(tokens.cpu().numpy(), n_tokens.cpu().numpy(),
                               len(texts)), texts)
-        return wer.compute()
+        scores, words = mesh.cross_process_sum([wer.scores, wer.words])
+        return scores / words if words else float("inf")
 
     def _hyps(self, tokens, n_tokens, n):
         return [self.tokenizer.ids_to_text(tokens[i, :n_tokens[i]].tolist())
                 for i in range(n)]
 
     # ------------------------------------------------------------------
+    def _eval_batches(self, dataset):
+        return make_dataloader(dataset, self.cfg.test_ds, epoch=0,
+                               world=self.world, rank=self.rank)
+
     def evaluate(self, manifest: str) -> Dict[str, float]:
         """{'wer', 'loss', 'num_utts'} of the student on `manifest`
         (cfg.test_ds): the CTC NLL of each real row, divided by its target
@@ -239,8 +274,7 @@ class Trainer:
         wer = WERMetric()
         nll_contrib, tok_sum, n = 0.0, 0.0, 0
         reduction = self.model.student_cfg.ctc_reduction
-        for batch in to_device(make_dataloader(dataset, cfg.test_ds,
-                                               epoch=0), self.device):
+        for batch in to_device(self._eval_batches(dataset), self.device):
             texts = batch.pop("texts")
             batch.pop("utt_idx", None)
             metrics, (tokens, n_tokens) = self._eval_step(self.state, batch)
@@ -327,8 +361,7 @@ class Trainer:
                 lst.clear()
 
         dataset = self._dataset(manifest, cfg.test_ds)
-        for batch in to_device(make_dataloader(dataset, cfg.test_ds,
-                                               epoch=0), dev):
+        for batch in to_device(self._eval_batches(dataset), dev):
             n_real = len(batch["texts"])
             with torch.no_grad():
                 f, fl = student.featurizer(batch["signal"],
@@ -347,11 +380,23 @@ class Trainer:
         return _result(wer, agg["nll"], agg["tok"], agg["n"], reduction)
 
 
+def global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The step's metrics as floats, each share summed over the ranks."""
+    row = {k: v.item() for k, v in metrics.items()}
+    keys = sorted(k for k in row if k not in _NOT_SHARES)
+    for k, v in zip(keys, mesh.cross_process_sum([row[k] for k in keys])):
+        row[k] = float(v)
+    return row
+
+
 def _result(wer: WERMetric, loss_sum: float, tok_sum: float, n: int,
             reduction: str) -> Dict[str, float]:
+    """The metrics of this rank's sums, summed over the ranks first."""
+    scores, words, loss_sum, tok_sum, n = mesh.cross_process_sum(
+        [wer.scores, wer.words, loss_sum, tok_sum, n])
     if reduction == "mean_volume":
         loss = loss_sum / max(tok_sum, 1.0)
     else:
         loss = loss_sum / max(n, 1)
-    return {"wer": wer.scores / wer.words if wer.words else float("inf"),
-            "loss": loss, "num_utts": float(n)}
+    return {"wer": scores / words if words else float("inf"),
+            "loss": float(loss), "num_utts": float(n)}

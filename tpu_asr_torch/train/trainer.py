@@ -12,6 +12,21 @@ masks, router draws and diffm noise. Metrics stay on the device:
 step count, the interCTC losses), 'grad_norm' (before clipping) and, with
 skip_nan_grad, 'nonfinite_grad_elems'.
 
+Data parallelism (parallel/mesh.py): when a process group is initialised,
+the step runs the model through `torch.nn.parallel.DistributedDataParallel`
+(`ddp_model`, one wrapper a model), built over the trainable parameters;
+the frozen teacher's take no gradient and are never reduced. Each rank
+holds its block of the global batch and its losses are its shares of the
+single-rank losses, so the wrapper's communication hook SUMS the gradients
+(DDP's own hook averages); the gradients are views into its buckets, so
+no copy runs between them. BatchNorm's statistics are already global and
+equal on every rank, so buffers are not broadcast. The non-finite guard and
+the clipping run on the reduced gradients, so every rank decides alike.
+The generators are seeded alike on every rank; each draw that depends on
+the row is the global batch's, cut to the rank's rows. Packed training
+(`packed=True`) is refused at more than one rank: its plan crosses the
+batch's rows.
+
 `make_distil_eval_step` is the counterpart of JAX's of that name: the model
 in eval mode under `torch.no_grad()`, its losses, the per-sample CTC NLLs
 (`per_sample_ctc`, so an evaluation can weigh real rows only) and the
@@ -24,10 +39,13 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from tpu_asr_torch.config import OptimConfig
 from tpu_asr_torch.models.distil_model import DistilCTCModel
 from tpu_asr_torch.ops.ctc import ctc_greedy_decode_ids, ctc_loss
+from tpu_asr_torch.parallel import mesh
 from tpu_asr_torch.train.optim import (Schedule, build_optimizer,
                                        clip_by_global_norm, global_norm,
                                        set_lr)
@@ -66,6 +84,47 @@ def step_rngs(seed: int, step: int,
 PACK_KEYS = ("pk_src_utt", "pk_src_pos", "pk_seg", "pk_row", "pk_start")
 
 
+def _sum_hook(group, bucket):
+    """DDP communication hook: the SUM of each gradient bucket over the
+    ranks (each rank's loss is already its share of the global loss)."""
+    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
+def unused_parameters_possible(model: DistilCTCModel) -> bool:
+    """Whether some trainable parameter of `model` may take no gradient in
+    a step, which DDP must then look for (find_unused_parameters): DiffKD's
+    teacher encoder (its latent is detached before every use), a router
+    without its entropy term (its budget term has no gradient), a decoder
+    that no loss reads, and the diffm pipelines."""
+    d = model.distill
+    router = d.router if model.routed else None
+    return bool(d.use_diffkd or d.use_diffm
+                or (router is not None and not router.entropy_weight > 0)
+                or not (d.use_ctc or d.use_logit_distillation))
+
+
+def ddp_model(model: DistilCTCModel) -> torch.nn.Module:
+    """The model's DistributedDataParallel wrapper with the summing
+    communication hook, built once a process group (its construction
+    broadcasts rank 0's parameters and buffers; a second wrapper would
+    reduce every gradient twice) and kept on the model; the model itself
+    when no process group is initialised."""
+    if not mesh.initialized():
+        return model
+    group, wrapped = model.__dict__.get("_ddp", (None, None))
+    if group is not dist.group.WORLD:
+        dev = next(model.parameters()).device
+        wrapped = DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None,
+            broadcast_buffers=False, gradient_as_bucket_view=True,
+            find_unused_parameters=unused_parameters_possible(model))
+        wrapped.register_comm_hook(None, _sum_hook)
+        # in __dict__, outside nn.Module's registry: not a submodule
+        model.__dict__["_ddp"] = (dist.group.WORLD, wrapped)
+    return wrapped
+
+
 def make_distil_train_step(model: DistilCTCModel,
                            packed: bool = False) -> Callable:
     """Returns train_step(state, batch, seed) -> (state, metrics); batch
@@ -73,7 +132,14 @@ def make_distil_train_step(model: DistilCTCModel,
     `token_len` (B,) on the model's device. `packed`: packed-segment
     training (model.forward_packed_train); the batch also carries the plan
     of data/packing.train_pack_arrays, `pk_src_utt`, `pk_src_pos`, `pk_seg`
-    (R, Tp) and `pk_row`, `pk_start` (B,), as tensors or numpy arrays."""
+    (R, Tp) and `pk_row`, `pk_start` (B,), as tensors or numpy arrays.
+    Under an initialised process group the batch is this rank's block of
+    the global batch and the forward runs through `ddp_model`."""
+    if packed and mesh.process_count() > 1:
+        raise ValueError("packed training is not run with more than one "
+                         "rank: its packing plan crosses the batch's rows "
+                         "(ROADMAP.md, Queue 1)")
+    forward = ddp_model(model)
 
     def train_step(state: DistilTrainState, batch: Dict[str, torch.Tensor],
                    seed: int) -> Tuple[DistilTrainState, Dict]:
@@ -86,7 +152,7 @@ def make_distil_train_step(model: DistilCTCModel,
             out = model.forward_packed_train(
                 *args, *(batch[k] for k in PACK_KEYS), train=True, rngs=rngs)
         else:
-            out = model(*args, train=True, rngs=rngs)
+            out = forward(*args, train=True, rngs=rngs)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         out.losses["total"].backward()

@@ -17,6 +17,13 @@ and the trainer's `tokenizer.model` sidecar beside them.
 - `install_preemption_handler`: SIGTERM only raises a flag; the fit loop
   saves and exits 143 where its state is whole (after a step, after an
   epoch), never from inside an optimizer update.
+
+Under data parallelism (parallel/mesh.py) the state is the unwrapped
+model's (no DDP `module.` prefix) and equal on every rank: rank 0 alone
+writes, rotates and exports, the others wait at a barrier after it, and
+every rank restores the same file, so a checkpoint saved at one world size
+restores at any other. The ranks agree on a SIGTERM that reached any of
+them before they save and exit.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from pathlib import Path
 from typing import Callable
 
 import torch
+
+from tpu_asr_torch.parallel.mesh import (any_process, is_main_process,
+                                         sync_processes)
 
 
 def _atomic_save(obj, target: Path) -> Path:
@@ -43,21 +53,25 @@ def rotate_last(ckpt_dir) -> None:
     """last -> last-vN (the first free N), as a fresh run starts."""
     ckpt_dir = Path(ckpt_dir).absolute()
     last = ckpt_dir / "last"
-    if last.exists():
+    if is_main_process() and last.exists():
         n = 1
         while (ckpt_dir / f"last-v{n}").exists():
             n += 1
         last.rename(ckpt_dir / f"last-v{n}")
+    sync_processes("rotate_last")
 
 
 def save_train_state(ckpt_dir, state, name: str = "last") -> Path:
     """Write {step, epoch, epoch_step, model, optimizer} of a
-    DistilTrainState."""
-    return _atomic_save({"step": int(state.step), "epoch": state.epoch,
-                         "epoch_step": state.epoch_step,
-                         "model": state.model.state_dict(),
-                         "optimizer": state.optimizer.state_dict()},
-                        Path(ckpt_dir).absolute() / name)
+    DistilTrainState (rank 0; the others wait)."""
+    target = Path(ckpt_dir).absolute() / name
+    if is_main_process():
+        _atomic_save({"step": int(state.step), "epoch": state.epoch,
+                      "epoch_step": state.epoch_step,
+                      "model": state.model.state_dict(),
+                      "optimizer": state.optimizer.state_dict()}, target)
+    sync_processes("save_train_state")
+    return target
 
 
 def restore_train_state(ckpt_dir, state, name: str = "last"):
@@ -76,11 +90,14 @@ def restore_train_state(ckpt_dir, state, name: str = "last"):
 def export_student(ckpt_dir, state, student_cfg,
                    name: str = "student") -> Path:
     """The student's `state_dict` alone, and its config as JSON beside it
-    (`<name>_config.json`)."""
+    (`<name>_config.json`); rank 0 writes, the others wait."""
     ckpt_dir = Path(ckpt_dir).absolute()
-    target = _atomic_save(state.model.student.state_dict(), ckpt_dir / name)
-    (ckpt_dir / f"{name}_config.json").write_text(
-        json.dumps(student_cfg.to_dict(), indent=2))
+    target = ckpt_dir / name
+    if is_main_process():
+        _atomic_save(state.model.student.state_dict(), target)
+        (ckpt_dir / f"{name}_config.json").write_text(
+            json.dumps(student_cfg.to_dict(), indent=2))
+    sync_processes("export_student")
     return target
 
 
@@ -100,8 +117,9 @@ class Preemption:
         self.requested = False
 
     def exit_if_requested(self, save_fn: Callable[[], None]) -> None:
-        """Checkpoint and exit 143 when a SIGTERM has arrived."""
-        if self.requested:
+        """Checkpoint and exit 143 when a SIGTERM has arrived (at any rank:
+        every rank must call this at the same step)."""
+        if any_process(self.requested):
             save_fn()
             sys.exit(143)
 

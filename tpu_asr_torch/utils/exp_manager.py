@@ -1,5 +1,4 @@
-"""Experiment helpers: the port's counterpart of tpu_asr/utils/exp_manager.py
-for one process.
+"""Experiment helpers: the port's counterpart of tpu_asr/utils/exp_manager.py.
 
 - `setup_experiment`: outputs/<project>/<name>[-vN] (PRJ_NAME / EXP_NAME
   from the environment), with a config snapshot.
@@ -7,8 +6,11 @@ for one process.
 - `profile_trace`: a `torch.profiler` trace behind a flag (Chrome trace
   JSON under <workdir>/profile), in place of `jax.profiler`.
 - `StragglerDetector`, `maybe_inject_fault`, `write_heartbeat`,
-  `check_heartbeats`: the fault-tolerance hooks. This process is rank
-  `RANK` of the environment (0 when unset).
+  `check_heartbeats`: the fault-tolerance hooks. A process's rank is its
+  rank in the process group (parallel/mesh.py; 0 without one).
+
+Under data parallelism rank 0 picks the version suffix and every rank takes
+it (`broadcast_int`), and the straggler report gathers every rank's mean.
 """
 
 from __future__ import annotations
@@ -21,28 +23,35 @@ from dataclasses import asdict, is_dataclass
 from pathlib import Path
 from typing import Dict, Optional
 
-
-def process_index() -> int:
-    return int(os.environ.get("RANK", "0"))
+from tpu_asr_torch.parallel.mesh import (broadcast_int, cross_process_sum,
+                                         is_main_process, process_count,
+                                         process_index, sync_processes)
 
 
 def setup_experiment(output_dir, config=None, project: Optional[str] = None,
                      name: Optional[str] = None,
                      version_rerun: bool = True) -> Path:
-    """Create outputs/<project>/<name>[-vN] and snapshot the config."""
+    """Create outputs/<project>/<name>[-vN] and snapshot the config (rank 0
+    decides the suffix and writes; the others wait for it)."""
     project = project or os.getenv("PRJ_NAME") or "default"
     name = name or os.getenv("EXP_NAME") or "run"
     workdir = Path(output_dir) / project / name
-    if version_rerun and workdir.exists() and any(workdir.iterdir()):
+    n = 0
+    if is_main_process() and version_rerun and workdir.exists() \
+            and any(workdir.iterdir()):
         n = 1
         while (Path(output_dir) / project / f"{name}-v{n}").exists():
             n += 1
+    n = broadcast_int(n)
+    if n:
         workdir = Path(output_dir) / project / f"{name}-v{n}"
-    workdir.mkdir(parents=True, exist_ok=True)
-    if config is not None:
-        cfg = asdict(config) if is_dataclass(config) else config
-        (workdir / "config.json").write_text(json.dumps(cfg, indent=2,
-                                                        default=str))
+    if is_main_process():
+        workdir.mkdir(parents=True, exist_ok=True)
+        if config is not None:
+            cfg = asdict(config) if is_dataclass(config) else config
+            (workdir / "config.json").write_text(json.dumps(cfg, indent=2,
+                                                            default=str))
+    sync_processes("setup_experiment")
     return workdir
 
 
@@ -97,8 +106,9 @@ def profile_trace(workdir, enabled: bool = False):
 
 
 class StragglerDetector:
-    """Per-step wall times of this process; `report()` gives its mean (one
-    rank) and flags ranks slower than `threshold` x the median."""
+    """Per-step wall times of this process; `report()` gathers every rank's
+    mean and flags ranks slower than `threshold` x the median (every rank
+    must call it together)."""
 
     def __init__(self, threshold: float = 1.25, window: int = 100):
         self.threshold = threshold
@@ -112,7 +122,10 @@ class StragglerDetector:
 
     def report(self) -> Dict:
         import numpy as np
-        per_rank = [float(np.mean(self._times)) if self._times else 0.0]
+        vec = np.zeros(process_count(), np.float64)
+        vec[process_index()] = (float(np.mean(self._times)) if self._times
+                                else 0.0)
+        per_rank = cross_process_sum(vec).tolist()
         med = float(np.median(per_rank))
         return {"per_rank_mean_s": per_rank, "median_s": med,
                 "threshold": self.threshold,
