@@ -3477,7 +3477,12 @@ def packed_train_phase(tcfg):
     cb.update({k: torch.from_numpy(v).cuda() for k, v in pk.items()})
     packed_kd_check(scfg, tcfg, cb)
 
-    # 17c: bench_train.py's packed_train, bucketed and packed, bf16
+    # 17c: bench_train.py's packed_train, bucketed and packed, bf16, on
+    # 17a's batch alone: one packed step launches every kernel of the path
+    # and every attention backward in its segment mode, which is all 17c
+    # checks (the other six batches added time and no check)
+    batches = [batches[i]]
+    plans = [plans[i]]
     res = profile_packed(batches=batches, counters=reset_counters)
     for tag, r in res.items():
         check(all(math.isfinite(x) for x in r.losses),
@@ -5116,23 +5121,30 @@ DDP_CONFIGS = ("flowkd_mlp8", "flowkd_router16")
 DDP_EVAL_CLIPS, DDP_EVAL_VAL = 16, 8
 
 
-def ddp_step_runs(model, batch, seed: int, steps: int = DDP_STEPS):
+def ddp_step_runs(model, batch, seed: int, steps: int = DDP_STEPS,
+                  packed: bool = False):
     """`steps` train steps of `model` from a fresh AdamW state on this
     rank's rows of `batch` (all of it without a process group), counters
     reset just before and read just after. Returns numpy / host values:
     per step the losses summed over the ranks, the gradients of the first
     step, the BatchNorm running statistics after it, the router's counts
     and Gumbel margins of each step gathered over the ranks, the
-    parameters after the last step, the launches, the learning rates."""
+    parameters after the last step, the launches, the learning rates.
+    `packed`: packed steps on the plan `batch` carries, each rank on its
+    part of it (mesh.packed_rank_block)."""
     from tpu_asr_torch.config import OptimConfig
     from tpu_asr_torch.parallel import mesh
     from tpu_asr_torch.train.loop import global_metrics
     from tpu_asr_torch.train.trainer import (DistilTrainState,
                                              make_distil_train_step)
 
-    n = batch["signal"].shape[0] // mesh.process_count()
-    r = mesh.row_offset(n)
-    local = {k: v[r:r + n] for k, v in batch.items()}
+    if packed:
+        local = (mesh.packed_rank_block(batch) if mesh.process_count() > 1
+                 else batch)
+    else:
+        n = batch["signal"].shape[0] // mesh.process_count()
+        r = mesh.row_offset(n)
+        local = {k: v[r:r + n] for k, v in batch.items()}
     routes, hook = [], None
     if model.routed:
         def keep(mod, args, out):
@@ -5142,7 +5154,7 @@ def ddp_step_runs(model, batch, seed: int, steps: int = DDP_STEPS):
                                                 1).cpu().numpy()))
         hook = model.router.register_forward_hook(keep)
     state = DistilTrainState.create(model, OptimConfig())
-    step = make_distil_train_step(model)
+    step = make_distil_train_step(model, packed=packed)
     out = {"losses": [], "lr": []}
     read = reset_counters()
     for i in range(steps):
@@ -5166,7 +5178,7 @@ def ddp_step_runs(model, batch, seed: int, steps: int = DDP_STEPS):
     return out
 
 
-def ddp_compare(got, want, label: str) -> None:
+def ddp_compare(got, want, label: str, min_share: float = 0.9) -> None:
     """24a and 24b's gates: every loss of every step within 1e-5 relative;
     the BatchNorm running statistics after the first step within 1e-5;
     the parameters after the last step by tests/test_torch_train.py's fp32
@@ -5174,8 +5186,9 @@ def ddp_compare(got, want, label: str) -> None:
     within 1e-5 x |ref| + 2e-2 x the learning rate: Adam turns a
     gradient's rounding into a step at the learning rate's scale; the
     running statistics after the second step carry that noise through the
-    depthwise-conv bias, whose gradient is zero in exact arithmetic); the
-    router's counts equal where their Gumbel margin exceeds 1e-3."""
+    depthwise-conv bias, whose gradient is zero in exact arithmetic), at
+    least `min_share` of the elements decided; the router's counts equal
+    where their Gumbel margin exceeds 1e-3."""
     for i, (lg, lw) in enumerate(zip(got["losses"], want["losses"])):
         check(set(lg) == set(lw) and all(
             math.isfinite(lg[k]) and abs(lg[k] - lw[k]) <= 1e-5 * abs(lw[k])
@@ -5196,7 +5209,7 @@ def ddp_compare(got, want, label: str) -> None:
         excess = np.abs(p - w) - (1e-5 * np.abs(w) + 2e-2 * lr)
         worst = max(worst, float(excess.max(initial=-np.inf)))
         kept, total = kept + int(mask.sum()), total + mask.size
-    check(worst <= 0 and kept >= 0.9 * total,
+    check(worst <= 0 and kept >= min_share * total,
           f"{label}: parameters after {len(got['losses'])} steps within "
           f"1e-5 x |ref| + 2e-2 x lr ({lr:.3e}) on {kept} of {total} "
           f"elements (decided: |grad| > 1e-4 x {top:.3e}); worst excess "
@@ -5267,12 +5280,17 @@ def ddp_trainer(setup, workdir):
     return Trainer(model, cfg, tok, workdir, device="cuda")
 
 
-def ddp_rank(batch, eval_setup, workdir):
-    """One gloo rank of 24b and 24c (parallel/launch.py): ddp_step_runs of
-    each DDP_CONFIGS on this rank's rows of `batch` (numpy); then a fit of
-    2 steps, its checkpoint (rank 0's), evaluate and evaluate_packed of the
-    val manifest, each rank on its own rows. Also the seconds of each
-    part."""
+def ddp_rank(batch, eval_setup, workdir, packed=None, cli_argv=None):
+    """One gloo rank of 24b, 24c, 25d and 25e (parallel/launch.py):
+    ddp_step_runs of each DDP_CONFIGS on this rank's rows of `batch`
+    (numpy), and of flowkd_mlp8's packed step on its part of the plan of
+    `packed`; then a fit of 2 steps, its checkpoint (rank 0's), evaluate
+    and evaluate_packed of the val manifest, each rank on its own rows;
+    last asr_inference with `cli_argv` on this rank (its results and what
+    it printed). Also the seconds of each part."""
+    import contextlib
+    import io
+
     full_fp32()
     seconds, t0 = {}, time.perf_counter()
 
@@ -5287,6 +5305,12 @@ def ddp_rank(batch, eval_setup, workdir):
         runs[name] = ddp_step_runs(flowkd_model(name, 47), batch, 48)
         torch.cuda.empty_cache()
         lap(name)
+    if packed is not None:
+        plan = {k: torch.from_numpy(v).cuda() for k, v in packed.items()}
+        runs["packed"] = ddp_step_runs(flowkd_model("flowkd_mlp8", 47), plan,
+                                       48, packed=True)
+        torch.cuda.empty_cache()
+        lap("25d packed")
     tr = ddp_trainer(eval_setup, workdir)
     tr.fit(eval_setup[0], max_steps=2)
     lap("fit")
@@ -5294,7 +5318,73 @@ def ddp_rank(batch, eval_setup, workdir):
     lap("evaluate")
     packed = tr.evaluate_packed(eval_setup[1])
     lap("evaluate_packed")
-    return runs, bucketed, packed, seconds
+    cli = None
+    if cli_argv is not None:
+        from tpu_asr_torch.cli import asr_inference
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            results = asr_inference.main(cli_argv)
+        cli = (results, printed.getvalue())
+        lap("25e asr_inference")
+    return runs, bucketed, packed, seconds, cli
+
+
+def packed_ddp_batch(rows: int, seed: int) -> dict:
+    """25d: `rows` clips of 1-15 s (SECONDS-padded, TOKENS tokens) with
+    their training plan in rows of profile_train.T_PACK frames at
+    row_multiple 2, as numpy."""
+    from tpu_asr_torch.config import ModelConfig, make_student_config
+    from tpu_asr_torch.data.packing import train_pack_arrays
+    from tpu_asr_torch.profile_train import T_PACK
+
+    rng = np.random.default_rng(seed)
+    lens = (rng.uniform(1.0, SECONDS, rows) * SR).astype(np.int32)
+    sig = (rng.normal(size=(rows, SECONDS * SR)) * 0.1).astype(np.float32)
+    sig[np.arange(SECONDS * SR)[None, :] >= lens[:, None]] = 0.0
+    scfg = make_student_config(ModelConfig())
+    pre, enc = scfg.preprocessor, scfg.encoder
+    pk, _ = train_pack_arrays(lens, pre.n_fft, pre.hop_length,
+                              enc.subsampling_factor, enc.subsampling,
+                              enc.conv_kernel_size, T_PACK, row_multiple=2)
+    return {"signal": sig, "signal_len": lens,
+            "tokens": rng.integers(0, 128, size=(rows, TOKENS)),
+            "token_len": np.full((rows,), TOKENS), **pk}
+
+
+def packed_launched(n, label: str) -> None:
+    want = KD + ("attention_seg_bwd",)
+    check(all(n[k] > 0 for k in want)
+          and n["attention_seg_bwd"] == n["attention_bwd"],
+          f"{label}: the packed steps launched every KD kernel, every "
+          f"attention backward in its segment mode: "
+          f"{ {k: n[k] for k in want} }")
+
+
+def cli_eval_setup(root, setup) -> list:
+    """25e: a student export of the model asr_inference builds from
+    configs/conformer_ctc_small.yaml (ModelConfig()'s widths, bf16) with
+    setup's tokenizer as its sidecar, its weights seeded; the argv of one
+    rank over setup's val manifest with global batches of DDP_ROWS."""
+    from tpu_asr_torch.cli.common import _build, build_inference_parser
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.profile_forward import seed_weights
+    from tpu_asr_torch.train.trainer import DistilTrainState
+    from tpu_asr_torch.utils.checkpoint import export_student
+
+    ckpt = root / "checkpoints"
+    ckpt.mkdir(parents=True)
+    setup[2].save(ckpt / "tokenizer.model")
+    argv = ["--test_manifest", setup[1], "--config",
+            "configs/conformer_ctc_small.yaml", "--ckpt_path",
+            str(ckpt / "student"), "--batch_size", str(DDP_ROWS),
+            "--output_dir", str(root / "out")]
+    args = build_inference_parser("25e").parse_args(argv)
+    scfg, _, model, _, _ = _build(args, {"test": setup[1]}, False, None,
+                                  ckpt / "tokenizer.model")
+    seed_weights(model.student, 51)
+    export_student(ckpt, DistilTrainState.create(model, OptimConfig()),
+                   scfg)
+    return argv
 
 
 def ddp_phase():
@@ -5302,7 +5392,10 @@ def ddp_phase():
     against one rank, the ranks started first; while they run, (a)'s check
     of NCCL at world 1 against the step without DDP; (c) their distributed
     evaluation and the restore of their checkpoint at one rank; last, with
-    the card to itself, (a)'s timed steps without and with DDP."""
+    the card to itself, (a)'s timed steps without and with DDP. The same
+    ranks and the same layout run phase 25's packed step at N ranks (25d:
+    NCCL at world 1 against no DDP, 2 gloo ranks on their parts of one plan
+    against one rank) and asr_inference on 2 ranks against one (25e)."""
     import copy
     import shutil
     import tempfile
@@ -5332,10 +5425,17 @@ def ddp_phase():
         setup = ddp_eval_setup(root)
         batch = train_batch(DDP_ROWS, 41)
         host = {k: v.cpu().numpy() for k, v in batch.items()}
+        packed_host = packed_ddp_batch(DDP_ROWS, 49)
+        packed = {k: torch.from_numpy(v).cuda()
+                  for k, v in packed_host.items()}
+        pk_rows, pk_t = packed_host["pk_seg"].shape
+        cli_argv = cli_eval_setup(root / "cli", setup)
         lap("setup")
         with ThreadPoolExecutor(1) as pool:
             started = pool.submit(
-                launch.launch, ddp_rank, (host, setup, str(root / "fit")),
+                launch.launch, ddp_rank,
+                (host, setup, str(root / "fit"), packed_host,
+                 cli_argv + ["--gpus", "2"]),
                 ["cuda:0", "cuda:0"], timeout=600,
                 coll_timeout=300)
             # (a) the DDP step in a one-rank NCCL group against the step
@@ -5347,12 +5447,32 @@ def ddp_phase():
             ddp_compare(nccl_world_1(ddp_step_runs, model, batch, 42), plain,
                         f"24a: flowkd_mlp8 fp32 B={DDP_ROWS} x {SECONDS} s, "
                         f"DDP over NCCL at world 1 vs no DDP")
+            # 25d: the packed step the same way
+            model = flowkd_model("flowkd_mlp8", 40)
+            init = copy.deepcopy(model.state_dict())
+            plain = ddp_step_runs(model, packed, 42, packed=True)
+            model.load_state_dict(init)
+            got = nccl_world_1(ddp_step_runs, model, packed, 42, DDP_STEPS,
+                               True)
+            # the fp32 rule: its decided elements are 86% of the packed
+            # step's parameters, 90% of the bucketed step's; at world 1 the
+            # packed step's parameters are not bit-equal to the step's
+            # without DDP, its losses and BatchNorm statistics are
+            ddp_compare(got, plain, f"25d: packed flowkd_mlp8 fp32, "
+                        f"{DDP_ROWS} utterances in {pk_rows} rows of "
+                        f"{pk_t}, DDP over NCCL at world 1 vs no DDP",
+                        min_share=0.8)
+            packed_launched(got["launches"], "25d: NCCL world 1")
             del model, init
             want = {}
             for name in DDP_CONFIGS:
                 want[name] = ddp_step_runs(flowkd_model(name, 47), batch, 48)
                 torch.cuda.empty_cache()
-            lap("24a check and 24b's one-rank runs, beside the ranks")
+            want["packed"] = ddp_step_runs(flowkd_model("flowkd_mlp8", 47),
+                                           packed, 48, packed=True)
+            torch.cuda.empty_cache()
+            lap("24a/25d checks and 24b/25d's one-rank runs, beside the "
+                "ranks")
             ranks = started.result()
         lap("the rest of the ranks' run")
         print(f"24b/c: 2 gloo ranks on cuda:0; rank 0's parts (s): "
@@ -5366,9 +5486,34 @@ def ddp_phase():
                 n = rank[0][name]["launches"]
                 check(all(n[k] > 0 for k in KD), f"24b: {name} rank {r} "
                       f"launched every KD kernel: { {k: n[k] for k in KD} }")
+        split = [len(mesh.packed_rank_block(packed_host, 2, r)["pk_utt"])
+                 for r in range(2)]
+        ddp_compare(ranks[0][0]["packed"], want["packed"], f"25d: packed "
+                    f"flowkd_mlp8 fp32, 2 gloo ranks x "
+                    f"{pk_rows // 2} packed rows ({split} "
+                    f"utterances) vs 1 rank on the same plan (dropout 0.1, "
+                    f"SpecAugment, dither)", min_share=0.8)
+        for r, rank in enumerate(ranks):
+            packed_launched(rank[0]["packed"]["launches"], f"25d: rank {r}")
+        # 25e: asr_inference on the 2 ranks against one rank
+        from tpu_asr_torch.cli import asr_inference
+        one = asr_inference.main(cli_argv)["test"]
+        (two, printed), (two1, printed1) = ranks[0][4], ranks[1][4]
+        got = two["test"]
+        check(two == two1 and printed.count("wer=") == 1 and printed1 == "",
+              "25e: both ranks return the same (summed) evaluation, rank 0 "
+              "alone prints")
+        check(got["num_utts"] == one["num_utts"] == DDP_EVAL_VAL
+              and got["wer"] == one["wer"]
+              and abs(got["loss"] - one["loss"]) <= 1e-4 * abs(one["loss"]),
+              f"25e: asr_inference --gpus 2 (2 gloo ranks on cuda:0, bf16 "
+              f"student export of ModelConfig()) on {DDP_EVAL_VAL} clips wer "
+              f"{got['wer']:.4f} loss {got['loss']:.6f} vs 1 rank wer "
+              f"{one['wer']:.4f} loss {one['loss']:.6f} (wer equal, loss "
+              f"1e-4 rel: bf16)")
         # (c) the ranks' evaluation against one rank's restore
-        (_, bucketed, packed, _), tr = ranks[0], ddp_trainer(setup,
-                                                             root / "one")
+        (_, bucketed, packed, *_), tr = ranks[0], ddp_trainer(setup,
+                                                              root / "one")
         check(ranks[1][1] == bucketed and ranks[1][2] == packed,
               "24c: both ranks report the same (summed) evaluation")
         tr.init_state()
@@ -5413,6 +5558,258 @@ def ddp_phase():
     print(f"24: parts (s) {parts}")
     print("24: NCCL between two or more cards is not exercised here: one "
           "card (NCCL refuses two ranks on one device)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the teacher feature caches and steps_per_dispatch
+# ---------------------------------------------------------------------------
+
+CACHE_TURNS = "HCCH"            # harvest and cached steps in turns
+CACHE_ITERS = 3                 # steps a turn
+
+
+def bf16_kd_model(distill, seed: int):
+    """ModelConfig()'s teacher and its d88 student in bf16 with `distill`
+    and seeded weights on the card."""
+    from tpu_asr_torch.config import ModelConfig, make_student_config
+    tcfg = ModelConfig()
+    return kd_model(make_student_config(tcfg), tcfg, seed, distill)
+
+
+def step_outcome(step, model, init, batch, seed: int):
+    """One step of `step` from the weights `init` and a fresh AdamW state,
+    counters reset just before and read just after: (metrics, parameters
+    after it, launches, extra outputs)."""
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.train.trainer import DistilTrainState
+    model.load_state_dict(init)
+    state = DistilTrainState.create(model, OptimConfig())
+    read = reset_counters()
+    out = step(state, batch, seed)
+    torch.cuda.synchronize()
+    return (out[1], {n: p.detach().clone()
+                     for n, p in model.named_parameters()}, read(),
+            out[2] if len(out) > 2 else None)
+
+
+def max_rel(a: dict, b: dict) -> float:
+    """The largest |a - b| / max(|b|, tiny) over every element of the
+    tensors of two dicts of one layout (0 where bit-equal)."""
+    worst = 0.0
+    for k, w in b.items():
+        d = (a[k].float() - w.float()).abs()
+        worst = max(worst, float((d / w.float().abs().clamp(
+            min=1e-30)).max()))
+    return worst
+
+
+def turns(fns: dict, order: str = CACHE_TURNS, iters: int = CACHE_ITERS):
+    """Each fn of `fns` (by letter): the wall ms of a call over `iters`
+    calls ending in a synchronize, per turn of `order`, then the device ms
+    of one call (device_ms, torch.profiler, once a letter: a full-width
+    step's device time moves by < 0.5% from turn to turn, while a profiled
+    pass of 3 of them costs ~19 s of host time). Returns {letter: (device
+    ms, wall ms list)}."""
+    wall = {k: [] for k in fns}
+    for k in order:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(iters):
+            fns[k]()
+        torch.cuda.synchronize()
+        wall[k].append(1e3 * (time.perf_counter() - start) / iters)
+    return {k: (device_ms(fn, iters=1)[0], wall[k])
+            for k, fn in fns.items()}
+
+
+def deterministic():
+    """cuDNN restricted to its deterministic algorithms (the plain
+    backward of the subsampling's convolutions), for the runs that are
+    compared bit for bit; timings keep the defaults."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+def cache_case(label: str, distill, all_layers: bool, seed: int) -> dict:
+    """25a / 25b: the harvest step, then from the same weights, state and
+    draws the cached step fed the harvested features stored in a
+    TeacherFeatureCache (bf16 storage of bf16 compute, read back); losses,
+    grad_norm and the parameters after the step compared, the launches of
+    the two steps against the teacher forward's; both steps timed in
+    turns. Returns the timings."""
+    import copy
+
+    from tpu_asr_torch.train.loop import TeacherFeatureCache
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_train_step)
+
+    model = bf16_kd_model(distill, seed)
+    init = copy.deepcopy(model.state_dict())
+    batch = train_batch(BATCH, seed + 1)
+    harvest = make_distil_train_step(model, harvest_teacher=True,
+                                     harvest_all=all_layers)
+    cached = make_distil_train_step(model, cached_teacher=not all_layers,
+                                    cached_all_layers=all_layers)
+    read = reset_counters()
+    with torch.no_grad():
+        _, _, tch = model.teacher.encode(batch["signal"],
+                                         batch["signal_len"])
+    torch.cuda.synchronize()
+    teacher = read()
+    with deterministic():
+        m_h, p_h, n_h, (last, feats, enc_len) = step_outcome(
+            harvest, model, init, batch, seed + 2)
+        m_h2, p_h2, _, _ = step_outcome(harvest, model, init, batch,
+                                        seed + 2)
+    check(torch.equal(feats[-1] if all_layers else last, tch[-1]),
+          f"{label}: the harvested teacher features are the teacher "
+          f"forward's, bit for bit")
+    cache = TeacherFeatureCache(torch.bfloat16, all_layers=all_layers)
+    idx = list(range(BATCH))
+    l_pad = batch["signal"].shape[1]
+    cache.put_batch(idx, feats if all_layers else last, enc_len.cpu(),
+                    l_pad)
+    d_t = model.teacher_cfg.encoder.d_model
+    stored = cache.assemble(idx, cache.tprime[l_pad], d_t).cuda()
+    harvested = feats.transpose(0, 1) if all_layers else last
+    frames = torch.arange(stored.shape[-2], device=stored.device)
+    mask = frames[None, :] < enc_len[:, None]             # (B, T')
+    mask = mask[:, None, :, None] if all_layers else mask[..., None]
+    check(torch.equal(stored, torch.where(mask, harvested, 0)),
+          f"{label}: the cache gives the harvested features back bit for "
+          f"bit (bf16 bits, {tuple(stored.shape)}, frames past each "
+          f"utterance 0)")
+    key = "tch_all_feat" if all_layers else "tch_last_feat"
+    cb = {**batch, key: stored}
+    with deterministic():
+        m_c, p_c, n_c, _ = step_outcome(cached, model, init, cb, seed + 2)
+    run_to_run = max(max_rel(m_h2, m_h), max_rel(p_h2, p_h))
+    err = max(max_rel(m_c, m_h), max_rel(p_c, p_h))
+    names = sorted(k for k in m_h if k.startswith("loss/")) + ["grad_norm"]
+    check(set(m_c) == set(m_h) and (err == 0.0 or (
+        run_to_run > 0 and err <= 1e-6)),
+          f"{label}: cached step vs harvest step, max relative difference "
+          f"{err:.3e} over " + ", ".join(
+              f"{k} {m_c[k].item():.6f} / {m_h[k].item():.6f}"
+              for k in names) + f" and the parameters after the step "
+          f"(bit-equal required; two harvest steps differ by "
+          f"{run_to_run:.3e}, and a difference is then bounded at 1e-6)")
+    drop = {k: n_h[k] - n_c[k] for k in n_h}
+    check(drop == teacher and any(teacher.values()),
+          f"{label}: launches dropped by exactly the teacher forward's: "
+          f"{ {k: v for k, v in drop.items() if v} } vs "
+          f"{ {k: v for k, v in teacher.items() if v} }")
+    # timed in turns, both steps on one model and state
+    model.load_state_dict(init)
+    del init
+    state = DistilTrainState.create(model, OptimConfig())
+    res = turns({"H": lambda: harvest(state, batch, seed + 2),
+                 "C": lambda: cached(state, cb, seed + 2)})
+    (hd, hw), (cd, cw) = res["H"], res["C"]
+    print(f"{label}: bf16 B={BATCH} x {SECONDS} s on {card_line()}: device "
+          f"ms a step harvest {hd:.3f}, cached {cd:.3f} (cached / harvest "
+          f"{cd / hd:.3f}); wall ms a step harvest {np.median(hw):.2f} "
+          f"{[round(x, 2) for x in hw]}, cached {np.median(cw):.2f} "
+          f"{[round(x, 2) for x in cw]} (turns {CACHE_TURNS}, "
+          f"{CACHE_ITERS} steps a turn; cached / harvest "
+          f"{np.median(cw) / np.median(hw):.3f}); launches a step harvest "
+          f"{sum(n_h.values())}, cached {sum(n_c.values())}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"harvest_device_ms": hd, "cached_device_ms": cd,
+            "harvest_wall_ms": hw, "cached_wall_ms": cw}
+
+
+def multi_step_case(seed: int, k: int = 4) -> None:
+    """25c: make_distil_multi_step at K=`k` against `k` train_step calls on
+    the same stacked batches, from the same weights: state (parameters,
+    optimizer moments, BatchNorm statistics, step) and metrics bit-equal;
+    launches and ms a step both ways."""
+    import copy
+
+    from tpu_asr_torch.config import OptimConfig
+    from tpu_asr_torch.profile_train import distill_config
+    from tpu_asr_torch.train.trainer import (DistilTrainState,
+                                             make_distil_multi_step,
+                                             make_distil_train_step)
+
+    model = bf16_kd_model(distill_config("flowkd_mlp8"), seed)
+    init = copy.deepcopy(model.state_dict())
+    parts = [train_batch(BATCH, seed + 1 + i) for i in range(k)]
+    stacked = {n: torch.stack([p[n] for p in parts]) for n in parts[0]}
+    step, multi = (make_distil_train_step(model),
+                   make_distil_multi_step(model))
+
+    def run(use_multi):
+        model.load_state_dict(init)
+        state = DistilTrainState.create(model, OptimConfig())
+        read = reset_counters()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if use_multi:
+            state, metrics = multi(state, stacked, seed)
+        else:
+            per = []
+            for i in range(k):
+                state, m = step(state, {n: v[i] for n, v in
+                                        stacked.items()}, seed)
+                per.append(m)
+            metrics = {n: torch.stack([m[n] for m in per]) for n in per[0]}
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start) / k
+        opt = {f"{i}.{n}": v.clone() for i, st in
+               enumerate(state.optimizer.state.values())
+               for n, v in st.items() if torch.is_tensor(v)}
+        return (state.step, metrics, {**{n: t.clone() for n, t in
+                                         model.state_dict().items()},
+                                      **opt}, read(), ms)
+
+    with deterministic():
+        s1, m1, sd1, n1, _ = run(False)
+        s2, m2, sd2, n2, _ = run(True)
+    differ = sorted(n for n in sd1 if not torch.equal(sd1[n], sd2[n]))
+    check(s1 == s2 == k and set(m1) == set(m2)
+          and all(torch.equal(m1[n], m2[n]) for n in m1)
+          and set(sd1) == set(sd2) and not differ,
+          f"25c: flowkd_mlp8 bf16 multi-step K={k} vs {k} train_step calls "
+          f"on the same stacked batches (cuDNN deterministic): state "
+          f"(parameters, optimizer moments, BatchNorm statistics, step "
+          f"{s2}) and metrics bit-equal; losses "
+          f"{[round(x, 4) for x in m2['loss/total'].tolist()]} vs "
+          f"{[round(x, 4) for x in m1['loss/total'].tolist()]}; "
+          f"{len(differ)} of {len(sd1)} state tensors differ "
+          f"{differ[:4]}")
+    check(n1 == n2, "25c: launches of the K steps equal both ways")
+    wall = {False: [], True: []}
+    for use_multi in (False, True, True, False):       # in turns
+        wall[use_multi].append(run(use_multi)[4])
+    print(f"25c: flowkd_mlp8 bf16 B={BATCH} x {SECONDS} s on "
+          f"{card_line()}: wall ms a step as {k} train_step calls "
+          f"{[round(x, 2) for x in wall[False]]}, in one multi-step "
+          f"{[round(x, 2) for x in wall[True]]} (host clock over the {k} "
+          f"steps of a pass, passes in turns C M M C after the checked "
+          f"ones; the device runs the same launches either way); "
+          f"launches a step "
+          f"{sum(n2.values()) / k:.0f} both ways: "
+          f"{ {n: v // k for n, v in n2.items() if v} }")
+    del model, init
+    torch.cuda.empty_cache()
+
+
+def cache_phase() -> None:
+    """Phase 25 (25d and 25e run within phase 24's ranks): the all-layer
+    cache under flowkd_mlp8 (25a), the last-layer cache under logit KD
+    (25b), the multi-step (25c)."""
+    from tpu_asr_torch.config import DistillationConfig
+    from tpu_asr_torch.profile_train import distill_config
+
+    timed_phase("25a", cache_case, "25a: flowkd_mlp8, cache_teacher_all",
+                distill_config("flowkd_mlp8"), True, 60)
+    timed_phase("25b", cache_case, "25b: logit_kd, cache_teacher",
+                DistillationConfig(use_logit_distillation=True,
+                                   kd_alpha=0.1), False, 70)
+    timed_phase("25c", multi_step_case, 80)
 
 
 def timed_phase(label: str, fn, *args):
@@ -5488,6 +5885,7 @@ def main() -> int:
     timed_phase("22", cli_phase)
     timed_phase("23", serving_surface_phase, cfg)
     timed_phase("24", ddp_phase)
+    timed_phase("25", cache_phase)
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "

@@ -19,9 +19,8 @@
   entry point's --help loads none of jax, jaxlib, flax, tpu_asr, optax,
   orbax, yaml and datasets (the machine with the card has none of them);
   without a CUDA device and without --platform cpu they exit with an
-  error; each flag whose path is not ported exits naming it (inference
-  runs on one rank: its --gpus and --host_devices above 1), and so does
-  a --resume_ckpt that names no file;
+  error; each flag whose path is not ported exits naming it
+  (--export_path), and so does a --resume_ckpt that names no file;
 - the data-parallel modules (tpu_asr_torch/parallel/) load none of JAX,
   flax or tpu_asr either.
 """
@@ -431,15 +430,8 @@ def test_cli_without_cuda_exits(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("entry,flags,what", [
-    ("asr_inference", ["--gpus", "2", "--ckpt_path", "x"], "--gpus 2"),
-    ("asr_inference", ["--host_devices", "4", "--ckpt_path", "x"],
-     "--host_devices 4"),
-    ("asr_train", ["--steps_per_dispatch", "2"], "--steps_per_dispatch 2"),
-    ("asr_train", ["--cache_teacher"], "--cache_teacher"),
-    ("asr_train", ["--cache_teacher_all"], "--cache_teacher_all"),
     ("asr_inference", ["--export_path", "x.tasrx", "--ckpt_path", "x"],
      "--export_path"),
-    ("asr_inference", ["--gpus", "8", "--ckpt_path", "x"], "--gpus 8"),
     ("asr_train", ["--resume_ckpt", "no/such/last"],
      "no/such/last: no such checkpoint"),
 ])

@@ -1,6 +1,7 @@
-"""Data parallelism of the port in one process (tpu_asr_torch/parallel/,
-the agreed batch plan of data/dataset.py, the CLI's rank flags); the tests
-that start ranks are in tests/test_torch_ddp.py.
+"""Data parallelism of the port (tpu_asr_torch/parallel/, the agreed batch
+plan of data/dataset.py, the CLI's rank flags): in one process, and, for
+packed training, the teacher caches and inference at N ranks, in one launch
+of 2 ranks (the other rank tests are in tests/test_torch_ddp.py).
 
 - without a process group every helper of parallel/mesh.py is the identity
   or a no-op, so a single-rank run is unchanged;
@@ -17,9 +18,16 @@ that start ranks are in tests/test_torch_ddp.py.
   single-rank draw on those rows: ranks played in turn by setting the
   group's rank and size (a layer-norm conv module, so no collective is
   needed), and shift_seeds' streams;
-- the refusals: packed training at more than one rank, the Trainer's
-  dp_size against the world size, `--gpus N` above the visible cards and
-  `--host_devices` without `--platform cpu`.
+- packed training at N ranks: a plan split by its rows
+  (mesh.packed_rank_block) and the helpers inside utterance_rows; in ONE
+  launch of 2 gloo ranks (tests/torch_ddp_ranks.py), 2 packed steps of
+  logit KD + FM and of the routed ('batch_median') conformer meta encoder
+  (dropout 0.1, SpecAugment, dither, BatchNorm) against one rank on the
+  same plan, a 2-epoch fit with the teacher cache in RAM and in a
+  directory against one rank's fit, and asr_inference at `--host_devices
+  2` against one rank;
+- the refusals: the Trainer's dp_size against the world size, `--gpus N`
+  above the visible cards and `--host_devices` without `--platform cpu`.
 """
 
 import types
@@ -180,17 +188,284 @@ def test_unused_parameters_possible(change, unused):
         DistilCTCModel(student, teacher, d)) == unused
 
 
-def test_packed_training_refused_at_two_ranks(monkeypatch):
-    from tpu_asr_torch.models.distil_model import DistilCTCModel
-    from tpu_asr_torch.train.trainer import make_distil_train_step
+# the packed batch of the 2-rank tests: 6 utterances whose plan (rows of
+# PACK_T frames, row_multiple 2) puts utterances 0, 2, 3, 4 in rows 0-1
+# (rank 0) and 1, 5 in rows 2-3 (rank 1), row 3 all guard: the ranks'
+# utterances are neither blocks nor equal in number
+PACK_LENS, PACK_T = [16000, 4000, 15000, 7000, 5000, 12000], 48
+PACKED = {"logit_fm": ("logit_fm", {}),
+          "meta_router": ("router_median", {"meta_encoder_type":
+                                            "conformer"})}
 
-    teacher = PC.ModelConfig(encoder=PC.EncoderConfig(
-        n_layers=1, d_model=16, n_heads=2, conv_kernel_size=7),
-        decoder=PC.DecoderConfig(feat_in=16, num_classes=8))
-    model = DistilCTCModel(teacher, teacher)
-    monkeypatch.setattr(mesh, "process_count", lambda: 2)
-    with pytest.raises(ValueError, match="packed training"):
-        make_distil_train_step(model, packed=True)
+
+def packed_batch(student, seed=5):
+    """PACK_LENS clips with their training plan at row_multiple 2."""
+    from tpu_asr_torch.data.packing import train_pack_arrays
+
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(PACK_LENS, np.int32)
+    n = len(lens)
+    sig = (rng.normal(size=(n, lens.max())) * 0.1).astype(np.float32)
+    sig[np.arange(lens.max())[None, :] >= lens[:, None]] = 0.0
+    pre, enc = student.preprocessor, student.encoder
+    pk, plan = train_pack_arrays(lens, pre.n_fft, pre.hop_length,
+                                 enc.subsampling_factor, enc.subsampling,
+                                 enc.conv_kernel_size, PACK_T,
+                                 row_multiple=2)
+    assert plan.row.tolist() == [0, 2, 1, 0, 1, 2] and plan.n_rows == 4
+    return {"signal": sig, "signal_len": lens,
+            "tokens": rng.integers(0, 16, size=(n, 6)).astype(np.int32),
+            "token_len": np.array([6, 2, 5, 3, 2, 4], np.int32), **pk}
+
+
+def test_packed_rank_block_splits_one_plan():
+    """Each rank takes its half of the packed rows and the utterances they
+    hold; the parts put back together are the global plan."""
+    import ddp_cases as C
+
+    _, student = C.configs(PC)
+    batch = packed_batch(student)
+    parts = [mesh.packed_rank_block(batch, 2, r) for r in range(2)]
+    assert [p["pk_utt"].tolist() for p in parts] == [[0, 2, 3, 4], [1, 5]]
+    for r, p in enumerate(parts):
+        assert p["pk_n_utt"] == 6 and p["pk_seg"].shape == (2, PACK_T)
+        utt = p["pk_utt"]
+        for k in ("signal", "signal_len", "tokens", "token_len",
+                  "pk_start"):
+            np.testing.assert_array_equal(p[k], batch[k][utt], err_msg=k)
+        np.testing.assert_array_equal(p["pk_row"] + 2 * r,
+                                      batch["pk_row"][utt])
+        rows = slice(2 * r, 2 * r + 2)
+        for k in ("pk_seg", "pk_src_pos"):
+            np.testing.assert_array_equal(p[k], batch[k][rows], err_msg=k)
+        valid = p["pk_seg"] > 0
+        np.testing.assert_array_equal(utt[p["pk_src_utt"]][valid],
+                                      batch["pk_src_utt"][rows][valid])
+        assert (p["pk_src_utt"][~valid] == 0).all()
+    with pytest.raises(ValueError, match="row_multiple=3"):
+        mesh.packed_rank_block(batch, 3, 0)
+    lone = dict(batch, pk_row=np.zeros(6, np.int32))
+    with pytest.raises(ValueError, match="rank 1 of 2 holds no utterance"):
+        mesh.packed_rank_block(lone, 2, 1)
+
+
+def test_utterance_rows_take_global_places(monkeypatch):
+    """Inside utterance_rows the helpers take a rank's rows at their global
+    places: draws, shares, row indices (k rows an utterance too)."""
+    _as_rank(monkeypatch, 1, 2)
+    gen = lambda: torch.Generator().manual_seed(11)
+    want = torch.rand(6, 4, generator=gen())
+    g = gen()
+    with mesh.utterance_rows(np.array([1, 5]), 6):
+        got = mesh.draw_rows(lambda s: torch.rand(s, generator=g), (2, 4))
+        assert mesh.row_share() == pytest.approx(2 / 6)
+        assert mesh.global_rows(4) == 12
+        assert mesh.row_index(4).tolist() == [2, 3, 10, 11]
+        x = torch.arange(8.0).reshape(2, 4)
+        assert mesh.batch_mean(x).item() == pytest.approx(
+            x.sum().item() / 24)
+        with pytest.raises(ValueError, match="not a block"):
+            mesh.row_offset(2)
+    np.testing.assert_array_equal(got.numpy(), want[[1, 5]].numpy())
+    assert mesh.row_offset(3) == 3 and mesh.row_index(2).tolist() == [2, 3]
+
+
+CLI_YAML = """preprocessor:
+  features: 24
+  dither: 0.0
+encoder:
+  feat_in: 24
+  n_layers: 2
+  d_model: 32
+  n_heads: 4
+  conv_kernel_size: 7
+decoder:
+  feat_in: 32
+  num_classes: 28
+"""
+
+
+def cli_setup(root):
+    """A student export of the CLI's own model (the tiny YAML's, weights
+    moved off their seed), its tokenizer sidecar and a test manifest of 7
+    clips; the asr_inference argv of one rank."""
+    from tpu_asr_torch.cli.common import _build, build_inference_parser
+    from tpu_asr_torch.train.trainer import DistilTrainState
+    from tpu_asr_torch.utils.checkpoint import export_student
+
+    man, texts = corpus(root, n=7, seed=17, lo=0.6, hi=1.4)
+    (root / "tiny.yaml").write_text(CLI_YAML)
+    ckpt = root / "checkpoints"
+    ckpt.mkdir()
+    train_bpe(texts, 28).save(ckpt / "tokenizer.model")
+    argv = ["--platform", "cpu", "--test_manifest", man, "--config",
+            str(root / "tiny.yaml"), "--ckpt_path", str(ckpt / "student"),
+            "--batch_size", "4", "--output_dir", str(root / "out")]
+    args = build_inference_parser("t").parse_args(argv)
+    student, _, model, _, _ = _build(args, {"test": man}, False, None,
+                                     ckpt / "tokenizer.model")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.student.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    export_student(ckpt, DistilTrainState.create(model, PC.OptimConfig()),
+                   student)
+    return argv
+
+
+# the teacher caches at 2 ranks: in RAM (every harvest gathers the global
+# batch's features) and in a directory (each rank writes its own rows)
+CACHES = {"ram": lambda root: dict(cache_teacher=True),
+          "dir": lambda root: dict(cache_teacher_all=True,
+                                   cache_teacher_dir=str(root / "tcache"))}
+
+
+def cache_fit_setup(root):
+    """(student, teacher, distill, tokenizer, manifest, TrainConfig) of the
+    cached fits: 6 clips of 0.6-1.0 s, global batches of 4 (2 a step, 4
+    steps in 2 epochs), logit KD, dropout 0.1, SpecAugment and dither."""
+    import dataclasses
+
+    import ddp_cases as C
+
+    root.mkdir()
+    man, texts = corpus(root, n=6, seed=3, lo=0.6, hi=1.0)
+    tok = train_bpe(texts, 28)
+    teacher, student = C.configs(PC, dropout=0.1, spec=True, dither=1e-5)
+    teacher = dataclasses.replace(teacher, decoder=dataclasses.replace(
+        teacher.decoder, num_classes=tok.vocab_size))
+    student = PC.make_student_config(teacher)
+    d = PC.DistillationConfig(use_logit_distillation=True)
+    ds = dict(batch_size=4, max_duration=16.7)
+    cfg = PC.TrainConfig(
+        model=student, distillation=d,
+        optim=PC.OptimConfig(d_model=16, warmup_steps=10),
+        train_ds=PC.DataConfig(shuffle=True, **ds), max_epochs=2)
+    return student, teacher, d, tok, man, cfg
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The 2-rank jobs of this module in one launch of 2 gloo CPU ranks:
+    2 packed steps of each PACKED case, then asr_inference with
+    --host_devices 2 (inside the group it runs on the rank)."""
+    import dataclasses
+
+    import ddp_cases as C
+    import torch_ddp_ranks as R
+    from tpu_asr_torch.models.distil_model import DistilCTCModel
+    from tpu_asr_torch.parallel.launch import launch
+
+    root = tmp_path_factory.mktemp("dist")
+    jobs, cases = [], {}
+    for name, (case, flow) in PACKED.items():
+        teacher, student, d = C.case_configs(PC, case, dropout=0.1,
+                                             spec=True, dither=1e-5)
+        d = dataclasses.replace(d, flow=dataclasses.replace(d.flow, **flow))
+        torch.manual_seed(0)
+        sd = str(root / f"{name}.pt")
+        torch.save(DistilCTCModel(student, teacher, d).state_dict(), sd)
+        cases[name] = (student, teacher, d, sd, packed_batch(student), 2, 0,
+                       None, True)
+        jobs.append(("run_steps", cases[name]))
+    fit = cache_fit_setup(root / "fit")
+    for name, kw in CACHES.items():
+        jobs.append(("fit_cached", (*fit[:5], str(root / name),
+                                    dataclasses.replace(fit[5], **kw(root)))))
+    (root / "cli").mkdir()
+    argv = cli_setup(root / "cli")
+    jobs.append(("run_cli", ("asr_inference", argv + ["--host_devices",
+                                                      "2"])))
+    ranks = launch(R.run_jobs, (jobs,), ["cpu", "cpu"], timeout=240,
+                   coll_timeout=120, threads=2)
+    return {"cases": cases, "ranks": ranks, "argv": argv, "fit": fit}
+
+
+@pytest.mark.parametrize("name", list(PACKED))
+def test_packed_training_two_ranks_equal_one(two_ranks, name):
+    """Two gloo ranks, each on its half of one plan (row_multiple 2), equal
+    one rank on the whole plan: every loss and grad_norm of both steps at
+    1e-5 relative, the first step's reduced gradients (1e-5 + 1e-4 x the
+    tensor's max|ref|), BatchNorm's running statistics at 1e-5, the
+    router's counts where their Gumbel margin exceeds 1e-3."""
+    import torch_ddp_ranks as R
+
+    case = two_ranks["cases"][name]
+    two = two_ranks["ranks"][0][list(PACKED).index(name)]
+    one = R.run_steps(*case)
+    assert len(one["metrics"]) == 2
+    for a, b in zip(one["metrics"], two["metrics"]):
+        assert set(a) == set(b) and "grad_norm" in a
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
+    for k, w in one["grads"].items():
+        np.testing.assert_allclose(two["grads"][k], w, rtol=0,
+                                   atol=1e-5 + 1e-4 * np.abs(w).max(),
+                                   err_msg=k)
+    for k, w in one["stats1"].items():
+        np.testing.assert_allclose(two["stats1"][k], w, rtol=0, atol=1e-5,
+                                   err_msg=k)
+    for (s1, m1), (s2, _) in zip(one["router"], two["router"]):
+        sure = m1 > 1e-3
+        assert sure.mean() > 0.9
+        np.testing.assert_array_equal(s2[sure], s1[sure])
+
+
+@pytest.mark.parametrize("name", list(CACHES))
+def test_cached_fit_two_ranks_equals_one_without(two_ranks, tmp_path, name):
+    """A 2-epoch fit on 2 ranks with the cache in RAM (cache_teacher) or in
+    a directory (cache_teacher_all) against the fit of one rank without a
+    cache: every logged loss of the 4 steps at 1e-5 relative; the cached
+    step ran in epoch 2 (its 2 steps) on both ranks, and each rank's cache
+    holds all 6 utterances."""
+    import torch_ddp_ranks as R
+
+    student, teacher, d, tok, man, cfg = two_ranks["fit"]
+    got = [r[len(PACKED) + list(CACHES).index(name)]
+           for r in two_ranks["ranks"]]
+    want, n_one, _, _ = R.fit_cached(student, teacher, d, tok, man,
+                                     str(tmp_path / "one"), cfg)
+    assert n_one == 0 and sorted(want) == [1, 2, 3, 4]
+    losses = got[0][0]
+    assert sorted(losses) == sorted(want)
+    for step, row in want.items():
+        assert set(losses[step]) == set(row)
+        for k, v in row.items():
+            np.testing.assert_allclose(losses[step][k], v, rtol=1e-5,
+                                       err_msg=f"step {step} {k}")
+    for _, n_cached, held, _ in got:
+        assert n_cached == 2 and held == list(range(6))
+
+
+def test_inference_cli_two_ranks_equal_one(two_ranks):
+    """asr_inference --host_devices 2: WER equal to one rank's, loss at
+    1e-5 relative, over all 7 clips; rank 0 alone prints."""
+    from tpu_asr_torch.cli import asr_inference
+
+    one = asr_inference.main(two_ranks["argv"])["test"]
+    (got, printed0), (got1, printed1) = (r[-1] for r in two_ranks["ranks"])
+    assert got == got1 and got["test"]["num_utts"] == one["num_utts"] == 7
+    assert got["test"]["wer"] == one["wer"]
+    np.testing.assert_allclose(got["test"]["loss"], one["loss"], rtol=1e-5)
+    assert printed0.count("wer=") == 1 and printed1 == ""
+
+
+def test_inference_host_devices_start_ranks(monkeypatch):
+    """--host_devices N (and --platform cpu --gpus N) start N CPU ranks
+    for inference, whose rank 0's results the CLI returns."""
+    from tpu_asr_torch.cli import asr_inference
+    from tpu_asr_torch.parallel import launch
+
+    seen = []
+    monkeypatch.setattr(launch, "launch", lambda fn, args, devices, **kw:
+                        seen.append((fn.__name__, devices)) or ["rank 0"])
+    for flags in (["--host_devices", "2"], ["--gpus", "3"]):
+        assert asr_inference.main(["--platform", "cpu", "--ckpt_path", "x",
+                                   "--test_manifest", "t.jsonl"]
+                                  + flags) == "rank 0"
+    assert seen == [("run_inference", ["cpu"] * 2),
+                    ("run_inference", ["cpu"] * 3)]
 
 
 @pytest.mark.parametrize("dp_size,world,refused", [

@@ -17,7 +17,8 @@ utils/checkpoint.py, utils/exp_manager.py):
 - `evaluate_packed` gives `evaluate`'s WER and its loss within 1e-5 (a CTC
   student; the attention's segment mode runs its plain version here),
   and refuses flow matching;
-- the Trainer refuses what it does not run;
+- the Trainer refuses what it does not run: tensor parallelism, a dp_size
+  other than the world, a teacher cache with steps_per_dispatch > 1;
 - exp_manager: versioned run directories with a config snapshot, the
   step timer, a torch.profiler trace, fault injection's refusals, and
   SIGTERM during a fit saving the checkpoint before exiting 143; a
@@ -264,9 +265,11 @@ def test_evaluate_packed_matches_evaluate(tmp_path):
         fm.evaluate_packed(man)
 
 
-@pytest.mark.parametrize("change", [dict(steps_per_dispatch=2),
-                                    dict(cache_teacher=True),
-                                    dict(cache_teacher_all=True),
+@pytest.mark.parametrize("change", [dict(steps_per_dispatch=2,
+                                         cache_teacher=True),
+                                    dict(steps_per_dispatch=3,
+                                         cache_teacher_all=True),
+                                    dict(tp_size=2),
                                     dict(dp_size=2)])
 def test_trainer_refuses(tmp_path, change):
     man, texts = corpus(tmp_path, n=2, seed=7)

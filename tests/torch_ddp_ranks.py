@@ -18,22 +18,28 @@ from tpu_asr_torch.train.loop import global_metrics
 from tpu_asr_torch.train.trainer import (DistilTrainState,
                                          make_distil_train_step)
 
-def rank_block(batch):
-    """This rank's block of a global numpy batch, as tensors."""
+def rank_block(batch, packed=False):
+    """This rank's block of a global numpy batch, as tensors; `packed`:
+    its part of the batch's packing plan (mesh.packed_rank_block)."""
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in batch.items()}
+    if packed:
+        return (mesh.packed_rank_block(tensors)
+                if mesh.process_count() > 1 else tensors)
     n = batch["signal"].shape[0] // mesh.process_count()
     r = mesh.row_offset(n)
-    return {k: torch.from_numpy(np.ascontiguousarray(v[r:r + n]))
-            for k, v in batch.items()}
+    return {k: v[r:r + n] for k, v in tensors.items()}
 
 
 def run_steps(student, teacher, distill, state_dict, batch, steps=1,
-              seed=0, lr=None):
+              seed=0, lr=None, packed=False):
     """`steps` KD train steps of the rank's rows of `batch` from the weights
     `state_dict` (a path or a dict): per step the metrics (shares summed
     over the ranks), the reduced gradients of the first step, the router's
     per-sample counts and their Gumbel margins (gathered over the ranks),
     the BatchNorm running statistics after the first step and the final
-    state_dict, all numpy."""
+    state_dict, all numpy. `packed`: packed training on the plan that
+    `batch` carries, each rank on its part of it."""
     torch.manual_seed(0)
     model = DistilCTCModel(student, teacher, distill)
     if isinstance(state_dict, str):
@@ -43,7 +49,7 @@ def run_steps(student, teacher, distill, state_dict, batch, steps=1,
     if lr is not None:
         optim = dataclasses.replace(optim, lr=lr)
     state = DistilTrainState.create(model, optim)
-    step = make_distil_train_step(model)
+    step = make_distil_train_step(model, packed=packed)
     routed = []
     if model.routed:
         def hook(mod, args, out):
@@ -54,7 +60,7 @@ def run_steps(student, teacher, distill, state_dict, batch, steps=1,
                                                 1)))
         model.router.register_forward_hook(hook)
     out = {"metrics": [], "router": []}
-    local = rank_block(batch)
+    local = rank_block(batch, packed)
     for i in range(steps):
         state, metrics = step(state, local, seed)
         out["metrics"].append(global_metrics(metrics))
@@ -126,6 +132,56 @@ def restore_and_eval(student, teacher, distill, tokenizer, manifest, workdir,
     tr.state = restore_train_state(Path(ckpt).parent, tr.state,
                                    name=Path(ckpt).name)
     return tr.state.step, tr.evaluate(manifest)
+
+
+def fit_cached(student, teacher, distill, tokenizer, manifest, workdir,
+               train_cfg):
+    """A Trainer.fit of the rank's rows with `train_cfg` (with a teacher
+    cache or without); (the steps' logged losses, rank 0's; the cached
+    steps run; the utterances this rank's cache holds; the final
+    parameters, numpy)."""
+    import json
+    from pathlib import Path
+
+    from tpu_asr_torch.train.loop import Trainer
+
+    torch.manual_seed(0)
+    model = DistilCTCModel(student, teacher, distill)
+    tr = Trainer(model, train_cfg, tokenizer, workdir, log_every=1,
+                 device="cpu")
+    n = [0]
+    if tr._cache is not None:
+        cached = tr._train_step_cached
+
+        def counting(*a):
+            n[0] += 1
+            return cached(*a)
+
+        tr._train_step_cached = counting
+    tr.fit(manifest)
+    rows = []
+    if mesh.is_main_process():
+        rows = [json.loads(l) for l in open(Path(workdir) / "metrics.jsonl")]
+    losses = {r["step"]: {k: v for k, v in r.items() if k.startswith(
+        "loss/")} for r in rows if "loss/total" in r}
+    held = (sorted(set(tr._cache.data) | tr._cache._on_disk)
+            if tr._cache is not None else [])
+    return (losses, n[0], held, {k: p.detach().numpy().copy()
+                                 for k, p in model.named_parameters()})
+
+
+def run_cli(name, argv):
+    """`tpu_asr_torch.cli.<name>.main(argv)` on this rank: (its results,
+    what it printed)."""
+    import contextlib
+    import importlib
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        results = importlib.import_module(
+            f"tpu_asr_torch.cli.{name}").main(argv)
+    return results, printed.getvalue()
 
 
 def run_jobs(jobs):

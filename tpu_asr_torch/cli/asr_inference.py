@@ -3,6 +3,10 @@ asr_inference.py:205-471): rebuild the model from the teacher config and
 the flags, load the checkpoint, WER per split.
 
     python -m tpu_asr_torch.cli.asr_inference --help
+
+`--gpus N` (cards, NCCL), `--platform cpu --host_devices N` (CPU ranks, gloo)
+or torchrun evaluate on N ranks, each on its block of every batch; rank 0
+prints the summed results (cli/common.run_inference).
 """
 
 from tpu_asr_torch.cli.common import build_inference_parser, run_inference

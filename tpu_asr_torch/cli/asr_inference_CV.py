@@ -4,6 +4,10 @@ asr_inference_CV.py:264-514), with its CV flags (--cv_dataset_name,
 the generic data surface, as tpu_asr's asr_inference_CV.py does.
 
     python -m tpu_asr_torch.cli.asr_inference_CV --help
+
+`--gpus N` (cards, NCCL), `--platform cpu --host_devices N` (CPU ranks, gloo)
+or torchrun evaluate on N ranks, each on its block of every batch; rank 0
+prints the summed results (cli/common.run_inference).
 """
 
 from tpu_asr_torch.cli.common import build_inference_parser, run_inference

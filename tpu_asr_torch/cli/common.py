@@ -7,16 +7,22 @@ wrappers, runnable with `python -m tpu_asr_torch.cli.<name>`.
 - Device: `--platform ''` (the default) runs on the CUDA card and exits
   with an error when there is none; `--platform cpu` runs on the CPU (as
   the tests do). Nothing falls back to the CPU on its own.
-- Data parallelism (the train CLIs): `--gpus N` (-1: every visible card)
-  with N > 1 starts N ranks (parallel/launch.py), one a card, joined over
-  NCCL; `--platform cpu --gpus N` or `--host_devices N` starts N ranks on
-  the CPU over gloo (JAX's virtual devices). Under a launcher that set
-  WORLD_SIZE (torchrun) the process joins that group instead. `--batch_size`
-  is the GLOBAL batch: each rank takes its block of every batch, and the
-  run takes the steps one rank takes (tpu_asr_torch/train/loop.py). Rank 0
-  alone writes the tokenizer sidecar, metrics and checkpoints.
-  `--gpus` above the visible cards exits with a message; inference runs on
-  one rank.
+- Data parallelism (the train and inference CLIs): `--gpus N` (-1: every
+  visible card) with N > 1 starts N ranks (parallel/launch.py), one a card,
+  joined over NCCL; `--platform cpu --gpus N` or `--host_devices N` starts
+  N ranks on the CPU over gloo (JAX's virtual devices). Under a launcher
+  that set WORLD_SIZE (torchrun) the process joins that group instead.
+  `--batch_size` is the GLOBAL batch: each rank takes its block of every
+  batch, and the run takes the steps one rank takes
+  (tpu_asr_torch/train/loop.py); an evaluation sums its counts over the
+  ranks. Rank 0 alone writes the tokenizer sidecar, metrics and
+  checkpoints, and prints the results. `--gpus` above the visible cards
+  exits with a message.
+- `--steps_per_dispatch K` runs K same-shape batches as one multi-step;
+  `--cache_teacher` / `--cache_teacher_all` keep the frozen teacher's last
+  layer / every layer a utterance after its first epoch, in RAM or, with
+  `--cache_teacher_dir`, one file a utterance (TrainConfig's fields of
+  those names; train/loop.py).
 - `--teacher_nemo PATH` imports a local `.nemo` (convert/nemo_import.py);
   without it the teacher is randomly initialized, from `--config` (read
   with the port's YAML reader) and a fallback BPE tokenizer trained on the
@@ -30,11 +36,12 @@ wrappers, runnable with `python -m tpu_asr_torch.cli.<name>`.
   weights only, which serves a run without flow matching, whose decoder
   input is the student's own encoder output).
 
-Refused with a message naming what is missing (SystemExit): `--gpus` or
-`--host_devices` above 1 for inference, `--steps_per_dispatch` > 1,
-`--cache_teacher` / `--cache_teacher_all`, `--export_path`, and building
-manifests from a Hugging Face `--data_script_path` (no explicit
-manifests), which needs the `datasets` package.
+Refused with a message naming what is missing (SystemExit): `--export_path`,
+and building manifests from a Hugging Face `--data_script_path` (no
+explicit manifests), which needs the `datasets` package. The Trainer
+refuses, as JAX's does, `--cache_teacher` with flow matching, DiffKD, diffm
+or all-scope layerwise KD (`--cache_teacher_all` serves them) and a cache
+with `--steps_per_dispatch` > 1.
 """
 
 from __future__ import annotations
@@ -322,24 +329,34 @@ def prepare_manifests(args, corpus: str) -> Dict[str, str]:
     return out
 
 
-def refuse_flags(args, training: bool = False) -> None:
-    """SystemExit for a flag whose path the port does not have (inference
-    runs on one rank)."""
-    bad = []
-    if not training and getattr(args, "gpus", 1) not in (1, -1, 0):
-        bad.append(f"--gpus {args.gpus} (inference runs on one rank)")
-    if not training and getattr(args, "host_devices", 0) > 1:
-        bad.append(f"--host_devices {args.host_devices} (inference runs "
-                   "on one rank)")
-    if args.steps_per_dispatch > 1:
-        bad.append(f"--steps_per_dispatch {args.steps_per_dispatch}")
-    if args.cache_teacher or args.cache_teacher_all:
-        bad.append("--cache_teacher / --cache_teacher_all (the teacher "
-                   "feature caches)")
+def refuse_flags(args) -> None:
+    """SystemExit for a flag whose path the port does not have."""
     if getattr(args, "export_path", None):
-        bad.append("--export_path (the serialized-inference export)")
-    if bad:
-        raise SystemExit(f"tpu_asr_torch: {'; '.join(bad)}: {LATER}")
+        raise SystemExit("tpu_asr_torch: --export_path (the serialized-"
+                         f"inference export): {LATER}")
+
+
+def on_ranks(run, args, *rest):
+    """From a process outside any group: (True, run(args, *rest)) in a
+    launcher's group (torchrun's WORLD_SIZE) or on the N ranks that the
+    flags ask for, started here (parallel/launch.py; rank 0's value);
+    (False, None) when they ask for one rank, which the caller runs in this
+    process."""
+    from tpu_asr_torch.parallel import mesh
+    from tpu_asr_torch.parallel.launch import launch
+
+    if "WORLD_SIZE" in os.environ:             # a launcher's rank (torchrun)
+        mesh.init_distributed(device="cpu" if args.platform == "cpu"
+                              else None)
+        try:
+            return True, run(args, *rest)
+        finally:
+            mesh.shutdown()
+    devices = rank_devices(args)
+    if len(devices) > 1:
+        return True, launch(run, (args, *rest), devices=devices,
+                            timeout=None)[0]
+    return False, None
 
 
 def device_of(args) -> str:
@@ -358,7 +375,7 @@ def device_of(args) -> str:
 
 
 def rank_devices(args):
-    """The devices of the training ranks the flags ask for: N CPU ranks for
+    """The devices of the ranks the flags ask for: N CPU ranks for
     --platform cpu with --host_devices N or --gpus N, else one card a rank
     (--gpus N, -1 for every visible card). SystemExit for more cards than
     are visible."""
@@ -454,6 +471,10 @@ def _train_config(args, student_cfg, distill, train: bool):
     return TrainConfig(model=student_cfg, distillation=distill,
                        optim=OptimConfig(d_model=student_cfg.encoder.d_model),
                        test_ds=DataConfig(shuffle=False, **ds),
+                       steps_per_dispatch=args.steps_per_dispatch,
+                       cache_teacher=args.cache_teacher,
+                       cache_teacher_all=args.cache_teacher_all,
+                       cache_teacher_dir=args.cache_teacher_dir,
                        dp_size=mesh.process_count(), **kw)
 
 
@@ -462,26 +483,17 @@ def run_training(args, corpus: str = "librispeech",
     """Train from the flags; data-parallel when they ask for more than one
     rank (the module's docstring). The results are rank 0's."""
     from tpu_asr_torch.parallel import mesh
-    from tpu_asr_torch.parallel.launch import launch
     from tpu_asr_torch.train.loop import Trainer
     from tpu_asr_torch.utils.checkpoint import export_student
 
-    refuse_flags(args, training=True)
+    refuse_flags(args)
     if args.resume_ckpt is not None and not os.path.isfile(args.resume_ckpt):
         raise SystemExit(f"--resume_ckpt {args.resume_ckpt}: no such "
                          "checkpoint file")
     if not mesh.initialized():
-        if "WORLD_SIZE" in os.environ:         # a launcher's rank (torchrun)
-            mesh.init_distributed(device="cpu" if args.platform == "cpu"
-                                  else None)
-            try:
-                return run_training(args, corpus, diffm_version)
-            finally:
-                mesh.shutdown()
-        devices = rank_devices(args)
-        if len(devices) > 1:
-            return launch(run_training, (args, corpus, diffm_version),
-                          devices=devices, timeout=None)[0]
+        ran, results = on_ranks(run_training, args, corpus, diffm_version)
+        if ran:
+            return results
     device = device_of(args)
     main = mesh.is_main_process()
     manifests = prepare_manifests(args, corpus)
@@ -517,15 +529,23 @@ def run_inference(args, diffm_version: Optional[int] = None
                   ) -> Dict[str, Dict]:
     """Rebuild the distil model from the teacher config and the flags, load
     the checkpoint (`last` or a student export) and evaluate every split
-    (asr_inference.py:304-471)."""
+    (asr_inference.py:304-471); on N ranks when the flags ask for them
+    (the module's docstring), each evaluating its block of every batch.
+    The results are rank 0's, which alone prints them."""
     import torch
 
+    from tpu_asr_torch.parallel import mesh
     from tpu_asr_torch.train.loop import Trainer
     from tpu_asr_torch.utils.checkpoint import (load_student,
                                                 restore_train_state)
 
     refuse_flags(args)
+    if not mesh.initialized():
+        ran, results = on_ranks(run_inference, args, diffm_version)
+        if ran:
+            return results
     device = device_of(args)
+    main = mesh.is_main_process()
     corpus = {"librispeech": "librispeech", "tedlium2": "tedlium",
               "commonvoice": "commonvoice", "gigaspeech": "gigaspeech"}[
         args.eval_data]
@@ -549,15 +569,18 @@ def run_inference(args, diffm_version: Optional[int] = None
 
     packed = getattr(args, "packed_eval", False)
     if packed and model.distill.use_flow_matching:
-        print("WARNING: --packed_eval requires the plain CTC decode path; "
-              "flow-matching feeds the decoder from the FM output — "
-              "falling back to bucketed evaluate()", file=sys.stderr)
+        if main:
+            print("WARNING: --packed_eval requires the plain CTC decode "
+                  "path; flow-matching feeds the decoder from the FM output "
+                  "— falling back to bucketed evaluate()", file=sys.stderr)
         packed = False
     results = {}
     for split, manifest in manifests.items():
         results[split] = (trainer.evaluate_packed(manifest) if packed
                           else trainer.evaluate(manifest))
-        print(f"[{args.eval_data}/{split}] wer={results[split]['wer']:.4f} "
+        if main:
+            print(f"[{args.eval_data}/{split}] "
+                  f"wer={results[split]['wer']:.4f} "
               f"loss={results[split]['loss']:.4f} "
               f"({int(results[split]['num_utts'])} utts)")
     return results

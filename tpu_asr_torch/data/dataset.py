@@ -23,6 +23,7 @@ multi-process loader stripes the manifest first and plans each stripe on its
 own, so its processes can disagree on the count and the shapes of their
 batches; ROADMAP.md, "Faults of the reference".)
 
+`stack_batches` groups same-shape batches for `steps_per_dispatch` > 1.
 `to_device` takes the place of JAX's `prefetch_to_device`: it copies each
 host batch from pinned memory with `non_blocking=True`, one batch ahead.
 
@@ -247,19 +248,48 @@ def _collate(samples, pad_sig: int, token_quantum: int,
     return out
 
 
+def stack_batches(iterator, k: int):
+    """Groups of `k` consecutive SAME-SHAPE host batches, each stacked along
+    a leading (K, ...) steps axis for train/trainer.make_distil_multi_step
+    (JAX's stack_batches: the bucketed loader emits a few shapes, so a
+    group waits for k batches of its shape). A stack carries `"_steps":
+    True` and the `texts` of its last batch; the batches left over at the
+    end (fewer than k of a shape) are yielded unstacked, so every batch
+    trains. `utt_idx` is stacked like the arrays."""
+    pending: dict = {}
+    for batch in iterator:
+        texts = batch.pop("texts", None)
+        key = tuple(sorted((n, v.shape) for n, v in batch.items()))
+        group = pending.setdefault(key, [])
+        group.append((batch, texts))
+        if len(group) == k:
+            stacked = {n: np.stack([b[n] for b, _ in group])
+                       for n in group[0][0]}
+            stacked["texts"] = group[-1][1]
+            stacked["_steps"] = True
+            del pending[key]
+            yield stacked
+    for group in pending.values():
+        for batch, texts in group:
+            batch["texts"] = texts
+            yield batch
+
+
 def to_device(iterator, device) -> Iterator[Dict]:
     """Host batches -> batches of tensors on `device`, one batch ahead: each
-    array is pinned (on CUDA) and copied with non_blocking=True, so the
-    copy of batch i + 1 overlaps the step on batch i. Keys that are not
-    numpy arrays (`texts`) pass through."""
+    numpy array or CPU tensor (the teacher cache's features) is pinned (on
+    CUDA) and copied with non_blocking=True, so the copy of batch i + 1
+    overlaps the step on batch i. Other keys (`texts`, `_steps`) pass
+    through."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
     def put(batch):
         out = {}
         for k, v in batch.items():
-            if isinstance(v, np.ndarray):
-                t = torch.from_numpy(np.ascontiguousarray(v))
+            if isinstance(v, (np.ndarray, torch.Tensor)):
+                t = (v if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.ascontiguousarray(v)))
                 if pin:
                     t = t.pin_memory()
                 out[k] = t.to(device, non_blocking=pin)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_asr_torch.parallel.mesh import global_rows, process_count
+from tpu_asr_torch.parallel.mesh import global_rows, row_share
 
 
 def logit_kl_loss(stu_log_probs: torch.Tensor, tch_log_probs: torch.Tensor,
@@ -37,5 +37,5 @@ def layerwise_mse_loss(stu_feats_proj: torch.Tensor, tch_feats: torch.Tensor,
                        average_layers: bool = True) -> torch.Tensor:
     """(L, B, T, C_t) projected student and teacher features -> scalar."""
     err = torch.square(stu_feats_proj.float() - tch_feats.detach().float())
-    total = (err.mean(dim=(1, 2, 3)) / process_count()).sum()
+    total = (err.mean(dim=(1, 2, 3)) * row_share()).sum()
     return total / stu_feats_proj.shape[0] if average_layers else total

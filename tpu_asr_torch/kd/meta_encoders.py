@@ -30,8 +30,9 @@ counter-based hash (ops/dropout.py) with one seed a site drawn from the
 epsilon is flax's 1e-6, the batch-statistics norm's 1e-5.
 
 Under data parallelism (parallel/mesh.py) the batch-statistics norm reduces
-its statistics over the global batch, and a dropout site's streams begin at
-the rank's row offset, so both equal the single-rank run's.
+its statistics over the global batch, and a dropout site's stream is that
+of the row's place in the global batch (parallel/mesh.row_index), so both
+equal the single-rank run's.
 
 Parameter names follow the JAX paths, with flax's automatic names given
 words: a feed-forward's LayerNorm_0 / Dense_0 / Dense_1 are `norm`,
@@ -49,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_asr_torch.ops.dropout import dropout as hash_dropout
-from tpu_asr_torch.parallel.mesh import global_mean, row_offset
+from tpu_asr_torch.parallel.mesh import global_mean, row_index
 
 LN_EPS = 1e-6           # flax nn.LayerNorm
 BN_EPS = 1e-5           # _BatchStatNorm
@@ -85,7 +86,7 @@ def _drop(x: torch.Tensor, rate: float, train: bool,
         raise ValueError("meta encoder dropout in training needs the "
                          "'dropout' generator")
     seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
-    return hash_dropout(x, rate, (seed + row_offset(x.shape[0])) & 0xFFFFFFFF)
+    return hash_dropout(x, rate, seed, row_index(x.shape[0], x.device))
 
 
 class MLPMetaEncoder(nn.Module):

@@ -42,7 +42,8 @@ from torch import nn
 from tpu_asr_torch.config import RouterConfig
 from tpu_asr_torch.kd.meta_encoders import dense
 from tpu_asr_torch.parallel.mesh import (all_gather_rows, draw_rows,
-                                         global_mean, process_count)
+                                         global_mean, process_count,
+                                         row_share)
 
 STRATEGIES = ("batch_mode", "batch_avg", "batch_median", "group")
 
@@ -134,7 +135,7 @@ class DynamicStepRouter(nn.Module):
             if c.entropy_weight > 0:
                 ent = -(probs * torch.log(probs.clamp(min=1e-8))).sum(-1)
                 loss = loss - c.entropy_weight * (
-                    ent.mean(dim=1) / process_count()).sum()
+                    ent.mean(dim=1) * row_share()).sum()
         else:
             scores = logits
             steps = probs.argmax(dim=-1).to(torch.int32) + 1

@@ -58,6 +58,7 @@ loss is computed as in the unpacked step (`forward_with_student_encode`).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -73,7 +74,7 @@ from tpu_asr_torch.kd.router import (STRATEGIES, DynamicStepRouter,
                                      aggregate_steps)
 from tpu_asr_torch.models.ctc_model import CTCModel
 from tpu_asr_torch.ops.ctc import ctc_loss
-from tpu_asr_torch.parallel.mesh import batch_mean
+from tpu_asr_torch.parallel.mesh import batch_mean, utterance_rows
 
 
 class DistilOutput(NamedTuple):
@@ -114,6 +115,14 @@ def check_config(d: DistillationConfig, n_layers: int) -> None:
     if bad:
         raise ValueError(f"DistillationConfig for a {n_layers}-layer "
                          f"student: {'; '.join(bad)}")
+
+
+def last_layer_cacheable(d: DistillationConfig) -> bool:
+    """Whether the teacher's last layer is all that `d`'s losses read
+    (logit KD, last-scope layerwise KD): the last-layer cache serves it."""
+    return not (d.use_flow_matching or d.use_diffkd or d.use_diffm
+                or (d.use_layerwise_distillation
+                    and d.layer_kd_scope != "last"))
 
 
 def fresh_layer_proj(generator: torch.Generator, n_layers: int, d_s: int,
@@ -231,13 +240,28 @@ class DistilCTCModel(nn.Module):
                 transcripts: Optional[torch.Tensor] = None,
                 transcript_lengths: Optional[torch.Tensor] = None,
                 train: bool = False,
-                rngs: Optional[Dict[str, torch.Generator]] = None
+                rngs: Optional[Dict[str, torch.Generator]] = None,
+                tch_last_feat: Optional[torch.Tensor] = None,
+                tch_all_feat: Optional[torch.Tensor] = None,
+                packed: Optional[Dict[str, torch.Tensor]] = None
                 ) -> DistilOutput:
+        """`tch_last_feat` (B, T', Dt) / `tch_all_feat` (L, B, T', Dt):
+        the teacher's cached features (train/loop.TeacherFeatureCache), as
+        in `forward_with_student_encode`. `packed`: the plan arrays of
+        `forward_packed_train` by their batch keys (PACK_KEYS of
+        train/trainer.py, and `pk_utt`, `pk_n_utt` on a rank of a split
+        plan), which runs instead: one entry point, so that the packed step
+        too goes through DistributedDataParallel."""
+        if packed is not None:
+            return self.forward_packed_train(
+                input_signal, input_signal_length, transcripts,
+                transcript_lengths, train=train, rngs=rngs, **packed)
         encoded, encoded_len, stu_feats = self.student.encode(
             input_signal, input_signal_length, train, rngs)
         return self.forward_with_student_encode(
             encoded, encoded_len, stu_feats, input_signal,
             input_signal_length, transcripts, transcript_lengths, train,
+            tch_last_feat=tch_last_feat, tch_all_feat=tch_all_feat,
             rngs=rngs)
 
     def forward_packed_train(self, input_signal: torch.Tensor,
@@ -248,7 +272,9 @@ class DistilCTCModel(nn.Module):
                              pk_src_pos: torch.Tensor, pk_seg: torch.Tensor,
                              pk_row: torch.Tensor, pk_start: torch.Tensor,
                              train: bool = True,
-                             rngs: Optional[Dict[str, torch.Generator]] = None
+                             rngs: Optional[Dict[str, torch.Generator]] = None,
+                             pk_utt: Optional[torch.Tensor] = None,
+                             pk_n_utt: Optional[int] = None
                              ) -> DistilOutput:
         """The packed-segment step's forward. The plan (data/packing.py::
         train_pack_arrays, on the model's device): `pk_src_utt`,
@@ -262,12 +288,22 @@ class DistilCTCModel(nn.Module):
         teacher encodes the same plan in eval. The losses then are those of
         the unpacked step on these tensors: at dropout 0 with a layer-norm
         conv module they equal it (BatchNorm's training statistics run over
-        the packed frames, guards included, as JAX's do)."""
+        the packed frames, guards included, as JAX's do).
+
+        On a rank of a plan split by rows (parallel/mesh.packed_rank_block)
+        the batch holds the utterances of this rank's packed rows,
+        `pk_utt` (B,) their places in the global batch of `pk_n_utt`: the
+        per-utterance draws and the losses are taken at those places
+        (mesh.utterance_rows), the packed rows' at the rank's row block."""
         ix = lambda z: torch.as_tensor(z, device=input_signal.device).long()
         src_utt, src_pos, seg, row, start = map(
             ix, (pk_src_utt, pk_src_pos, pk_seg, pk_row, pk_start))
-        x_src, enc_len = self.student.pre_encode_aug(
-            input_signal, input_signal_length, train, rngs)
+        rows_of = lambda: (contextlib.nullcontext() if pk_utt is None else
+                           utterance_rows(torch.as_tensor(pk_utt).cpu(),
+                                          int(pk_n_utt)))
+        with rows_of():
+            x_src, enc_len = self.student.pre_encode_aug(
+                input_signal, input_signal_length, train, rngs)
         t_prime, t_pack = x_src.shape[1], seg.shape[1]
         valid_rows = (seg > 0)[..., None]
         packed = torch.where(valid_rows, x_src[src_utt, src_pos], 0)
@@ -292,10 +328,11 @@ class DistilCTCModel(nn.Module):
                                        0)
                 _, _, tch_p = self.teacher.encode_packed(packed_t, seg)
                 tch_all = torch.where(valid, tch_p[:, rows, pos_c], 0)
-        return self.forward_with_student_encode(
-            encoded, enc_len, stu_feats, input_signal, input_signal_length,
-            transcripts, transcript_lengths, train, tch_all_feat=tch_all,
-            rngs=rngs)
+        with rows_of():
+            return self.forward_with_student_encode(
+                encoded, enc_len, stu_feats, input_signal,
+                input_signal_length, transcripts, transcript_lengths, train,
+                tch_all_feat=tch_all, rngs=rngs)
 
     def forward_with_student_encode(
             self, encoded: torch.Tensor, encoded_len: torch.Tensor,
@@ -305,25 +342,44 @@ class DistilCTCModel(nn.Module):
             transcript_lengths: Optional[torch.Tensor] = None,
             train: bool = False,
             tch_all_feat: Optional[torch.Tensor] = None,
-            rngs: Optional[Dict[str, torch.Generator]] = None
+            rngs: Optional[Dict[str, torch.Generator]] = None,
+            tch_last_feat: Optional[torch.Tensor] = None
             ) -> DistilOutput:
         """Everything after the student's encode: the frozen teacher (or
         its precomputed per-layer features `tch_all_feat` (L, B, T', Dt),
-        as the packed step gathers them), flow matching, the decoder and
-        the losses."""
+        as the packed step gathers them and the all-layer cache holds
+        them, or its last layer's `tch_last_feat` (B, T', Dt) from the
+        last-layer cache), flow matching, the decoder and the losses.
+        Cached features are cast to the student's dtype and detached, and
+        the teacher's encoder does not run (JAX's __call__: its input is
+        the unaugmented signal in eval mode, so its features are a function
+        of the utterance). `tch_last_feat` serves logit KD and last-scope
+        layerwise KD only; with flow matching, DiffKD, diffm or all-scope
+        layerwise KD it raises, as JAX does."""
         d = self.distill
         losses: Dict[str, torch.Tensor] = {}
         metrics: Dict[str, torch.Tensor] = {}
         rngs = rngs or {}
         zero = torch.zeros((), device=encoded.device)
+        # contiguous as the teacher's own outputs are: the decoder's product
+        # on a strided view of the all-layer batch rounds otherwise in bf16
+        cached = lambda z: z.detach().to(encoded.dtype).contiguous()
 
         tch_feats = tch_last = None
-        if self._teacher_runs(train):
-            tch_feats = tch_all_feat
-            if tch_feats is None:
-                with torch.no_grad():
-                    _, _, tch_feats = self.teacher.encode(
-                        input_signal, input_signal_length)
+        if tch_all_feat is not None:
+            tch_feats = cached(tch_all_feat)
+            tch_last = tch_feats[-1]
+        elif tch_last_feat is not None:
+            if not last_layer_cacheable(d):
+                raise ValueError(
+                    "cached teacher features (tch_last_feat) support only "
+                    "logit KD and last-scope layerwise KD; FM/DiffKD/diffm/"
+                    "full-layerwise need all 16 teacher layers")
+            tch_last = cached(tch_last_feat)
+        elif self._teacher_runs(train):
+            with torch.no_grad():
+                _, _, tch_feats = self.teacher.encode(input_signal,
+                                                      input_signal_length)
             tch_last = tch_feats[-1]
 
         decoder_in = encoded
@@ -357,7 +413,7 @@ class DistilCTCModel(nn.Module):
                 log_probs, tch_log_probs, d.kd_temperature)
         if train and d.use_layerwise_distillation:
             losses["layer_kd"] = d.layer_kd_alpha * self._layer_kd(
-                stu_feats, tch_feats, rngs)
+                stu_feats, tch_feats, tch_last, rngs)
         if train and d.use_diffkd:
             n_l = stu_feats.shape[0]
             flat = lambda z: z.reshape((-1,) + z.shape[2:])
@@ -379,14 +435,15 @@ class DistilCTCModel(nn.Module):
         return DistilOutput(log_probs, encoded_len, log_probs.argmax(dim=-1),
                             losses, metrics, tch_last, tch_feats)
 
-    def _layer_kd(self, stu_feats, tch_feats, rngs) -> torch.Tensor:
+    def _layer_kd(self, stu_feats, tch_feats, tch_last,
+                  rngs) -> torch.Tensor:
         """Layerwise MSE: the last layer through `layer_proj` (scope
         'last'), or every layer through it or through a fresh projection
         (scope 'all'), averaged over layers."""
         d = self.distill
         if d.layer_kd_scope == "last":
             proj = dense(self.layer_proj, stu_feats[-1])[None]
-            return layerwise_mse_loss(proj, tch_feats[-1][None])
+            return layerwise_mse_loss(proj, tch_last[None])
         if d.diffm_fresh_layer_proj:
             n_l, d_s, d_t = (stu_feats.shape[0], stu_feats.shape[-1],
                              tch_feats.shape[-1])

@@ -73,11 +73,15 @@ def batch_streams(base: int, batch: int, per_row: int = 1, scale: int = 1,
     return s[:, 0] if per_row == 1 else s
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: int,
+            rows: torch.Tensor = None) -> torch.Tensor:
     """The port's plain dropout site on (B, T, D): stream seed + b, idx
-    t * D + d; kept values scaled by 1 / (1 - rate)."""
+    t * D + d (b the row, or `rows[b]` where given, int64 (B,)); kept
+    values scaled by 1 / (1 - rate)."""
     if not rate:
         return x
     b, t, d = x.shape
-    keep = keep_mask(batch_streams(seed, b, device=x.device), t, d, rate)
+    streams = (batch_streams(seed, b, device=x.device) if rows is None
+               else (int(seed) + rows.to(x.device)) & _M)
+    keep = keep_mask(streams, t, d, rate)
     return torch.where(keep, x * (1.0 / (1.0 - rate)), torch.zeros_like(x))

@@ -23,6 +23,16 @@ batch and for any tensor whose rows are batch-major (row = b * L + l).
   (`draw_rows`); the dropout streams are counter hashes of the row, so a
   rank shifts its base seeds by its row offset.
 
+Packed training (train/trainer.py, `packed=True`) splits one packing plan
+of the global batch by its rows: rank r holds packed rows [r R/N,
+(r+1) R/N) and the utterances they hold (`packed_rank_block`), which need
+not be a contiguous block nor as many on every rank. Inside
+`utterance_rows(index, count)` the helpers above take the rank's rows to
+be those global rows: `batch_mean` and `global_mean` divide by the global
+batch's count, `draw_rows` and `all_gather_rows` place each row at its
+global index, and `row_index` gives the dropout streams' rows. The packed
+rows themselves are equal blocks, so the encoder runs outside it.
+
 Host scalars (`cross_process_sum`, `broadcast_int`, `sync_processes`, the
 preemption flag) go through a gloo group on the CPU beside the default
 group, so reading them never waits for the card. Every call is a no-op, and
@@ -32,6 +42,7 @@ rank: single-rank code paths are unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Callable, Optional, Sequence
@@ -41,6 +52,8 @@ import torch
 import torch.distributed as dist
 
 _CONTROL = {"group": None}
+# this rank's utterances as rows of the global batch (utterance_rows)
+_ROWS = {"index": None, "count": 0}
 
 
 def initialized() -> bool:
@@ -150,6 +163,31 @@ def sync_processes(tag: str = "") -> None:
         dist.barrier(group=_control())
 
 
+def gather_objects(obj) -> list:
+    """Every rank's picklable `obj` in rank order (small host values: the
+    utterances each rank wrote to a feature cache)."""
+    if process_count() == 1:
+        return [obj]
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj, group=_control())
+    return out
+
+
+def gather_host_rows(x: np.ndarray) -> np.ndarray:
+    """Every rank's numpy `x`, one shape on every rank, concatenated along
+    axis 0 in rank order, through the host group (a harvested batch of
+    teacher features, which every rank's cache then holds)."""
+    if process_count() == 1:
+        return x
+    x = np.ascontiguousarray(x)
+    # as bytes: gloo has no unsigned 16-bit type (bfloat16's bits)
+    t = torch.from_numpy(x.reshape(x.shape[0], -1).view(np.uint8))
+    parts = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(parts, t, group=_control())
+    return torch.cat(parts).numpy().view(x.dtype).reshape(
+        (-1,) + x.shape[1:])
+
+
 def any_process(flag: bool) -> bool:
     """Whether `flag` is set on any rank (a SIGTERM that reached some)."""
     return bool(cross_process_sum([float(bool(flag))])[0] > 0)
@@ -165,27 +203,129 @@ def local_rows(x):
 # rows of the global batch
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def utterance_rows(index, count: int):
+    """Within it, this rank's rows are the rows `index` (a (B_r,) integer
+    tensor or array, ascending) of a global batch of `count` rows, for
+    every helper of this section and `batch_mean`, `global_mean`,
+    `all_gather_rows`. A tensor's rows may be k rows an utterance,
+    batch-major (row = b * k + j)."""
+    prev = dict(_ROWS)
+    _ROWS["index"] = torch.as_tensor(np.asarray(index), dtype=torch.long)
+    _ROWS["count"] = int(count)
+    try:
+        yield
+    finally:
+        _ROWS.update(prev)
+
+
+def row_share() -> float:
+    """The fraction of the global batch's rows that this rank holds."""
+    if _ROWS["index"] is not None:
+        return len(_ROWS["index"]) / _ROWS["count"]
+    return 1.0 / process_count()
+
+
+def row_index(n_local: int, device=None) -> torch.Tensor:
+    """The global rows (int64) of this rank's `n_local` rows."""
+    idx = _ROWS["index"]
+    if idx is None:
+        return torch.arange(n_local, device=device) + process_index() * \
+            int(n_local)
+    k = n_local // len(idx)
+    if k * len(idx) != n_local:
+        raise ValueError(f"row_index: {n_local} rows for {len(idx)} "
+                         "utterances")
+    return (idx[:, None] * k + torch.arange(k)).reshape(-1).to(device)
+
+
 def row_offset(n_local: int) -> int:
-    """Where this rank's `n_local` rows begin in the global batch."""
+    """Where this rank's `n_local` rows begin in the global batch (its
+    rows are one contiguous block: not inside utterance_rows)."""
+    if _ROWS["index"] is not None:
+        raise ValueError("row_offset: this rank's rows are not a block")
     return process_index() * int(n_local)
 
 
 def global_rows(n_local: int) -> int:
-    """Rows of the global batch when each rank holds `n_local`."""
-    return process_count() * int(n_local)
+    """Rows of the global batch when this rank holds `n_local`."""
+    return int(round(int(n_local) / row_share()))
 
 
 def draw_rows(draw: Callable, shape, dim: int = 0) -> torch.Tensor:
     """`draw(global shape)` cut to this rank's rows along `dim`: a random
     tensor whose rows are those the single-rank run draws for the same
     rows of the global batch (the generator advances as it does there)."""
-    world = process_count()
-    if world == 1:
+    if process_count() == 1 and _ROWS["index"] is None:
         return draw(tuple(shape))
     shape = list(shape)
     n = shape[dim]
-    shape[dim] = n * world
-    return draw(tuple(shape)).narrow(dim, row_offset(n), n)
+    shape[dim] = global_rows(n)
+    full = draw(tuple(shape))
+    if _ROWS["index"] is None:
+        return full.narrow(dim, row_offset(n), n)
+    return full.index_select(dim, row_index(n, full.device))
+
+
+ROW_KEYS = ("pk_src_utt", "pk_src_pos", "pk_seg")     # (R, Tp) plan keys
+
+
+def packed_rank_block(batch: dict, world: Optional[int] = None,
+                      rank: Optional[int] = None) -> dict:
+    """Rank `rank`'s part of a packed global batch (tensors or numpy
+    arrays: the batch's (B, ...) rows and the plan of
+    data/packing.train_pack_arrays): packed rows [r R/N, (r+1) R/N) of the
+    plan, the utterances they hold in global order, `pk_row` based at the
+    rank's first row, `pk_src_utt` at its first utterance, and `pk_utt`
+    (their global indices) and `pk_n_utt` (B) for the packed step's
+    `utterance_rows`. R must be a multiple of the world
+    (train_pack_arrays' `row_multiple`), so that every rank's packed rows,
+    and BatchNorm's statistics over them, have one shape; every rank must
+    hold an utterance."""
+    world = process_count() if world is None else int(world)
+    rank = process_index() if rank is None else int(rank)
+    as_np = lambda v: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                       else np.asarray(v))
+    n_rows = as_np(batch["pk_seg"]).shape[0]
+    if n_rows % world:
+        raise ValueError(f"packed_rank_block: {n_rows} packed rows for "
+                         f"{world} ranks (plan with row_multiple={world})")
+    per = n_rows // world
+    lo = rank * per
+    pk_row = as_np(batch["pk_row"]).astype(np.int64)
+    utt = np.nonzero((pk_row >= lo) & (pk_row < lo + per))[0]
+    if not len(utt):
+        raise ValueError(f"packed_rank_block: rank {rank} of {world} holds "
+                         "no utterance")
+    local_of = np.zeros(len(pk_row), np.int64)
+    local_of[utt] = np.arange(len(utt))
+
+    def like(v, a):
+        if isinstance(v, torch.Tensor):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=v.device, dtype=v.dtype)
+        return np.ascontiguousarray(a).astype(np.asarray(v).dtype)
+
+    out = {}
+    n_utt = len(pk_row)
+    for k, v in batch.items():
+        if k in ROW_KEYS:
+            a = as_np(v)[lo:lo + per]
+            if k == "pk_src_utt":
+                a = np.where(as_np(batch["pk_seg"])[lo:lo + per] > 0,
+                             local_of[a], 0)
+            out[k] = like(v, a)
+        elif k == "pk_row":
+            out[k] = like(v, pk_row[utt] - lo)
+        elif isinstance(v, (torch.Tensor, np.ndarray)) and \
+                v.shape[:1] == (n_utt,):
+            out[k] = v[torch.from_numpy(utt).to(v.device)] if isinstance(
+                v, torch.Tensor) else v[utt]
+        else:
+            out[k] = v
+    out["pk_utt"] = utt
+    out["pk_n_utt"] = n_utt
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -233,15 +373,15 @@ def global_mean(x: torch.Tensor, dim) -> torch.Tensor:
     n = 1
     for d in dims:
         n *= x.shape[d]
-    return all_reduce_sum(x.sum(dim=dims)) / (n * process_count())
+    return all_reduce_sum(x.sum(dim=dims)) / global_rows(n)
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """This rank's share of the global batch's element mean of `x`: its
-    element sum over the global element count (every rank's `x` of one
-    shape), so the shares add up to the single-rank mean."""
+    element sum over the global element count (`x`'s rows are this rank's
+    rows), so the shares add up to the single-rank mean."""
     m = x.mean()
-    return m if process_count() == 1 else m / process_count()
+    return m if process_count() == 1 else m * row_share()
 
 
 def all_gather_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -250,14 +390,13 @@ def all_gather_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     of a zero-filled global tensor, which NCCL and gloo (also on a CUDA
     tensor) both run; an integer vector travels as float32, exact below
     2^24."""
-    world = process_count()
-    if world == 1:
+    if process_count() == 1:
         return x
     shape = list(x.shape)
     n = shape[dim]
-    shape[dim] = n * world
+    shape[dim] = global_rows(n)
     dt = x.dtype if x.is_floating_point() else torch.float32
     full = torch.zeros(shape, dtype=dt, device=x.device)
-    full.narrow(dim, row_offset(n), n).copy_(x)
+    full.index_copy_(dim % x.dim(), row_index(n, x.device), x.to(dt))
     dist.all_reduce(full)
     return full.to(x.dtype)

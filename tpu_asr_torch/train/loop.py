@@ -36,13 +36,33 @@ shares, read at a log boundary; `evaluate` and `evaluate_packed` sum
 (scores, words, loss, tokens, utterances) over the ranks and count only
 real rows. `cfg.dp_size` is -1 or the world size.
 
-Not ported: `steps_per_dispatch` > 1, the teacher feature caches and
-tensor parallelism; the Trainer raises for them.
+- `steps_per_dispatch` K > 1: K same-shape batches stacked
+  (data/dataset.stack_batches) run as one multi-step
+  (train/trainer.make_distil_multi_step); the last step's metrics are
+  logged.
+- The teacher feature caches (`cache_teacher`: the last layer, for logit
+  KD and last-scope layerwise KD; `cache_teacher_all`: every layer, for
+  every KD mode): the frozen teacher reads the unaugmented signal in eval
+  mode, so its features are a function of the utterance. A batch whose
+  utterances are all cached runs the cached step (no teacher forward);
+  any other runs the harvest step, which trains as usual and stores the
+  teacher's features of its utterances (`TeacherFeatureCache`: in RAM, or
+  one .npy a utterance under `cache_teacher_dir`, read back by mmap).
+  With N ranks the ranks agree on the step a batch takes; in RAM every
+  harvest gathers the global batch's features, so every rank holds every
+  utterance; with a directory each rank writes its own utterances and the
+  ranks exchange what they wrote at the end of each epoch.
+
+Refused (ValueError): tensor parallelism, a `dp_size` other than the
+world, and, as JAX does, `cache_teacher` with flow matching, DiffKD, diffm
+or all-scope layerwise KD (use `cache_teacher_all`) and a cache together
+with `steps_per_dispatch` > 1.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -52,11 +72,13 @@ import torch
 
 from tpu_asr_torch.config import TrainConfig
 from tpu_asr_torch.data.dataset import (AudioToBPEDataset, make_dataloader,
-                                        to_device)
-from tpu_asr_torch.models.distil_model import DistilCTCModel
+                                        stack_batches, to_device)
+from tpu_asr_torch.models.distil_model import (DistilCTCModel,
+                                               last_layer_cacheable)
 from tpu_asr_torch.parallel import mesh
 from tpu_asr_torch.train.trainer import (DistilTrainState,
                                          make_distil_eval_step,
+                                         make_distil_multi_step,
                                          make_distil_train_step)
 from tpu_asr_torch.utils.checkpoint import (Preemption,
                                             install_preemption_handler,
@@ -92,14 +114,114 @@ class MetricsLogger:
             f.write(json.dumps(row) + "\n")
 
 
-def refusals(cfg: TrainConfig):
-    """What of `cfg` the port's Trainer does not run, as messages."""
+class TeacherFeatureCache:
+    """Host store of the frozen teacher's features a utterance (JAX's class
+    of that name): the last layer (T_i, Dt), or with `all_layers` every
+    layer (L, T_i, Dt), cut to the utterance's T_i frames. It stores
+    bfloat16 under bf16 compute (lossless; bf16 keeps fp32's exponent
+    range, where the unnormalised mid-stack features can pass fp16's 65504)
+    and float32 under fp32. bfloat16 is kept as its bits, uint16 numpy
+    arrays (numpy has no bfloat16), and viewed back as torch.bfloat16.
+    With `spill_dir` each utterance goes to <dir>/<idx>.npy (written to a
+    temporary name and renamed) and is read back by mmap; else it stays in
+    RAM. `fresh` holds the utterances written to the directory since
+    `merge` last took other ranks' writes in."""
+
+    def __init__(self, dtype: torch.dtype, all_layers: bool = False,
+                 spill_dir: Optional[str] = None):
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"TeacherFeatureCache stores bfloat16 or "
+                             f"float32, not {dtype}")
+        self.dtype = dtype
+        self.all_layers = all_layers
+        self.spill_dir = spill_dir
+        if spill_dir:
+            Path(spill_dir).mkdir(parents=True, exist_ok=True)
+        self.data = {}        # utt idx -> stored array
+        self._on_disk = set()
+        self.fresh = set()
+        self.tprime = {}      # padded signal length -> encoded T'
+
+    def has_all(self, idxs) -> bool:
+        return all(int(i) in self.data or int(i) in self._on_disk
+                   for i in idxs)
+
+    def to_host(self, feats: torch.Tensor) -> np.ndarray:
+        """`feats` in the stored form: a numpy array of uint16 bits
+        (bfloat16) or float32."""
+        t = feats.detach().to(self.dtype).cpu()
+        if self.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    def _from_host(self, arr: np.ndarray) -> torch.Tensor:
+        if self.dtype == torch.bfloat16:
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr)
+
+    def _store(self, i: int, arr: np.ndarray) -> None:
+        if self.spill_dir:
+            path = Path(self.spill_dir) / f"{i}.npy"
+            tmp = path.with_name(f"{i}.npy.tmp{os.getpid()}")
+            with open(tmp, "wb") as f:
+                np.save(f, np.ascontiguousarray(arr))
+            os.replace(tmp, path)
+            self._on_disk.add(i)
+            self.fresh.add(i)
+        else:
+            self.data[i] = np.ascontiguousarray(arr)
+
+    def _load(self, i: int) -> np.ndarray:
+        if i in self.data:
+            return self.data[i]
+        return np.load(Path(self.spill_dir) / f"{i}.npy", mmap_mode="r")
+
+    def put_rows(self, idxs, host: np.ndarray, lengths, l_pad: int) -> None:
+        """Store batch-major stored-form features: `host` (B, T', Dt), or
+        (B, L, T', Dt) for the all-layer cache; utterances already held
+        are skipped."""
+        self.tprime[int(l_pad)] = int(host.shape[-2])
+        for r, i in enumerate(idxs):
+            i = int(i)
+            if i in self.data or i in self._on_disk:
+                continue
+            n = int(lengths[r])
+            self._store(i, host[r, :, :n] if self.all_layers
+                        else host[r, :n])
+
+    def put_batch(self, idxs, feats: torch.Tensor, lengths,
+                  l_pad: int) -> None:
+        """feats: (B, T', Dt) last-layer, or (L, B, T', Dt) all-layer (the
+        harvest step's outputs)."""
+        if self.all_layers:
+            feats = feats.transpose(0, 1)
+        self.put_rows(idxs, self.to_host(feats), np.asarray(lengths), l_pad)
+
+    def merge(self, idxs) -> None:
+        """Take in utterances that other ranks wrote to the directory."""
+        self._on_disk.update(int(i) for i in idxs)
+
+    def assemble(self, idxs, t_prime: int, d_t: int) -> torch.Tensor:
+        """Last-layer: (B, T', Dt). All-layer: (B, L, T', Dt), batch-major
+        as the cached step reads it. Frames past an utterance are 0; a CPU
+        tensor of the stored dtype."""
+        first = self._load(int(idxs[0]))
+        lead = (len(idxs), first.shape[0]) if self.all_layers else \
+            (len(idxs),)
+        out = np.zeros(lead + (t_prime, d_t), first.dtype)
+        for r, i in enumerate(idxs):
+            f = self._load(int(i))
+            if self.all_layers:
+                out[r, :, :f.shape[1]] = f
+            else:
+                out[r, :f.shape[0]] = f
+        return self._from_host(out)
+
+
+def refusals(cfg: TrainConfig, distill=None):
+    """What of `cfg` (with the model's DistillationConfig `distill`) the
+    port's Trainer does not run, as messages."""
     out = []
-    if cfg.steps_per_dispatch > 1:
-        out.append("steps_per_dispatch > 1")
-    if cfg.cache_teacher or cfg.cache_teacher_all:
-        out.append("the teacher feature caches (cache_teacher, "
-                   "cache_teacher_all)")
     if cfg.tp_size > 1:
         out.append("tensor parallelism (tp_size > 1)")
     world = mesh.process_count()
@@ -107,6 +229,15 @@ def refusals(cfg: TrainConfig):
         out.append(f"dp_size={cfg.dp_size} in a world of {world} rank(s): "
                    "start the ranks with tpu_asr_torch.parallel.launch, "
                    "the CLIs' --gpus N or torchrun")
+    if cfg.cache_teacher or cfg.cache_teacher_all:
+        if (distill is not None and not cfg.cache_teacher_all
+                and not last_layer_cacheable(distill)):
+            out.append("cache_teacher with flow matching, DiffKD, diffm or "
+                       "all-scope layerwise KD, which read every teacher "
+                       "layer (use cache_teacher_all)")
+        if cfg.steps_per_dispatch > 1:
+            out.append("a teacher feature cache with steps_per_dispatch > "
+                       "1 (cached and harvest batches cannot stack)")
     return out
 
 
@@ -121,7 +252,7 @@ class Trainer:
     def __init__(self, model: DistilCTCModel, cfg: TrainConfig, tokenizer,
                  workdir, log_every: int = 50, train_wer_every: int = 0,
                  device="cuda"):
-        refused = refusals(cfg)
+        refused = refusals(cfg, model.distill)
         if refused:
             raise ValueError("tpu_asr_torch's Trainer does not run "
                              + "; ".join(refused))
@@ -136,7 +267,21 @@ class Trainer:
         self.log_every = log_every
         self.train_wer_every = train_wer_every
         self._train_step = make_distil_train_step(model)
+        self._multi_step = make_distil_multi_step(model)
         self._eval_step = make_distil_eval_step(model)
+        self._cache: Optional[TeacherFeatureCache] = None
+        if (cfg.cache_teacher or cfg.cache_teacher_all) and \
+                model.needs_teacher:
+            all_layers = cfg.cache_teacher_all
+            self._cache = TeacherFeatureCache(
+                torch.bfloat16 if model.student_cfg.compute_dtype
+                == "bfloat16" else torch.float32, all_layers=all_layers,
+                spill_dir=cfg.cache_teacher_dir)
+            self._train_step_cached = make_distil_train_step(
+                model, cached_teacher=not all_layers,
+                cached_all_layers=all_layers)
+            self._train_step_harvest = make_distil_train_step(
+                model, harvest_teacher=True, harvest_all=all_layers)
         self.state: Optional[DistilTrainState] = None
 
     # ------------------------------------------------------------------
@@ -200,32 +345,53 @@ class Trainer:
             raw = make_dataloader(dataset, cfg.train_ds, epoch=epoch,
                                   skip_batches=state.step - state.epoch_step,
                                   world=self.world, rank=self.rank)
+            if cfg.steps_per_dispatch > 1:
+                raw = stack_batches(raw, cfg.steps_per_dispatch)
+            if self._cache is not None:
+                raw = self._attach_cached_teacher(raw)
             for batch in to_device(raw, self.device):
                 texts = batch.pop("texts", None)
-                batch.pop("utt_idx", None)
-                state, metrics = self._train_step(state, batch, cfg.seed)
+                utt_idx = batch.pop("utt_idx", None)
+                n_done = 1
+                if batch.pop("_steps", False):
+                    # K steps in one dispatch; the last step's metrics
+                    state, metrics = self._multi_step(state, batch,
+                                                      cfg.seed)
+                    n_done = batch["signal"].shape[0]
+                    metrics = {k: v[-1] for k, v in metrics.items()}
+                    batch = {k: v[-1] for k, v in batch.items()}
+                elif "tch_last_feat" in batch or "tch_all_feat" in batch:
+                    state, metrics = self._train_step_cached(state, batch,
+                                                             cfg.seed)
+                elif self._cache is not None and utt_idx is not None:
+                    state, metrics, harvested = self._train_step_harvest(
+                        state, batch, cfg.seed)
+                    self._harvest(utt_idx, harvested,
+                                  batch["signal"].shape[1])
+                else:
+                    state, metrics = self._train_step(state, batch, cfg.seed)
                 step = state.step
-                maybe_inject_fault(cfg.simulated_fault, step)
-                if crossed(step, 1, cfg.heartbeat_every):
+                maybe_inject_fault(cfg.simulated_fault, step, n_done)
+                if crossed(step, n_done, cfg.heartbeat_every):
                     write_heartbeat(self.workdir, step)
                 if straggler is not None:
                     now = time.perf_counter()
-                    straggler.tick(now - t_prev)
+                    straggler.tick((now - t_prev) / n_done)
                     t_prev = now
-                    if crossed(step, 1, cfg.straggler_report_every):
+                    if crossed(step, n_done, cfg.straggler_report_every):
                         rep = straggler.report()
                         self.logger.log(
                             {f"straggler/rank{i}_mean_s": v
                              for i, v in enumerate(rep["per_rank_mean_s"])}
                             | {"straggler/n_flagged":
                                len(rep["stragglers"])}, step)
-                if crossed(step, 1, self.log_every) or step == 1:
+                if crossed(step, n_done, self.log_every) or step == n_done:
                     row = global_metrics(metrics)
                     row["epoch"] = epoch
                     row["steps_per_sec"] = (step - step0) / max(
                         time.perf_counter() - t0, 1e-9)
                     if (self.train_wer_every
-                            and crossed(step, 1, self.train_wer_every)):
+                            and crossed(step, n_done, self.train_wer_every)):
                         row["train_wer"] = self._batch_wer(batch, texts)
                     self.logger.log(row, step)
                 preempt.exit_if_requested(save)
@@ -234,6 +400,12 @@ class Trainer:
                     break
             else:
                 state.epoch, state.epoch_step = epoch + 1, state.step
+            if self._cache is not None and self._cache.spill_dir:
+                # every rank's writes of the epoch, to every rank
+                for written in mesh.gather_objects(
+                        sorted(self._cache.fresh)):
+                    self._cache.merge(written)
+                self._cache.fresh.clear()
             save()
             if val_manifest:
                 val = self.evaluate(val_manifest)
@@ -241,6 +413,40 @@ class Trainer:
                                 state.step)
             preempt.exit_if_requested(save)
         return state
+
+    def _attach_cached_teacher(self, raw):
+        """Host batches with the cached teacher features attached
+        (`tch_last_feat` (B, T', Dt) or `tch_all_feat` (B, L, T', Dt)) when
+        every utterance of the batch is cached and its padded length's T'
+        is known; at N ranks only when that holds on every rank, so that
+        the ranks take the same step."""
+        d_t = self.model.teacher_cfg.encoder.d_model
+        cache = self._cache
+        key = "tch_all_feat" if cache.all_layers else "tch_last_feat"
+        for batch in raw:
+            idxs = batch.get("utt_idx")
+            l_pad = batch["signal"].shape[1]
+            ready = (idxs is not None and l_pad in cache.tprime
+                     and cache.has_all(idxs))
+            if self.world > 1:
+                ready = not mesh.any_process(not ready)
+            if ready:
+                batch[key] = cache.assemble(idxs, cache.tprime[l_pad], d_t)
+            yield batch
+
+    def _harvest(self, utt_idx, harvested, l_pad: int) -> None:
+        """Store the harvest step's teacher features of the batch's
+        utterances; in RAM at N ranks, the global batch's (gathered)."""
+        tch_last, tch_feats, enc_len = harvested
+        cache = self._cache
+        host = cache.to_host(tch_feats.transpose(0, 1) if cache.all_layers
+                             else tch_last)
+        idxs = utt_idx.cpu().numpy()
+        lens = enc_len.cpu().numpy()
+        if self.world > 1 and not cache.spill_dir:
+            host, idxs, lens = (mesh.gather_host_rows(a)
+                                for a in (host, idxs, lens))
+        cache.put_rows(idxs, host, lens, l_pad)
 
     def _batch_wer(self, batch, texts) -> float:
         """Greedy WER on the current train batch (its real rows, over every

@@ -24,8 +24,18 @@ equal on every rank, so buffers are not broadcast. The non-finite guard and
 the clipping run on the reduced gradients, so every rank decides alike.
 The generators are seeded alike on every rank; each draw that depends on
 the row is the global batch's, cut to the rank's rows. Packed training
-(`packed=True`) is refused at more than one rank: its plan crosses the
-batch's rows.
+(`packed=True`) at N ranks splits one plan of the global batch by its
+packed rows (parallel/mesh.packed_rank_block): BatchNorm's statistics run
+over every rank's packed frames, the dropout streams of the packed rows
+begin at the rank's first row, and the per-utterance draws and the losses
+are taken at each utterance's place in the global batch, so the N-rank
+step is the one-rank packed step on the same plan. The packed step goes
+through the DDP wrapper as the bucketed one does (DistilCTCModel.forward's
+`packed`).
+
+`make_distil_multi_step` runs K steps on a batch stacked (K, ...)
+(`steps_per_dispatch`); the harvest and cached variants of the step serve
+the teacher feature caches (train/loop.py).
 
 `make_distil_eval_step` is the counterpart of JAX's of that name: the model
 in eval mode under `torch.no_grad()`, its losses, the per-sample CTC NLLs
@@ -82,6 +92,7 @@ def step_rngs(seed: int, step: int,
 
 
 PACK_KEYS = ("pk_src_utt", "pk_src_pos", "pk_seg", "pk_row", "pk_start")
+SPLIT_KEYS = ("pk_utt", "pk_n_utt")      # a rank's part of a split plan
 
 
 def _sum_hook(group, bucket):
@@ -125,34 +136,49 @@ def ddp_model(model: DistilCTCModel) -> torch.nn.Module:
     return wrapped
 
 
-def make_distil_train_step(model: DistilCTCModel,
-                           packed: bool = False) -> Callable:
+def make_distil_train_step(model: DistilCTCModel, packed: bool = False,
+                           cached_teacher: bool = False,
+                           harvest_teacher: bool = False,
+                           cached_all_layers: bool = False,
+                           harvest_all: bool = False) -> Callable:
     """Returns train_step(state, batch, seed) -> (state, metrics); batch
     holds `signal` (B, L) f32, `signal_len` (B,), `tokens` (B, S) and
-    `token_len` (B,) on the model's device. `packed`: packed-segment
-    training (model.forward_packed_train); the batch also carries the plan
-    of data/packing.train_pack_arrays, `pk_src_utt`, `pk_src_pos`, `pk_seg`
-    (R, Tp) and `pk_row`, `pk_start` (B,), as tensors or numpy arrays.
-    Under an initialised process group the batch is this rank's block of
-    the global batch and the forward runs through `ddp_model`."""
-    if packed and mesh.process_count() > 1:
-        raise ValueError("packed training is not run with more than one "
-                         "rank: its packing plan crosses the batch's rows "
-                         "(ROADMAP.md, Queue 1)")
+    `token_len` (B,) on the model's device. Under an initialised process
+    group the batch is this rank's block of the global batch and the
+    forward runs through `ddp_model`.
+
+    `packed`: packed-segment training (model.forward_packed_train); the
+    batch also carries the plan of data/packing.train_pack_arrays,
+    `pk_src_utt`, `pk_src_pos`, `pk_seg` (R, Tp) and `pk_row`, `pk_start`
+    (B,), as tensors or numpy arrays. At more than one rank it is this
+    rank's part of one plan of the global batch
+    (parallel/mesh.packed_rank_block, which adds `pk_utt` and `pk_n_utt`).
+
+    The teacher feature caches (train/loop.TeacherFeatureCache):
+    `cached_teacher` reads `batch['tch_last_feat']` (B, T', Dt) and
+    `cached_all_layers` `batch['tch_all_feat']` (B, L, T', Dt), batch-major
+    as JAX's, instead of running the frozen teacher; `harvest_teacher`
+    returns (state, metrics, (tch_last, tch_feats, encoded_len)), the
+    teacher's outputs of the step, tch_feats (L, B, T', Dt) only with
+    `harvest_all` (else None), all detached on the device."""
     forward = ddp_model(model)
 
     def train_step(state: DistilTrainState, batch: Dict[str, torch.Tensor],
-                   seed: int) -> Tuple[DistilTrainState, Dict]:
+                   seed: int):
         dev = batch["signal"].device
         model.train()
         rngs = step_rngs(seed, state.step, dev)
         args = (batch["signal"], batch["signal_len"], batch["tokens"],
                 batch["token_len"])
+        kw = {}
         if packed:
-            out = model.forward_packed_train(
-                *args, *(batch[k] for k in PACK_KEYS), train=True, rngs=rngs)
-        else:
-            out = forward(*args, train=True, rngs=rngs)
+            kw["packed"] = {k: batch[k] for k in PACK_KEYS + SPLIT_KEYS
+                            if k in batch}
+        if cached_teacher:
+            kw["tch_last_feat"] = batch["tch_last_feat"]
+        if cached_all_layers:
+            kw["tch_all_feat"] = batch["tch_all_feat"].transpose(0, 1)
+        out = forward(*args, train=True, rngs=rngs, **kw)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         out.losses["total"].backward()
@@ -174,9 +200,38 @@ def make_distil_train_step(model: DistilCTCModel,
         set_lr(opt, state.schedule(state.step))
         opt.step()
         state.step += 1
+        if harvest_teacher:
+            feats = out.tch_feats if harvest_all else None
+            return state, metrics, (
+                out.tch_last.detach(),
+                feats.detach() if feats is not None else None,
+                out.encoded_len.detach())
         return state, metrics
 
     return train_step
+
+
+def make_distil_multi_step(model: DistilCTCModel) -> Callable:
+    """Returns multi_step(state, batches, seed) -> (state, metrics): K
+    train steps back to back on `batches`, whose every array is stacked
+    (K, ...) along a leading steps axis (data/dataset.stack_batches),
+    and the metrics stacked (K,). The same as K `train_step` calls: each
+    step draws from (seed, state.step) as they do. Nothing waits on the
+    device between the steps (no .item(), no copy to the host), so the host
+    queues the K steps' work ahead of the card."""
+    train_step = make_distil_train_step(model)
+
+    def multi_step(state: DistilTrainState, batches: Dict[str, torch.Tensor],
+                   seed: int) -> Tuple[DistilTrainState, Dict]:
+        per_step = []
+        for i in range(batches["signal"].shape[0]):
+            state, metrics = train_step(
+                state, {k: v[i] for k, v in batches.items()}, seed)
+            per_step.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_step])
+                       for k in per_step[0]}
+
+    return multi_step
 
 
 def make_distil_eval_step(model: DistilCTCModel) -> Callable:
