@@ -181,7 +181,7 @@ Phases, each on its own output lines:
      the attention's segment mode launched, every result a string, RTFx
      beside phase 5's with the fill ratio and rows a request; and the
      encoder layers' device time a request, packed against bucketed, with
-     the whole request's, on the first 4 requests.
+     the whole request's, on the first 2 requests.
   17. packed KD train, on bench_train.py's packed_train batches (512
      utterances of lognormal durations around 6.2 s in 4 linear buckets,
      audio-matched batch sizes: 4 x 56, 2 x 40 and 1 x 32 utterances,
@@ -219,8 +219,8 @@ Phases, each on its own output lines:
      by phase 7's rules, then 10 timed bf16 steps at B=32 x 15 s with 48
      tokens after 2 warm-up: ms a step, audio s/s, peak memory, every
      kernel of the step launched (the training FFN kernel refuses d512).
-  19. conformer-XLarge (bench.py's xl_cfg: d1024, 24 layers, 8 heads, dk
-     128, k=5): (a) the block attention and the per-head attention at dk
+  19. conformer-XLarge (bench.py's xl_cfg: d1024, 8 heads, dk 128, k=5;
+     its model paths (c)-(e) at 8 of its 24 layers): (a) the block attention and the per-head attention at dk
      128 (B=32 x T'=376, D=1024) against their plain versions, fp32 and
      bf16, dropout 0 and 0.1, the forward by phase 3's tolerances, the bf16
      backward by phase 6's rule with two calls bit-equal; the fp32 backward
@@ -362,7 +362,21 @@ Phases, each on its own output lines:
      gives the same WER and the loss within 1e-5. The ranks start first and
      run beside (a)'s check and (b)'s one-rank runs. NCCL across cards is
      not exercised (one card).
-Each phase's seconds are printed after it.
+  26. the serving artifact, int8 streaming and host decoders: (a)
+     int8 cache-aware streaming of phase 23's streaming configuration
+     (quantization='int8'): 8 fp32 streams of 2-6 s on the kernels (the int8
+     FFN kernel, two launches a layer a step, on chunks of a few frames)
+     against 'xla' by phase 11's int8 rule, then the bf16 step's latency
+     and busy share at B=1 and 8 beside the float step's; (b) ModelConfig()
+     in bf16 (phase 5's weights) exported on the card at one bucket (32 x
+     16 s; seconds printed), loaded in a fresh process that imports only
+     the port's loader: its graph names the serving ops, phase 5's window
+     served there with every serving kernel's counter above 0, ids equal
+     to the Transcriber's on the first request by phase 4's bf16 rule, RTFx
+     beside phase 5's; (c) the codec libraries found on the host, one
+     Transcriber request on MP3 clips where libmpg123 and libmp3lame exist,
+     and the native FLAC decoder bit-equal to the Python one, both timed.
+Each phase's seconds are printed after it, and the whole run's at the end.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
 recorded launches (`device_ms`).
@@ -1114,7 +1128,7 @@ def packed_model_phase(cfg):
           f"margin > 1e-1 (>= 99%)")
 
 
-def encoder_device_times(cfg, n_requests: int = 4):
+def encoder_device_times(cfg, n_requests: int = 2):
     """The encoder layers' device time (torch.profiler), packed against
     bucketed, on the first requests of the serve window after the warm-up:
     the bucketed (32, T') batch of pre-encoded frames (the Transcriber's
@@ -3515,6 +3529,7 @@ def packed_train_phase(tcfg):
 # ---------------------------------------------------------------------------
 
 XL_FP32_T = 160     # the fp32 attention backward's longest T at dk 128
+XL_LAYERS = 8       # phase 19's depth (its widths are XLarge's own)
 DK128 = ("core_mma_kernel<128", "dq_mma_kernel<128", "dkv_mma_kernel<128")
 
 
@@ -3891,8 +3906,8 @@ def xlarge_phase():
     from tpu_asr_torch.profile_forward import (model_config, seed_weights,
                                                seeded_model)
 
-    cfg = model_config("xlarge")
-    name = "conformer-XLarge"
+    cfg = with_encoder(model_config("xlarge"), n_layers=XL_LAYERS)
+    name = f"conformer-XLarge ({XL_LAYERS} of its 24 layers)"
     read = reset_counters()
     t0 = time.perf_counter()
     rows = dk128_kernel_phase()
@@ -4826,10 +4841,13 @@ def stream_vs_offline(streamer, feats, feat_len, label):
     return delta, n_dec, same, out
 
 
-def streaming_latency(streamer, b: int, gen):
-    """bench.py's per-chunk step latency at B=b: STREAM_STEPS full chunks
-    after STREAM_WARMUP, host clock to a synchronize, STREAM_REPEATS
-    times; and the device's busy ms a step (torch.profiler)."""
+def streaming_latency(streamer, b: int, gen, steps: int = None,
+                      repeats: int = None):
+    """bench.py's per-chunk step latency at B=b: `steps` (STREAM_STEPS)
+    full chunks after STREAM_WARMUP, host clock to a synchronize, `repeats`
+    (STREAM_REPEATS) times; and the device's busy ms a step
+    (torch.profiler)."""
+    steps, repeats = steps or STREAM_STEPS, repeats or STREAM_REPEATS
     sc = streamer.stream_cfg
     chunk = torch.randn(b, streamer.cfg.preprocessor.features, sc.chunk_size,
                         generator=gen, device="cuda")
@@ -4844,12 +4862,12 @@ def streaming_latency(streamer, b: int, gen):
             one()
         torch.cuda.synchronize()
         reps = []
-        for _ in range(STREAM_REPEATS):
+        for _ in range(repeats):
             t0 = time.perf_counter()
-            for _ in range(STREAM_STEPS):
+            for _ in range(steps):
                 one()
             torch.cuda.synchronize()
-            reps.append(1e3 * (time.perf_counter() - t0) / STREAM_STEPS)
+            reps.append(1e3 * (time.perf_counter() - t0) / steps)
         busy, _ = device_ms(one, iters=3)
     return reps, busy
 
@@ -5812,6 +5830,305 @@ def cache_phase() -> None:
     timed_phase("25c", multi_step_case, 80)
 
 
+INT8_STREAM_STEPS, INT8_STREAM_REPEATS = 20, 2     # phase 26a's timing
+
+
+def int8_streaming_phase(cfg):
+    """Phase 26a: int8 cache-aware streaming of bench.py's streaming
+    configuration of cfg. fp32: 8 streams of 2-6 s on the kernels ('auto':
+    the int8 FFN kernel in every cached layer) against the same model with
+    every route 'xla', by phase 11's int8 rule (ids on >= 99% of the frames
+    whose top-2 margin exceeds 1e-2; the largest log-prob difference at most
+    half the int8-vs-fp drift of the same weights); then the bf16 step's
+    latency and busy share at B=1 and 8 beside the float step's."""
+    from tpu_asr_torch.models.streaming import CacheAwareStreamer
+    from tpu_asr_torch.profile_forward import (seeded_model, set_backend,
+                                               waveforms)
+
+    fcfg = streaming_config(cfg)
+    qcfg = streaming_config(with_encoder(cfg, quantization="int8"))
+    f32 = lambda c: dataclasses.replace(c, compute_dtype="float32")
+    clips = waveforms(np.random.default_rng(26), 8, 2.0, 6.0)
+    sig = np.zeros((len(clips), max(len(c) for c in clips)), np.float32)
+    for i, c in enumerate(clips):
+        sig[i, :len(c)] = c
+    model = seeded_model(f32(qcfg), seed=26)
+    fp_model = seeded_model(f32(fcfg), seed=26)
+    set_backend(fp_model, "xla")
+    streamer = CacheAwareStreamer(model, device="cuda")
+    with torch.inference_mode():
+        feats, feat_len = model.featurizer(
+            torch.from_numpy(sig).cuda(),
+            torch.tensor([len(c) for c in clips], device="cuda"))
+    read = reset_counters()
+    got = stream_batch(streamer, feats, feat_len)
+    counts = read()
+    set_backend(model, "xla")
+    want = stream_batch(streamer, feats, feat_len)
+    set_backend(model, "auto")
+    fp = stream_batch(CacheAwareStreamer(fp_model, device="cuda"), feats,
+                      feat_len)
+    steps = -(-int(feat_len.max()) // streamer.stream_cfg.chunk_size)
+    n_ffn = 2 * qcfg.encoder.n_layers * steps
+    check(counts["ffn_int8"] == n_ffn and counts["attention"] == 0,
+          f"int8 streaming fp32 B=8: {counts['ffn_int8']} ffn_int8 launches "
+          f"in {steps} steps (two a layer a step: {n_ffn}); attention 0 "
+          f"(cached steps run it plain, as in JAX)")
+    delta = max((g - w).abs().max().item() for g, w in zip(got, want))
+    drift = max((w - f).abs().max().item() for w, f in zip(want, fp))
+    agree = n_dec = 0
+    for g, w in zip(got, want):
+        top2 = w.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 1e-2
+        n_dec += int(decided.sum())
+        agree += int(((g.argmax(-1) == w.argmax(-1)) & decided).sum())
+    check(0 < drift and delta <= 0.5 * drift,
+          f"int8 streaming fp32 B=8 (2-6 s): max |delta log-prob| kernels "
+          f"vs 'xla' {delta:.3e} <= half the int8-vs-fp drift {drift:.3e}")
+    check(agree >= 0.99 * n_dec, f"int8 streaming fp32: ids equal on "
+          f"{agree} of {n_dec} frames with top-2 margin > 1e-2 (>= 99%)")
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    s_q = CacheAwareStreamer(seeded_model(qcfg, seed=26), device="cuda")
+    s_f = CacheAwareStreamer(seeded_model(fcfg, seed=26), device="cuda")
+    lat = {}
+    for b in (1, 8):
+        for name, st in (("int8", s_q), ("float", s_f)):
+            read = reset_counters()
+            reps, busy = streaming_latency(st, b, gen, INT8_STREAM_STEPS,
+                                           INT8_STREAM_REPEATS)
+            n = read()["ffn_int8"]
+            check((n > 0) == (name == "int8"), f"{name} bf16 streaming "
+                  f"B={b}: {n} ffn_int8 launches in the timed window")
+            lat[name, b] = float(np.median(reps))
+            print(f"streaming step ({name}, bf16, B={b}, {card_line()}): "
+                  f"median {lat[name, b]:.3f} ms, {min(reps):.3f}-"
+                  f"{max(reps):.3f} over {INT8_STREAM_REPEATS} repeats of "
+                  f"{INT8_STREAM_STEPS} steps (host clock); device busy "
+                  f"{busy:.3f} ms a step, busy share "
+                  f"{busy / lat[name, b]:.3f}")
+    return lat
+
+
+EXPORT_BUCKET = (SERVE_BATCH, 16.0)    # phase 26b's one bucket
+EXPORT_CHILD = """
+import json, sys, time
+import numpy as np
+from tpu_asr_torch.convert import export
+reqs = np.load(sys.argv[2])
+requests = [[reqs[f"r{i}_{j}"] for j in range(int(reqs[f"n{i}"]))]
+            for i in range(int(reqs["count"]))]
+t0 = time.perf_counter()
+ex = export.load_exported(sys.argv[1])
+load_s = time.perf_counter() - t0
+prog = ex.buckets[0][1]
+ops = sorted({str(n.target) for n in prog.graph.nodes
+              if str(n.target).startswith("tpu_asr_torch.")})
+import torch
+wrappers = {"logmel": export.cuda_features.fused_logmel,
+            "subsampling": export.cuda_subsampling.fused_subsampling,
+            "attention": export.cuda_attention.fused_relpos_attention_block}
+warm = int(reqs["warmup"])
+for r in requests[:warm]:
+    ex.transcribe(r)
+torch.cuda.synchronize()
+for w in wrappers.values():
+    w.launches = 0
+texts = []
+t0 = time.perf_counter()
+for r in requests[warm:]:
+    texts.append(ex.transcribe(r))
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+counts = {k: w.launches for k, w in wrappers.items()}
+ids = []
+for idxs, sig, ln, p in ex.batches(requests[warm]):
+    with torch.inference_mode():
+        lp, enc_len = p(torch.from_numpy(sig).cuda(),
+                        torch.from_numpy(ln).cuda())
+    for j, i in enumerate(idxs):
+        ids.append((int(i), lp[j, :int(enc_len[j])].argmax(-1).tolist()))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpu_asr"))
+print(json.dumps({"load_s": load_s, "ops": ops, "counts": counts,
+                  "wall": wall, "texts": texts, "ids": ids, "bad": bad}))
+"""
+
+
+def export_phase(cfg, rtfx: float):
+    """Phase 26b: the serving artifact (convert/export.py) of ModelConfig()
+    in bf16 from phase 5's weights, one bucket (32 x 16 s), exported on
+    the card; loaded in a fresh process that imports only the port's
+    loader, which serves phase 5's window there (launch counters reset
+    just before, read just after); its graph's ops, its ids against the
+    Transcriber's on the first request by phase 4's bf16 rule, and its
+    RTFx beside phase 5's Transcriber's (`rtfx`)."""
+    import os
+    import tempfile
+
+    from tpu_asr_torch.convert.export import export_inference
+    from tpu_asr_torch.models.transcribe import Transcriber
+    from tpu_asr_torch.profile_forward import seeded_model
+
+    model = seeded_model(cfg, seed=2)
+    tok = serve_tokenizer(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    path = os.path.join(tmp, "model.tasrx")
+    t0 = time.perf_counter()
+    export_inference(model, tok, path, buckets=[EXPORT_BUCKET])
+    export_s = time.perf_counter() - t0
+    print(f"export: ModelConfig() bf16, bucket {EXPORT_BUCKET[0]} x "
+          f"{EXPORT_BUCKET[1]:.0f} s, exported on the card in {export_s:.1f} "
+          f"s, {os.path.getsize(path) / 2**20:.1f} MiB ({card_line()})")
+    requests = serve_requests()
+    arrays = {"count": len(requests), "warmup": SERVE_WARMUP}
+    for i, r in enumerate(requests):
+        arrays[f"n{i}"] = len(r)
+        arrays.update({f"r{i}_{j}": w for j, w in enumerate(r)})
+    np.savez(os.path.join(tmp, "requests.npz"), **arrays)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, path,
+                           os.path.join(tmp, "requests.npz")],
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the fresh process served the artifact "
+          f"(exit {proc.returncode}): {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(out["bad"] == [], f"the fresh process loaded no JAX or tpu_asr "
+          f"module: {out['bad']}")
+    want_ops = {"tpu_asr_torch.logmel.default",
+                "tpu_asr_torch.subsampling.default",
+                "tpu_asr_torch.relpos_attention_block.default"}
+    check(set(out["ops"]) == want_ops, f"the loaded program's graph names "
+          f"the serving path's ops: {out['ops']}")
+    check(all(v > 0 for v in out["counts"].values()),
+          f"every serving kernel launched inside the exported program's "
+          f"window: {out['counts']}")
+    window = requests[SERVE_WARMUP:]
+    flat = [t for r in out["texts"] for t in r]
+    check(len(flat) == SERVE_REQUESTS * SERVE_BATCH
+          and all(isinstance(t, str) for t in flat),
+          f"ExportedTranscriber answered {SERVE_REQUESTS} requests of "
+          f"{SERVE_BATCH} waveforms with strings, e.g. {flat[0]!r}")
+
+    # the first request's ids: the Transcriber's bf16 forward and the fp32
+    # plain model's margins, on the Transcriber's padding
+    from tpu_asr_torch.models.transcribe import _buckets
+    from tpu_asr_torch.profile_forward import set_backend
+    tr = Transcriber(model, tok, batch_size=SERVE_BATCH, device="cuda")
+    texts = tr.transcribe(window[0])
+    model32 = seeded_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                           seed=2)
+    set_backend(model32, "xla")
+    got = dict(out["ids"])
+    agree = n_dec = 0
+    for idxs, sig, ln in _buckets(window[0], SERVE_BATCH, tr.bucket_seconds,
+                                  SR):
+        with torch.inference_mode():
+            s_t, l_t = torch.from_numpy(sig).cuda(), torch.from_numpy(ln).cuda()
+            ref = model(s_t, l_t)
+            f32 = model32(s_t, l_t)
+        for j, i in enumerate(idxs):
+            n = int(ref.encoded_len[j])
+            top2 = f32.log_probs[j, :n].topk(2, dim=-1).values
+            decided = ((top2[:, 0] - top2[:, 1]) > 1e-1).cpu()
+            mine = torch.tensor(got[int(i)])
+            check(len(mine) == n, f"request clip {i}: {len(mine)} frames, "
+                  f"the Transcriber's {n}")
+            n_dec += int(decided.sum())
+            agree += int(((mine == ref.greedy[j, :n].cpu())
+                          & decided).sum())
+    same_text = sum(a == b for a, b in zip(texts, out["texts"][0]))
+    check(agree >= 0.99 * n_dec, f"exported program: ids equal to the "
+          f"Transcriber's on {agree} of {n_dec} frames with fp32 top-2 "
+          f"margin > 1e-1 (>= 99%); texts equal on {same_text} of "
+          f"{len(texts)} clips of the request")
+    audio_s = sum(len(w) for r in window for w in r) / SR
+    print(f"serve ExportedTranscriber (fresh process, {card_line()}): "
+          f"{SERVE_REQUESTS} requests x {SERVE_BATCH} clips, {audio_s:.2f} s "
+          f"of audio in {out['wall']:.4f} s wall: RTFx "
+          f"{audio_s / out['wall']:.1f}, Transcriber (phase 5, same run) "
+          f"{rtfx:.1f}; load {out['load_s']:.1f} s, the process "
+          f"{child_s:.1f} s; launches {out['counts']}")
+    return out["counts"], model, tok
+
+
+def codec_native_phase(model, tok):
+    """Phase 26c: the codec libraries of this host (data/codecs.py), one
+    Transcriber request on decoded MP3 clips where libmpg123 and
+    libmp3lame are present, and the native FLAC decoder (tpu_asr_torch/
+    native, built with the host C compiler) on a generated clip, bit-equal
+    to the Python decoder, both timed."""
+    import ctypes.util
+    import os
+    import tempfile
+
+    from tpu_asr_torch import native
+    from tpu_asr_torch.data import codecs
+    from tpu_asr_torch.data.flac import decode_flac
+    from tpu_asr_torch.models.transcribe import Transcriber
+
+    libs = {n: ctypes.util.find_library(n) for n in ("mpg123", "mp3lame",
+                                                     "opus")}
+    print(f"codec libraries on this host: {libs}; HAVE_MP3 "
+          f"{codecs.HAVE_MP3}, HAVE_MP3_ENCODE {codecs.HAVE_MP3_ENCODE}, "
+          f"HAVE_OPUS {codecs.HAVE_OPUS}")
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"native library: {lib} ({time.perf_counter() - t0:.2f} s)")
+    if codecs.HAVE_MP3 and codecs.HAVE_MP3_ENCODE:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mp3_")
+        paths = []
+        for i, w in enumerate(serve_requests()[SERVE_WARMUP]):
+            paths.append(os.path.join(tmp, f"clip{i}.mp3"))
+            with open(paths[-1], "wb") as f:
+                f.write(codecs.encode_mp3(w, SR))
+        tr = Transcriber(model, tok, batch_size=SERVE_BATCH, device="cuda")
+        read = reset_counters()
+        t0 = time.perf_counter()
+        texts = tr.transcribe(paths)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read().items() if k in SERVING}
+        check(len(texts) == len(paths) and all(isinstance(t, str)
+                                               for t in texts)
+              and all(v > 0 for v in counts.values()),
+              f"Transcriber on {len(paths)} MP3 clips (decoded by "
+              f"libmpg123): strings, e.g. {texts[0]!r}, launches {counts}, "
+              f"{time.perf_counter() - t0:.2f} s with the decode")
+    else:
+        print("MP3: libmpg123 or libmp3lame missing on this host; the MP3 "
+              "request is not run")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(   # the tests' encoder
+        "chip_smoke_flac_writer",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "flac_writer.py"))
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+    rng = np.random.default_rng(26)
+    t = np.arange(2 * SR)
+    x = np.clip(np.round(8000 * np.sin(t / 13.0)) + rng.integers(
+        -400, 400, t.size), -32768, 32767).astype(np.int64)
+    data = writer.encode_flac(x, SR, subframe_mode="fixed2")
+    got, sr = native.flac_decode(data)
+    want, sr_p = decode_flac(data)
+    check(sr == sr_p and np.array_equal(got, want),
+          f"native FLAC decode of a {len(x) / SR:.0f} s clip bit-equal to the "
+          f"Python decoder ({len(got)} samples)")
+    times = {}
+    for name, fn, reps in (("native", native.flac_decode, 5),
+                           ("python", decode_flac, 1)):
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(data)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[name] = float(np.median(ms))
+    print(f"FLAC decode of {len(x) / SR:.0f} s (host, {card_line()}): native "
+          f"{times['native']:.3f} ms (median of 5), Python "
+          f"{times['python']:.1f} ms (one call), host clock")
+
+
 def timed_phase(label: str, fn, *args):
     """fn(*args), then the phase's seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -5821,6 +6138,7 @@ def timed_phase(label: str, fn, *args):
 
 
 def main() -> int:
+    begin = time.perf_counter()
     card()
     from tpu_asr_torch.config import ModelConfig
     from tpu_asr_torch.ops import _kernels
@@ -5886,6 +6204,9 @@ def main() -> int:
     timed_phase("23", serving_surface_phase, cfg)
     timed_phase("24", ddp_phase)
     timed_phase("25", cache_phase)
+    timed_phase("26a", int8_streaming_phase, cfg)
+    _, model, tok = timed_phase("26b", export_phase, cfg, rtfx)
+    timed_phase("26c", codec_native_phase, model, tok)
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "
@@ -5899,6 +6220,8 @@ def main() -> int:
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library_ms})
+    print(f"chip_smoke: {time.perf_counter() - begin:.1f} s, the build "
+          f"included ({card_line()})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

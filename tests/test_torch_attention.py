@@ -19,6 +19,7 @@ valid query rows only (padded rows are garbage by contract).
   tensors the plain version's gradients (the window: test_torch_window.py).
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ valid query rows only (padded rows are garbage by contract):
   other devices.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ Tolerances: tokens, lengths, automaton tables and ARPA bytes exact; scores
 within 1e-4 (tests/test_beam_search.py's bound); LM log-probs within
 1e-12 (the same float64 host arithmetic)."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import json
 
 import numpy as np

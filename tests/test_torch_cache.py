@@ -31,6 +31,7 @@ teacher of 2 layers, d 64, 4 heads, a student of d 32, every dropout rate
 tests/test_torch_multi_step.py.)
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 import functools
 

@@ -9,6 +9,7 @@ tensor's max|ref|). Apart from tests/test_torch_cache.py so that each file
 compiles one JAX program and runs alone in under 30 s.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 from tests.test_torch_cache import check_cached_step, check_harvest
 
 

@@ -20,6 +20,7 @@
   teacher, --teacher_int8) and CommonVoice entry points run.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import re
 import sys
 import tarfile

@@ -19,12 +19,21 @@
   entry point's --help loads none of jax, jaxlib, flax, tpu_asr, optax,
   orbax, yaml and datasets (the machine with the card has none of them);
   without a CUDA device and without --platform cpu they exit with an
-  error; each flag whose path is not ported exits naming it
-  (--export_path), and so does a --resume_ckpt that names no file;
+  error; a --resume_ckpt that names no file exits naming it, and so does
+  building Hugging Face manifests without the `datasets` package or
+  without the dataset script;
+- the copies of JAX host code that must stay the same: data/codecs.py is
+  byte-equal to tpu_asr/data/codecs.py (the native C copies are held to
+  theirs by the bit-equality tests of tests/test_torch_native.py);
+- a CPU export of the serving artifact (convert/export.py) launches and
+  builds nothing, its graph holds no custom op, and the export, codec and
+  native modules load nothing of JAX (the fresh process that loads an
+  artifact: tests/test_torch_export_cli.py);
 - the data-parallel modules (tpu_asr_torch/parallel/) load none of JAX,
   flax or tpu_asr either.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import ast
 import dataclasses
 import inspect
@@ -130,7 +139,9 @@ def test_port_imports_no_jax():
                  "tpu_asr_torch.ops.beam_search",
                  "tpu_asr_torch.ops.ngram_lm",
                  "tpu_asr_torch.parallel.mesh",
-                 "tpu_asr_torch.parallel.launch", "chip_smoke"):
+                 "tpu_asr_torch.parallel.launch",
+                 "tpu_asr_torch.convert.export", "tpu_asr_torch.data.codecs",
+                 "tpu_asr_torch.native", "chip_smoke"):
         assert name in out["modules"]
     assert "tpu_asr_torch.host" not in out["modules"]
     assert out["bad"] == []
@@ -430,8 +441,6 @@ def test_cli_without_cuda_exits(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("entry,flags,what", [
-    ("asr_inference", ["--export_path", "x.tasrx", "--ckpt_path", "x"],
-     "--export_path"),
     ("asr_train", ["--resume_ckpt", "no/such/last"],
      "no/such/last: no such checkpoint"),
 ])
@@ -442,7 +451,54 @@ def test_cli_refused_flags_exit(entry, flags, what):
         mod.main(flags + ["--platform", "cpu", "--train_manifest", "t.jsonl"])
 
 
-def test_cli_refuses_hugging_face_manifests():
+def test_cli_refuses_hugging_face_manifests(monkeypatch, tmp_path):
+    """Without explicit manifests the CLI builds them from the Hugging Face
+    dataset script: it exits naming `datasets` where that package does not
+    import (here made so), and naming the script where its file is
+    missing. Nothing is downloaded."""
     from tpu_asr_torch.cli import asr_train
-    with pytest.raises(SystemExit, match="data_script_path"):
-        asr_train.main(["--platform", "cpu"])
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    script = tmp_path / "librispeech_asr.py"
+    script.write_text("")
+    with pytest.raises(SystemExit, match="needs the `datasets` package"):
+        asr_train.main(["--platform", "cpu", "--data_script_path",
+                        str(script), "--data_dir", str(tmp_path)])
+    with pytest.raises(SystemExit,
+                       match="--data_script_path .*no_such.py: no such file"):
+        asr_train.main(["--platform", "cpu", "--data_script_path",
+                        str(tmp_path / "no_such.py")])
+
+
+def test_codecs_copy_is_byte_equal():
+    assert (ROOT / "tpu_asr_torch" / "data" / "codecs.py").read_bytes() == \
+        (ROOT / "tpu_asr" / "data" / "codecs.py").read_bytes()
+
+
+def test_cpu_export_launches_and_builds_nothing(monkeypatch, tmp_path):
+    """export_inference and the loaded program on the CPU run the plain
+    versions: no launch, no build (a build would raise here), and no
+    `tpu_asr_torch::` op in the graph."""
+    from tpu_asr_torch.convert.export import export_inference, load_exported
+
+    def no_build():
+        raise AssertionError("a CPU export built the kernels")
+    monkeypatch.setattr(_kernels, "build", no_build)
+    cfg = ModelConfig(spec_augment=None,
+                      encoder=EncoderConfig(n_layers=1, d_model=32, n_heads=2,
+                                            conv_kernel_size=7,
+                                            quantization="int8",
+                                            conv_backend="pallas"),
+                      decoder=DecoderConfig(feat_in=32, num_classes=16),
+                      compute_dtype="float32")
+    art = export_inference(CTCModel(cfg), None, tmp_path / "a.tasrx",
+                           buckets=[(2, 0.25)], device="cpu")
+    ex = load_exported(art)
+    prog = ex.buckets[0][1]
+    assert not any(str(n.target).startswith(_kernels.OPS)
+                   for n in prog.graph.nodes)
+    sig = torch.randn(2, 4000, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        lp, _ = prog(sig, torch.tensor([4000, 2500], dtype=torch.int32))
+    assert torch.isfinite(lp).all()
+    assert all(w.launches == 0 for w in WRAPPERS)
+    assert _kernels.library.cache_info().currsize == 0

@@ -19,6 +19,7 @@ the CPU, inputs made with numpy from a seed.
   autograd and padding that does not match its taps.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

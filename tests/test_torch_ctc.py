@@ -16,6 +16,7 @@ target and an impossible alignment (zero_infinity).
   a non-unit cotangent and 2S+1 > 128.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

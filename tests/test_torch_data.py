@@ -2,9 +2,12 @@
 package's load_audio, on PCM files written with the standard library's
 `wave` module from seeded numpy audio: 8, 16, 24 and 32 bit, mono and
 stereo, at the model rate and resampled (polyphase, as both use scipy's
-resample_poly). MP3 and Ogg/Opus raise with a message that names them
-(FLAC and NIST SPHERE are held to JAX in tests/test_torch_pipeline.py)."""
+resample_poly). MP3 and Ogg/Opus go to their decoders (data/codecs.py),
+which refuse bytes that are not such a stream as JAX's do (decodes are
+held to JAX in tests/test_torch_codecs.py; FLAC and NIST SPHERE in
+tests/test_torch_pipeline.py)."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import wave
 
 import numpy as np
@@ -45,9 +48,17 @@ def test_load_audio_matches_jax(tmp_path, width, channels, sr):
 
 
 def test_other_containers_raise(tmp_path):
-    for name, head, what in (("a.mp3", b"ID3\x04", "MP3"),
-                             ("b.opus", b"OggS", "Ogg/Opus")):
+    """An ID3 tag or an Ogg page without a stream behind it raises the
+    codec's ValueError, JAX's message."""
+    from tpu_asr.data import codecs as jcodecs
+    if not (jcodecs.HAVE_MP3 and jcodecs.HAVE_OPUS):
+        pytest.skip("libmpg123/libopus missing")
+    for name, head, what in (("a.mp3", b"ID3\x04", "no decodable MP3"),
+                             ("b.opus", b"OggS", "Ogg page CRC")):
         path = tmp_path / name
         path.write_bytes(head + bytes(64))
-        with pytest.raises(ValueError, match=what):
+        with pytest.raises(ValueError, match=what) as got:
             load_audio(path)
+        with pytest.raises(ValueError) as want:
+            jax_load_audio(path)
+        assert str(got.value) == str(want.value)

@@ -28,6 +28,7 @@ is tests/test_torch_ddp_jax.py, apart so that each file stays under 30 s.)
   directory (rank 0's), and prints its result once.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 import json
 import os

@@ -22,6 +22,7 @@ this one is apart so that each file stays under 30 s alone: its four JAX
 programs compile here while the ranks run.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import functools
 from concurrent.futures import ThreadPoolExecutor
 

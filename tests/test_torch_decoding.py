@@ -8,6 +8,7 @@ Tolerances: tokens, frames, labels, offsets and texts exact; confidences
 within 1e-5; prefix-search scores within 1e-9 (the same float64 host
 arithmetic)."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import numpy as np
 import pytest
 import torch

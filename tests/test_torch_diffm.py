@@ -11,6 +11,7 @@ tests/test_torch_kd_menu.py):
   errors over its 1600 values).
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp

@@ -30,6 +30,7 @@ of 2 ranks (the other rank tests are in tests/test_torch_ddp.py).
   above the visible cards and `--host_devices` without `--platform cpu`.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import types
 
 import numpy as np

@@ -3,6 +3,7 @@ interpret-mode hash (tpu_asr/ops/pallas_attention.py::_dropout_keep),
 bit for bit, including seeds and streams near and past int32 overflow, and
 the stream layouts of the attention and FFN kernels."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

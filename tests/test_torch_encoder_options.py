@@ -26,6 +26,7 @@ convert/from_jax.py.
   tests/test_torch_window.py.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

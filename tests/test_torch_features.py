@@ -19,6 +19,7 @@ package, fp32 on the CPU, inputs made with numpy from a seed.
   plain version's log-mel within 1e-4.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

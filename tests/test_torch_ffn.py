@@ -12,6 +12,7 @@ numpy from a seed.
 - the wrapper runs the plain version on the CPU and launches nothing.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,9 +24,11 @@ utils/checkpoint.py, utils/exp_manager.py):
   SIGTERM during a fit saving the checkpoint before exiting 143; a
   SIGTERM that lands inside the optimizer's update (parameters moved, the
   step not yet counted) is saved after the step, and the fit resumed from
-  that checkpoint equals the fit never stopped, bit for bit.
+  that checkpoint equals the fit never stopped, bit for bit;
+- MetricsLogger's W&B passthrough with a stand-in `wandb` module.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 import json
 
@@ -323,3 +325,44 @@ def test_sigterm_saves_then_exits(tmp_path):
     assert signal.getsignal(signal.SIGTERM) is before
     saved = torch.load(tr.ckpt_dir / "last", weights_only=True)
     assert (saved["step"], saved["epoch"], saved["epoch_step"]) == (2, 1, 1)
+
+
+def test_metrics_logger_passes_rows_to_wandb(monkeypatch, tmp_path):
+    """MetricsLogger's W&B passthrough (JAX's, tpu_asr/train/loop.py), with
+    a stand-in `wandb` module (the package is not installed): init on the
+    main process with the project, name and workdir, every JSONL row
+    logged at its step; without `wandb`, or when its init raises, the
+    JSONL alone."""
+    import sys
+    import types
+
+    from tpu_asr_torch.train.loop import MetricsLogger
+    calls = []
+
+    class Run:
+        def log(self, row, step):
+            calls.append(("log", row, step))
+
+    def init(project=None, name=None, dir=None):
+        calls.append(("init", project, name, dir))
+        return Run()
+
+    monkeypatch.setitem(sys.modules, "wandb", types.SimpleNamespace(init=init))
+    logger = MetricsLogger(tmp_path / "a", project="p", name="n")
+    logger.log({"loss": torch.tensor(1.5), "note": "x"}, 3)
+    assert calls == [("init", "p", "n", str(tmp_path / "a")),
+                     ("log", {"step": 3, "loss": 1.5}, 3)]
+    assert json.loads((tmp_path / "a" / "metrics.jsonl").read_text()) == \
+        {"step": 3, "loss": 1.5}
+
+    def broken(**_):
+        raise RuntimeError("no network")
+    monkeypatch.setitem(sys.modules, "wandb",
+                        types.SimpleNamespace(init=broken))
+    MetricsLogger(tmp_path / "b").log({"loss": 2.0}, 1)
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    MetricsLogger(tmp_path / "c").log({"loss": 2.0}, 1)
+    for d in "bc":
+        assert (tmp_path / d / "metrics.jsonl").read_text() == \
+            '{"step": 1, "loss": 2.0}\n'
+    assert len(calls) == 2

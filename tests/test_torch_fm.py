@@ -20,6 +20,7 @@ in interpret mode on the CPU, inputs made with numpy from a seed:
   C = 88 and H = 128 only, max_steps 1..16 and no float16 in either.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -25,6 +25,7 @@ from a seed:
   which leaves it out); rows that are not whole stacked layers raise.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

@@ -41,6 +41,7 @@ JAX's layerwise_mse_loss on the port's drawn weights and whose weights lie
 within their bounds.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 import functools
 

@@ -11,6 +11,7 @@ takes, against the JAX package on the CPU:
 - configurations JAX's model cannot run raise at construction.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

@@ -3,6 +3,7 @@ interCTC on both student layers and diffm ver 5 against the JAX package on
 the CPU, by the rules of tests/test_torch_kd_menu.py (case
 v5_per_layer_interctc)."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 from tests.test_torch_kd_menu import run_case
 
 

@@ -41,6 +41,7 @@ spread (0.02 where it has none), so no identity hides a mapping and the
 activations keep the scale of a trained model at these widths.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

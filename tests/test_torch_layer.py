@@ -38,6 +38,7 @@ ConformerLayer, then `layer_params`:
   answer as before, and d1024 / 8 heads is refused.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

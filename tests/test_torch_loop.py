@@ -28,6 +28,7 @@ test_torch_loop_kd.py:
   1e-5 of JAX's `evaluate`.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import functools
 import json
 

@@ -3,6 +3,7 @@ test_torch_loop.py (per-step losses, the port's own trained weights,
 `evaluate` on them) with `use_logit_distillation`, so the frozen teacher's
 forward and the KD loss run inside every step of both fits."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 from test_torch_loop import cancelled, fit_both
 
 

@@ -20,6 +20,7 @@ load), inputs made with numpy from a seed:
   resolve_euler_backend does.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import flax.linen as fnn

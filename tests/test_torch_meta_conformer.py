@@ -10,6 +10,7 @@ loss (the test would see a stacked route). JAX's nn.Dropout is an identity
 in the test process and the port's meta-encoder dropout rate 0.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ the JAX package's on the CPU: loss, x_final and gradients by the rules of
 tests/test_torch_meta.py (which holds the other meta encoders and the
 conformer in eval)."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 from tests.test_torch_meta import check_meta, no_dropout  # noqa: F401
 
 

@@ -12,6 +12,7 @@ with numpy from a seed.
 - the port's Transcriber gives JAX's Transcriber's texts.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ data/dataset.py stack_batches, train/loop.py):
 """
 
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ difference (tests/test_torch_train.py). Apart from
 tests/test_torch_multi_step.py so that each file runs alone in under 30 s.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import functools
 
 import jax

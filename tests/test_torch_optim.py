@@ -17,6 +17,7 @@ adafactor; Noam schedule; global-norm clipping; the teacher frozen).
   jax.eval_shape of its init: one group per JAX leaf, of the same size.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import functools
 
 import jax

@@ -32,6 +32,7 @@ inputs made with numpy from a seed, weights carried by the bridge
 - a CPU packed step launches no kernel and builds nothing.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,7 @@ bridge (tpu_asr_torch.convert.from_jax).
   holds packed training against JAX).
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,14 +6,16 @@ the CPU, from seeded numpy audio:
 - FLAC (written with tests/flac_writer.py: every subframe mode, stereo
   decorrelation, 24 bit, wasted bits) and NIST SPHERE (mono and stereo)
   decoded by the port's `load_audio` against JAX's `load_audio`, within
-  1e-6 (bit-equal where both are exact), MP3 and Ogg named in the refusal;
+  1e-6 (bit-equal where both are exact);
 - `make_dataloader` (shuffle, bucketing_batch_size as an int and a list,
   shards, pad_batch_to, two epochs, 4 worker threads, WAV and FLAC clips at
   16 kHz and a resampled 22.05 kHz one) and the tarred loader (two shards,
   two epochs) yield batches bit-equal to JAX's;
 - the decode cache: a stale entry without its sidecar is decoded again by
   the port, while JAX's dataset still serves it (its pre-sidecar trust);
-- the manifests read and written across the two packages;
+- the manifests read and written across the two packages, and
+  build_manifest_from_hf on in-memory rows writing JAX's bytes for each
+  corpus;
 - the YAML reader (utils/yaml_subset.py) equal to `yaml.safe_load` on
   configs/conformer_ctc_small.yaml, on the configs of the `.nemo` fixtures
   of tests/test_cli.py and tests/test_nemo_real_format.py (vocabularies with
@@ -21,6 +23,7 @@ the CPU, from seeded numpy audio:
   it does not read.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import io
 import tarfile
 
@@ -266,8 +269,73 @@ def test_manifests_across_packages(tmp_path):
         (tmp_path / "p.jsonl").read_bytes()
     assert [vars(e) for e in pman.read_manifest(tmp_path / "j.jsonl")] == \
         [vars(e) for e in entries]
-    with pytest.raises(NotImplementedError, match="datasets"):
-        pman.build_manifest_from_hf(None, "x", "y")
+
+
+def _hf_rows(tmp_path, corpus):
+    """In-memory Hugging Face rows (tests/test_data.py's schema) over every
+    rung of the path ladder: an existing audio.path, a `file` found under
+    cache/extracted, an array written to a tmp WAV (named by `file`, then
+    by `id`), a row with neither path nor array; durations around
+    gigaspeech's 1 s floor; texts with tags, tag-only ones and a
+    `sentence` field."""
+    sr = 16000
+    rng = np.random.default_rng(len(corpus))
+    arr = lambda s: (0.1 * rng.normal(size=int(sr * s))).astype(np.float32)
+    real = tmp_path / "audio" / "real.flac"
+    real.parent.mkdir(parents=True, exist_ok=True)
+    real.write_bytes(b"fLaC")
+    found = tmp_path / "cache" / "extracted" / "x" / "deep.flac"
+    found.parent.mkdir(parents=True, exist_ok=True)
+    found.write_bytes(b"fLaC")
+    texts = ["Hello {COUGH} <COMMA> World <sil> It's", "<MUSIC> <NOISE>",
+             "a “quoted” clip – okay… <PERIOD>", "ALL CAPS 123",
+             "short one", "français déjà vu?"]
+    rows = [
+        {"audio": {"path": str(real), "array": arr(1.5),
+                   "sampling_rate": sr}, "text": texts[0]},
+        {"audio": {"path": "gone/deep.flac", "array": arr(2.0),
+                   "sampling_rate": sr}, "file": "deep.flac",
+         "text": texts[1]},
+        {"audio": {"path": None, "array": arr(1.25), "sampling_rate": sr},
+         "file": "utt7.flac", "id": "u7", "text": texts[2]},
+        {"audio": {"path": None, "array": arr(1.1), "sampling_rate": 8000},
+         "id": "u8", "sentence": texts[3], "text": "ignored"},
+        {"audio": {"path": None, "array": arr(0.5), "sampling_rate": sr},
+         "id": "u9", "text": texts[4]},
+        {"audio": {"path": None, "array": None}, "id": "u10",
+         "text": texts[5]},
+        {"audio": {"path": None, "array": arr(1.0), "sampling_rate": sr},
+         "id": "u11", "sentence": texts[5]},
+    ]
+    return rows
+
+
+@pytest.mark.parametrize("corpus", ["librispeech", "tedlium", "gigaspeech",
+                                    "commonvoice"])
+def test_build_manifest_from_hf_writes_jax_bytes(tmp_path, corpus):
+    """build_manifest_from_hf on in-memory rows writes JAX's manifest byte
+    for byte, and its tmp WAVs' bytes: each corpus's normalizer,
+    gigaspeech's 1 s floor and tag-only skips, the path ladder. Both run
+    in one cache directory, JAX's tmp WAVs removed before the port runs
+    (a second writer of a name takes a random suffix)."""
+    import shutil
+    rows = _hf_rows(tmp_path, corpus)
+    cache = tmp_path / "cache"
+    out = {}
+    for name, build in (("jax", jman.build_manifest_from_hf),
+                        ("port", pman.build_manifest_from_hf)):
+        man = tmp_path / f"{name}.jsonl"
+        n = build(rows, str(man), str(cache), corpus=corpus)
+        wavs = sorted(cache.glob("tmp_audio/**/*.wav"))
+        out[name] = (n, man.read_bytes(),
+                     [(w.relative_to(cache), w.read_bytes()) for w in wavs])
+        shutil.rmtree(cache / "tmp_audio", ignore_errors=True)
+    assert out["port"] == out["jax"]
+    n, lines = out["port"][0], out["port"][1].decode().splitlines()
+    assert n == len(lines) == (4 if corpus == "gigaspeech" else 6)
+    with pytest.raises(ValueError, match="unknown corpus"):
+        pman.build_manifest_from_hf(rows, str(tmp_path / "x"), str(cache),
+                                    corpus="wsj")
 
 
 def _fixture_configs():

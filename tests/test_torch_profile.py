@@ -9,6 +9,7 @@ profilers' model choices: profile_forward --model small|large|xlarge
 (`model_config`), profile_train's ctc_large and ctc_xlarge (CTC alone on
 those models), profile_kernels' dk-128 rows."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import re
 from pathlib import Path
 from types import SimpleNamespace

@@ -19,6 +19,7 @@ package on the CPU, inputs made with numpy from a seed.
   refuses to run under autograd.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

@@ -23,6 +23,7 @@ The whole model's eval forward with the router: test_torch_router_eval.py;
 its whole KD steps: test_torch_router_{group,mode,avg,median}.py.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 + DiffKD + diffm ver 3 against the JAX package on the CPU, by the rules of
 tests/test_torch_kd_menu.py (case v3_batch_avg_diffkd)."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 from tests.test_torch_kd_menu import run_case
 
 

@@ -4,6 +4,7 @@ tests/test_torch_kd_menu.py, router 'group', router_fc2 solved for a
 60-logit margin so that both take the same argmax steps): the teacher runs
 for the router's input, log-probs at 1e-4, greedy ids equal."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import torch

@@ -3,6 +3,7 @@ middle) + layerwise 'last' + diffm ver 4 against the JAX package on the CPU,
 by the rules of tests/test_torch_kd_menu.py (case
 v4_batch_median_layerwise_last)."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 from tests.test_torch_kd_menu import run_case
 
 

@@ -27,6 +27,7 @@
   rebuilt after a change of its running statistics).
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import pytest
 import torch
 

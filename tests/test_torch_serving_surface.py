@@ -8,6 +8,7 @@ bridge (convert/from_jax.py) and waveforms made with numpy from a seed.
 Tolerances: texts, ids, offsets and timestamp seconds exact; log-probs
 within 1e-4."""
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ package on the CPU, inputs made with numpy from a seed.
   not take (C % 8 != 0, C above its limit, F/4 above 80).
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import dataclasses
 
 import jax

@@ -28,6 +28,7 @@ ragged lengths.
   equal to the plain version with no launch counted.
 """
 
+import tests.torch_threads  # noqa: F401  (first: CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,19 +29,22 @@ wrappers, runnable with `python -m tpu_asr_torch.cli.<name>`.
   manifests' texts, saved as `checkpoints/tokenizer.model`, which inference
   prefers to training another.
 - Manifests: `--train_manifest / --val_manifest / --test_manifest`, the
-  last two also as "name=path,name=path".
+  last two also as "name=path,name=path"; without any of them each split
+  is built from the Hugging Face dataset `--data_script_path`
+  (`prepare_manifests`), which needs the `datasets` package.
 - `--teacher_int8` runs the frozen teacher's FFN sublayers in int8.
 - `--ckpt_path` of asr_inference takes `checkpoints/last` (the whole train
   state) or a student export (`checkpoints/student`, the student's
   weights only, which serves a run without flow matching, whose decoder
   input is the student's own encoder output).
+- `--export_path PATH` (asr_inference) writes the restored student's
+  serving artifact (convert/export.py: one torch.export program a
+  `--export_buckets` batch:seconds shape, the kernels inside as custom
+  ops) and exits before evaluation.
 
-Refused with a message naming what is missing (SystemExit): `--export_path`,
-and building manifests from a Hugging Face `--data_script_path` (no
-explicit manifests), which needs the `datasets` package. The Trainer
-refuses, as JAX's does, `--cache_teacher` with flow matching, DiffKD, diffm
-or all-scope layerwise KD (`--cache_teacher_all` serves them) and a cache
-with `--steps_per_dispatch` > 1.
+The Trainer refuses, as JAX's does, `--cache_teacher` with flow matching,
+DiffKD, diffm or all-scope layerwise KD (`--cache_teacher_all` serves
+them) and a cache with `--steps_per_dispatch` > 1.
 """
 
 from __future__ import annotations
@@ -55,8 +58,6 @@ import sys
 import tempfile
 from pathlib import Path
 from typing import Dict, Optional
-
-LATER = "not ported to tpu_asr_torch yet (ROADMAP.md, Queue 1)"
 
 
 def str2bool(v):
@@ -202,9 +203,14 @@ def build_inference_parser(description: str, diffm: bool = False):
     p.add_argument("--packed_eval", action="store_true",
                    help="packed-segment evaluation: several utterances a "
                         "row of the encoder (Trainer.evaluate_packed)")
+    # serialized serving artifact (torch.export with the kernels as custom
+    # ops; the ExportableEncDecModel equivalent, convert/export.py)
     p.add_argument("--export_path", type=str, default=None,
-                   help="a serialized-inference artifact (not ported)")
-    p.add_argument("--export_buckets", type=str, default="8:4,8:8,8:16")
+                   help="write a .tasrx serialized-inference artifact of "
+                        "the restored student and exit before evaluation")
+    p.add_argument("--export_buckets", type=str, default="8:4,8:8,8:16",
+                   help="comma-separated batch:seconds static shapes for "
+                        "--export_path")
     if diffm:
         p.add_argument("--model_ver", type=parse_model_version, default=1)
         p.add_argument("--latent_dim", type=int, default=96)
@@ -307,33 +313,65 @@ def load_teacher(args):
 
 
 def prepare_manifests(args, corpus: str) -> Dict[str, str]:
-    """Explicit manifests ("path", or "name=path,name=path" for the val and
-    test flags). Building them from a Hugging Face dataset is refused."""
+    """Manifest resolution, as JAX's: explicit manifests win ("path", or
+    "name=path,name=path" for the val and test flags); otherwise each split
+    is built once from the Hugging Face dataset `--data_script_path`
+    (`load_dataset`, reference asr_train.py:1615-1681) into
+    `<data_dir>/manifests/`, with --test_mode's 100-sample reduction. That
+    needs the `datasets` package, imported only here: without it, or
+    without the script's file, SystemExit names what is missing."""
     explicit = {"train": args.train_manifest, "val": args.val_manifest,
                 "test": args.test_manifest}
-    if not any(explicit.values()):
+    if any(explicit.values()):
+        out = {}
+        for k, v in explicit.items():
+            if not v:
+                continue
+            if "=" in v:
+                for part in v.split(","):
+                    name, path = part.split("=", 1)
+                    out[name] = path
+            else:
+                out[k] = v
+        return out
+
+    script = args.data_script_path
+    if script.endswith(".py") and not os.path.isfile(script):
+        raise SystemExit(f"--data_script_path {script}: no such file (pass "
+                         "--train_manifest / --val_manifest / "
+                         "--test_manifest, or a dataset script)")
+    try:
+        from datasets import load_dataset
+    except ImportError:
         raise SystemExit(
-            f"building {corpus} manifests from the Hugging Face dataset "
-            f"--data_script_path {args.data_script_path} is {LATER}; pass "
-            "--train_manifest / --val_manifest / --test_manifest")
-    out = {}
-    for k, v in explicit.items():
-        if not v:
+            f"building {corpus} manifests from --data_script_path {script} "
+            "needs the `datasets` package, which is not installed; pass "
+            "--train_manifest / --val_manifest / --test_manifest") from None
+
+    from tpu_asr_torch.data.manifest import build_manifest_from_hf
+
+    manifest_dir = os.path.join(args.data_dir, "manifests")
+    os.makedirs(manifest_dir, exist_ok=True)
+    cache_dir = os.path.join(args.data_dir, "cache")
+    splits = {"train": args.data_train_split, "val": args.data_val_split,
+              "test": args.data_test_split}
+    manifests = {}
+    for name, split in splits.items():
+        if not split:                  # e.g. inference CLIs with no train set
             continue
-        if "=" in v:
-            for part in v.split(","):
-                name, path = part.split("=", 1)
-                out[name] = path
-        else:
-            out[k] = v
-    return out
-
-
-def refuse_flags(args) -> None:
-    """SystemExit for a flag whose path the port does not have."""
-    if getattr(args, "export_path", None):
-        raise SystemExit("tpu_asr_torch: --export_path (the serialized-"
-                         f"inference export): {LATER}")
+        suffix = "_testmode" if args.test_mode else ""
+        path = os.path.join(manifest_dir, f"{name}{suffix}.json")
+        if not os.path.isfile(path):
+            ds = load_dataset(script, args.data_config_name, split=split,
+                              trust_remote_code=True, cache_dir=cache_dir,
+                              token=getattr(args, "hf_token", None))
+            if args.test_mode:
+                ds = ds.select(range(min(100, len(ds))))
+            build_manifest_from_hf(ds, path, cache_dir, corpus=corpus)
+        manifests[name] = path
+    if args.test_mode:
+        args.epochs = 5
+    return manifests
 
 
 def on_ranks(run, args, *rest):
@@ -486,7 +524,6 @@ def run_training(args, corpus: str = "librispeech",
     from tpu_asr_torch.train.loop import Trainer
     from tpu_asr_torch.utils.checkpoint import export_student
 
-    refuse_flags(args)
     if args.resume_ckpt is not None and not os.path.isfile(args.resume_ckpt):
         raise SystemExit(f"--resume_ckpt {args.resume_ckpt}: no such "
                          "checkpoint file")
@@ -539,7 +576,6 @@ def run_inference(args, diffm_version: Optional[int] = None
     from tpu_asr_torch.utils.checkpoint import (load_student,
                                                 restore_train_state)
 
-    refuse_flags(args)
     if not mesh.initialized():
         ran, results = on_ranks(run_inference, args, diffm_version)
         if ran:
@@ -566,6 +602,17 @@ def run_inference(args, diffm_version: Optional[int] = None
                                             name=ckpt.name)
     else:
         load_student(ckpt, model.student)
+
+    if getattr(args, "export_path", None):
+        if main:
+            from tpu_asr_torch.convert.export import export_inference
+            buckets = [(int(b.split(":")[0]), float(b.split(":")[1]))
+                       for b in args.export_buckets.split(",") if b]
+            out = export_inference(model.student, tokenizer,
+                                   args.export_path, buckets=buckets,
+                                   device=device)
+            print(f"serialized inference artifact: {out}")
+        return {}
 
     packed = getattr(args, "packed_eval", False)
     if packed and model.distill.use_flow_matching:

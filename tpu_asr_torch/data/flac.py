@@ -1,5 +1,6 @@
-"""Pure-Python FLAC decoder: the port's own copy of tpu_asr/data/flac.py
-(native/flacio.c's C fast path is not built for the port). Implements the
+"""Pure-Python FLAC decoder: the port's own copy of tpu_asr/data/flac.py,
+the plain version of the native decoder (tpu_asr_torch/native, a copy of
+native/flacio.c), which `read_audio` takes. Implements the
 FLAC bitstream format (RFC 9639) from the spec: CONSTANT / VERBATIM / FIXED(0-4) / LPC(1-32) subframes,
 partitioned Rice/Rice2 residuals with escape codes, wasted bits, and
 left-side / right-side / mid-side stereo decorrelation.

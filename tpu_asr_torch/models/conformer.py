@@ -54,9 +54,12 @@ Cache-aware streaming (`ConformerEncoder.stream_step`, JAX's encoder with
 `cache`): per-layer caches of the last C post-LN attention inputs and of
 the last `pad_l` post-GLU conv inputs, both rolled by each sample's own
 valid count; keys and values over [cache; chunk], queries over the chunk;
-the causal pre-encode's recomputed leading frames dropped. As in JAX, a
-cached step runs plain PyTorch throughout: the attention, conv and
-subsampling kernels take no cache, and the FFN sublayers run unfused.
+the causal pre-encode's recomputed leading frames dropped. As in JAX, the
+attention, conv and subsampling of a cached step run plain PyTorch (their
+kernels take no cache) and the float FFN sublayers run unfused; with
+`quantization='int8'` the FFN sublayers take the eval route of
+`_eval_ffn` (the int8 kernel on a CUDA tensor, which takes any rows), the
+function of JAX's unfused int8_dense FFN.
 
 Training (`train=True` with a `torch.Generator`): every dropout site draws
 its mask from the counter hash of ops/dropout.py with a seed drawn per step
@@ -709,18 +712,18 @@ class ConformerLayer(nn.Module):
 
     def _cached_forward(self, x, pos_emb, mask, lc, lc_len, lt):
         """The eval layer of a streaming step (JAX's ConformerLayer with
-        `cache`): the FFN sublayers unfused; the channel cache takes the
-        chunk's post-LN attention inputs, rolled by each sample's valid
-        count so that validity stays right-aligned (a partial final
-        chunk's pad frames never enter it). int8 streaming is refused: JAX
-        runs its unfused int8_dense FFN there, which the port has no copy
-        of."""
+        `cache`): the FFN sublayers unfused, or with quantization='int8'
+        through `_eval_ffn` (the int8 kernel, its plain version under
+        'xla'), which computes JAX's int8_dense FFN; the channel cache
+        takes the chunk's post-LN attention inputs, rolled by each
+        sample's valid count so that validity stays right-aligned (a
+        partial final chunk's pad frames never enter it). The conv module
+        and the attention run in float, as in JAX."""
         if self.cfg.quantization == "int8":
-            raise ValueError("cache-aware streaming with quantization='int8' "
-                             "is not ported")
-
-        def ffn(norm, ff, z):
-            return z + 0.5 * ff(_layer_norm(norm, z))
+            ffn = self._eval_ffn
+        else:
+            def ffn(norm, ff, z):
+                return z + 0.5 * ff(_layer_norm(norm, z))
 
         x = ffn(self.norm_feed_forward1, self.feed_forward1, x)
         h = _layer_norm(self.norm_self_att, x)

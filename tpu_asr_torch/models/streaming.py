@@ -21,7 +21,9 @@ pads its output with zeros, so its first frames differ from the offline
 forward's wherever a bias of that conv is positive. From the second step
 on, the port's steps are JAX's.
 
-As in JAX, a step runs plain PyTorch (the kernels take no cache); `stream`
+As in JAX, a step runs plain PyTorch (the kernels take no cache), but for
+the FFN sublayers of an int8 model (`quantization='int8'`), which run the
+int8 FFN kernel on a CUDA tensor as offline int8 serving does; `stream`
 featurizes the whole clip first, on the log-mel kernel for a CUDA tensor.
 
 Requires a streaming encoder: `causal_downsampling=True`,

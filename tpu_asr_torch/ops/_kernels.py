@@ -17,11 +17,22 @@ builds exactly once and an edited source rebuilds. The compiler logs (with
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `call` raises if that is not 0.
+
+The serving wrappers (log-mel, subsampling, the block attention, the eval
+and int8 FFN sublayers, the conv module) are also `torch.library` custom
+ops in the `tpu_asr_torch::` namespace, each with a fake (shape)
+implementation, so that `torch.export` records them in a graph
+(convert/export.py): a wrapper traced with a CUDA tensor calls its op,
+whose CUDA implementation launches the kernel (and counts the launch) and
+whose CPU implementation is the plain version. An eager call launches
+directly, without the dispatcher (`tracing`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -148,6 +159,50 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: non-contiguous tensor {tuple(t.shape)}")
 
 
+OPS = "tpu_asr_torch"          # the custom ops' namespace
+_EAGER = (torch.Tensor, torch.nn.Parameter)
+_CPU_OPS = contextvars.ContextVar("tpu_asr_torch_cpu_ops", default=False)
+
+
+def tracing(*tensors: torch.Tensor) -> bool:
+    """Whether the call is being traced into a graph (torch.export,
+    torch.compile): a wrapper then calls its custom op, which the graph
+    records, where an eager call launches directly. The tensors of a
+    trace are fake (or functional) subclasses."""
+    return (torch.compiler.is_compiling()
+            or any(type(t) not in _EAGER for t in tensors))
+
+
+@contextlib.contextmanager
+def cpu_ops():
+    """Within it, a wrapper traced with CPU tensors records its custom op
+    (whose CPU implementation is the plain version) instead of the plain
+    version's operations: a CPU export then names the ops as a card's
+    does (the tests). Eager CPU calls are unchanged."""
+    token = _CPU_OPS.set(True)
+    try:
+        yield
+    finally:
+        _CPU_OPS.reset(token)
+
+
+def plain_on_cpu(t: torch.Tensor) -> bool:
+    """Whether a wrapper given `t` runs its plain version: a CPU tensor,
+    unless `cpu_ops` asks for the op in a trace."""
+    return t.device.type == "cpu" and not (_CPU_OPS.get() and tracing(t))
+
+
+def custom_op(name: str, schema: str, fake):
+    """Register fn as the custom op `tpu_asr_torch::name` with `schema`
+    (no mutation) and the shape function `fake`; returns the op."""
+    def register(fn):
+        op = torch.library.custom_op(f"{OPS}::{name}", fn, mutates_args=(),
+                                     schema=schema)
+        op.register_fake(fake)
+        return op
+    return register
+
+
 def use_kernel(backend: str, refusal: Optional[str]) -> bool:
     """Whether a model route calls the kernel wrapper. `refusal` is what
     the wrapper's own pre-launch check would say of the call (None: the
@@ -169,14 +224,14 @@ def prepared(fn):
     an entry is used only while its tensors are alive. Copies are built
     outside autograd and outside inference mode, so that one built while
     serving may be saved for a backward later; an inference tensor among
-    the arguments keeps no version counter, and then nothing is cached. The
-    newest 64 entries are kept."""
+    the arguments keeps no version counter, and a traced one no storage,
+    and then nothing is cached. The newest 64 entries are kept."""
     entries = collections.OrderedDict()
 
     @functools.wraps(fn)
     def get(*args):
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        if any(t.is_inference() for t in tensors):
+        if tracing(*tensors) or any(t.is_inference() for t in tensors):
             return fn(*args)
         key = tuple((id(a), a.data_ptr(), a._version, a.dtype, a.device,
                      tuple(a.shape)) if isinstance(a, torch.Tensor) else a

@@ -320,48 +320,59 @@ def _block_weights(wq, wk, wv, w_pos, wo, bq, bias_u, bias_v, bk, bv, dt):
                 bk.float().contiguous(), bv.float().contiguous()]
 
 
+def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
+            mask, n_heads, rate, seed, seg, window, train):
+    """The forward kernel: (out, the tensors its backward reads, or None
+    when not `train`)."""
+    dt = x.dtype
+    b, t, d = x.shape
+    h = n_heads
+    dk = d // h
+    x = x.contiguous()
+    *w, cu, cv, bk_, bv_ = _block_weights(wq, wk, wv, w_pos, wo, bq,
+                                          bias_u, bias_v, bk, bv, dt)
+    pe = pos_emb.to(dt).contiguous()
+    key_bias = torch.zeros((b, t), device=x.device).masked_fill(~mask,
+                                                                -1e30)
+    new = lambda *shape: torch.empty(shape, dtype=dt, device=x.device)
+    qu, qv, k, v = (new(b, h, t, dk) for _ in range(4))
+    p = new(h, 2 * t - 1, dk)
+    ctx_buf, out = new(b, t, d), new(b, t, d)
+    lse = (torch.empty((b, h, t), device=x.device) if train else None)
+    tensors = [x, *w, cu, cv, bk_, bv_, pe, key_bias, qu, qv, k, v, p,
+               ctx_buf, out]
+    K.check_cuda("fused_relpos_attention_block", *tensors,
+                 *(z for z in (lse, seg) if z is not None))
+    K.call("tat_attention", _ARGS, x.device, int(dt == torch.bfloat16),
+           *(z.data_ptr() for z in tensors),
+           *(None if z is None else z.data_ptr() for z in (lse, seg)),
+           b, t, d, h, *window, *_drop_args(rate, seed),
+           _round_up(t, 128))
+    fused_relpos_attention_block.launches += 1
+    if seg is not None:
+        fused_relpos_attention_block.seg_launches += 1
+    if window != (-1, -1):
+        fused_relpos_attention_block.window_launches += 1
+    saved = ((x, *w, qu, qv, k, v, p, ctx_buf, lse, key_bias, pe)
+             if train else None)
+    return out, saved
+
+
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo,
                 pos_emb, mask, n_heads, rate, seed, seg, window):
-        dt = x.dtype
-        b, t, d = x.shape
-        h = n_heads
-        dk = d // h
         train = any(ctx.needs_input_grad)
-        x = x.contiguous()
-        *w, cu, cv, bk_, bv_ = _block_weights(wq, wk, wv, w_pos, wo, bq,
-                                              bias_u, bias_v, bk, bv, dt)
-        pe = pos_emb.to(dt).contiguous()
-        key_bias = torch.zeros((b, t), device=x.device).masked_fill(~mask,
-                                                                    -1e30)
-        new = lambda *shape: torch.empty(shape, dtype=dt, device=x.device)
-        qu, qv, k, v = (new(b, h, t, dk) for _ in range(4))
-        p = new(h, 2 * t - 1, dk)
-        ctx_buf, out = new(b, t, d), new(b, t, d)
-        lse = (torch.empty((b, h, t), device=x.device) if train else None)
-        tensors = [x, *w, cu, cv, bk_, bv_, pe, key_bias, qu, qv, k, v, p,
-                   ctx_buf, out]
-        K.check_cuda("fused_relpos_attention_block", *tensors,
-                     *(z for z in (lse, seg) if z is not None))
-        K.call("tat_attention", _ARGS, x.device, int(dt == torch.bfloat16),
-               *(z.data_ptr() for z in tensors),
-               *(None if z is None else z.data_ptr() for z in (lse, seg)),
-               b, t, d, h, *window, *_drop_args(rate, seed),
-               _round_up(t, 128))
-        fused_relpos_attention_block.launches += 1
-        if seg is not None:
-            fused_relpos_attention_block.seg_launches += 1
-        if window != (-1, -1):
-            fused_relpos_attention_block.window_launches += 1
+        out, saved = _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v,
+                             w_pos, wo, pos_emb, mask, n_heads, rate, seed,
+                             seg, window, train)
         if train:
             # seg is an int map without gradient, kept beside the saved
             # tensors: the backward's segment mode reads the same map, and
             # its window the same window
-            ctx.n_heads, ctx.rate, ctx.seed, ctx.seg = h, rate, seed, seg
+            ctx.n_heads, ctx.rate, ctx.seed, ctx.seg = n_heads, rate, seed, seg
             ctx.window = window
-            ctx.save_for_backward(x, *w, qu, qv, k, v, p, ctx_buf, lse,
-                                  key_bias, pe)
+            ctx.save_for_backward(*saved)
         return out
 
     @staticmethod
@@ -455,23 +466,44 @@ def fused_relpos_attention_block(
     packed-segment map, runs the kernels' segment mode, forward and
     backward; `att_context_size` (left, right) their window, alone or with
     the segments. `seg_launches` counts the launches in segment mode and
-    `window_launches` those with a limited window, beside `launches`."""
+    `window_launches` those with a limited window, beside `launches`.
+    Traced without gradients or dropout, it records the custom op
+    `tpu_asr_torch::relpos_attention_block`."""
     window = tuple(int(c) for c in att_context_size)
     args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
             mask)
     train = torch.is_grad_enabled() and any(
         z.requires_grad for z in args if isinstance(z, torch.Tensor))
-    if x.device.type == "cpu":
+    if K.plain_on_cpu(x):
         return relpos_attention_plain(*args, n_heads, dropout_rate,
                                       dropout_seed, seg_id, window)
-    if not x.is_cuda:
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_relpos_attention_block: unsupported device "
                          f"{x.device}")
     seg = None if seg_id is None else seg_id.to(torch.int32).contiguous()
     _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, n_heads,
            train, seg)
+    if K.tracing(x) and not train and not dropout_rate:
+        return attention_op(*args, n_heads, list(window), seg)
     return _Attention.apply(*args, n_heads, float(dropout_rate),
                             int(dropout_seed), seg, window)
+
+
+@K.custom_op("relpos_attention_block",
+             "(Tensor x, Tensor wq, Tensor bq, Tensor wk, Tensor bk, "
+             "Tensor wv, Tensor bv, Tensor bias_u, Tensor bias_v, "
+             "Tensor w_pos, Tensor wo, Tensor pos_emb, Tensor mask, "
+             "int n_heads, int[] window, Tensor? seg) -> Tensor",
+             lambda x, *_: torch.empty_like(x))
+def attention_op(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo,
+                 pos_emb, mask, n_heads, window, seg):
+    """`tpu_asr_torch::relpos_attention_block`, the eval forward (no
+    dropout): the kernel on CUDA tensors, the plain version on CPU ones."""
+    args = (x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
+            mask, n_heads)
+    if x.device.type == "cpu":
+        return relpos_attention_plain(*args, 0.0, 0, seg, tuple(window))
+    return _launch(*args, 0.0, 0, seg, tuple(window), False)[0]
 
 
 fused_relpos_attention_block.launches = 0

@@ -119,7 +119,8 @@ def fused_conv_module(x: torch.Tensor, mask: torch.Tensor, w1, b1, wd, bd,
                       norm_w, norm_b, w2, b2, pad: Tuple[int, int],
                       norm: str = "affine") -> torch.Tensor:
     """Same contract as `conv_module_plain`; raises when autograd would
-    need its gradient."""
+    need its gradient. Traced, it records the custom op
+    `tpu_asr_torch::conv_module`."""
     args = (x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2)
     K.refuse_grad("fused_conv_module", *args)
     b, t, d = x.shape
@@ -136,11 +137,9 @@ def fused_conv_module(x: torch.Tensor, mask: torch.Tensor, w1, b1, wd, bd,
                          f"{tuple(mask.shape)}, w1 {tuple(w1.shape)}, wd "
                          f"{tuple(wd.shape)} (k <= {MAX_K}), w2 "
                          f"{tuple(w2.shape)}")
-    if x.device.type == "cpu":
-        return conv_module_plain(x, mask, w1.reshape(2 * d, d), b1,
-                                 wd.reshape(d, k), bd, norm_w, norm_b,
-                                 w2.reshape(d, d), b2, pad, norm)
-    if not x.is_cuda:
+    if K.plain_on_cpu(x):
+        return _plain(*args, (pad_l, pad_r), norm)
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_conv_module: unsupported device {x.device}")
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
@@ -148,6 +147,22 @@ def fused_conv_module(x: torch.Tensor, mask: torch.Tensor, w1, b1, wd, bd,
     if not (0 < d <= MAX_D and 0 < k <= MAX_K):
         raise ValueError(f"fused_conv_module: D={d} (<= {MAX_D}), k={k} "
                          f"(<= {MAX_K})")
+    if K.tracing(x):
+        return conv_op(*args, [pad_l, pad_r], norm)
+    return _launch(*args, pad_l, norm)
+
+
+def _plain(x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2, pad, norm):
+    d = x.shape[-1]
+    return conv_module_plain(x, mask, w1.reshape(2 * d, d), b1,
+                             wd.reshape(d, -1), bd, norm_w, norm_b,
+                             w2.reshape(d, d), b2, pad, norm)
+
+
+def _launch(x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2, pad_l, norm):
+    dt = x.dtype
+    b, t, d = x.shape
+    k = wd.shape[-1]
     w1k, b1k, wdk, bdk, w2k, b2k = _kernel_weights(w1, b1, wd, bd, w2, b2, dt)
     vec = lambda z: z.float().contiguous()
     xc = x.contiguous()
@@ -162,6 +177,20 @@ def fused_conv_module(x: torch.Tensor, mask: torch.Tensor, w1, b1, wd, bd,
            int(norm == "layer_norm"))
     fused_conv_module.launches += 1
     return out
+
+
+@K.custom_op("conv_module", "(Tensor x, Tensor mask, Tensor w1, Tensor b1, "
+             "Tensor wd, Tensor bd, Tensor norm_w, Tensor norm_b, Tensor w2, "
+             "Tensor b2, int[] pad, str norm) -> Tensor",
+             lambda x, *_: torch.empty_like(x))
+def conv_op(x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2, pad, norm):
+    """`tpu_asr_torch::conv_module`: the kernel on CUDA tensors, the plain
+    version on CPU ones."""
+    if x.device.type == "cpu":
+        return _plain(x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2,
+                      tuple(pad), norm)
+    return _launch(x, mask, w1, b1, wd, bd, norm_w, norm_b, w2, b2, pad[0],
+                   norm)
 
 
 fused_conv_module.launches = 0

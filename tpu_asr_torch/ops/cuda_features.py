@@ -144,11 +144,12 @@ def fused_logmel(x_padded: torch.Tensor, n_frames: int, basis: torch.Tensor,
                  mag_power: float = 2.0, take_log: bool = True
                  ) -> torch.Tensor:
     """Same contract as `logmel_plain`. A CPU tensor runs the plain version;
-    a CUDA tensor launches the FFT or the DFT kernel (`logmel_route`)."""
-    if x_padded.device.type == "cpu":
+    a CUDA tensor launches the FFT or the DFT kernel (`logmel_route`), or
+    records the custom op `tpu_asr_torch::logmel` in a trace."""
+    if K.plain_on_cpu(x_padded):
         return logmel_plain(x_padded, n_frames, basis, fb_t, hop, log_guard,
                             mag_power, take_log)
-    if not x_padded.is_cuda:
+    if x_padded.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_logmel: unsupported device {x_padded.device}")
     b, lp = x_padded.shape
     n_fft, two_f = basis.shape
@@ -165,10 +166,20 @@ def fused_logmel(x_padded: torch.Tensor, n_frames: int, basis: torch.Tensor,
     if lp < (n_frames - 1) * hop + n_fft:
         raise ValueError(f"fused_logmel: {n_frames} frames need "
                          f"{(n_frames - 1) * hop + n_fft} samples, got {lp}")
+    args = (x_padded, int(n_frames), basis, fb_t, int(hop), float(log_guard),
+            float(mag_power), bool(take_log))
+    return logmel_op(*args) if K.tracing(x_padded) else _launch(*args)
+
+
+def _launch(x_padded, n_frames, basis, fb_t, hop, log_guard, mag_power,
+            take_log):
+    b, lp = x_padded.shape
+    n_fft = basis.shape[0]
+    n_freq, n_mels = fb_t.shape
     K.check_cuda("fused_logmel", x_padded, basis, fb_t)
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32,
                       device=x_padded.device)
-    opts = (float(log_guard), float(mag_power), int(bool(take_log)))
+    opts = (log_guard, mag_power, int(take_log))
     if logmel_route(n_fft, hop, n_freq) == "fft":
         tables = _fft_tables(basis, fb_t)
         K.call("tat_logmel_fft", _FFT_ARGS, x_padded.device,
@@ -180,6 +191,22 @@ def fused_logmel(x_padded: torch.Tensor, n_frames: int, basis: torch.Tensor,
                n_frames, n_fft, hop, n_freq, n_mels, *opts)
     fused_logmel.launches += 1
     return out
+
+
+@K.custom_op("logmel", "(Tensor x_padded, int n_frames, Tensor basis, "
+             "Tensor fb_t, int hop, float log_guard, float mag_power, "
+             "bool take_log) -> Tensor",
+             lambda x, n_frames, basis, fb_t, *_: x.new_empty(
+                 (x.shape[0], n_frames, fb_t.shape[1])))
+def logmel_op(x_padded, n_frames, basis, fb_t, hop, log_guard, mag_power,
+              take_log):
+    """`tpu_asr_torch::logmel`: the kernel on CUDA tensors, the plain
+    version on CPU ones."""
+    if x_padded.device.type == "cpu":
+        return logmel_plain(x_padded, n_frames, basis, fb_t, hop, log_guard,
+                            mag_power, take_log)
+    return _launch(x_padded, n_frames, basis, fb_t, hop, log_guard,
+                   mag_power, take_log)
 
 
 fused_logmel.launches = 0

@@ -189,24 +189,30 @@ def _kernel_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype):
     return w1p, w2p, w1p.t().contiguous(), w2p.t().contiguous()
 
 
+def _launch(x, ln_w, ln_b, w1, b1, w2, b2, rate, seed):
+    """The forward kernel: (out, the tensors its backward reads)."""
+    dt = x.dtype
+    b, t, d = x.shape
+    f = w1.shape[0]
+    xc = x.contiguous()
+    w1p, w2p = _kernel_weights(w1, w2, dt)[:2]
+    vec = [z.float().contiguous() for z in (ln_w, ln_b, b1, b2)]
+    out = torch.empty_like(xc)
+    tensors = (xc, vec[0], vec[1], w1p, vec[2], w2p, vec[3], out)
+    K.check_cuda("fused_ffn_sublayer", *tensors)
+    K.call("tat_ffn_fwd", _FWD_ARGS, x.device, int(dt == torch.bfloat16),
+           *(z.data_ptr() for z in tensors), b * t, t, d, f,
+           *_drop_args(rate, seed))
+    fused_ffn_sublayer.launches += 1
+    return out, (xc, vec[0], vec[1], w1, vec[2], w2)
+
+
 class _FFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, rate, seed):
-        dt = x.dtype
-        b, t, d = x.shape
-        f = w1.shape[0]
-        xc = x.contiguous()
-        w1p, w2p = _kernel_weights(w1, w2, dt)[:2]
-        vec = [z.float().contiguous() for z in (ln_w, ln_b, b1, b2)]
-        out = torch.empty_like(xc)
-        tensors = (xc, vec[0], vec[1], w1p, vec[2], w2p, vec[3], out)
-        K.check_cuda("fused_ffn_sublayer", *tensors)
-        K.call("tat_ffn_fwd", _FWD_ARGS, x.device, int(dt == torch.bfloat16),
-               *(z.data_ptr() for z in tensors), b * t, t, d, f,
-               *_drop_args(rate, seed))
-        fused_ffn_sublayer.launches += 1
+        out, saved = _launch(x, ln_w, ln_b, w1, b1, w2, b2, rate, seed)
         ctx.rate, ctx.seed = rate, seed
-        ctx.save_for_backward(xc, vec[0], vec[1], w1, vec[2], w2)
+        ctx.save_for_backward(*saved)
         return out
 
     @staticmethod
@@ -250,17 +256,33 @@ def fused_ffn_sublayer(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
     """Same contract as `ffn_sublayer_plain`. On the card, a shape the
     forward kernel does not take raises, and so does one whose backward
     autograd would need and the backward kernel does not take
-    (`ffn_refusal`), before anything launches."""
-    if x.device.type == "cpu":
+    (`ffn_refusal`), before anything launches. Traced without gradients or
+    dropout, it records the custom op `tpu_asr_torch::ffn_sublayer`."""
+    if K.plain_on_cpu(x):
         return ffn_sublayer_plain(x, ln_w, ln_b, w1, b1, w2, b2,
                                   dropout_rate, dropout_seed)
-    if not x.is_cuda:
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_ffn_sublayer: unsupported device {x.device}")
     args = (x, ln_w, ln_b, w1, b1, w2, b2)
     train = torch.is_grad_enabled() and any(t.requires_grad for t in args)
     _check(x, ln_w, w1, w2, train)
+    if K.tracing(x) and not train and not dropout_rate:
+        return ffn_op(*args)
     return _FFN.apply(x, ln_w, ln_b, w1, b1, w2, b2, float(dropout_rate),
                       int(dropout_seed))
+
+
+_FFN_SCHEMA = ("(Tensor x, Tensor ln_w, Tensor ln_b, Tensor w1, Tensor b1, "
+               "Tensor w2, Tensor b2) -> Tensor")
+
+
+@K.custom_op("ffn_sublayer", _FFN_SCHEMA, lambda x, *_: torch.empty_like(x))
+def ffn_op(x, ln_w, ln_b, w1, b1, w2, b2):
+    """`tpu_asr_torch::ffn_sublayer`, the eval forward (no dropout): the
+    kernel on CUDA tensors, the plain version on CPU ones."""
+    if x.device.type == "cpu":
+        return ffn_sublayer_plain(x, ln_w, ln_b, w1, b1, w2, b2)
+    return _launch(x, ln_w, ln_b, w1, b1, w2, b2, 0.0, 0)[0]
 
 
 fused_ffn_sublayer.launches = 0
@@ -303,12 +325,14 @@ def _int8_weights(ln_w, ln_b, w1, b1, w2, b2):
 def fused_ffn_sublayer_int8(x: torch.Tensor, ln_w, ln_b, w1, b1, w2,
                             b2) -> torch.Tensor:
     """Same contract as `ffn_sublayer_int8_plain`; raises when autograd
-    would need its gradient."""
+    would need its gradient. The kernel takes any number of rows (B x T),
+    a streaming chunk's few frames too. Traced, it records the custom op
+    `tpu_asr_torch::ffn_sublayer_int8`."""
     args = (x, ln_w, ln_b, w1, b1, w2, b2)
     K.refuse_grad("fused_ffn_sublayer_int8", *args)
-    if x.device.type == "cpu":
+    if K.plain_on_cpu(x):
         return ffn_sublayer_int8_plain(*args)
-    if not x.is_cuda:
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_ffn_sublayer_int8: unsupported device "
                          f"{x.device}")
     dt = x.dtype
@@ -322,14 +346,30 @@ def fused_ffn_sublayer_int8(x: torch.Tensor, ln_w, ln_b, w1, b1, w2,
             f"fused_ffn_sublayer_int8: shapes do not match x "
             f"{tuple(x.shape)} (D <= {INT8_MAX_D}), w1 {tuple(w1.shape)} "
             f"(d_ff <= {INT8_MAX_F}), w2 {tuple(w2.shape)}")
+    return ffn_int8_op(*args) if K.tracing(x) else _launch_int8(*args)
+
+
+def _launch_int8(x, ln_w, ln_b, w1, b1, w2, b2):
+    d, f = x.shape[-1], w1.shape[0]
     xc = x.contiguous()
     out = torch.empty_like(xc)
-    tensors = (xc, *_int8_weights(*args[1:]), out)
+    tensors = (xc, *_int8_weights(ln_w, ln_b, w1, b1, w2, b2), out)
     K.check_cuda("fused_ffn_sublayer_int8", *tensors)
-    K.call("tat_ffn_int8", _INT8_ARGS, x.device, int(dt == torch.bfloat16),
+    K.call("tat_ffn_int8", _INT8_ARGS, x.device,
+           int(x.dtype == torch.bfloat16),
            *(z.data_ptr() for z in tensors), xc.numel() // d, d, f)
     fused_ffn_sublayer_int8.launches += 1
     return out
+
+
+@K.custom_op("ffn_sublayer_int8", _FFN_SCHEMA,
+             lambda x, *_: torch.empty_like(x))
+def ffn_int8_op(x, ln_w, ln_b, w1, b1, w2, b2):
+    """`tpu_asr_torch::ffn_sublayer_int8`: the kernel on CUDA tensors, the
+    plain version on CPU ones."""
+    if x.device.type == "cpu":
+        return ffn_sublayer_int8_plain(x, ln_w, ln_b, w1, b1, w2, b2)
+    return _launch_int8(x, ln_w, ln_b, w1, b1, w2, b2)
 
 
 fused_ffn_sublayer_int8.launches = 0

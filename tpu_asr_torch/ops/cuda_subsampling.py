@@ -82,20 +82,26 @@ def _kernel_weights(w1, b1, w2, b2, w_out, dt):
             .to(dt).contiguous())
 
 
-def _launch(x, w1, b1, w2, b2, w_out):
-    dt = x.dtype
-    b, t0, f0 = x.shape
+def _check(x, w1, b1, w2, b2, w_out):
     ch, d = w1.shape[0], w_out.shape[0]
-    t1, f1 = out_len(t0), out_len(f0)
-    t2, f2 = out_len(t1), out_len(f1)
+    f2 = out_len(out_len(x.shape[2]))
     if (w1.shape != (ch, 1, 3, 3) or w2.shape != (ch, ch, 3, 3)
             or b1.shape != (ch,) or b2.shape != (ch,)
             or w_out.shape != (d, ch * f2)):
         raise ValueError("fused_subsampling: weight shapes do not match "
                          f"C={ch}, F2={f2}")
-    why = subsampling_refusal(dt, ch, f2)
+    why = subsampling_refusal(x.dtype, ch, f2)
     if why:
         raise ValueError(why)
+
+
+def _launch(x, w1, b1, w2, b2, w_out):
+    _check(x, w1, b1, w2, b2, w_out)
+    dt = x.dtype
+    b, t0, f0 = x.shape
+    ch, d = w1.shape[0], w_out.shape[0]
+    t1, f1 = out_len(t0), out_len(f0)
+    t2, f2 = out_len(t1), out_len(f1)
     h1 = torch.empty((b, t1, f1, ch), dtype=dt, device=x.device)
     h2 = torch.empty((b * t2 * f2, ch), dtype=dt, device=x.device)
     out = torch.empty((b, t2, d), dtype=dt, device=x.device)
@@ -131,12 +137,33 @@ def fused_subsampling(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       w_out: torch.Tensor) -> torch.Tensor:
     """Same contract as `subsampling_plain`. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel (three launches), and under
-    autograd the backward recomputes the plain version."""
+    autograd the backward recomputes the plain version. Traced without
+    gradients, it records the custom op `tpu_asr_torch::subsampling`."""
+    if K.plain_on_cpu(x):
+        return subsampling_plain(x, w1, b1, w2, b2, w_out)
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_subsampling: unsupported device {x.device}")
+    args = (x, w1, b1, w2, b2, w_out)
+    if K.tracing(x) and not (torch.is_grad_enabled()
+                             and any(z.requires_grad for z in args)):
+        _check(*args)                 # the launch's check, before tracing
+        return subsampling_op(*args)
+    return _Subsampling.apply(*args)
+
+
+def _fake(x, w1, b1, w2, b2, w_out):
+    b, t0, f0 = x.shape
+    return x.new_empty((b, out_len(out_len(t0)), w_out.shape[0]))
+
+
+@K.custom_op("subsampling", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
+             "Tensor b2, Tensor w_out) -> Tensor", _fake)
+def subsampling_op(x, w1, b1, w2, b2, w_out):
+    """`tpu_asr_torch::subsampling`, the eval forward: the kernel on CUDA
+    tensors, the plain version on CPU ones."""
     if x.device.type == "cpu":
         return subsampling_plain(x, w1, b1, w2, b2, w_out)
-    if not x.is_cuda:
-        raise ValueError(f"fused_subsampling: unsupported device {x.device}")
-    return _Subsampling.apply(x, w1, b1, w2, b2, w_out)
+    return _launch(x, w1, b1, w2, b2, w_out)
 
 
 fused_subsampling.launches = 0

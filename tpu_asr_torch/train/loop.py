@@ -22,8 +22,8 @@ device or on one rank of a data-parallel group.
   packed rows (data/packing.py; the attention kernel's segment mode).
   Flow matching feeds the decoder from the FM output, so it is refused, as
   in JAX.
-- Metrics go to <workdir>/metrics.jsonl, one JSON object a line. JAX's
-  W&B passthrough is not ported.
+- Metrics go to <workdir>/metrics.jsonl, one JSON object a line, and to
+  W&B where `wandb` imports and its `init` succeeds (JAX's passthrough).
 
 Data parallelism (parallel/mesh.py): in an initialised process group of N
 ranks every rank builds the same Trainer and calls the same methods. Each
@@ -93,13 +93,24 @@ from tpu_asr_torch.utils.wer import WERMetric
 
 class MetricsLogger:
     """JSONL metrics: <workdir>/metrics.jsonl, one {"step": ..., name:
-    float} object a line; written by rank 0 alone."""
+    float} object a line; written by rank 0 alone, which also passes each
+    row to W&B (`wandb.init(project, name, dir=workdir)` and `log(row,
+    step)`) when the `wandb` package imports and its `init` succeeds, as
+    JAX's MetricsLogger does; otherwise W&B is left out without a word."""
 
-    def __init__(self, workdir):
+    def __init__(self, workdir, project: str = "", name: str = ""):
         self.path = Path(workdir) / "metrics.jsonl"
         self.enabled = mesh.is_main_process()
-        if self.enabled:
-            self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._wandb = None
+        if not self.enabled:
+            return
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        try:
+            import wandb
+            self._wandb = wandb.init(project=project or None,
+                                     name=name or None, dir=str(workdir))
+        except Exception:
+            self._wandb = None
 
     def log(self, metrics: Dict, step: int) -> None:
         if not self.enabled:
@@ -112,6 +123,8 @@ class MetricsLogger:
                 continue
         with open(self.path, "a") as f:
             f.write(json.dumps(row) + "\n")
+        if self._wandb is not None:
+            self._wandb.log(row, step=int(step))
 
 
 class TeacherFeatureCache:

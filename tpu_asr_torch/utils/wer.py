@@ -1,8 +1,9 @@
 """Word error rate: the port's own copy of tpu_asr/utils/wer.py (NeMo's WER
 helpers, reference wer.py:35-208, and the accumulating metric of
-wer.py:210-359), with the pure-Python edit distance (native/editdistance.c
-is not built for the port). A distributed evaluation sums the (scores,
-words) pair across processes.
+wer.py:210-359). Edit distances run in the native library (tpu_asr_torch/
+native, a copy of native/editdistance.c, built at first use);
+`edit_distance_plain` is its pure-Python version. A distributed evaluation
+sums the (scores, words) pair across processes.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 
-def _edit_distance(a: Sequence, b: Sequence) -> int:
+def edit_distance_plain(a: Sequence, b: Sequence) -> int:
+    """Levenshtein distance in Python: the native one's plain version."""
     n, m = len(a), len(b)
     prev = list(range(m + 1))
     for i in range(1, n + 1):
@@ -22,6 +24,11 @@ def _edit_distance(a: Sequence, b: Sequence) -> int:
                          cur[j - 1] + 1)
         prev = cur
     return prev[m]
+
+
+def _edit_distance(a: Sequence, b: Sequence) -> int:
+    from tpu_asr_torch.native import edit_distance as native
+    return native(a, b)
 
 
 def edit_distance(a: Sequence, b: Sequence) -> int:
