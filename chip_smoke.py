@@ -90,15 +90,16 @@ Phases, each on its own output lines:
   8. fm kernels: ptxas's registers and spills of every FM kernel (the
      build's nvcc.log); the flow-matching Euler loop forward and backward
      against its plain version at the flagship KD shapes (rows = 32 x 16
-     layers, T'=376, C=88, H=128, 8 steps), fp32 (SIMT) and bf16 (tensor
-     cores), with both output cotangents nonzero; a ragged case (per-row
+     layers, T'=376, C=88, H=128, 8 steps), fp32 (the wide SIMT kernels)
+     and bf16 (tensor cores), with both output cotangents nonzero; a ragged case (per-row
      steps 1..16, max_steps 16, 48 rows) in both; bf16 at (C, H) = (64,
      64) (64 rows, 8 steps) and (128, 256) (the ragged case); two backward
-     calls bit-equal at every shape; fp32 C=64, bf16 C=136, bf16 H=48 and
-     max_steps 17 refused. Max error per output and per gradient against a
-     stated tolerance; for the timed shapes median kernel and plain times,
-     the device time per launch (torch.profiler), the bound, and the
-     memory one backward call allocates.
+     calls bit-equal at every shape; bf16 C=520, fp32 C=90, bf16 H=48 and
+     max_steps 0 refused (the kernels take C % 8 == 0 and H % 32 == 0 up
+     to 512 and any step count, in both types). Max error per output and
+     per gradient against a stated tolerance; for the timed shapes median
+     kernel and plain times, the device time per launch (torch.profiler),
+     the bound, and the memory one backward call allocates.
   9. KD train: one flowkd_mlp8 train step (frozen ModelConfig() teacher,
      logit KD 0.1, FM-KT mlp 8 steps over 16 layers) in fp32 at full width
      on B=8 x 15 s, once on the kernels and once on the plain versions from
@@ -376,6 +377,41 @@ Phases, each on its own output lines:
      beside phase 5's; (c) the codec libraries found on the host, one
      Transcriber request on MP3 clips where libmpg123 and libmp3lame exist,
      and the native FLAC decoder bit-equal to the Python one, both timed.
+  27. conformer-LARGE's KD step (profile_train's flowkd_large: the frozen
+     LARGE teacher d512 / 18 layers / 8 heads, its d256 / 4-head student,
+     logit KD 0.1, FM-KT mlp 8 steps over 18 layers at C=256, H=128): (a)
+     the FM kernels at the widths only the wide kernels take: ptxas's
+     registers and spills of fm_fwd_wide_kernel and fm_bwd_wide_kernel in
+     fp32 and bf16 (none may spill), then the FM pair against
+     fm_euler_plain by phase 8's rules at C=256 (rows 72 = 4 x 18 layers,
+     T'=376, 8 steps, and 24 ragged steps) and C=512 (XLarge's student: 8
+     steps and 24 ragged steps; fp32 on 24 rows, bf16 on 72; and bf16 at
+     (e)'s shape, 32 rows x 24 steps), fp32 and bf16, forward and
+     backward, with kernel, plain and device times and the bound of the
+     timed shapes; (b) phase 9's check at flowkd_large:
+     one fp32 step at B=4 x 15 s on the kernels against plain, the FM
+     kernels launched by it (C=256 runs the wide kernels), then 3 timed
+     bf16 steps at B=4 that launch every KD kernel; (c) two gloo ranks
+     sharing the card run the fp32 step pipelined (parallel/pipeline.py,
+     pp 2, n_micro 2; the student's conv module in layer_norm, which
+     pipelined training requires) and (d) tensor-parallel (tp 2: 2 of the
+     student's 4 heads and 4 of the teacher's 8 on each rank), against
+     the one-rank step of the same configuration from the same weights and
+     draws, on the kernels and, as a witness, on the plain versions
+     against the one-rank plain step: losses within 1e-5 relative, every
+     gradient within 1e-5 + 1e-4 x its tensor's scale (max|ref|, at least
+     1e-4 of the largest; tests/test_torch_train.py's fp32 rule), the TP
+     step on the kernels within 1e-5 + 2e-3 x it (the attention backward
+     kernel sums the positional gradients in an order that depends on the
+     heads a launch holds; see `parallel_large_rank` for the readings),
+     every KD kernel launched on each rank; (e) the bf16 KD step at XLarge's widths
+     (phase 19's 8 of its 24 layers: teacher d1024 / 8 heads, student d512 /
+     4 heads) with FM-KT at C=512, H=128 and 24 Euler steps through the
+     Trainer's step at B=4 x 15 s: one warm-up and 2 counted steps, losses
+     finite, every KD kernel launched but the training FFN's (they refuse
+     d512, as JAX's do; the refusal is checked), the FM fed (32, 376, 512)
+     at 24 steps; its FM launches are the fm_c512_s24 rows' (timed in (a) at
+     that shape).
 Each phase's seconds are printed after it, and the whole run's at the end.
 Device times (torch.profiler) are busy ms a call over the calls whose
 marker the profiler kept, and each kernel's recorded time over its
@@ -1959,8 +1995,8 @@ def timed_steps(model, batch, seed: int, steps: int = TRAIN_STEPS,
 
 
 def timed_summary(ms: float, steps: int = TRAIN_STEPS,
-                  warmup: int = TRAIN_WARMUP) -> str:
-    return (f"{ms:.2f} ms per step, {BATCH * SECONDS / (ms / 1e3):.1f} audio "
+                  warmup: int = TRAIN_WARMUP, rows: int = BATCH) -> str:
+    return (f"{ms:.2f} ms per step, {rows * SECONDS / (ms / 1e3):.1f} audio "
             f"s per s (host clock over {steps} steps after {warmup} "
             f"warm-up), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
@@ -2058,9 +2094,10 @@ def fm_compare(args, max_steps, dt, label, time_it=False):
     base = torch.cuda.memory_allocated()
     bwd()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    # retried while the profiler drops every event of the kernels
     with torch.no_grad():
-        fwd_dev = device_ms(fwd_call)
-    bwd_dev = device_ms(bwd)
+        fwd_dev = profiled_kernels(fwd_call, "fm_fwd")
+    bwd_dev = profiled_kernels(bwd, "fm_bwd")
     for name, row, (dev_ms, names) in (("fm", fwd, fwd_dev),
                                        ("fm_bwd", bwd_row, bwd_dev)):
         print(f"time {name} {dts} ({label}): kernel {row[1]:.4f} ms, device "
@@ -2132,16 +2169,17 @@ def fm_kernel_phase():
                f"rows=48 T={t} per-row steps 1..16, max_steps 16",
                time_it=True)
     x0, steps, w1, a, c, w2, b2 = fm_inputs(gen, 4, 9, 8)
-    x136, _, w136, _, _, w2_136, b136 = fm_inputs(gen, 4, 9, 8, c=136)
+    x520, _, w520, _, _, w2_520, b520 = fm_inputs(gen, 4, 9, 8, c=520)
+    x90, _, w90, _, _, w2_90, b90 = fm_inputs(gen, 4, 9, 8, c=90)
     for label, dt, args, ms_ in (
-            ("fp32 C=64", torch.float32,
-             (x0[..., :64], steps, w1[:64], a, c, w2[:, :64], b2[:64]), 8),
-            ("bf16 C=136", torch.bfloat16,
-             (x136, steps, w136, a, c, w2_136, b136), 8),
+            ("fp32 C=90", torch.float32,
+             (x90, steps, w90, a, c, w2_90, b90), 8),
+            ("bf16 C=520", torch.bfloat16,
+             (x520, steps, w520, a, c, w2_520, b520), 8),
             ("bf16 H=48", torch.bfloat16,
              (x0, steps, w1[:, :48], a[:48], c[:48], w2[:48], b2), 8),
-            ("bf16 max_steps 17", torch.bfloat16,
-             (x0, steps, w1, a, c, w2, b2), 17)):
+            ("bf16 max_steps 0", torch.bfloat16,
+             (x0, steps, w1, a, c, w2, b2), 0)):
         refused(lambda: fused_fm_euler(*args, max_steps=ms_,
                                        compute_dtype=dt),
                 f"fused_fm_euler at {label}")
@@ -2204,11 +2242,13 @@ def router_flips(steps_k, steps_p, scores_p, label: str) -> None:
 
 
 def kd_train_phase(tcfg, name: str = "flowkd_mlp8",
-                   steps: int = TRAIN_STEPS):
+                   steps: int = TRAIN_STEPS, check_rows: int = CHECK_BATCH,
+                   rows: int = BATCH):
     """The fp32 KD step (`name`: a profile_train distillation, teacher
-    `tcfg`) on kernels against plain, then `steps` timed bf16 steps.
-    Returns ({row name: launches} of the timed steps, [router steps of
-    each timed step] when the configuration routes)."""
+    `tcfg`) on kernels against plain at B=`check_rows`, then `steps` timed
+    bf16 steps at B=`rows`. Returns ({row name: launches} of the timed
+    steps, [router steps of each timed step] when the configuration
+    routes)."""
     import copy
 
     from tpu_asr_torch.config import OptimConfig, make_student_config
@@ -2226,7 +2266,8 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8",
     routed = distill.use_flow_matching and distill.flow.use_dynamic_steps
     model = kd_model(f32(scfg), f32(tcfg), 10, distill)
     init = copy.deepcopy(model.state_dict())
-    batch = train_batch(CHECK_BATCH, 11)
+    batch = train_batch(check_rows, 11)
+    n_t, n_s = tcfg.encoder.n_layers, scfg.encoder.n_layers
     int8 = tcfg.encoder.quantization == "int8"
     # (student and KD modules, teacher): an int8 teacher's quantization
     # decisions flip where sums run in another order (phase 11), which
@@ -2243,8 +2284,14 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8",
         if routed:
             calls, hook = router_steps(model)
         state = DistilTrainState.create(model, OptimConfig())
+        read = reset_counters()
         state, metrics = make_distil_train_step(model)(state, batch, 12)
         torch.cuda.synchronize()
+        if backend == "auto" and distill.use_flow_matching:
+            fm = {k: v for k, v in read().items() if k.startswith("fm")}
+            check(all(v > 0 for v in fm.values()),
+                  f"fp32 {name} step on the kernels launched the FM "
+                  f"kernels: {fm}")
         if routed:
             hook.remove()
             routes[backend] = calls[0]
@@ -2277,9 +2324,9 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8",
     for loss in sorted(lk):
         check(math.isfinite(lk[loss])
               and abs(lk[loss] - lp[loss]) <= 1e-4 * abs(lp[loss]),
-              f"fp32 {name} step (teacher 16 x d{tcfg.encoder.d_model} "
-              f"{tcfg.encoder.quantization}, student 16 x "
-              f"d{scfg.encoder.d_model}, B={CHECK_BATCH} x {SECONDS} s, "
+              f"fp32 {name} step (teacher {n_t} x d{tcfg.encoder.d_model} "
+              f"{tcfg.encoder.quantization}, student {n_s} x "
+              f"d{scfg.encoder.d_model}, B={check_rows} x {SECONDS} s, "
               f"dropout, SpecAugment, dither) loss/{loss}: kernels "
               f"{lk[loss]:.6f} vs plain {lp[loss]:.6f} (1e-4 rel"
               f"{'; both with the int8 teacher on its kernels' if int8 else ''}"
@@ -2309,7 +2356,7 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8",
 
     model = kd_model(scfg, tcfg, 13, distill)
     calls, hook = router_steps(model) if routed else ([], None)
-    ms, counts, metrics = timed_steps(model, train_batch(BATCH, 14), 15,
+    ms, counts, metrics = timed_steps(model, train_batch(rows, 14), 15,
                                       steps)
     if hook is not None:
         hook.remove()
@@ -2330,10 +2377,10 @@ def kd_train_phase(tcfg, name: str = "flowkd_mlp8",
         check(counts["ffn_int8"] == want, f"the int8 teacher launched the "
               f"int8 FFN {counts['ffn_int8']} times in {steps} steps "
               f"(2 x {tcfg.encoder.n_layers} layers per step: {want})")
-    print(f"kd train: {name} ({scfg.compute_dtype}, student 16 x d"
-          f"{scfg.encoder.d_model}, teacher 16 x d{tcfg.encoder.d_model}) "
-          f"B={BATCH} x {SECONDS} s, {TOKENS} tokens: "
-          f"{timed_summary(ms, steps)}; fm kernel launches a step "
+    print(f"kd train: {name} ({scfg.compute_dtype}, student {n_s} x d"
+          f"{scfg.encoder.d_model}, teacher {n_t} x d{tcfg.encoder.d_model}) "
+          f"B={rows} x {SECONDS} s, {TOKENS} tokens: "
+          f"{timed_summary(ms, steps, rows=rows)}; fm kernel launches a step "
           f"{counts['fm'] / steps:g}, fm_bwd {counts['fm_bwd'] / steps:g}")
     # the timed steps' router calls (the warm-up's first)
     timed = [s for s, _ in calls[-steps:]]
@@ -4388,6 +4435,14 @@ KERNELS = {
     "attention_window_bwd": ("tpu_asr_torch/csrc/attention.cu",
                              "tpu_asr/ops/pallas_attention.py:646",
                              "bfloat16"),
+    "fm_c256": ("tpu_asr_torch/csrc/fm.cu", "tpu_asr/ops/pallas_fm.py:85",
+                "bfloat16"),
+    "fm_c256_bwd": ("tpu_asr_torch/csrc/fm.cu",
+                    "tpu_asr/ops/pallas_fm.py:109", "bfloat16"),
+    "fm_c512_s24": ("tpu_asr_torch/csrc/fm.cu",
+                    "tpu_asr/ops/pallas_fm.py:85", "bfloat16"),
+    "fm_c512_s24_bwd": ("tpu_asr_torch/csrc/fm.cu",
+                        "tpu_asr/ops/pallas_fm.py:109", "bfloat16"),
 }
 STUDENT = ("logmel", "subsampling", "attention", "attention_bwd", "ffn",
            "ffn_bwd", "ctc", "ctc_bwd")
@@ -6129,6 +6184,320 @@ def codec_native_phase(model, tok):
           f"{times['python']:.1f} ms (one call), host clock")
 
 
+# phase 27: flowkd_large at B = 4 x 15 s (rows 4 x 18 layers to the FM);
+# 27e the KD step at XLarge's widths (phase 19's XL_LAYERS layers) with
+# FM-KT at C = 512 and 24 Euler steps, B = 4 x 15 s (rows 4 x XL_LAYERS)
+LARGE_KD_ROWS, LARGE_KD_STEPS, LARGE_KD_SEED = 4, 3, 70
+XL_KD_ROWS, XL_KD_FM_STEPS, XL_KD_STEPS, XL_KD_SEED = 4, 24, 2, 72
+
+
+def fm_wide_phase():
+    """Phase 27a: the wide FM kernels (see the module docstring). Returns
+    {row: (err, ms, plain_ms, bound, None)} of the bf16 rows of the KERNELS
+    line at the shapes their main paths give them: flowkd_large's (27b:
+    C=256, 8 steps) and the XLarge KD step's (27e: C=512, 24 steps)."""
+    regs = nvcc_registers("fm_")
+    wide = {k: v for k, v in regs.items() if "wide" in k}
+    check(len(wide) == 4 and all(st == 0 and ld == 0
+                                 for _, st, ld in wide.values()),
+          f"ptxas: the 4 wide FM kernels ({sorted(wide)}), none spills")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    t, rows = 376, LARGE_KD_ROWS * 18
+    ragged = lambda n: torch.randint(1, 25, (n,), generator=gen,
+                                     device="cuda")
+    out = {}
+    args = fm_inputs(gen, rows, t, 8, c=256)
+    for dt in (torch.float32, torch.bfloat16):
+        timed = fm_compare(args, 8, dt, f"rows={rows} T={t} steps=8",
+                           time_it=True)
+    out["fm_c256"], out["fm_c256_bwd"] = timed
+    args = fm_inputs(gen, rows, t, 24, ragged(rows), c=256)
+    for dt in (torch.float32, torch.bfloat16):
+        fm_compare(args, 24, dt, f"rows={rows} T={t} per-row steps 1..24, "
+                   f"max_steps 24")
+    # C=512: fp32 on 24 rows (at 72 rows x 24 steps one pre-activation
+    # within fp32 rounding of 0 takes the other side of the relu in the
+    # kernel and in plain, and that position's x_j dp term alone moves
+    # dW1x by 6.5e-3 of its scale, measured on an H100)
+    args32 = fm_inputs(gen, 24, t, 24, ragged(24), c=512)
+    fm_compare(args32, 24, torch.float32,
+               f"rows=24 T={t} per-row steps 1..24, max_steps 24")
+    args = fm_inputs(gen, rows, t, 8, c=512)
+    fm_compare(args, 8, torch.float32, f"rows={rows} T={t} steps=8")
+    fm_compare(args, 8, torch.bfloat16, f"rows={rows} T={t} steps=8")
+    args = fm_inputs(gen, rows, t, 24, ragged(rows), c=512)
+    fm_compare(args, 24, torch.bfloat16,
+               f"rows={rows} T={t} per-row steps 1..24, max_steps 24")
+    xl_rows = XL_KD_ROWS * XL_LAYERS
+    args = fm_inputs(gen, xl_rows, t, XL_KD_FM_STEPS, c=512)
+    out["fm_c512_s24"], out["fm_c512_s24_bwd"] = fm_compare(
+        args, XL_KD_FM_STEPS, torch.bfloat16,
+        f"rows={xl_rows} T={t} steps={XL_KD_FM_STEPS}", time_it=True)
+    for name, row in out.items():
+        err, ms_, plain_ms, (b_ms, by), _ = row
+        print(f"time {name} bf16: kernel {ms_:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({by}) (median of 20, plain of 5, "
+              f"CUDA events; {card_line()})")
+    return out
+
+
+def xlarge_kd_phase():
+    """Phase 27e: the bf16 KD step at XLarge's widths through
+    make_distil_train_step: the teacher profile_forward.model_config(
+    'xlarge') at phase 19's XL_LAYERS of its 24 layers (d1024, 8 heads),
+    its student make_student_config of it (d512, 4 heads), flowkd_large's
+    losses with FM-KT at C = 512, teacher 1024, H = 128 and XL_KD_FM_STEPS
+    Euler steps; B = XL_KD_ROWS x 15 s. One warm-up step, the counters
+    reset, XL_KD_STEPS steps: losses finite, every KD kernel but the
+    training FFN's launched (those refuse d512, as JAX's do), the FM module
+    fed (rows, T', 512) at XL_KD_FM_STEPS steps. Returns {row: launches}
+    of the fm_c512_s24 rows."""
+    from tpu_asr_torch.config import make_student_config
+    from tpu_asr_torch.ops.cuda_ffn import ffn_refusal
+    from tpu_asr_torch.profile_forward import model_config
+    from tpu_asr_torch.profile_train import distill_config
+
+    tcfg = with_encoder(model_config("xlarge"), n_layers=XL_LAYERS)
+    scfg = make_student_config(tcfg)
+    d = distill_config("flowkd_large")
+    distill = dataclasses.replace(d, flow=dataclasses.replace(
+        d.flow, student_dim=scfg.encoder.d_model,
+        teacher_dim=tcfg.encoder.d_model,
+        student_head_num=scfg.encoder.n_heads,
+        training_sampling=XL_KD_FM_STEPS, inference_sampling=XL_KD_FM_STEPS))
+    model = kd_model(scfg, tcfg, XL_KD_SEED, distill)
+    seen = []
+    hook = model.flow_matching.register_forward_pre_hook(
+        lambda m, args: seen.append(tuple(args[0].shape)))
+    ms, counts, metrics = timed_steps(model, train_batch(XL_KD_ROWS,
+                                                         XL_KD_SEED + 1),
+                                      XL_KD_SEED + 2, XL_KD_STEPS, 1)
+    hook.remove()
+    shape = (XL_KD_ROWS * XL_LAYERS, seen[0][1], 512)
+    check(seen[-XL_KD_STEPS:] == [shape] * XL_KD_STEPS
+          and model.flow_matching.cfg.training_sampling == XL_KD_FM_STEPS,
+          f"27e: the FM module fed {seen[-1]} at "
+          f"{model.flow_matching.cfg.training_sampling} steps in each step")
+    losses = torch.stack([m["loss/total"] for m in metrics])
+    check(bool(torch.isfinite(losses).all()),
+          f"27e: losses finite ({losses.tolist()})")
+    # the training FFN kernels refuse d512 as JAX's ffn_train_kernel_fits
+    # does (ROADMAP, Queue 2): that sublayer runs its plain version here
+    enc = scfg.encoder
+    why = ffn_refusal(torch.bfloat16, enc.d_model, enc.d_ff, True)
+    check(why is not None and counts["ffn"] == counts["ffn_bwd"] == 0,
+          f"27e: the student's FFN (d{enc.d_model}, d_ff {enc.d_ff}) on its "
+          f"plain version: {why}")
+    launched = {k: counts[k] for k in KD if not k.startswith("ffn")}
+    check(all(v > 0 for v in launched.values()),
+          f"27e: the XLarge KD steps launched every other KD kernel: "
+          f"{launched}")
+    print(f"kd train: XLarge widths (bfloat16, student {XL_LAYERS} x d"
+          f"{scfg.encoder.d_model}, teacher {XL_LAYERS} x d"
+          f"{tcfg.encoder.d_model}, FM C=512 at {XL_KD_FM_STEPS} steps) "
+          f"B={XL_KD_ROWS} x {SECONDS} s: "
+          f"{timed_summary(ms, XL_KD_STEPS, 1, XL_KD_ROWS)} ({card_line()})")
+    return {"fm_c512_s24": counts["fm"], "fm_c512_s24_bwd": counts["fm_bwd"]}
+
+
+def flowkd_large_cfgs(layer_norm: bool = False):
+    """(student, teacher, DistillationConfig) of profile_train's
+    flowkd_large in fp32; `layer_norm`: the student's conv module in
+    layer_norm (pipelined training refuses BatchNorm)."""
+    from tpu_asr_torch.config import make_student_config
+    from tpu_asr_torch.profile_train import distill_config, teacher_config
+    f32 = lambda cfg: dataclasses.replace(cfg, compute_dtype="float32")
+    tcfg = f32(teacher_config("flowkd_large"))
+    scfg = make_student_config(tcfg)
+    if layer_norm:
+        scfg = with_encoder(scfg, conv_norm_type="layer_norm")
+    return scfg, tcfg, distill_config("flowkd_large")
+
+
+# 27c/d: the gradient rules, a share of each tensor's scale: the fp32 rule
+# of tests/test_torch_train.py, and the TP step's on the kernels (see
+# parallel_large_rank)
+FP32_GRAD_RULE, TP_KERNELS_GRAD_RULE = 1e-4, 2e-3
+
+
+def parallel_large_rank(kind: str, batch_host, ref_path: str):
+    """On each of 2 ranks sharing the card: the fp32 flowkd_large step
+    (student conv in layer_norm) from LARGE_KD_SEED's weights, pipelined
+    (kind 'pp': pp 2, n_micro 2) or tensor-parallel ('tp': tp 2), one
+    forward and backward with step_rngs(LARGE_KD_SEED, 0), on the kernels
+    and then on the plain versions; each run's gradients (the rank's
+    slices and stage) against the one-rank step's of the same backend at
+    `ref_path` (written by the parent meanwhile). A gradient passes within
+    1e-5 + r x its tensor's scale (max|ref|, at least 1e-4 of the largest,
+    as grads_close takes it), r the fp32 rule FP32_GRAD_RULE, but for the
+    TP step on the kernels TP_KERNELS_GRAD_RULE. Readings on an H100
+    behind it: the pipelined ranks on either backend, and the TP ranks on
+    the plain versions, stay within 1.6e-5 of the one-rank step; the TP
+    ranks on the kernels reach 9.0e-4, in the attention's positional
+    gradients (linear_pos.weight, pos_bias_v), which the attention backward
+    kernel sums in an order that depends on the heads a launch holds; the
+    one-rank step's own kernels-vs-plain difference is largest in the same
+    tensors, 1.4e-3. A planted fault (the dropout streams of a rank's
+    heads taken from head 0, on the CPU with tests/ddp_cases.py's model)
+    moves gradients by 0.58 of their scale. Returns (losses on the kernels,
+    launches, local heads of the student's and the teacher's attention,
+    {backend: (r, [(name, err / scale)] beyond it, the 3 largest (name,
+    err / scale))})."""
+    from tpu_asr_torch.parallel import mesh, pipeline, sharding
+    from tpu_asr_torch.profile_forward import set_backend
+    from tpu_asr_torch.train.trainer import step_rngs
+
+    full_fp32()          # as the parent: cuDNN's convolutions without TF32
+    scfg, tcfg, distill = flowkd_large_cfgs(layer_norm=True)
+    model = kd_model(scfg, tcfg, LARGE_KD_SEED, distill).train()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_host.items()}
+    args = (batch["signal"], batch["signal_len"], batch["tokens"],
+            batch["token_len"])
+    if kind == "pp":
+        pipeline.apply_pp_sharding(model, mesh.make_pp_mesh(1, 2, 1))
+    else:
+        sharding.shard_module(model, mesh.make_mesh(1, 2))
+    ref = None
+    import os
+    readings = {}
+    for backend in ("kernels", "plain"):
+        set_backend(model, "auto" if backend == "kernels" else "xla")
+        model.zero_grad(set_to_none=True)
+        rngs = step_rngs(LARGE_KD_SEED, 0, "cuda")
+        read = reset_counters()
+        if kind == "pp":
+            out = pipeline.distil_forward_pipelined(model, *args, n_micro=2,
+                                                    rngs=rngs)
+        else:
+            out = model(*args, train=True, rngs=rngs)
+        out.losses["total"].backward()
+        torch.cuda.synchronize()
+        if backend == "kernels":
+            counts = read()
+            losses = {k: v.item() for k, v in out.losses.items()}
+        while ref is None:
+            if os.path.exists(ref_path):
+                ref = torch.load(ref_path, weights_only=True)
+            else:
+                time.sleep(0.2)
+        rule = (TP_KERNELS_GRAD_RULE if (kind, backend) == ("tp", "kernels")
+                else FP32_GRAD_RULE)
+        bad, errs = [], []
+        for name, p in model.named_parameters():
+            if p.grad is None:
+                continue
+            w = ref["grads"][backend][sharding.global_key(model, name)]
+            dim = getattr(p, "tp_dim", None)
+            if dim is not None:
+                k = w.shape[dim] // mesh.axis_size("model")
+                w_part = w.narrow(dim, mesh.axis_index("model") * k, k)
+            else:
+                w_part = w
+            scale = max(w.abs().max().item(), ref["floor"])
+            err = (p.grad.float().cpu() - w_part).abs().max().item()
+            errs.append((name, err / scale))
+            if err > 1e-5 + rule * scale:
+                bad.append((name, err / scale))
+        readings[backend] = (rule, bad,
+                             sorted(errs, key=lambda e: -e[1])[:3])
+    heads = {who: sorted({m.local_heads() for m in getattr(
+        model, who).modules() if hasattr(m, "local_heads")})
+        for who in ("student", "teacher")}
+    return losses, counts, heads, readings
+
+
+def parallel_large_phase():
+    """Phase 27c/d (see the module docstring): the ranks start first, each
+    launch on 2 gloo ranks sharing cuda:0, while the one-rank step runs
+    here and writes its gradients for them."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from tpu_asr_torch.parallel import launch
+    from tpu_asr_torch.train.trainer import step_rngs
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pp_tp_"))
+    ref_path = root / "grads.pt"
+    batch = train_batch(LARGE_KD_ROWS, LARGE_KD_SEED + 1)
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            runs = {kind: pool.submit(
+                launch.launch, parallel_large_rank, (kind, host,
+                                                     str(ref_path)),
+                ["cuda:0", "cuda:0"], timeout=600, coll_timeout=300)
+                for kind in ("pp", "tp")}
+            from tpu_asr_torch.profile_forward import set_backend
+            scfg, tcfg, distill = flowkd_large_cfgs(layer_norm=True)
+            model = kd_model(scfg, tcfg, LARGE_KD_SEED, distill).train()
+            grads = {}
+            for backend in ("auto", "xla"):
+                set_backend(model, backend)
+                model.zero_grad(set_to_none=True)
+                read = reset_counters()
+                out = model(batch["signal"], batch["signal_len"],
+                            batch["tokens"], batch["token_len"], train=True,
+                            rngs=step_rngs(LARGE_KD_SEED, 0, "cuda"))
+                out.losses["total"].backward()
+                torch.cuda.synchronize()
+                if backend == "auto":
+                    one_counts = read()
+                    want = {k: v.item() for k, v in out.losses.items()}
+                grads["kernels" if backend == "auto" else "plain"] = {
+                    n: p.grad.detach().float().cpu()
+                    for n, p in model.named_parameters()
+                    if p.grad is not None}
+            # each tensor's scale as grads_close takes it: max|ref|, at
+            # least 1e-4 of the largest (gradients zero in exact arithmetic
+            # hold only rounding noise)
+            floor = 1e-4 * max(g.abs().max().item()
+                               for g in grads["kernels"].values())
+            noise = sorted(((n, (grads["kernels"][n] - grads["plain"][n])
+                             .abs().max().item()
+                             / max(g.abs().max().item(), floor))
+                            for n, g in grads["kernels"].items()),
+                           key=lambda e: -e[1])[:3]
+            print("27: the one-rank fp32 flowkd_large step's gradients, "
+                  "kernels vs plain, largest differences (of the tensor's "
+                  "scale): " + ", ".join(f"{n} {e:.3e}" for n, e in noise))
+            torch.save({"grads": grads, "floor": floor},
+                       str(ref_path) + ".tmp")
+            Path(str(ref_path) + ".tmp").rename(ref_path)
+            del model, out
+            torch.cuda.empty_cache()      # the ranks share the card
+            got = {kind: f.result() for kind, f in runs.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(all(one_counts[k] > 0 for k in KD),
+          f"27: the one-rank fp32 flowkd_large step launched every KD "
+          f"kernel: { {k: one_counts[k] for k in KD} }")
+    for kind, label in (("pp", "27c pipelined (pp 2, n_micro 2)"),
+                        ("tp", "27d tensor-parallel (tp 2)")):
+        for r, (losses, counts, heads, readings) in enumerate(got[kind]):
+            for k, v in want.items():
+                check(abs(losses[k] - v) <= 1e-5 * abs(v),
+                      f"{label} rank {r}: loss/{k} {losses[k]:.6f} vs one "
+                      f"rank {v:.6f} (1e-5 rel)")
+            for backend, (rule, bad, top) in readings.items():
+                check(not bad, f"{label} rank {r} on the {backend}: every "
+                      f"gradient within 1e-5 + {rule:g} x its "
+                      f"tensor's scale of the one-rank step's on the "
+                      f"{backend}; largest (of the scale) " + ", ".join(
+                          f"{n} {e:.3e}" for n, e in top)
+                      + (f"; beyond: {bad[:3]}" if bad else ""))
+            launched = {k: counts[k] for k in KD}
+            check(all(v > 0 for v in launched.values()),
+                  f"{label} rank {r}: every KD kernel launched: {launched}")
+            if kind == "tp":
+                check(heads == {"student": [(2, 2 * r)],
+                                "teacher": [(4, 4 * r)]},
+                      f"{label} rank {r}: the attention kernels ran "
+                      f"(heads, first head) {heads} of the student's 4 and "
+                      f"the teacher's 8")
+
+
 def timed_phase(label: str, fn, *args):
     """fn(*args), then the phase's seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -6207,6 +6576,17 @@ def main() -> int:
     timed_phase("26a", int8_streaming_phase, cfg)
     _, model, tok = timed_phase("26b", export_phase, cfg, rtfx)
     timed_phase("26c", codec_native_phase, model, tok)
+    del model
+    measured.update(timed_phase("27a", fm_wide_phase))
+    large_counts, _ = timed_phase(
+        "27b", kd_train_phase, teacher_config("flowkd_large"),
+        "flowkd_large", LARGE_KD_STEPS, LARGE_KD_ROWS, LARGE_KD_ROWS)
+    # the wide kernels' rows: the FM wrappers' launches in the timed steps
+    # of the path that runs each shape (every FM launch there runs them)
+    counts["fm_c256"] = large_counts["fm"]
+    counts["fm_c256_bwd"] = large_counts["fm_bwd"]
+    timed_phase("27cd", parallel_large_phase)
+    counts.update(timed_phase("27e", xlarge_kd_phase))
     print(f"serve RTFx (bf16, 64 requests x {SERVE_BATCH} clips, same run): "
           f"ModelConfig() {rtfx:.1f}, conformer-LARGE {large_rtfx:.1f} (int8 "
           f"+ conv kernel {large_int8_rtfx:.1f}), conformer-XLarge "

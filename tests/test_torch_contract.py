@@ -140,6 +140,8 @@ def test_port_imports_no_jax():
                  "tpu_asr_torch.ops.ngram_lm",
                  "tpu_asr_torch.parallel.mesh",
                  "tpu_asr_torch.parallel.launch",
+                 "tpu_asr_torch.parallel.sharding",
+                 "tpu_asr_torch.parallel.pipeline",
                  "tpu_asr_torch.convert.export", "tpu_asr_torch.data.codecs",
                  "tpu_asr_torch.native", "chip_smoke"):
         assert name in out["modules"]

@@ -477,7 +477,9 @@ def test_trainer_dp_size_against_the_world(monkeypatch, dp_size, world,
 
     monkeypatch.setattr(mesh, "process_count", lambda: world)
     assert bool(refusals(PC.TrainConfig(dp_size=dp_size))) == refused
-    assert refusals(PC.TrainConfig(dp_size=-1, tp_size=2))
+    # tensor parallelism: tp_size must divide the world
+    assert not refusals(PC.TrainConfig(dp_size=-1, tp_size=2))
+    assert refusals(PC.TrainConfig(dp_size=-1, tp_size=3))
 
 
 def test_cli_rank_devices(monkeypatch):

@@ -17,8 +17,9 @@ utils/checkpoint.py, utils/exp_manager.py):
 - `evaluate_packed` gives `evaluate`'s WER and its loss within 1e-5 (a CTC
   student; the attention's segment mode runs its plain version here),
   and refuses flow matching;
-- the Trainer refuses what it does not run: tensor parallelism, a dp_size
-  other than the world, a teacher cache with steps_per_dispatch > 1;
+- the Trainer refuses what it does not run: a tp_size that does not
+  divide the world (tp_size=2 on one rank), a dp_size other than the
+  world, a teacher cache with steps_per_dispatch > 1;
 - exp_manager: versioned run directories with a config snapshot, the
   step timer, a torch.profiler trace, fault injection's refusals, and
   SIGTERM during a fit saving the checkpoint before exiting 143; a

@@ -15,9 +15,10 @@ in interpret mode on the CPU, inputs made with numpy from a seed:
 - the same at a second width (C = 40, H = 64, ragged steps), which the
   bf16 kernel takes and the fp32 kernel does not;
 - on CPU tensors the wrapper runs the plain loop and launches nothing, and
-  the kernel's argument check refuses what the CUDA kernels do not take,
-  per dtype: bf16 any C % 8 == 0 up to 128 and H % 32 == 0 up to 256, fp32
-  C = 88 and H = 128 only, max_steps 1..16 and no float16 in either.
+  the kernel's argument check refuses what the CUDA kernels do not take:
+  in fp32 and bf16 alike C % 8 == 0 up to 512, H % 32 == 0 up to 512,
+  max_steps >= 1, and no float16 (the wider shapes and longer loops are
+  tests/test_torch_fm_wide.py's).
 """
 
 import tests.torch_threads  # noqa: F401  (first: CPU threads)
@@ -123,16 +124,16 @@ def test_wrapper_runs_plain_on_cpu_and_launches_nothing():
 # case: (C, H, max_steps, compute dtype) the kernels refuse, and a word of
 # the refusal (the limit it names)
 REFUSED = {
-    "c64": (64, 128, 8, torch.float32, "fp32 kernel takes C=88"),
-    "h64": (88, 64, 8, torch.float32, "fp32 kernel takes C=88, H=128"),
-    "steps17": (88, 128, 17, torch.bfloat16, "max_steps 17"),
     "steps0": (88, 128, 0, torch.bfloat16, "max_steps 0"),
     "float16": (88, 128, 8, torch.float16, "compute dtype"),
-    "bf16_c136": (136, 128, 8, torch.bfloat16, "C % 8 == 0 up to 128"),
-    "bf16_c90": (90, 128, 8, torch.bfloat16, "C % 8 == 0 up to 128"),
-    "bf16_h272": (88, 272, 8, torch.bfloat16, "H % 32 == 0 up to 256"),
-    "bf16_h48": (88, 48, 8, torch.bfloat16, "H % 32 == 0 up to 256"),
-    "fp32_steps17": (88, 128, 17, torch.float32, "max_steps 17"),
+    "bf16_c90": (90, 128, 8, torch.bfloat16, "C % 8 == 0 up to 512"),
+    "bf16_h48": (88, 48, 8, torch.bfloat16, "H % 32 == 0 up to 512"),
+    "bf16_c520": (520, 128, 8, torch.bfloat16, "C % 8 == 0 up to 512"),
+    "fp32_c520": (520, 128, 8, torch.float32, "C % 8 == 0 up to 512"),
+    "fp32_c90": (90, 128, 8, torch.float32, "C % 8 == 0 up to 512"),
+    "bf16_h544": (88, 544, 8, torch.bfloat16, "H % 32 == 0 up to 512"),
+    "fp32_h544": (88, 544, 8, torch.float32, "H % 32 == 0 up to 512"),
+    "fp32_h48": (88, 48, 8, torch.float32, "H % 32 == 0 up to 512"),
 }
 
 
@@ -150,15 +151,13 @@ def test_kernel_refuses_shapes_outside_its_build(case):
 @pytest.mark.parametrize("c,h", [(64, 64), (40, 64), (8, 32), (128, 256),
                                  (88, 128)])
 def test_bf16_kernel_takes_its_widths(c, h):
-    """bf16: any C % 8 == 0 up to 128 and H % 32 == 0 up to 256, 1..16
-    steps; fp32 only the flagship's C = 88, H = 128."""
-    for ms in (1, 16):
-        assert fm_refusal(c, h, ms, torch.bfloat16) is None
-        check_kernel_args(torch.zeros(2, 5, c, dtype=torch.bfloat16),
-                          torch.zeros(c, h), torch.zeros(h, c), ms,
-                          torch.bfloat16)
-    assert (fm_refusal(c, h, 8, torch.float32) is None) == ((c, h) ==
-                                                            (88, 128))
+    """bf16 and fp32 alike: any C % 8 == 0 and H % 32 == 0 (up to 512, at
+    1, 16 and 40 steps: tests/test_torch_fm_wide.py takes the widest)."""
+    for dt in (torch.bfloat16, torch.float32):
+        for ms in (1, 16, 40):
+            assert fm_refusal(c, h, ms, dt) is None
+            check_kernel_args(torch.zeros(2, 5, c, dtype=dt),
+                              torch.zeros(c, h), torch.zeros(h, c), ms, dt)
 
 
 def test_aligned_copies_only_misaligned_views():

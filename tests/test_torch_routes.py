@@ -12,9 +12,9 @@
   backward does not: refused only under autograd; d512/2048, where the
   forward does not fit either and JAX's `ffn_train_kernel_fits` refuses
   too; d88 to d256 agree with it),
-  the FM loop (C=176, max_steps 17; a student of C=64 with hidden_dim 64,
-  refused in fp32 and taken in bf16, whose kernel takes any C % 8 == 0 up
-  to 128 and H % 32 == 0 up to 256)
+  the FM loop (C=520, past the kernels' 512; max_steps 0; hidden_dim 48,
+  not H % 32 == 0, in fp32: the kernels take any C % 8 == 0 and H % 32
+  == 0 up to 512 and any step count, in fp32 and bf16 alike)
   and the log-mel frontend (n_fft 402 and 4096 refused; 512 takes the FFT
   kernel, 400 the DFT kernel), each beside a shape the kernel takes.
 - The forward passes follow the resolution: with the kernel wrapper
@@ -97,12 +97,12 @@ CASES = [
     ("attention", (264, 2), (176, 4)),       # dk 132 / 44
     ("ffn_train", 320, 176),                 # backward's tiles > 227 KB
     ("ffn_train", 512, 176),                 # forward's tiles > 227 KB
-    ("fm", (176, 8), (88, 8)),
-    ("fm", (88, 17), (88, 16)),
+    ("fm", (520, 8), (88, 8)),
+    ("fm", (88, 0), (88, 16)),
     ("attention_train", (torch.float32, 1100), (torch.bfloat16, 1100)),
     ("logmel", 402, 512),
     ("logmel", 4096, 400),
-    ("fm", (64, 8, 64, torch.float32), (64, 8, 64, torch.bfloat16)),
+    ("fm", (64, 8, 48, torch.float32), (64, 8, 64, torch.float32)),
 ]
 
 
@@ -169,10 +169,10 @@ def test_forward_follows_the_route(kind, monkeypatch):
         shapes = (12, 16)
     elif kind == "attention":
         rec = _Recorder(
-            lambda *a, dropout_rate, dropout_seed, seg_id, att_context_size:
-            cuda_attention.relpos_attention_plain(*a, dropout_rate,
-                                                  dropout_seed, seg_id,
-                                                  att_context_size))
+            lambda *a, dropout_rate, dropout_seed, seg_id, att_context_size,
+            heads: cuda_attention.relpos_attention_plain(
+                *a, dropout_rate, dropout_seed, seg_id, att_context_size,
+                heads))
         monkeypatch.setattr(conformer, "fused_relpos_attention_block", rec)
 
         def run(dh):
@@ -209,7 +209,7 @@ def test_forward_follows_the_route(kind, monkeypatch):
         def run(c):
             with torch.no_grad():
                 return _fm("auto", c)(torch.randn(2, 5, c))
-        shapes = (176, 88)
+        shapes = (520, 88)
     run(shapes[0])
     assert rec.calls == 0
     run(shapes[1])

@@ -343,26 +343,27 @@ int run(const void* x, const void* wq, const void* wk, const void* wv,
         const float* key_bias, void* qu, void* qv, void* k, void* v, void* p,
         void* ctx, void* out, float* lse, const int* seg, int batch,
         int t_len, int d, int heads, int left, int right, uint32_t seed,
-        uint32_t thresh, float dscale, int tp, cudaStream_t stream) {
+        uint32_t thresh, float dscale, int tp, int dm, uint32_t b_stride,
+        cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs proj{};
   proj.job[0] = {x, wq, cu, cv, qu, qv, rows, 1};
   proj.job[1] = {x, wk, bk, nullptr, k, nullptr, rows, 1};
   proj.job[2] = {x, wv, bv, nullptr, v, nullptr, rows, 1};
   proj.job[3] = {pe, wpos, nullptr, nullptr, p, nullptr, n_pos, 2};
-  cudaError_t err = project<T>(proj, 4, rows > n_pos ? rows : n_pos, d, d,
+  cudaError_t err = project<T>(proj, 4, rows > n_pos ? rows : n_pos, dm, d,
                                t_len, heads, dk, stream);
   if (err != cudaSuccess) return (int)err;
 
   err = launch_core<T>(qu, qv, k, v, p, key_bias, ctx,
                        rows_layout(t_len, heads, dk), lse, batch, t_len,
-                       heads, dk, seed, (uint32_t)heads, thresh, dscale, tp,
-                       left, right, seg, stream);
+                       heads, dk, seed, b_stride, thresh, dscale, tp, left,
+                       right, seg, stream);
   if (err != cudaSuccess) return (int)err;
 
   Jobs outp{};
   outp.job[0] = {ctx, wo, nullptr, nullptr, out, nullptr, rows, 0};
-  return (int)project<T>(outp, 1, rows, d, d, t_len, heads, dk, stream);
+  return (int)project<T>(outp, 1, rows, d, dm, t_len, heads, dk, stream);
 }
 
 
@@ -1907,34 +1908,33 @@ int run_bwd(const void* g, const void* x, const void* wo_t, const void* wcat,
             float* dsum, float* dpart, float* dpos, void* dx, float* part,
             float* dw_all, float* dwo, float* dwpos, const int* seg,
             int batch, int t_len, int d, int heads, int left, int right,
-            uint32_t seed, uint32_t thresh, float dscale, int tp,
-            cudaStream_t stream) {
+            uint32_t seed, uint32_t thresh, float dscale, int tp, int dm,
+            uint32_t b_stride, cudaStream_t stream) {
   const int dk = d / heads, rows = batch * t_len, n_pos = 2 * t_len - 1;
   Jobs dc{};
   dc.job[0] = {g, wo_t, nullptr, nullptr, dctx, nullptr, rows, 1};
-  cudaError_t err = project<T>(dc, 1, rows, d, d, t_len, heads, dk, stream);
+  cudaError_t err = project<T>(dc, 1, rows, dm, d, t_len, heads, dk, stream);
   if (err != cudaSuccess) return (int)err;
 
   err = score_grads<T>(qu, qv, k, v, p, key_bias, lse, dctx, ctx,
                        rows_layout(t_len, heads, dk), grads,
                        rows_layout(t_len, 4 * heads, dk), d, dsum, dpart,
-                       dpos, part, batch, t_len, heads, dk, seed,
-                       (uint32_t)heads, thresh, dscale, tp, left, right, seg,
-                       stream);
+                       dpos, part, batch, t_len, heads, dk, seed, b_stride,
+                       thresh, dscale, tp, left, right, seg, stream);
   if (err != cudaSuccess) return (int)err;
 
   Jobs dxj{};
   dxj.job[0] = {grads, wcat, nullptr, nullptr, dx, nullptr, rows, 0};
-  if ((err = project<T>(dxj, 1, rows, 4 * d, d, t_len, heads, dk,
+  if ((err = project<T>(dxj, 1, rows, 4 * d, dm, t_len, heads, dk,
                         stream)) != cudaSuccess)
     return (int)err;
 
-  if ((err = wgrad<T>(grads, 4 * d, x, d, 1, rows, part, dw_all,
+  if ((err = wgrad<T>(grads, 4 * d, x, dm, 1, rows, part, dw_all,
                       stream)) != cudaSuccess ||
-      (err = wgrad<T>(g, d, ctx, d, 0, rows, part, dwo, stream)) !=
+      (err = wgrad<T>(g, dm, ctx, d, 0, rows, part, dwo, stream)) !=
           cudaSuccess)
     return (int)err;
-  return (int)wgrad<T>(dpos, d, pe, d, 0, n_pos, part, dwpos, stream);
+  return (int)wgrad<T>(dpos, d, pe, dm, 0, n_pos, part, dwpos, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1993,14 +1993,21 @@ int run_heads_bwd(const void* g, const void* qu, const void* qv,
 
 // The wrapper guarantees: contiguous tensors on one device; x, weights, the
 // position table pe and scratch in one dtype (fp32 or bf16); biases and the
-// key bias in fp32; dk = d / heads <= 128, and in bf16 d % 8 == 0 and
-// dk % 4 == 0; scratch q_u, q_v, k, v sized
+// key bias in fp32; dk = d / heads <= 128, and in bf16 d % 8 == 0,
+// d_model % 8 == 0 and dk % 4 == 0. d = heads x dk is the width of the
+// heads this call runs and d_model the width of x and of the output: the
+// whole sublayer at d = d_model, or a tensor-parallel rank's heads (x
+// (B, T, d_model), wq, wk, wv, wpos (d, d_model), wo (d_model, d), the
+// output its partial sum over those heads). Head h of batch row b draws
+// the dropout stream seed + b_stride * b + h (b_stride = heads for the
+// whole sublayer; a rank's heads pass the global head count and a seed
+// moved by their first head). Scratch q_u, q_v, k, v sized
 // (B, H, T, dk), p (H, 2T-1, dk), ctx and out (B, T, d); lse (B, H, T) fp32
 // or null; seg (B, T) int32 packed-segment map or null (under autograd the
 // backward takes the same map, tat_attention_bwd). Keys outside the window
 // (left, right) score -1e30; -1 is unlimited. Dropout on the
-// probabilities when thresh > 0: stream seed + b * H + h, idx t * tp + s,
-// kept values scaled by dscale.
+// probabilities when thresh > 0: idx t * tp + s, kept values scaled by
+// dscale.
 extern "C" int tat_attention(int bf16, const void* x, const void* wq,
                              const void* wk, const void* wv, const void* wpos,
                              const void* wo, const void* cu, const void* cv,
@@ -2010,7 +2017,8 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
                              void* lse, const void* seg, int batch, int t_len,
                              int d, int heads, int left, int right,
                              unsigned int seed, unsigned int thresh,
-                             float dscale, int tp, void* stream) {
+                             float dscale, int tp, int d_model,
+                             unsigned int b_stride, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float *cu_ = (const float*)cu, *cv_ = (const float*)cv,
               *bk_ = (const float*)bk, *bv_ = (const float*)bv,
@@ -2019,26 +2027,28 @@ extern "C" int tat_attention(int bf16, const void* x, const void* wq,
   return bf16 ? run<__nv_bfloat16>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_,
                                    bv_, pe, kb_, qu, qv, k, v, p, ctx, out,
                                    (float*)lse, seg_, batch, t_len, d, heads,
-                                   left, right, seed, thresh, dscale, tp, s)
+                                   left, right, seed, thresh, dscale, tp,
+                                   d_model, b_stride, s)
               : run<float>(x, wq, wk, wv, wpos, wo, cu_, cv_, bk_, bv_, pe,
                            kb_, qu, qv, k, v, p, ctx, out, (float*)lse, seg_,
                            batch, t_len, d, heads, left, right, seed, thresh,
-                           dscale, tp, s);
+                           dscale, tp, d_model, b_stride, s);
 }
 
 // Backward of tat_attention from its saved forward (x, q_u, q_v, k, v, p,
 // ctx, lse; the same dropout arguments) and the cotangent g (B, T, d) in
-// the working dtype. wo_t = Wo^T (d, d) and wcat = [Wq; Wq; Wk; Wv]^T
-// (d, 4d) in the working dtype; pe (2T-1, d) in the working dtype. Scratch:
+// the working dtype. wo_t = Wo^T (d, d_model) and wcat = [Wq; Wq; Wk;
+// Wv]^T (d_model, 4d) in the working dtype; pe (2T-1, d_model) in the
+// working dtype; g (B, T, d_model). Scratch:
 // dctx (B, H, T, dk) and grads (B, T, 4d) in the working dtype, dsum
 // (B, H, T), dpart (fp32: (B, H, ceil(T/32), 32 ceil(T/32) + 31, dk);
 // bf16: (B, H, ceil(T/64), 64 (ceil(T/64) + 1), dk)), dpos (2T-1, d; fp32,
 // holding bf16 in the bf16 path), part (at least ceil(B T / 512) * 4d *
-// (d + 1), and in bf16 groups * (2T-1) * d with groups =
-// ceil(B / ceil(B / 8))) fp32. Outputs: dx (B, T, d) in the working dtype;
-// fp32 dw_all (4d, d + 1) = [dq_u | dq_v | dk | dv]^T [x | 1], dwo (d, d),
-// dwpos (d, d). seg: the forward's (B, T) int32 packed-segment map, or
-// null; (left, right): the forward's window.
+// (d_model + 1), and in bf16 groups * (2T-1) * d with groups =
+// ceil(B / ceil(B / 8))) fp32. Outputs: dx (B, T, d_model) in the working
+// dtype; fp32 dw_all (4d, d_model + 1) = [dq_u | dq_v | dk | dv]^T [x | 1],
+// dwo (d_model, d), dwpos (d, d_model). seg: the forward's (B, T) int32
+// packed-segment map, or null; (left, right): the forward's window.
 extern "C" int tat_attention_bwd(
     int bf16, const void* g, const void* x, const void* wo_t,
     const void* wcat, const void* qu, const void* qv, const void* k,
@@ -2047,7 +2057,7 @@ extern "C" int tat_attention_bwd(
     void* dpart, void* dpos, void* dx, void* part, void* dw_all, void* dwo,
     void* dwpos, const void* seg, int batch, int t_len, int d, int heads,
     int left, int right, unsigned int seed, unsigned int thresh,
-    float dscale, int tp, void* stream) {
+    float dscale, int tp, int d_model, unsigned int b_stride, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   auto F = [](const void* q) { return (float*)q; };
   const int* seg_ = (const int*)seg;
@@ -2055,13 +2065,14 @@ extern "C" int tat_attention_bwd(
                     g, x, wo_t, wcat, qu, qv, k, v, p, F(key_bias), F(lse),
                     ctx, pe, dctx, grads, F(dsum), F(dpart), F(dpos), dx,
                     F(part), F(dw_all), F(dwo), F(dwpos), seg_, batch, t_len,
-                    d, heads, left, right, seed, thresh, dscale, tp, s)
+                    d, heads, left, right, seed, thresh, dscale, tp, d_model,
+                    b_stride, s)
               : run_bwd<float>(g, x, wo_t, wcat, qu, qv, k, v, p,
                                F(key_bias), F(lse), ctx, pe, dctx, grads,
                                F(dsum), F(dpart), F(dpos), dx, F(part),
                                F(dw_all), F(dwo), F(dwpos), seg_, batch,
                                t_len, d, heads, left, right, seed, thresh,
-                               dscale, tp, s);
+                               dscale, tp, d_model, b_stride, s);
 }
 
 // Per-head attention (fused_relpos_attention). The wrapper guarantees:

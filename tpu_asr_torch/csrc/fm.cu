@@ -68,17 +68,16 @@
 //     written and read at the flagship shape) bounds the backward next to
 //     its products.
 //
-// fp32 (the check dtype; C = 88, H = 128 only): plain SIMT with fp32
-// accumulation, no TF32, so that it agrees with full-precision references.
-// One persistent block per SM stages W1x, W2 (fp32, odd row strides), a, c
-// and b2 and walks over tiles. 8 warps; in the position products warp w
-// owns rows w R .. w R + R - 1 (R = P / 8) and lane l the columns l + 32 j.
-//   fm_fwd_kernel (P = 64) - x in registers and a shared tile for all steps;
-//     h in a shared tile.
-//   fm_bwd_kernel (P = 16) - replays the forward keeping each step's x_j
-//     of the tile in shared memory, then walks back; each thread owns 4 x 11
-//     cells of dW1x and of dW2 in registers for all its tiles; one partial
-//     per block, summed over blocks in order by fm_bwd_sum_kernel.
+// Routes (`mma_route`): every C % 8 == 0 and H % 32 == 0 up to 512 and
+// any max_steps >= 1 run, in both types. bf16 at C <= 128, H <= 256 takes
+// the tensor-core kernels below; every other shape, and fp32 (the check
+// dtype) at every shape, the wide SIMT kernels (fm_fwd_wide_kernel,
+// fm_bwd_wide_kernel: fp32 accumulation, no TF32, so that fp32 agrees
+// with full-precision references; shared memory linear in C + H, the
+// weights streamed in chunks, the step count a runtime loop; see their
+// section). At conformer-LARGE's flowkd_large shape (rows = 4 x 18
+// layers, T' = 376, C = 256, H = 128, 8 steps) the forward is 28.4 GFLOP
+// and the backward 3x that: 0.029 and 0.086 ms at the bf16 tensor rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,50 +94,7 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// fp32, plain SIMT (the check dtype)
-// ---------------------------------------------------------------------------
-
-constexpr int kC = 88;                // features
-constexpr int kH = 128;               // hidden units
-constexpr int kMaxSteps = 16;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kJH = kH / 32;          // hidden columns per lane
-constexpr int kJC = (kC + 31) / 32;   // feature columns per lane (ragged)
-constexpr int kW1S = kH + 1;          // w1s row stride (odd)
-constexpr int kW2S = kC + 1;          // w2s row stride (odd)
-constexpr int kCG = kC / kWarps;      // features per warp in dW
-constexpr int kWF = kC * kW1S + kH * kW2S + 2 * kH + kC;  // staged floats
-constexpr int kNP = 2 * kC * kH + 2 * kH + kC;  // partial floats per block
-constexpr int kFwdP = 64;
-
-static_assert(kC % kWarps == 0, "dW owner layout");
-
-// w1s[c * kW1S + k] = W1x[c][k], w2s[k * kW2S + c] = W2[k][c], then a, c, b2.
-template <typename T>
-__device__ void stage_weights(float* s, const T* w1, const T* w2,
-                              const float* a, const float* c,
-                              const float* b2) {
-  float* w1s = s;
-  float* w2s = w1s + kC * kW1S;
-  float* as = w2s + kH * kW2S;
-  float* cs = as + kH;
-  float* b2s = cs + kH;
-  for (int i = threadIdx.x; i < kC * kH; i += kThreads) {
-    const int r = i / kH, k = i - r * kH;
-    w1s[r * kW1S + k] = to_f(w1[i]);
-  }
-  for (int i = threadIdx.x; i < kH * kC; i += kThreads) {
-    const int k = i / kC, cc = i - k * kC;
-    w2s[k * kW2S + cc] = to_f(w2[i]);
-  }
-  for (int i = threadIdx.x; i < kH; i += kThreads) {
-    as[i] = a[i];
-    cs[i] = c[i];
-  }
-  for (int i = threadIdx.x; i < kC; i += kThreads) b2s[i] = b2[i];
-}
+constexpr int kThreads = 256;        // the wide kernels' blocks
 
 // nt[pp] = n of position pos0 + pp (1 past the end); returns the steps the
 // tile runs: min(ms, largest n). Ends with a block barrier.
@@ -153,344 +109,6 @@ __device__ int load_tile(float* nt, const float* n_rows, long pos0,
   float m = 1.f;
   for (int pp = 0; pp < P; ++pp) m = fmaxf(m, nt[pp]);
   return min(ms, (int)ceilf(m));
-}
-
-// acc[i][j] = sum_{k < K} A(w R + i, k) B(k, col_j) for warp w, col_j =
-// min(lane + 32 j, N - 1). A is a row-major tile of stride lda, rounded to
-// T on read when RA; B(k, n) = b[k * ldb + n], or b[n * ldb + k] when BT.
-template <typename T, int R, int NJ, int N, int K, bool RA, bool BT,
-          typename TA>
-__device__ __forceinline__ void tile_prod(float (&acc)[R][NJ], const TA* a,
-                                          int lda, const float* b, int ldb) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int col[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) col[j] = min(lane + 32 * j, N - 1);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  const TA* arow = a + (size_t)warp * R * lda;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[R], bv[NJ];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float v = to_f(arow[i * lda + k]);
-      av[i] = RA ? rnd<T>(v) : v;
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      bv[j] = BT ? b[col[j] * ldb + k] : b[k * ldb + col[j]];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// h tile = round(relu(x W1x + t a + c)) (pre_only: the pre-activation p,
-// unrounded) for the warp's rows; x is the (P, kC) tile xa.
-template <typename T, int R, bool PreOnly, typename TA>
-__device__ __forceinline__ void hidden(float* ht, const TA* xa,
-                                       const float* w1s, const float* as,
-                                       const float* cs, const float* nt,
-                                       int j) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float acc[R][kJH];
-  tile_prod<T, R, kJH, kH, kC, false, false>(acc, xa, kC, w1s, kW1S);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = warp * R + i;
-    const float n = nt[row], t = (n - j) / n;
-#pragma unroll
-    for (int jj = 0; jj < kJH; ++jj) {
-      const int col = lane + 32 * jj;
-      const float p = acc[i][jj] + t * as[col] + cs[col];
-      ht[row * kH + col] = PreOnly ? p : rnd<T>(fmaxf(p, 0.f));
-    }
-  }
-}
-
-// One Euler update of the warp's x registers from the h tile: v = round(h
-// W2 + b2); x = round(x - v / n) while j < n; last_v at j == n - 1.
-template <typename T, int R>
-__device__ __forceinline__ void euler_update(float (&x)[R][kJC],
-                                             float (&lv)[R][kJC],
-                                             const float* ht,
-                                             const float* w2s,
-                                             const float* b2s,
-                                             const float* nt, int j) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float vv[R][kJC];
-  tile_prod<T, R, kJC, kC, kH, false, false>(vv, ht, kH, w2s, kW2S);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const float n = nt[warp * R + i];
-#pragma unroll
-    for (int jj = 0; jj < kJC; ++jj) {
-      const int col = lane + 32 * jj;
-      if (col >= kC) continue;
-      const float v = rnd<T>(vv[i][jj] + b2s[col]);
-      if ((float)j < n) x[i][jj] = rnd<T>(x[i][jj] - v / n);
-      if (n - 1.f == (float)j) lv[i][jj] = v;
-    }
-  }
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads, 1) fm_fwd_kernel(
-    const T* __restrict__ x0, const float* __restrict__ n_rows,
-    const T* __restrict__ w1, const float* __restrict__ a,
-    const float* __restrict__ c, const T* __restrict__ w2,
-    const float* __restrict__ b2, T* __restrict__ xo, T* __restrict__ vo,
-    long n_pos, int t_len, int ms) {
-  constexpr int R = P / kWarps;
-  extern __shared__ float sm[];
-  float* w1s = sm;
-  float* w2s = w1s + kC * kW1S;
-  float* as = w2s + kH * kW2S;
-  float* cs = as + kH;
-  float* b2s = cs + kH;
-  float* nt = sm + kWF;     // P
-  float* xt = nt + P;       // P x kC
-  float* ht = xt + P * kC;  // P x kH
-  stage_weights<T>(sm, w1, w2, a, c, b2);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long n_tiles = (n_pos + P - 1) / P;
-  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long pos0 = tile * P;
-    __syncthreads();  // staged weights ready; the last tile's smem consumed
-    const int steps = load_tile<P>(nt, n_rows, pos0, n_pos, t_len, ms);
-    float x[R][kJC], lv[R][kJC];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = warp * R + i;
-      const long pos = pos0 + row;
-#pragma unroll
-      for (int jj = 0; jj < kJC; ++jj) {
-        const int col = lane + 32 * jj;
-        x[i][jj] = (col < kC && pos < n_pos) ? to_f(x0[pos * kC + col]) : 0.f;
-        lv[i][jj] = 0.f;
-        if (col < kC) xt[row * kC + col] = x[i][jj];
-      }
-    }
-    __syncthreads();
-    for (int j = 0; j < steps; ++j) {
-      hidden<T, R, false>(ht, xt, w1s, as, cs, nt, j);
-      __syncthreads();
-      euler_update<T, R>(x, lv, ht, w2s, b2s, nt, j);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < kJC; ++jj) {
-          const int col = lane + 32 * jj;
-          if (col < kC) xt[(warp * R + i) * kC + col] = x[i][jj];
-        }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const long pos = pos0 + warp * R + i;
-      if (pos >= n_pos) continue;
-#pragma unroll
-      for (int jj = 0; jj < kJC; ++jj) {
-        const int col = lane + 32 * jj;
-        if (col >= kC) continue;
-        xo[pos * kC + col] = from_f<T>(x[i][jj]);
-        vo[pos * kC + col] = from_f<T>(lv[i][jj]);
-      }
-    }
-  }
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads, 1) fm_bwd_kernel(
-    const T* __restrict__ x0, const float* __restrict__ n_rows,
-    const T* __restrict__ w1, const float* __restrict__ a,
-    const float* __restrict__ c, const T* __restrict__ w2,
-    const float* __restrict__ b2, const T* __restrict__ gx_in,
-    const T* __restrict__ gv_in, T* __restrict__ dx,
-    float* __restrict__ part, long n_pos, int t_len, int ms) {
-  constexpr int R = P / kWarps;
-  extern __shared__ float sm[];
-  float* w1s = sm;
-  float* w2s = w1s + kC * kW1S;
-  float* as = w2s + kH * kW2S;
-  float* cs = as + kH;
-  float* b2s = cs + kH;
-  float* nt = sm + kWF;               // P
-  float* pt = nt + P;                 // P x kH: h (replay), p (walk)
-  float* dpt = pt + P * kH;           // P x kH: dp, unrounded
-  float* dvt = dpt + P * kH;          // P x kC: dv, unrounded
-  T* xs = (T*)(dvt + P * kC);         // ms x P x kC: x_j
-  stage_weights<T>(sm, w1, w2, a, c, b2);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // dW1x[c][k] and dW2[k][c] for k = lane + 32 i, c = warp * kCG + m
-  float dw1[kJH][kCG], dw2[kJH][kCG];
-  float pda[kJH], pdc[kJH], pdb2[kJC];
-#pragma unroll
-  for (int i = 0; i < kJH; ++i) {
-    pda[i] = pdc[i] = 0.f;
-#pragma unroll
-    for (int m = 0; m < kCG; ++m) dw1[i][m] = dw2[i][m] = 0.f;
-  }
-#pragma unroll
-  for (int jj = 0; jj < kJC; ++jj) pdb2[jj] = 0.f;
-
-  const long n_tiles = (n_pos + P - 1) / P;
-  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long pos0 = tile * P;
-    __syncthreads();
-    const int steps = load_tile<P>(nt, n_rows, pos0, n_pos, t_len, ms);
-    float x[R][kJC], gx[R][kJC], gv[R][kJC];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = warp * R + i;
-      const long pos = pos0 + row;
-#pragma unroll
-      for (int jj = 0; jj < kJC; ++jj) {
-        const int col = lane + 32 * jj;
-        const bool in = col < kC && pos < n_pos;
-        const long at = pos * kC + col;
-        x[i][jj] = in ? to_f(x0[at]) : 0.f;
-        gx[i][jj] = in ? to_f(gx_in[at]) : 0.f;
-        gv[i][jj] = in ? to_f(gv_in[at]) : 0.f;
-        if (col < kC) xs[row * kC + col] = from_f<T>(x[i][jj]);
-      }
-    }
-    __syncthreads();
-    // forward replay: x_j of steps 1 .. steps - 1 into xs
-    for (int j = 0; j + 1 < steps; ++j) {
-      hidden<T, R, false>(pt, xs + (size_t)j * P * kC, w1s, as, cs, nt, j);
-      __syncthreads();
-      float lv[R][kJC];
-      euler_update<T, R>(x, lv, pt, w2s, b2s, nt, j);
-      T* xn = xs + (size_t)(j + 1) * P * kC;
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < kJC; ++jj) {
-          const int col = lane + 32 * jj;
-          if (col < kC) xn[(warp * R + i) * kC + col] = from_f<T>(x[i][jj]);
-        }
-      __syncthreads();
-    }
-    // backward walk
-    for (int j = steps - 1; j >= 0; --j) {
-      const T* xj = xs + (size_t)j * P * kC;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int row = warp * R + i;
-        const float n = nt[row];
-#pragma unroll
-        for (int jj = 0; jj < kJC; ++jj) {
-          const int col = lane + 32 * jj;
-          if (col >= kC) continue;
-          const float dv = ((float)j < n ? -gx[i][jj] / n : 0.f) +
-                           (n - 1.f == (float)j ? gv[i][jj] : 0.f);
-          dvt[row * kC + col] = dv;
-          pdb2[jj] += dv;
-        }
-      }
-      hidden<T, R, true>(pt, xj, w1s, as, cs, nt, j);
-      __syncthreads();
-      {
-        float acc[R][kJH];  // dh = round(dv) W2^T
-        tile_prod<T, R, kJH, kH, kC, true, true>(acc, dvt, kC, w2s, kW2S);
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const int row = warp * R + i;
-          const float n = nt[row], t = (n - j) / n;
-#pragma unroll
-          for (int jj = 0; jj < kJH; ++jj) {
-            const int col = lane + 32 * jj;
-            const float dp = pt[row * kH + col] > 0.f ? acc[i][jj] : 0.f;
-            dpt[row * kH + col] = dp;
-            pda[jj] += t * dp;
-            pdc[jj] += dp;
-          }
-        }
-      }
-      __syncthreads();
-      {
-        float acc[R][kJC];  // gx += round(dp) W1x^T
-        tile_prod<T, R, kJC, kC, kH, true, true>(acc, dpt, kH, w1s, kW1S);
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int jj = 0; jj < kJC; ++jj) gx[i][jj] += acc[i][jj];
-      }
-      for (int pp = 0; pp < P; ++pp) {
-        float hv[kJH], dpv[kJH];
-#pragma unroll
-        for (int i = 0; i < kJH; ++i) {
-          const int k = lane + 32 * i;
-          hv[i] = rnd<T>(fmaxf(pt[pp * kH + k], 0.f));
-          dpv[i] = rnd<T>(dpt[pp * kH + k]);
-        }
-#pragma unroll
-        for (int m = 0; m < kCG; ++m) {
-          const int cc = warp * kCG + m;
-          const float dvv = rnd<T>(dvt[pp * kC + cc]);
-          const float xv = to_f(xj[pp * kC + cc]);
-#pragma unroll
-          for (int i = 0; i < kJH; ++i) {
-            dw2[i][m] = fmaf(hv[i], dvv, dw2[i][m]);
-            dw1[i][m] = fmaf(xv, dpv[i], dw1[i][m]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const long pos = pos0 + warp * R + i;
-      if (pos >= n_pos) continue;
-#pragma unroll
-      for (int jj = 0; jj < kJC; ++jj) {
-        const int col = lane + 32 * jj;
-        if (col < kC) dx[pos * kC + col] = from_f<T>(gx[i][jj]);
-      }
-    }
-  }
-
-  // this block's partial: dW1x (C, H), dW2 (H, C), da (H), dc (H), db2 (C)
-  float* pb = part + (size_t)blockIdx.x * kNP;
-#pragma unroll
-  for (int i = 0; i < kJH; ++i)
-#pragma unroll
-    for (int m = 0; m < kCG; ++m) {
-      const int k = lane + 32 * i, cc = warp * kCG + m;
-      pb[cc * kH + k] = dw1[i][m];
-      pb[kC * kH + k * kC + cc] = dw2[i][m];
-    }
-  __syncthreads();
-#pragma unroll
-  for (int jj = 0; jj < kJH; ++jj) {
-    pt[warp * kH + lane + 32 * jj] = pda[jj];
-    dpt[warp * kH + lane + 32 * jj] = pdc[jj];
-  }
-#pragma unroll
-  for (int jj = 0; jj < kJC; ++jj) {
-    const int col = lane + 32 * jj;
-    if (col < kC) dvt[warp * kC + col] = pdb2[jj];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kH; i += kThreads) {
-    float s = 0.f, s2 = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      s += pt[w * kH + i];
-      s2 += dpt[w * kH + i];
-    }
-    pb[2 * kC * kH + i] = s;
-    pb[2 * kC * kH + kH + i] = s2;
-  }
-  for (int i = threadIdx.x; i < kC; i += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += dvt[w * kC + i];
-    pb[2 * kC * kH + 2 * kH + i] = s;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1140,6 +758,369 @@ __global__ void __launch_bounds__(32 * kSumRows) fm_bwd_sum_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Any width (fm_fwd_wide_kernel, fm_bwd_wide_kernel): plain SIMT in the
+// working type T with fp32 accumulation, for the shapes the kernels above
+// do not take: bf16 beyond C = 128 or H = 256 (conformer-LARGE's student is
+// C = 256, XLarge's C = 512) and fp32 at every shape. A block of 256 threads walks tiles of kWP
+// positions; x, h (and in the backward round(dv), round(dp)) of the tile
+// stay in shared memory as fp32 holding T values, and the weights stream
+// through a kWK-row chunk of shared memory per product (wide_prod), so
+// shared memory is linear in C + H and the step count is a runtime loop.
+// Each product's output tile (kWP x N, N <= 512) is cut as thread (rg, cg)
+// = (tid / 64, tid % 64) owning rows 4 rg .. 4 rg + 3 and columns cg + 64 s.
+// The backward replays the forward, keeping each step's x_j of the tile in
+// a per-block stack in device memory, then walks back as the header says;
+// dW1x and dW2 accumulate into the block's own partial in device memory
+// once per (tile, step), a fixed order, and fm_bwd_sum_kernel adds the
+// blocks' partials in block order: two calls give bit-equal gradients.
+// That read-modify-write of 2 C H floats per (tile, step) and the chunk
+// staging (two barriers per kWK weight rows, fp32 FMAs) make these kernels
+// slower than the plain loop on an H100 (PERF.md); a cp.async weight ring
+// and bf16 tensor-core products are the next step for them (ROADMAP.md).
+// ---------------------------------------------------------------------------
+
+constexpr int kWP = 16;                          // positions a tile
+constexpr int kWK = 16;                          // weight rows a chunk
+constexpr int kWCols = 64;                       // threads along columns
+constexpr int kWSlots = 8;                       // columns a thread
+constexpr int kWRows = kWP / (kThreads / kWCols);   // rows a thread (4)
+constexpr int kWideMax = kWCols * kWSlots;       // widest C or H (512)
+
+// acc[i][s] = sum_{k < K} A[(4 rg + i) lda + k] Bv(k, cg + 64 s) for s <
+// S with Bv(k, n) = B[k ldb + n], or B[n ldb + k] when BT (the transposed
+// use of a weight); B staged kWK rows at a time into wb (kWK x N fp32).
+// Every thread of the block calls it; it begins with a barrier, so what the
+// block wrote to A before the call is read. Slots s >= S stay 0.
+template <typename T, bool BT, int S>
+__device__ __forceinline__ void wide_prod_s(float (&acc)[kWRows][kWSlots],
+                                            const float* A, int lda, int K,
+                                            const T* __restrict__ B, int ldb,
+                                            int N, float* wb) {
+  const int cg = threadIdx.x % kWCols, rg = threadIdx.x / kWCols;
+#pragma unroll
+  for (int i = 0; i < kWRows; ++i)
+#pragma unroll
+    for (int s = 0; s < kWSlots; ++s) acc[i][s] = 0.f;
+  const float* arow = A + (size_t)rg * kWRows * lda;
+  for (int k0 = 0; k0 < K; k0 += kWK) {
+    const int kn = min(kWK, K - k0);
+    __syncthreads();   // wb free, A written
+    for (int i = threadIdx.x; i < kn * N; i += kThreads) {
+      if (BT) {
+        const int n = i / kn, kk = i - n * kn;
+        wb[kk * N + n] = to_f(B[(size_t)n * ldb + k0 + kk]);
+      } else {
+        const int kk = i / N, n = i - kk * N;
+        wb[kk * N + n] = to_f(B[(size_t)(k0 + kk) * ldb + n]);
+      }
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kn; ++kk) {
+      float av[kWRows], bv[S];
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i) av[i] = arow[i * lda + k0 + kk];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int n = cg + kWCols * s;
+        bv[s] = n < N ? wb[kk * N + n] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i)
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          acc[i][s] = fmaf(av[i], bv[s], acc[i][s]);
+    }
+  }
+}
+
+// wide_prod_s with as many column slots as N needs (2, 4 or 8: the FMAs of
+// slots past N are not issued).
+template <typename T, bool BT>
+__device__ __forceinline__ void wide_prod(float (&acc)[kWRows][kWSlots],
+                                          const float* A, int lda, int K,
+                                          const T* __restrict__ B, int ldb,
+                                          int N, float* wb) {
+  if (N <= 2 * kWCols)
+    wide_prod_s<T, BT, 2>(acc, A, lda, K, B, ldb, N, wb);
+  else if (N <= 4 * kWCols)
+    wide_prod_s<T, BT, 4>(acc, A, lda, K, B, ldb, N, wb);
+  else
+    wide_prod_s<T, BT, kWSlots>(acc, A, lda, K, B, ldb, N, wb);
+}
+
+__host__ __device__ constexpr size_t wide_fwd_smem(int cc, int h) {
+  return sizeof(float) * (kWP + (size_t)kWP * (cc + h) +
+                          (size_t)kWK * (cc > h ? cc : h));
+}
+__host__ __device__ constexpr size_t wide_bwd_smem(int cc, int h) {
+  return sizeof(float) * (kWP + 2 * (size_t)kWP * (cc + h) +
+                          (size_t)kWK * (cc > h ? cc : h));
+}
+
+// h = round(relu(x W1x + t a + c)) of the tile into hs (kWP x h).
+template <typename T>
+__device__ __forceinline__ void wide_hidden(float* hs, const float* xs,
+                                            const T* w1, const float* a,
+                                            const float* c, const float* nt,
+                                            int cc, int h, int j, float* wb) {
+  const int cg = threadIdx.x % kWCols, rg = threadIdx.x / kWCols;
+  float acc[kWRows][kWSlots];
+  wide_prod<T, false>(acc, xs, cc, cc, w1, h, h, wb);
+#pragma unroll
+  for (int i = 0; i < kWRows; ++i) {
+    const int row = rg * kWRows + i;
+    const float n = nt[row], t = (n - j) / n;
+#pragma unroll
+    for (int s = 0; s < kWSlots; ++s) {
+      const int col = cg + kWCols * s;
+      if (col < h)
+        hs[row * h + col] = rnd<T>(fmaxf(acc[i][s] + t * a[col] + c[col],
+                                         0.f));
+    }
+  }
+}
+
+// v = round(h W2 + b2); x = round(x - v / n) while j < n (the thread's own
+// cells of xs); last_v into vo at j == n - 1 when vo is given.
+template <typename T>
+__device__ __forceinline__ void wide_update(float* xs, const float* hs,
+                                            const T* w2, const float* b2,
+                                            const float* nt, T* vo,
+                                            long pos0, long n_pos, int cc,
+                                            int h, int j, float* wb) {
+  const int cg = threadIdx.x % kWCols, rg = threadIdx.x / kWCols;
+  float acc[kWRows][kWSlots];
+  wide_prod<T, false>(acc, hs, h, h, w2, cc, cc, wb);
+#pragma unroll
+  for (int i = 0; i < kWRows; ++i) {
+    const int row = rg * kWRows + i;
+    const float n = nt[row];
+    const long pos = pos0 + row;
+#pragma unroll
+    for (int s = 0; s < kWSlots; ++s) {
+      const int col = cg + kWCols * s;
+      if (col >= cc) continue;
+      const float v = rnd<T>(acc[i][s] + b2[col]);
+      if ((float)j < n) xs[row * cc + col] = rnd<T>(xs[row * cc + col] - v / n);
+      if (vo != nullptr && n - 1.f == (float)j && pos < n_pos)
+        vo[pos * cc + col] = from_f<T>(v);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) fm_fwd_wide_kernel(
+    const T* __restrict__ x0, const float* __restrict__ n_rows,
+    const T* __restrict__ w1, const float* __restrict__ a,
+    const float* __restrict__ c, const T* __restrict__ w2,
+    const float* __restrict__ b2, T* __restrict__ xo, T* __restrict__ vo,
+    long n_pos, int t_len, int cc, int h, int ms) {
+  extern __shared__ float sm[];
+  float* nt = sm;                        // kWP
+  float* xs = nt + kWP;                  // kWP x cc
+  float* hs = xs + kWP * cc;             // kWP x h
+  float* wb = hs + kWP * h;              // kWK x max(cc, h)
+  const int cg = threadIdx.x % kWCols, rg = threadIdx.x / kWCols;
+  const long n_tiles = (n_pos + kWP - 1) / kWP;
+  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long pos0 = tile * kWP;
+    __syncthreads();   // the last tile's shared memory consumed
+    const int steps = load_tile<kWP>(nt, n_rows, pos0, n_pos, t_len, ms);
+    for (int i = threadIdx.x; i < kWP * cc; i += kThreads) {
+      const int r = i / cc;
+      xs[i] = pos0 + r < n_pos ? to_f(x0[pos0 * cc + i]) : 0.f;
+    }
+    for (int j = 0; j < steps; ++j) {
+      wide_hidden<T>(hs, xs, w1, a, c, nt, cc, h, j, wb);
+      wide_update<T>(xs, hs, w2, b2, nt, vo, pos0, n_pos, cc, h, j, wb);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kWRows; ++i) {
+      const int row = rg * kWRows + i;
+      const long pos = pos0 + row;
+      if (pos >= n_pos) continue;
+#pragma unroll
+      for (int s = 0; s < kWSlots; ++s) {
+        const int col = cg + kWCols * s;
+        if (col >= cc) continue;
+        xo[pos * cc + col] = from_f<T>(xs[row * cc + col]);
+        if (nt[row] > (float)ms) vo[pos * cc + col] = from_f<T>(0.f);
+      }
+    }
+  }
+}
+
+// The backward of a block's tiles: dx, and the block's partial [dW1x (cc,
+// h) | dW2 (h, cc) | da (h) | dc (h) | db2 (cc)] at part + blockIdx.x
+// n_part; xst: the block's stack of ms x kWP x cc floats.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) fm_bwd_wide_kernel(
+    const T* __restrict__ x0, const float* __restrict__ n_rows,
+    const T* __restrict__ w1, const float* __restrict__ a,
+    const float* __restrict__ c, const T* __restrict__ w2,
+    const float* __restrict__ b2, const T* __restrict__ gx_in,
+    const T* __restrict__ gv_in, T* __restrict__ dx,
+    float* __restrict__ part, float* __restrict__ xstack, long n_pos,
+    int t_len, int cc, int h, int ms) {
+  extern __shared__ float sm[];
+  float* nt = sm;                        // kWP
+  float* xs = nt + kWP;                  // kWP x cc: x_j
+  float* dvt = xs + kWP * cc;            // kWP x cc: round(dv)
+  float* ht = dvt + kWP * cc;            // kWP x h: h_j
+  float* dpt = ht + kWP * h;             // kWP x h: round(dp)
+  float* wb = dpt + kWP * h;             // kWK x max(cc, h)
+  const int cg = threadIdx.x % kWCols, rg = threadIdx.x / kWCols;
+  const int n_part = 2 * cc * h + 2 * h + cc;
+  float* pb = part + (size_t)blockIdx.x * n_part;
+  float* xst = xstack + (size_t)blockIdx.x * ms * kWP * cc;
+  for (int i = threadIdx.x; i < 2 * cc * h; i += kThreads) pb[i] = 0.f;
+  float pda[kWSlots], pdc[kWSlots], pdb2[kWSlots];
+#pragma unroll
+  for (int s = 0; s < kWSlots; ++s) pda[s] = pdc[s] = pdb2[s] = 0.f;
+  const int h4 = h / 4, c4 = cc / 4;
+
+  const long n_tiles = (n_pos + kWP - 1) / kWP;
+  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long pos0 = tile * kWP;
+    __syncthreads();
+    const int steps = load_tile<kWP>(nt, n_rows, pos0, n_pos, t_len, ms);
+    float gx[kWRows][kWSlots];
+#pragma unroll
+    for (int i = 0; i < kWRows; ++i) {
+      const int row = rg * kWRows + i;
+      const long pos = pos0 + row;
+#pragma unroll
+      for (int s = 0; s < kWSlots; ++s) {
+        const int col = cg + kWCols * s;
+        const bool in = col < cc && pos < n_pos;
+        gx[i][s] = in ? to_f(gx_in[pos * cc + col]) : 0.f;
+        if (col < cc) xs[row * cc + col] = in ? to_f(x0[pos * cc + col]) : 0.f;
+      }
+    }
+    // replay: x_j of steps 0 .. steps - 1 onto the stack (own cells)
+    for (int j = 0; j < steps; ++j) {
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i)
+#pragma unroll
+        for (int s = 0; s < kWSlots; ++s) {
+          const int row = rg * kWRows + i, col = cg + kWCols * s;
+          if (col < cc)
+            xst[((size_t)j * kWP + row) * cc + col] = xs[row * cc + col];
+        }
+      if (j + 1 == steps) break;
+      wide_hidden<T>(ht, xs, w1, a, c, nt, cc, h, j, wb);
+      wide_update<T>(xs, ht, w2, b2, nt, (T*)nullptr, pos0, n_pos, cc, h,
+                     j, wb);
+    }
+    // backward walk
+    for (int j = steps - 1; j >= 0; --j) {
+      __syncthreads();   // the last step's partial update read xs, dvt
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i) {
+        const int row = rg * kWRows + i;
+        const float n = nt[row];
+        const long pos = pos0 + row;
+#pragma unroll
+        for (int s = 0; s < kWSlots; ++s) {
+          const int col = cg + kWCols * s;
+          if (col >= cc) continue;
+          xs[row * cc + col] = xst[((size_t)j * kWP + row) * cc + col];
+          float dv = (float)j < n ? -gx[i][s] / n : 0.f;
+          if (n - 1.f == (float)j && pos < n_pos)
+            dv += to_f(gv_in[pos * cc + col]);
+          pdb2[s] += dv;
+          dvt[row * cc + col] = rnd<T>(dv);
+        }
+      }
+      float p[kWRows][kWSlots], acc[kWRows][kWSlots];
+      wide_prod<T, false>(p, xs, cc, cc, w1, h, h, wb);     // p - t a - c
+      wide_prod<T, true>(acc, dvt, cc, cc, w2, cc, h, wb);  // dh
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i) {
+        const int row = rg * kWRows + i;
+        const float n = nt[row], t = (n - j) / n;
+#pragma unroll
+        for (int s = 0; s < kWSlots; ++s) {
+          const int col = cg + kWCols * s;
+          if (col >= h) continue;
+          const float pv = p[i][s] + t * a[col] + c[col];
+          const float dp = pv > 0.f ? acc[i][s] : 0.f;
+          pda[s] += t * dp;
+          pdc[s] += dp;
+          dpt[row * h + col] = rnd<T>(dp);
+          ht[row * h + col] = rnd<T>(fmaxf(pv, 0.f));
+        }
+      }
+      wide_prod<T, true>(acc, dpt, h, h, w1, h, cc, wb);    // round(dp) W1x^T
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i)
+#pragma unroll
+        for (int s = 0; s < kWSlots; ++s) gx[i][s] += acc[i][s];
+      __syncthreads();   // ht, dpt of every thread written
+      // dW1x += x_j^T round(dp), dW2 += h_j^T round(dv): 4 columns a cell
+      for (int i = threadIdx.x; i < cc * h4; i += kThreads) {
+        const int r = i / h4, k = 4 * (i - r * h4);
+        float4 acc4 = *reinterpret_cast<float4*>(pb + (size_t)r * h + k);
+        for (int pp = 0; pp < kWP; ++pp) {
+          const float xv = xs[pp * cc + r];
+          const float4 d4 = *reinterpret_cast<const float4*>(dpt + pp * h + k);
+          acc4.x = fmaf(xv, d4.x, acc4.x);
+          acc4.y = fmaf(xv, d4.y, acc4.y);
+          acc4.z = fmaf(xv, d4.z, acc4.z);
+          acc4.w = fmaf(xv, d4.w, acc4.w);
+        }
+        *reinterpret_cast<float4*>(pb + (size_t)r * h + k) = acc4;
+      }
+      float* pw2 = pb + (size_t)cc * h;
+      for (int i = threadIdx.x; i < h * c4; i += kThreads) {
+        const int r = i / c4, k = 4 * (i - r * c4);
+        float4 acc4 = *reinterpret_cast<float4*>(pw2 + (size_t)r * cc + k);
+        for (int pp = 0; pp < kWP; ++pp) {
+          const float hv = ht[pp * h + r];
+          const float4 d4 =
+              *reinterpret_cast<const float4*>(dvt + pp * cc + k);
+          acc4.x = fmaf(hv, d4.x, acc4.x);
+          acc4.y = fmaf(hv, d4.y, acc4.y);
+          acc4.z = fmaf(hv, d4.z, acc4.z);
+          acc4.w = fmaf(hv, d4.w, acc4.w);
+        }
+        *reinterpret_cast<float4*>(pw2 + (size_t)r * cc + k) = acc4;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWRows; ++i) {
+      const long pos = pos0 + rg * kWRows + i;
+      if (pos >= n_pos) continue;
+#pragma unroll
+      for (int s = 0; s < kWSlots; ++s) {
+        const int col = cg + kWCols * s;
+        if (col < cc) dx[pos * cc + col] = from_f<T>(gx[i][s]);
+      }
+    }
+  }
+  // da, dc, db2: the 4 row groups' sums added in order
+  __syncthreads();
+  const int n_cs = 2 * h + cc;
+  float* red = xs;   // 4 x n_cs floats (xs, dvt, ht, dpt hold 32 (cc + h))
+#pragma unroll
+  for (int s = 0; s < kWSlots; ++s) {
+    const int col = cg + kWCols * s;
+    if (col < h) {
+      red[rg * n_cs + col] = pda[s];
+      red[rg * n_cs + h + col] = pdc[s];
+    }
+    if (col < cc) red[rg * n_cs + 2 * h + col] = pdb2[s];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_cs; i += kThreads) {
+    float sum = 0.f;
+    for (int r = 0; r < kThreads / kWCols; ++r) sum += red[r * n_cs + i];
+    pb[2 * cc * h + i] = sum;
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -1150,9 +1131,21 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 // Blocks of `kernel` (with `smem` bytes, which it is allowed here) that fit
 // on the current card at once. The attribute and occupancy queries cost
 // more than the launches of a call, so they run once per card, kernel and
-// size.
+// size. The allowance is the kernel's, not the launch's: it is raised to
+// the largest size asked so far (a smaller one set later would refuse a
+// larger launch whose count was cached before).
 std::mutex grid_mu;
 std::map<std::tuple<int, const void*, size_t>, int> grids;
+std::map<std::pair<int, const void*>, size_t> allowed;
+
+template <typename K>
+cudaError_t allow_smem(int dev, K kernel, size_t smem) {
+  size_t& have = allowed[std::make_pair(dev, (const void*)kernel)];
+  if (smem <= have) return cudaSuccess;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err == cudaSuccess) have = smem;
+  return err;
+}
 
 template <typename K>
 cudaError_t resident_blocks(int& blocks, K kernel, int threads, size_t smem) {
@@ -1160,67 +1153,22 @@ cudaError_t resident_blocks(int& blocks, K kernel, int threads, size_t smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const auto key = std::make_tuple(dev, (const void*)kernel, smem);
-  {
-    std::lock_guard<std::mutex> lock(grid_mu);
-    const auto hit = grids.find(key);
-    if (hit != grids.end()) {
-      blocks = hit->second;
-      return cudaSuccess;
-    }
+  std::lock_guard<std::mutex> lock(grid_mu);
+  if ((err = allow_smem(dev, kernel, smem)) != cudaSuccess) return err;
+  const auto hit = grids.find(key);
+  if (hit != grids.end()) {
+    blocks = hit->second;
+    return cudaSuccess;
   }
-  err = set_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   blocks = sms * per_sm;
-  std::lock_guard<std::mutex> lock(grid_mu);
   grids[key] = blocks;
   return cudaSuccess;
-}
-
-// fp32 (C = 88, H = 128): one persistent wave of 8-warp blocks.
-int fwd_simt(const void* x0, const float* n, const void* w1, const float* a,
-             const float* c, const void* w2, const float* b2, void* xo,
-             void* vo, long n_pos, int t_len, int ms, cudaStream_t stream) {
-  constexpr int P = kFwdP;
-  const size_t smem = sizeof(float) * (kWF + P + (size_t)P * (kC + kH));
-  int grid = 0;
-  cudaError_t err =
-      resident_blocks(grid, fm_fwd_kernel<float, P>, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  fm_fwd_kernel<float, P><<<grid, kThreads, smem, stream>>>(
-      (const float*)x0, n, (const float*)w1, a, c, (const float*)w2, b2,
-      (float*)xo, (float*)vo, n_pos, t_len, ms);
-  return (int)cudaGetLastError();
-}
-
-constexpr int kBwdP = 16;   // fp32 backward positions per tile
-
-size_t simt_bwd_smem(int ms) {
-  return sizeof(float) * (kWF + kBwdP + (size_t)kBwdP * (2 * kH + kC) +
-                          (size_t)ms * kBwdP * kC);
-}
-
-int bwd_simt(const void* x0, const float* n, const void* w1, const float* a,
-             const float* c, const void* w2, const float* b2, const void* gx,
-             const void* gv, void* dx, float* part, float* out, long n_pos,
-             int t_len, int ms, cudaStream_t stream) {
-  const size_t smem = simt_bwd_smem(ms);
-  int grid = 0;
-  cudaError_t err =
-      resident_blocks(grid, fm_bwd_kernel<float, kBwdP>, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  fm_bwd_kernel<float, kBwdP><<<grid, kThreads, smem, stream>>>(
-      (const float*)x0, n, (const float*)w1, a, c, (const float*)w2, b2,
-      (const float*)gx, (const float*)gv, (float*)dx, part, n_pos, t_len, ms);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fm_bwd_sum_kernel<<<(kNP + 31) / 32, dim3(32, kSumRows), 0, stream>>>(
-      part, grid, kNP, nullptr, 0, 0, out);
-  return (int)cudaGetLastError();
 }
 
 // bf16: one persistent wave of 4-warp blocks.
@@ -1325,6 +1273,63 @@ int bwd_mma(const void* x0, const float* n, const void* w1, const float* a,
   return (int)cudaGetLastError();
 }
 
+// Any width: one persistent wave of 8-warp blocks.
+template <typename T>
+int fwd_wide(const void* x0, const float* n, const void* w1, const float* a,
+             const float* c, const void* w2, const float* b2, void* xo,
+             void* vo, long n_pos, int t_len, int cc, int h, int ms,
+             cudaStream_t stream) {
+  const size_t smem = wide_fwd_smem(cc, h);
+  int grid = 0;
+  cudaError_t err =
+      resident_blocks(grid, fm_fwd_wide_kernel<T>, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  grid = (int)std::min<long>(grid, (n_pos + kWP - 1) / kWP);
+  fm_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)x0, n, (const T*)w1, a, c, (const T*)w2, b2, (T*)xo,
+      (T*)vo, n_pos, t_len, cc, h, ms);
+  return (int)cudaGetLastError();
+}
+
+// The wide backward's blocks: a resident wave, fewer when its scratch (a
+// partial of 2 cc h + 2 h + cc floats and a stack of ms kWP cc floats a
+// block) would pass kWorkBytes; the scratch bytes into *bytes.
+template <typename T>
+cudaError_t wide_bwd_plan(int& grid, size_t& bytes, long n_pos, int cc,
+                          int h, int ms) {
+  cudaError_t err = resident_blocks(grid, fm_bwd_wide_kernel<T>, kThreads,
+                                    wide_bwd_smem(cc, h));
+  if (err != cudaSuccess) return err;
+  const size_t per = sizeof(float) * ((size_t)2 * cc * h + 2 * h + cc +
+                                      (size_t)ms * kWP * cc);
+  grid = (int)std::min<long>(
+      {(long)grid, (n_pos + kWP - 1) / kWP,
+       std::max<long>(1, (long)(kWorkBytes / per))});
+  bytes = per * grid;
+  return cudaSuccess;
+}
+
+template <typename T>
+int bwd_wide(const void* x0, const float* n, const void* w1, const float* a,
+             const float* c, const void* w2, const float* b2, const void* gx,
+             const void* gv, void* dx, char* scratch, float* out, long n_pos,
+             int t_len, int cc, int h, int ms, cudaStream_t stream) {
+  int grid = 0;
+  size_t bytes = 0;
+  cudaError_t err = wide_bwd_plan<T>(grid, bytes, n_pos, cc, h, ms);
+  if (err != cudaSuccess) return (int)err;
+  const int n_part = 2 * cc * h + 2 * h + cc;
+  float* part = reinterpret_cast<float*>(scratch);
+  fm_bwd_wide_kernel<T><<<grid, kThreads, wide_bwd_smem(cc, h), stream>>>(
+      (const T*)x0, n, (const T*)w1, a, c, (const T*)w2, b2, (const T*)gx,
+      (const T*)gv, (T*)dx, part, part + (size_t)grid * n_part, n_pos,
+      t_len, cc, h, ms);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  fm_bwd_sum_kernel<<<(n_part + 31) / 32, dim3(32, kSumRows), 0, stream>>>(
+      part, grid, n_part, nullptr, 0, 0, out);
+  return (int)cudaGetLastError();
+}
+
 // f(std::integral_constant<int, CP>) for cc features padded to CP, a
 // multiple of 32.
 template <class F>
@@ -1337,13 +1342,17 @@ int with_cp(int cc, F f) {
   }
 }
 
-// What the kernels take: bf16 C % 8 == 0 in [8, 128], H % 32 == 0 in [32,
-// 256]; fp32 C = 88, H = 128; 1 <= max_steps <= 16.
-bool takes(int bf16_, int cc, int h, int ms) {
-  if (ms < 1 || ms > kMaxSteps) return false;
-  if (!bf16_) return cc == kC && h == kH;
-  return cc % 8 == 0 && cc >= 8 && cc <= kMaxC && h % 32 == 0 && h >= 32 &&
-         h <= kMaxH;
+// What the kernels take, in fp32 and bf16: C % 8 == 0 in [8, kWideMax],
+// H % 32 == 0 in [32, kWideMax], max_steps >= 1.
+bool takes(int cc, int h, int ms) {
+  return ms >= 1 && cc % 8 == 0 && cc >= 8 && cc <= kWideMax &&
+         h % 32 == 0 && h >= 32 && h <= kWideMax;
+}
+
+// Whether a shape runs on the bf16 tensor-core kernels (C <= 128, H <=
+// 256); every other shape, and every fp32 one, runs the wide kernels.
+bool mma_route(int bf16_, int cc, int h) {
+  return bf16_ && cc <= kMaxC && h <= kMaxH;
 }
 
 }  // namespace
@@ -1357,14 +1366,16 @@ extern "C" int tat_fm_fwd(int bf16_, const void* x0, const void* n,
                           const void* w2, const void* b2, void* xo, void* vo,
                           int rows, int t_len, int cc, int h, int max_steps,
                           void* stream) {
-  if (!takes(bf16_, cc, h, max_steps)) return (int)cudaErrorInvalidValue;
+  if (!takes(cc, h, max_steps)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long n_pos = (long)rows * t_len;
   const float *nn = (const float*)n, *aa = (const float*)a,
               *ca = (const float*)c, *bb = (const float*)b2;
-  if (!bf16_)
-    return fwd_simt(x0, nn, w1, aa, ca, w2, bb, xo, vo, n_pos, t_len,
-                    max_steps, s);
+  if (!mma_route(bf16_, cc, h))
+    return bf16_ ? fwd_wide<bf16>(x0, nn, w1, aa, ca, w2, bb, xo, vo, n_pos,
+                                  t_len, cc, h, max_steps, s)
+                 : fwd_wide<float>(x0, nn, w1, aa, ca, w2, bb, xo, vo,
+                                   n_pos, t_len, cc, h, max_steps, s);
   return with_cp(cc, [&](auto cp) {
     return fwd_mma<decltype(cp)::value>(x0, nn, w1, aa, ca, w2, bb, xo, vo,
                                         n_pos, t_len, cc, h, max_steps, s);
@@ -1377,15 +1388,16 @@ extern "C" int tat_fm_bwd_scratch(int bf16_, int rows, int t_len, int cc,
                                   int h, int max_steps, void* bytes,
                                   void* stream) {
   (void)stream;
-  if (!takes(bf16_, cc, h, max_steps)) return (int)cudaErrorInvalidValue;
+  if (!takes(cc, h, max_steps)) return (int)cudaErrorInvalidValue;
   const long n_pos = (long)rows * t_len;
-  if (!bf16_) {
+  if (!mma_route(bf16_, cc, h)) {
     int grid = 0;
-    cudaError_t err = resident_blocks(grid, fm_bwd_kernel<float, kBwdP>,
-                                      kThreads, simt_bwd_smem(max_steps));
-    if (err != cudaSuccess) return (int)err;
-    *(long long*)bytes = (long long)sizeof(float) * grid * kNP;
-    return 0;
+    size_t size = 0;
+    cudaError_t err =
+        bf16_ ? wide_bwd_plan<bf16>(grid, size, n_pos, cc, h, max_steps)
+              : wide_bwd_plan<float>(grid, size, n_pos, cc, h, max_steps);
+    if (err == cudaSuccess) *(long long*)bytes = (long long)size;
+    return (int)err;
   }
   return with_cp(cc, [&](auto cp) {
     BwdPlan pl;
@@ -1406,15 +1418,19 @@ extern "C" int tat_fm_bwd(int bf16_, const void* x0, const void* n,
                           const void* gv, void* dx, void* scratch, void* out,
                           int rows, int t_len, int cc, int h, int max_steps,
                           void* stream) {
-  if (!takes(bf16_, cc, h, max_steps)) return (int)cudaErrorInvalidValue;
+  if (!takes(cc, h, max_steps)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long n_pos = (long)rows * t_len;
   const float *nn = (const float*)n, *aa = (const float*)a,
               *ca = (const float*)c, *bb = (const float*)b2;
   float* oo = (float*)out;
-  if (!bf16_)
-    return bwd_simt(x0, nn, w1, aa, ca, w2, bb, gx, gv, dx, (float*)scratch,
-                    oo, n_pos, t_len, max_steps, s);
+  if (!mma_route(bf16_, cc, h))
+    return bf16_ ? bwd_wide<bf16>(x0, nn, w1, aa, ca, w2, bb, gx, gv, dx,
+                                  (char*)scratch, oo, n_pos, t_len, cc, h,
+                                  max_steps, s)
+                 : bwd_wide<float>(x0, nn, w1, aa, ca, w2, bb, gx, gv, dx,
+                                   (char*)scratch, oo, n_pos, t_len, cc, h,
+                                   max_steps, s);
   return with_cp(cc, [&](auto cp) {
     return bwd_mma<decltype(cp)::value>(x0, nn, w1, aa, ca, w2, bb, gx, gv,
                                         dx, (char*)scratch, oo, n_pos, t_len,

@@ -41,9 +41,8 @@ from torch import nn
 
 from tpu_asr_torch.config import RouterConfig
 from tpu_asr_torch.kd.meta_encoders import dense
-from tpu_asr_torch.parallel.mesh import (all_gather_rows, draw_rows,
-                                         global_mean, process_count,
-                                         row_share)
+from tpu_asr_torch.parallel.mesh import (all_gather_rows, axis_size,
+                                         draw_rows, global_mean, row_share)
 
 STRATEGIES = ("batch_mode", "batch_avg", "batch_median", "group")
 
@@ -131,7 +130,7 @@ class DynamicStepRouter(nn.Module):
             if c.budget_target is not None and c.budget_weight > 0:
                 mean = global_mean(steps.float(), 1)             # (L,)
                 loss = loss + c.budget_weight * torch.square(
-                    mean - c.budget_target).sum() / process_count()
+                    mean - c.budget_target).sum() / axis_size("data")
             if c.entropy_weight > 0:
                 ent = -(probs * torch.log(probs.clamp(min=1e-8))).sum(-1)
                 loss = loss - c.entropy_weight * (

@@ -101,7 +101,9 @@ from tpu_asr_torch.ops.cuda_subsampling import (fused_subsampling, out_len,
 from tpu_asr_torch.ops.dropout import dropout, keep_mask
 from tpu_asr_torch.ops.positions import (position_table,
                                          rel_positional_encoding)
-from tpu_asr_torch.parallel.mesh import global_mean, global_rows, row_offset
+from tpu_asr_torch.parallel.mesh import (global_mean, global_rows,
+                                         model_gather, model_input,
+                                         model_sum, row_offset)
 
 SEEDS_PER_LAYER = 5      # ffn1, attention probabilities, attention out,
 #                          conv out, ffn2
@@ -343,6 +345,16 @@ class RelPositionMultiHeadAttention(nn.Module):
             self.linear_q_global = nn.Linear(d_model, d_model)
             self.linear_k_global = nn.Linear(d_model, d_model)
             self.linear_v_global = nn.Linear(d_model, d_model)
+        # (tp, index): this module holds model rank index's heads of tp
+        # slices (parallel/sharding.shard_module)
+        self.tp = None
+
+    def local_heads(self) -> Tuple[int, int]:
+        """(heads this module runs, the first of them among n_heads)."""
+        if self.tp is None:
+            return self.n_heads, 0
+        tp, index = self.tp
+        return self.n_heads // tp, index * (self.n_heads // tp)
 
     def uses_kernel(self, x: torch.Tensor) -> bool:
         """Whether the route takes the kernel wrapper for x (B, T, D); the
@@ -355,9 +367,10 @@ class RelPositionMultiHeadAttention(nn.Module):
                 "attention_backend='xla' for chunked/global attention"))
         train = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        b, t, d = x.shape
+        b, t, _ = x.shape
         return use_kernel(self.backend, attention_refusal(
-            x.dtype, d, self.n_heads, t, train))
+            x.dtype, self.linear_q.weight.shape[0], self.local_heads()[0], t,
+            train))
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 mask: torch.Tensor, dropout_rate: float = 0.0,
@@ -371,6 +384,10 @@ class RelPositionMultiHeadAttention(nn.Module):
         `kv_valid` (B,) its valid frames; `pos_emb` then has C + 2T - 1
         rows. With a cache neither 'auto' nor 'pallas' takes the kernel, as
         in JAX: it scores square problems only."""
+        if self.tp is not None and (kv_cache is not None
+                                    or not self.kernel_route):
+            raise ValueError("tensor-parallel attention runs the 'regular' "
+                             "offline style without global tokens only")
         if kv_cache is not None:
             if seg_id is not None:
                 raise ValueError(
@@ -382,22 +399,29 @@ class RelPositionMultiHeadAttention(nn.Module):
             raise ValueError(
                 "packed-segment attention (seg_id) supports only the "
                 "offline 'regular' attention style without global tokens")
-        args = (x, self.linear_q.weight, self.linear_q.bias,
+        h_local, first = self.local_heads()
+        heads = None if self.tp is None else (first, self.n_heads)
+        # a tensor-parallel rank: the local heads' partial sum, summed over
+        # the model group (x's cotangents too), linear_out's bias once
+        xin = x if self.tp is None else model_input(x)
+        args = (xin, self.linear_q.weight, self.linear_q.bias,
                 self.linear_k.weight, self.linear_k.bias,
                 self.linear_v.weight, self.linear_v.bias, self.pos_bias_u,
                 self.pos_bias_v, self.linear_pos.weight,
-                self.linear_out.weight, pos_emb, mask, self.n_heads)
+                self.linear_out.weight, pos_emb, mask, h_local)
         if self.uses_kernel(x):
             out = fused_relpos_attention_block(
                 *args, att_context_size=self.window,
                 dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                seg_id=seg_id)
+                seg_id=seg_id, heads=heads)
         elif self.kernel_route:
             out = relpos_attention_plain(*args, dropout_rate, dropout_seed,
-                                         seg_id, self.window)
+                                         seg_id, self.window, heads)
         else:
             out = self._masked_plain(x, pos_emb, mask, dropout_rate,
                                      dropout_seed)
+        if self.tp is not None:
+            out = model_sum(out)
         return out + self.linear_out.bias.to(out.dtype)
 
     def _cached_plain(self, x, pos_emb, mask, kv_cache, kv_valid
@@ -509,13 +533,31 @@ class RelPositionMultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
+    """linear1 -> SiLU -> linear2. Under tensor parallelism
+    (parallel/sharding.shard_module) it holds the model rank's slices of
+    linear1's outputs and linear2's inputs, and `weights()` gathers them
+    whole over the model group: the FFN kernels, which JAX partitions over
+    the batch only (GSPMD gives them whole weights), run on the whole
+    weights, and each slice's gradient is its part of the whole one."""
+
     def __init__(self, d_model: int, d_ff: int):
         super().__init__()
         self.linear1 = nn.Linear(d_model, d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
+        self.tp = None
+
+    def weights(self):
+        """(w1 (d_ff, D), b1, w2 (D, d_ff), b2), whole."""
+        w1, b1 = self.linear1.weight, self.linear1.bias
+        w2 = self.linear2.weight
+        if self.tp is not None:
+            w1, b1, w2 = (model_gather(w1, 0), model_gather(b1, 0),
+                          model_gather(w2, 1))
+        return w1, b1, w2, self.linear2.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(F.silu(_linear(x, self.linear1)), self.linear2)
+        w1, b1, w2, b2 = (z.to(x.dtype) for z in self.weights())
+        return F.linear(F.silu(F.linear(x, w1, b1)), w2, b2)
 
 
 def fold_batch_norm(weight, bias, mean, var, eps: float):
@@ -745,8 +787,7 @@ class ConformerLayer(nn.Module):
         """x + 0.5 * FFN(LN(x)) in eval: the int8 kernel (its plain version
         under 'xla') with quantization='int8', the fused kernel with
         'pallas', else plain PyTorch."""
-        args = (x, norm.weight, norm.bias, ff.linear1.weight,
-                ff.linear1.bias, ff.linear2.weight, ff.linear2.bias)
+        args = (x, norm.weight, norm.bias, *ff.weights())
         if self.cfg.quantization == "int8":
             run = (ffn_sublayer_int8_plain if self.ffn_backend == "xla"
                    else fused_ffn_sublayer_int8)
@@ -762,8 +803,7 @@ class ConformerLayer(nn.Module):
         version."""
         run = (fused_ffn_sublayer if self.ffn_train_uses_kernel(x, ff)
                else ffn_sublayer_plain)
-        return run(x, norm.weight, norm.bias, ff.linear1.weight,
-                   ff.linear1.bias, ff.linear2.weight, ff.linear2.bias,
+        return run(x, norm.weight, norm.bias, *ff.weights(),
                    self.cfg.dropout, seed)
 
     def ffn_train_uses_kernel(self, x: torch.Tensor,
@@ -774,7 +814,7 @@ class ConformerLayer(nn.Module):
         train = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in ff.parameters()))
         return use_kernel(self.ffn_backend, ffn_refusal(
-            x.dtype, x.shape[-1], ff.linear1.weight.shape[0], train))
+            x.dtype, x.shape[-1], ff.linear2.in_features, train))
 
     def _train_forward(self, x, pos_emb, mask, seeds, seg_id=None):
         c = self.cfg

@@ -70,9 +70,9 @@ from tpu_asr_torch.ops.positions import (position_table,
                                          rel_positional_encoding)
 
 _ARGS = ((K.INT,) + (K.PTR,) * 21 + (K.INT,) * 6 + (K.UINT,) * 2
-         + (K.FLOAT, K.INT, K.PTR))
+         + (K.FLOAT, K.INT, K.INT, K.UINT, K.PTR))
 _BWD_ARGS = ((K.INT,) + (K.PTR,) * 24 + (K.INT,) * 6 + (K.UINT,) * 2
-             + (K.FLOAT, K.INT, K.PTR))
+             + (K.FLOAT, K.INT, K.INT, K.UINT, K.PTR))
 _HEADS_ARGS = ((K.INT,) + (K.PTR,) * 10 + (K.INT,) * 6 + (K.UINT,) * 3
                + (K.FLOAT, K.INT, K.PTR))
 _HEADS_BWD_ARGS = ((K.INT,) + (K.PTR,) * 16 + (K.INT,) * 6 + (K.UINT,) * 3
@@ -168,16 +168,22 @@ def local_window(t: int, left: int, right: int, device=None) -> torch.Tensor:
 
 
 def head_streams(dropout_seed: Optional[int], b: int, h: int,
-                 device=None) -> torch.Tensor:
+                 device=None, heads: Optional[Tuple[int, int]] = None
+                 ) -> torch.Tensor:
     """(B, H) dropout streams dropout_seed + b * H + h; stream h in every
     batch row when dropout_seed is None, as fused_relpos_attention draws
     them: its seed_rows are zeros then, and head l of a program holding all
     H heads draws stream seed_rows[b, 0] + l (pallas_attention.py
-    _dropout_keep)."""
+    _dropout_keep). `heads` (first, total): the h heads are heads first ..
+    first + h - 1 of `total` (a tensor-parallel rank's), which draw their
+    streams in the whole sublayer, dropout_seed + b * total + first + l,
+    as JAX's per-(row, head) seed operand gives each shard
+    (tpu_asr/parallel/kernel_sharding.py)."""
     if dropout_seed is None:
         return torch.arange(h, dtype=torch.int64, device=device).expand(b, h)
-    return batch_streams(dropout_seed, b, per_row=h,
-                         device=device).reshape(b, h)
+    first, total = heads if heads is not None else (0, h)
+    return batch_streams(dropout_seed, b, per_row=total,
+                         device=device).reshape(b, total)[:, first:first + h]
 
 
 def attention_context(q_u, q_v, k, v, p, mask, r,
@@ -220,16 +226,18 @@ def project_heads(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
     """The block sublayer's per-head operands of x (B, T, D): q_u = q + u,
     q_v = q + v, k, v (B, H, T, dk) and the projected position table p
     (2T - 1, H, dk), fp32 holding values rounded to x's dtype where the
-    kernel rounds them."""
+    kernel rounds them. The projections may hold n_heads of more heads
+    (wq (H dk, D): a tensor-parallel rank's)."""
     dt = x.dtype
 
     def r(z):               # round to the working dtype, compute in fp32
         return z.to(dt).float()
 
-    b, t, d = x.shape
+    b, t, _ = x.shape
+    d = wq.shape[0]
     h, dk = n_heads, d // n_heads
 
-    def heads(z):           # (B, T, D) -> (B, H, T, dk)
+    def heads(z):           # (B, T, H dk) -> (B, H, T, dk)
         return z.view(b, t, h, dk).transpose(1, 2)
 
     xf = x.float()
@@ -247,23 +255,30 @@ def relpos_attention_plain(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos,
                            dropout_rate: float = 0.0,
                            dropout_seed: int = 0,
                            seg_id: Optional[torch.Tensor] = None,
-                           att_context_size: Tuple[int, int] = (-1, -1)
+                           att_context_size: Tuple[int, int] = (-1, -1),
+                           heads: Optional[Tuple[int, int]] = None
                            ) -> torch.Tensor:
     """The block sublayer (without the linear_out bias) in plain
     PyTorch: `attention_context` on the projected heads, with the window
-    `att_context_size` and the segment map `seg_id` (both optional)."""
+    `att_context_size` and the segment map `seg_id` (both optional).
+    `heads` (first, total): the n_heads heads are those of a
+    tensor-parallel rank (wq, wk, wv, w_pos (n_heads dk, D), wo (D,
+    n_heads dk)), drawing their global dropout streams; the output is
+    their partial sum, which the model group adds."""
     dt = x.dtype
 
     def r(z):               # round to the working dtype, compute in fp32
         return z.to(dt).float()
 
-    b, t, d = x.shape
+    b, t, _ = x.shape
+    d = wq.shape[0]
     h = n_heads
     q_u, q_v, k, v, p = project_heads(x, wq, bq, wk, bk, wv, bv, bias_u,
                                       bias_v, w_pos, pos_emb, h)
     ctx = attention_context(q_u, q_v, k, v, p, mask, r,
                             tuple(att_context_size), dropout_rate,
-                            head_streams(dropout_seed, b, h, x.device),
+                            head_streams(dropout_seed, b, h, x.device,
+                                         heads),
                             seg_id)
     ctx = r(ctx.transpose(1, 2).reshape(b, t, d))
     return (ctx @ r(wo).t()).to(dt)
@@ -296,15 +311,20 @@ def attention_refusal(dtype: torch.dtype, d: int, h: int, t: int,
 
 def _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, h,
            train: bool, seg=None):
-    b, t, d = x.shape
+    b, t, dm = x.shape
+    d = wq.shape[0]                 # the heads' width: dm, or a TP slice
     dk = d // h
-    if (any(w.shape != (d, d) for w in (wq, wk, wv, w_pos, wo))
+    if (any(w.shape != (d, dm) for w in (wq, wk, wv, w_pos))
+            or wo.shape != (dm, d)
             or bias_u.shape != (h, dk) or bias_v.shape != (h, dk)
-            or pos_emb.shape != (2 * t - 1, d) or mask.shape != (b, t)
+            or pos_emb.shape != (2 * t - 1, dm) or mask.shape != (b, t)
             or (seg is not None and seg.shape != (b, t))):
         raise ValueError("fused_relpos_attention_block: shapes do not match "
                          f"x {tuple(x.shape)} with {h} heads")
     why = attention_refusal(x.dtype, d, h, t, train)
+    if not why and x.dtype == torch.bfloat16 and dm % 8:
+        why = (f"fused_relpos_attention_block: in bf16 the kernel takes "
+               f"D % 8 == 0 (got D={dm})")
     if why:
         raise ValueError(why)
 
@@ -321,11 +341,13 @@ def _block_weights(wq, wk, wv, w_pos, wo, bq, bias_u, bias_v, bk, bv, dt):
 
 
 def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
-            mask, n_heads, rate, seed, seg, window, train):
+            mask, n_heads, rate, seed, seg, window, train, b_stride=None):
     """The forward kernel: (out, the tensors its backward reads, or None
-    when not `train`)."""
+    when not `train`). Head h of batch row b draws stream seed + b_stride
+    b + h (b_stride: n_heads by default)."""
     dt = x.dtype
-    b, t, d = x.shape
+    b, t, dm = x.shape
+    d = wq.shape[0]
     h = n_heads
     dk = d // h
     x = x.contiguous()
@@ -337,7 +359,7 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
     new = lambda *shape: torch.empty(shape, dtype=dt, device=x.device)
     qu, qv, k, v = (new(b, h, t, dk) for _ in range(4))
     p = new(h, 2 * t - 1, dk)
-    ctx_buf, out = new(b, t, d), new(b, t, d)
+    ctx_buf, out = new(b, t, d), new(b, t, dm)
     lse = (torch.empty((b, h, t), device=x.device) if train else None)
     tensors = [x, *w, cu, cv, bk_, bv_, pe, key_bias, qu, qv, k, v, p,
                ctx_buf, out]
@@ -347,7 +369,7 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
            *(z.data_ptr() for z in tensors),
            *(None if z is None else z.data_ptr() for z in (lse, seg)),
            b, t, d, h, *window, *_drop_args(rate, seed),
-           _round_up(t, 128))
+           _round_up(t, 128), dm, h if b_stride is None else b_stride)
     fused_relpos_attention_block.launches += 1
     if seg is not None:
         fused_relpos_attention_block.seg_launches += 1
@@ -361,17 +383,17 @@ def _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo, pos_emb,
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, bias_u, bias_v, w_pos, wo,
-                pos_emb, mask, n_heads, rate, seed, seg, window):
+                pos_emb, mask, n_heads, rate, seed, seg, window, b_stride):
         train = any(ctx.needs_input_grad)
         out, saved = _launch(x, wq, bq, wk, bk, wv, bv, bias_u, bias_v,
                              w_pos, wo, pos_emb, mask, n_heads, rate, seed,
-                             seg, window, train)
+                             seg, window, train, b_stride)
         if train:
             # seg is an int map without gradient, kept beside the saved
             # tensors: the backward's segment mode reads the same map, and
             # its window the same window
             ctx.n_heads, ctx.rate, ctx.seed, ctx.seg = n_heads, rate, seed, seg
-            ctx.window = window
+            ctx.window, ctx.b_stride = window, b_stride
             ctx.save_for_backward(*saved)
         return out
 
@@ -379,8 +401,8 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, g):
         grads = fused_relpos_attention_block_bwd(
             g, *ctx.saved_tensors, ctx.n_heads, ctx.rate, ctx.seed, ctx.seg,
-            ctx.window)
-        return grads + (None,) * 7
+            ctx.window, ctx.b_stride)
+        return grads + (None,) * 8
 
 
 def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
@@ -389,15 +411,18 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
                                      dropout_seed: int = 0,
                                      seg: Optional[torch.Tensor] = None,
                                      att_context_size: Tuple[int, int] = (
-                                         -1, -1)):
+                                         -1, -1),
+                                     b_stride: Optional[int] = None):
     """Grads (dx, dwq, dbq, dwk, dbk, dwv, dbv, d bias_u, d bias_v, dw_pos,
     dwo) of the sublayer from its saved forward (weights in x's dtype,
     PyTorch layouts) for the cotangent g. `seg`: the forward's (B, T) int32
     segment map, or None; with it the segment mode launches, and
     `seg_launches` counts it beside `launches`. `att_context_size`: the
-    forward's window; a limited one is counted in `window_launches`."""
+    forward's window; a limited one is counted in `window_launches`.
+    `b_stride`: the forward's (the dropout streams' heads a batch row)."""
     dt = x.dtype
-    b, t, d = x.shape
+    b, t, dm = x.shape
+    d = wq.shape[0]
     h = n_heads
     dk = d // h
     dev = x.device
@@ -417,12 +442,12 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
     grads = torch.empty((b, t, 4 * d), dtype=dt, device=dev)
     splits = -(-(b * t) // SPLIT_ROWS)
     dx = torch.empty_like(x)
-    dpos, dw_all = f32(2 * t - 1, d), f32(4 * d, d + 1)
-    dwo, dwpos = f32(d, d), f32(d, d)
+    dpos, dw_all = f32(2 * t - 1, d), f32(4 * d, dm + 1)
+    dwo, dwpos = f32(dm, d), f32(d, dm)
     tensors = (gc, x, wo_t, wcat, qu, qv, k, v, p, key_bias, lse, ctx_buf,
                pe_t, dctx, grads, f32(b, h, t),
                f32(*_dpart_shape(dt, b, h, t, dk)), dpos, dx,
-               f32(_part_size(dt, b, t, d, splits * 4 * d * (d + 1))),
+               f32(_part_size(dt, b, t, d, splits * 4 * d * (dm + 1))),
                dw_all, dwo, dwpos)
     K.check_cuda("fused_relpos_attention_block_bwd", *tensors,
                  *(() if seg is None else (seg,)))
@@ -430,13 +455,14 @@ def fused_relpos_attention_block_bwd(g, x, wq, wk, wv, w_pos, wo, qu, qv, k,
     K.call("tat_attention_bwd", _BWD_ARGS, dev, int(dt == torch.bfloat16),
            *(z.data_ptr() for z in tensors),
            None if seg is None else seg.data_ptr(), b, t, d, h, *window,
-           *_drop_args(dropout_rate, dropout_seed), _round_up(t, 128))
+           *_drop_args(dropout_rate, dropout_seed), _round_up(t, 128), dm,
+           h if b_stride is None else b_stride)
     fused_relpos_attention_block_bwd.launches += 1
     if seg is not None:
         fused_relpos_attention_block_bwd.seg_launches += 1
     if window != (-1, -1):
         fused_relpos_attention_block_bwd.window_launches += 1
-    dw, cols = dw_all[:, :d], dw_all[:, d]
+    dw, cols = dw_all[:, :dm], dw_all[:, dm]
     dcu, dcv = cols[:d], cols[d:2 * d]
     return (dx, dw[:d] + dw[d:2 * d], dcu + dcv, dw[2 * d:3 * d],
             cols[2 * d:3 * d], dw[3 * d:], cols[3 * d:], dcu.reshape(h, dk),
@@ -450,8 +476,8 @@ def fused_relpos_attention_block(
     wv: torch.Tensor, bv: torch.Tensor,
     bias_u: torch.Tensor,       # (H, dk)
     bias_v: torch.Tensor,       # (H, dk)
-    w_pos: torch.Tensor,        # (D, D) linear_pos weight
-    wo: torch.Tensor,           # (D, D) linear_out weight
+    w_pos: torch.Tensor,        # (D, D) linear_pos weight (or (H dk, D))
+    wo: torch.Tensor,           # (D, D) linear_out weight (or (D, H dk))
     pos_emb: torch.Tensor,      # (2T - 1, D)
     mask: torch.Tensor,         # (B, T) bool, True = valid
     n_heads: int,
@@ -459,8 +485,13 @@ def fused_relpos_attention_block(
     dropout_rate: float = 0.0,
     seg_id: Optional[torch.Tensor] = None,
     dropout_seed: int = 0,
+    heads: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Same contract as `relpos_attention_plain`. A CPU tensor runs the
+    """Same contract as `relpos_attention_plain`, whose `heads` (first,
+    total) runs a tensor-parallel rank's n_heads heads (wq, wk, wv, w_pos
+    (n_heads dk, D), wo (D, n_heads dk), bias_u/v (n_heads, dk)) with their
+    global dropout streams and returns their partial sum. A CPU tensor runs
+    the
     plain version; a CUDA tensor launches the forward kernel (three
     launches) and, under autograd, the backward. `seg_id` (B, T) int, the
     packed-segment map, runs the kernels' segment mode, forward and
@@ -476,17 +507,18 @@ def fused_relpos_attention_block(
         z.requires_grad for z in args if isinstance(z, torch.Tensor))
     if K.plain_on_cpu(x):
         return relpos_attention_plain(*args, n_heads, dropout_rate,
-                                      dropout_seed, seg_id, window)
+                                      dropout_seed, seg_id, window, heads)
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_relpos_attention_block: unsupported device "
                          f"{x.device}")
     seg = None if seg_id is None else seg_id.to(torch.int32).contiguous()
     _check(x, wq, wk, wv, w_pos, wo, bias_u, bias_v, pos_emb, mask, n_heads,
            train, seg)
-    if K.tracing(x) and not train and not dropout_rate:
+    if K.tracing(x) and not train and not dropout_rate and heads is None:
         return attention_op(*args, n_heads, list(window), seg)
+    first, total = heads if heads is not None else (0, n_heads)
     return _Attention.apply(*args, n_heads, float(dropout_rate),
-                            int(dropout_seed), seg, window)
+                            int(dropout_seed) + first, seg, window, total)
 
 
 @K.custom_op("relpos_attention_block",

@@ -18,9 +18,11 @@ kernel rounds them (`_fm_fwd_kernel`), so for fp32 nothing rounds.
 A CPU tensor runs the plain version (autograd differentiates it); a CUDA
 tensor launches the forward kernel and, under autograd, the backward (a
 forward replay and the backward walk, then the weight-gradient products),
-or raises. The kernels take max_steps <= 16; in bf16 (the tensor-core
-kernels) any C % 8 == 0 up to 128 features and H % 32 == 0 up to 256
-hidden units, in fp32 (the SIMT check kernels) C = 88 and H = 128.
+or raises. The kernels take any max_steps >= 1, C % 8 == 0 up to 512
+features and H % 32 == 0 up to 512 hidden units, in fp32 and in bf16
+(conformer-LARGE's student is C = 256, XLarge's C = 512): bf16 at C <= 128,
+H <= 256 on the tensor-core kernels, every other shape and fp32 at every
+shape on the wide SIMT kernels (csrc/fm.cu `mma_route`).
 """
 
 from __future__ import annotations
@@ -33,9 +35,7 @@ import torch
 
 from tpu_asr_torch.ops import _kernels as K
 
-MAX_STEPS = 16
-FP32_C, FP32_H = 88, 128            # the fp32 kernels' only widths
-BF16_MAX_C, BF16_MAX_H = 128, 256   # bf16: C % 8 == 0, H % 32 == 0
+MAX_C, MAX_H = 512, 512             # C % 8 == 0, H % 32 == 0 (fm.cu takes)
 DTYPES = (torch.float32, torch.bfloat16)
 _FWD_ARGS = (K.INT,) + (K.PTR,) * 9 + (K.INT,) * 5 + (K.PTR,)
 _BWD_ARGS = (K.INT,) + (K.PTR,) * 12 + (K.INT,) * 5 + (K.PTR,)
@@ -73,20 +73,14 @@ def fm_refusal(c: int, hidden: int, max_steps: int,
     take them."""
     if compute_dtype not in DTYPES:
         return f"fused_fm_euler: unsupported compute dtype {compute_dtype}"
-    if not 1 <= max_steps <= MAX_STEPS:
-        return (f"fused_fm_euler: max_steps {max_steps} outside "
-                f"1..{MAX_STEPS}")
-    if compute_dtype == torch.float32:
-        if (c, hidden) != (FP32_C, FP32_H):
-            return (f"fused_fm_euler: the fp32 kernel takes C={FP32_C}, "
-                    f"H={FP32_H} (got C={c}, H={hidden})")
-        return None
-    if c % 8 or not 8 <= c <= BF16_MAX_C:
-        return (f"fused_fm_euler: the bf16 kernel takes C % 8 == 0 up to "
-                f"{BF16_MAX_C} (got C={c})")
-    if hidden % 32 or not 32 <= hidden <= BF16_MAX_H:
-        return (f"fused_fm_euler: the bf16 kernel takes H % 32 == 0 up to "
-                f"{BF16_MAX_H} (got H={hidden})")
+    if max_steps < 1:
+        return f"fused_fm_euler: max_steps {max_steps} < 1"
+    if c % 8 or not 8 <= c <= MAX_C:
+        return (f"fused_fm_euler: the kernels take C % 8 == 0 up to "
+                f"{MAX_C} (got C={c})")
+    if hidden % 32 or not 32 <= hidden <= MAX_H:
+        return (f"fused_fm_euler: the kernels take H % 32 == 0 up to "
+                f"{MAX_H} (got H={hidden})")
     return None
 
 

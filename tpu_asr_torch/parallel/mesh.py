@@ -38,6 +38,29 @@ preemption flag) go through a gloo group on the CPU beside the default
 group, so reading them never waits for the card. Every call is a no-op, and
 every helper the identity, when no group is initialised or the world is one
 rank: single-rank code paths are unchanged.
+
+Tensor and pipeline parallelism (`make_mesh(dp, tp)`, `make_pp_mesh(dp, pp,
+tp)`, the counterparts of JAX's meshes): the world's ranks form a (data,
+pipe, model) grid, rank = (d pp + p) tp + m as JAX's device reshape orders
+them, with a process group along each axis (`Mesh`). Once a mesh is set
+(`use_mesh`; `make_mesh` and `make_pp_mesh` set theirs) every row helper above
+acts on the DATA axis: the ranks of one model or pipe group hold the same
+rows, `row_offset` and `global_rows` count data ranks, `all_reduce_sum`
+and `global_mean` reduce over the data group, and `cross_process_sum`
+sums the metrics' shares over the data ranks. Without a mesh the data axis
+is the world. The model axis has Megatron's conjugate pair
+(`model_input`: identity forward, sum of the cotangents backward, where a
+replicated activation enters a column-parallel product; `model_sum`: sum
+forward, identity backward, at a row-parallel output) and `model_gather`
+(a sharded tensor whole on every rank; backward: the rank's slice of the
+cotangent, which every rank of the group holds alike). `gather` joins
+any axis's slices without gradient, and `send_to` / `recv_from` carry the
+pipeline's activations between neighbouring stages. gloo takes CUDA
+tensors in all_reduce but not in send or recv: there they travel through
+pinned host memory. Every
+gather is an all_reduce of a zero-filled whole tensor, which NCCL and gloo
+both run on CUDA tensors, exact (each element has one nonzero term); gloo
+reduces bf16 as fp32.
 """
 
 from __future__ import annotations
@@ -54,6 +77,9 @@ import torch.distributed as dist
 _CONTROL = {"group": None}
 # this rank's utterances as rows of the global batch (utterance_rows)
 _ROWS = {"index": None, "count": 0}
+# the (data, pipe, model) layout of the world (use_mesh), or None: the data
+# axis is the world
+_MESH = {"mesh": None}
 
 
 def initialized() -> bool:
@@ -118,6 +144,121 @@ def shutdown() -> None:
     if initialized():
         dist.destroy_process_group()
     _CONTROL["group"] = None
+    _MESH["mesh"] = None
+
+
+# ---------------------------------------------------------------------------
+# the (data, pipe, model) grid
+# ---------------------------------------------------------------------------
+
+class Mesh:
+    """This rank's place on a (data, pipe, model) grid of the world's ranks
+    and the process groups along each axis: `groups[axis]` holds the ranks
+    that differ only in that axis's index (None where the axis has one
+    rank), `data_host` the data group's ranks in a gloo group on the CPU
+    (the metrics' host sums). `rank_of(d, p, m)` is the global rank of
+    grid point (d, p, m)."""
+
+    AXES = ("data", "pipe", "model")
+
+    def __init__(self, dp: int, pp: int, tp: int):
+        world, rank = process_count(), process_index()
+        if dp * pp * tp != world:
+            raise ValueError(f"mesh {dp}x{pp}x{tp} for a world of {world} "
+                             "rank(s): the grid must hold every rank")
+        self.shape = {"data": dp, "pipe": pp, "model": tp}
+        self.index = {"data": rank // (pp * tp),
+                      "pipe": rank // tp % pp, "model": rank % tp}
+        self.groups = {a: None for a in self.AXES}
+        self.data_host = None
+        if world == 1:
+            return
+        gloo = dist.get_backend() == "gloo"
+        for axis in self.AXES:
+            if self.shape[axis] == 1:
+                continue
+            for line in self._lines(axis):
+                # every rank makes every group, in one order
+                g = dist.new_group(line)
+                if rank in line:
+                    self.groups[axis] = g
+                if axis == "data":
+                    h = g if gloo else dist.new_group(line, backend="gloo")
+                    if rank in line:
+                        self.data_host = h
+
+    def rank_of(self, d: int, p: int, m: int) -> int:
+        return (d * self.shape["pipe"] + p) * self.shape["model"] + m
+
+    def _lines(self, axis: str):
+        """Every group of ranks along `axis`, in a fixed order."""
+        others = [a for a in self.AXES if a != axis]
+        out = []
+        for i in range(self.shape[others[0]]):
+            for j in range(self.shape[others[1]]):
+                at = {others[0]: i, others[1]: j}
+                out.append([self.rank_of(*(at.get(a, k) for a in self.AXES))
+                            for k in range(self.shape[axis])])
+        return out
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.shape['data']}, pipe={self.shape['pipe']},"
+                f" model={self.shape['model']}, at {self.index})")
+
+
+def use_mesh(m: Optional[Mesh]) -> Optional[Mesh]:
+    """Set the layout that the row helpers and collectives follow (None:
+    the data axis is the world); returns the previous one."""
+    prev, _MESH["mesh"] = _MESH["mesh"], m
+    return prev
+
+
+def current_mesh() -> Optional[Mesh]:
+    return _MESH["mesh"]
+
+
+def make_mesh(dp_size: int = -1, tp_size: int = 1) -> Mesh:
+    """The ('data', 'model') grid of the world (JAX's make_mesh): dp_size
+    -1 takes world / tp_size. Every rank calls it, in the same order as
+    every other group it makes; the mesh becomes the current one."""
+    world = process_count()
+    if dp_size == -1:
+        dp_size = world // tp_size
+    m = Mesh(dp_size, 1, tp_size)
+    use_mesh(m)
+    return m
+
+
+def make_pp_mesh(dp_size: int = 1, pp_size: int = 2,
+                 tp_size: int = 1) -> Mesh:
+    """The ('data', 'pipe'[, 'model']) grid of the world (JAX's
+    parallel/pipeline.make_pp_mesh); it becomes the current mesh."""
+    m = Mesh(dp_size, pp_size, tp_size)
+    use_mesh(m)
+    return m
+
+
+def axis_size(axis: str) -> int:
+    """Ranks along `axis` of the current mesh (data: the world without
+    one)."""
+    m = _MESH["mesh"]
+    if m is None:
+        return process_count() if axis == "data" else 1
+    return m.shape[axis]
+
+
+def axis_index(axis: str) -> int:
+    m = _MESH["mesh"]
+    if m is None:
+        return process_index() if axis == "data" else 0
+    return m.index[axis]
+
+
+def axis_group(axis: str):
+    """The device process group along `axis` (None: the default group,
+    which is the data axis without a mesh)."""
+    m = _MESH["mesh"]
+    return None if m is None else m.groups[axis]
 
 
 def _control():
@@ -135,14 +276,21 @@ def _control():
 # host scalars
 # ---------------------------------------------------------------------------
 
-def cross_process_sum(values: Sequence[float]) -> np.ndarray:
-    """The sum of a small float64 vector over the ranks (torchmetrics'
-    dist_reduce_fx='sum' for WER's (scores, words) and the eval sums)."""
+def cross_process_sum(values: Sequence[float],
+                      axis: str = "data") -> np.ndarray:
+    """The sum of a small float64 vector over the data ranks (torchmetrics'
+    dist_reduce_fx='sum' for WER's (scores, words), the eval sums and the
+    metrics' shares: the ranks of one model or pipe group hold the same
+    rows and count them once), or over every rank with axis='world'."""
     vals = np.asarray(values, np.float64)
-    if process_count() == 1:
+    m = _MESH["mesh"]
+    if process_count() == 1 or (axis == "data" and m is not None
+                                and m.shape["data"] == 1):
         return vals
+    group = (m.data_host if axis == "data" and m is not None
+             else _control())
     t = torch.from_numpy(vals.copy())
-    dist.all_reduce(t, group=_control())
+    dist.all_reduce(t, group=group)
     return t.numpy()
 
 
@@ -190,7 +338,7 @@ def gather_host_rows(x: np.ndarray) -> np.ndarray:
 
 def any_process(flag: bool) -> bool:
     """Whether `flag` is set on any rank (a SIGTERM that reached some)."""
-    return bool(cross_process_sum([float(bool(flag))])[0] > 0)
+    return bool(cross_process_sum([float(bool(flag))], "world")[0] > 0)
 
 
 def local_rows(x):
@@ -223,14 +371,14 @@ def row_share() -> float:
     """The fraction of the global batch's rows that this rank holds."""
     if _ROWS["index"] is not None:
         return len(_ROWS["index"]) / _ROWS["count"]
-    return 1.0 / process_count()
+    return 1.0 / axis_size("data")
 
 
 def row_index(n_local: int, device=None) -> torch.Tensor:
     """The global rows (int64) of this rank's `n_local` rows."""
     idx = _ROWS["index"]
     if idx is None:
-        return torch.arange(n_local, device=device) + process_index() * \
+        return torch.arange(n_local, device=device) + axis_index("data") * \
             int(n_local)
     k = n_local // len(idx)
     if k * len(idx) != n_local:
@@ -244,7 +392,7 @@ def row_offset(n_local: int) -> int:
     rows are one contiguous block: not inside utterance_rows)."""
     if _ROWS["index"] is not None:
         raise ValueError("row_offset: this rank's rows are not a block")
-    return process_index() * int(n_local)
+    return axis_index("data") * int(n_local)
 
 
 def global_rows(n_local: int) -> int:
@@ -256,7 +404,7 @@ def draw_rows(draw: Callable, shape, dim: int = 0) -> torch.Tensor:
     """`draw(global shape)` cut to this rank's rows along `dim`: a random
     tensor whose rows are those the single-rank run draws for the same
     rows of the global batch (the generator advances as it does there)."""
-    if process_count() == 1 and _ROWS["index"] is None:
+    if axis_size("data") == 1 and _ROWS["index"] is None:
         return draw(tuple(shape))
     shape = list(shape)
     n = shape[dim]
@@ -332,42 +480,169 @@ def packed_rank_block(batch: dict, world: Optional[int] = None,
 # collectives on tensors
 # ---------------------------------------------------------------------------
 
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum `t` over `group` in place (gloo reduces bf16 and fp16 as fp32);
+    returns it."""
+    if t.dtype in (torch.bfloat16, torch.float16) and (
+            dist.get_backend(group) == "gloo"):
+        w = t.float()
+        dist.all_reduce(w, group=group)
+        return t.copy_(w)
+    dist.all_reduce(t, group=group)
+    return t
+
+
 class _AllReduceSum(torch.autograd.Function):
+    """Sum forward and backward (each rank's x feeds every rank's sum)."""
+
     @staticmethod
-    def forward(ctx, x):
-        y = x.clone()
-        dist.all_reduce(y)
-        return y
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g)
-        return g
+        return _all_reduce(g.clone(), ctx.group), None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Identity forward, sum of the cotangents backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.group), None
+
+
+class _SumForward(torch.autograd.Function):
+    """Sum forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    """Every rank's x along `axis` concatenated along `dim` in index
+    order, through one all_reduce of a zero-filled whole tensor."""
+    n, i = axis_size(axis), axis_index(axis)
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    k = shape[dim]
+    shape[dim] = n * k
+    full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    full.narrow(dim, i * k, k).copy_(x)
+    return _all_reduce(full, axis_group(axis))
+
+
+class _GatherSlice(torch.autograd.Function):
+    """Gather forward; backward the rank's slice of the cotangent, which
+    every rank of the group holds alike."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis, ctx.k = dim, axis, x.shape[dim]
+        return gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = axis_index(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.k, ctx.k).contiguous(), None, None
+
+
+def model_input(x: torch.Tensor) -> torch.Tensor:
+    """A replicated activation entering this rank's slice of a
+    column-parallel product: identity forward, its cotangents summed over
+    the model group backward."""
+    if axis_size("model") == 1:
+        return x
+    return _SumBackward.apply(x, axis_group("model"))
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of a row-parallel product's partial
+    outputs; identity backward (the cotangent is replicated)."""
+    if axis_size("model") == 1:
+        return x
+    return _SumForward.apply(x, axis_group("model"))
+
+
+def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's slices of a sharded tensor, whole; backward the
+    rank's slice of the (replicated) cotangent."""
+    if axis_size("model") == 1:
+        return x
+    return _GatherSlice.apply(x, dim, "model")
+
+
+def axis_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The sum of `x` over `axis`, without gradient (a gradient or a
+    norm's square sum over the ranks that hold parts of it)."""
+    if axis_size(axis) == 1:
+        return x
+    return _all_reduce(x.detach().clone(), axis_group(axis))
+
+
+def _staged(dev_type: str) -> bool:
+    """Whether point-to-point tensors go through host memory: gloo does
+    not send or receive CUDA tensors."""
+    return dev_type == "cuda" and dist.get_backend() == "gloo"
+
+
+def send_to(x: torch.Tensor, dst: int) -> None:
+    """Send x to the global rank `dst` (blocking; through pinned host
+    memory where the backend is gloo and x lies on a card)."""
+    if _staged(x.device.type):
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        dist.send(host, dst)
+    else:
+        dist.send(x.contiguous(), dst)
+
+
+def recv_from(shape, dtype, device, src: int) -> torch.Tensor:
+    """A tensor of `shape` and `dtype` from the global rank `src`, on
+    `device`."""
+    device = torch.device(device)
+    if _staged(device.type):
+        host = torch.empty(shape, dtype=dtype, pin_memory=True)
+        dist.recv(host, src)
+        return host.to(device, non_blocking=False)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    dist.recv(out, src)
+    return out
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum over the ranks of `x`, differentiable: the backward sums the
     cotangents over the ranks too (each rank's `x` feeds every rank's
     result)."""
-    if process_count() == 1:
+    if axis_size("data") == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, axis_group("data"))
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum over the ranks of `x`, without gradient (a normaliser)."""
-    if process_count() == 1:
+    if axis_size("data") == 1:
         return x.detach()
-    y = x.detach().clone()
-    dist.all_reduce(y)
-    return y
+    return _all_reduce(x.detach().clone(), axis_group("data"))
 
 
 def global_mean(x: torch.Tensor, dim) -> torch.Tensor:
     """The mean over `dim` of the global batch's `x`, every rank's `x` of
     one shape (BatchNorm's statistics); differentiable."""
-    if process_count() == 1:
+    if axis_size("data") == 1:
         return x.mean(dim=dim)
     dims = (dim,) if isinstance(dim, int) else tuple(dim)
     n = 1
@@ -381,7 +656,7 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     element sum over the global element count (`x`'s rows are this rank's
     rows), so the shares add up to the single-rank mean."""
     m = x.mean()
-    return m if process_count() == 1 else m * row_share()
+    return m if axis_size("data") == 1 else m * row_share()
 
 
 def all_gather_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -390,7 +665,7 @@ def all_gather_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     of a zero-filled global tensor, which NCCL and gloo (also on a CUDA
     tensor) both run; an integer vector travels as float32, exact below
     2^24."""
-    if process_count() == 1:
+    if axis_size("data") == 1:
         return x
     shape = list(x.shape)
     n = shape[dim]
@@ -398,5 +673,4 @@ def all_gather_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     dt = x.dtype if x.is_floating_point() else torch.float32
     full = torch.zeros(shape, dtype=dt, device=x.device)
     full.index_copy_(dim % x.dim(), row_index(n, x.device), x.to(dt))
-    dist.all_reduce(full)
-    return full.to(x.dtype)
+    return _all_reduce(full, axis_group("data")).to(x.dtype)

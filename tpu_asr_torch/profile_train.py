@@ -3,7 +3,8 @@ kernels ('auto') and on the plain PyTorch versions ('xla').
 
     python -m tpu_asr_torch.profile_train [--config ctc_student|flowkd_mlp8|
         flowkd_mlp8_int8_teacher|flowkd_router16|kd_menu|ctc_large|
-        ctc_xlarge|ctc_fastconformer_local] [--packed | --ddp] [--out FILE]
+        flowkd_large|ctc_xlarge|ctc_fastconformer_local] [--packed | --ddp]
+        [--out FILE]
 
 DistilCTCModel(make_student_config(ModelConfig()), ModelConfig(), distill)
 at its own compute dtype (bf16) with seeded random weights and
@@ -17,7 +18,11 @@ the dynamic step router: bench_train.py's RouterConfig(max_steps=16,
 stu_dim=88, tch_dim=176, num_layers=16), strategy 'group', up to 16
 Euler steps a row) or `kd_menu` (logit KD 0.1, layerwise KD over all
 layers, DiffKD, diffm ver 6 and interCTC on layer 7, no FM-KT);
-`ctc_large`, `ctc_xlarge` and
+`flowkd_large` (flowkd_mlp8's losses at conformer-LARGE widths: the
+frozen teacher profile_forward.model_config('large'), d512, 18 layers, 8
+heads, 128 classes + blank, its student make_student_config of it, d256,
+4 heads, 18 layers, and FM-KT at C = 256, teacher 512, H = 128, 8
+steps); `ctc_large`, `ctc_xlarge` and
 `ctc_fastconformer_local` train conformer-LARGE, conformer-XLarge and
 FastConformer-Large with limited context themselves
 (profile_forward.model_config) with the CTC loss alone, as bench_train.py's
@@ -69,8 +74,8 @@ from tpu_asr_torch.profile_forward import (built_on, device_activity,
 B, SECONDS, SR, TOKENS = 32, 15, 16000, 48
 WARMUP, ITERS, PROFILED, TOP = 2, 5, 3, 15
 CONFIGS = ("ctc_student", "flowkd_mlp8", "flowkd_mlp8_int8_teacher",
-           "flowkd_router16", "kd_menu", "ctc_large", "ctc_xlarge",
-           "ctc_fastconformer_local")
+           "flowkd_router16", "kd_menu", "ctc_large", "flowkd_large",
+           "ctc_xlarge", "ctc_fastconformer_local")
 CTC_ONLY = ("ctc_student", "ctc_large", "ctc_xlarge",
             "ctc_fastconformer_local")
 # bench_train.py's packed_train: utterances, seed, the longest clip (s),
@@ -89,6 +94,11 @@ def distill_config(name: str):
                               teacher_dim=176, student_head_num=2,
                               training_sampling=8, inference_sampling=8)
     if name in ("flowkd_mlp8", "flowkd_mlp8_int8_teacher"):
+        return DistillationConfig(use_logit_distillation=True, kd_alpha=0.1,
+                                  use_flow_matching=True, flow=flow)
+    if name == "flowkd_large":
+        flow = dataclasses.replace(flow, student_dim=256, teacher_dim=512,
+                                   student_head_num=4, hidden_dim=128)
         return DistillationConfig(use_logit_distillation=True, kd_alpha=0.1,
                                   use_flow_matching=True, flow=flow)
     if name == "flowkd_router16":
@@ -113,6 +123,9 @@ def teacher_config(name: str):
     """The teacher ModelConfig of bench_train.py's configuration `name`:
     ModelConfig(), its FFN sublayers in int8 for the int8-teacher step."""
     from tpu_asr_torch.config import ModelConfig
+    from tpu_asr_torch.profile_forward import model_config
+    if name == "flowkd_large":
+        return model_config("large")
     cfg = ModelConfig()
     if name == "flowkd_mlp8_int8_teacher":
         cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
@@ -130,7 +143,7 @@ def student_config(name: str):
         return model_config(name[4:])
     if name not in CONFIGS:
         raise ValueError(f"unknown configuration {name!r}; one of {CONFIGS}")
-    return make_student_config(ModelConfig())
+    return make_student_config(teacher_config(name))
 
 
 def make_batch(device="cuda"):

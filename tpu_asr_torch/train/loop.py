@@ -53,8 +53,18 @@ real rows. `cfg.dp_size` is -1 or the world size.
   utterance; with a directory each rank writes its own utterances and the
   ranks exchange what they wrote at the end of each epoch.
 
-Refused (ValueError): tensor parallelism, a `dp_size` other than the
-world, and, as JAX does, `cache_teacher` with flow matching, DiffKD, diffm
+Tensor parallelism (`tp_size` > 1): the Trainer builds a ('data',
+'model') mesh of the world (parallel/mesh.make_mesh) and keeps each rank's
+slices of the model (parallel/sharding.shard_module); the data ranks split
+the global batch, the ranks of a model group hold the same rows, and the
+checkpoints hold whole tensors (utils/checkpoint.py). JAX's Trainer keeps
+its state replicated at any tp_size (tpu_asr/train/loop.py), which
+computes the same numbers; the port stores it sharded by the rules, as
+JAX's `__graft_entry__.py` does for its TP step.
+
+Refused (ValueError): a `tp_size` that does not divide the world, a
+`dp_size` other than world / tp_size, a teacher cache with tp_size > 1,
+and, as JAX does, `cache_teacher` with flow matching, DiffKD, diffm
 or all-scope layerwise KD (use `cache_teacher_all`) and a cache together
 with `steps_per_dispatch` > 1.
 """
@@ -76,6 +86,7 @@ from tpu_asr_torch.data.dataset import (AudioToBPEDataset, make_dataloader,
 from tpu_asr_torch.models.distil_model import (DistilCTCModel,
                                                last_layer_cacheable)
 from tpu_asr_torch.parallel import mesh
+from tpu_asr_torch.parallel.sharding import shard_module
 from tpu_asr_torch.train.trainer import (DistilTrainState,
                                          make_distil_eval_step,
                                          make_distil_multi_step,
@@ -235,13 +246,16 @@ def refusals(cfg: TrainConfig, distill=None):
     """What of `cfg` (with the model's DistillationConfig `distill`) the
     port's Trainer does not run, as messages."""
     out = []
-    if cfg.tp_size > 1:
-        out.append("tensor parallelism (tp_size > 1)")
     world = mesh.process_count()
-    if cfg.dp_size not in (-1, world):
-        out.append(f"dp_size={cfg.dp_size} in a world of {world} rank(s): "
-                   "start the ranks with tpu_asr_torch.parallel.launch, "
-                   "the CLIs' --gpus N or torchrun")
+    if world % max(cfg.tp_size, 1):
+        out.append(f"tp_size={cfg.tp_size} in a world of {world} rank(s)")
+    elif cfg.dp_size not in (-1, world // max(cfg.tp_size, 1)):
+        out.append(f"dp_size={cfg.dp_size} x tp_size={cfg.tp_size} in a "
+                   f"world of {world} rank(s): start the ranks with "
+                   "tpu_asr_torch.parallel.launch, the CLIs' --gpus N or "
+                   "torchrun")
+    if cfg.tp_size > 1 and (cfg.cache_teacher or cfg.cache_teacher_all):
+        out.append("a teacher feature cache with tp_size > 1")
     if cfg.cache_teacher or cfg.cache_teacher_all:
         if (distill is not None and not cfg.cache_teacher_all
                 and not last_layer_cacheable(distill)):
@@ -270,8 +284,13 @@ class Trainer:
             raise ValueError("tpu_asr_torch's Trainer does not run "
                              + "; ".join(refused))
         self.device = torch.device(device)
-        self.world, self.rank = mesh.process_count(), mesh.process_index()
         self.model = model.to(self.device)
+        if cfg.tp_size > 1:
+            # a ('data', 'model') mesh; each rank keeps its slices
+            shard_module(model, mesh.make_mesh(cfg.dp_size, cfg.tp_size))
+        # the loader splits the global batch over the data ranks
+        self.world, self.rank = mesh.axis_size("data"), mesh.axis_index(
+            "data")
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.workdir = Path(workdir)

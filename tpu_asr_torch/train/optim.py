@@ -34,6 +34,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from tpu_asr_torch.config import OptimConfig
+from tpu_asr_torch.parallel.mesh import axis_sum
+from tpu_asr_torch.parallel.sharding import sharded_axes
 
 Schedule = Callable[[int], float]
 
@@ -285,8 +287,33 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads: List[torch.Tensor],
+                params: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """The L2 norm of all of `grads`. With `params` (the gradients'
+    parameters) under tensor or pipeline parallelism: each square sum
+    counted once, a slice's summed over the ranks that hold the other
+    slices (parallel/sharding.sharded_axes) and a replicated parameter's
+    taken as it is, equal on every rank."""
+    return torch.sqrt(split_sum([g.float().square().sum() for g in grads],
+                                params))
+
+
+def split_sum(values: List[torch.Tensor],
+              params: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """The sum of per-parameter scalars `values`, each summed over the
+    axes its parameter is split on (all ranks agree on the result)."""
+    if params is None:
+        return sum(values)
+    buckets = {}
+    for v, p in zip(values, params):
+        axes = sharded_axes(p)
+        buckets[axes] = buckets.get(axes, 0) + v
+    total = 0
+    for axes, v in buckets.items():
+        for axis in axes:
+            v = axis_sum(torch.as_tensor(v), axis)
+        total = total + v
+    return total
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,

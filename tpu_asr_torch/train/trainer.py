@@ -33,6 +33,17 @@ step is the one-rank packed step on the same plan. The packed step goes
 through the DDP wrapper as the bucketed one does (DistilCTCModel.forward's
 `packed`).
 
+Tensor parallelism (a ('data', 'model') mesh, parallel/mesh.make_mesh,
+and the model sharded by parallel/sharding.shard_module): DDP wraps over
+the data group only (its construction broadcasts the data group's first
+rank's parameters, which hold the same slices), and only where the data
+axis has more than one rank. The ranks of a model group hold the same rows
+and compute the same loss; their replicated parameters' gradients are
+equal, and a slice's gradient is its own. The global norm and the
+non-finite count take each slice's part over the model group once
+(train/optim.split_sum), so every rank decides the clipping and the
+guard alike.
+
 `make_distil_multi_step` runs K steps on a batch stacked (K, ...)
 (`steps_per_dispatch`); the harvest and cached variants of the step serve
 the teacher feature caches (train/loop.py).
@@ -58,7 +69,7 @@ from tpu_asr_torch.ops.ctc import ctc_greedy_decode_ids, ctc_loss
 from tpu_asr_torch.parallel import mesh
 from tpu_asr_torch.train.optim import (Schedule, build_optimizer,
                                        clip_by_global_norm, global_norm,
-                                       set_lr)
+                                       set_lr, split_sum)
 
 
 @dataclass
@@ -121,18 +132,21 @@ def ddp_model(model: DistilCTCModel) -> torch.nn.Module:
     broadcasts rank 0's parameters and buffers; a second wrapper would
     reduce every gradient twice) and kept on the model; the model itself
     when no process group is initialised."""
-    if not mesh.initialized():
+    if not mesh.initialized() or mesh.axis_size("data") == 1:
         return model
-    group, wrapped = model.__dict__.get("_ddp", (None, None))
-    if group is not dist.group.WORLD:
+    data = mesh.axis_group("data")
+    group = data if data is not None else dist.group.WORLD
+    held, wrapped = model.__dict__.get("_ddp", (None, None))
+    if held is not group:
         dev = next(model.parameters()).device
         wrapped = DistributedDataParallel(
             model, device_ids=[dev] if dev.type == "cuda" else None,
             broadcast_buffers=False, gradient_as_bucket_view=True,
-            find_unused_parameters=unused_parameters_possible(model))
-        wrapped.register_comm_hook(None, _sum_hook)
+            find_unused_parameters=unused_parameters_possible(model),
+            process_group=data)
+        wrapped.register_comm_hook(data, _sum_hook)
         # in __dict__, outside nn.Module's registry: not a submodule
-        model.__dict__["_ddp"] = (dist.group.WORLD, wrapped)
+        model.__dict__["_ddp"] = (group, wrapped)
     return wrapped
 
 
@@ -189,10 +203,11 @@ def make_distil_train_step(model: DistilCTCModel, packed: bool = False,
         metrics.update({k: v.detach() for k, v in out.metrics.items()})
         if model.student_cfg.skip_nan_grad:
             bad = [~torch.isfinite(g) for g in grads]
-            metrics["nonfinite_grad_elems"] = sum(b.sum() for b in bad)
+            metrics["nonfinite_grad_elems"] = split_sum(
+                [b.sum() for b in bad], params)
             for g, b in zip(grads, bad):
                 g.masked_fill_(b, 0.0)
-        norm = global_norm(grads)
+        norm = global_norm(grads, params)
         metrics["grad_norm"] = norm
         clip = state.optim_cfg.gradient_clip_val
         if clip and clip > 0:

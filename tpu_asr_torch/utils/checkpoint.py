@@ -24,6 +24,13 @@ writes, rotates and exports, the others wait at a barrier after it, and
 every rank restores the same file, so a checkpoint saved at one world size
 restores at any other. The ranks agree on a SIGTERM that reached any of
 them before they save and exit.
+
+Under tensor parallelism (parallel/sharding.shard_module) a rank holds
+slices of some parameters and of their optimizer moments: every rank
+gathers them whole over the model group before rank 0 writes, and a
+restore cuts the whole tensors to the rank's slices, so the file is the
+one-rank checkpoint's and restores at any layout (JAX's
+tests/test_sharding.py shows the same of its orbax checkpoints).
 """
 
 from __future__ import annotations
@@ -39,6 +46,10 @@ import torch
 
 from tpu_asr_torch.parallel.mesh import (any_process, is_main_process,
                                          sync_processes)
+from tpu_asr_torch.parallel.sharding import (full_optimizer_state,
+                                             full_state_dict,
+                                             load_full_state_dict,
+                                             shard_optimizer_state)
 
 
 def _atomic_save(obj, target: Path) -> Path:
@@ -65,11 +76,15 @@ def save_train_state(ckpt_dir, state, name: str = "last") -> Path:
     """Write {step, epoch, epoch_step, model, optimizer} of a
     DistilTrainState (rank 0; the others wait)."""
     target = Path(ckpt_dir).absolute() / name
+    model, opt = state.model.state_dict(), state.optimizer.state_dict()
+    if _sharded(state.model):
+        # whole tensors, gathered on every rank of the model group
+        model = full_state_dict(state.model)
+        opt = full_optimizer_state(state.optimizer)
     if is_main_process():
         _atomic_save({"step": int(state.step), "epoch": state.epoch,
                       "epoch_step": state.epoch_step,
-                      "model": state.model.state_dict(),
-                      "optimizer": state.optimizer.state_dict()}, target)
+                      "model": model, "optimizer": opt}, target)
     sync_processes("save_train_state")
     return target
 
@@ -80,11 +95,20 @@ def restore_train_state(ckpt_dir, state, name: str = "last"):
     dev = next(state.model.parameters()).device
     saved = torch.load(Path(ckpt_dir).absolute() / name, map_location=dev,
                        weights_only=True)
-    state.model.load_state_dict(saved["model"], strict=True)
-    state.optimizer.load_state_dict(saved["optimizer"])
+    if _sharded(state.model):
+        load_full_state_dict(state.model, saved["model"])
+        state.optimizer.load_state_dict(shard_optimizer_state(
+            state.optimizer, saved["optimizer"]))
+    else:
+        state.model.load_state_dict(saved["model"], strict=True)
+        state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     state.epoch, state.epoch_step = saved["epoch"], saved["epoch_step"]
     return state
+
+
+def _sharded(model) -> bool:
+    return model.__dict__.get("_tp", (1, 0))[0] > 1
 
 
 def export_student(ckpt_dir, state, student_cfg,
@@ -93,8 +117,13 @@ def export_student(ckpt_dir, state, student_cfg,
     (`<name>_config.json`); rank 0 writes, the others wait."""
     ckpt_dir = Path(ckpt_dir).absolute()
     target = ckpt_dir / name
+    student = state.model.student.state_dict()
+    if _sharded(state.model):
+        student = {k[len("student."):]: v for k, v in
+                   full_state_dict(state.model).items()
+                   if k.startswith("student.")}
     if is_main_process():
-        _atomic_save(state.model.student.state_dict(), target)
+        _atomic_save(student, target)
         (ckpt_dir / f"{name}_config.json").write_text(
             json.dumps(student_cfg.to_dict(), indent=2))
     sync_processes("export_student")
