@@ -381,14 +381,18 @@ Phases, each on its own output lines:
      LARGE teacher d512 / 18 layers / 8 heads, its d256 / 4-head student,
      logit KD 0.1, FM-KT mlp 8 steps over 18 layers at C=256, H=128): (a)
      the FM kernels at the widths only the wide kernels take: ptxas's
-     registers and spills of fm_fwd_wide_kernel and fm_bwd_wide_kernel in
-     fp32 and bf16 (none may spill), then the FM pair against
-     fm_euler_plain by phase 8's rules at C=256 (rows 72 = 4 x 18 layers,
-     T'=376, 8 steps, and 24 ragged steps) and C=512 (XLarge's student: 8
-     steps and 24 ragged steps; fp32 on 24 rows, bf16 on 72; and bf16 at
-     (e)'s shape, 32 rows x 24 steps), fp32 and bf16, forward and
-     backward, with kernel, plain and device times and the bound of the
-     timed shapes; (b) phase 9's check at flowkd_large:
+     registers and spills of the four wide kernels (none may spill): the
+     fp32 SIMT fm_fwd_wide_kernel<float> and fm_bwd_wide_kernel<float>,
+     the bf16 tensor-core fm_fwd_wide_mma_kernel and
+     fm_bwd_wide_rows_kernel; then the FM pair against fm_euler_plain by
+     phase 8's rules at C=256 (rows 72 = 4 x 18 layers, T'=376, 8 steps,
+     and 24 ragged steps) and C=512 (XLarge's student: 8 steps and 24
+     ragged steps; fp32 on 24 rows, bf16 on 72; and bf16 at (e)'s shape,
+     32 rows x 24 steps), fp32 and bf16, forward and backward, the bf16
+     backward also against fm_euler_bwd_plain (the kernels' rounding
+     points) by the same rules, and bf16 at C=88, H=512 (the route's edge:
+     narrow C, wide H), with kernel, plain and device times and the bound
+     of the timed shapes; (b) phase 9's check at flowkd_large:
      one fp32 step at B=4 x 15 s on the kernels against plain, the FM
      kernels launched by it (C=256 runs the wide kernels), then 3 timed
      bf16 steps at B=4 that launch every KD kernel; (c) two gloo ranks
@@ -1970,10 +1974,13 @@ def fp32_step_check(model, batch, seed: int, label: str) -> None:
 
 
 def timed_steps(model, batch, seed: int, steps: int = TRAIN_STEPS,
-                warmup: int = TRAIN_WARMUP):
+                warmup: int = TRAIN_WARMUP, device: bool = False):
     """`warmup` steps, then the launch counters and the peak memory reset
     and `steps` steps timed on the host clock up to a final synchronize.
-    Returns (ms per step, {row: launches}, [metrics])."""
+    Returns (ms per step, {row: launches}, [metrics]); with `device`, then
+    (device ms, {kernel: ms}) of one more step in torch.profiler after the
+    counters are read (profile_forward.device_activity), as a fourth
+    element."""
     from tpu_asr_torch.config import OptimConfig
     from tpu_asr_torch.train.trainer import (DistilTrainState,
                                              make_distil_train_step)
@@ -1991,7 +1998,19 @@ def timed_steps(model, batch, seed: int, steps: int = TRAIN_STEPS,
         metrics.append(m)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - start) / steps
-    return ms, read(), metrics
+    counts = read()
+    if not device:
+        return ms, counts, metrics
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_asr_torch.profile_forward import device_activity, mark_call
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mark_call()
+        step(state, batch, seed)
+        torch.cuda.synchronize()
+    busy, _, names = device_activity(prof, 1)
+    return ms, counts, metrics, (busy, {k: v for k, (v, _) in names.items()})
 
 
 def timed_summary(ms: float, steps: int = TRAIN_STEPS,
@@ -2012,12 +2031,31 @@ def fm_inputs(gen, rows, t, max_steps, steps=None, c=88, h=128):
             normal(gen, h, c, scale=h ** -0.5), normal(gen, c, scale=0.1))
 
 
-def fm_compare(args, max_steps, dt, label, time_it=False):
+def fm_dx_close(dx_k, dx_p, gtol, what):
+    """Phase 8's rule for dx0: at most 1e-4 of the elements beyond gtol x
+    max|ref| (where a pre-activation lies within the rounding of 0, sums in
+    another order take the other side of the relu, and that position's
+    gradient moves by a whole dh W1x term; the weight gradients sum over
+    all positions). Returns the largest |err|."""
+    dx_k, dx_p = dx_k.float(), dx_p.float()
+    scale = dx_p.abs().max().item()
+    diff = (dx_k - dx_p).abs()
+    over = int((diff > gtol * scale).sum())
+    check(over <= 1e-4 * diff.numel(),
+          f"{what} dx0: {over} of {diff.numel()} elements beyond {gtol} x "
+          f"max|ref| {scale:.3e} (max |err| {diff.max().item():.3e}; at "
+          f"most 1e-4 of them)")
+    return diff.max().item()
+
+
+def fm_compare(args, max_steps, dt, label, time_it=False, explicit=False):
     """fused_fm_euler (forward and backward) against fm_euler_plain on the
     same inputs in compute dtype dt; returns (fwd row, bwd row) when
     time_it, as train_kernel_phase's rows, and prints the device time per
-    launch of each beside them."""
-    from tpu_asr_torch.ops.cuda_fm import (fm_euler_plain, fused_fm_euler,
+    launch of each beside them. `explicit`: the backward also against
+    fm_euler_bwd_plain (the kernels' rounding points), by the same rules."""
+    from tpu_asr_torch.ops.cuda_fm import (fm_euler_bwd_plain, fm_euler_plain,
+                                           fused_fm_euler,
                                            fused_fm_euler_bwd)
     dts = str(dt)[6:]
     x0, steps, *w = args
@@ -2055,26 +2093,23 @@ def fm_compare(args, max_steps, dt, label, time_it=False):
     # version's autograd rounds each gradient to bf16 where the forward
     # rounds, the kernel carries gx in fp32 (as _fm_bwd_kernel does)
     gtol, floor = (1e-3, 1e-4) if dt == torch.float32 else (5e-2, 1e-2)
-    # dx0 per element: where a pre-activation lies within the rounding of
-    # 0, sums in another order take the other side of the relu, and that
-    # position's gradient moves by a whole dh W1x term; at most 1e-4 of
-    # the elements may (the weight gradients sum over all positions)
-    dx_k, dx_p = g_k[0].float(), g_p[0].float()
-    scale = dx_p.abs().max().item()
-    diff = (dx_k - dx_p).abs()
-    over = int((diff > gtol * scale).sum())
-    check(over <= 1e-4 * diff.numel(),
-          f"fm_bwd {label} {dts} dx0: {over} of {diff.numel()} elements "
-          f"beyond {gtol} x max|ref| {scale:.3e} (max |err| "
-          f"{diff.max().item():.3e}; at most 1e-4 of them)")
+    names = ["dw1x", "da", "dc", "dw2", "db2"]
+    err_dx = fm_dx_close(g_k[0], g_p[0], gtol, f"fm_bwd {label} {dts}")
     print(f"fm_bwd {label} {dts}, weight gradients, kernels vs plain:")
-    err_w, _ = grads_close(g_k[1:], g_p[1:], gtol, ["dw1x", "da", "dc",
-                                                    "dw2", "db2"], floor)
-    err_bwd = max(err_w, diff.max().item())
+    err_w, _ = grads_close(g_k[1:], g_p[1:], gtol, names, floor)
+    err_bwd = max(err_w, err_dx)
     saved = out_k[0].grad_fn.saved_tensors
     bwd = lambda: fused_fm_euler_bwd(*saved, gx, gv, max_steps)
-    check(all(torch.equal(a, b) for a, b in zip(bwd(), bwd())),
+    got = bwd()
+    check(all(torch.equal(a, b) for a, b in zip(got, bwd())),
           f"fm_bwd {label} {dts}: two calls give bit-equal gradients")
+    if explicit:
+        want = fm_euler_bwd_plain(*saved, gx, gv, max_steps)
+        what = f"fm_bwd {label} {dts} vs fm_euler_bwd_plain"
+        err_dx = fm_dx_close(got[0], want[0], gtol, what)
+        print(f"{what}, weight gradients:")
+        err_w, _ = grads_close(got[1:], want[1:], gtol, names, floor)
+        err_bwd = max(err_bwd, err_w, err_dx)
     if not time_it:
         return None
     # the work this run's data needs: min(n, max_steps) steps per row
@@ -6197,10 +6232,13 @@ def fm_wide_phase():
     line at the shapes their main paths give them: flowkd_large's (27b:
     C=256, 8 steps) and the XLarge KD step's (27e: C=512, 24 steps)."""
     regs = nvcc_registers("fm_")
+    names = {"fm_fwd_wide_kernel<float>", "fm_bwd_wide_kernel<float>",
+             "fm_fwd_wide_mma_kernel", "fm_bwd_wide_rows_kernel"}
     wide = {k: v for k, v in regs.items() if "wide" in k}
-    check(len(wide) == 4 and all(st == 0 and ld == 0
-                                 for _, st, ld in wide.values()),
-          f"ptxas: the 4 wide FM kernels ({sorted(wide)}), none spills")
+    check(set(wide) == names and all(st == 0 and ld == 0
+                                     for _, st, ld in wide.values()),
+          f"ptxas: the 4 wide FM kernels ({sorted(wide)}; fp32 SIMT, bf16 "
+          f"tensor cores), none spills")
     gen = torch.Generator(device="cuda").manual_seed(27)
     t, rows = 376, LARGE_KD_ROWS * 18
     ragged = lambda n: torch.randint(1, 25, (n,), generator=gen,
@@ -6209,12 +6247,16 @@ def fm_wide_phase():
     args = fm_inputs(gen, rows, t, 8, c=256)
     for dt in (torch.float32, torch.bfloat16):
         timed = fm_compare(args, 8, dt, f"rows={rows} T={t} steps=8",
-                           time_it=True)
+                           time_it=True, explicit=dt == torch.bfloat16)
     out["fm_c256"], out["fm_c256_bwd"] = timed
     args = fm_inputs(gen, rows, t, 24, ragged(rows), c=256)
     for dt in (torch.float32, torch.bfloat16):
         fm_compare(args, 24, dt, f"rows={rows} T={t} per-row steps 1..24, "
-                   f"max_steps 24")
+                   f"max_steps 24", explicit=dt == torch.bfloat16)
+    # the route's edge: C <= 128 with H > 256 takes the wide kernels
+    args = fm_inputs(gen, 8, t, 8, ragged(8).clamp(max=8), c=88, h=512)
+    fm_compare(args, 8, torch.bfloat16, f"rows=8 T={t} per-row steps 1..8",
+               explicit=True)
     # C=512: fp32 on 24 rows (at 72 rows x 24 steps one pre-activation
     # within fp32 rounding of 0 takes the other side of the relu in the
     # kernel and in plain, and that position's x_j dp term alone moves
@@ -6224,15 +6266,18 @@ def fm_wide_phase():
                f"rows=24 T={t} per-row steps 1..24, max_steps 24")
     args = fm_inputs(gen, rows, t, 8, c=512)
     fm_compare(args, 8, torch.float32, f"rows={rows} T={t} steps=8")
-    fm_compare(args, 8, torch.bfloat16, f"rows={rows} T={t} steps=8")
+    fm_compare(args, 8, torch.bfloat16, f"rows={rows} T={t} steps=8",
+               explicit=True)
     args = fm_inputs(gen, rows, t, 24, ragged(rows), c=512)
     fm_compare(args, 24, torch.bfloat16,
-               f"rows={rows} T={t} per-row steps 1..24, max_steps 24")
+               f"rows={rows} T={t} per-row steps 1..24, max_steps 24",
+               explicit=True)
     xl_rows = XL_KD_ROWS * XL_LAYERS
     args = fm_inputs(gen, xl_rows, t, XL_KD_FM_STEPS, c=512)
     out["fm_c512_s24"], out["fm_c512_s24_bwd"] = fm_compare(
         args, XL_KD_FM_STEPS, torch.bfloat16,
-        f"rows={xl_rows} T={t} steps={XL_KD_FM_STEPS}", time_it=True)
+        f"rows={xl_rows} T={t} steps={XL_KD_FM_STEPS}", time_it=True,
+        explicit=True)
     for name, row in out.items():
         err, ms_, plain_ms, (b_ms, by), _ = row
         print(f"time {name} bf16: kernel {ms_:.4f} ms, plain {plain_ms:.4f} "
@@ -6269,9 +6314,9 @@ def xlarge_kd_phase():
     seen = []
     hook = model.flow_matching.register_forward_pre_hook(
         lambda m, args: seen.append(tuple(args[0].shape)))
-    ms, counts, metrics = timed_steps(model, train_batch(XL_KD_ROWS,
-                                                         XL_KD_SEED + 1),
-                                      XL_KD_SEED + 2, XL_KD_STEPS, 1)
+    ms, counts, metrics, (dev, names) = timed_steps(
+        model, train_batch(XL_KD_ROWS, XL_KD_SEED + 1), XL_KD_SEED + 2,
+        XL_KD_STEPS, 1, device=True)
     hook.remove()
     shape = (XL_KD_ROWS * XL_LAYERS, seen[0][1], 512)
     check(seen[-XL_KD_STEPS:] == [shape] * XL_KD_STEPS
@@ -6297,6 +6342,10 @@ def xlarge_kd_phase():
           f"{tcfg.encoder.d_model}, FM C=512 at {XL_KD_FM_STEPS} steps) "
           f"B={XL_KD_ROWS} x {SECONDS} s: "
           f"{timed_summary(ms, XL_KD_STEPS, 1, XL_KD_ROWS)} ({card_line()})")
+    fm = {k: v for k, v in names.items() if "fm_" in k}
+    print(f"kd train: XLarge widths, device {dev:.3f} ms of one more step "
+          f"(torch.profiler), the FM kernels {sum(fm.values()):.3f} ms of "
+          f"it ({top_kernels(fm, 4)} ms)")
     return {"fm_c512_s24": counts["fm"], "fm_c512_s24_bwd": counts["fm_bwd"]}
 
 

@@ -11,7 +11,17 @@ interpret mode on the CPU, inputs made with numpy from a seed.
   on a rounding boundary moves one bf16 ulp);
 - the gradients of mean(last_v * r) + mean(x_final^2) against jax.grad
   through the kernel's custom VJP, rtol 1e-4, atol 1e-5 (fp32), at both
-  widths;
+  widths, by autograd through fm_euler_plain and by fm_euler_bwd_plain
+  (the explicit backward the CUDA backward kernels are held to on the
+  card) at the same cotangents, which also agree with each other within
+  1e-5;
+- fm_euler_bwd_plain against jax.vjp of the kernel (_fm_bwd_kernel) in
+  bf16 at both widths and at C=88, H=512 (the route's edge: bf16 at C <=
+  128 and H > 256 runs the wide kernels on the card): within 1e-2 of each
+  gradient's max magnitude, because both round x, h, round(dv) and
+  round(dp) at the same points but sum the products in another order, and
+  JAX's custom VJP returns dW1x and dW2 rounded to bf16 (its weights'
+  dtype);
 - `fm_refusal` takes these shapes in fp32 and bf16 (so 'auto' routes the
   FM of a flowkd_large step to the kernels on the card), and the model's
   route (FlowMatchingModule.uses_kernel) agrees.
@@ -21,6 +31,8 @@ the step count are what is under test.
 """
 
 import tests.torch_threads  # noqa: F401  (first: CPU threads)
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +40,8 @@ import pytest
 import torch
 
 from tpu_asr.ops.pallas_fm import fused_fm_euler as jax_fm
-from tpu_asr_torch.ops.cuda_fm import (check_kernel_args, fm_euler_plain,
+from tpu_asr_torch.ops.cuda_fm import (check_kernel_args,
+                                       fm_euler_bwd_plain, fm_euler_plain,
                                        fm_refusal)
 
 ROWS, T, H, MAX_STEPS = 3, 4, 128, 24
@@ -36,22 +49,34 @@ STEPS = [24, 7, 1]                     # ragged, the longest at max_steps
 WIDTHS = (256, 512)
 
 
-def _inputs(c, seed=0):
+def _inputs(c, seed=0, h=H):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)
-    return (f(ROWS, T, c), f(c, H, scale=c ** -0.5), f(H, scale=0.3),
-            f(H, scale=0.1), f(H, c, scale=H ** -0.5), f(c, scale=0.1))
+    return (f(ROWS, T, c), f(c, h, scale=c ** -0.5), f(h, scale=0.3),
+            f(h, scale=0.1), f(h, c, scale=h ** -0.5), f(c, scale=0.1))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vjp(c, h, max_steps, steps, dtype, seed):
+    """(outputs, vjp function) of the Pallas kernel in interpret mode on
+    _inputs(c, seed) at H = h, x0 in `dtype` (the compute dtype): one
+    forward trace, shared by the forward and backward tests of a shape."""
+    args = _inputs(c, seed, h)
+    jdt = getattr(jnp, dtype)
+
+    def fn(x0, *w):
+        return jax_fm(x0, jnp.asarray(steps, jnp.int32), *w,
+                      max_steps=max_steps, compute_dtype=jdt, interpret=True)
+
+    return jax.vjp(fn, jnp.asarray(args[0]).astype(jdt),
+                   *(jnp.asarray(z) for z in args[1:]))
 
 
 @pytest.mark.parametrize("c", WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_kernel_wide(c, dtype):
     args = _inputs(c)
-    x0, w1, a, cc, w2, b2 = (jnp.asarray(z) for z in args)
-    jdt = getattr(jnp, dtype)
-    want = jax_fm(x0.astype(jdt), jnp.asarray(STEPS, jnp.int32), w1, a, cc,
-                  w2, b2, max_steps=MAX_STEPS, compute_dtype=jdt,
-                  interpret=True)
+    want, _ = _jax_vjp(c, H, MAX_STEPS, tuple(STEPS), dtype, 0)
     tdt = getattr(torch, dtype)
     x0t, *rest = (torch.from_numpy(z) for z in args)
     got = fm_euler_plain(x0t.to(tdt), torch.tensor(STEPS), *rest,
@@ -83,9 +108,45 @@ def test_gradients_match_pallas_kernel_wide(c):
                           max_steps=MAX_STEPS)
     obj = (v * torch.from_numpy(r)).mean() + (x * x).mean()
     got = torch.autograd.grad(obj, leaves)
-    for g, w, name in zip(got, want, ("x0", "w1x", "a", "c", "w2", "b2")):
+    # the explicit backward at the objective's cotangents
+    gx, gv = 2 * x.detach() / x.numel(), torch.from_numpy(r) / v.numel()
+    plain = fm_euler_bwd_plain(*(torch.from_numpy(z) for z in args[:1]),
+                               torch.tensor(STEPS, dtype=torch.float32),
+                               *(torch.from_numpy(z) for z in args[1:]), gx,
+                               gv, MAX_STEPS)
+    names = ("x0", "w1x", "a", "c", "w2", "b2")
+    for g, p, w, name in zip(got, plain, want, names):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(p.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5, err_msg=f"explicit {name}")
+        np.testing.assert_allclose(p.numpy(), g.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"autograd {name}")
+
+
+@pytest.mark.parametrize("c,h,max_steps,steps", [
+    (256, H, MAX_STEPS, STEPS), (512, H, MAX_STEPS, STEPS),
+    (88, 512, 4, [4, 3, 1])])
+def test_bwd_plain_matches_pallas_vjp_bf16(c, h, max_steps, steps):
+    args = _inputs(c, 0, h)
+    rng = np.random.default_rng(3)
+    gx, gv = (rng.normal(size=(ROWS, T, c)).astype(np.float32)
+              for _ in range(2))
+    bf = jnp.bfloat16
+    _, vjp = _jax_vjp(c, h, max_steps, tuple(steps), "bfloat16", 0)
+    want = vjp((jnp.asarray(gx).astype(bf), jnp.asarray(gv).astype(bf)))
+    t = lambda z: torch.from_numpy(z)
+    got = fm_euler_bwd_plain(
+        t(args[0]).bfloat16(), torch.tensor(steps, dtype=torch.float32),
+        t(args[1]).bfloat16(), t(args[2]), t(args[3]),
+        t(args[4]).bfloat16(), t(args[5]), t(gx), t(gv), max_steps)
+    assert got[0].dtype == torch.bfloat16
+    for g, w, name in zip(got, want, ("x0", "w1x", "a", "c", "w2", "b2")):
+        w = np.asarray(w, np.float32)
+        scale = np.abs(w).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=1e-2 * scale, err_msg=name)
 
 
 @pytest.mark.parametrize("c", WIDTHS)

@@ -70,14 +70,16 @@
 //
 // Routes (`mma_route`): every C % 8 == 0 and H % 32 == 0 up to 512 and
 // any max_steps >= 1 run, in both types. bf16 at C <= 128, H <= 256 takes
-// the tensor-core kernels below; every other shape, and fp32 (the check
-// dtype) at every shape, the wide SIMT kernels (fm_fwd_wide_kernel,
-// fm_bwd_wide_kernel: fp32 accumulation, no TF32, so that fp32 agrees
-// with full-precision references; shared memory linear in C + H, the
-// weights streamed in chunks, the step count a runtime loop; see their
-// section). At conformer-LARGE's flowkd_large shape (rows = 4 x 18
-// layers, T' = 376, C = 256, H = 128, 8 steps) the forward is 28.4 GFLOP
-// and the backward 3x that: 0.029 and 0.086 ms at the bf16 tensor rate.
+// the narrow tensor-core kernels below; every other bf16 shape the wide
+// tensor-core kernels (fm_fwd_wide_mma_kernel, fm_bwd_wide_rows_kernel:
+// the tiles in shared memory, the weights through a ring of 64 x 64
+// windows; see their section); fp32 (the check dtype) at every shape the
+// SIMT kernels (fm_fwd_wide_kernel<float>, fm_bwd_wide_kernel<float>: fp32
+// accumulation, no TF32, so that fp32 agrees with full-precision
+// references). No shape falls back: a failed launch is an error. At
+// conformer-LARGE's flowkd_large shape (rows = 4 x 18 layers, T' = 376,
+// C = 256, H = 128, 8 steps) the forward is 28.4 GFLOP and the backward
+// 3x that: 0.029 and 0.086 ms at the bf16 tensor rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,7 +96,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // the wide kernels' blocks
+constexpr int kThreads = 256;        // the SIMT kernels' blocks
 
 // nt[pp] = n of position pos0 + pp (1 past the end); returns the steps the
 // tile runs: min(ms, largest n). Ends with a block barrier.
@@ -701,27 +703,35 @@ __global__ void __launch_bounds__(kMmaThreads) fm_bwd_rows_kernel(
 }
 
 // Weight-gradient partials of workspace rows [blockIdx.y kDwRows, +
-// kDwRows): blocks [0, t) tile dW1x (cc, h) = X^T DP, the rest dW2 (h, cc)
-// = H^T DV, t = ceil(h / 128) each (gemm.cuh's gemm_tn_tile, 128 x 128
-// tiles: CP <= 128, so each operand is read once), into part[blockIdx.y] =
-// [dW1x (cc h) | dW2 (h cc)].
+// kDwRows): blocks [0, tc th) tile dW1x (cc, h) = X^T DP, the rest dW2 (h,
+// cc) = H^T DV, tc = ceil(cc / 128), th = ceil(h / 128) (gemm.cuh's
+// gemm_tn_tile, 128 x 128 tiles, each reading every workspace row of its
+// two column bands once), into part[blockIdx.y] = [dW1x (cc h) | dW2 (h
+// cc)]. cp: the workspace's x and dv row stride (CP or cc).
+__host__ __device__ constexpr int dw_tiles(int cc, int h) {
+  return 2 * ((cc + 127) / 128) * ((h + 127) / 128);
+}
+
 __global__ void __launch_bounds__(128) fm_bwd_dw_kernel(
     Work wk, float* __restrict__ part, int m_rows, int cp, int cc, int h) {
   extern __shared__ __align__(16) char smem[];
   const int m_lo = blockIdx.y * kDwRows;
   const int m_hi = min(m_rows, m_lo + kDwRows);
   float* out = part + (size_t)blockIdx.y * 2 * cc * h;
-  const int t = (h + 127) / 128;
+  const int tc = (cc + 127) / 128, th = (h + 127) / 128;
   const int tile = blockIdx.x;
-  if (tile < t) {
-    gemm_tn_tile<128>(smem, wk.x, cp, wk.dp, h, false, m_lo, m_hi, 0,
-                      128 * tile, [&](int i, int j, float v) {
+  if (tile < tc * th) {
+    gemm_tn_tile<128>(smem, wk.x, cp, wk.dp, h, false, m_lo, m_hi,
+                      128 * (tile / th), 128 * (tile % th),
+                      [&](int i, int j, float v) {
                         if (i < cc && j < h) out[(size_t)i * h + j] = v;
                       });
   } else {
+    const int u = tile - tc * th;
     float* o2 = out + (size_t)cc * h;
     gemm_tn_tile<128>(smem, wk.h, h, wk.dv, cp, false, m_lo, m_hi,
-                      128 * (tile - t), 0, [&](int i, int j, float v) {
+                      128 * (u / tc), 128 * (u % tc),
+                      [&](int i, int j, float v) {
                         if (i < h && j < cc) o2[(size_t)i * cc + j] = v;
                       });
   }
@@ -759,10 +769,602 @@ __global__ void __launch_bounds__(32 * kSumRows) fm_bwd_sum_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Any width (fm_fwd_wide_kernel, fm_bwd_wide_kernel): plain SIMT in the
-// working type T with fp32 accumulation, for the shapes the kernels above
-// do not take: bf16 beyond C = 128 or H = 256 (conformer-LARGE's student is
-// C = 256, XLarge's C = 512) and fp32 at every shape. A block of 256 threads walks tiles of kWP
+// bf16 beyond C = 128 or H = 256 on the tensor cores (fm_fwd_wide_mma_kernel;
+// fm_bwd_wide_rows_kernel, then fm_bwd_dw_kernel and fm_bwd_sum_kernel):
+// conformer-LARGE's student is C = 256, XLarge's C = 512. They replace
+// pallas_fm.py::_fm_fwd_kernel and ::_fm_bwd_kernel at those widths.
+//
+// What bounds them: the products (4 steps rows T C H flops forward, 14 in
+// the backward with its replay and the p it recomputes) on the tensor cores
+// if x, h, v and gx never leave the chip between steps. Neither the whole
+// weights (256 KB at C = 512, H = 128) nor a 16-position tile's x and v in
+// registers (64 + 128 a thread at C = 256) fit, as the narrow kernels keep
+// them. So here a block's warps each own a 16-position tile (rows x T
+// flattened) whose x and h (backward: x_j, round(dv), round(dp)) lie in
+// shared memory in bf16, and the weights stream through a ring of kRing
+// 64 x 64 windows (cp.async, zero-filled past C or H): every warp of the
+// block multiplies its tile by the same window, so one window read from L2
+// serves 16 x (warps) positions, and one block barrier a window (64 weight
+// rows) orders the ring, while the next kRing - 1 windows are in flight.
+// Each product runs in 64-column chunks of its output (32 fp32 accumulators
+// a thread; A fragments by ldmatrix from the warp's tile, B by ldmatrix or
+// ldmatrix.trans from the window, mma.sync.m16n8k16), its epilogue in
+// registers: t a + c, relu and rounding into the h tile; v + b2, rounding,
+// last_v, and x = round(x - v / n) (div_n) into the x tile. The block runs
+// the largest step count among its tiles' positions (capped at max_steps);
+// the extra steps of a position are masked as the header says.
+//   The backward follows the narrow one (three kernels, no atomics, fixed
+// summation orders: bit-equal calls). fm_bwd_wide_rows_kernel replays the
+// forward, writing x_j to the workspace (row stride cc), then walks j =
+// steps - 1 .. 0: per 64-column chunk of H, p = x_j W1x and dh = round(dv)
+// W2^T (W2's windows read transposed), whose epilogue writes h_j and
+// round(dp) to the workspace and round(dp) to its tile and sums da, dc;
+// then per 64-column chunk of C, gx += round(dp) W1x^T, gx in fp32 in a
+// per-warp slot of device memory (C / 2 values a thread would not fit in
+// registers, and an L2-resident slot costs less shared memory than the
+// tile count it would take), whose epilogue forms the next step's dv (its
+// tile, the workspace, db2) or, at j = 0, dx. x_{j - 1} comes back from the
+// workspace. fm_bwd_dw_kernel then takes dW1x and dW2 over the workspace in
+// 128 x 128 tiles of both output dimensions. Warps a block (wide_shape):
+// the count that runs a call's (a chunk's) tiles in the fewest rounds of
+// resident blocks (shared memory grows with C and H). Measured on an H100
+// (fm_ablation.py, PERF.md), the ring's depth (2 to 8 windows) and the barriers
+// hardly move the time: a block tile's serial per-warp work does, the
+// products and, as much, the epilogues (the forward's at C = 512 take ~40%
+// of it) and the backward's workspace stores.
+// ---------------------------------------------------------------------------
+
+constexpr int kWin = 64;                         // rows and columns a window
+constexpr int kWinLd = kWin + 8;                 // staged stride (144 bytes)
+constexpr size_t kWinBytes = (size_t)kWin * kWinLd * 2;
+constexpr int kRing = 4;                         // windows in flight
+constexpr int kMaxWarps = 16;                   // a block (forward)
+constexpr int kMaxBwdWarps = 8;                 // a block (backward)
+
+// The stride of a 16-row bf16 tile n wide (its columns padded to 64 with
+// zeros, then 8 more: rows an odd multiple of 16 bytes apart).
+__host__ __device__ constexpr int tile_ld(int n) {
+  return (n + 63) / 64 * 64 + 8;
+}
+
+// Shared bytes a warp: x and h tiles (forward); x_j, round(dv), h_j /
+// round(dp) tiles and the column sums [da | dc | db2] (backward).
+__host__ __device__ constexpr size_t wide_fwd_warp(int cc, int h) {
+  return (size_t)kTile * (tile_ld(cc) + tile_ld(h)) * 2;
+}
+__host__ __device__ constexpr int sums_len(int cc, int h) {
+  return 2 * (tile_ld(h) - 8) + tile_ld(cc) - 8;
+}
+__host__ __device__ constexpr size_t wide_bwd_warp(int cc, int h) {
+  return (size_t)kTile * (2 * tile_ld(cc) + tile_ld(h)) * 2 +
+         (size_t)sums_len(cc, h) * 4;
+}
+// The block's: the ring, the warps', then kMaxWarps ints.
+__host__ __device__ constexpr size_t wide_smem(int warps, size_t per_warp) {
+  return kRing * kWinBytes + (size_t)warps * per_warp + 4 * kMaxWarps;
+}
+
+// A 64 x 64 window at (r0, c0) of a row-major (rows, cols) bf16 matrix.
+struct Win {
+  const bf16* m;
+  int rows, cols, r0, c0;
+};
+
+__device__ __forceinline__ void issue_win(char* slot, const Win& w) {
+  for (int p = threadIdx.x; p < kWin * 8; p += blockDim.x) {
+    const int r = p / 8, c = 8 * (p % 8);
+    const int gr = w.r0 + r, gc = w.c0 + c;
+    const bool v = gr < w.rows && gc < w.cols;
+    cp_async16(slot + (r * kWinLd + c) * 2,
+               v ? w.m + (size_t)gr * w.cols + gc : w.m, v);
+  }
+}
+
+// Runs `total` windows through the ring: win(i) names window i, eat(i,
+// slot) consumes it once it has landed. Every thread of the block calls it
+// with the same total; a block barrier before each window, so what a warp
+// wrote to shared memory in one eat is seen by every warp in the next.
+template <class WinOf, class Eat>
+__device__ __forceinline__ void through_ring(char* ring, int total,
+                                             WinOf win, Eat eat) {
+#pragma unroll 1
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < total) issue_win(ring + s * kWinBytes, win(s));
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();   // window i landed; window i - 1 consumed
+    const int nx = i + kRing - 1;
+    if (nx < total) issue_win(ring + (nx % kRing) * kWinBytes, win(nx));
+    cp_async_commit();
+    eat(i, ring + (i % kRing) * kWinBytes);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+}
+
+// The fragments of k16 slice kk: A from the warp's tile, B (4 x 16 columns)
+// from the window.
+template <bool T>
+__device__ __forceinline__ void win_frags(uint32_t (&af)[4],
+                                          uint32_t (&b)[4][4], const bf16* a,
+                                          int lda, int k0, const bf16* w,
+                                          int kk, int lane) {
+  ldmatrix_x4(af, a + (lane % 16) * lda + k0 + 16 * kk + (lane / 16) * 8);
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    if constexpr (T)
+      ldmatrix_x4(b[jj], w + (16 * jj + lane % 8 + (lane / 16) * 8) * kWinLd +
+                             16 * kk + ((lane / 8) % 2) * 8);
+    else
+      ldmatrix_x4_trans(b[jj], w + (16 * kk + lane % 8 +
+                                    ((lane / 8) % 2) * 8) * kWinLd +
+                                   16 * jj + (lane / 16) * 8);
+  }
+}
+
+// acc += A[:, k0 .. k0 + 63] B for the warp's 16-row tile A (stride lda)
+// and the 64 x 64 window B, held as [k][n] (ldmatrix.trans) or, T, as
+// [n][k] (a weight used transposed: ldmatrix). The fragments of slice kk
+// + 1 load before slice kk's products (the asm statements keep their
+// order), so the products do not wait on each load.
+template <bool T>
+__device__ __forceinline__ void mma_win(float (&acc)[8][4], const bf16* a,
+                                        int lda, int k0, const char* slot,
+                                        int lane) {
+  const bf16* w = reinterpret_cast<const bf16*>(slot);
+  uint32_t af[2][4], b[2][4][4];
+  win_frags<T>(af[0], b[0], a, lda, k0, w, 0, lane);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk + 1 < 4)
+      win_frags<T>(af[(kk + 1) % 2], b[(kk + 1) % 2], a, lda, k0, w, kk + 1,
+                   lane);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      mma_bf16(acc[2 * jj], af[kk % 2], b[kk % 2][jj][0], b[kk % 2][jj][1]);
+      mma_bf16(acc[2 * jj + 1], af[kk % 2], b[kk % 2][jj][2],
+               b[kk % 2][jj][3]);
+    }
+  }
+}
+
+// The warp's 16 x ld tile from rows r0 .. r0 + 15 of a row-major (., cols)
+// matrix; rows >= end and columns >= cols read zero.
+__device__ __forceinline__ void tile_in(bf16* t, int ld, const bf16* m,
+                                        long r0, long end, int cols,
+                                        int lane) {
+  const int q = ld / 8;
+  for (int i = lane; i < kTile * q; i += 32) {
+    const int r = i / q, col = 8 * (i % q);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < end && col < cols)
+      v = *reinterpret_cast<const uint4*>(m + (r0 + r) * cols + col);
+    *reinterpret_cast<uint4*>(t + r * ld + col) = v;
+  }
+}
+
+// The tile's columns < cols to rows r0 .. r0 + 15 (those < end) of m.
+__device__ __forceinline__ void tile_out(bf16* m, const bf16* t, int ld,
+                                         long r0, long end, int cols,
+                                         int lane) {
+  const int q = cols / 8;
+  for (int i = lane; i < kTile * q; i += 32) {
+    const int r = i / q, col = 8 * (i % q);
+    if (r0 + r < end)
+      *reinterpret_cast<uint4*>(m + (r0 + r) * cols + col) =
+          *reinterpret_cast<const uint4*>(t + r * ld + col);
+  }
+}
+
+// The steps the block runs: the largest of its warps' (every warp calls it).
+__device__ __forceinline__ int block_steps(int* red, int steps) {
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) red[warp] = steps;
+  __syncthreads();
+  int m = 0;
+  for (int w = 0; w < (int)blockDim.x / 32; ++w) m = max(m, red[w]);
+  __syncthreads();
+  return m;
+}
+
+// The forward step's windows: s < nh nc: W1x (k = 64 (s % nc), n = 64 (s
+// / nc)), then W2 (k = 64 (u % nh), n = 64 (u / nh)), u = s - nh nc.
+__device__ __forceinline__ Win fwd_win(int s, const bf16* w1,
+                                       const bf16* w2, int cc, int h,
+                                       int nc, int nh) {
+  if (s < nh * nc) return Win{w1, cc, h, 64 * (s % nc), 64 * (s / nc)};
+  const int u = s - nh * nc;
+  return Win{w2, h, cc, 64 * (u % nh), 64 * (u / nh)};
+}
+
+// h[:, n0 .. n0 + 63] = round(relu(p + t a + c)) into the h tile (zero at
+// and past h).
+__device__ __forceinline__ void hidden_epi(bf16* hs, int lh,
+                                           const float (&p)[8][4], int n0,
+                                           const float* a, const float* c,
+                                           int h, float t0, float t1,
+                                           int lane) {
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int col = n0 + 8 * i + 2 * q;
+      const float t = e ? t1 : t0;
+      float v0 = 0.f, v1 = 0.f;
+      if (col < h) {
+        v0 = fmaxf(p[i][e] + t * __ldg(a + col) + __ldg(c + col), 0.f);
+        v1 = fmaxf(p[i][e + 1] + t * __ldg(a + col + 1) + __ldg(c + col + 1),
+                   0.f);
+      }
+      *reinterpret_cast<uint32_t*>(hs + (g + 4 * e) * lh + col) =
+          pack_bf16(v0, v1);
+    }
+}
+
+// v[:, n0 .. n0 + 63] = round(acc + b2); x = round(x - v / n) in the x
+// tile where j < n; each pair of v and of the new x to put(row, col, v, x).
+template <class Put>
+__device__ __forceinline__ void update_epi(bf16* xs, int lx,
+                                           const float (&acc)[8][4], int n0,
+                                           const float* b2, int cc, int j,
+                                           float n0r, float n1r, float rn0,
+                                           float rn1, int lane, Put put) {
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int col = n0 + 8 * i + 2 * q, row = g + 4 * e;
+      if (col >= cc) continue;
+      const float n = e ? n1r : n0r, rn = e ? rn1 : rn0;
+      const float v0 = rnd<bf16>(acc[i][e] + __ldg(b2 + col));
+      const float v1 = rnd<bf16>(acc[i][e + 1] + __ldg(b2 + col + 1));
+      uint32_t* xp = reinterpret_cast<uint32_t*>(xs + row * lx + col);
+      if ((float)j < n)
+        *xp = pack_bf16(lo_f(*xp) - div_n(v0, n, rn),
+                        hi_f(*xp) - div_n(v1, n, rn));
+      put(row, col, n, pack_bf16(v0, v1), *xp);
+    }
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) fm_fwd_wide_mma_kernel(
+    const bf16* __restrict__ x0, const float* __restrict__ n_rows,
+    const bf16* __restrict__ w1, const float* __restrict__ a,
+    const float* __restrict__ c, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, bf16* __restrict__ xo,
+    bf16* __restrict__ vo, long n_pos, int t_len, int cc, int h, int ms) {
+  extern __shared__ __align__(16) char smem[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  const int lx = tile_ld(cc), lh = tile_ld(h);
+  char* ring = smem;
+  bf16* xs = reinterpret_cast<bf16*>(smem + kRing * kWinBytes) +
+             (size_t)warp * (wide_fwd_warp(cc, h) / 2);
+  bf16* hs = xs + kTile * lx;
+  int* red = reinterpret_cast<int*>(smem + wide_smem(warps,
+                                                     wide_fwd_warp(cc, h)) -
+                                    4 * kMaxWarps);
+  const int nc = (cc + 63) / 64, nh = (h + 63) / 64, per = 2 * nh * nc;
+  const long n_tiles = (n_pos + kTile - 1) / kTile;
+  for (long bt = blockIdx.x; bt * warps < n_tiles; bt += gridDim.x) {
+    const long tile = bt * warps + warp, r0 = tile * kTile;
+    const bool live = tile < n_tiles;
+    const float n0 = pos_n(n_rows, r0 + g, n_pos, t_len);
+    const float n1 = pos_n(n_rows, r0 + g + 8, n_pos, t_len);
+    const float rn0 = 1.f / n0, rn1 = 1.f / n1;
+    const int steps = block_steps(red, tile_steps(n0, n1, ms));
+    tile_in(xs, lx, x0, r0, n_pos, cc, lane);
+    float acc[8][4];
+    through_ring(
+        ring, steps * per,
+        [&](int i) { return fwd_win(i % per, w1, w2, cc, h, nc, nh); },
+        [&](int i, const char* slot) {
+          if (!live) return;
+          const int j = i / per, s = i % per;
+          const bool ph = s < nh * nc;           // p = x W1x, else v = h W2
+          const int u = ph ? s : s - nh * nc, kn = ph ? nc : nh;
+          const int kp = u % kn, n0c = 64 * (u / kn);
+          if (kp == 0) zero_acc(acc);
+          mma_win<false>(acc, ph ? xs : hs, ph ? lx : lh, 64 * kp, slot,
+                         lane);
+          if (kp + 1 < kn) return;
+          if (ph) {
+            hidden_epi(hs, lh, acc, n0c, a, c, h, (n0 - j) / n0,
+                       (n1 - j) / n1, lane);
+            return;
+          }
+          update_epi(xs, lx, acc, n0c, b2, cc, j, n0, n1, rn0, rn1, lane,
+                     [&](int row, int col, float n, uint32_t v, uint32_t) {
+                       const long pos = r0 + row;   // last_v at j == n - 1
+                       if ((float)j == n - 1.f && pos < n_pos)
+                         *reinterpret_cast<uint32_t*>(vo + pos * cc + col) =
+                             v;
+                     });
+        });
+    if (!live) continue;
+    tile_out(xo, xs, lx, r0, n_pos, cc, lane);
+    for (int i = lane; i < kTile * (cc / 8); i += 32) {  // n > ms: zero
+      const long pos = r0 + i / (cc / 8);
+      if (pos < n_pos && n_rows[pos / t_len] > (float)ms)
+        *reinterpret_cast<uint4*>(vo + pos * cc + 8 * (i % (cc / 8))) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// dv = (j < n ? -gx / n : 0) + (j == n - 1 ? gv : 0) for the C chunk n0 ..
+// n0 + 63 from gx in the accumulator layout: round(dv) into the dv tile
+// and workspace row block `at`, dv (unrounded) into db2's column sums.
+__device__ __forceinline__ void dv_epi(bf16* dvs, int lx, bf16* wdv,
+                                       float* sdb2, const float (&gx)[8][4],
+                                       const bf16* gv_in, int n0, long r0,
+                                       long pos_hi, int cc, int j, float n0r,
+                                       float n1r, float rn0, float rn1,
+                                       int lane) {
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = n0 + 8 * i + 2 * q;
+    float dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const float n = e ? n1r : n0r, rn = e ? rn1 : rn0;
+      const long pos = r0 + g + 4 * e;
+      uint32_t u = 0u;
+      if ((float)j == n - 1.f && pos < pos_hi && col < cc)
+        u = *reinterpret_cast<const uint32_t*>(gv_in + pos * cc + col);
+      const bool live = (float)j < n;
+      dv[e] = (live ? div_n(-gx[i][e], n, rn) : 0.f) + lo_f(u);
+      dv[e + 1] = (live ? div_n(-gx[i][e + 1], n, rn) : 0.f) + hi_f(u);
+      const uint32_t r = pack_bf16(dv[e], dv[e + 1]);
+      *reinterpret_cast<uint32_t*>(dvs + (g + 4 * e) * lx + col) = r;
+      if (col < cc)
+        *reinterpret_cast<uint32_t*>(wdv + (size_t)(g + 4 * e) * cc + col) =
+            r;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      col_sum(sdb2 + col + e, dv[e] + dv[e + 2], lane);
+  }
+}
+
+// One chunk's positions [pos_lo, pos_hi) as the section note says: dx, the
+// workspace rows, and the block's partial [da (h) | dc (h) | db2 (cc)] at
+// part[blockIdx.x]; gxs: a slot of 16 x tile_ld(cc) - 8 floats a warp.
+__global__ void __launch_bounds__(kMaxBwdWarps * 32, 1) fm_bwd_wide_rows_kernel(
+    const bf16* __restrict__ x0, const float* __restrict__ n_rows,
+    const bf16* __restrict__ w1, const float* __restrict__ a,
+    const float* __restrict__ c, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const bf16* __restrict__ gx_in,
+    const bf16* __restrict__ gv_in, bf16* __restrict__ dx, Work wk,
+    float* __restrict__ part, float* __restrict__ gxs, long pos_lo,
+    long pos_hi, int t_len, int cc, int h, int ms) {
+  extern __shared__ __align__(16) char smem[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  const int lx = tile_ld(cc), lh = tile_ld(h), n_sl = sums_len(cc, h);
+  const size_t per_warp = wide_bwd_warp(cc, h);
+  char* ring = smem;
+  bf16* xs = reinterpret_cast<bf16*>(smem + kRing * kWinBytes +
+                                     warp * per_warp);
+  bf16* dvs = xs + kTile * lx;
+  bf16* hs = dvs + kTile * lx;            // h_j in the replay, then round(dp)
+  float* sda = reinterpret_cast<float*>(hs + kTile * lh);
+  float* sdc = sda + (lh - 8);
+  float* sdb2 = sdc + (lh - 8);
+  int* red = reinterpret_cast<int*>(smem + wide_smem(warps, per_warp) -
+                                    4 * kMaxWarps);
+  for (int i = lane; i < n_sl; i += 32) sda[i] = 0.f;
+  const int nc = (cc + 63) / 64, nh = (h + 63) / 64;
+  const int per_f = 2 * nh * nc, per_b = 3 * nh * nc;
+  float* slot = gxs + ((size_t)(blockIdx.x * warps + warp) * nc * 32 + lane) *
+                          32;   // [chunk][lane][32]
+  const long n_tiles = (pos_hi - pos_lo + kTile - 1) / kTile;
+  for (long bt = blockIdx.x; bt * warps < n_tiles; bt += gridDim.x) {
+    const long tile = bt * warps + warp, l0 = tile * kTile;
+    const long r0 = pos_lo + l0;
+    const bool live = tile < n_tiles;
+    const float n0 = pos_n(n_rows, r0 + g, pos_hi, t_len);
+    const float n1 = pos_n(n_rows, r0 + g + 8, pos_hi, t_len);
+    const float rn0 = 1.f / n0, rn1 = 1.f / n1;
+    const int steps = block_steps(red, tile_steps(n0, n1, ms));
+    const auto row_at = [&](int j) { return (size_t)j * wk.cpos + l0; };
+    if (live) {
+      tile_in(xs, lx, x0, r0, pos_hi, cc, lane);
+      tile_out(wk.x + row_at(0) * cc, xs, lx, 0, kTile, cc, lane);
+      for (int j = steps; j < ms; ++j) {   // steps no row runs add zeros
+        zero_warp(wk.x + row_at(j) * cc, kTile * cc, lane);
+        zero_warp(wk.dv + row_at(j) * cc, kTile * cc, lane);
+        zero_warp(wk.h + row_at(j) * h, kTile * h, lane);
+        zero_warp(wk.dp + row_at(j) * h, kTile * h, lane);
+      }
+    }
+    float acc[8][4], accd[8][4];
+    // replay: steps 0 .. steps - 2, each step's new x into the workspace
+    through_ring(
+        ring, (steps - 1) * per_f,
+        [&](int i) { return fwd_win(i % per_f, w1, w2, cc, h, nc, nh); },
+        [&](int i, const char* slot_) {
+          if (!live) return;
+          const int j = i / per_f, s = i % per_f;
+          const bool ph = s < nh * nc;
+          const int u = ph ? s : s - nh * nc, kn = ph ? nc : nh;
+          const int kp = u % kn, n0c = 64 * (u / kn);
+          if (kp == 0) zero_acc(acc);
+          mma_win<false>(acc, ph ? xs : hs, ph ? lx : lh, 64 * kp, slot_,
+                         lane);
+          if (kp + 1 < kn) return;
+          if (ph) {
+            hidden_epi(hs, lh, acc, n0c, a, c, h, (n0 - j) / n0,
+                       (n1 - j) / n1, lane);
+            return;
+          }
+          bf16* wx = wk.x + row_at(j + 1) * cc;
+          update_epi(xs, lx, acc, n0c, b2, cc, j, n0, n1, rn0, rn1, lane,
+                     [&](int row, int col, float, uint32_t, uint32_t x) {
+                       *reinterpret_cast<uint32_t*>(wx + (size_t)row * cc +
+                                                    col) = x;
+                     });
+        });
+    // the walk's first dv, from gx_in; gx into the slot
+    const int jl = steps - 1;
+    if (live) {
+#pragma unroll 1
+      for (int m = 0; m < nc; ++m) {
+        float gx[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int col = 64 * m + 8 * i + 2 * (lane % 4);
+            const long pos = r0 + g + 4 * e;
+            const uint32_t u =
+                (pos < pos_hi && col < cc)
+                    ? *reinterpret_cast<const uint32_t*>(gx_in + pos * cc +
+                                                         col)
+                    : 0u;
+            gx[i][e] = lo_f(u);
+            gx[i][e + 1] = hi_f(u);
+          }
+        float4* sp = reinterpret_cast<float4*>(slot + (size_t)m * 1024);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sp[i] = make_float4(gx[i][0], gx[i][1], gx[i][2], gx[i][3]);
+        dv_epi(dvs, lx, wk.dv + row_at(jl) * cc, sdb2, gx, gv_in, 64 * m, r0,
+               pos_hi, cc, jl, n0, n1, rn0, rn1, lane);
+      }
+    }
+    through_ring(
+        ring, steps * per_b,
+        [&](int i) {
+          const int s = i % per_b;
+          if (s < 2 * nh * nc) {
+            const int r = s % (2 * nc), hc = 64 * (s / (2 * nc));
+            return r < nc ? Win{w1, cc, h, 64 * r, hc}          // p
+                          : Win{w2, h, cc, hc, 64 * (r - nc)};  // dh
+          }
+          const int u = s - 2 * nh * nc;                        // gx
+          return Win{w1, cc, h, 64 * (u / nh), 64 * (u % nh)};
+        },
+        [&](int i, const char* slot_) {
+          if (!live) return;
+          const int j = steps - 1 - i / per_b, s = i % per_b;
+          const float t0 = (n0 - j) / n0, t1 = (n1 - j) / n1;
+          if (s < 2 * nh * nc) {
+            const int r = s % (2 * nc), hc = 64 * (s / (2 * nc));
+            if (r < nc) {                  // p = x_j W1x
+              if (r == 0) zero_acc(acc);
+              mma_win<false>(acc, xs, lx, 64 * r, slot_, lane);
+              return;
+            }
+            if (r == nc) zero_acc(accd);   // dh = round(dv) W2^T
+            mma_win<true>(accd, dvs, lx, 64 * (r - nc), slot_, lane);
+            if (r + 1 < 2 * nc) return;
+            const int q = lane % 4;
+            bf16* wh = wk.h + row_at(j) * h;
+            bf16* wdp = wk.dp + row_at(j) * h;
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2) {
+              const int col = hc + 8 * i2 + 2 * q;
+              const bool in = col < h;
+              float dp[4];
+#pragma unroll
+              for (int e = 0; e < 4; e += 2) {
+                const float t = e ? t1 : t0;
+                float p0 = 0.f, p1 = 0.f;
+                if (in) {
+                  p0 = acc[i2][e] + t * __ldg(a + col) + __ldg(c + col);
+                  p1 = acc[i2][e + 1] + t * __ldg(a + col + 1) +
+                       __ldg(c + col + 1);
+                }
+                dp[e] = p0 > 0.f ? accd[i2][e] : 0.f;
+                dp[e + 1] = p1 > 0.f ? accd[i2][e + 1] : 0.f;
+                const int row = g + 4 * e;
+                const uint32_t rd = pack_bf16(dp[e], dp[e + 1]);
+                *reinterpret_cast<uint32_t*>(hs + row * lh + col) = rd;
+                if (in) {
+                  *reinterpret_cast<uint32_t*>(wh + (size_t)row * h + col) =
+                      pack_bf16(fmaxf(p0, 0.f), fmaxf(p1, 0.f));
+                  *reinterpret_cast<uint32_t*>(wdp + (size_t)row * h + col) =
+                      rd;
+                }
+              }
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                col_sum(sda + col + e, t0 * dp[e] + t1 * dp[e + 2], lane);
+                col_sum(sdc + col + e, dp[e] + dp[e + 2], lane);
+              }
+            }
+            return;
+          }
+          const int u = s - 2 * nh * nc, m = u / nh, kp = u % nh;
+          if (kp == 0) {
+            zero_acc(acc);
+            if (m == 0 && j > 0)          // x_{j - 1} for the next p
+              tile_in(xs, lx, wk.x + row_at(j - 1) * cc, 0, kTile, cc, lane);
+          }
+          mma_win<true>(acc, hs, lh, 64 * kp, slot_, lane);  // round(dp) W1x^T
+          if (kp + 1 < nh) return;
+          float4* sp = reinterpret_cast<float4*>(slot + (size_t)m * 1024);
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) {
+            const float4 o = sp[i2];
+            acc[i2][0] = o.x + acc[i2][0];
+            acc[i2][1] = o.y + acc[i2][1];
+            acc[i2][2] = o.z + acc[i2][2];
+            acc[i2][3] = o.w + acc[i2][3];
+          }
+          if (j > 0) {
+#pragma unroll
+            for (int i2 = 0; i2 < 8; ++i2)
+              sp[i2] = make_float4(acc[i2][0], acc[i2][1], acc[i2][2],
+                                   acc[i2][3]);
+            dv_epi(dvs, lx, wk.dv + row_at(j - 1) * cc, sdb2, acc, gv_in,
+                   64 * m, r0, pos_hi, cc, j - 1, n0, n1, rn0, rn1, lane);
+            return;
+          }
+          const int q = lane % 4;
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2)
+#pragma unroll
+            for (int e = 0; e < 4; e += 2) {
+              const int col = 64 * m + 8 * i2 + 2 * q;
+              const long pos = r0 + g + 4 * e;
+              if (pos < pos_hi && col < cc)
+                *reinterpret_cast<uint32_t*>(dx + pos * cc + col) =
+                    pack_bf16(acc[i2][e], acc[i2][e + 1]);
+            }
+        });
+  }
+  __syncthreads();
+  const int n_part = 2 * h + cc;
+  const float* sums = reinterpret_cast<const float*>(
+      smem + kRing * kWinBytes + kTile * (2 * lx + lh) * 2);
+  for (int i = threadIdx.x; i < n_part; i += blockDim.x) {
+    const int k = i < h ? i : i < 2 * h ? (lh - 8) + (i - h)
+                                        : 2 * (lh - 8) + (i - 2 * h);
+    float sum = 0.f;
+    for (int w = 0; w < warps; ++w) sum += sums[w * (per_warp / 4) + k];
+    part[(size_t)blockIdx.x * n_part + i] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 at any width (fm_fwd_wide_kernel, fm_bwd_wide_kernel, instantiated
+// for float only: fp32 is the check dtype): plain SIMT with fp32
+// accumulation and no TF32, so that fp32 agrees with full-precision
+// references. A block of 256 threads walks tiles of kWP
 // positions; x, h (and in the backward round(dv), round(dp)) of the tile
 // stay in shared memory as fp32 holding T values, and the weights stream
 // through a kWK-row chunk of shared memory per product (wide_prod), so
@@ -776,8 +1378,8 @@ __global__ void __launch_bounds__(32 * kSumRows) fm_bwd_sum_kernel(
 // blocks' partials in block order: two calls give bit-equal gradients.
 // That read-modify-write of 2 C H floats per (tile, step) and the chunk
 // staging (two barriers per kWK weight rows, fp32 FMAs) make these kernels
-// slower than the plain loop on an H100 (PERF.md); a cp.async weight ring
-// and bf16 tensor-core products are the next step for them (ROADMAP.md).
+// slow on an H100 (PERF.md); they are design debt of the check dtype
+// (ROADMAP.md).
 // ---------------------------------------------------------------------------
 
 constexpr int kWP = 16;                          // positions a tile
@@ -1130,12 +1732,12 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 // Blocks of `kernel` (with `smem` bytes, which it is allowed here) that fit
 // on the current card at once. The attribute and occupancy queries cost
-// more than the launches of a call, so they run once per card, kernel and
-// size. The allowance is the kernel's, not the launch's: it is raised to
+// more than the launches of a call, so they run once per card, kernel,
+// size and block size. The allowance is the kernel's, not the launch's: it is raised to
 // the largest size asked so far (a smaller one set later would refuse a
 // larger launch whose count was cached before).
 std::mutex grid_mu;
-std::map<std::tuple<int, const void*, size_t>, int> grids;
+std::map<std::tuple<int, const void*, size_t, int>, int> grids;
 std::map<std::pair<int, const void*>, size_t> allowed;
 
 template <typename K>
@@ -1152,7 +1754,7 @@ cudaError_t resident_blocks(int& blocks, K kernel, int threads, size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const auto key = std::make_tuple(dev, (const void*)kernel, smem);
+  const auto key = std::make_tuple(dev, (const void*)kernel, smem, threads);
   std::lock_guard<std::mutex> lock(grid_mu);
   if ((err = allow_smem(dev, kernel, smem)) != cudaSuccess) return err;
   const auto hit = grids.find(key);
@@ -1191,31 +1793,28 @@ int fwd_mma(const void* x0, const float* n, const void* w1, const float* a,
 }
 
 // How the bf16 backward cuts its positions: `grid` blocks of the rows
-// kernel; chunks of `tiles` warp tiles (a whole number of rounds of the
-// grid's warps where the workspace cap allows it); the workspace bytes of
-// one chunk and the scratch bytes in all: the workspace, then the rows
-// kernel's partials (chunks x grid x (2 h + cc) floats), then the dW
-// partials (n_dw x 2 cc h floats).
+// kernel, `wpb` warps each; chunks of `tiles` warp tiles (a whole number of
+// rounds of the grid's warps where the workspace cap allows it); the
+// workspace bytes of one chunk and the scratch bytes in all: the workspace,
+// then the rows kernel's partials (chunks x grid x (2 h + cc) floats), then
+// the dW partials (n_dw x 2 cc h floats), then `extra` floats.
 struct BwdPlan {
   int grid = 0, chunks = 0;
   long tiles = 0, n_dw = 0;
   size_t entry = 0, work = 0, bytes = 0;
 };
 
-template <int CP>
-cudaError_t bwd_plan(BwdPlan& pl, long n_pos, int cc, int h, int ms) {
-  cudaError_t err = resident_blocks(pl.grid, fm_bwd_rows_kernel<CP>,
-                                    kMmaThreads, rows_smem<CP>(h));
-  if (err != cudaSuccess) return err;
+// cp: the workspace's x_j and round(dv_j) row stride.
+void cut_chunks(BwdPlan& pl, int wpb, long n_pos, int cp, int cc, int h,
+                int ms, size_t extra) {
   const long all = (n_pos + kTile - 1) / kTile;
-  const long warps = (long)pl.grid * kMmaWarps;
-  pl.entry = 2 * (2 * (size_t)CP + 2 * (size_t)h);  // bytes a (position, step)
+  const long warps = (long)pl.grid * wpb;
+  pl.entry = 2 * (2 * (size_t)cp + 2 * (size_t)h);  // bytes a (position, step)
   const long fit = std::max<long>(
       1, (long)(kWorkBytes / (pl.entry * ms * kTile)));
   pl.tiles = std::min(all, fit >= warps ? fit / warps * warps : fit);
   pl.chunks = (int)((all + pl.tiles - 1) / pl.tiles);
-  pl.grid = (int)std::min<long>(pl.grid, (pl.tiles + kMmaWarps - 1) /
-                                              kMmaWarps);
+  pl.grid = (int)std::min<long>(pl.grid, (pl.tiles + wpb - 1) / wpb);
   pl.n_dw = 0;
   for (long k = 0; k < pl.chunks; ++k) {
     const long rows = ms * kTile * std::min(pl.tiles, all - k * pl.tiles);
@@ -1224,8 +1823,56 @@ cudaError_t bwd_plan(BwdPlan& pl, long n_pos, int cc, int h, int ms) {
   pl.work = pl.entry * ms * kTile * pl.tiles;
   pl.bytes = pl.work + sizeof(float) * ((size_t)pl.chunks * pl.grid *
                                             (2 * h + cc) +
-                                        (size_t)pl.n_dw * 2 * cc * h);
+                                        (size_t)pl.n_dw * 2 * cc * h + extra);
+}
+
+template <int CP>
+cudaError_t bwd_plan(BwdPlan& pl, long n_pos, int cc, int h, int ms) {
+  cudaError_t err = resident_blocks(pl.grid, fm_bwd_rows_kernel<CP>,
+                                    kMmaThreads, rows_smem<CP>(h));
+  if (err != cudaSuccess) return err;
+  cut_chunks(pl, kMmaWarps, n_pos, CP, cc, h, ms, 0);
   return cudaSuccess;
+}
+
+// Runs the rows kernel of each chunk (rows(k, lo, hi, wk, part_cs)), then
+// fm_bwd_dw_kernel on its workspace, then the ordered sum of every partial
+// into out.
+template <class Rows>
+int bwd_chunks(const BwdPlan& pl, char* scratch, float* out, long n_pos,
+               int cp, int cc, int h, int ms, cudaStream_t stream,
+               Rows rows_kernel) {
+  int dw_grid = 0;   // (sets the dw kernel's shared-memory allowance)
+  cudaError_t err = resident_blocks(dw_grid, fm_bwd_dw_kernel, 128,
+                                    tn_smem<128>());
+  if (err != cudaSuccess) return (int)err;
+  const int n_cs = 2 * h + cc, n_w = 2 * cc * h;
+  float* part_cs = reinterpret_cast<float*>(scratch + pl.work);
+  float* part_w = part_cs + (size_t)pl.chunks * pl.grid * n_cs;
+  long dw_at = 0;
+  for (int k = 0; k < pl.chunks; ++k) {
+    const long lo = k * pl.tiles * kTile;
+    const long hi = std::min(n_pos, lo + pl.tiles * kTile);
+    Work wk;
+    wk.cpos = (hi - lo + kTile - 1) / kTile * kTile;
+    const size_t rows = (size_t)ms * wk.cpos;
+    wk.x = reinterpret_cast<bf16*>(scratch);
+    wk.h = wk.x + rows * cp;
+    wk.dp = wk.h + rows * h;
+    wk.dv = wk.dp + rows * h;
+    rows_kernel(lo, hi, wk, part_cs + (size_t)k * pl.grid * n_cs);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int subs = (int)((rows + kDwRows - 1) / kDwRows);
+    fm_bwd_dw_kernel<<<dim3(dw_tiles(cc, h), subs), 128, tn_smem<128>(),
+                       stream>>>(wk, part_w + (size_t)dw_at * n_w, (int)rows,
+                                 cp, cc, h);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    dw_at += subs;
+  }
+  fm_bwd_sum_kernel<<<(n_w + n_cs + 31) / 32, dim3(32, kSumRows), 0,
+                      stream>>>(
+      part_w, (int)pl.n_dw, n_w, part_cs, pl.chunks * pl.grid, n_cs, out);
+  return (int)cudaGetLastError();
 }
 
 template <int CP>
@@ -1236,44 +1883,115 @@ int bwd_mma(const void* x0, const float* n, const void* w1, const float* a,
   BwdPlan pl;
   cudaError_t err = bwd_plan<CP>(pl, n_pos, cc, h, ms);
   if (err != cudaSuccess) return (int)err;
-  int dw_grid = 0;   // (sets the dw kernel's shared-memory allowance)
-  if ((err = resident_blocks(dw_grid, fm_bwd_dw_kernel, 128,
-                             tn_smem<128>())) != cudaSuccess)
-    return (int)err;
-  const int n_cs = 2 * h + cc, n_w = 2 * cc * h;
-  float* part_cs = reinterpret_cast<float*>(scratch + pl.work);
-  float* part_w = part_cs + (size_t)pl.chunks * pl.grid * n_cs;
-  const int t_dw = 2 * ((h + 127) / 128);
-  long dw_at = 0;
-  for (int k = 0; k < pl.chunks; ++k) {
-    const long lo = k * pl.tiles * kTile;
-    const long hi = std::min(n_pos, lo + pl.tiles * kTile);
-    Work wk;
-    wk.cpos = (hi - lo + kTile - 1) / kTile * kTile;
-    const size_t rows = (size_t)ms * wk.cpos;
-    wk.x = reinterpret_cast<bf16*>(scratch);
-    wk.h = wk.x + rows * CP;
-    wk.dp = wk.h + rows * h;
-    wk.dv = wk.dp + rows * h;
-    fm_bwd_rows_kernel<CP><<<pl.grid, kMmaThreads, rows_smem<CP>(h),
-                             stream>>>(
-        (const bf16*)x0, n, (const bf16*)w1, a, c, (const bf16*)w2, b2,
-        (const bf16*)gx, (const bf16*)gv, (bf16*)dx, wk,
-        part_cs + (size_t)k * pl.grid * n_cs, lo, hi, t_len, cc, h, ms);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const int subs = (int)((rows + kDwRows - 1) / kDwRows);
-    fm_bwd_dw_kernel<<<dim3(t_dw, subs), 128, tn_smem<128>(), stream>>>(
-        wk, part_w + (size_t)dw_at * n_w, (int)rows, CP, cc, h);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    dw_at += subs;
+  return bwd_chunks(
+      pl, scratch, out, n_pos, CP, cc, h, ms, stream,
+      [&](long lo, long hi, const Work& wk, float* part) {
+        fm_bwd_rows_kernel<CP><<<pl.grid, kMmaThreads, rows_smem<CP>(h),
+                                 stream>>>(
+            (const bf16*)x0, n, (const bf16*)w1, a, c, (const bf16*)w2, b2,
+            (const bf16*)gx, (const bf16*)gv, (bf16*)dx, wk, part, lo, hi,
+            t_len, cc, h, ms);
+      });
+}
+
+// The wide tensor-core kernels' block for `tiles` warp tiles (those of one
+// chunk): the warps (1 .. max_warps), given per_warp shared bytes a warp
+// beside the ring, that take the fewest rounds of the resident blocks (a
+// block tile's time hardly depends on its warps: one barrier a window),
+// then put the most warps on the card, then the smaller block; the
+// resident blocks and the shared bytes.
+struct WideShape {
+  int warps = 0, grid = 0;
+  size_t smem = 0;
+};
+
+template <typename K>
+cudaError_t wide_shape(WideShape& ws, K kernel, size_t per_warp, long tiles,
+                       int max_warps) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  long best_rounds = 0, best_warps = 0;
+  for (int w = 1; w <= max_warps; ++w) {
+    const size_t smem = wide_smem(w, per_warp);
+    if (smem > (size_t)optin) break;
+    int blocks = 0;
+    if (resident_blocks(blocks, kernel, 32 * w, smem) != cudaSuccess) break;
+    const long rounds = ((tiles + w - 1) / w + blocks - 1) / blocks;
+    if (best_rounds == 0 || rounds < best_rounds ||
+        (rounds == best_rounds && (long)blocks * w > best_warps)) {
+      best_rounds = rounds;
+      best_warps = (long)blocks * w;
+      ws.warps = w;
+      ws.grid = blocks;
+      ws.smem = smem;
+    }
   }
-  fm_bwd_sum_kernel<<<(n_w + n_cs + 31) / 32, dim3(32, kSumRows), 0,
-                      stream>>>(
-      part_w, (int)pl.n_dw, n_w, part_cs, pl.chunks * pl.grid, n_cs, out);
+  return best_rounds > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+int fwd_wide_mma(const void* x0, const float* n, const void* w1,
+                 const float* a, const float* c, const void* w2,
+                 const float* b2, void* xo, void* vo, long n_pos, int t_len,
+                 int cc, int h, int ms, cudaStream_t stream) {
+  WideShape ws;
+  const long tiles = (n_pos + kTile - 1) / kTile;
+  cudaError_t err = wide_shape(ws, fm_fwd_wide_mma_kernel,
+                               wide_fwd_warp(cc, h), tiles, kMaxWarps);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)std::min<long>(ws.grid,
+                                       (tiles + ws.warps - 1) / ws.warps);
+  fm_fwd_wide_mma_kernel<<<grid, 32 * ws.warps, ws.smem, stream>>>(
+      (const bf16*)x0, n, (const bf16*)w1, a, c, (const bf16*)w2, b2,
+      (bf16*)xo, (bf16*)vo, n_pos, t_len, cc, h, ms);
   return (int)cudaGetLastError();
 }
 
-// Any width: one persistent wave of 8-warp blocks.
+// The wide backward's plan: its block, then the chunks, with a gx slot of
+// 16 x (tile_ld(cc) - 8) floats a warp of the grid after the partials.
+cudaError_t wide_mma_plan(BwdPlan& pl, WideShape& ws, long n_pos, int cc,
+                          int h, int ms) {
+  const long all = (n_pos + kTile - 1) / kTile;
+  const long fit = std::max<long>(
+      1, (long)(kWorkBytes / ((size_t)4 * (cc + h) * ms * kTile)));
+  cudaError_t err = wide_shape(ws, fm_bwd_wide_rows_kernel,
+                               wide_bwd_warp(cc, h), std::min(all, fit),
+                               kMaxBwdWarps);
+  if (err != cudaSuccess) return err;
+  pl.grid = ws.grid;
+  const size_t slot = (size_t)kTile * (tile_ld(cc) - 8);
+  cut_chunks(pl, ws.warps, n_pos, cc, cc, h, ms,
+             (size_t)ws.grid * ws.warps * slot);
+  return cudaSuccess;
+}
+
+int bwd_wide_mma(const void* x0, const float* n, const void* w1,
+                 const float* a, const float* c, const void* w2,
+                 const float* b2, const void* gx, const void* gv, void* dx,
+                 char* scratch, float* out, long n_pos, int t_len, int cc,
+                 int h, int ms, cudaStream_t stream) {
+  BwdPlan pl;
+  WideShape ws;
+  cudaError_t err = wide_mma_plan(pl, ws, n_pos, cc, h, ms);
+  if (err != cudaSuccess) return (int)err;
+  float* gxs = reinterpret_cast<float*>(
+      scratch + pl.bytes -
+      sizeof(float) * ws.grid * ws.warps * kTile * (tile_ld(cc) - 8));
+  return bwd_chunks(
+      pl, scratch, out, n_pos, cc, cc, h, ms, stream,
+      [&](long lo, long hi, const Work& wk, float* part) {
+        fm_bwd_wide_rows_kernel<<<pl.grid, 32 * ws.warps, ws.smem,
+                                  stream>>>(
+            (const bf16*)x0, n, (const bf16*)w1, a, c, (const bf16*)w2, b2,
+            (const bf16*)gx, (const bf16*)gv, (bf16*)dx, wk, part, gxs, lo,
+            hi, t_len, cc, h, ms);
+      });
+}
+
+// fp32 at any width: one persistent wave of 8-warp blocks.
 template <typename T>
 int fwd_wide(const void* x0, const float* n, const void* w1, const float* a,
              const float* c, const void* w2, const float* b2, void* xo,
@@ -1349,10 +2067,14 @@ bool takes(int cc, int h, int ms) {
          h % 32 == 0 && h >= 32 && h <= kWideMax;
 }
 
-// Whether a shape runs on the bf16 tensor-core kernels (C <= 128, H <=
-// 256); every other shape, and every fp32 one, runs the wide kernels.
-bool mma_route(int bf16_, int cc, int h) {
-  return bf16_ && cc <= kMaxC && h <= kMaxH;
+// Which kernels run a shape `takes`: fp32 (the check dtype) the SIMT
+// kernels; bf16 at C <= 128, H <= 256 the narrow tensor-core kernels, every
+// other bf16 shape the wide tensor-core kernels.
+enum Route { kSimt, kNarrow, kWide };
+
+Route mma_route(int bf16_, int cc, int h) {
+  if (!bf16_) return kSimt;
+  return cc <= kMaxC && h <= kMaxH ? kNarrow : kWide;
 }
 
 }  // namespace
@@ -1371,15 +2093,20 @@ extern "C" int tat_fm_fwd(int bf16_, const void* x0, const void* n,
   const long n_pos = (long)rows * t_len;
   const float *nn = (const float*)n, *aa = (const float*)a,
               *ca = (const float*)c, *bb = (const float*)b2;
-  if (!mma_route(bf16_, cc, h))
-    return bf16_ ? fwd_wide<bf16>(x0, nn, w1, aa, ca, w2, bb, xo, vo, n_pos,
-                                  t_len, cc, h, max_steps, s)
-                 : fwd_wide<float>(x0, nn, w1, aa, ca, w2, bb, xo, vo,
-                                   n_pos, t_len, cc, h, max_steps, s);
-  return with_cp(cc, [&](auto cp) {
-    return fwd_mma<decltype(cp)::value>(x0, nn, w1, aa, ca, w2, bb, xo, vo,
-                                        n_pos, t_len, cc, h, max_steps, s);
-  });
+  switch (mma_route(bf16_, cc, h)) {
+    case kSimt:
+      return fwd_wide<float>(x0, nn, w1, aa, ca, w2, bb, xo, vo, n_pos,
+                             t_len, cc, h, max_steps, s);
+    case kWide:
+      return fwd_wide_mma(x0, nn, w1, aa, ca, w2, bb, xo, vo, n_pos, t_len,
+                          cc, h, max_steps, s);
+    default:
+      return with_cp(cc, [&](auto cp) {
+        return fwd_mma<decltype(cp)::value>(x0, nn, w1, aa, ca, w2, bb, xo,
+                                            vo, n_pos, t_len, cc, h,
+                                            max_steps, s);
+      });
+  }
 }
 
 // The scratch bytes tat_fm_bwd needs for these shapes, into *(long long*)
@@ -1390,22 +2117,27 @@ extern "C" int tat_fm_bwd_scratch(int bf16_, int rows, int t_len, int cc,
   (void)stream;
   if (!takes(cc, h, max_steps)) return (int)cudaErrorInvalidValue;
   const long n_pos = (long)rows * t_len;
-  if (!mma_route(bf16_, cc, h)) {
-    int grid = 0;
-    size_t size = 0;
-    cudaError_t err =
-        bf16_ ? wide_bwd_plan<bf16>(grid, size, n_pos, cc, h, max_steps)
-              : wide_bwd_plan<float>(grid, size, n_pos, cc, h, max_steps);
-    if (err == cudaSuccess) *(long long*)bytes = (long long)size;
-    return (int)err;
+  BwdPlan pl;
+  cudaError_t err = cudaSuccess;
+  switch (mma_route(bf16_, cc, h)) {
+    case kSimt: {
+      int grid = 0;
+      err = wide_bwd_plan<float>(grid, pl.bytes, n_pos, cc, h, max_steps);
+      break;
+    }
+    case kWide: {
+      WideShape ws;
+      err = wide_mma_plan(pl, ws, n_pos, cc, h, max_steps);
+      break;
+    }
+    default:
+      err = (cudaError_t)with_cp(cc, [&](auto cp) {
+        return (int)bwd_plan<decltype(cp)::value>(pl, n_pos, cc, h,
+                                                  max_steps);
+      });
   }
-  return with_cp(cc, [&](auto cp) {
-    BwdPlan pl;
-    cudaError_t err =
-        bwd_plan<decltype(cp)::value>(pl, n_pos, cc, h, max_steps);
-    if (err == cudaSuccess) *(long long*)bytes = (long long)pl.bytes;
-    return (int)err;
-  });
+  if (err == cudaSuccess) *(long long*)bytes = (long long)pl.bytes;
+  return (int)err;
 }
 
 // As tat_fm_fwd, plus the cotangents gx, gv and the output dx (like x0),
@@ -1424,16 +2156,19 @@ extern "C" int tat_fm_bwd(int bf16_, const void* x0, const void* n,
   const float *nn = (const float*)n, *aa = (const float*)a,
               *ca = (const float*)c, *bb = (const float*)b2;
   float* oo = (float*)out;
-  if (!mma_route(bf16_, cc, h))
-    return bf16_ ? bwd_wide<bf16>(x0, nn, w1, aa, ca, w2, bb, gx, gv, dx,
-                                  (char*)scratch, oo, n_pos, t_len, cc, h,
-                                  max_steps, s)
-                 : bwd_wide<float>(x0, nn, w1, aa, ca, w2, bb, gx, gv, dx,
-                                   (char*)scratch, oo, n_pos, t_len, cc, h,
-                                   max_steps, s);
-  return with_cp(cc, [&](auto cp) {
-    return bwd_mma<decltype(cp)::value>(x0, nn, w1, aa, ca, w2, bb, gx, gv,
-                                        dx, (char*)scratch, oo, n_pos, t_len,
-                                        cc, h, max_steps, s);
-  });
+  char* sc = (char*)scratch;
+  switch (mma_route(bf16_, cc, h)) {
+    case kSimt:
+      return bwd_wide<float>(x0, nn, w1, aa, ca, w2, bb, gx, gv, dx, sc, oo,
+                             n_pos, t_len, cc, h, max_steps, s);
+    case kWide:
+      return bwd_wide_mma(x0, nn, w1, aa, ca, w2, bb, gx, gv, dx, sc, oo,
+                          n_pos, t_len, cc, h, max_steps, s);
+    default:
+      return with_cp(cc, [&](auto cp) {
+        return bwd_mma<decltype(cp)::value>(x0, nn, w1, aa, ca, w2, bb, gx,
+                                            gv, dx, sc, oo, n_pos, t_len, cc,
+                                            h, max_steps, s);
+      });
+  }
 }

@@ -20,9 +20,16 @@ tensor launches the forward kernel and, under autograd, the backward (a
 forward replay and the backward walk, then the weight-gradient products),
 or raises. The kernels take any max_steps >= 1, C % 8 == 0 up to 512
 features and H % 32 == 0 up to 512 hidden units, in fp32 and in bf16
-(conformer-LARGE's student is C = 256, XLarge's C = 512): bf16 at C <= 128,
-H <= 256 on the tensor-core kernels, every other shape and fp32 at every
-shape on the wide SIMT kernels (csrc/fm.cu `mma_route`).
+(conformer-LARGE's student is C = 256, XLarge's C = 512). Routes
+(csrc/fm.cu `mma_route`): bf16 at C <= 128, H <= 256 on the narrow
+tensor-core kernels, every other bf16 shape on the wide tensor-core
+kernels, fp32 (the check dtype) at every shape on the SIMT kernels.
+
+`fm_euler_bwd_plain` is the plain version of the backward kernels: the
+explicit backward of `_fm_bwd_kernel` (its rounding points, gx carried in
+fp32), where autograd through `fm_euler_plain` would round each gradient
+to the compute dtype where the forward rounds. Tests and chip_smoke.py
+hold the backward kernels to it.
 """
 
 from __future__ import annotations
@@ -64,6 +71,60 @@ def fm_euler_plain(x0, steps, w1x, a, c, w2, b2, *, max_steps: int,
         x = torch.where(j < n, rnd(x - v / n), x)
         last_v = torch.where(n - 1.0 == j, v, last_v)
     return x.to(x0.dtype), last_v.to(x0.dtype)
+
+
+def fm_euler_bwd_plain(x0, n, w1x, a, c, w2, b2, gx, gv, max_steps: int):
+    """`fused_fm_euler_bwd`'s tuple (dx, dW1x, da, dc, dW2, db2) from its
+    arguments, as tpu_asr/ops/pallas_fm.py::_fm_bwd_kernel computes it: a
+    replay storing each step's x_j, then for j = max_steps - 1 .. 0, with
+    round() a trip through x0's dtype (the compute dtype),
+        dv = (j < n ? -gx / n : 0) + (j == n - 1 ? gv : 0)
+        dh = round(dv) W2^T,  dp = dh [p > 0]
+        gx += round(dp) W1x^T                      (gx in fp32)
+        dW1x += x_j^T round(dp),  dW2 += h_j^T round(dv)
+        da += t dp,  dc += dp,  db2 += dv          (unrounded)
+    dx in x0's dtype, the rest fp32; gx, gv None read zero."""
+    cdt = x0.dtype
+
+    def rnd(z):
+        return z.to(cdt).float()
+
+    rows, t_len, cc = x0.shape
+    hidden = w1x.shape[1]
+    n = n.float().clamp(min=1.0).reshape(rows, 1, 1)
+    w1, w2f = rnd(w1x), rnd(w2)
+    a, c, b2 = a.float(), c.float(), b2.float()
+    zero = torch.zeros(rows, t_len, cc, device=x0.device)
+    g = zero if gx is None else gx.to(cdt).float()
+    gvf = zero if gv is None else gv.to(cdt).float()
+    x, xs = rnd(x0), []
+    for j in range(int(max_steps)):
+        xs.append(x)
+        t = (n - j) / n
+        h = rnd(torch.relu(x @ w1 + t * a + c))
+        v = rnd(h @ w2f + b2)
+        x = torch.where(j < n, rnd(x - v / n), x)
+    dw1 = torch.zeros(cc, hidden, device=x0.device)
+    dw2 = torch.zeros(hidden, cc, device=x0.device)
+    da = torch.zeros(hidden, device=x0.device)
+    dc, db2 = torch.zeros_like(da), torch.zeros(cc, device=x0.device)
+    flat = lambda z: z.reshape(-1, z.shape[-1])
+    for j in range(int(max_steps) - 1, -1, -1):
+        xj, t = xs[j], (n - j) / n
+        p = xj @ w1 + t * a + c
+        h = rnd(torch.relu(p))
+        dv = (torch.where(j < n, -g / n, 0.0)
+              + torch.where(n - 1.0 == j, gvf, 0.0))
+        dv16 = rnd(dv)
+        dw2 = dw2 + flat(h).T @ flat(dv16)
+        db2 = db2 + dv.sum((0, 1))
+        dp = torch.where(p > 0.0, dv16 @ w2f.T, 0.0)
+        dp16 = rnd(dp)
+        dw1 = dw1 + flat(xj).T @ flat(dp16)
+        da = da + (t * dp).sum((0, 1))
+        dc = dc + dp.sum((0, 1))
+        g = g + dp16 @ w1.T
+    return g.to(cdt), dw1, da, dc, dw2, db2
 
 
 def fm_refusal(c: int, hidden: int, max_steps: int,

@@ -43,6 +43,20 @@ launches) with its launches per call.
                        steps), fp32 weights as the model holds them
   fm_bwd               fused_fm_euler_bwd, bf16, the same shape, both output
                        cotangents nonzero
+  fm_c256              fused_fm_euler, bf16, flowkd_large's call (rows = 4
+                       x 18 layers, T=376, C=256, H=128, 8 steps: the wide
+                       kernels), fp32 weights
+  fm_c256_bwd          fused_fm_euler_bwd at that shape, both output
+                       cotangents nonzero
+  fm_c256_plain        fm_euler_plain at that shape (the plain loop)
+  fm_c256_bwd_plain    autograd through it (the plain loop's backward)
+  fm_c512_s24, fm_c512_s24_bwd, fm_c512_s24_plain, fm_c512_s24_bwd_plain
+                       the same four at the KD step's at XLarge's widths
+                       (rows = 4 x 8 layers, C=512, H=128, 24 steps)
+  fm_router16, fm_router16_bwd
+                       the narrow kernels at flowkd_router16's shape (rows
+                       = 32 x 16 layers, C=88, H=128, per-row steps 1..16;
+                       fm_router16_plain and _bwd_plain time its plain loop)
   ffn_int8             fused_ffn_sublayer_int8, bf16, the int8 serve shape
                        (ModelConfig(): B=32, T=376, D=176, d_ff 704), fp32
                        weights as the model holds them
@@ -73,11 +87,16 @@ lines start with the label (default: the tree's directory name).
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 
 KERNELS = ("logmel", "attention", "attention_seg", "attention_bwd",
            "attention_seg_bwd", "attention_heads_bwd", "ffn", "ffn_bwd", "fm", "fm_bwd",
+           "fm_c256", "fm_c256_bwd", "fm_c256_plain", "fm_c256_bwd_plain",
+           "fm_c512_s24", "fm_c512_s24_bwd", "fm_c512_s24_plain",
+           "fm_c512_s24_bwd_plain", "fm_router16", "fm_router16_bwd",
+           "fm_router16_plain", "fm_router16_bwd_plain",
            "ffn_int8", "conv_module", "ctc", "ctc_bwd", "conformer_layer",
            "conformer_layer_module", "attention_dk128", "attention_dk128_bwd",
            "attention_heads_dk128", "attention_heads_dk128_bwd")
@@ -429,6 +448,52 @@ def fm_bwd_call(torch):
     return lambda: fused_fm_euler_bwd(*saved, gx, gv, 8)
 
 
+# (rows, C, max_steps, ragged) of flowkd_large's FM and the KD step's at
+# XLarge's widths (the wide kernels; chip_smoke.py phase 27), and of
+# flowkd_router16's (the narrow kernels on per-row steps 1 .. 16)
+FM_WIDE = {"fm_c256": (4 * 18, 256, 8, False),
+           "fm_c512_s24": (4 * 8, 512, 24, False),
+           "fm_router16": (BATCH * 16, 88, 16, True)}
+
+
+def fm_wide_args(torch, shape):
+    """(x0, steps, w1x, a, c, w2, b2) at FM_WIDE[shape], H=128: x0 bf16,
+    the weights fp32."""
+    rows, c, ms, ragged = FM_WIDE[shape]
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    h = 128
+    n = lambda *s, sc=1.0: torch.randn(*s, generator=gen, device="cuda") * sc
+    steps = (torch.randint(1, ms + 1, (rows,), generator=gen, device="cuda")
+             if ragged else torch.full((rows,), ms, device="cuda"))
+    steps = steps.to(torch.int32)
+    return (n(rows, 376, c).to(torch.bfloat16), steps, n(c, h, sc=c ** -0.5),
+            n(h, sc=0.3), n(h, sc=0.1), n(h, c, sc=h ** -0.5), n(c, sc=0.1))
+
+
+def fm_wide_call(torch, shape, bwd=False, plain=False):
+    """The kernels' (or, `plain`, fm_euler_plain's) forward or backward at
+    FM_WIDE[shape]."""
+    from tpu_asr_torch.ops.cuda_fm import (fm_euler_plain, fused_fm_euler,
+                                           fused_fm_euler_bwd)
+
+    x0, steps, *w = fm_wide_args(torch, shape)
+    ms = FM_WIDE[shape][2]
+    kw = dict(max_steps=ms, compute_dtype=torch.bfloat16)
+    fn = fm_euler_plain if plain else fused_fm_euler
+    if not bwd:
+        return lambda: fn(x0, steps, *w, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    gx, gv = (torch.randn(x0.shape, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    leaves = [z.detach().requires_grad_() for z in (x0, *w)]
+    out = fn(leaves[0], steps, *leaves[1:], **kw)
+    if plain:
+        return lambda: torch.autograd.grad(out, leaves, (gx, gv),
+                                           retain_graph=True)
+    saved = out[0].grad_fn.saved_tensors
+    return lambda: fused_fm_euler_bwd(*saved, gx, gv, ms)
+
+
 def ffn_int8_call(torch):
     from tpu_asr_torch.ops.cuda_ffn import fused_ffn_sublayer_int8
 
@@ -548,6 +613,10 @@ def main(argv=None) -> int:
               "attention_heads_bwd": attention_heads_bwd_call,
               "ffn": ffn_call, "ffn_bwd": ffn_bwd_call, "fm": fm_call,
               "fm_bwd": fm_bwd_call, "ffn_int8": ffn_int8_call,
+              **{f"{k}{b}{p}": functools.partial(fm_wide_call, shape=k,
+                                                 bwd=bool(b), plain=bool(p))
+                 for k in FM_WIDE for b in ("", "_bwd")
+                 for p in ("", "_plain")},
               "conv_module": conv_module_call, "ctc": ctc_call,
               "ctc_bwd": ctc_bwd_call,
               "conformer_layer": conformer_layer_call,
